@@ -1,0 +1,296 @@
+"""Foundations of ucc_tpu_torch held against ucc_tpu: enum values, config
+defaults, the ring TL's score-map rows, and the rules of the port (no
+JAX, nothing of ucc_tpu, no silent fall back to the CPU)."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import ucc_tpu.constants as jc
+import ucc_tpu.status as js
+from ucc_tpu.cl.basic import CL_BASIC_CONFIG as J_CL_BASIC_CONFIG
+from ucc_tpu.core.lib import GLOBAL_CONFIG as J_GLOBAL_CONFIG
+from ucc_tpu.tl.ring_dma import TL_RING_DMA_CONFIG, TlRingDma, TlRingDmaTeam
+from ucc_tpu.tl.xla import TL_XLA_CONFIG
+
+import ucc_tpu_torch as ut
+import ucc_tpu_torch.constants as tc
+from ucc_tpu_torch.cl.basic import CL_BASIC_CONFIG
+from ucc_tpu_torch.core.lib import GLOBAL_CONFIG
+from ucc_tpu_torch.mc.base import detect_mem_type
+from ucc_tpu_torch.schedule.schedule import Schedule
+from ucc_tpu_torch.schedule.task import CollTask
+from ucc_tpu_torch.tl import device as tdev
+from ucc_tpu_torch.tl.ring_cuda import (TL_RING_CUDA_CONFIG, TlRingCuda,
+                                        TlRingCudaTeam)
+from ucc_tpu_torch.utils.convert import from_numpy, to_numpy
+
+PKG = pathlib.Path(ut.__file__).parent
+REPO = PKG.parent
+
+
+# ---------------------------------------------------------------------------
+# enums and config tables
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["CollType", "ReductionOp", "DataType",
+                                  "ThreadMode", "CollArgsFlags", "EventType",
+                                  "CollSyncType"])
+def test_enum_values_match(name):
+    want = {m.name: int(m) for m in getattr(jc, name)}
+    got = {m.name: int(m) for m in getattr(tc, name)}
+    assert got == want
+
+
+def test_status_values_match():
+    want = {m.name: int(m) for m in js.Status}
+    got = {m.name: int(m) for m in ut.Status}
+    assert got == want
+
+
+def test_memory_types_keep_the_integer_values():
+    M, J = tc.MemoryType, jc.MemoryType
+    assert (M.HOST, M.CUDA, M.CUDA_MANAGED, M.UNKNOWN) == \
+        (J.HOST, J.TPU, J.TPU_PINNED, J.UNKNOWN)
+
+
+def test_dtypes_map_to_torch():
+    for dt in tc.DataType:
+        try:
+            nd = jc.dt_numpy(jc.DataType(int(dt)))
+        except TypeError:
+            continue
+        td = tc.dt_torch(dt)
+        assert torch.empty(0, dtype=td).element_size() == nd.itemsize
+        assert tc.dt_size(dt) == jc.dt_size(jc.DataType(int(dt)))
+
+
+@pytest.mark.parametrize("port,ref", [
+    (GLOBAL_CONFIG, J_GLOBAL_CONFIG),
+    (CL_BASIC_CONFIG, J_CL_BASIC_CONFIG),
+    (TL_RING_CUDA_CONFIG, TL_RING_DMA_CONFIG),
+])
+def test_config_defaults_match(port, ref):
+    ref_fields = {f.name: f.default for f in ref.fields}
+    alias = {"DEVICE": "DEVICE_KIND"}      # port name -> ucc_tpu name
+    shared = [f for f in port.fields if alias.get(f.name, f.name) in ref_fields]
+    assert shared
+    for f in shared:
+        if port is GLOBAL_CONFIG and f.name == "CLS":
+            # cl/hier is not ported yet: the port's default names basic only
+            assert f.default == "basic" and ref_fields["CLS"] == "basic,hier"
+            continue
+        if port is TL_RING_CUDA_CONFIG and f.name == "DEVICE":
+            # ucc_tpu's empty kind takes JAX's default backend; the port
+            # names CUDA, so that it never runs on the CPU unasked
+            assert f.default == "cuda" and ref_fields["DEVICE_KIND"] == ""
+            continue
+        assert f.default == ref_fields[f.name], f.name
+
+
+def test_launch_cache_bound_matches_tl_xla():
+    default = {f.name: f.default for f in TL_XLA_CONFIG.fields}
+    assert tdev.LAUNCH_CACHE_MAX == int(default["LAUNCH_CACHE_MAX"])
+
+
+def test_launch_cache_evicts_oldest_and_replaces_in_place():
+    shared = tdev.DeviceTeamShared(("cache-test",), torch.device("cpu"), 2)
+    for tag in range(tdev.LAUNCH_CACHE_MAX + 5):
+        shared._cache_insert(tag, tag)
+    assert len(shared.launch_cache) == tdev.LAUNCH_CACHE_MAX
+    assert min(shared.launch_cache) == 5        # the oldest went first
+    shared._cache_insert(5, "new")              # a replacement evicts nothing
+    assert len(shared.launch_cache) == tdev.LAUNCH_CACHE_MAX
+    assert shared.launch_cache[5] == "new" and 6 in shared.launch_cache
+
+
+# ---------------------------------------------------------------------------
+# the ring TL's score-map rows
+# ---------------------------------------------------------------------------
+
+def _rows(team_cls, mem):
+    team = object.__new__(team_cls)      # scores need no device or mesh
+    score = team_cls.get_scores(team)
+    return [(r.start, r.end, r.score, r.alg_name, r.origin)
+            for r in score.ranges[(jc.CollType.ALLREDUCE if team_cls is
+                                   TlRingDmaTeam else tc.CollType.ALLREDUCE,
+                                   mem)]]
+
+
+@pytest.mark.parametrize("tune", [
+    None, "allreduce:@{}:inf", "allreduce:0-4k:@{}:30",
+    "allreduce:4k-1m:55#allreduce:1m-inf:0"])
+def test_ring_tl_score_rows_match(monkeypatch, tune):
+    if tune is not None:
+        monkeypatch.setenv("UCC_TL_RING_DMA_TUNE", tune.format("ring_dma"))
+        monkeypatch.setenv("UCC_TL_RING_CUDA_TUNE", tune.format("ring_cuda"))
+    want = [(s, e, sc, alg.replace("ring_dma", "ring_cuda"), o)
+            for s, e, sc, alg, o in _rows(TlRingDmaTeam, jc.MemoryType.TPU)]
+    got = _rows(TlRingCudaTeam, tc.MemoryType.CUDA)
+    assert got == want
+    assert TlRingCuda.DEFAULT_SCORE == TlRingDma.DEFAULT_SCORE == 20
+
+
+def test_tl_allreduce_selected_on_device_memory():
+    assert TlRingCuda.SUPPORTED_MEM_TYPES == (tc.MemoryType.CUDA,)
+    assert TlRingCuda.SUPPORTED_COLLS == tc.CollType.ALLREDUCE
+
+
+# ---------------------------------------------------------------------------
+# small building blocks
+# ---------------------------------------------------------------------------
+
+def test_mem_type_detection_by_device():
+    assert detect_mem_type(torch.zeros(2)) == tc.MemoryType.HOST
+    assert detect_mem_type(np.zeros(2)) == tc.MemoryType.HOST
+    assert detect_mem_type(object()) == tc.MemoryType.UNKNOWN
+
+
+@pytest.mark.parametrize("kind", ["cpu", "cuda"])
+def test_memory_component_copies_match_the_reference(kind):
+    """memcpy/memset byte semantics of mc/cpu (numpy) and mc/cuda (tensor
+    byte views; run on CPU tensors here) against ucc_tpu's mc/cpu."""
+    from ucc_tpu.mc.cpu import McCpu as JMcCpu
+    from ucc_tpu_torch.mc.base import get_mc
+    rng = np.random.default_rng(1)
+    src = rng.standard_normal(10).astype(np.float32)
+    want = np.zeros(10, np.float32)
+    JMcCpu().memcpy(want, src, 22)
+    JMcCpu().memset(want, 0xAB, 3)
+    mc = get_mc(tc.MemoryType.HOST if kind == "cpu" else tc.MemoryType.CUDA)
+    got = np.zeros(10, np.float32) if kind == "cpu" else torch.zeros(10)
+    mc.memcpy(got, src if kind == "cpu" else torch.from_numpy(src), 22)
+    mc.memset(got, 0xAB, 3)
+    got = got if kind == "cpu" else got.numpy()
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16, np.int32,
+                                   np.float16])
+def test_convert_round_trip(dtype):
+    arr = (np.arange(11) - 5).astype(dtype)
+    t = from_numpy(arr, "cpu")
+    back = to_numpy(t)
+    assert back.dtype == arr.dtype
+    np.testing.assert_array_equal(back.view(np.uint8), arr.view(np.uint8))
+
+
+def test_schedule_runs_tasks_in_dependency_order():
+    order = []
+
+    class Step(CollTask):
+        def __init__(self, name):
+            super().__init__()
+            self.name = name
+
+        def post_fn(self):
+            order.append(self.name)
+            self.status = ut.Status.OK
+            return ut.Status.OK
+
+    sched = Schedule()
+    a, b = Step("a"), Step("b")
+    sched.add_task(a)
+    sched.add_dep_on_schedule_start(a)
+    sched.add_task(b)
+    b.subscribe_dep(a, tc.EventType.EVENT_COMPLETED)
+    sched.post()
+    assert order == ["a", "b"] and sched.super_status == ut.Status.OK
+
+
+# ---------------------------------------------------------------------------
+# rules of the port
+# ---------------------------------------------------------------------------
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_ucc_tpu():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "ucc_tpu"), (path, mod)
+
+
+def test_port_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['ucc_tpu'] = None; import ucc_tpu_torch; "
+            "from ucc_tpu_torch.tl import ring_cuda, device; "
+            "from ucc_tpu_torch.kernels import ring_allreduce, build; "
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.delenv("UCC_TL_RING_CUDA_DEVICE", raising=False)
+    lib = ut.init()
+    if torch.cuda.is_available():
+        ctx = ut.Context(lib)
+        assert ctx.tl_contexts["ring_cuda"].obj.device == \
+            torch.device("cuda", 0)
+        ctx.destroy()
+    else:
+        with pytest.raises(ut.UccError) as ei:
+            ut.Context(lib)
+        assert ei.value.status == ut.Status.ERR_NO_RESOURCE
+        assert "cuda" in str(ei.value)
+
+
+def test_cpu_device_runs_a_one_rank_allreduce(monkeypatch):
+    monkeypatch.setenv("UCC_TL_RING_CUDA_DEVICE", "cpu")
+    ctx = ut.Context(ut.init())
+    team = ctx.create_team(ut.TeamParams())
+    src = torch.arange(5, dtype=torch.float32)
+    dst = torch.zeros(5)
+    req = team.collective_init(ut.CollArgs(
+        coll_type=ut.CollType.ALLREDUCE, op=ut.ReductionOp.SUM,
+        src=ut.BufferInfo(src, 5, ut.DataType.FLOAT32,
+                          mem_type=ut.MemoryType.CUDA),
+        dst=ut.BufferInfo(dst, 5, ut.DataType.FLOAT32,
+                          mem_type=ut.MemoryType.CUDA)))
+    req.post()
+    assert req.wait() == ut.Status.OK
+    assert torch.equal(dst, src)
+    req.finalize()
+    team.destroy()
+    ctx.destroy()
+
+
+def test_unsupported_collectives_have_no_candidate(monkeypatch):
+    monkeypatch.setenv("UCC_TL_RING_CUDA_DEVICE", "cpu")
+    ctx = ut.Context(ut.init())
+    team = ctx.create_team(ut.TeamParams())
+    buf = torch.zeros(4)
+    with pytest.raises(ut.UccError) as ei:
+        team.collective_init(ut.CollArgs(
+            coll_type=ut.CollType.BCAST,
+            src=ut.BufferInfo(buf, 4, ut.DataType.FLOAT32,
+                              mem_type=ut.MemoryType.CUDA)))
+    assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
+    with pytest.raises(ut.UccError) as ei:
+        team.collective_init(ut.CollArgs(
+            coll_type=ut.CollType.ALLREDUCE, op=ut.ReductionOp.BXOR,
+            src=ut.BufferInfo(buf, 4, ut.DataType.FLOAT32,
+                              mem_type=ut.MemoryType.CUDA),
+            dst=ut.BufferInfo(buf.clone(), 4, ut.DataType.FLOAT32,
+                              mem_type=ut.MemoryType.CUDA)))
+    assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
+    team.destroy()
+    ctx.destroy()

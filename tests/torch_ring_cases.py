@@ -1,0 +1,97 @@
+"""Shared cases of the ring allreduce tests (tests/test_torch_ring_*.py):
+seeded numpy inputs, a NaN-aware bitwise comparison, and runners for the
+JAX package's Pallas kernels (interpret mode) and the port's plain
+versions on the same inputs."""
+import ml_dtypes
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+import ucc_tpu.tl.ring_dma as rd
+from ucc_tpu.constants import CollType as JCollType
+from ucc_tpu.constants import ReductionOp as JReductionOp
+
+from ucc_tpu_torch.constants import ReductionOp
+from ucc_tpu_torch.kernels import ring_allreduce as kr
+from ucc_tpu_torch.utils.convert import from_numpy, to_numpy
+
+DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16, "i32": np.int32}
+OPS = ["SUM", "AVG", "MAX", "MIN", "PROD"]
+NS = [2, 4, 8]
+
+
+def covering_cases(shift):
+    """(n, dtype, op) cases of a kernel against its Pallas kernel: every n
+    runs every op, and the dtype turns with n and op, so every pair of
+    values (n and dtype, n and op, dtype and op) meets in some case. Each
+    case compiles its own Pallas program, about a second in interpret
+    mode, so the full product (45 per kernel) is not run. The two kernels
+    take different shifts and so run 30 distinct triples together; the
+    elementwise part of every dtype and op is held against ucc_tpu's own
+    functions in tests/test_torch_ring_allreduce.py."""
+    dts = list(DTYPES)
+    return [(n, dts[(i + j + shift) % len(dts)], op)
+            for i, n in enumerate(NS) for j, op in enumerate(OPS)]
+#: a small chunk, so the chunked kernel runs several chunks cheaply
+CHUNK = 64
+#: ragged counts: not a multiple of n (2, 4, 8) nor of the chunk size
+PASS_COUNT = 37
+CHUNKED_COUNT = 151
+
+
+def make_inputs(n, count, dt, op, seed):
+    rng = np.random.default_rng(seed)
+    if dt == "i32":
+        # products of 8 such values overflow int32: both sides wrap
+        arrs = [rng.integers(-50, 50, count).astype(np.int32)
+                for _ in range(n)]
+    else:
+        arrs = [rng.standard_normal(count).astype(DTYPES[dt])
+                for _ in range(n)]
+        if op in ("MAX", "MIN"):
+            arrs[1][3] = np.nan          # must propagate, not be dropped
+    return arrs
+
+
+def bitwise_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind in "iu":
+        return np.array_equal(a, b)
+    na, nb = np.isnan(a.astype(np.float32)), np.isnan(b.astype(np.float32))
+    bits = {2: np.uint16, 4: np.uint32, 8: np.uint64}[a.dtype.itemsize]
+    return np.array_equal(na, nb) and np.array_equal(
+        a.view(bits)[~na], b.view(bits)[~nb])
+
+
+def jax_ring(kernel, n, op, arrs, monkeypatch):
+    """Run the Pallas kernel in interpret mode; per-rank results."""
+    count = arrs[0].size
+    nd = arrs[0].dtype
+    mesh = jax.make_mesh((n,), ("r",), devices=jax.devices()[:n])
+    jop = JReductionOp[op]
+    if kernel == "pass":
+        prog, padded = rd.build_ring_program(mesh, n, JCollType.ALLREDUCE,
+                                             jop, nd, count)
+    else:
+        monkeypatch.setattr(rd, "CHUNK_ELEMS", CHUNK)
+        prog, padded = rd.build_hbm_allreduce_program(mesh, n, jop, nd,
+                                                      count)
+    shards = [jax.device_put(jnp.pad(jnp.asarray(a), (0, padded - count)),
+                             jax.devices()[r]) for r, a in enumerate(arrs)]
+    garr = jax.make_array_from_single_device_arrays(
+        (n * padded,), NamedSharding(mesh, P("r")), shards)
+    out = np.asarray(jax.block_until_ready(prog(garr)))
+    return [row[:count] for row in out.reshape(n, padded)]
+
+
+def torch_ring(kernel, op, arrs):
+    srcs = [from_numpy(a, "cpu") for a in arrs]
+    if kernel == "pass":
+        outs = kr.ring_allreduce_pass_ref(srcs, ReductionOp[op])
+    else:
+        outs = kr.ring_allreduce_chunked_ref(srcs, ReductionOp[op],
+                                             csize=CHUNK)
+    return [to_numpy(o) for o in outs]

@@ -1,0 +1,56 @@
+"""ucc_tpu_torch — the PyTorch/CUDA port of ucc_tpu, a UCC-style collective
+communication framework.
+
+The same layered architecture as the JAX package — lib, context, team,
+collective; a score map selecting an algorithm per collective and message
+size; collective layers (CL) composing transport layers (TL) — with the
+device path in PyTorch and hand-written CUDA kernels for NVIDIA Hopper.
+It imports neither JAX nor ``ucc_tpu``.
+
+Ported so far: the core objects, cl/basic, and tl/ring_cuda, whose
+allreduce runs every rank of an in-process team on one GPU through the
+ring kernels of ``kernels/ring_allreduce.py``.
+
+Quick start (8 ranks of one GPU; context creation blocks on the OOB
+exchange, so each context is created on its own thread)::
+
+    import threading, torch, ucc_tpu_torch as ucc
+    n = 8
+    world = ucc.ThreadOobWorld(n)
+    libs = [ucc.init() for _ in range(n)]
+    ctxs = [None] * n
+    def make(r):
+        ctxs[r] = ucc.Context(libs[r], ucc.ContextParams(oob=world.endpoint(r)))
+    threads = [threading.Thread(target=make, args=(r,)) for r in range(n)]
+    [t.start() for t in threads]; [t.join() for t in threads]
+    tworld = ucc.ThreadOobWorld(n)
+    teams = [c.create_team_post(ucc.TeamParams(oob=tworld.endpoint(r)))
+             for r, c in enumerate(ctxs)]
+    while not all([t.create_test() == ucc.Status.OK for t in teams]):
+        [c.progress() for c in ctxs]
+    src = [torch.ones(1 << 20, device="cuda") for _ in range(n)]
+    dst = [torch.empty_like(s) for s in src]
+    reqs = [teams[r].collective_init(ucc.CollArgs(
+        coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+        src=ucc.BufferInfo(src[r], 1 << 20, ucc.DataType.FLOAT32),
+        dst=ucc.BufferInfo(dst[r], 1 << 20, ucc.DataType.FLOAT32)))
+        for r in range(n)]
+    [rq.post() for rq in reqs]
+    while any([rq.test() == ucc.Status.IN_PROGRESS for rq in reqs]):
+        [c.progress() for c in ctxs]
+"""
+
+from .constants import (CollArgsFlags, CollSyncType, CollType,  # noqa: F401
+                        DataType, EventType, MemoryType, ReductionOp,
+                        ThreadMode, coll_type_str, dt_size, dt_torch)
+from .status import Status, UccError, check  # noqa: F401
+from .api.types import (ActiveSet, BufferInfo, BufferInfoV, CollArgs,  # noqa: F401
+                        ContextParams, ContextType, LibAttr, LibParams,
+                        OobColl, OobRequest, TeamAttr, TeamParams)
+from .core.lib import Lib, init  # noqa: F401
+from .core.context import Context  # noqa: F401
+from .core.team import Team, TeamState  # noqa: F401
+from .core.coll import CollRequest, collective_init  # noqa: F401
+from .core.oob import ThreadOob, ThreadOobWorld  # noqa: F401
+
+__version__ = "0.1.0"

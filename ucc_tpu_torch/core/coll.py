@@ -1,0 +1,197 @@
+"""Collective dispatch — the hot path (UCC's ``ucc_collective_init``).
+
+Memtype auto-detect via MC, the zero-size fast path with a stub task
+(host memory only), the active-set restriction to bcast, the score-map
+lookup with fallback, timeout stamping, persistent re-post and the user
+callback.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+from ..api.types import BufferInfo, BufferInfoV, CollArgs, coll_args_msgsize
+from ..constants import CollArgsFlags, CollType, MemoryType, coll_type_str
+from ..mc.base import detect_mem_type
+from ..schedule.task import CollTask
+from ..status import Status, UccError
+from ..utils.log import get_logger
+from .team import Team
+
+logger = get_logger("coll")
+
+
+@dataclass
+class InitArgs:
+    """ucc_base_coll_args_t: resolved args handed to algorithm inits."""
+
+    args: CollArgs
+    team: Team
+    mem_type: MemoryType
+    msgsize: int
+
+
+class _StubTask(CollTask):
+    """Zero-size fast path: completes at post."""
+
+    def post_fn(self) -> Status:
+        self.status = Status.OK
+        return Status.OK
+
+
+class CollRequest:
+    """ucc_coll_req_h: post/test/finalize + persistent re-post."""
+
+    def __init__(self, task: CollTask, team: Team, args: CollArgs):
+        self.task = task
+        self.team = team
+        self.args = args
+        self._posted = False
+        self._persistent = args.is_persistent
+        self._trace = bool(team.context.lib.config.coll_trace)
+        # persistent fast re-post lane (TL opt-in, e.g. DeviceCollTask):
+        # eligibility probed once on the first re-post, after the first
+        # full post has warmed the TL's launch caches
+        self._fast = None if (self._persistent and not self._trace and
+                              hasattr(task, "fast_repost")) else False
+
+    @property
+    def status(self) -> Status:
+        return self.task.super_status
+
+    def post(self) -> Status:
+        """ucc_collective_post."""
+        st = self.task.super_status
+        if self._posted:
+            if st == Status.IN_PROGRESS:
+                raise UccError(Status.ERR_INVALID_PARAM,
+                               "collective re-posted while in progress")
+            if not self._persistent:
+                raise UccError(Status.ERR_INVALID_PARAM,
+                               "re-post of non-persistent collective")
+            if self._fast or (self._fast is None and st == Status.OK and
+                              self._probe_fast()):
+                # the probe caches STRUCTURAL eligibility; observers
+                # attached between posts divert this round to the generic
+                # path, which runs them
+                task = self.task
+                if task.cb is None and task.schedule is None and \
+                        not task.timeout and not any(task.em.listeners):
+                    return task.fast_repost()
+            self.task.reset()
+        self._posted = True
+        self.task.progress_queue = self.team.context.progress_queue
+        if self._trace:
+            logger.info("coll post: %s team %s seq %d",
+                        coll_type_str(self.args.coll_type), self.team.id,
+                        self.task.seq_num)
+        return self.task.post()
+
+    def _probe_fast(self) -> bool:
+        try:
+            self._fast = bool(self.task.fast_repost_ok())
+        except Exception:  # noqa: BLE001 - opt-in probe must never break post
+            self._fast = False
+        return self._fast
+
+    def test(self) -> Status:
+        st = self.task.super_status
+        if st == Status.IN_PROGRESS and self._fast:
+            # fast-posted tasks are on no progress queue: their owner
+            # observes completion here
+            st = self.task.fast_test()
+        return st
+
+    def wait(self, timeout: float = 60.0) -> Status:
+        deadline = time.monotonic() + timeout
+        while self.test() == Status.IN_PROGRESS:
+            self.team.context.progress()
+            if time.monotonic() > deadline:
+                # cancel, don't just raise: a task left IN_PROGRESS would
+                # be orphaned in the progress queue and un-finalizable
+                self.task.cancel(Status.ERR_TIMED_OUT)
+                raise UccError(Status.ERR_TIMED_OUT,
+                               "CollRequest.wait timed out")
+        return self.test()
+
+    def finalize(self) -> Status:
+        """ucc_collective_finalize."""
+        if self.task.super_status == Status.IN_PROGRESS:
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           "finalize of in-progress collective")
+        return self.task.finalize()
+
+
+def _resolve_mem_type(args: CollArgs) -> MemoryType:
+    """Memtype auto-detect. Every buffer gets its mem_type resolved; the
+    collective's selection memtype prefers dst, else src."""
+    chosen: Optional[MemoryType] = None
+    for bi in (args.dst, args.src):
+        if bi is None:
+            continue
+        if bi.mem_type is None:
+            mt = detect_mem_type(bi.buffer)
+            if mt != MemoryType.UNKNOWN:
+                bi.mem_type = mt
+        if chosen is None and bi.mem_type is not None:
+            chosen = bi.mem_type
+    return chosen if chosen is not None else MemoryType.HOST
+
+
+def _is_zero_size(args: CollArgs) -> bool:
+    ct = args.coll_type
+    if ct in (CollType.BARRIER, CollType.FANIN, CollType.FANOUT):
+        return False
+    for bi in (args.src, args.dst):
+        if bi is None:
+            continue
+        if isinstance(bi, BufferInfoV):
+            if bi.counts and any(int(c) > 0 for c in bi.counts):
+                return False
+        elif isinstance(bi, BufferInfo):
+            if bi.count > 0:
+                return False
+    return True
+
+
+def collective_init(args: CollArgs, team: Team) -> CollRequest:
+    """ucc_collective_init."""
+    if team.score_map is None:
+        raise UccError(Status.ERR_INVALID_PARAM, "team is not active")
+    ct = args.coll_type
+    if args.active_set is not None and ct != CollType.BCAST:
+        raise UccError(Status.ERR_NOT_SUPPORTED,
+                       "active sets supported for bcast only")
+    mem_type = _resolve_mem_type(args)
+    if _is_zero_size(args) and mem_type == MemoryType.HOST:
+        # zero-size fast path — HOST memory only: device collectives meet
+        # in a rendezvous, where a rank that stubs out would desync the
+        # team's deposit count
+        task: CollTask = _StubTask()
+        task.coll_name = coll_type_str(ct)
+        task.alg_name = "zero_size_stub"
+        _attach_user_opts(task, args)
+        return CollRequest(task, team, args)
+
+    msgsize = coll_args_msgsize(args, team.size, team.rank)
+    init_args = InitArgs(args=args, team=team, mem_type=mem_type,
+                         msgsize=msgsize)
+    candidates = team.score_map.lookup(ct, mem_type, msgsize)
+    task, chosen = team.score_map.init_coll(ct, mem_type, msgsize, init_args,
+                                            candidates)
+    task.coll_name = coll_type_str(ct)
+    task.alg_name = str(chosen.alg_name or chosen.team)
+    if team.context.lib.config.coll_trace:
+        logger.info("coll init: %s/%s msgsize %d -> %s (score %d) team %s",
+                    coll_type_str(ct), mem_type.name.lower(), msgsize,
+                    chosen.alg_name or chosen.team, chosen.score, team.id)
+    _attach_user_opts(task, args)
+    return CollRequest(task, team, args)
+
+
+def _attach_user_opts(task: CollTask, args: CollArgs) -> None:
+    if args.flags & CollArgsFlags.TIMEOUT and args.timeout > 0:
+        task.timeout = args.timeout
+    if args.cb is not None:
+        task.cb = args.cb

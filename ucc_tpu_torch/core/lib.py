@@ -1,0 +1,141 @@
+"""Library object — the root of the framework (UCC's ``ucc_init``).
+
+Parse the global ``UCC_*`` config, load the CL/TL component frameworks,
+init each requested CL lib plus the TLs it needs, and compute the lib attr
+(thread mode, union of supported collective types).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from ..api.types import LibAttr, LibParams
+from ..constants import COLL_TYPE_ALL, CollType
+from ..status import Status, UccError
+from ..utils.config import (Config, ConfigField, ConfigTable, parse_bool,
+                            parse_list, parse_string, parse_uint,
+                            register_table)
+from ..utils.log import get_logger
+from .components import (available_cls, available_tls, discover_components,
+                         get_cl, get_tl)
+
+logger = get_logger("core")
+
+#: global config table. The defaults are those of the JAX package's table
+#: except CLS, whose "hier" member is not ported yet.
+GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
+    ConfigField("CLS", "basic", "comma-separated CL list ('all' for every "
+                "available CL)", parse_list),
+    ConfigField("TLS", "all", "comma-separated TL allow-list", parse_list),
+    ConfigField("LOG_LEVEL", "warn", "ucc log level", parse_string),
+    ConfigField("COLL_TRACE", "n", "log every collective init/post with the "
+                "selected CL/TL", parse_bool),
+    ConfigField("TEAM_IDS_POOL_SIZE", "32", "team id pool size per context",
+                parse_uint),
+    # read from the environment by schedule/progress.py and core/team.py;
+    # listed here so config dumps document them
+    ConfigField("TEAM_PRIORITY", "1", "default QoS priority class for teams "
+                "created without an explicit TeamParams.priority: 0 = bulk "
+                "(lowest) .. 3 = latency (highest); selects the "
+                "progress-queue lane every task of the team drains from",
+                parse_string),
+    ConfigField("QOS_WEIGHTS", "1,2,4,8", "per-lane weighted-round-robin "
+                "caps (services per progress pass while a higher lane is "
+                "non-empty, lane 0 first); the top non-empty lane is never "
+                "capped", parse_string),
+    ConfigField("QOS_AGE_MS", "10", "anti-starvation bound in milliseconds: "
+                "a queued task older than this is serviced regardless of "
+                "its lane's WRR cap", parse_string),
+]))
+
+
+class TlLib:
+    """One loaded TL component within a Lib."""
+
+    def __init__(self, lib: "Lib", tl_cls):
+        self.lib = lib
+        self.tl_cls = tl_cls
+        cfg = Config(tl_cls.LIB_CONFIG) if tl_cls.LIB_CONFIG else None
+        self.obj = tl_cls.lib_cls(lib, cfg)
+
+    @property
+    def name(self) -> str:
+        return self.tl_cls.NAME
+
+
+class ClLib:
+    """One loaded CL component."""
+
+    def __init__(self, lib: "Lib", cl_cls):
+        self.lib = lib
+        self.cl_cls = cl_cls
+        cfg = Config(cl_cls.LIB_CONFIG) if cl_cls.LIB_CONFIG else None
+        self.obj = cl_cls.lib_cls(lib, cfg)
+
+    @property
+    def name(self) -> str:
+        return self.cl_cls.NAME
+
+
+class Lib:
+    """ucc_lib_h."""
+
+    def __init__(self, params: Optional[LibParams] = None,
+                 config_overrides: Optional[Dict[str, str]] = None):
+        self.params = params or LibParams()
+        discover_components()
+        self.config = Config(GLOBAL_CONFIG, overrides=config_overrides)
+
+        cls_req: List[str] = self.config.cls
+        if cls_req == ["all"]:
+            cls_req = available_cls()
+        tls_allow: List[str] = self.config.tls
+        if tls_allow == ["all"]:
+            tls_allow = available_tls()
+
+        self.cl_libs: List[ClLib] = []
+        self.tl_libs: Dict[str, TlLib] = {}
+        for cl_name in cls_req:
+            try:
+                cl_cls = get_cl(cl_name)
+            except UccError:
+                logger.warning("requested CL '%s' not available", cl_name)
+                continue
+            cl_lib = ClLib(self, cl_cls)
+            self.cl_libs.append(cl_lib)
+            wanted = cl_cls.REQUIRED_TLS
+            if wanted is None:
+                wanted = tls_allow
+            for tl_name in wanted:
+                if tl_name not in tls_allow or tl_name in self.tl_libs:
+                    continue
+                try:
+                    tl_cls = get_tl(tl_name)
+                except UccError:
+                    logger.warning("TL '%s' not available", tl_name)
+                    continue
+                self.tl_libs[tl_name] = TlLib(self, tl_cls)
+        if not self.cl_libs:
+            raise UccError(Status.ERR_NOT_FOUND,
+                           f"no usable CL among {cls_req}")
+
+        coll_union = CollType(0)
+        for tl in self.tl_libs.values():
+            coll_union |= tl.tl_cls.SUPPORTED_COLLS
+        self.attr = LibAttr(thread_mode=self.params.thread_mode,
+                            coll_types=coll_union or COLL_TYPE_ALL)
+        self._finalized = False
+        logger.info("ucc_tpu_torch lib init: cls=%s tls=%s",
+                    [c.name for c in self.cl_libs], list(self.tl_libs))
+
+    # ------------------------------------------------------------------
+    def get_attr(self) -> LibAttr:
+        return self.attr
+
+    def finalize(self) -> Status:
+        self._finalized = True
+        return Status.OK
+
+
+def init(params: Optional[LibParams] = None, **overrides) -> Lib:
+    """ucc_init."""
+    return Lib(params, config_overrides=overrides or None)

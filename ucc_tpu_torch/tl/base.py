@@ -1,0 +1,78 @@
+"""TL shared infrastructure: algorithm tables, score building, team base.
+
+The per-TL score construction pattern of UCC: defaults from the TL's
+algorithm table, then the user's ``UCC_TL_<NAME>_TUNE`` overlay.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+from ..constants import CollType, MemoryType
+from ..core.components import BaseTeam
+from ..score.score import CollScore
+from ..status import UccError
+from ..utils.config import SIZE_INF, parse_memunits
+
+
+@dataclass
+class AlgSpec:
+    """One algorithm of a coll within a TL."""
+
+    id: int
+    name: str
+    init: Callable                      # fn(init_args, tl_team) -> CollTask
+    #: default selection ranges "0-4k:score,4k-inf:score" (None -> whole
+    #: range at the TL default score)
+    default_select: Optional[str] = None
+
+
+def build_scores(team: BaseTeam, default_score: int,
+                 alg_table: Dict[CollType, List[AlgSpec]],
+                 mem_types: Sequence[MemoryType],
+                 tune_env: str = "") -> CollScore:
+    """Default ranges + built-in per-alg selection + user TUNE overlay."""
+    score = CollScore()
+    for coll, specs in alg_table.items():
+        for mt in mem_types:
+            for spec in specs:
+                if spec.default_select:
+                    for tok in spec.default_select.split(","):
+                        rng, sc = tok.rsplit(":", 1)
+                        lo, hi = rng.split("-", 1)
+                        score.add_range(coll, mt, parse_memunits(lo),
+                                        parse_memunits(hi), int(sc),
+                                        spec.init, team, spec.name)
+                else:
+                    score.add_range(coll, mt, 0, SIZE_INF, default_score,
+                                    spec.init, team, spec.name)
+    if tune_env:
+        tune = os.environ.get(tune_env, "")
+        if tune:
+            def resolver(coll: CollType, alg: str):
+                for s in alg_table.get(coll, []):
+                    if s.name == alg or str(s.id) == alg:
+                        return lambda ia, t=team, fn=s.init: fn(ia, t)
+                return None
+            st = score.update_from_str(tune, resolver, team)
+            if st.is_error:
+                raise UccError(st, f"bad tune string in {tune_env}")
+    return score
+
+
+class TlTeamBase(BaseTeam):
+    """Common TL team plumbing: rank/size shortcuts and the team key."""
+
+    NAME = "tl_base"
+
+    def __init__(self, comp_context, core_team, scope: str = "cl"):
+        super().__init__(comp_context, core_team)
+        self.scope = scope
+        self.rank = core_team.rank
+        self.size = core_team.size
+        self.team_key = (core_team.team_key, scope)
+
+    @property
+    def context(self):
+        return self.comp_context

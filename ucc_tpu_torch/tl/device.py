@@ -1,0 +1,384 @@
+"""Device TL plumbing: the rendezvous that turns the per-rank posts of an
+in-process team into one kernel launch over all of them.
+
+This is the rendezvous half of the JAX package's ``tl/xla.py``. Every team
+rank is a UCC context; the ranks of one process share a
+``DeviceTeamShared``. ``post()`` deposits the rank's buffers; the last
+rank to deposit launches one program over every rank's buffers, on the
+team's own CUDA stream, so launches are ordered by the rendezvous and not
+by which thread happened to deposit last.
+
+Ranks of a team live on ONE device: ``DeviceTeamShared.devices`` names the
+same device n times, and each rank has its own buffers there. The device
+is the context config's ``DEVICE`` (default ``cuda``, meaning cuda:0); a
+context that asks for CUDA on a machine without one raises. On ``cpu``
+the programs run the kernels' plain versions.
+
+Buffer convention: tensors are mutable, so a device collective writes its
+result INTO the caller's ``dst`` tensor, as UCC does in C. (The JAX
+package rebinds ``dst.buffer`` instead, because jax arrays are
+immutable.) A collective completes when its launch has finished on the
+device: ``test()`` polls the launch's CUDA event, so a caller may read
+``dst`` on any stream once it returns OK.
+
+No TL is registered from this module; tl/ring_cuda builds on it.
+"""
+from __future__ import annotations
+
+import pickle
+import threading
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..api.types import BufferInfoV
+from ..constants import MemoryType, ReductionOp, dt_torch
+from ..core.components import BaseContext
+from ..kernels.ring_allreduce import RingWorkspace, make_ptr_table
+from ..schedule.task import CollTask
+from ..status import Status, UccError
+from ..utils.ep_map import EpMap
+from ..utils.log import get_logger
+from .base import TlTeamBase
+
+logger = get_logger("tl_device")
+
+
+def resolve_device(spec: str) -> torch.device:
+    """The device a context config names; raises ERR_NO_RESOURCE when it
+    names CUDA and there is none. A bare ``cuda`` means cuda:0."""
+    try:
+        dev = torch.device(spec or "cuda")
+    except RuntimeError as e:
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       f"bad device '{spec}': {e}") from None
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise UccError(Status.ERR_NO_RESOURCE,
+                           "device 'cuda' was asked for but torch finds no "
+                           "CUDA device; set the TL's DEVICE to 'cpu' to run "
+                           "the plain versions on the CPU")
+        dev = torch.device("cuda", 0 if dev.index is None else dev.index)
+        if dev.index >= torch.cuda.device_count():
+            raise UccError(Status.ERR_NO_RESOURCE,
+                           f"device {dev} does not exist "
+                           f"({torch.cuda.device_count()} CUDA devices)")
+    elif dev.type != "cpu":
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       f"device '{spec}': expected cuda[:i] or cpu")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# context: device claim
+# ---------------------------------------------------------------------------
+
+class TlDeviceContext(BaseContext):
+    def __init__(self, comp_lib, core_context, config):
+        super().__init__(comp_lib, core_context, config)
+        self.device = resolve_device(config.device if config else "cuda")
+        #: ctx rank -> device string of the peer context
+        self.peer_devices: Dict[int, str] = {
+            core_context.rank: str(self.device)}
+
+    def pack_address(self) -> bytes:
+        return pickle.dumps(str(self.device))
+
+    def unpack_addresses(self, addrs: Dict[int, bytes]) -> None:
+        for rank, blob in addrs.items():
+            if blob:
+                self.peer_devices[rank] = pickle.loads(blob)
+
+
+# ---------------------------------------------------------------------------
+# shared per-team state (process-global rendezvous)
+# ---------------------------------------------------------------------------
+
+_SHARED: Dict[Any, "DeviceTeamShared"] = {}
+_SHARED_LOCK = threading.Lock()
+
+#: per-team bound on launch_cache entries (oldest evicted first), the
+#: default of the JAX package's UCC_TL_XLA_LAUNCH_CACHE_MAX
+LAUNCH_CACHE_MAX = 64
+
+
+class DeviceTeamShared:
+    def __init__(self, key, device: torch.device, n: int):
+        self.key = key
+        self.device = device
+        self.devices = [device] * n     # team rank -> device
+        self.n_local = n
+        self.lock = threading.Lock()
+        #: tag -> {team_rank: (src, dst, ready_event, task)}
+        self.pending: Dict[int, Dict[int, Tuple]] = {}
+        #: persistent-collective launch cache: tag -> (pointers, table),
+        #: the kernel's device pointer table of an unchanged buffer set
+        self.launch_cache: Dict[int, Tuple[tuple, Any]] = {}
+        self.refcount = 0
+        #: the one stream every launch of this team goes onto
+        self.stream = None
+        #: scratch of the team's launches (comm slots, flags), reused
+        self.workspace = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device)
+            self.workspace = RingWorkspace(device)
+
+    @classmethod
+    def get_or_create(cls, key, make) -> "DeviceTeamShared":
+        with _SHARED_LOCK:
+            shared = _SHARED.get(key)
+            if shared is None:
+                shared = _SHARED[key] = make()
+            shared.refcount += 1
+            return shared
+
+    def put(self) -> None:
+        with _SHARED_LOCK:
+            self.refcount -= 1
+            if self.refcount <= 0:
+                _SHARED.pop(self.key, None)
+                self.launch_cache.clear()
+                self.pending.clear()
+                self.workspace = None
+
+    def _cache_insert(self, key, value) -> None:
+        """Bounded insert: evict the oldest entries beyond
+        LAUNCH_CACHE_MAX. Replacing an existing key must not evict an
+        unrelated entry."""
+        cache = self.launch_cache
+        if key not in cache:
+            while len(cache) >= LAUNCH_CACHE_MAX:
+                cache.pop(next(iter(cache)))
+        cache[key] = value
+
+    # ------------------------------------------------------------------
+    def deposit(self, tag, team_rank: int, src, dst, ready,
+                task: "DeviceCollTask") -> None:
+        with self.lock:
+            slot = self.pending.setdefault(tag, {})
+            slot[team_rank] = (src, dst, ready, task)
+            if len(slot) == self.n_local:
+                del self.pending[tag]
+                # launched under the lock: every rank posts in program
+                # order, so slots fill in program order, and launches reach
+                # the stream (and the shared workspace) in that order
+                # whichever thread deposits last
+                self._launch(slot)
+
+    def _launch(self, slot) -> None:
+        items = sorted(slot.items())
+        try:
+            # deterministic proto: the lowest team rank's task (the program
+            # must not depend on deposit order)
+            proto = items[0][1][3]
+            srcs = tuple(it[1][0] for it in items)
+            dsts = tuple(it[1][1] for it in items)
+            for _, (_s, _d, ready, _t) in items:
+                if ready is not None:
+                    self.stream.wait_event(ready)
+            kernel = proto.build_program(self)
+            table = None
+            if proto.args.is_persistent and self.stream is not None:
+                ptrs = tuple(t.data_ptr() for t in srcs + dsts)
+                cached = self.launch_cache.get(proto.tag)
+                if cached is not None and cached[0] == ptrs:
+                    # persistent re-post on unchanged buffers: reuse the
+                    # device pointer table (LRU refresh keeps hot tags
+                    # alive under the LAUNCH_CACHE_MAX bound)
+                    table = cached[1]
+                    self.launch_cache[proto.tag] = \
+                        self.launch_cache.pop(proto.tag)
+                else:
+                    table = make_ptr_table(srcs, dsts)
+                    self._cache_insert(proto.tag, (ptrs, table))
+            launch = kernel(srcs, dsts, proto.op, stream=self.stream,
+                            workspace=self.workspace, ptr_table=table)
+            for _, (_s, _d, _r, task) in items:
+                task.set_result(launch)
+        except Exception:  # noqa: BLE001 - build/launch failure
+            logger.exception("device collective launch failed")
+            for _, (_s, _d, _r, task) in items:
+                task.fail(Status.ERR_NO_MESSAGE)
+
+
+# ---------------------------------------------------------------------------
+# tasks
+# ---------------------------------------------------------------------------
+
+class DeviceCollTask(CollTask):
+    """One rank's view of a device collective. Subclasses provide
+    ``validate()`` and ``build_program(shared)``, which returns the kernel
+    wrapper to launch: ``kernel(srcs, dsts, op, *, stream, workspace,
+    ptr_table)`` returning a launch handle with ``done()``."""
+
+    def __init__(self, init_args, team: "TlDeviceTeam"):
+        super().__init__(team=team, args=init_args.args)
+        self.init_args = init_args
+        self.tl_team = team
+        self._launch = None
+        self._fast_round = False   # set per-round by fast_repost
+        self._ready = None         # CUDA event: this rank's inputs ready
+        args = init_args.args
+        if args.active_set is not None:
+            # only the subset posts an active-set coll; the full-team
+            # rendezvous would wait for deposits that never come
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "device TLs do not run active-set collectives")
+        self.coll = args.coll_type
+        self.op = args.op if args.op is not None else ReductionOp.SUM
+        bi = args.src if args.src is not None else args.dst
+        if bi is None or isinstance(bi, BufferInfoV) or (
+                args.dst is not None and isinstance(args.dst, BufferInfoV)):
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "device TLs take contiguous BufferInfo buffers")
+        try:
+            self.dtype = dt_torch(bi.datatype)
+        except (TypeError, ValueError, KeyError):
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           f"no torch dtype for {bi.datatype}") from None
+        self._contrib_src = args.src is not None and not args.is_inplace
+        self.count = int(bi.count)
+        self.validate()
+        self.local_buffers()       # reject bad buffers here, not mid-rendezvous
+        # tag allocation LAST: a validation error above must not consume a
+        # team tag, or this rank's tag sequence desyncs from its peers
+        self.tag = team.next_coll_tag()
+
+    def validate(self) -> None:
+        """The TL's own NOT_SUPPORTED rules, run before the tag is taken."""
+
+    # -- buffers -----------------------------------------------------------
+    def _flat(self, bi) -> torch.Tensor:
+        buf = None if bi is None else bi.buffer
+        dev = self.tl_team.shared.device
+        if not isinstance(buf, torch.Tensor):
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           f"device collectives take torch tensors, got "
+                           f"{type(buf).__name__}")
+        if buf.device != dev or buf.dtype != self.dtype or \
+                not buf.is_contiguous() or buf.numel() < self.count:
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           f"buffer must be a contiguous {self.dtype} tensor "
+                           f"of >= {self.count} elements on {dev} (got "
+                           f"{buf.dtype} {tuple(buf.shape)} on {buf.device})")
+        return buf.reshape(-1)[:self.count]
+
+    def local_buffers(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        args = self.args
+        dst = self._flat(args.dst)
+        src = self._flat(args.src) if self._contrib_src else dst
+        return src, dst
+
+    def _deposit(self) -> None:
+        src, dst = self.local_buffers()
+        ready = None
+        if src.device.type == "cuda":
+            # the launch stream waits for this rank's writes, made on the
+            # posting thread's current stream
+            if self._ready is None:
+                self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(src.device))
+            ready = self._ready
+        self.tl_team.shared.deposit(self.tag, self.tl_team.rank, src, dst,
+                                    ready, self)
+
+    # -- lifecycle --------------------------------------------------------
+    def post_fn(self) -> Status:
+        self._launch = None
+        self._deposit()
+        return Status.OK
+
+    def set_result(self, launch) -> None:
+        """Called on the launching thread for every rank's task."""
+        self._launch = launch
+
+    def fail(self, status: Status) -> None:
+        self.status = status
+        if self._fast_round:
+            # fast-posted tasks have no progress pass to surface the error
+            self._fast_round = False
+            self.super_status = status
+
+    def progress_fn(self) -> None:
+        if self.status != Status.IN_PROGRESS or self._launch is None:
+            return
+        try:
+            if self._launch.done():
+                self.status = Status.OK
+        except UccError as e:
+            logger.error("device collective failed: %s", e)
+            self.status = e.status
+
+    # -- persistent fast re-post lane -------------------------------------
+    # A persistent device collective with no observers needs none of the
+    # generic post machinery: re-post is "deposit my (unchanged) buffers
+    # again", and completion is the launch's event, which the owner polls
+    # from CollRequest.test via fast_test.
+    def fast_repost_ok(self) -> bool:
+        bi = self.args.src if self._contrib_src else self.args.dst
+        return bi is not None and bi.mem_type == MemoryType.CUDA
+
+    def fast_repost(self) -> Status:
+        self._launch = None
+        self._fast_round = True
+        self.status = Status.IN_PROGRESS
+        self.super_status = Status.IN_PROGRESS
+        self._deposit()
+        return Status.OK
+
+    def fast_test(self) -> Status:
+        if self._fast_round:
+            self.progress_fn()
+            if self.status != Status.IN_PROGRESS:
+                self._fast_round = False
+                self.super_status = self.status
+        return self.super_status
+
+    def reset(self) -> None:
+        super().reset()
+        self._launch = None
+
+    def finalize_fn(self) -> Status:
+        self.tl_team.shared.launch_cache.pop(self.tag, None)
+        return Status.OK
+
+
+# ---------------------------------------------------------------------------
+# team
+# ---------------------------------------------------------------------------
+
+class TlDeviceTeam(TlTeamBase):
+    """Team of a device TL: every rank in this process, on one device."""
+
+    NAME = "device"
+
+    def __init__(self, comp_context: TlDeviceContext, core_team,
+                 scope="cl"):
+        super().__init__(comp_context, core_team, scope)
+        ctx = comp_context
+        ctx_map = core_team.ctx_map or EpMap.full(core_team.size)
+        local = core_team.context.local_ranks()
+        mine = str(ctx.device)
+        for gr in range(self.size):
+            cr = ctx_map.eval(gr)
+            if cr not in local:
+                raise UccError(Status.ERR_NOT_SUPPORTED,
+                               f"tl/{self.NAME}: team rank {gr} lives in "
+                               "another process (teams spanning processes "
+                               "are not ported yet)")
+            if ctx.peer_devices.get(cr) != mine:
+                raise UccError(Status.ERR_NOT_SUPPORTED,
+                               f"tl/{self.NAME}: team rank {gr} is on "
+                               f"{ctx.peer_devices.get(cr)}, not {mine}")
+        self._coll_tag = 0
+        key = (core_team.team_key, scope, self.NAME)
+        self.shared = DeviceTeamShared.get_or_create(
+            key, lambda: DeviceTeamShared(key, ctx.device, self.size))
+
+    def next_coll_tag(self) -> int:
+        self._coll_tag += 1
+        return self._coll_tag
+
+    def destroy(self) -> None:
+        self.shared.put()
+
