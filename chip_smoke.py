@@ -9,17 +9,33 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the kernels from ucc_tpu_torch/csrc/;
-2. kernels: both ring allreduce kernels, n in {2, 4, 8}, f32/bf16/int32,
-   SUM/AVG/MAX/MIN/PROD, ragged counts, NaN inputs for MAX/MIN, each
-   launch bitwise equal to the plain version on the same CUDA tensors;
-3. main path: 8 contexts over a ThreadOobWorld, one team, a persistent
-   allreduce SUM of 16 Mi f32 (64 MiB) per rank driven like bench.py
-   (5 warm-up and 20 timed rounds), then one of 64 Ki f32 per rank; each
-   checked against torch.stack(srcs).sum(0) and, bitwise, against the
-   plain version; the launch counters of each run;
-4. yardstick: torch.stack(srcs).sum(0) on the same buffers (library_ms),
-   which the package never calls.
+   versions, and the time to build both kernel sources from
+   ucc_tpu_torch/csrc/ (one nvcc each, started together);
+2. kernels, each launch bitwise equal to its plain version on the same
+   CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
+   for MAX/MIN:
+   - both ring allreduce kernels, SUM/AVG/MAX/MIN/PROD;
+   - both ring reduce_scatter kernels over the five ops and both ring
+     allgather kernels, several chunks for the chunked ones, in place for
+     both collectives, f16 and int64 cases and n = 1;
+   and a set error word must make an allreduce, a reduce_scatter and an
+   allgather wrapper raise;
+3. main path: 8 contexts over a ThreadOobWorld, one team, persistent
+   requests driven like bench.py (5 warm-up and 20 timed rounds), the
+   launch counters zeroed just before each run and read just after:
+   - allreduce SUM of 16 Mi f32 (64 MiB) per rank, then of 64 Ki f32;
+     each checked against torch.stack(srcs).sum(0) and, bitwise, against
+     the plain version;
+   - reduce_scatter SUM of 16 Mi f32 in, 2 Mi out per rank (a gradient
+     bucket sharded 8 ways), then of 64 Ki f32 in; each checked against
+     the block of torch.stack(srcs).sum(0) and, bitwise, the plain version;
+   - allgather of 2 Mi f32 in, 16 Mi out per rank, then of 8 Ki f32 in;
+     each bitwise equal to torch.cat(srcs) and the plain version;
+4. per kernel: its time alone (CUDA events, reused workspace and pointer
+   table), its plain version's, its byte bound, and one PyTorch call as a
+   yardstick the package never calls (library_ms): torch.stack(srcs).sum(0)
+   for allreduce and reduce_scatter, n x torch.cat(srcs, out=dst) for
+   allgather.
 
 The last two lines are the kernels record and {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -37,9 +53,17 @@ HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores
 F32_FLOPS = 67e12
 
+#: GPU cycles of the sleep that cuda_ms queues ahead of a timed run
+#: (~50 ms at the H100's 1.98 GHz): longer than the host takes to enqueue
+#: 20 wrapper calls
+SLEEP_CYCLES = 100_000_000
+
 N_RANKS = 8
 MAIN_COUNT = 16 << 20        # 64 MiB of f32 per rank (bench.py's count)
 SMALL_COUNT = 64 << 10       # 64 Ki f32 per rank: the one-pass kernel
+#: allgather's src per rank: a 16 Mi bucket sharded 8 ways, gathered back
+AG_MAIN_COUNT = MAIN_COUNT // N_RANKS
+AG_SMALL_COUNT = 8 << 10     # 8 Ki f32 per rank: the one-pass kernel
 WARMUP, ITERS = 5, 20
 #: f32 sums in another order than the ring's differ by a few ulp of the
 #: partial sums: |err| <= (n-1) * 2^-24 * max|partial| ~ 7 * 6e-8 * 20
@@ -74,11 +98,15 @@ def bits_equal(a, b) -> bool:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps runs, by CUDA events."""
+    """Mean device time of fn() over reps runs, by CUDA events. A sleep
+    kernel queued first holds the stream while the host enqueues all reps,
+    so a call whose host side is slower than its kernels is timed by the
+    device, not by the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -101,29 +129,110 @@ def make_inputs(n, count, dtype, op, seed):
     return srcs
 
 
+def compare(what, dsts, want) -> float:
+    """Bitwise comparison of each rank's dst with the plain version's;
+    returns the max abs difference (0.0 when equal)."""
+    for r, (d, w) in enumerate(zip(dsts, want)):
+        if not bits_equal(d, w):
+            diff = (d.double() - w.double()).abs().nan_to_num(0).max().item()
+            raise AssertionError(f"{what}: rank {r} differs from the plain "
+                                 f"version (max abs diff {diff})")
+    return max((d.double() - w.double()).abs().nan_to_num(0).max().item()
+               for d, w in zip(dsts, want))
+
+
+def label(wrapper, srcs, op) -> str:
+    return (f"{wrapper.__name__} n={len(srcs)} {srcs[0].dtype} "
+            f"{getattr(op, 'name', op)} count={srcs[0].numel()}")
+
+
 def check_kernel(wrapper, ref, srcs, op, inplace=False) -> float:
-    """Launch the kernel and compare it bitwise with the plain version on
-    the same tensors; returns the max abs difference (0.0 when equal)."""
+    """Launch an allreduce kernel and compare it bitwise with the plain
+    version on the same tensors; returns the max abs difference."""
     import torch
     want = ref(srcs, op)
     dsts = [s.clone() for s in srcs] if inplace else \
         [torch.full_like(s, 7) for s in srcs]
     wrapper(dsts if inplace else srcs, dsts, op).wait()
     torch.cuda.synchronize()
-    for r, (d, w) in enumerate(zip(dsts, want)):
-        if not bits_equal(d, w):
-            diff = (d.double() - w.double()).abs().nan_to_num(0).max().item()
-            raise AssertionError(
-                f"{wrapper.__name__} n={len(srcs)} {srcs[0].dtype} {op.name} "
-                f"count={srcs[0].numel()}: rank {r} differs from the plain "
-                f"version (max abs diff {diff})")
-    return max((d.double() - w.double()).abs().nan_to_num(0).max().item()
-               for d, w in zip(dsts, want))
+    return compare(label(wrapper, srcs, op), dsts, want)
+
+
+def check_reduce_scatter(wrapper, ref, srcs, op, inplace=False) -> float:
+    """The same for a reduce_scatter kernel (n·c in, c out per rank). In
+    place, the src is the whole dst vector and the result lands in its
+    block r; the other blocks must stay as they were."""
+    import torch
+    want = ref(srcs, op)
+    n = len(srcs)
+    c = srcs[0].numel() // n
+    if inplace:
+        full = [s.clone() for s in srcs]
+        dsts = [f[r * c:(r + 1) * c] for r, f in enumerate(full)]
+        wrapper(full, dsts, op).wait()
+    else:
+        dsts = [torch.full((c,), 7, dtype=s.dtype, device=s.device)
+                for s in srcs]
+        wrapper(srcs, dsts, op).wait()
+    torch.cuda.synchronize()
+    if inplace:
+        for r, (f, s) in enumerate(zip(full, srcs)):
+            if not (bits_equal(f[:r * c], s[:r * c]) and
+                    bits_equal(f[(r + 1) * c:], s[(r + 1) * c:])):
+                raise AssertionError(f"{label(wrapper, srcs, op)} in place: "
+                                     f"rank {r} wrote outside its block")
+    return compare(label(wrapper, srcs, op), dsts, want)
+
+
+def check_allgather(wrapper, ref, srcs, inplace=False) -> float:
+    """The same for an allgather kernel (c in, n·c out per rank), which
+    must also be bitwise torch.cat(srcs). In place, the src is block r of
+    the dst."""
+    import torch
+    want = ref(srcs)
+    n = len(srcs)
+    c = srcs[0].numel()
+    dsts = [torch.full((n * c,), 7, dtype=s.dtype, device=s.device)
+            for s in srcs]
+    if inplace:
+        for r, d in enumerate(dsts):
+            d[r * c:(r + 1) * c] = srcs[r]
+        wrapper([d[r * c:(r + 1) * c] for r, d in enumerate(dsts)],
+                dsts).wait()
+    else:
+        wrapper(srcs, dsts).wait()
+    torch.cuda.synchronize()
+    cat = torch.cat(srcs)
+    compare(label(wrapper, srcs, None) + " vs cat", dsts, [cat] * n)
+    return compare(label(wrapper, srcs, None), dsts, want)
+
+
+def expect_fault(launch) -> None:
+    """A launch on a workspace whose error word is already set: every spin
+    gives up, and the wrapper must report it."""
+    from ucc_tpu_torch import Status, UccError
+    try:
+        launch().wait()
+    except UccError as e:
+        if e.status != Status.ERR_TIMED_OUT:
+            raise
+    else:
+        raise AssertionError("a set error word did not make the wrapper "
+                             "raise")
+
+
+def faulted_workspace():
+    import torch
+    from ucc_tpu_torch.kernels import ring_common as kc
+    ws = kc.RingWorkspace(torch.device("cuda"))
+    ws.get(0, 0)
+    ws.err.fill_(1)
+    return ws
 
 
 def phase_kernels() -> None:
     import torch
-    from ucc_tpu_torch import ReductionOp, Status, UccError
+    from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_allreduce as kr
     t0 = time.perf_counter()
     ops = kr.OPS
@@ -152,25 +261,86 @@ def phase_kernels() -> None:
                              ReductionOp.AVG, 6), ReductionOp.AVG,
                  inplace=True)
     cases += 1
-    # a fault must raise: a workspace whose error word is already set makes
-    # every spin give up and the wrapper report it
-    ws = kr.RingWorkspace(torch.device("cuda"))
-    ws.get(0, 0)
-    ws.err.fill_(1)
     srcs = make_inputs(4, 4096, torch.float32, ReductionOp.SUM, 7)
-    try:
-        kr.ring_allreduce_pass(srcs, [torch.empty_like(s) for s in srcs],
-                               ReductionOp.SUM, workspace=ws).wait()
-    except UccError as e:
-        if e.status != Status.ERR_TIMED_OUT:
-            raise
-    else:
-        raise AssertionError("a set error word did not make the wrapper "
-                             "raise")
-    log(f"kernels: {cases} launches bitwise equal to their plain versions "
-        f"(n in 2,4,8; f32/bf16/int32 x SUM/AVG/MAX/MIN/PROD; ragged counts; "
-        f"NaN for MAX/MIN; f16, int64, in-place) in "
+    expect_fault(lambda: kr.ring_allreduce_pass(
+        srcs, [torch.empty_like(s) for s in srcs], ReductionOp.SUM,
+        workspace=faulted_workspace()))
+    log(f"kernels: {cases} allreduce launches bitwise equal to their plain "
+        f"versions (n in 2,4,8; f32/bf16/int32 x SUM/AVG/MAX/MIN/PROD; "
+        f"ragged counts; NaN for MAX/MIN; f16, int64, in-place) in "
         f"{time.perf_counter() - t0:.1f} s; a set error word raises")
+
+
+def phase_kernels_rs_ag() -> None:
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_rs_ag as krs
+    t0 = time.perf_counter()
+    rs = (krs.ring_reduce_scatter_pass, krs.ring_reduce_scatter_ref)
+    rs_c = (krs.ring_reduce_scatter_chunked, krs.ring_reduce_scatter_ref)
+    ag = (krs.ring_allgather_pass, krs.ring_allgather_ref)
+    ag_c = (krs.ring_allgather_chunked, krs.ring_allgather_ref)
+    cases = 0
+    for n in (2, 4, 8):
+        chunk = krs.CHUNK_ELEMS // n
+        # blocks ragged against the lanes, and 3 chunks, the last ragged
+        rs_pass_blk = krs.reduce_scatter_pass_elems(n) // n // 3 + 5
+        ag_pass_blk = krs.allgather_pass_elems(n) // 3 + 5
+        chunked_blk = 2 * chunk + 3
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for i, op in enumerate(krs.OPS):
+                seed = 2000 * n + 10 * i + dtype.itemsize
+                check_reduce_scatter(*rs, make_inputs(
+                    n, n * rs_pass_blk, dtype, op, seed), op)
+                check_reduce_scatter(*rs_c, make_inputs(
+                    n, n * chunked_blk, dtype, op, seed + 1), op)
+                cases += 2
+            # a NaN in rank 1's block must arrive as it left
+            seed = 3000 * n + dtype.itemsize
+            check_allgather(*ag, make_inputs(n, ag_pass_blk, dtype,
+                                             ReductionOp.MAX, seed))
+            check_allgather(*ag_c, make_inputs(n, chunked_blk, dtype,
+                                               ReductionOp.MAX, seed + 1))
+            cases += 2
+    # in place, the two further dtypes, and one rank
+    big = 2 * (krs.CHUNK_ELEMS // 8) + 17
+    check_reduce_scatter(*rs_c, make_inputs(
+        8, 8 * big, torch.float32, ReductionOp.AVG, 8), ReductionOp.AVG,
+        inplace=True)
+    check_reduce_scatter(*rs, make_inputs(
+        4, 4 * 1001, torch.bfloat16, ReductionOp.SUM, 9), ReductionOp.SUM,
+        inplace=True)
+    check_allgather(*ag_c, make_inputs(8, big, torch.float32,
+                                       ReductionOp.SUM, 10), inplace=True)
+    check_allgather(*ag, make_inputs(4, 1001, torch.int32, ReductionOp.SUM,
+                                     11), inplace=True)
+    check_reduce_scatter(*rs, make_inputs(
+        4, 4 * 1001, torch.float16, ReductionOp.AVG, 12), ReductionOp.AVG)
+    check_reduce_scatter(*rs_c, make_inputs(
+        4, 4 * 1001, torch.int64, ReductionOp.PROD, 13), ReductionOp.PROD)
+    check_allgather(*ag, make_inputs(4, 1001, torch.float16,
+                                     ReductionOp.SUM, 14))
+    check_allgather(*ag_c, make_inputs(4, 1001, torch.int64,
+                                       ReductionOp.SUM, 15))
+    check_reduce_scatter(*rs, make_inputs(1, 777, torch.float32,
+                                          ReductionOp.AVG, 16),
+                         ReductionOp.AVG)
+    check_allgather(*ag, make_inputs(1, 777, torch.float32,
+                                     ReductionOp.SUM, 17))
+    cases += 10
+    srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 18)
+    expect_fault(lambda: krs.ring_reduce_scatter_pass(
+        srcs, [torch.empty(4096, device="cuda") for _ in srcs],
+        ReductionOp.SUM, workspace=faulted_workspace()))
+    expect_fault(lambda: krs.ring_allgather_chunked(
+        srcs, [torch.empty(16 * 4096, device="cuda") for _ in srcs],
+        workspace=faulted_workspace()))
+    log(f"kernels: {cases} reduce_scatter/allgather launches bitwise equal "
+        f"to their plain versions (n in 2,4,8; f32/bf16/int32; "
+        f"reduce_scatter x SUM/AVG/MAX/MIN/PROD with NaN for MAX/MIN; "
+        f"allgather with a NaN, bitwise torch.cat; ragged counts; 3 chunks; "
+        f"in place; f16, int64; n=1) in {time.perf_counter() - t0:.1f} s; "
+        f"a set error word raises for both collectives")
 
 
 def make_job(n):
@@ -214,19 +384,70 @@ def make_job(n):
     return ctxs, teams
 
 
-def run_main_path(ctxs, teams, count, seed):
-    """Persistent allreduce SUM of `count` f32 per rank through the whole
-    stack; returns (per-round host seconds, srcs, dsts, alg name)."""
+#: the main path's runs: (collective, kernel it must launch, f32 elements
+#: in and out per rank, seed)
+MAIN_RUNS = (
+    ("ALLREDUCE", "ring_allreduce_chunked", MAIN_COUNT, MAIN_COUNT, 11),
+    ("ALLREDUCE", "ring_allreduce_pass", SMALL_COUNT, SMALL_COUNT, 12),
+    ("REDUCE_SCATTER", "ring_reduce_scatter_chunked", MAIN_COUNT,
+     MAIN_COUNT // N_RANKS, 13),
+    ("REDUCE_SCATTER", "ring_reduce_scatter_pass", SMALL_COUNT,
+     SMALL_COUNT // N_RANKS, 14),
+    ("ALLGATHER", "ring_allgather_chunked", AG_MAIN_COUNT,
+     AG_MAIN_COUNT * N_RANKS, 15),
+    ("ALLGATHER", "ring_allgather_pass", AG_SMALL_COUNT,
+     AG_SMALL_COUNT * N_RANKS, 16),
+)
+
+#: kernel -> (source, the TPU kernel it replaces, its plain version)
+KERNELS = {
+    "ring_allreduce_pass": ("ring_allreduce.cu", "ucc_tpu/tl/ring_dma.py:285",
+                            "ring_allreduce_pass_ref"),
+    "ring_allreduce_chunked": ("ring_allreduce.cu",
+                               "ucc_tpu/tl/ring_dma.py:966",
+                               "ring_allreduce_chunked_ref"),
+    "ring_reduce_scatter_pass": ("ring_rs_ag.cu",
+                                 "ucc_tpu/tl/ring_dma.py:285",
+                                 "ring_reduce_scatter_ref"),
+    "ring_reduce_scatter_chunked": ("ring_rs_ag.cu",
+                                    "ucc_tpu/tl/ring_dma.py:1235",
+                                    "ring_reduce_scatter_ref"),
+    "ring_allgather_pass": ("ring_rs_ag.cu", "ucc_tpu/tl/ring_dma.py:285",
+                            "ring_allgather_ref"),
+    "ring_allgather_chunked": ("ring_rs_ag.cu",
+                               "ucc_tpu/tl/ring_dma.py:1088",
+                               "ring_allgather_ref"),
+}
+
+
+def wrappers():
+    """kernel name -> (wrapper, plain version taking (srcs, op))."""
+    from ucc_tpu_torch.kernels import ring_allreduce as kr
+    from ucc_tpu_torch.kernels import ring_rs_ag as krs
+    out = {}
+    for name, (source, _, ref_name) in KERNELS.items():
+        mod = kr if source == kr.SOURCE else krs
+        ref = getattr(mod, ref_name)
+        if "allgather" in name:
+            ref = (lambda f: lambda srcs, op: f(srcs))(ref)
+        out[name] = (getattr(mod, name), ref)
+    return out
+
+
+def run_main_path(ctxs, teams, coll, count, dst_count, seed):
+    """Persistent `coll` SUM of `count` f32 in and `dst_count` out per rank
+    through the whole stack; returns (per-round host seconds, srcs, dsts,
+    alg name)."""
     import torch
     import ucc_tpu_torch as ucc
     n = len(teams)
     g = torch.Generator(device="cuda").manual_seed(seed)
     srcs = [torch.randn(count, generator=g, device="cuda") for _ in range(n)]
-    dsts = [torch.empty_like(s) for s in srcs]
+    dsts = [torch.empty(dst_count, device="cuda") for _ in range(n)]
     reqs = [teams[r].collective_init(ucc.CollArgs(
-        coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+        coll_type=ucc.CollType[coll], op=ucc.ReductionOp.SUM,
         src=ucc.BufferInfo(srcs[r], count, ucc.DataType.FLOAT32),
-        dst=ucc.BufferInfo(dsts[r], count, ucc.DataType.FLOAT32),
+        dst=ucc.BufferInfo(dsts[r], dst_count, ucc.DataType.FLOAT32),
         flags=ucc.CollArgsFlags.PERSISTENT)) for r in range(n)]
     alg = reqs[0].task.alg_name
 
@@ -241,10 +462,10 @@ def run_main_path(ctxs, teams, count, seed):
             for c in ctxs:
                 c.progress()
             if time.monotonic() > deadline:
-                raise RuntimeError("allreduce did not complete in 60 s")
+                raise RuntimeError(f"{coll} did not complete in 60 s")
         bad = [s for s in sts if s != ucc.Status.OK]
         if bad:
-            raise RuntimeError(f"allreduce failed: {bad[0]}")
+            raise RuntimeError(f"{coll} failed: {bad[0]}")
 
     for _ in range(WARMUP):
         one_round()
@@ -259,26 +480,67 @@ def run_main_path(ctxs, teams, count, seed):
     return samples, srcs, dsts, alg
 
 
-def check_main_result(srcs, dsts, plain) -> None:
+def check_main_result(coll, srcs, dsts, plain) -> None:
+    """allreduce: every dst is torch.stack(srcs).sum(0); reduce_scatter:
+    rank r's dst is its block of it (both within MAIN_RTOL/ATOL: another
+    summation order); allgather: every dst is bitwise torch.cat(srcs).
+    Every dst is bitwise the plain version."""
     import torch
-    want = torch.stack(srcs).sum(0)
-    for r, (d, p) in enumerate(zip(dsts, plain)):
-        if not torch.isfinite(d).all():
-            raise AssertionError(f"rank {r}: non-finite result")
-        if not torch.allclose(d, want, rtol=MAIN_RTOL, atol=MAIN_ATOL):
-            err = (d - want).abs().max().item()
-            raise AssertionError(f"rank {r}: differs from stack().sum(0) by "
-                                 f"{err}")
-        if not bits_equal(d, p):
-            raise AssertionError(f"rank {r}: not bitwise the plain version")
+    n = len(srcs)
+    if coll == "ALLGATHER":
+        compare("allgather vs torch.cat", dsts, [torch.cat(srcs)] * n)
+    else:
+        total = torch.stack(srcs).sum(0)
+        c = dsts[0].numel()
+        for r, d in enumerate(dsts):
+            want = total if coll == "ALLREDUCE" else total[r * c:(r + 1) * c]
+            if not torch.isfinite(d).all():
+                raise AssertionError(f"{coll} rank {r}: non-finite result")
+            if not torch.allclose(d, want, rtol=MAIN_RTOL, atol=MAIN_ATOL):
+                err = (d - want).abs().max().item()
+                raise AssertionError(f"{coll} rank {r}: differs from "
+                                     f"stack().sum(0) by {err}")
+    compare(f"{coll} main path", dsts, plain)
 
 
-def bound_ms(n, count, elem) -> float:
-    """Least time for an allreduce of n ranks x count elements: read every
-    input once, write every output once, at the HBM rate; or do the
-    (n-1)*count adds at the f32 rate, whichever is longer."""
-    bytes_ = 2 * n * count * elem
-    return max(bytes_ / HBM_BYTES_PER_S, (n - 1) * count / F32_FLOPS) * 1e3
+def bound_ms(n, count, dst_count, flops, elem=4):
+    """(ms, "bytes" or "operations"): the least time for n ranks of
+    `count` elements in and `dst_count` out, the longer of reading every
+    input once and writing every output once at the HBM rate, and doing
+    the `flops` adds at the f32 rate."""
+    by_bytes = n * (count + dst_count) * elem / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else \
+        (by_ops, "operations")
+
+
+def measure(coll, wrapper, ref, srcs, dst_count):
+    """The kernel alone on the main path's inputs: bitwise against its
+    plain version (max_abs_err), then timed with its workspace and
+    pointer table built once, as the team's persistent launches reuse
+    them; its plain version and one PyTorch call as yardsticks."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_common as kc
+    sum_ = ReductionOp.SUM
+    if coll == "ALLGATHER":
+        max_err = check_allgather(wrapper, lambda s: ref(s, sum_), srcs)
+    elif coll == "REDUCE_SCATTER":
+        max_err = check_reduce_scatter(wrapper, ref, srcs, sum_)
+    else:
+        max_err = check_kernel(wrapper, ref, srcs, sum_)
+    out = [torch.empty(dst_count, device="cuda") for _ in srcs]
+    ws = kc.RingWorkspace(srcs[0].device)
+    table = kc.make_ptr_table(srcs, out)
+    ms = cuda_ms(lambda: wrapper(srcs, out, sum_, workspace=ws,
+                                 ptr_table=table), 20)
+    plain_ms = cuda_ms(lambda: ref(srcs, sum_), 3)
+    if coll == "ALLGATHER":
+        library_ms = cuda_ms(lambda: [torch.cat(srcs, out=o) for o in out],
+                             20)
+    else:
+        library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
+    return max_err, ms, plain_ms, library_ms
 
 
 def main() -> int:
@@ -297,6 +559,7 @@ def main() -> int:
         import ucc_tpu_torch as ucc
         from ucc_tpu_torch.kernels import build
         from ucc_tpu_torch.kernels import ring_allreduce as kr
+        from ucc_tpu_torch.kernels import ring_rs_ag as krs
     except ImportError as e:
         print(f"chip_smoke: ucc_tpu_torch not importable here: {e}",
               file=sys.stderr)
@@ -307,69 +570,69 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
-    build_s = build.build_all([kr.SOURCE])
-    log(f"build: {kr.SOURCE} -> {build.BUILD_DIR} in {build_s:.1f} s")
+    sources = [kr.SOURCE, krs.SOURCE]
+    build_s = build.build_all(sources)
+    log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
+        f"{build_s:.1f} s")
 
     # -- 2. kernels against their plain versions ---------------------------
     phase_kernels()
+    phase_kernels_rs_ag()
 
     # -- 3. main path ----------------------------------------------------
-    os.environ["UCC_TL_RING_CUDA_TUNE"] = "allreduce:@ring_cuda:inf"
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = \
+        "allreduce,reduce_scatter,allgather:@ring_cuda:inf"
     t0 = time.perf_counter()
     ctxs, teams = make_job(N_RANKS)
     log(f"job: {N_RANKS} contexts + team in {time.perf_counter() - t0:.1f} s")
+    kernels = wrappers()
     records = {}
-    for kname, count, seed in (("ring_allreduce_chunked", MAIN_COUNT, 11),
-                               ("ring_allreduce_pass", SMALL_COUNT, 12)):
-        kr.ring_allreduce_pass.launches = 0
-        kr.ring_allreduce_chunked.launches = 0
-        samples, srcs, dsts, alg = run_main_path(ctxs, teams, count, seed)
-        launches = {"ring_allreduce_pass": kr.ring_allreduce_pass.launches,
-                    "ring_allreduce_chunked":
-                        kr.ring_allreduce_chunked.launches}
-        log(f"main path {count} f32/rank: launches {launches}")
+    for coll, kname, count, dst_count, seed in MAIN_RUNS:
+        for wrapper, _ in kernels.values():
+            wrapper.launches = 0
+        samples, srcs, dsts, alg = run_main_path(ctxs, teams, coll, count,
+                                                 dst_count, seed)
+        launches = {k: w.launches for k, (w, _) in kernels.items()}
+        log(f"main path {coll} {count} f32/rank in: launches {launches}")
         if launches[kname] <= 0:
-            raise AssertionError(f"the main path at {count} elements per "
-                                 f"rank never launched {kname}")
-        wrapper = getattr(kr, kname)
-        ref = getattr(kr, kname + "_ref")
+            raise AssertionError(f"the main path's {coll} at {count} "
+                                 f"elements per rank never launched {kname}")
+        if alg != "ring_cuda":
+            raise AssertionError(f"{coll} selected {alg}, not ring_cuda")
+        wrapper, ref = kernels[kname]
         plain = ref(srcs, ucc.ReductionOp.SUM)
-        check_main_result(srcs, dsts, plain)
-        # the kernel alone and its yardsticks on the same buffers
-        out = [torch.empty_like(s) for s in srcs]
-        max_err = check_kernel(wrapper, ref, srcs, ucc.ReductionOp.SUM)
-        # timed with its workspace and pointer table built once, as the
-        # team's persistent launches reuse them
-        ws = kr.RingWorkspace(srcs[0].device)
-        table = kr.make_ptr_table(srcs, out)
-        ms = cuda_ms(lambda: wrapper(srcs, out, ucc.ReductionOp.SUM,
-                                     workspace=ws, ptr_table=table), 20)
-        plain_ms = cuda_ms(lambda: ref(srcs, ucc.ReductionOp.SUM), 3)
-        library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
-        bound = bound_ms(N_RANKS, count, 4)
+        check_main_result(coll, srcs, dsts, plain)
+        del dsts, plain
+        max_err, ms, plain_ms, library_ms = measure(
+            coll, wrapper, ref, srcs, dst_count)
+        flops = 0 if coll == "ALLGATHER" else (N_RANKS - 1) * count
+        bound, bound_by = bound_ms(N_RANKS, count, dst_count, flops)
         samples.sort()
         p50 = samples[len(samples) // 2]
-        nbytes = count * 4
+        # the nccl-tests conventions: the full vector's bytes over p50
+        nbytes = max(count, dst_count) * 4
         algbw = nbytes / p50 / 1e9
-        busbw = algbw * 2 * (N_RANKS - 1) / N_RANKS
-        log(f"main path {count} f32/rank via {alg}: p50 {p50 * 1e3:.3f} ms "
-            f"(p10 {samples[len(samples) // 10] * 1e3:.3f}, max "
+        factor = 2 if coll == "ALLREDUCE" else 1
+        busbw = algbw * factor * (N_RANKS - 1) / N_RANKS
+        library = "n x torch.cat" if coll == "ALLGATHER" else "stack().sum(0)"
+        log(f"main path {coll} {count} f32/rank in, {dst_count} out via "
+            f"{alg}: p50 {p50 * 1e3:.3f} ms (p10 "
+            f"{samples[len(samples) // 10] * 1e3:.3f}, max "
             f"{samples[-1] * 1e3:.3f}) over {ITERS} rounds | algbw "
-            f"{algbw:.2f} GB/s busbw {busbw:.2f} GB/s | kernel "
-            f"{ms:.3f} ms, bound {bound:.4f} ms (bytes, 3.35 TB/s), "
+            f"{algbw:.2f} GB/s busbw {busbw:.2f} GB/s | {kname} "
+            f"{ms:.3f} ms, bound {bound:.4f} ms ({bound_by}), "
             f"roofline share {bound / ms:.4f} | plain {plain_ms:.3f} ms | "
-            f"stack().sum(0) {library_ms:.3f} ms | card {smi}")
+            f"{library} {library_ms:.3f} ms | launches {launches[kname]} | "
+            f"card {smi}")
+        source, replaces, _ = KERNELS[kname]
         records[kname] = {
             "name": kname, "route": "cuda",
-            "source": "ucc_tpu_torch/csrc/ring_allreduce.cu",
-            "replaces": ("ucc_tpu/tl/ring_dma.py:966"
-                         if kname == "ring_allreduce_chunked"
-                         else "ucc_tpu/tl/ring_dma.py:285"),
+            "source": f"ucc_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[kname], "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": library_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
         }
-        del srcs, dsts, plain, out
+        del srcs
         torch.cuda.empty_cache()
     for team in teams:
         team.destroy()
@@ -377,8 +640,7 @@ def main() -> int:
         c.destroy()
 
     log(smi)
-    log(json.dumps({"kernels": [records["ring_allreduce_pass"],
-                                records["ring_allreduce_chunked"]]}))
+    log(json.dumps({"kernels": [records[k] for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -138,7 +138,9 @@ def test_ring_tl_score_rows_match(monkeypatch, tune):
 
 def test_tl_allreduce_selected_on_device_memory():
     assert TlRingCuda.SUPPORTED_MEM_TYPES == (tc.MemoryType.CUDA,)
-    assert TlRingCuda.SUPPORTED_COLLS == tc.CollType.ALLREDUCE
+    assert TlRingCuda.SUPPORTED_COLLS == (
+        tc.CollType.ALLREDUCE | tc.CollType.ALLGATHER |
+        tc.CollType.REDUCE_SCATTER)
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +233,7 @@ def test_port_imports_without_jax():
             "sys.modules['ucc_tpu'] = None; import ucc_tpu_torch; "
             "from ucc_tpu_torch.tl import ring_cuda, device; "
             "from ucc_tpu_torch.kernels import ring_allreduce, build; "
+            "from ucc_tpu_torch.kernels import ring_common, ring_rs_ag; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

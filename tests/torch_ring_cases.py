@@ -1,7 +1,8 @@
-"""Shared cases of the ring allreduce tests (tests/test_torch_ring_*.py):
+"""Shared cases of the ring kernel tests (tests/test_torch_ring_*.py):
 seeded numpy inputs, a NaN-aware bitwise comparison, and runners for the
 JAX package's Pallas kernels (interpret mode) and the port's plain
-versions on the same inputs."""
+versions on the same inputs, for allreduce, reduce_scatter and
+allgather."""
 import ml_dtypes
 import numpy as np
 import jax
@@ -14,6 +15,7 @@ from ucc_tpu.constants import ReductionOp as JReductionOp
 
 from ucc_tpu_torch.constants import ReductionOp
 from ucc_tpu_torch.kernels import ring_allreduce as kr
+from ucc_tpu_torch.kernels import ring_rs_ag as krs
 from ucc_tpu_torch.utils.convert import from_numpy, to_numpy
 
 DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16, "i32": np.int32}
@@ -38,6 +40,14 @@ CHUNK = 64
 #: ragged counts: not a multiple of n (2, 4, 8) nor of the chunk size
 PASS_COUNT = 37
 CHUNKED_COUNT = 151
+#: reduce_scatter blocks: 37 (ragged against every lane and chunk), and 40,
+#: which the JAX package's chunked kernel re-pads per block (its cblk is
+#: CHUNK // n: 32, 16 and 8)
+RS_PASS_BLOCK = 37
+RS_CHUNKED_BLOCK = 40
+#: allgather blocks: ragged, and 3 chunks of CHUNK, the last one ragged
+AG_PASS_BLOCK = 37
+AG_CHUNKED_BLOCK = 150
 
 
 def make_inputs(n, count, dt, op, seed):
@@ -94,4 +104,71 @@ def torch_ring(kernel, op, arrs):
     else:
         outs = kr.ring_allreduce_chunked_ref(srcs, ReductionOp[op],
                                              csize=CHUNK)
+    return [to_numpy(o) for o in outs]
+
+
+def _global(mesh, n, arrs, padded):
+    """The per-rank arrays, end-padded to *padded*, as one array sharded
+    over the mesh, as the launch path of tl/ring_dma builds it."""
+    count = arrs[0].size
+    shards = [jax.device_put(jnp.pad(jnp.asarray(a), (0, padded - count)),
+                             jax.devices()[r]) for r, a in enumerate(arrs)]
+    return jax.make_array_from_single_device_arrays(
+        (n * padded,), NamedSharding(mesh, P("r")), shards)
+
+
+def jax_reduce_scatter(kernel, n, op, arrs, monkeypatch):
+    """The Pallas reduce_scatter kernel in interpret mode on n ranks of
+    n·c elements each; per-rank results (c elements each)."""
+    count = arrs[0].size
+    mesh = jax.make_mesh((n,), ("r",), devices=jax.devices()[:n])
+    jop = JReductionOp[op]
+    if kernel == "pass":
+        prog, padded = rd.build_ring_program(
+            mesh, n, JCollType.REDUCE_SCATTER, jop, arrs[0].dtype, count)
+    else:
+        monkeypatch.setattr(rd, "CHUNK_ELEMS", CHUNK)
+        prog, padded = rd.build_hbm_reduce_scatter_program(
+            mesh, n, jop, arrs[0].dtype, count)
+    out = np.asarray(jax.block_until_ready(
+        prog(_global(mesh, n, arrs, padded))))
+    return [row[:count // n] for row in out.reshape(n, -1)]
+
+
+def jax_allgather(kernel, n, arrs, monkeypatch):
+    """The Pallas allgather kernel in interpret mode on n ranks of c
+    elements each; each rank's own copy of the n·c result."""
+    count = arrs[0].size
+    mesh = jax.make_mesh((n,), ("r",), devices=jax.devices()[:n])
+    if kernel == "pass":
+        prog, padded = rd.build_ring_program(
+            mesh, n, JCollType.ALLGATHER, None, arrs[0].dtype, count)
+    else:
+        monkeypatch.setattr(rd, "CHUNK_ELEMS", CHUNK)
+        prog, padded = rd.build_hbm_allgather_program(
+            mesh, n, arrs[0].dtype, count)
+    out = jax.block_until_ready(prog(_global(mesh, n, arrs, padded)))
+    by_dev = {s.device: np.asarray(s.data) for s in out.addressable_shards}
+    return [by_dev[d] for d in jax.devices()[:n]]
+
+
+def torch_reduce_scatter(kernel, n, op, arrs):
+    """The port's plain version at the kernel's geometry: one chunk for
+    the pass kernel, the JAX package's chunk for the chunked one (CHUNK //
+    n elements per block, at most the block)."""
+    srcs = [from_numpy(a, "cpu") for a in arrs]
+    blk = arrs[0].size // n
+    cblk = blk if kernel == "pass" else min(CHUNK // n, blk)
+    outs = krs.ring_reduce_scatter_ref(srcs, ReductionOp[op], cblk=cblk)
+    return [to_numpy(o) for o in outs]
+
+
+def torch_allgather(kernel, arrs):
+    """The port's plain version at the kernel's geometry: one chunk for
+    the pass kernel, the JAX package's chunk for the chunked one (CHUNK
+    elements per block, at most the block)."""
+    srcs = [from_numpy(a, "cpu") for a in arrs]
+    blk = arrs[0].size
+    outs = krs.ring_allgather_ref(
+        srcs, cblk=blk if kernel == "pass" else min(CHUNK, blk))
     return [to_numpy(o) for o in outs]

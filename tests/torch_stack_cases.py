@@ -1,0 +1,191 @@
+"""Shared jobs of the whole-stack tests (tests/test_torch_stack*.py): N
+ranks of ucc_tpu_torch on device "cpu" and N ranks of ucc_tpu on the
+virtual CPU mesh, each driving persistent collectives through lib ->
+contexts -> team -> collective_init -> post/test, ROUNDS posts per
+request."""
+import contextlib
+import os
+import threading
+import time
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+import ucc_tpu
+from harness import UccJob
+
+import ucc_tpu_torch as ut
+from ucc_tpu_torch.utils.convert import from_numpy, to_numpy
+
+N = 8
+ROUNDS = 3
+
+
+class TorchJob:
+    """N ranks of ucc_tpu_torch in one process: a Lib and a Context each,
+    bootstrapped by a thread OOB (contexts are created in threads: the
+    address exchange blocks), then driven cooperatively."""
+
+    def __init__(self, n: int):
+        self.n = n
+        world = ut.ThreadOobWorld(n)
+        libs = [ut.init() for _ in range(n)]
+        self.contexts = [None] * n
+        errs = []
+
+        def make(r):
+            try:
+                self.contexts[r] = ut.Context(
+                    libs[r], ut.ContextParams(oob=world.endpoint(r)))
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=make, args=(r,))
+                   for r in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        if errs:
+            raise errs[0]
+        tworld = ut.ThreadOobWorld(n)
+        self.teams = [c.create_team_post(ut.TeamParams(oob=tworld.endpoint(r)))
+                      for r, c in enumerate(self.contexts)]
+        self.progress_until(lambda: all(
+            [t.create_test() == ut.Status.OK for t in self.teams]))
+
+    def progress_until(self, cond, timeout: float = 30.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not cond():
+            for c in self.contexts:
+                c.progress()
+            if time.monotonic() > deadline:
+                raise TimeoutError("progress_until timed out")
+
+    def persistent(self, coll, hosts, op, dt, dst_count=None,
+                   inplace=False):
+        """Post one persistent request per rank ROUNDS times; returns each
+        round's per-rank dst as numpy arrays. Out of place, *hosts* are
+        the srcs and each dst has *dst_count* elements (default: the src's)
+        filled with 7 before every round; in place, *hosts* are each
+        rank's dst, restored before every round."""
+        srcs = [from_numpy(h, "cpu") for h in hosts]
+        if inplace:
+            dsts = [s.clone() for s in srcs]
+        else:
+            dsts = [torch.empty(dst_count or s.numel(), dtype=s.dtype)
+                    for s in srcs]
+        mt = ut.MemoryType.CUDA
+
+        def args(r):
+            dst = ut.BufferInfo(dsts[r], dsts[r].numel(), dt, mem_type=mt)
+            if inplace:
+                return ut.CollArgs(
+                    coll_type=coll, op=op, dst=dst,
+                    flags=ut.CollArgsFlags.PERSISTENT |
+                    ut.CollArgsFlags.IN_PLACE)
+            return ut.CollArgs(
+                coll_type=coll, op=op, dst=dst,
+                src=ut.BufferInfo(srcs[r], srcs[r].numel(), dt, mem_type=mt),
+                flags=ut.CollArgsFlags.PERSISTENT)
+
+        reqs = [self.teams[r].collective_init(args(r)) for r in range(self.n)]
+        assert reqs[0].task.alg_name == "ring_cuda"
+        rounds = []
+        for _ in range(ROUNDS):
+            for d, s in zip(dsts, srcs):
+                if inplace:
+                    d.copy_(s)
+                else:
+                    d.fill_(7)           # every round must rewrite dst
+            for rq in reqs:
+                rq.post()
+            self.progress_until(lambda: all(
+                [rq.test() != ut.Status.IN_PROGRESS for rq in reqs]))
+            assert all(rq.test() == ut.Status.OK for rq in reqs)
+            rounds.append([to_numpy(d) for d in dsts])
+        assert reqs[0]._fast          # re-posts took the fast lane
+        for rq in reqs:
+            rq.finalize()
+        return rounds
+
+    def persistent_allreduce(self, hosts, op, dt):
+        return self.persistent(ut.CollType.ALLREDUCE, hosts, op, dt)
+
+    def cleanup(self) -> None:
+        for t in self.teams:
+            t.destroy()
+        for c in self.contexts:
+            c.destroy()
+
+
+@contextlib.contextmanager
+def _env(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: v for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def make_jax_job(tune: str):
+    """(UccJob, teams) of N ranks with tl/ring_dma tuned by *tune*."""
+    with _env(UCC_TL_RING_DMA_TUNE=tune):
+        job = UccJob(N)
+        return job, job.create_team()
+
+
+def make_torch_job(tune: str = ""):
+    """A TorchJob of N ranks on device "cpu"; *tune*, if given, tunes
+    tl/ring_cuda."""
+    env = {"UCC_TL_RING_CUDA_DEVICE": "cpu"}
+    if tune:
+        env["UCC_TL_RING_CUDA_TUNE"] = tune
+    with _env(**env):
+        return TorchJob(N)
+
+
+def jax_persistent(job, teams, coll, hosts, op, dt, dst_count=None):
+    """tl/ring_dma's counterpart of ``TorchJob.persistent`` (out of place
+    only: its device TLs rebind ``dst.buffer`` to the result array)."""
+    count = hosts[0].size
+    argses = []
+    for r in range(N):
+        dev = job.contexts[r].tl_contexts["ring_dma"].obj.device
+        argses.append(ucc_tpu.CollArgs(
+            coll_type=coll, op=op,
+            src=ucc_tpu.BufferInfo(jax.device_put(jnp.asarray(hosts[r]), dev),
+                                   count, dt,
+                                   mem_type=ucc_tpu.MemoryType.TPU),
+            dst=ucc_tpu.BufferInfo(None, dst_count or count, dt,
+                                   mem_type=ucc_tpu.MemoryType.TPU),
+            flags=ucc_tpu.CollArgsFlags.PERSISTENT))
+    reqs = [teams[r].collective_init(argses[r]) for r in range(N)]
+    assert reqs[0].task.alg_name == "ring_dma"
+    rounds = []
+    for _ in range(ROUNDS):
+        for rq in reqs:
+            rq.post()
+        job.progress_until(lambda: all(
+            [rq.test() != ucc_tpu.Status.IN_PROGRESS for rq in reqs]))
+        assert all(rq.test() == ucc_tpu.Status.OK for rq in reqs)
+        rounds.append([np.asarray(a.dst.buffer) for a in argses])
+    for rq in reqs:
+        rq.finalize()
+    return rounds
+
+
+def jax_persistent_allreduce(job, teams, hosts, op, dt):
+    return jax_persistent(job, teams, ucc_tpu.CollType.ALLREDUCE, hosts, op,
+                          dt)
+
+
+def bits(a):
+    return a.view({2: np.uint16, 4: np.uint32, 8: np.uint64}[a.dtype.itemsize])

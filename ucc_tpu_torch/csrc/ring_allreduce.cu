@@ -6,7 +6,8 @@
 //                             build_ring_program;
 //   ring_allreduce_chunked <- ucc_tpu/tl/ring_dma.py:_hbm_allreduce_kernel,
 //                             the same ring once per chunk.
-// Both entry points share ring_body below.
+// Both entry points share ring_body below; the element arithmetic and the
+// flag protocol are those of ring_common.cuh.
 //
 // What it computes. Rank r holds count elements, split (after zero
 // padding) into chunks of n blocks of blk elements; the pass entry is the
@@ -48,32 +49,9 @@
 // n <= 8 thread-block clusters with distributed shared memory in place of
 // the global-memory slots.
 
-#include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "ring_common.cuh"
 
 namespace {
-
-// ReductionOp values of ucc_tpu_torch.constants
-constexpr int OP_SUM = 0;
-constexpr int OP_PROD = 1;
-constexpr int OP_MAX = 2;
-constexpr int OP_MIN = 3;
-constexpr int OP_AVG = 12;
-
-// dtype codes of ucc_tpu_torch/kernels/ring_allreduce.py
-constexpr int DT_F32 = 0;
-constexpr int DT_F16 = 1;
-constexpr int DT_BF16 = 2;
-constexpr int DT_I32 = 3;
-constexpr int DT_I64 = 4;
-
-// error word values
-constexpr int ERR_SPIN_TIMEOUT = 1;
-
-// about 2^26 polls with a 128 ns back-off: several seconds
-constexpr long long SPIN_LIMIT = 1ll << 26;
 
 struct RingArgs {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
@@ -86,177 +64,6 @@ struct RingArgs {
   int n;
   int op;
 };
-
-// ---------------------------------------------------------------------
-// element arithmetic, in the rounding of PyTorch's own kernels
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-  using Bits = unsigned int;
-  static __device__ float add(float a, float b) { return a + b; }
-  static __device__ float mul(float a, float b) { return a * b; }
-  static __device__ bool is_nan(float a) { return a != a; }
-  static __device__ float tof(float a) { return a; }
-  static __device__ float avg(float a, int n) { return a / (float)n; }
-};
-
-template <> struct Elem<__half> {
-  using Bits = unsigned short;
-  static __device__ __half add(__half a, __half b) {
-    return __float2half_rn(__half2float(a) + __half2float(b));
-  }
-  static __device__ __half mul(__half a, __half b) {
-    return __float2half_rn(__half2float(a) * __half2float(b));
-  }
-  static __device__ bool is_nan(__half a) {
-    float f = __half2float(a);
-    return f != f;
-  }
-  static __device__ float tof(__half a) { return __half2float(a); }
-  static __device__ __half avg(__half a, int n) {
-    return __float2half_rn(__half2float(a) / (float)n);
-  }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  using Bits = unsigned short;
-  static __device__ __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
-    return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
-  }
-  static __device__ __nv_bfloat16 mul(__nv_bfloat16 a, __nv_bfloat16 b) {
-    return __float2bfloat16_rn(__bfloat162float(a) * __bfloat162float(b));
-  }
-  static __device__ bool is_nan(__nv_bfloat16 a) {
-    float f = __bfloat162float(a);
-    return f != f;
-  }
-  static __device__ float tof(__nv_bfloat16 a) { return __bfloat162float(a); }
-  static __device__ __nv_bfloat16 avg(__nv_bfloat16 a, int n) {
-    return __float2bfloat16_rn(__bfloat162float(a) / (float)n);
-  }
-};
-
-// integers wrap on overflow (unsigned arithmetic), as torch and jnp do;
-// AVG divides in float32 and truncates, as (x / n).to(int) does
-template <> struct Elem<int> {
-  using Bits = unsigned int;
-  static __device__ int add(int a, int b) {
-    return (int)((unsigned int)a + (unsigned int)b);
-  }
-  static __device__ int mul(int a, int b) {
-    return (int)((unsigned int)a * (unsigned int)b);
-  }
-  static __device__ bool is_nan(int) { return false; }
-  static __device__ float tof(int a) { return (float)a; }
-  static __device__ int avg(int a, int n) {
-    return (int)((float)a / (float)n);
-  }
-};
-
-template <> struct Elem<long long> {
-  using Bits = unsigned long long;
-  static __device__ long long add(long long a, long long b) {
-    return (long long)((unsigned long long)a + (unsigned long long)b);
-  }
-  static __device__ long long mul(long long a, long long b) {
-    return (long long)((unsigned long long)a * (unsigned long long)b);
-  }
-  static __device__ bool is_nan(long long) { return false; }
-  static __device__ float tof(long long a) { return (float)a; }
-  static __device__ long long avg(long long a, int n) {
-    return (long long)((float)a / (float)n);
-  }
-};
-
-// Integers compare exactly; floats compare as float (exact for f16/bf16).
-template <typename T> __device__ bool gt(T a, T b) {
-  return Elem<T>::tof(a) > Elem<T>::tof(b);
-}
-template <> __device__ bool gt<int>(int a, int b) { return a > b; }
-template <> __device__ bool gt<long long>(long long a, long long b) {
-  return a > b;
-}
-
-// acc(local, incoming); MAX and MIN propagate NaN like torch.maximum /
-// jnp.maximum (fmaxf would drop it)
-template <typename T>
-__device__ T accumulate(int op, T a, T b) {
-  switch (op) {
-    case OP_PROD:
-      return Elem<T>::mul(a, b);
-    case OP_MAX:
-      if (Elem<T>::is_nan(a)) return a;
-      if (Elem<T>::is_nan(b)) return b;
-      return gt(b, a) ? b : a;
-    case OP_MIN:
-      if (Elem<T>::is_nan(a)) return a;
-      if (Elem<T>::is_nan(b)) return b;
-      return gt(a, b) ? b : a;
-    default:  // SUM, AVG
-      return Elem<T>::add(a, b);
-  }
-}
-
-// comm slots bypass L1 (written by another SM)
-template <typename T>
-__device__ void store_slot(T* p, T v) {
-  using B = typename Elem<T>::Bits;
-  __stcg(reinterpret_cast<B*>(p), *reinterpret_cast<B*>(&v));
-}
-
-template <typename T>
-__device__ T load_slot(const T* p) {
-  using B = typename Elem<T>::Bits;
-  B b = __ldcg(reinterpret_cast<const B*>(p));
-  return *reinterpret_cast<T*>(&b);
-}
-
-__device__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// Thread 0 spins until *p >= target; every thread returns false when the
-// spin ran out (here or in another CTA).
-__device__ bool wait_geq(const unsigned* p, unsigned target, int* err,
-                         volatile int* abort_flag) {
-  if (threadIdx.x == 0) {
-    long long it = 0;
-    while (load_acquire(p) < target) {
-      ++it;
-      if ((it & 255) == 0 && *(volatile int*)err != 0) {
-        *abort_flag = 1;
-        break;
-      }
-      if (it > SPIN_LIMIT) {
-        atomicCAS(err, 0, ERR_SPIN_TIMEOUT);
-        *abort_flag = 1;
-        break;
-      }
-      if (it > 32) __nanosleep(128);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-  return *abort_flag == 0;
-}
-
-__device__ void publish(unsigned* p, unsigned v) {
-  __syncthreads();  // every thread's stores of this step are issued
-  if (threadIdx.x == 0) {
-    __threadfence();
-    store_release(p, v);
-  }
-}
-
-__device__ int mod(int a, int n) { return ((a % n) + n) % n; }
 
 template <typename T>
 __device__ void ring_body(const RingArgs& a) {

@@ -3,8 +3,9 @@
 Each source under ``ucc_tpu_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded through ``ctypes``. The
 libraries go into ``ucc_tpu_torch/build/`` (listed in ``.gitignore``),
-named by a hash of their source and flags, so an edited source is rebuilt
-and an unchanged one is not. Builds of several sources run in parallel,
+named by a hash of the flags, the source and every header of ``csrc/`` it
+includes, so an edited source or header is rebuilt and an unchanged one is
+not. Builds of several sources run in parallel,
 one ``nvcc`` each. Nothing is built when a module is imported: the first
 launch builds what it needs, or ``build_all()`` builds everything up
 front. A failed build raises.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +46,29 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(source: str) -> List[str]:
+    """*source* and every ``#include "..."`` of ``csrc/`` it reaches, each
+    once, in the order first met."""
+    seen: List[str] = []
+    todo = [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC, name), "rb") as fh:
+            todo += [m.decode() for m in _INCLUDE.findall(fh.read())]
+    return seen
+
+
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _source_files(source):
+        with open(os.path.join(CSRC, name), "rb") as fh:
+            digest.update(name.encode() + b"\0" + fh.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 

@@ -25,16 +25,21 @@ takes the chunk size as a parameter, so a test can use the JAX package's.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..constants import ReductionOp
-from ..status import Status, UccError
-from . import build
+# RingWorkspace, make_ptr_table, THREADS, SUPPORTED_DTYPES and the plain
+# fold (_accum, _divide) stay importable from here
+from .ring_common import (OPS, SUPPORTED_DTYPES, THREADS,  # noqa: F401
+                          RingLaunch, RingSource, RingWorkspace, dispatch,
+                          make_ptr_table)
+from .ring_common import accumulate as _accum
+from .ring_common import divide as _divide
 
 SOURCE = "ring_allreduce.cu"
+_SOURCE = RingSource(SOURCE, "ucc_ring_allreduce")
 
 #: per-rank elements one pass covers; counts above pass_elems(n) run the
 #: chunked kernel. 1 Mi elements (4 MiB f32 per rank) keeps a chunk's
@@ -42,19 +47,6 @@ SOURCE = "ring_allreduce.cu"
 #: the H100's 50 MB L2, so the neighbour exchange stays on chip, and keeps
 #: the slot memory a fixed size whatever the count.
 CHUNK_ELEMS = 1 << 20
-
-#: threads per CTA
-THREADS = 512
-
-OPS = (ReductionOp.SUM, ReductionOp.AVG, ReductionOp.MAX, ReductionOp.MIN,
-       ReductionOp.PROD)
-
-#: torch dtype -> dtype code of the CUDA source
-_DTYPE_CODES: Dict[torch.dtype, int] = {
-    torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
-    torch.int32: 3, torch.int64: 4,
-}
-SUPPORTED_DTYPES = tuple(_DTYPE_CODES)
 
 
 def pass_elems(n: int) -> int:
@@ -83,21 +75,6 @@ def chunked_geometry(count: int, n: int,
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
-
-def _accum(op: ReductionOp):
-    return {ReductionOp.SUM: torch.add, ReductionOp.AVG: torch.add,
-            ReductionOp.MAX: torch.maximum, ReductionOp.MIN: torch.minimum,
-            ReductionOp.PROD: torch.mul}[op]
-
-
-def _divide(x: torch.Tensor, n: int) -> torch.Tensor:
-    """AVG's final division: in float32 for integer and 16-bit types,
-    rounded (floats) or truncated (integers) back, as ``(x / n)`` then a
-    cast does. The divisor is a tensor, so every device divides (PyTorch
-    may turn division by a CPU scalar into a reciprocal multiply)."""
-    f = x if x.dtype in (torch.float32, torch.float64) else x.float()
-    return (f / torch.full_like(f, n)).to(x.dtype)
-
 
 def ring_allreduce_ref(srcs: Sequence[torch.Tensor], op: ReductionOp,
                        blk: int, n_chunks: int) -> List[torch.Tensor]:
@@ -146,202 +123,18 @@ def ring_allreduce_chunked_ref(srcs: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# launch plumbing
+# wrappers
 # ---------------------------------------------------------------------------
-
-class RingWorkspace:
-    """Comm slots, step flags and the error word of ring launches on one
-    device, grown on demand and reused. Launches sharing a workspace must
-    be ordered on one stream. The error word is sticky: once a launch has
-    faulted, every later launch on the workspace reports it too."""
-
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
-        self._comm: Optional[torch.Tensor] = None
-        self._flags: Optional[torch.Tensor] = None
-        self.err: Optional[torch.Tensor] = None
-
-    def get(self, comm_bytes: int, n_flags: int):
-        if self._comm is None or self._comm.numel() < comm_bytes:
-            self._comm = torch.empty(comm_bytes, dtype=torch.uint8,
-                                     device=self.device)
-        if self._flags is None or self._flags.numel() < n_flags:
-            self._flags = torch.empty(n_flags, dtype=torch.int32,
-                                      device=self.device)
-        if self.err is None:
-            self.err = torch.zeros(1, dtype=torch.int32, device=self.device)
-        return self._comm, self._flags[:n_flags], self.err
-
-
-class RingLaunch:
-    """Completion handle of one wrapper call. On CUDA it holds the event
-    recorded after the kernel and a pinned copy of the error word."""
-
-    def __init__(self, stream=None, err: Optional[torch.Tensor] = None,
-                 keep: tuple = ()):
-        self._event = None
-        self._err_host = None
-        self._keep = keep          # buffers the kernel uses until done
-        self.error = 0
-        if err is not None:
-            self._err_host = torch.empty(1, dtype=torch.int32,
-                                         pin_memory=True)
-            with torch.cuda.stream(stream):
-                self._err_host.copy_(err, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(stream)
-
-    def done(self) -> bool:
-        """True once the launch has finished; raises UccError if the
-        kernel reported a fault."""
-        if self._event is not None:
-            if not self._event.query():
-                return False
-            self._event = None
-            self._keep = ()
-            self.error = int(self._err_host[0])
-        if self.error:
-            raise UccError(Status.ERR_TIMED_OUT,
-                           f"ring allreduce kernel: a spin-wait ran out "
-                           f"(error word {self.error}); a peer CTA never "
-                           "signalled")
-        return True
-
-    def wait(self) -> None:
-        """Block until the launch has finished; raise on a kernel fault."""
-        if self._event is not None:
-            self._event.synchronize()
-        self.done()
-
-
-_lib = None
-_max_ctas: Dict[tuple, int] = {}
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = build.load(SOURCE)
-        lib.ucc_ring_allreduce.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.ucc_ring_allreduce.restype = ctypes.c_int
-        lib.ucc_ring_allreduce_max_ctas.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int)]
-        lib.ucc_ring_allreduce_max_ctas.restype = ctypes.c_int
-        lib.ucc_ring_allreduce_error_string.argtypes = [ctypes.c_int]
-        lib.ucc_ring_allreduce_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _cuda_check(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.ucc_ring_allreduce_error_string(rc).decode()
-        raise UccError(Status.ERR_NO_RESOURCE,
-                       f"{what} failed: CUDA error {rc} ({msg})")
-
-
-def _lanes(lib, chunked: int, code: int, n: int, blk: int,
-           device: torch.device) -> int:
-    """CTAs per rank: enough for one element per thread, no more than the
-    card can hold resident for all n ranks (the spins need every CTA
-    resident)."""
-    key = (device.index, chunked, code)
-    cap = _max_ctas.get(key)
-    if cap is None:
-        out = ctypes.c_int(0)
-        _cuda_check(lib, lib.ucc_ring_allreduce_max_ctas(
-            chunked, code, THREADS, ctypes.byref(out)), "occupancy query")
-        cap = _max_ctas[key] = out.value
-    if cap < n:
-        raise UccError(Status.ERR_NO_RESOURCE,
-                       f"a ring of {n} ranks needs {n} co-resident CTAs; "
-                       f"this card holds {cap}")
-    return max(1, min(cap // n, -(-blk // THREADS)))
-
-
-def make_ptr_table(srcs: Sequence[torch.Tensor],
-                   dsts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The kernel's device array of n src then n dst pointers."""
-    ptrs = [t.data_ptr() for t in srcs] + [t.data_ptr() for t in dsts]
-    return torch.tensor(ptrs, dtype=torch.int64, device=srcs[0].device)
-
-
-def _check(srcs, dsts, op) -> Tuple[int, int]:
-    n = len(srcs)
-    if n < 1 or len(dsts) != n:
-        raise UccError(Status.ERR_INVALID_PARAM,
-                       f"need one src and one dst per rank (got {n} srcs, "
-                       f"{len(dsts)} dsts)")
-    if op not in OPS:
-        raise UccError(Status.ERR_NOT_SUPPORTED,
-                       f"ring allreduce does not implement op {op}")
-    first = srcs[0]
-    count = first.numel()
-    for t in (*srcs, *dsts):
-        if not isinstance(t, torch.Tensor):
-            raise UccError(Status.ERR_INVALID_PARAM,
-                           f"ring allreduce buffers must be tensors, got "
-                           f"{type(t).__name__}")
-        if t.device != first.device or t.dtype != first.dtype or \
-                t.numel() != count or not t.is_contiguous():
-            raise UccError(Status.ERR_INVALID_PARAM,
-                           "ring allreduce buffers must be contiguous and "
-                           "agree in device, dtype and count")
-    if first.dtype not in _DTYPE_CODES:
-        raise UccError(Status.ERR_NOT_SUPPORTED,
-                       f"ring allreduce does not implement {first.dtype}")
-    return n, count
-
-
-def _run(chunked: int, srcs, dsts, op, blk: int, n_chunks: int, stream,
-         workspace: Optional[RingWorkspace],
-         ptr_table: Optional[torch.Tensor]) -> RingLaunch:
-    n, count = len(srcs), srcs[0].numel()
-    device = srcs[0].device
-    lib = _library()
-    code = _DTYPE_CODES[srcs[0].dtype]
-    if stream is None:
-        stream = torch.cuda.current_stream(device)
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        lanes = _lanes(lib, chunked, code, n, blk, device)
-        ws = workspace if workspace is not None else RingWorkspace(device)
-        comm, flags, err = ws.get(n * 2 * blk * srcs[0].element_size(),
-                                  n * lanes * 2)
-        if ptr_table is None:
-            ptr_table = make_ptr_table(srcs, dsts)
-        flags.zero_()
-        _cuda_check(lib, lib.ucc_ring_allreduce(
-            chunked, code, ptr_table.data_ptr(), comm.data_ptr(),
-            flags.data_ptr(), err.data_ptr(), count, blk, n_chunks, n,
-            int(op), lanes, THREADS, stream.cuda_stream),
-            "ring allreduce launch")
-    return RingLaunch(stream, err, keep=(ws, ptr_table))
-
 
 def _dispatch(chunked: int, srcs, dsts, op, geometry, ref, stream,
               workspace, ptr_table) -> Optional[RingLaunch]:
-    """None when the buffers lie on the CPU and the plain version already
-    wrote them; otherwise the kernel's launch handle."""
-    n, count = _check(srcs, dsts, op)
-    device = srcs[0].device
-    if device.type == "cpu":
-        for d, out in zip(dsts, ref(srcs, op)):
-            d.copy_(out)
-        return None
-    if device.type != "cuda":
-        raise UccError(Status.ERR_NOT_SUPPORTED,
-                       f"ring allreduce runs on cuda or cpu tensors, not "
-                       f"{device.type}")
-    if count == 0:
-        return None
-    blk, n_chunks = geometry(count, n)
-    return _run(chunked, srcs, dsts, op, blk, n_chunks, stream, workspace,
-                ptr_table)
+    def plan(count, n):
+        blk, n_chunks = geometry(count, n)
+        return count, blk, n_chunks, blk, 2 * blk
+    return dispatch(_SOURCE, chunked, "ring allreduce", srcs, dsts, op,
+                    ops=OPS, dst_count=lambda count, n: count,
+                    ref=lambda: ref(srcs, op), plan=plan, stream=stream,
+                    workspace=workspace, ptr_table=ptr_table)
 
 
 def ring_allreduce_pass(srcs: Sequence[torch.Tensor],

@@ -1,0 +1,253 @@
+"""Ring reduce_scatter and ring allgather over the n ranks of one device:
+the CUDA kernels of ``csrc/ring_rs_ag.cu``, their wrappers, and their
+plain PyTorch versions.
+
+Four kernels, two step schedules (see the note at the top of the source):
+
+- ``ring_reduce_scatter_pass`` replaces ``ucc_tpu/tl/ring_dma.py:
+  _ring_kernel`` in reduce_scatter mode, ``ring_reduce_scatter_chunked``
+  replaces ``_hbm_reduce_scatter_kernel``: rank r's src is n blocks of
+  ``blk`` elements, its dst is block r of the reduction;
+- ``ring_allgather_pass`` replaces ``_ring_kernel`` in allgather mode,
+  ``ring_allgather_chunked`` replaces ``_hbm_allgather_kernel``: rank r's
+  src is one block, its dst all n blocks in rank order.
+
+A chunked kernel runs its ring once per chunk, the same ``cblk``-element
+sub-range of every block; a pass kernel is the one-chunk case. Neither
+result depends on the chunk size.
+
+A wrapper takes one src and one dst tensor per rank and writes the result
+into the dst tensors: reduce_scatter takes n·c elements in and c out,
+allgather c in and n·c out. In place, reduce_scatter's src is the whole
+dst vector and its dst that vector's block r; allgather's src is block r
+of its dst. On CPU tensors a wrapper runs the plain version; on CUDA
+tensors it launches the kernel or raises. It returns a ``RingLaunch``
+whose ``done()``/``wait()`` raise if the kernel reported a fault, and
+counts its kernel launches in its ``launches`` attribute, a plain int.
+Allgather takes an op for the common calling shape and ignores it.
+
+The plain versions ``ring_reduce_scatter_ref`` / ``ring_allgather_ref``,
+one per collective, run the same steps with PyTorch ops, so their results
+are bitwise those of both kernels of their collective and of the JAX
+package's Pallas kernels in interpret mode. They take the chunk size as a
+parameter, so a test can use the JAX package's.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..constants import ReductionOp
+from ..status import Status, UccError
+from .ring_common import (OPS, RingLaunch, RingSource, RingWorkspace,
+                          accumulate, divide, dispatch)
+
+SOURCE = "ring_rs_ag.cu"
+_SOURCE = RingSource(SOURCE, "ucc_ring_rs_ag")
+
+#: kernel ids of the CUDA source
+K_RS_PASS, K_RS_CHUNKED, K_AG_PASS, K_AG_CHUNKED = range(4)
+
+#: the elements of one chunk over all n blocks; a block's chunk is
+#: CHUNK_ELEMS // n. For reduce_scatter, as the JAX package's cblk, a
+#: chunk's comm slots are then 2 x CHUNK_ELEMS elements over all ranks
+#: (8 MiB f32), resident in the H100's 50 MB L2. For allgather (whose
+#: kernel needs no slots) the JAX package takes CHUNK_ELEMS per block;
+#: CHUNK_ELEMS // n keeps one chunk step's blocks over all ranks (the ones
+#: forwarded next) in L2 all the same. The results do not depend on it.
+CHUNK_ELEMS = 1 << 20
+
+
+def reduce_scatter_pass_elems(n: int) -> int:
+    """Src elements per rank (n blocks) one pass covers; larger counts
+    run the chunked kernel, as ``_vmem_pass_elems`` routes the TPU's."""
+    return max(n, (CHUNK_ELEMS // n) * n)
+
+
+def allgather_pass_elems(n: int) -> int:
+    """Src elements per rank (one block) one pass covers; larger counts
+    run the chunked kernel, as the TPU's routing does."""
+    return max(1, CHUNK_ELEMS // n)
+
+
+def chunk_geometry(blk: int, n: int,
+                   cblk: Optional[int] = None) -> Tuple[int, int]:
+    """(cblk, n_chunks) of a chunked kernel over blocks of *blk* elements:
+    chunks of *cblk* elements per block (default ``CHUNK_ELEMS // n``,
+    never more than blk), the last one ragged."""
+    if cblk is None:
+        cblk = min(max(1, CHUNK_ELEMS // n), max(blk, 1))
+    elif cblk < 1:
+        raise ValueError(f"chunk size {cblk} is not positive")
+    return cblk, -(-blk // cblk)
+
+
+def pass_geometry(blk: int, n: int) -> Tuple[int, int]:
+    """(cblk, n_chunks) of a pass kernel: one chunk of the whole block."""
+    return max(blk, 1), 1
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _blocks(srcs: Sequence[torch.Tensor], n_blocks: int, blk: int,
+            cblk: int, n_chunks: int) -> torch.Tensor:
+    """(rank, block, padded element) view of the srcs' blocks, each padded
+    with zeros to n_chunks x cblk elements."""
+    x = torch.zeros((len(srcs), n_blocks, n_chunks * cblk),
+                    dtype=srcs[0].dtype, device=srcs[0].device)
+    for r, s in enumerate(srcs):
+        x[r, :, :blk] = s.reshape(n_blocks, blk)
+    return x
+
+
+def ring_reduce_scatter_ref(srcs: Sequence[torch.Tensor], op: ReductionOp,
+                            cblk: Optional[int] = None
+                            ) -> List[torch.Tensor]:
+    """Plain version of both reduce_scatter kernels: the ring (shift
+    c = 1) over ranks and steps, for every chunk of *cblk* elements
+    (default ``chunk_geometry``'s, one chunk at pass sizes) at once, as
+    chunks fold alike. Rank r sends its block r-1, then at step m folds
+    the incoming message into its block r-m-2 as ``acc(local,
+    incoming)`` and sends the fold on; after n-1 steps it holds block r.
+    AVG divides at the end."""
+    n = len(srcs)
+    blk = srcs[0].numel() // n
+    cblk, n_chunks = chunk_geometry(blk, n, cblk)
+    acc = accumulate(op)
+    x = _blocks(srcs, n, blk, cblk, n_chunks)
+    msg = [x[r, (r - 1) % n] for r in range(n)]
+    for m in range(n - 1):
+        msg = [acc(x[r, (r - m - 2) % n], msg[(r - 1) % n])
+               for r in range(n)]
+    if op == ReductionOp.AVG:
+        msg = [divide(v, n) for v in msg]
+    return [v[:blk] for v in msg]
+
+
+def ring_allgather_ref(srcs: Sequence[torch.Tensor],
+                       cblk: Optional[int] = None) -> List[torch.Tensor]:
+    """Plain version of both allgather kernels: the ring over ranks and
+    steps, for every chunk of *cblk* elements (default
+    ``chunk_geometry``'s) at once: rank r puts its block in place r, and
+    at step s forwards block r-s to rank r+1."""
+    n = len(srcs)
+    blk = srcs[0].numel()
+    cblk, n_chunks = chunk_geometry(blk, n, cblk)
+    own = _blocks(srcs, 1, blk, cblk, n_chunks)
+    out = torch.zeros((n, n, n_chunks * cblk), dtype=srcs[0].dtype,
+                      device=srcs[0].device)
+    for r in range(n):
+        out[r, r] = own[r, 0]
+    for s in range(n - 1):
+        for r in range(n):
+            b = (r - s) % n
+            out[(r + 1) % n, b] = out[r, b]
+    return [out[r, :, :blk].reshape(-1) for r in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _scatter_count(count: int, n: int) -> int:
+    if count % n:
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       f"ring reduce_scatter needs a src count divisible by "
+                       f"n={n} (got {count})")
+    return count // n
+
+
+def _reduce_scatter(kernel: int, geometry, srcs, dsts, op, stream,
+                    workspace, ptr_table) -> Optional[RingLaunch]:
+    def plan(count, n):
+        blk = count // n
+        cblk, n_chunks = geometry(blk, n)
+        return blk, cblk, n_chunks, cblk, 2 * cblk
+    return dispatch(_SOURCE, kernel, "ring reduce_scatter", srcs, dsts, op,
+                    ops=OPS, dst_count=_scatter_count,
+                    ref=lambda: ring_reduce_scatter_ref(srcs, op), plan=plan,
+                    stream=stream, workspace=workspace, ptr_table=ptr_table)
+
+
+def _allgather(kernel: int, geometry, srcs, dsts, stream, workspace,
+               ptr_table) -> Optional[RingLaunch]:
+    def plan(count, n):
+        cblk, n_chunks = geometry(count, n)
+        return count, cblk, n_chunks, cblk, 0
+    return dispatch(_SOURCE, kernel, "ring allgather", srcs, dsts, None,
+                    ops=None, dst_count=lambda count, n: n * count,
+                    ref=lambda: ring_allgather_ref(srcs), plan=plan,
+                    stream=stream, workspace=workspace, ptr_table=ptr_table)
+
+
+def ring_reduce_scatter_pass(srcs: Sequence[torch.Tensor],
+                             dsts: Sequence[torch.Tensor], op: ReductionOp,
+                             *, stream=None,
+                             workspace: Optional[RingWorkspace] = None,
+                             ptr_table: Optional[torch.Tensor] = None
+                             ) -> RingLaunch:
+    """One-pass ring reduce_scatter of ``srcs`` (n·c each) into ``dsts``
+    (c each)."""
+    h = _reduce_scatter(K_RS_PASS, pass_geometry, srcs, dsts, op, stream,
+                        workspace, ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_reduce_scatter_pass.launches += 1
+    return h
+
+
+def ring_reduce_scatter_chunked(srcs: Sequence[torch.Tensor],
+                                dsts: Sequence[torch.Tensor],
+                                op: ReductionOp, *, stream=None,
+                                workspace: Optional[RingWorkspace] = None,
+                                ptr_table: Optional[torch.Tensor] = None
+                                ) -> RingLaunch:
+    """Chunked ring reduce_scatter of ``srcs`` (n·c each) into ``dsts``
+    (c each)."""
+    h = _reduce_scatter(K_RS_CHUNKED, chunk_geometry, srcs, dsts, op,
+                        stream, workspace, ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_reduce_scatter_chunked.launches += 1
+    return h
+
+
+def ring_allgather_pass(srcs: Sequence[torch.Tensor],
+                        dsts: Sequence[torch.Tensor],
+                        op: Optional[ReductionOp] = None, *, stream=None,
+                        workspace: Optional[RingWorkspace] = None,
+                        ptr_table: Optional[torch.Tensor] = None
+                        ) -> RingLaunch:
+    """One-pass ring allgather of ``srcs`` (c each) into ``dsts`` (n·c
+    each); ``op`` is ignored."""
+    h = _allgather(K_AG_PASS, pass_geometry, srcs, dsts, stream, workspace,
+                   ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_allgather_pass.launches += 1
+    return h
+
+
+def ring_allgather_chunked(srcs: Sequence[torch.Tensor],
+                           dsts: Sequence[torch.Tensor],
+                           op: Optional[ReductionOp] = None, *, stream=None,
+                           workspace: Optional[RingWorkspace] = None,
+                           ptr_table: Optional[torch.Tensor] = None
+                           ) -> RingLaunch:
+    """Chunked ring allgather of ``srcs`` (c each) into ``dsts`` (n·c
+    each); ``op`` is ignored."""
+    h = _allgather(K_AG_CHUNKED, chunk_geometry, srcs, dsts, stream,
+                   workspace, ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_allgather_chunked.launches += 1
+    return h
+
+
+ring_reduce_scatter_pass.launches = 0
+ring_reduce_scatter_chunked.launches = 0
+ring_allgather_pass.launches = 0
+ring_allgather_chunked.launches = 0

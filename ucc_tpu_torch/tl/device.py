@@ -32,9 +32,10 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..api.types import BufferInfoV
-from ..constants import MemoryType, ReductionOp, dt_torch
+from ..constants import (CollType, MemoryType, ReductionOp,
+                         coll_type_str, dt_torch)
 from ..core.components import BaseContext
-from ..kernels.ring_allreduce import RingWorkspace, make_ptr_table
+from ..kernels.ring_common import RingWorkspace, make_ptr_table
 from ..schedule.task import CollTask
 from ..status import Status, UccError
 from ..utils.ep_map import EpMap
@@ -237,8 +238,8 @@ class DeviceCollTask(CollTask):
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"no torch dtype for {bi.datatype}") from None
         self._contrib_src = args.src is not None and not args.is_inplace
-        self.count = int(bi.count)
         self.validate()
+        self.src_count, self.dst_count = self._buffer_counts()
         self.local_buffers()       # reject bad buffers here, not mid-rendezvous
         # tag allocation LAST: a validation error above must not consume a
         # team tag, or this rank's tag sequence desyncs from its peers
@@ -248,7 +249,41 @@ class DeviceCollTask(CollTask):
         """The TL's own NOT_SUPPORTED rules, run before the tag is taken."""
 
     # -- buffers -----------------------------------------------------------
-    def _flat(self, bi) -> torch.Tensor:
+    def _buffer_counts(self) -> Tuple[int, int]:
+        """(src, dst) elements per rank, by UCC's count conventions:
+        allgather takes c and gives n·c (src.count c, dst.count n·c);
+        reduce_scatter takes n·c and gives c (src.count n·c, dst.count c);
+        in place, dst.count is n·c for both. Blocks are equal: a
+        reduce_scatter total not divisible by n is NOT_SUPPORTED."""
+        args = self.args
+        n = self.tl_team.size
+        if self.coll not in (CollType.ALLGATHER, CollType.REDUCE_SCATTER):
+            bi = args.src if self._contrib_src else args.dst
+            return int(bi.count), int(bi.count)
+        if args.dst is None:
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           f"{coll_type_str(self.coll)} needs a dst buffer")
+        total = int(args.dst.count)          # in place: n·c for both
+        if self._contrib_src:
+            total = int(args.src.count)
+            if self.coll == CollType.ALLGATHER:
+                total *= n
+        if total % n:
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           f"tl/{self.tl_team.NAME} "
+                           f"{coll_type_str(self.coll)} requires count % "
+                           f"team_size == 0 (count {total}, team size {n})")
+        c = total // n
+        counts = (c, total) if self.coll == CollType.ALLGATHER else (total, c)
+        if self._contrib_src:
+            given = (int(args.src.count), int(args.dst.count))
+            if given != counts:
+                raise UccError(Status.ERR_INVALID_PARAM,
+                               f"{coll_type_str(self.coll)} of {n} ranks "
+                               f"takes src/dst counts {counts}, got {given}")
+        return counts
+
+    def _flat(self, bi, count: int) -> torch.Tensor:
         buf = None if bi is None else bi.buffer
         dev = self.tl_team.shared.device
         if not isinstance(buf, torch.Tensor):
@@ -256,18 +291,30 @@ class DeviceCollTask(CollTask):
                            f"device collectives take torch tensors, got "
                            f"{type(buf).__name__}")
         if buf.device != dev or buf.dtype != self.dtype or \
-                not buf.is_contiguous() or buf.numel() < self.count:
+                not buf.is_contiguous() or buf.numel() < count:
             raise UccError(Status.ERR_INVALID_PARAM,
                            f"buffer must be a contiguous {self.dtype} tensor "
-                           f"of >= {self.count} elements on {dev} (got "
+                           f"of >= {count} elements on {dev} (got "
                            f"{buf.dtype} {tuple(buf.shape)} on {buf.device})")
-        return buf.reshape(-1)[:self.count]
+        return buf.reshape(-1)[:count]
 
     def local_buffers(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's (src, dst) for the kernel wrappers. In place (the
+        conventions of the host ring, tl/host/ring.py): allgather reads
+        its own block from dst[me·c:(me+1)·c]; reduce_scatter reads the
+        whole n·c vector from dst and writes its result to that block,
+        leaving the other blocks as they were."""
         args = self.args
-        dst = self._flat(args.dst)
-        src = self._flat(args.src) if self._contrib_src else dst
-        return src, dst
+        if self._contrib_src:
+            return (self._flat(args.src, self.src_count),
+                    self._flat(args.dst, self.dst_count))
+        full = self._flat(args.dst, max(self.src_count, self.dst_count))
+        if self.src_count == self.dst_count:
+            return full, full
+        c = min(self.src_count, self.dst_count)
+        me = self.tl_team.rank
+        own = full[me * c:(me + 1) * c]
+        return (own, full) if self.coll == CollType.ALLGATHER else (full, own)
 
     def _deposit(self) -> None:
         src, dst = self.local_buffers()

@@ -4,14 +4,19 @@ ranks of one device (the counterpart of the JAX package's tl/ring_dma).
 Where tl/ring_dma drives inter-chip remote DMAs from Pallas kernels, this
 TL runs every rank of an in-process team on one GPU and launches ONE
 kernel over all of their buffers: CTA (r, c) plays rank r on lane slice c,
-and a "remote copy" is a store into the right neighbour's receive slot in
-global memory followed by a release flag (kernels/ring_allreduce.py,
-csrc/ring_allreduce.cu). The rendezvous and launch plumbing is tl/device.
+and a "remote copy" is a store into the right neighbour's receive slot (or,
+for allgather, its dst block) in global memory followed by a release flag
+(kernels/ring_allreduce.py, kernels/ring_rs_ag.py and their sources under
+csrc/). The rendezvous and launch plumbing is tl/device.
 
-Allreduce routes by count as ``RingDmaCollTask.build_program`` does: up to
-``pass_elems(n)`` elements per rank run the one-pass kernel, larger counts
-the chunked one. Only ALLREDUCE is ported so far; other collective types
-are ERR_NOT_SUPPORTED, so selection falls back to other TLs.
+Collectives and routing, as ``RingDmaCollTask`` has them: ALLREDUCE and
+REDUCE_SCATTER take SUM/AVG/MAX/MIN/PROD, ALLGATHER any op (it has none).
+Each runs its one-pass kernel up to a per-rank src count and its chunked
+kernel above it: ``pass_elems(n)`` for allreduce, ``n·c >
+reduce_scatter_pass_elems(n)`` for reduce_scatter, ``c >
+allgather_pass_elems(n)`` for allgather. A reduce_scatter total not
+divisible by n is ERR_NOT_SUPPORTED at init (tl/device). Other collective
+types are ERR_NOT_SUPPORTED, so selection falls back to other TLs.
 
 Default score 20 (below an accelerator default TL, as tl/ring_dma); select
 it with ``UCC_TL_RING_CUDA_TUNE`` (e.g. ``allreduce:@ring_cuda:inf``) or by
@@ -24,6 +29,8 @@ from typing import Any, Dict, List
 from ..constants import CollType, MemoryType
 from ..core.components import BaseLib, TransportLayer, register_tl
 from ..kernels import ring_allreduce as kr
+from ..kernels import ring_common as kc
+from ..kernels import ring_rs_ag as krs
 from ..score.score import CollScore
 from ..status import Status, UccError
 from ..utils.config import (ConfigField, ConfigTable, parse_string,
@@ -40,27 +47,41 @@ TL_RING_CUDA_CONFIG = register_table(ConfigTable(
     ]))
 
 
+#: collective -> (per-rank src elements one pass covers, pass kernel,
+#: chunked kernel)
+_PROGRAMS = {
+    CollType.ALLREDUCE: (kr.pass_elems, kr.ring_allreduce_pass,
+                         kr.ring_allreduce_chunked),
+    CollType.REDUCE_SCATTER: (krs.reduce_scatter_pass_elems,
+                              krs.ring_reduce_scatter_pass,
+                              krs.ring_reduce_scatter_chunked),
+    CollType.ALLGATHER: (krs.allgather_pass_elems, krs.ring_allgather_pass,
+                         krs.ring_allgather_chunked),
+}
+
+
 class RingCudaCollTask(DeviceCollTask):
-    """Rendezvous/dispatch of tl/device; the launched program is the CUDA
+    """Rendezvous/dispatch of tl/device; the launched program is a CUDA
     ring kernel."""
 
     def validate(self) -> None:
-        if self.coll != CollType.ALLREDUCE:
+        if self.coll not in _PROGRAMS:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/ring_cuda does not implement {self.coll} "
                            "yet")
-        if self.op not in kr.OPS:
+        if self.coll != CollType.ALLGATHER and self.op not in kc.OPS:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/ring_cuda does not implement op {self.op}")
-        if self.dtype not in kr.SUPPORTED_DTYPES:
+        if self.dtype not in kc.SUPPORTED_DTYPES:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/ring_cuda does not implement {self.dtype}")
 
     def build_program(self, shared):
-        if self.count > kr.pass_elems(len(shared.devices)):
+        pass_elems, one_pass, chunked = _PROGRAMS[self.coll]
+        if self.src_count > pass_elems(len(shared.devices)):
             # larger than one pass: the chunked kernel
-            return kr.ring_allreduce_chunked
-        return kr.ring_allreduce_pass
+            return chunked
+        return one_pass
 
 
 class TlRingCudaTeam(TlDeviceTeam):
@@ -70,7 +91,7 @@ class TlRingCudaTeam(TlDeviceTeam):
     def alg_table(self) -> Dict[CollType, List[AlgSpec]]:
         def init(ia, team):
             return RingCudaCollTask(ia, self)
-        return {CollType.ALLREDUCE: [AlgSpec(0, "ring_cuda", init)]}
+        return {coll: [AlgSpec(0, "ring_cuda", init)] for coll in _PROGRAMS}
 
     def get_scores(self) -> CollScore:
         return build_scores(self, TlRingCuda.DEFAULT_SCORE, self.alg_table(),
@@ -85,7 +106,8 @@ class TlRingCuda(TransportLayer):
 
     NAME = "ring_cuda"
     DEFAULT_SCORE = 20
-    SUPPORTED_COLLS = CollType.ALLREDUCE
+    SUPPORTED_COLLS = (CollType.ALLREDUCE | CollType.ALLGATHER |
+                       CollType.REDUCE_SCATTER)
     SUPPORTED_MEM_TYPES = (MemoryType.CUDA,)
     SERVICE_CAPABLE = False
     CONTEXT_CONFIG = TL_RING_CUDA_CONFIG
