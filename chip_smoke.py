@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build both kernel sources from
+   versions, and the time to build the three kernel sources from
    ucc_tpu_torch/csrc/ (one nvcc each, started together);
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
@@ -18,8 +18,14 @@ Phases, each printing its own lines (any failure exits non-zero):
    - both ring reduce_scatter kernels over the five ops and both ring
      allgather kernels, several chunks for the chunked ones, in place for
      both collectives, f16 and int64 cases and n = 1;
-   and a set error word must make an allreduce, a reduce_scatter and an
-   allgather wrapper raise;
+   - both ring bcast kernels from roots 0, n/2 and n-1, several sub-blocks
+     for the chunked one, each also against the root's saved src, in place
+     (src = dst, as UCC's bcast passes src alone), and both pairwise
+     alltoall kernels, several chunks for the chunked one, each also
+     against torch.cat of block r of every src, in place; f16 and int64
+     cases and n = 1 for both;
+   and a set error word must make an allreduce, a reduce_scatter, an
+   allgather, a bcast and an alltoall wrapper raise;
 3. main path: 8 contexts over a ThreadOobWorld, one team, persistent
    requests driven like bench.py (5 warm-up and 20 timed rounds), the
    launch counters zeroed just before each run and read just after:
@@ -31,11 +37,18 @@ Phases, each printing its own lines (any failure exits non-zero):
      the block of torch.stack(srcs).sum(0) and, bitwise, the plain version;
    - allgather of 2 Mi f32 in, 16 Mi out per rank, then of 8 Ki f32 in;
      each bitwise equal to torch.cat(srcs) and the plain version;
+   - bcast of 16 Mi f32 (a start-up parameter bucket) from root 3, then of
+     64 Ki f32 from root 0, src alone on every rank; every buffer bitwise
+     the root's data and the plain version;
+   - alltoall of 16 Mi f32 per rank (2 Mi per partner: an MoE dispatch of
+     8192 tokens x 2048 f32), then of 64 Ki f32; each bitwise equal to
+     torch.cat of block r of every src and the plain version;
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms): torch.stack(srcs).sum(0)
    for allreduce and reduce_scatter, n x torch.cat(srcs, out=dst) for
-   allgather.
+   allgather, (n-1) x dst.copy_(src_root) for bcast, n x torch.cat(block r
+   of every src, out=dst_r) for alltoall.
 
 The last two lines are the kernels record and {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -207,6 +220,52 @@ def check_allgather(wrapper, ref, srcs, inplace=False) -> float:
     return compare(label(wrapper, srcs, None), dsts, want)
 
 
+def check_bcast(wrapper, ref, srcs, root, inplace=False) -> float:
+    """The same for a bcast kernel from `root` (c in, c out per rank),
+    which must also be bitwise the root's src. In place, each rank's src is
+    its dst, as when UCC's bcast passes src alone."""
+    import torch
+    data = srcs[root].clone()
+    want = ref(srcs, root)
+    if inplace:
+        dsts = [s.clone() for s in srcs]
+        wrapper(dsts, dsts, root=root).wait()
+    else:
+        dsts = [torch.full_like(s, 7) for s in srcs]
+        wrapper(srcs, dsts, root=root).wait()
+    torch.cuda.synchronize()
+    what = f"{label(wrapper, srcs, None)} root={root}"
+    compare(what + " vs the root's src", dsts, [data] * len(srcs))
+    return compare(what, dsts, want)
+
+
+def alltoall_expected(srcs):
+    """dst_r of an alltoall: torch.cat of block r of every src."""
+    import torch
+    n = len(srcs)
+    b = srcs[0].numel() // n
+    return [torch.cat([s[r * b:(r + 1) * b] for s in srcs])
+            for r in range(n)]
+
+
+def check_alltoall(wrapper, ref, srcs, inplace=False) -> float:
+    """The same for an alltoall kernel (n·b in, n·b out per rank), which
+    must also be bitwise torch.cat of block r of every src. In place, the
+    src is the dst."""
+    import torch
+    want = ref(srcs)
+    if inplace:
+        dsts = [s.clone() for s in srcs]
+        wrapper(dsts, dsts).wait()
+    else:
+        dsts = [torch.full_like(s, 7) for s in srcs]
+        wrapper(srcs, dsts).wait()
+    torch.cuda.synchronize()
+    what = label(wrapper, srcs, None) + (" in place" if inplace else "")
+    compare(what + " vs cat", dsts, alltoall_expected(srcs))
+    return compare(what, dsts, want)
+
+
 def expect_fault(launch) -> None:
     """A launch on a workspace whose error word is already set: every spin
     gives up, and the wrapper must report it."""
@@ -343,6 +402,90 @@ def phase_kernels_rs_ag() -> None:
         f"a set error word raises for both collectives")
 
 
+def phase_kernels_bcast_a2a() -> None:
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
+    t0 = time.perf_counter()
+    bc = (kba.ring_bcast_pass, kba.ring_bcast_ref)
+    bc_c = (kba.ring_bcast_chunked, kba.ring_bcast_ref)
+    a2a = (kba.ring_alltoall_pass, kba.ring_alltoall_ref)
+    a2a_c = (kba.ring_alltoall_chunked, kba.ring_alltoall_ref)
+    sub = kba.CHUNK_ELEMS // 2
+    cases = 0
+    for n in (2, 4, 8):
+        # bcast: 2 sub-blocks at the pass size, 4 at the chunked one, the
+        # last ragged against the sub-block and the lanes
+        bc_pass, bc_chunked = kba.CHUNK_ELEMS - 3, 3 * sub + 7
+        # alltoall: blocks ragged against the lanes, and 3 chunks per
+        # block, the last ragged
+        a2a_pass_blk = kba.CHUNK_ELEMS // n // 3 + 5
+        a2a_chunked_blk = 2 * (kba.CHUNK_ELEMS // n) + 3
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for i, root in enumerate((0, n // 2, n - 1)):
+                seed = 4000 * n + 10 * i + dtype.itemsize
+                # MAX puts a NaN into rank 1's input: it must travel as is
+                check_bcast(*bc, make_inputs(n, bc_pass, dtype,
+                                             ReductionOp.MAX, seed), root)
+                check_bcast(*bc_c, make_inputs(n, bc_chunked, dtype,
+                                               ReductionOp.MAX, seed + 1),
+                            root)
+                cases += 2
+            seed = 5000 * n + dtype.itemsize
+            check_alltoall(*a2a, make_inputs(n, n * a2a_pass_blk, dtype,
+                                             ReductionOp.MAX, seed))
+            check_alltoall(*a2a_c, make_inputs(n, n * a2a_chunked_blk,
+                                               dtype, ReductionOp.MAX,
+                                               seed + 1))
+            check_alltoall(*a2a_c, make_inputs(n, n * a2a_chunked_blk,
+                                               dtype, ReductionOp.SUM,
+                                               seed + 2), inplace=True)
+            cases += 3
+        check_alltoall(*a2a, make_inputs(n, n * a2a_pass_blk, torch.float32,
+                                         ReductionOp.SUM, 5100 + n),
+                       inplace=True)
+        check_bcast(*bc_c, make_inputs(n, bc_chunked, torch.float32,
+                                       ReductionOp.SUM, 5200 + n), n - 1,
+                    inplace=True)
+        cases += 2
+    # the two further dtypes, one rank, and a bcast of the pass size in
+    # place
+    for dtype, seed in ((torch.float16, 20), (torch.int64, 21)):
+        check_bcast(*bc, make_inputs(4, 1001, dtype, ReductionOp.SUM, seed),
+                    2)
+        check_bcast(*bc_c, make_inputs(4, 3 * sub + 1, dtype,
+                                       ReductionOp.SUM, seed + 2), 1)
+        check_alltoall(*a2a, make_inputs(4, 4 * 1001, dtype,
+                                         ReductionOp.SUM, seed + 4))
+        check_alltoall(*a2a_c, make_inputs(4, 4 * 1001, dtype,
+                                           ReductionOp.SUM, seed + 6),
+                       inplace=True)
+        cases += 4
+    check_bcast(*bc, make_inputs(1, 777, torch.float32, ReductionOp.SUM, 22),
+                0)
+    check_bcast(*bc, make_inputs(1, 777, torch.float32, ReductionOp.SUM, 23),
+                0, inplace=True)
+    check_alltoall(*a2a, make_inputs(1, 777, torch.float32, ReductionOp.SUM,
+                                     24))
+    check_bcast(*bc, make_inputs(8, 64 << 10, torch.float32,
+                                 ReductionOp.SUM, 25), 0, inplace=True)
+    cases += 4
+    srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 26)
+    expect_fault(lambda: kba.ring_bcast_chunked(
+        srcs, [torch.empty_like(s) for s in srcs], root=2,
+        workspace=faulted_workspace()))
+    expect_fault(lambda: kba.ring_alltoall_pass(
+        srcs, [torch.empty_like(s) for s in srcs],
+        workspace=faulted_workspace()))
+    log(f"kernels: {cases} bcast/alltoall launches bitwise equal to their "
+        f"plain versions (n in 2,4,8; f32/bf16/int32 with a NaN; bcast from "
+        f"roots 0, n/2, n-1, bitwise the root's src; alltoall bitwise "
+        f"torch.cat of block r; ragged counts; 2-4 sub-blocks, 3 chunks; in "
+        f"place for both; f16, int64; n=1) in "
+        f"{time.perf_counter() - t0:.1f} s; a set error word raises for both "
+        f"collectives")
+
+
 def make_job(n):
     import ucc_tpu_torch as ucc
     world = ucc.ThreadOobWorld(n)
@@ -385,18 +528,22 @@ def make_job(n):
 
 
 #: the main path's runs: (collective, kernel it must launch, f32 elements
-#: in and out per rank, seed)
+#: in and out per rank, root, seed)
 MAIN_RUNS = (
-    ("ALLREDUCE", "ring_allreduce_chunked", MAIN_COUNT, MAIN_COUNT, 11),
-    ("ALLREDUCE", "ring_allreduce_pass", SMALL_COUNT, SMALL_COUNT, 12),
+    ("ALLREDUCE", "ring_allreduce_chunked", MAIN_COUNT, MAIN_COUNT, 0, 11),
+    ("ALLREDUCE", "ring_allreduce_pass", SMALL_COUNT, SMALL_COUNT, 0, 12),
     ("REDUCE_SCATTER", "ring_reduce_scatter_chunked", MAIN_COUNT,
-     MAIN_COUNT // N_RANKS, 13),
+     MAIN_COUNT // N_RANKS, 0, 13),
     ("REDUCE_SCATTER", "ring_reduce_scatter_pass", SMALL_COUNT,
-     SMALL_COUNT // N_RANKS, 14),
+     SMALL_COUNT // N_RANKS, 0, 14),
     ("ALLGATHER", "ring_allgather_chunked", AG_MAIN_COUNT,
-     AG_MAIN_COUNT * N_RANKS, 15),
+     AG_MAIN_COUNT * N_RANKS, 0, 15),
     ("ALLGATHER", "ring_allgather_pass", AG_SMALL_COUNT,
-     AG_SMALL_COUNT * N_RANKS, 16),
+     AG_SMALL_COUNT * N_RANKS, 0, 16),
+    ("BCAST", "ring_bcast_chunked", MAIN_COUNT, MAIN_COUNT, 3, 17),
+    ("BCAST", "ring_bcast_pass", SMALL_COUNT, SMALL_COUNT, 0, 18),
+    ("ALLTOALL", "ring_alltoall_chunked", MAIN_COUNT, MAIN_COUNT, 0, 19),
+    ("ALLTOALL", "ring_alltoall_pass", SMALL_COUNT, SMALL_COUNT, 0, 20),
 )
 
 #: kernel -> (source, the TPU kernel it replaces, its plain version)
@@ -417,38 +564,64 @@ KERNELS = {
     "ring_allgather_chunked": ("ring_rs_ag.cu",
                                "ucc_tpu/tl/ring_dma.py:1088",
                                "ring_allgather_ref"),
+    "ring_bcast_pass": ("ring_bcast_a2a.cu", "ucc_tpu/tl/ring_dma.py:460",
+                        "ring_bcast_ref"),
+    "ring_bcast_chunked": ("ring_bcast_a2a.cu", "ucc_tpu/tl/ring_dma.py:533",
+                           "ring_bcast_ref"),
+    "ring_alltoall_pass": ("ring_bcast_a2a.cu", "ucc_tpu/tl/ring_dma.py:350",
+                           "ring_alltoall_ref"),
+    "ring_alltoall_chunked": ("ring_bcast_a2a.cu",
+                              "ucc_tpu/tl/ring_dma.py:733",
+                              "ring_alltoall_ref"),
 }
 
 
 def wrappers():
-    """kernel name -> (wrapper, plain version taking (srcs, op))."""
+    """kernel name -> (wrapper, plain version taking (srcs, op, root))."""
     from ucc_tpu_torch.kernels import ring_allreduce as kr
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
     from ucc_tpu_torch.kernels import ring_rs_ag as krs
+    mods = {m.SOURCE: m for m in (kr, krs, kba)}
     out = {}
     for name, (source, _, ref_name) in KERNELS.items():
-        mod = kr if source == kr.SOURCE else krs
-        ref = getattr(mod, ref_name)
-        if "allgather" in name:
-            ref = (lambda f: lambda srcs, op: f(srcs))(ref)
+        mod = mods[source]
+        f = getattr(mod, ref_name)
+        if "allgather" in name or "alltoall" in name:
+            ref = (lambda f: lambda srcs, op, root: f(srcs))(f)
+        elif "bcast" in name:
+            ref = (lambda f: lambda srcs, op, root: f(srcs, root))(f)
+        else:
+            ref = (lambda f: lambda srcs, op, root: f(srcs, op))(f)
         out[name] = (getattr(mod, name), ref)
     return out
 
 
-def run_main_path(ctxs, teams, coll, count, dst_count, seed):
-    """Persistent `coll` SUM of `count` f32 in and `dst_count` out per rank
-    through the whole stack; returns (per-round host seconds, srcs, dsts,
-    alg name)."""
+def run_main_path(ctxs, teams, coll, count, dst_count, root, seed):
+    """Persistent `coll` (SUM where it reduces) of `count` f32 in and
+    `dst_count` out per rank through the whole stack; bcast passes src
+    alone, from `root`. Returns (per-round host seconds, srcs, dsts, alg
+    name); a bcast's srcs are the root's data n times, its dsts the
+    buffers."""
     import torch
     import ucc_tpu_torch as ucc
     n = len(teams)
     g = torch.Generator(device="cuda").manual_seed(seed)
     srcs = [torch.randn(count, generator=g, device="cuda") for _ in range(n)]
-    dsts = [torch.empty(dst_count, device="cuda") for _ in range(n)]
-    reqs = [teams[r].collective_init(ucc.CollArgs(
-        coll_type=ucc.CollType[coll], op=ucc.ReductionOp.SUM,
-        src=ucc.BufferInfo(srcs[r], count, ucc.DataType.FLOAT32),
-        dst=ucc.BufferInfo(dsts[r], dst_count, ucc.DataType.FLOAT32),
-        flags=ucc.CollArgsFlags.PERSISTENT)) for r in range(n)]
+    f32 = ucc.DataType.FLOAT32
+    if coll == "BCAST":
+        dsts, srcs = srcs, [srcs[root].clone()] * n
+        argses = [ucc.CollArgs(
+            coll_type=ucc.CollType.BCAST, root=root,
+            src=ucc.BufferInfo(dsts[r], count, f32),
+            flags=ucc.CollArgsFlags.PERSISTENT) for r in range(n)]
+    else:
+        dsts = [torch.empty(dst_count, device="cuda") for _ in range(n)]
+        argses = [ucc.CollArgs(
+            coll_type=ucc.CollType[coll], op=ucc.ReductionOp.SUM,
+            src=ucc.BufferInfo(srcs[r], count, f32),
+            dst=ucc.BufferInfo(dsts[r], dst_count, f32),
+            flags=ucc.CollArgsFlags.PERSISTENT) for r in range(n)]
+    reqs = [teams[r].collective_init(argses[r]) for r in range(n)]
     alg = reqs[0].task.alg_name
 
     def one_round():
@@ -480,15 +653,23 @@ def run_main_path(ctxs, teams, coll, count, dst_count, seed):
     return samples, srcs, dsts, alg
 
 
-def check_main_result(coll, srcs, dsts, plain) -> None:
+def check_main_result(coll, srcs, dsts, plain, root) -> None:
     """allreduce: every dst is torch.stack(srcs).sum(0); reduce_scatter:
     rank r's dst is its block of it (both within MAIN_RTOL/ATOL: another
-    summation order); allgather: every dst is bitwise torch.cat(srcs).
-    Every dst is bitwise the plain version."""
+    summation order); allgather: every dst is bitwise torch.cat(srcs);
+    bcast: every buffer is bitwise the root's data; alltoall: rank r's dst
+    is bitwise torch.cat of block r of every src. Every dst is bitwise the
+    plain version."""
     import torch
     n = len(srcs)
     if coll == "ALLGATHER":
         compare("allgather vs torch.cat", dsts, [torch.cat(srcs)] * n)
+    elif coll == "BCAST":
+        compare(f"bcast from {root} vs the root's data", dsts,
+                [srcs[root]] * n)
+    elif coll == "ALLTOALL":
+        compare("alltoall vs torch.cat of block r", dsts,
+                alltoall_expected(srcs))
     else:
         total = torch.stack(srcs).sum(0)
         c = dsts[0].numel()
@@ -503,41 +684,81 @@ def check_main_result(coll, srcs, dsts, plain) -> None:
     compare(f"{coll} main path", dsts, plain)
 
 
-def bound_ms(n, count, dst_count, flops, elem=4):
-    """(ms, "bytes" or "operations"): the least time for n ranks of
-    `count` elements in and `dst_count` out, the longer of reading every
-    input once and writing every output once at the HBM rate, and doing
-    the `flops` adds at the f32 rate."""
-    by_bytes = n * (count + dst_count) * elem / HBM_BYTES_PER_S * 1e3
+def least_bytes(coll, n, count, dst_count, elem=4) -> int:
+    """Bytes the collective must move over all n ranks, each input read
+    once and each output written once: bcast reads the root's S bytes and
+    writes n-1 copies (n·S); alltoall reads and writes n·S; the others
+    read n srcs and write n dsts."""
+    if coll == "BCAST":
+        return n * count * elem
+    if coll == "ALLTOALL":
+        return 2 * n * count * elem
+    return n * (count + dst_count) * elem
+
+
+def bound_ms(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time, the longer of moving
+    `nbytes` at the HBM rate and doing the `flops` adds at the f32
+    rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / F32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else \
         (by_ops, "operations")
 
 
-def measure(coll, wrapper, ref, srcs, dst_count):
+#: collective -> (busbw / algbw as the nccl-tests count it, yardstick)
+CONVENTIONS = {
+    "ALLREDUCE": (2 * (N_RANKS - 1) / N_RANKS, "stack().sum(0)"),
+    "REDUCE_SCATTER": ((N_RANKS - 1) / N_RANKS, "stack().sum(0)"),
+    "ALLGATHER": ((N_RANKS - 1) / N_RANKS, "n x torch.cat"),
+    "BCAST": (1.0, "(n-1) x copy_"),
+    "ALLTOALL": ((N_RANKS - 1) / N_RANKS, "n x torch.cat of block r"),
+}
+
+
+def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     """The kernel alone on the main path's inputs: bitwise against its
     plain version (max_abs_err), then timed with its workspace and
     pointer table built once, as the team's persistent launches reuse
-    them; its plain version and one PyTorch call as yardsticks."""
+    them (a bcast in place on the main path's buffers `bufs`, as the main
+    path runs it); its plain version and one PyTorch call as
+    yardsticks."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_common as kc
     sum_ = ReductionOp.SUM
+    n = len(srcs)
     if coll == "ALLGATHER":
-        max_err = check_allgather(wrapper, lambda s: ref(s, sum_), srcs)
+        max_err = check_allgather(wrapper, lambda s: ref(s, sum_, 0), srcs)
     elif coll == "REDUCE_SCATTER":
-        max_err = check_reduce_scatter(wrapper, ref, srcs, sum_)
+        max_err = check_reduce_scatter(
+            wrapper, lambda s, op: ref(s, op, 0), srcs, sum_)
+    elif coll == "BCAST":
+        max_err = check_bcast(wrapper, lambda s, r: ref(s, None, r), srcs,
+                              root)
+    elif coll == "ALLTOALL":
+        max_err = check_alltoall(wrapper, lambda s: ref(s, None, 0), srcs)
     else:
-        max_err = check_kernel(wrapper, ref, srcs, sum_)
-    out = [torch.empty(dst_count, device="cuda") for _ in srcs]
+        max_err = check_kernel(wrapper, lambda s, op: ref(s, op, 0), srcs,
+                               sum_)
+    ins, out = (bufs, bufs) if coll == "BCAST" else \
+        (srcs, [torch.empty(dst_count, device="cuda") for _ in srcs])
     ws = kc.RingWorkspace(srcs[0].device)
-    table = kc.make_ptr_table(srcs, out)
-    ms = cuda_ms(lambda: wrapper(srcs, out, sum_, workspace=ws,
+    table = kc.make_ptr_table(ins, out)
+    ms = cuda_ms(lambda: wrapper(ins, out, sum_, root=root, workspace=ws,
                                  ptr_table=table), 20)
-    plain_ms = cuda_ms(lambda: ref(srcs, sum_), 3)
+    plain_ms = cuda_ms(lambda: ref(srcs, sum_, root), 3)
     if coll == "ALLGATHER":
         library_ms = cuda_ms(lambda: [torch.cat(srcs, out=o) for o in out],
                              20)
+    elif coll == "BCAST":
+        library_ms = cuda_ms(lambda: [o.copy_(srcs[root]) for r, o in
+                                      enumerate(out) if r != root], 20)
+    elif coll == "ALLTOALL":
+        b = srcs[0].numel() // n
+        library_ms = cuda_ms(lambda: [
+            torch.cat([s[r * b:(r + 1) * b] for s in srcs], out=o)
+            for r, o in enumerate(out)], 20)
     else:
         library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
     return max_err, ms, plain_ms, library_ms
@@ -559,6 +780,7 @@ def main() -> int:
         import ucc_tpu_torch as ucc
         from ucc_tpu_torch.kernels import build
         from ucc_tpu_torch.kernels import ring_allreduce as kr
+        from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
         from ucc_tpu_torch.kernels import ring_rs_ag as krs
     except ImportError as e:
         print(f"chip_smoke: ucc_tpu_torch not importable here: {e}",
@@ -570,7 +792,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
-    sources = [kr.SOURCE, krs.SOURCE]
+    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE]
     build_s = build.build_all(sources)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
         f"{build_s:.1f} s")
@@ -578,20 +800,21 @@ def main() -> int:
     # -- 2. kernels against their plain versions ---------------------------
     phase_kernels()
     phase_kernels_rs_ag()
+    phase_kernels_bcast_a2a()
 
     # -- 3. main path ----------------------------------------------------
     os.environ["UCC_TL_RING_CUDA_TUNE"] = \
-        "allreduce,reduce_scatter,allgather:@ring_cuda:inf"
+        "allreduce,reduce_scatter,allgather,bcast,alltoall:@ring_cuda:inf"
     t0 = time.perf_counter()
     ctxs, teams = make_job(N_RANKS)
     log(f"job: {N_RANKS} contexts + team in {time.perf_counter() - t0:.1f} s")
     kernels = wrappers()
     records = {}
-    for coll, kname, count, dst_count, seed in MAIN_RUNS:
+    for coll, kname, count, dst_count, root, seed in MAIN_RUNS:
         for wrapper, _ in kernels.values():
             wrapper.launches = 0
         samples, srcs, dsts, alg = run_main_path(ctxs, teams, coll, count,
-                                                 dst_count, seed)
+                                                 dst_count, root, seed)
         launches = {k: w.launches for k, (w, _) in kernels.items()}
         log(f"main path {coll} {count} f32/rank in: launches {launches}")
         if launches[kname] <= 0:
@@ -600,22 +823,26 @@ def main() -> int:
         if alg != "ring_cuda":
             raise AssertionError(f"{coll} selected {alg}, not ring_cuda")
         wrapper, ref = kernels[kname]
-        plain = ref(srcs, ucc.ReductionOp.SUM)
-        check_main_result(coll, srcs, dsts, plain)
+        plain = ref(srcs, ucc.ReductionOp.SUM, root)
+        check_main_result(coll, srcs, dsts, plain, root)
+        bufs = dsts if coll == "BCAST" else None
         del dsts, plain
         max_err, ms, plain_ms, library_ms = measure(
-            coll, wrapper, ref, srcs, dst_count)
-        flops = 0 if coll == "ALLGATHER" else (N_RANKS - 1) * count
-        bound, bound_by = bound_ms(N_RANKS, count, dst_count, flops)
+            coll, wrapper, ref, srcs, dst_count, root, bufs)
+        reduces = coll in ("ALLREDUCE", "REDUCE_SCATTER")
+        flops = (N_RANKS - 1) * count if reduces else 0
+        bound, bound_by = bound_ms(
+            least_bytes(coll, N_RANKS, count, dst_count), flops)
         samples.sort()
         p50 = samples[len(samples) // 2]
         # the nccl-tests conventions: the full vector's bytes over p50
         nbytes = max(count, dst_count) * 4
         algbw = nbytes / p50 / 1e9
-        factor = 2 if coll == "ALLREDUCE" else 1
-        busbw = algbw * factor * (N_RANKS - 1) / N_RANKS
-        library = "n x torch.cat" if coll == "ALLGATHER" else "stack().sum(0)"
-        log(f"main path {coll} {count} f32/rank in, {dst_count} out via "
+        factor, library = CONVENTIONS[coll]
+        busbw = algbw * factor
+        rooted = f" from root {root}" if coll == "BCAST" else ""
+        log(f"main path {coll}{rooted} {count} f32/rank in, {dst_count} out "
+            f"via "
             f"{alg}: p50 {p50 * 1e3:.3f} ms (p10 "
             f"{samples[len(samples) // 10] * 1e3:.3f}, max "
             f"{samples[-1] * 1e3:.3f}) over {ITERS} rounds | algbw "
@@ -632,7 +859,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library_ms,
         }
-        del srcs
+        del srcs, bufs
         torch.cuda.empty_cache()
     for team in teams:
         team.destroy()

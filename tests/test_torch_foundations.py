@@ -113,34 +113,36 @@ def test_launch_cache_evicts_oldest_and_replaces_in_place():
 # the ring TL's score-map rows
 # ---------------------------------------------------------------------------
 
-def _rows(team_cls, mem):
+def _rows(team_cls, mem, coll):
     team = object.__new__(team_cls)      # scores need no device or mesh
     score = team_cls.get_scores(team)
+    ct = (jc if team_cls is TlRingDmaTeam else tc).CollType[coll]
     return [(r.start, r.end, r.score, r.alg_name, r.origin)
-            for r in score.ranges[(jc.CollType.ALLREDUCE if team_cls is
-                                   TlRingDmaTeam else tc.CollType.ALLREDUCE,
-                                   mem)]]
+            for r in score.ranges[(ct, mem)]]
 
 
+@pytest.mark.parametrize("coll", ["ALLREDUCE", "REDUCE_SCATTER",
+                                  "ALLGATHER", "BCAST", "ALLTOALL"])
 @pytest.mark.parametrize("tune", [
-    None, "allreduce:@{}:inf", "allreduce:0-4k:@{}:30",
-    "allreduce:4k-1m:55#allreduce:1m-inf:0"])
-def test_ring_tl_score_rows_match(monkeypatch, tune):
+    None, "{c}:@{a}:inf", "{c}:0-4k:@{a}:30", "{c}:4k-1m:55#{c}:1m-inf:0"])
+def test_ring_tl_score_rows_match(monkeypatch, tune, coll):
     if tune is not None:
-        monkeypatch.setenv("UCC_TL_RING_DMA_TUNE", tune.format("ring_dma"))
-        monkeypatch.setenv("UCC_TL_RING_CUDA_TUNE", tune.format("ring_cuda"))
+        c = coll.lower()
+        monkeypatch.setenv("UCC_TL_RING_DMA_TUNE",
+                           tune.format(c=c, a="ring_dma"))
+        monkeypatch.setenv("UCC_TL_RING_CUDA_TUNE",
+                           tune.format(c=c, a="ring_cuda"))
     want = [(s, e, sc, alg.replace("ring_dma", "ring_cuda"), o)
-            for s, e, sc, alg, o in _rows(TlRingDmaTeam, jc.MemoryType.TPU)]
-    got = _rows(TlRingCudaTeam, tc.MemoryType.CUDA)
-    assert got == want
+            for s, e, sc, alg, o in _rows(TlRingDmaTeam, jc.MemoryType.TPU,
+                                          coll)]
+    got = _rows(TlRingCudaTeam, tc.MemoryType.CUDA, coll)
+    assert got == want and got
     assert TlRingCuda.DEFAULT_SCORE == TlRingDma.DEFAULT_SCORE == 20
 
 
 def test_tl_allreduce_selected_on_device_memory():
     assert TlRingCuda.SUPPORTED_MEM_TYPES == (tc.MemoryType.CUDA,)
-    assert TlRingCuda.SUPPORTED_COLLS == (
-        tc.CollType.ALLREDUCE | tc.CollType.ALLGATHER |
-        tc.CollType.REDUCE_SCATTER)
+    assert int(TlRingCuda.SUPPORTED_COLLS) == int(TlRingDma.SUPPORTED_COLLS)
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +236,7 @@ def test_port_imports_without_jax():
             "from ucc_tpu_torch.tl import ring_cuda, device; "
             "from ucc_tpu_torch.kernels import ring_allreduce, build; "
             "from ucc_tpu_torch.kernels import ring_common, ring_rs_ag; "
+            "from ucc_tpu_torch.kernels import ring_bcast_a2a; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -283,8 +286,10 @@ def test_unsupported_collectives_have_no_candidate(monkeypatch):
     buf = torch.zeros(4)
     with pytest.raises(ut.UccError) as ei:
         team.collective_init(ut.CollArgs(
-            coll_type=ut.CollType.BCAST,
+            coll_type=ut.CollType.REDUCE, op=ut.ReductionOp.SUM,
             src=ut.BufferInfo(buf, 4, ut.DataType.FLOAT32,
+                              mem_type=ut.MemoryType.CUDA),
+            dst=ut.BufferInfo(buf.clone(), 4, ut.DataType.FLOAT32,
                               mem_type=ut.MemoryType.CUDA)))
     assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
     with pytest.raises(ut.UccError) as ei:

@@ -1,8 +1,8 @@
 """Shared cases of the ring kernel tests (tests/test_torch_ring_*.py):
 seeded numpy inputs, a NaN-aware bitwise comparison, and runners for the
 JAX package's Pallas kernels (interpret mode) and the port's plain
-versions on the same inputs, for allreduce, reduce_scatter and
-allgather."""
+versions on the same inputs, for allreduce, reduce_scatter, allgather,
+bcast and alltoall."""
 import ml_dtypes
 import numpy as np
 import jax
@@ -15,6 +15,7 @@ from ucc_tpu.constants import ReductionOp as JReductionOp
 
 from ucc_tpu_torch.constants import ReductionOp
 from ucc_tpu_torch.kernels import ring_allreduce as kr
+from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
 from ucc_tpu_torch.kernels import ring_rs_ag as krs
 from ucc_tpu_torch.utils.convert import from_numpy, to_numpy
 
@@ -172,3 +173,61 @@ def torch_allgather(kernel, arrs):
     outs = krs.ring_allgather_ref(
         srcs, cblk=blk if kernel == "pass" else min(CHUNK, blk))
     return [to_numpy(o) for o in outs]
+
+
+def _per_device(out, n):
+    """Each device's own copy of a replicated (P(None)) result."""
+    by_dev = {s.device: np.asarray(s.data) for s in out.addressable_shards}
+    return [by_dev[d] for d in jax.devices()[:n]]
+
+
+def jax_bcast(kernel, n, root, arrs, monkeypatch):
+    """The Pallas bcast kernel in interpret mode on n ranks of c elements
+    each (only the root's are read); each rank's own result."""
+    count = arrs[0].size
+    mesh = jax.make_mesh((n,), ("r",), devices=jax.devices()[:n])
+    if kernel == "pass":
+        prog, padded = rd.build_bcast_program(mesh, n, root, arrs[0].dtype,
+                                              count)
+    else:
+        monkeypatch.setattr(rd, "CHUNK_ELEMS", CHUNK)
+        prog, padded = rd.build_hbm_bcast_program(mesh, n, root,
+                                                  arrs[0].dtype, count)
+    out = jax.block_until_ready(prog(_global(mesh, n, arrs, padded)))
+    return [o[:count] for o in _per_device(out, n)]
+
+
+def jax_alltoall(kernel, n, arrs, monkeypatch):
+    """The Pallas alltoall kernel in interpret mode on n ranks of n blocks
+    each; per-rank results."""
+    count = arrs[0].size
+    mesh = jax.make_mesh((n,), ("r",), devices=jax.devices()[:n])
+    if kernel == "pass":
+        prog, padded = rd.build_alltoall_program(mesh, n, arrs[0].dtype,
+                                                 count)
+    else:
+        monkeypatch.setattr(rd, "CHUNK_ELEMS", CHUNK)
+        prog, padded = rd.build_hbm_alltoall_program(mesh, n, arrs[0].dtype,
+                                                     count)
+    out = np.asarray(jax.block_until_ready(
+        prog(_global(mesh, n, arrs, padded))))
+    return [row[:count] for row in out.reshape(n, -1)]
+
+
+def torch_bcast(kernel, root, arrs):
+    """The port's plain version at the Pallas kernel's sub-block: the whole
+    vector for the pass kernel (its CHUNK_ELEMS // 2 is far above these
+    counts), CHUNK // 2 for the chunked one."""
+    srcs = [from_numpy(a, "cpu") for a in arrs]
+    blk = arrs[0].size if kernel == "pass" else CHUNK // 2
+    return [to_numpy(o) for o in kba.ring_bcast_ref(srcs, root, blk=blk)]
+
+
+def torch_alltoall(kernel, n, arrs):
+    """The port's plain version at the Pallas kernel's chunk: the whole
+    block for the pass kernel, CHUNK // (2(n-1)) elements of every block
+    for the chunked one."""
+    srcs = [from_numpy(a, "cpu") for a in arrs]
+    blk = arrs[0].size // n
+    cblk = blk if kernel == "pass" else min(blk, CHUNK // (2 * (n - 1)))
+    return [to_numpy(o) for o in kba.ring_alltoall_ref(srcs, cblk=cblk)]

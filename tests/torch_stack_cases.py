@@ -65,14 +65,16 @@ class TorchJob:
                 raise TimeoutError("progress_until timed out")
 
     def persistent(self, coll, hosts, op, dt, dst_count=None,
-                   inplace=False):
+                   inplace=False, root=None):
         """Post one persistent request per rank ROUNDS times; returns each
         round's per-rank dst as numpy arrays. Out of place, *hosts* are
         the srcs and each dst has *dst_count* elements (default: the src's)
         filled with 7 before every round; in place, *hosts* are each
-        rank's dst, restored before every round."""
+        rank's dst, restored before every round. With a *root* (bcast),
+        each rank passes its host as src alone, restored before every
+        round, and the src is the result."""
         srcs = [from_numpy(h, "cpu") for h in hosts]
-        if inplace:
+        if inplace or root is not None:
             dsts = [s.clone() for s in srcs]
         else:
             dsts = [torch.empty(dst_count or s.numel(), dtype=s.dtype)
@@ -81,6 +83,9 @@ class TorchJob:
 
         def args(r):
             dst = ut.BufferInfo(dsts[r], dsts[r].numel(), dt, mem_type=mt)
+            if root is not None:
+                return ut.CollArgs(coll_type=coll, root=root, src=dst,
+                                   flags=ut.CollArgsFlags.PERSISTENT)
             if inplace:
                 return ut.CollArgs(
                     coll_type=coll, op=op, dst=dst,
@@ -96,7 +101,7 @@ class TorchJob:
         rounds = []
         for _ in range(ROUNDS):
             for d, s in zip(dsts, srcs):
-                if inplace:
+                if inplace or root is not None:
                     d.copy_(s)
                 else:
                     d.fill_(7)           # every round must rewrite dst
@@ -177,6 +182,35 @@ def jax_persistent(job, teams, coll, hosts, op, dt, dst_count=None):
             [rq.test() != ucc_tpu.Status.IN_PROGRESS for rq in reqs]))
         assert all(rq.test() == ucc_tpu.Status.OK for rq in reqs)
         rounds.append([np.asarray(a.dst.buffer) for a in argses])
+    for rq in reqs:
+        rq.finalize()
+    return rounds
+
+
+def jax_persistent_bcast(job, teams, hosts, root, dt):
+    """tl/ring_dma's bcast from *root*, each rank passing its host as src
+    alone, posted ROUNDS times; each round's per-rank result (the rebound
+    ``src.buffer``)."""
+    count = hosts[0].size
+    argses = []
+    for r in range(N):
+        dev = job.contexts[r].tl_contexts["ring_dma"].obj.device
+        argses.append(ucc_tpu.CollArgs(
+            coll_type=ucc_tpu.CollType.BCAST, root=root,
+            src=ucc_tpu.BufferInfo(jax.device_put(jnp.asarray(hosts[r]), dev),
+                                   count, dt,
+                                   mem_type=ucc_tpu.MemoryType.TPU),
+            flags=ucc_tpu.CollArgsFlags.PERSISTENT))
+    reqs = [teams[r].collective_init(argses[r]) for r in range(N)]
+    assert reqs[0].task.alg_name == "ring_dma"
+    rounds = []
+    for _ in range(ROUNDS):
+        for rq in reqs:
+            rq.post()
+        job.progress_until(lambda: all(
+            [rq.test() != ucc_tpu.Status.IN_PROGRESS for rq in reqs]))
+        assert all(rq.test() == ucc_tpu.Status.OK for rq in reqs)
+        rounds.append([np.asarray(a.src.buffer) for a in argses])
     for rq in reqs:
         rq.finalize()
     return rounds

@@ -187,11 +187,14 @@ int ucc_ring_allreduce_max_ctas(int chunked, int dtype, int threads,
 }
 
 // Launch one ring allreduce on `stream`; returns cudaGetLastError() after
-// the launch (0 on success).
+// the launch (0 on success). `root` is part of the common interface and
+// unused here.
 int ucc_ring_allreduce(int chunked, int dtype, void* const* ptrs,
                        void* comm, unsigned* flags, int* err,
                        long long count, long long blk, int n_chunks, int n,
-                       int op, int lanes, int threads, cudaStream_t stream) {
+                       int op, int root, int lanes, int threads,
+                       cudaStream_t stream) {
+  (void)root;
   const void* kern = select_kernel(chunked, dtype);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   RingArgs a{ptrs, comm, flags, err, count, blk, n_chunks, n, op};

@@ -1,8 +1,9 @@
 // Device building blocks shared by the ring kernels of this directory
-// (ring_allreduce.cu, ring_rs_ag.cu): element arithmetic in the rounding of
-// PyTorch's own kernels, the comm-slot loads and stores, and the CTA-pair
-// flag protocol (a release store of a step counter, an acquire spin on it,
-// bounded, with a sticky error word).
+// (ring_allreduce.cu, ring_rs_ag.cu, ring_bcast_a2a.cu): element arithmetic
+// in the rounding of PyTorch's own kernels, the comm-slot loads and stores,
+// the CTA-pair flag protocol (a release store of a step counter, an acquire
+// spin on it, bounded, with a sticky error word), and the all-rank barrier
+// built from the same release stores and bounded spins.
 //
 // Everything here has internal linkage: each source that includes it is
 // built into its own library.
@@ -172,25 +173,33 @@ __device__ void store_release(unsigned* p, unsigned v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
+// The calling thread spins until *p >= target, bounded: when the spin runs
+// out it sets the error word, and when another CTA has set it, it stops
+// early; either way it raises *abort_flag.
+__device__ void spin_geq(const unsigned* p, unsigned target, int* err,
+                         volatile int* abort_flag) {
+  long long it = 0;
+  while (load_acquire(p) < target) {
+    ++it;
+    if ((it & 255) == 0 && *(volatile int*)err != 0) {
+      *abort_flag = 1;
+      return;
+    }
+    if (it > SPIN_LIMIT) {
+      atomicCAS(err, 0, ERR_SPIN_TIMEOUT);
+      *abort_flag = 1;
+      return;
+    }
+    if (it > 32) __nanosleep(128);
+  }
+}
+
 // Thread 0 spins until *p >= target; every thread returns false when the
 // spin ran out (here or in another CTA).
 __device__ bool wait_geq(const unsigned* p, unsigned target, int* err,
                          volatile int* abort_flag) {
   if (threadIdx.x == 0) {
-    long long it = 0;
-    while (load_acquire(p) < target) {
-      ++it;
-      if ((it & 255) == 0 && *(volatile int*)err != 0) {
-        *abort_flag = 1;
-        break;
-      }
-      if (it > SPIN_LIMIT) {
-        atomicCAS(err, 0, ERR_SPIN_TIMEOUT);
-        *abort_flag = 1;
-        break;
-      }
-      if (it > 32) __nanosleep(128);
-    }
+    spin_geq(p, target, err, abort_flag);
     __threadfence();
   }
   __syncthreads();
@@ -203,6 +212,36 @@ __device__ void publish(unsigned* p, unsigned v) {
     __threadfence();
     store_release(p, v);
   }
+}
+
+// All-rank barrier of one lane, the counterpart of ring_dma.py's
+// _all_rank_barrier: CTA (r, c) of an n-rank grid posts `epoch` into the
+// word it owns at every other rank, then waits until every other rank has
+// posted `epoch` into its own words. The words of lane c are
+// words[(receiver * lanes + c) * n + sender], one per (sender, receiver)
+// pair, each written by its sender alone (a release store after the CTA's
+// earlier stores) and read by its receiver alone (an acquire spin, bounded
+// by spin_geq). Epochs grow within a launch; the launch zeroes the words.
+// Every thread returns false when a spin ran out.
+__device__ bool all_rank_barrier(unsigned* words, int n, unsigned epoch,
+                                 int* err, volatile int* abort_flag) {
+  const int r = blockIdx.y;
+  const size_t lanes = gridDim.x;
+  const size_t c = blockIdx.x;
+  __syncthreads();  // every thread's stores before the barrier are issued
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    if (p == r) continue;
+    __threadfence();
+    store_release(words + ((size_t)p * lanes + c) * n + r, epoch);
+  }
+  if (threadIdx.x == 0) {
+    const unsigned* mine = words + ((size_t)r * lanes + c) * n;
+    for (int q = 0; q < n && *abort_flag == 0; ++q)
+      if (q != r) spin_geq(mine + q, epoch, err, abort_flag);
+    __threadfence();
+  }
+  __syncthreads();
+  return *abort_flag == 0;
 }
 
 __device__ int mod(int a, int n) { return ((a % n) + n) % n; }

@@ -274,11 +274,13 @@ int ucc_ring_rs_ag_max_ctas(int kernel, int dtype, int threads, int* out) {
 }
 
 // Launch one ring reduce_scatter or allgather on `stream`; returns
-// cudaGetLastError() after the launch (0 on success).
+// cudaGetLastError() after the launch (0 on success). `root` is part of the
+// common interface and unused here.
 int ucc_ring_rs_ag(int kernel, int dtype, void* const* ptrs, void* comm,
                    unsigned* flags, int* err, long long blk, long long cblk,
-                   int n_chunks, int n, int op, int lanes, int threads,
-                   cudaStream_t stream) {
+                   int n_chunks, int n, int op, int root, int lanes,
+                   int threads, cudaStream_t stream) {
+  (void)root;
   const void* kern = select_kernel(kernel, dtype);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   RsAgArgs a{ptrs, comm, flags, err, blk, cblk, n_chunks, n, op};

@@ -130,7 +130,7 @@ def _dispatch(chunked: int, srcs, dsts, op, geometry, ref, stream,
               workspace, ptr_table) -> Optional[RingLaunch]:
     def plan(count, n):
         blk, n_chunks = geometry(count, n)
-        return count, blk, n_chunks, blk, 2 * blk
+        return count, blk, n_chunks, blk, 2 * blk, 2
     return dispatch(_SOURCE, chunked, "ring allreduce", srcs, dsts, op,
                     ops=OPS, dst_count=lambda count, n: count,
                     ref=lambda: ref(srcs, op), plan=plan, stream=stream,
@@ -140,9 +140,10 @@ def _dispatch(chunked: int, srcs, dsts, op, geometry, ref, stream,
 def ring_allreduce_pass(srcs: Sequence[torch.Tensor],
                         dsts: Sequence[torch.Tensor], op: ReductionOp, *,
                         stream=None, workspace: Optional[RingWorkspace] = None,
-                        ptr_table: Optional[torch.Tensor] = None
-                        ) -> RingLaunch:
-    """One-pass ring allreduce of ``srcs`` into ``dsts`` (one per rank)."""
+                        ptr_table: Optional[torch.Tensor] = None,
+                        root: int = 0) -> RingLaunch:
+    """One-pass ring allreduce of ``srcs`` into ``dsts`` (one per rank);
+    ``root`` is ignored."""
     h = _dispatch(0, srcs, dsts, op, pass_geometry, ring_allreduce_pass_ref,
                   stream, workspace, ptr_table)
     if h is None:
@@ -155,9 +156,10 @@ def ring_allreduce_chunked(srcs: Sequence[torch.Tensor],
                            dsts: Sequence[torch.Tensor], op: ReductionOp, *,
                            stream=None,
                            workspace: Optional[RingWorkspace] = None,
-                           ptr_table: Optional[torch.Tensor] = None
-                           ) -> RingLaunch:
-    """Chunked ring allreduce of ``srcs`` into ``dsts`` (one per rank)."""
+                           ptr_table: Optional[torch.Tensor] = None,
+                           root: int = 0) -> RingLaunch:
+    """Chunked ring allreduce of ``srcs`` into ``dsts`` (one per rank);
+    ``root`` is ignored."""
     h = _dispatch(1, srcs, dsts, op, chunked_geometry,
                   ring_allreduce_chunked_ref, stream, workspace, ptr_table)
     if h is None:

@@ -1,0 +1,258 @@
+"""Ring-pipelined bcast and pairwise alltoall over the n ranks of one
+device: the CUDA kernels of ``csrc/ring_bcast_a2a.cu``, their wrappers,
+and their plain PyTorch versions.
+
+Four kernels, two step schedules (see the note at the top of the source):
+
+- ``ring_bcast_pass`` replaces ``ucc_tpu/tl/ring_dma.py:_bcast_kernel``,
+  ``ring_bcast_chunked`` replaces ``_hbm_bcast_kernel``: the root's count
+  elements reach every rank in sub-blocks of ``blk`` elements, forwarded
+  around the ring from the root;
+- ``ring_alltoall_pass`` replaces ``_alltoall_kernel`` (with
+  ``_all_rank_barrier``), ``ring_alltoall_chunked`` replaces
+  ``_hbm_alltoall_kernel``: rank r's src and dst are n blocks, and dst_p's
+  block r is src_r's block p.
+
+The pass and chunked kernels of a collective share a body and differ in
+geometry only; neither result depends on it.
+
+A wrapper takes one src and one dst tensor per rank, of the same count,
+and writes the result into the dst tensors. bcast takes the ``root``
+keyword; its non-root srcs are not read, and a rank whose src is its dst
+(UCC's bcast passes src alone) is in place: the root's buffer is then its
+result and is not copied onto itself. alltoall's count is n blocks; in
+place its src is its dst. On CPU tensors a wrapper runs the plain version
+(computing the whole result before writing any dst); on CUDA tensors it
+launches the kernel or raises. It returns a ``RingLaunch`` whose
+``done()``/``wait()`` raise if the kernel reported a fault, and counts its
+kernel launches in its ``launches`` attribute, a plain int. Both take an
+op for the common calling shape and ignore it; alltoall ignores ``root``.
+
+The plain versions ``ring_bcast_ref`` / ``ring_alltoall_ref`` run the
+kernels' schedules with PyTorch ops, sub-block by sub-block and step by
+step, and take the sub-block or chunk size as a parameter, so a test can
+use the JAX package's.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..constants import ReductionOp
+from ..status import Status, UccError
+from .ring_common import RingLaunch, RingSource, RingWorkspace, dispatch
+from .ring_rs_ag import pass_geometry
+
+SOURCE = "ring_bcast_a2a.cu"
+_SOURCE = RingSource(SOURCE, "ucc_ring_bcast_a2a")
+
+#: kernel ids of the CUDA source
+K_BCAST_PASS, K_BCAST_CHUNKED, K_A2A_PASS, K_A2A_CHUNKED = range(4)
+
+#: per-rank elements one pass covers, for both collectives; larger counts
+#: on more than one rank run the chunked kernels, as tl/ring_dma routes
+#: the TPU's. A bcast sub-block is CHUNK_ELEMS // 2 elements (2 MiB f32),
+#: as the JAX package's: one ring step of 8 ranks then touches 16 MiB,
+#: inside the H100's 50 MB L2, where the sub-block a rank forwards next has
+#: just landed. An alltoall chunk is CHUNK_ELEMS // n elements of every
+#: block, so one chunk is CHUNK_ELEMS elements of every rank's src (the JAX
+#: package bounds its slots with CHUNK_ELEMS // (2(n-1)); the port has no
+#: slots).
+CHUNK_ELEMS = 1 << 20
+
+
+def pass_elems(n: int) -> int:
+    """Per-rank elements one pass of either collective covers."""
+    return CHUNK_ELEMS
+
+
+def bcast_geometry(count: int, blk: Optional[int] = None) -> Tuple[int, int]:
+    """(blk, nsub) of both bcast kernels: sub-blocks of *blk* elements
+    (default ``CHUNK_ELEMS // 2``, never more than count), the last one
+    ragged."""
+    if blk is None:
+        blk = min(max(count, 1), max(1, CHUNK_ELEMS // 2))
+    elif blk < 1:
+        raise ValueError(f"sub-block size {blk} is not positive")
+    return blk, -(-count // blk)
+
+
+def alltoall_chunk_geometry(blk: int, n: int,
+                            cblk: Optional[int] = None) -> Tuple[int, int]:
+    """(cblk, n_chunks) of the chunked alltoall over blocks of *blk*
+    elements: chunks of *cblk* elements per block (default ``CHUNK_ELEMS
+    // n``, never more than blk), the last one ragged."""
+    if cblk is None:
+        cblk = min(max(1, CHUNK_ELEMS // n), max(blk, 1))
+    elif cblk < 1:
+        raise ValueError(f"chunk size {cblk} is not positive")
+    return cblk, -(-blk // cblk)
+
+
+def owns_pair(r: int, p: int, n: int) -> bool:
+    """Whether rank r exchanges the pair {r, p} (the other rank does not):
+    r owns {r, r+s} when 2s < n, and, when 2s = n, if it is the lower."""
+    s = (p - r) % n
+    return 2 * s < n or (2 * s == n and r < p)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def ring_bcast_ref(srcs: Sequence[torch.Tensor], root: int,
+                   blk: Optional[int] = None) -> List[torch.Tensor]:
+    """Plain version of both bcast kernels: the root's src in sub-blocks of
+    *blk* elements (default ``bcast_geometry``'s), over the steps of the
+    ring: at step t the rank at distance d >= 1 from the root takes
+    sub-block t - (d - 1) from its left neighbour. Non-root srcs are not
+    read."""
+    n = len(srcs)
+    count = srcs[root].numel()
+    blk, nsub = bcast_geometry(count, blk)
+    out = [torch.empty_like(srcs[root]) for _ in range(n)]
+    out[root].copy_(srcs[root])
+    for t in range(nsub + n - 2):
+        for d in range(1, n):
+            s = t - (d - 1)
+            if 0 <= s < nsub:
+                r = (root + d) % n
+                sub = slice(s * blk, min((s + 1) * blk, count))
+                out[r][sub] = out[(r - 1) % n][sub]
+    return out
+
+
+def ring_alltoall_ref(srcs: Sequence[torch.Tensor],
+                      cblk: Optional[int] = None) -> List[torch.Tensor]:
+    """Plain version of both alltoall kernels: chunk by chunk of *cblk*
+    elements per block (default ``alltoall_chunk_geometry``'s), each rank
+    copies its own block and exchanges the pairs it owns (``owns_pair``):
+    dst_p's block r takes src_r's block p and dst_r's block p takes src_p's
+    block r."""
+    n = len(srcs)
+    blk = srcs[0].numel() // n
+    cblk, n_chunks = alltoall_chunk_geometry(blk, n, cblk)
+    out = [torch.empty_like(s) for s in srcs]
+    for k in range(n_chunks):
+        lo, hi = k * cblk, min((k + 1) * cblk, blk)
+        for r in range(n):
+            out[r][r * blk + lo:r * blk + hi] = srcs[r][r * blk + lo:
+                                                        r * blk + hi]
+            for p in range(n):
+                if p != r and owns_pair(r, p, n):
+                    out[p][r * blk + lo:r * blk + hi] = \
+                        srcs[r][p * blk + lo:p * blk + hi]
+                    out[r][p * blk + lo:p * blk + hi] = \
+                        srcs[p][r * blk + lo:r * blk + hi]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _bcast(kernel: int, srcs, dsts, root, stream, workspace,
+           ptr_table) -> Optional[RingLaunch]:
+    n = len(srcs)
+    if not 0 <= root < max(n, 1):
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       f"ring bcast: root {root} is not a rank of {n}")
+
+    def plan(count, n):
+        blk, nsub = bcast_geometry(count)
+        return count, blk, nsub, blk, 0, 1
+    return dispatch(_SOURCE, kernel, "ring bcast", srcs, dsts, None,
+                    ops=None, dst_count=lambda count, n: count,
+                    ref=lambda: ring_bcast_ref(srcs, root), plan=plan,
+                    stream=stream, workspace=workspace, ptr_table=ptr_table,
+                    root=root)
+
+
+def _alltoall_count(count: int, n: int) -> int:
+    if count % n:
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       f"ring alltoall needs a count divisible by n={n} "
+                       f"(got {count})")
+    return count
+
+
+def _alltoall(kernel: int, geometry, srcs, dsts, stream, workspace,
+              ptr_table) -> Optional[RingLaunch]:
+    def plan(count, n):
+        blk = count // n
+        cblk, n_chunks = geometry(blk, n)
+        return blk, cblk, n_chunks, cblk, 0, n
+    return dispatch(_SOURCE, kernel, "ring alltoall", srcs, dsts, None,
+                    ops=None, dst_count=_alltoall_count,
+                    ref=lambda: ring_alltoall_ref(srcs), plan=plan,
+                    stream=stream, workspace=workspace, ptr_table=ptr_table)
+
+
+def ring_bcast_pass(srcs: Sequence[torch.Tensor],
+                    dsts: Sequence[torch.Tensor],
+                    op: Optional[ReductionOp] = None, *, root: int = 0,
+                    stream=None, workspace: Optional[RingWorkspace] = None,
+                    ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
+    """One-pass ring bcast of ``srcs[root]`` into ``dsts`` (c each); ``op``
+    is ignored."""
+    h = _bcast(K_BCAST_PASS, srcs, dsts, root, stream, workspace, ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_bcast_pass.launches += 1
+    return h
+
+
+def ring_bcast_chunked(srcs: Sequence[torch.Tensor],
+                       dsts: Sequence[torch.Tensor],
+                       op: Optional[ReductionOp] = None, *, root: int = 0,
+                       stream=None, workspace: Optional[RingWorkspace] = None,
+                       ptr_table: Optional[torch.Tensor] = None
+                       ) -> RingLaunch:
+    """Chunked ring bcast of ``srcs[root]`` into ``dsts`` (c each); ``op``
+    is ignored."""
+    h = _bcast(K_BCAST_CHUNKED, srcs, dsts, root, stream, workspace,
+               ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_bcast_chunked.launches += 1
+    return h
+
+
+def ring_alltoall_pass(srcs: Sequence[torch.Tensor],
+                       dsts: Sequence[torch.Tensor],
+                       op: Optional[ReductionOp] = None, *, root: int = 0,
+                       stream=None, workspace: Optional[RingWorkspace] = None,
+                       ptr_table: Optional[torch.Tensor] = None
+                       ) -> RingLaunch:
+    """One-pass pairwise alltoall of ``srcs`` (n·b each) into ``dsts``
+    (n·b each); ``op`` and ``root`` are ignored."""
+    h = _alltoall(K_A2A_PASS, pass_geometry, srcs, dsts, stream, workspace,
+                  ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_alltoall_pass.launches += 1
+    return h
+
+
+def ring_alltoall_chunked(srcs: Sequence[torch.Tensor],
+                          dsts: Sequence[torch.Tensor],
+                          op: Optional[ReductionOp] = None, *, root: int = 0,
+                          stream=None,
+                          workspace: Optional[RingWorkspace] = None,
+                          ptr_table: Optional[torch.Tensor] = None
+                          ) -> RingLaunch:
+    """Chunked pairwise alltoall of ``srcs`` (n·b each) into ``dsts`` (n·b
+    each); ``op`` and ``root`` are ignored."""
+    h = _alltoall(K_A2A_CHUNKED, alltoall_chunk_geometry, srcs, dsts,
+                  stream, workspace, ptr_table)
+    if h is None:
+        return RingLaunch()
+    ring_alltoall_chunked.launches += 1
+    return h
+
+
+ring_bcast_pass.launches = 0
+ring_bcast_chunked.launches = 0
+ring_alltoall_pass.launches = 0
+ring_alltoall_chunked.launches = 0

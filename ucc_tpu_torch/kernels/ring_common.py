@@ -1,13 +1,15 @@
 """Launch plumbing shared by the ring kernels (``kernels/ring_allreduce.py``,
-``kernels/ring_rs_ag.py``): the dtypes and ops they take, the elementwise
-fold of their plain versions, the reused workspace, the completion handle,
-the device pointer table, the buffer checks and the launch itself.
+``kernels/ring_rs_ag.py``, ``kernels/ring_bcast_a2a.py``): the dtypes and
+ops they take, the elementwise fold of their plain versions, the reused
+workspace, the completion handle, the device pointer table, the buffer
+checks and the launch itself.
 
 Every ring source under ``csrc/`` exports the same plain C interface, named
 by its prefix P: ``P(kernel, dtype, ptrs, comm, flags, err, a, b, n_chunks,
-n, op, lanes, threads, stream)`` launches kernel number *kernel* of the
-source cooperatively on a ``(lanes, n)`` grid, where ``a``, ``b`` and
-``n_chunks`` are the kernel's geometry; ``P_max_ctas`` is the occupancy
+n, op, root, lanes, threads, stream)`` launches kernel number *kernel* of
+the source cooperatively on a ``(lanes, n)`` grid, where ``a``, ``b`` and
+``n_chunks`` are the kernel's geometry and ``root`` the rank a rooted
+collective starts from (0 for the others); ``P_max_ctas`` is the occupancy
 query and ``P_error_string`` names a CUDA error.
 """
 from __future__ import annotations
@@ -171,10 +173,10 @@ def check_buffers(what: str, srcs, dsts, op, ops,
     return n, count
 
 
-#: (a, b, n_chunks, span, slot_elems) of a launch: the kernel's geometry,
-#: the elements per chunk that the lanes split, and the comm slot elements
-#: per rank
-Plan = Tuple[int, int, int, int, int]
+#: (a, b, n_chunks, span, slot_elems, flag_words) of a launch: the kernel's
+#: geometry, the elements per chunk that the lanes split, the comm slot
+#: elements per rank, and the flag words per (rank, lane)
+Plan = Tuple[int, int, int, int, int, int]
 
 
 class RingSource:
@@ -194,7 +196,7 @@ class RingSource:
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             launch.restype = ctypes.c_int
             query = getattr(lib, self.prefix + "_max_ctas")
             query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -232,10 +234,10 @@ class RingSource:
                            f"this card holds {cap}")
         return max(1, min(cap // n, -(-span // THREADS)))
 
-    def launch(self, what: str, kernel: int, srcs, dsts, op, plan: Plan,
-               stream, workspace: Optional[RingWorkspace],
+    def launch(self, what: str, kernel: int, srcs, dsts, op, root: int,
+               plan: Plan, stream, workspace: Optional[RingWorkspace],
                ptr_table: Optional[torch.Tensor]) -> RingLaunch:
-        a, b, n_chunks, span, slot_elems = plan
+        a, b, n_chunks, span, slot_elems, flag_words = plan
         n = len(srcs)
         device = srcs[0].device
         code = DTYPE_CODES[srcs[0].dtype]
@@ -245,14 +247,15 @@ class RingSource:
             lanes = self.lanes(kernel, code, n, span, device)
             ws = workspace if workspace is not None else RingWorkspace(device)
             comm, flags, err = ws.get(
-                n * slot_elems * srcs[0].element_size(), n * lanes * 2)
+                n * slot_elems * srcs[0].element_size(),
+                n * lanes * flag_words)
             if ptr_table is None:
                 ptr_table = make_ptr_table(srcs, dsts)
             flags.zero_()
             self.check(getattr(self.lib(), self.prefix)(
                 kernel, code, ptr_table.data_ptr(), comm.data_ptr(),
                 flags.data_ptr(), err.data_ptr(), a, b, n_chunks, n,
-                0 if op is None else int(op), lanes, THREADS,
+                0 if op is None else int(op), root, lanes, THREADS,
                 stream.cuda_stream),
                 f"{what} launch")
         return RingLaunch(stream, err, keep=(ws, ptr_table), what=what)
@@ -262,7 +265,7 @@ def dispatch(source: RingSource, kernel: int, what: str, srcs, dsts, op, *,
              ops, dst_count: Callable[[int, int], int],
              ref: Callable[[], List[torch.Tensor]],
              plan: Callable[[int, int], Plan], stream, workspace,
-             ptr_table) -> Optional[RingLaunch]:
+             ptr_table, root: int = 0) -> Optional[RingLaunch]:
     """One wrapper call: None when the buffers lie on the CPU and the plain
     version ``ref()`` already wrote them (its whole result is computed
     before any dst is written, so in place is safe), or when there is
@@ -279,5 +282,5 @@ def dispatch(source: RingSource, kernel: int, what: str, srcs, dsts, op, *,
                        f"{device.type}")
     if count == 0:
         return None
-    return source.launch(what, kernel, srcs, dsts, op, plan(count, n),
+    return source.launch(what, kernel, srcs, dsts, op, root, plan(count, n),
                          stream, workspace, ptr_table)

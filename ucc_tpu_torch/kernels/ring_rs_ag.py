@@ -24,7 +24,8 @@ of its dst. On CPU tensors a wrapper runs the plain version; on CUDA
 tensors it launches the kernel or raises. It returns a ``RingLaunch``
 whose ``done()``/``wait()`` raise if the kernel reported a fault, and
 counts its kernel launches in its ``launches`` attribute, a plain int.
-Allgather takes an op for the common calling shape and ignores it.
+Allgather takes an op, and every wrapper a ``root``, for the common
+calling shape, and ignores them.
 
 The plain versions ``ring_reduce_scatter_ref`` / ``ring_allgather_ref``,
 one per collective, run the same steps with PyTorch ops, so their results
@@ -165,7 +166,7 @@ def _reduce_scatter(kernel: int, geometry, srcs, dsts, op, stream,
     def plan(count, n):
         blk = count // n
         cblk, n_chunks = geometry(blk, n)
-        return blk, cblk, n_chunks, cblk, 2 * cblk
+        return blk, cblk, n_chunks, cblk, 2 * cblk, 2
     return dispatch(_SOURCE, kernel, "ring reduce_scatter", srcs, dsts, op,
                     ops=OPS, dst_count=_scatter_count,
                     ref=lambda: ring_reduce_scatter_ref(srcs, op), plan=plan,
@@ -176,7 +177,7 @@ def _allgather(kernel: int, geometry, srcs, dsts, stream, workspace,
                ptr_table) -> Optional[RingLaunch]:
     def plan(count, n):
         cblk, n_chunks = geometry(count, n)
-        return count, cblk, n_chunks, cblk, 0
+        return count, cblk, n_chunks, cblk, 0, 2
     return dispatch(_SOURCE, kernel, "ring allgather", srcs, dsts, None,
                     ops=None, dst_count=lambda count, n: n * count,
                     ref=lambda: ring_allgather_ref(srcs), plan=plan,
@@ -187,8 +188,8 @@ def ring_reduce_scatter_pass(srcs: Sequence[torch.Tensor],
                              dsts: Sequence[torch.Tensor], op: ReductionOp,
                              *, stream=None,
                              workspace: Optional[RingWorkspace] = None,
-                             ptr_table: Optional[torch.Tensor] = None
-                             ) -> RingLaunch:
+                             ptr_table: Optional[torch.Tensor] = None,
+                             root: int = 0) -> RingLaunch:
     """One-pass ring reduce_scatter of ``srcs`` (n·c each) into ``dsts``
     (c each)."""
     h = _reduce_scatter(K_RS_PASS, pass_geometry, srcs, dsts, op, stream,
@@ -203,8 +204,8 @@ def ring_reduce_scatter_chunked(srcs: Sequence[torch.Tensor],
                                 dsts: Sequence[torch.Tensor],
                                 op: ReductionOp, *, stream=None,
                                 workspace: Optional[RingWorkspace] = None,
-                                ptr_table: Optional[torch.Tensor] = None
-                                ) -> RingLaunch:
+                                ptr_table: Optional[torch.Tensor] = None,
+                                root: int = 0) -> RingLaunch:
     """Chunked ring reduce_scatter of ``srcs`` (n·c each) into ``dsts``
     (c each)."""
     h = _reduce_scatter(K_RS_CHUNKED, chunk_geometry, srcs, dsts, op,
@@ -219,8 +220,8 @@ def ring_allgather_pass(srcs: Sequence[torch.Tensor],
                         dsts: Sequence[torch.Tensor],
                         op: Optional[ReductionOp] = None, *, stream=None,
                         workspace: Optional[RingWorkspace] = None,
-                        ptr_table: Optional[torch.Tensor] = None
-                        ) -> RingLaunch:
+                        ptr_table: Optional[torch.Tensor] = None,
+                        root: int = 0) -> RingLaunch:
     """One-pass ring allgather of ``srcs`` (c each) into ``dsts`` (n·c
     each); ``op`` is ignored."""
     h = _allgather(K_AG_PASS, pass_geometry, srcs, dsts, stream, workspace,
@@ -235,8 +236,8 @@ def ring_allgather_chunked(srcs: Sequence[torch.Tensor],
                            dsts: Sequence[torch.Tensor],
                            op: Optional[ReductionOp] = None, *, stream=None,
                            workspace: Optional[RingWorkspace] = None,
-                           ptr_table: Optional[torch.Tensor] = None
-                           ) -> RingLaunch:
+                           ptr_table: Optional[torch.Tensor] = None,
+                           root: int = 0) -> RingLaunch:
     """Chunked ring allgather of ``srcs`` (c each) into ``dsts`` (n·c
     each); ``op`` is ignored."""
     h = _allgather(K_AG_CHUNKED, chunk_geometry, srcs, dsts, stream,

@@ -192,8 +192,9 @@ class DeviceTeamShared:
                 else:
                     table = make_ptr_table(srcs, dsts)
                     self._cache_insert(proto.tag, (ptrs, table))
-            launch = kernel(srcs, dsts, proto.op, stream=self.stream,
-                            workspace=self.workspace, ptr_table=table)
+            launch = kernel(srcs, dsts, proto.op, root=proto.root,
+                            stream=self.stream, workspace=self.workspace,
+                            ptr_table=table)
             for _, (_s, _d, _r, task) in items:
                 task.set_result(launch)
         except Exception:  # noqa: BLE001 - build/launch failure
@@ -209,8 +210,8 @@ class DeviceTeamShared:
 class DeviceCollTask(CollTask):
     """One rank's view of a device collective. Subclasses provide
     ``validate()`` and ``build_program(shared)``, which returns the kernel
-    wrapper to launch: ``kernel(srcs, dsts, op, *, stream, workspace,
-    ptr_table)`` returning a launch handle with ``done()``."""
+    wrapper to launch: ``kernel(srcs, dsts, op, *, root, stream,
+    workspace, ptr_table)`` returning a launch handle with ``done()``."""
 
     def __init__(self, init_args, team: "TlDeviceTeam"):
         super().__init__(team=team, args=init_args.args)
@@ -227,6 +228,11 @@ class DeviceCollTask(CollTask):
                            "device TLs do not run active-set collectives")
         self.coll = args.coll_type
         self.op = args.op if args.op is not None else ReductionOp.SUM
+        self.root = int(args.root) if self.coll == CollType.BCAST else 0
+        if not 0 <= self.root < team.size:
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           f"root {self.root} is not a rank of a team of "
+                           f"{team.size}")
         bi = args.src if args.src is not None else args.dst
         if bi is None or isinstance(bi, BufferInfoV) or (
                 args.dst is not None and isinstance(args.dst, BufferInfoV)):
@@ -253,11 +259,17 @@ class DeviceCollTask(CollTask):
         """(src, dst) elements per rank, by UCC's count conventions:
         allgather takes c and gives n·c (src.count c, dst.count n·c);
         reduce_scatter takes n·c and gives c (src.count n·c, dst.count c);
-        in place, dst.count is n·c for both. Blocks are equal: a
-        reduce_scatter total not divisible by n is NOT_SUPPORTED."""
+        in place, dst.count is n·c for both. alltoall takes and gives n
+        blocks (src.count = dst.count). Blocks are equal: a reduce_scatter
+        or alltoall total not divisible by n is NOT_SUPPORTED. bcast
+        takes src.count, and src alone when there is no dst."""
         args = self.args
         n = self.tl_team.size
-        if self.coll not in (CollType.ALLGATHER, CollType.REDUCE_SCATTER):
+        if self.coll == CollType.BCAST:
+            bi = args.src if args.src is not None else args.dst
+            return int(bi.count), int(bi.count)
+        if self.coll not in (CollType.ALLGATHER, CollType.REDUCE_SCATTER,
+                             CollType.ALLTOALL):
             bi = args.src if self._contrib_src else args.dst
             return int(bi.count), int(bi.count)
         if args.dst is None:
@@ -274,7 +286,9 @@ class DeviceCollTask(CollTask):
                            f"{coll_type_str(self.coll)} requires count % "
                            f"team_size == 0 (count {total}, team size {n})")
         c = total // n
-        counts = (c, total) if self.coll == CollType.ALLGATHER else (total, c)
+        counts = {CollType.ALLGATHER: (c, total),
+                  CollType.REDUCE_SCATTER: (total, c)}.get(self.coll,
+                                                           (total, total))
         if self._contrib_src:
             given = (int(args.src.count), int(args.dst.count))
             if given != counts:
@@ -299,12 +313,19 @@ class DeviceCollTask(CollTask):
         return buf.reshape(-1)[:count]
 
     def local_buffers(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """This rank's (src, dst) for the kernel wrappers. In place (the
-        conventions of the host ring, tl/host/ring.py): allgather reads
-        its own block from dst[me·c:(me+1)·c]; reduce_scatter reads the
-        whole n·c vector from dst and writes its result to that block,
-        leaving the other blocks as they were."""
+        """This rank's (src, dst) for the kernel wrappers. bcast's dst is
+        args.dst when given, else its src (as the JAX package has it): the
+        root's buffer is then its result. In place (the conventions of the
+        host ring, tl/host/ring.py): allgather reads its own block from
+        dst[me·c:(me+1)·c]; reduce_scatter reads the whole n·c vector from
+        dst and writes its result to that block, leaving the other blocks
+        as they were; alltoall's src is its dst."""
         args = self.args
+        if self.coll == CollType.BCAST:
+            src = args.src if args.src is not None else args.dst
+            dst = args.dst if args.dst is not None else args.src
+            return (self._flat(src, self.src_count),
+                    self._flat(dst, self.dst_count))
         if self._contrib_src:
             return (self._flat(args.src, self.src_count),
                     self._flat(args.dst, self.dst_count))

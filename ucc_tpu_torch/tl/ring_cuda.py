@@ -5,18 +5,23 @@ Where tl/ring_dma drives inter-chip remote DMAs from Pallas kernels, this
 TL runs every rank of an in-process team on one GPU and launches ONE
 kernel over all of their buffers: CTA (r, c) plays rank r on lane slice c,
 and a "remote copy" is a store into the right neighbour's receive slot (or,
-for allgather, its dst block) in global memory followed by a release flag
-(kernels/ring_allreduce.py, kernels/ring_rs_ag.py and their sources under
-csrc/). The rendezvous and launch plumbing is tl/device.
+for allgather and bcast, its dst block; for alltoall, the partner's dst
+block) in global memory followed by a release flag
+(kernels/ring_allreduce.py, kernels/ring_rs_ag.py, kernels/ring_bcast_a2a.py
+and their sources under csrc/). The rendezvous and launch plumbing is
+tl/device.
 
 Collectives and routing, as ``RingDmaCollTask`` has them: ALLREDUCE and
-REDUCE_SCATTER take SUM/AVG/MAX/MIN/PROD, ALLGATHER any op (it has none).
-Each runs its one-pass kernel up to a per-rank src count and its chunked
-kernel above it: ``pass_elems(n)`` for allreduce, ``n·c >
-reduce_scatter_pass_elems(n)`` for reduce_scatter, ``c >
-allgather_pass_elems(n)`` for allgather. A reduce_scatter total not
-divisible by n is ERR_NOT_SUPPORTED at init (tl/device). Other collective
-types are ERR_NOT_SUPPORTED, so selection falls back to other TLs.
+REDUCE_SCATTER take SUM/AVG/MAX/MIN/PROD; ALLGATHER, BCAST and ALLTOALL
+any op (they have none). Each runs its one-pass kernel up to a per-rank
+src count and its chunked kernel above it: ``pass_elems(n)`` for
+allreduce, ``n·c > reduce_scatter_pass_elems(n)`` for reduce_scatter,
+``c > allgather_pass_elems(n)`` for allgather, and a per-rank total above
+``CHUNK_ELEMS`` on more than one rank for bcast and alltoall. A
+reduce_scatter or alltoall total not divisible by n is ERR_NOT_SUPPORTED
+at init (tl/device), and so is a bcast or alltoall above ``CHUNK_ELEMS``
+on a 1-rank team (tl/ring_dma's rule). Other collective types are
+ERR_NOT_SUPPORTED, so selection falls back to other TLs.
 
 Default score 20 (below an accelerator default TL, as tl/ring_dma); select
 it with ``UCC_TL_RING_CUDA_TUNE`` (e.g. ``allreduce:@ring_cuda:inf``) or by
@@ -29,6 +34,7 @@ from typing import Any, Dict, List
 from ..constants import CollType, MemoryType
 from ..core.components import BaseLib, TransportLayer, register_tl
 from ..kernels import ring_allreduce as kr
+from ..kernels import ring_bcast_a2a as kba
 from ..kernels import ring_common as kc
 from ..kernels import ring_rs_ag as krs
 from ..score.score import CollScore
@@ -57,7 +63,14 @@ _PROGRAMS = {
                               krs.ring_reduce_scatter_chunked),
     CollType.ALLGATHER: (krs.allgather_pass_elems, krs.ring_allgather_pass,
                          krs.ring_allgather_chunked),
+    CollType.BCAST: (kba.pass_elems, kba.ring_bcast_pass,
+                     kba.ring_bcast_chunked),
+    CollType.ALLTOALL: (kba.pass_elems, kba.ring_alltoall_pass,
+                        kba.ring_alltoall_chunked),
 }
+
+#: collectives that take no op
+_NO_OP = (CollType.ALLGATHER, CollType.BCAST, CollType.ALLTOALL)
 
 
 class RingCudaCollTask(DeviceCollTask):
@@ -69,15 +82,27 @@ class RingCudaCollTask(DeviceCollTask):
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/ring_cuda does not implement {self.coll} "
                            "yet")
-        if self.coll != CollType.ALLGATHER and self.op not in kc.OPS:
+        if self.coll not in _NO_OP and self.op not in kc.OPS:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/ring_cuda does not implement op {self.op}")
         if self.dtype not in kc.SUPPORTED_DTYPES:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/ring_cuda does not implement {self.dtype}")
+        if self.coll in (CollType.BCAST, CollType.ALLTOALL) and \
+                self.tl_team.size == 1:
+            bi = self.args.dst if self.args.dst is not None else self.args.src
+            if int(bi.count) > kba.CHUNK_ELEMS:
+                # tl/ring_dma's rule, kept so that both TLs offer the same
+                # candidates: on the TPU a 1-rank team has no ring to
+                # pipeline over and its whole-vector kernel is bounded by
+                # VMEM
+                raise UccError(Status.ERR_NOT_SUPPORTED,
+                               f"tl/ring_cuda {self.coll} count {bi.count} "
+                               f"exceeds {kba.CHUNK_ELEMS} on a 1-rank team")
 
     def build_program(self, shared):
         pass_elems, one_pass, chunked = _PROGRAMS[self.coll]
+        # (a 1-rank bcast or alltoall above one pass was refused at init)
         if self.src_count > pass_elems(len(shared.devices)):
             # larger than one pass: the chunked kernel
             return chunked
@@ -107,7 +132,8 @@ class TlRingCuda(TransportLayer):
     NAME = "ring_cuda"
     DEFAULT_SCORE = 20
     SUPPORTED_COLLS = (CollType.ALLREDUCE | CollType.ALLGATHER |
-                       CollType.REDUCE_SCATTER)
+                       CollType.REDUCE_SCATTER | CollType.BCAST |
+                       CollType.ALLTOALL)
     SUPPORTED_MEM_TYPES = (MemoryType.CUDA,)
     SERVICE_CAPABLE = False
     CONTEXT_CONFIG = TL_RING_CUDA_CONFIG
