@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the three kernel sources from
+   versions, and the time to build the four kernel sources from
    ucc_tpu_torch/csrc/ (one nvcc each, started together);
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
@@ -26,6 +26,12 @@ Phases, each printing its own lines (any failure exits non-zero):
      cases and n = 1 for both;
    and a set error word must make an allreduce, a reduce_scatter, an
    allgather, a bcast and an alltoall wrapper raise;
+   - the execution component's reduce kernel (ec_reduce) over every type it
+     takes x all 11 ops (BAND/BOR/BXOR on integers only), k in {1, 2, 3,
+     9} sources, counts {1, 7, 1000, 2^20+3}, alpha None and 0.25, NaNs
+     for MAX/MIN, a strided reduce at an odd element offset and a 7-job
+     reduce_multi_dst through EcCuda; more than 9 sources and BAND on f32
+     must raise;
 3. main path: 8 contexts over a ThreadOobWorld, one team, persistent
    requests driven like bench.py (5 warm-up and 20 timed rounds), the
    launch counters zeroed just before each run and read just after:
@@ -43,12 +49,21 @@ Phases, each printing its own lines (any failure exits non-zero):
    - alltoall of 16 Mi f32 per rank (2 Mi per partner: an MoE dispatch of
      8192 tokens x 2048 f32), then of 64 Ki f32; each bitwise equal to
      torch.cat of block r of every src and the plain version;
+   - ucc_perftest (ucc_tpu_torch.tools.perftest.main) on CUDA memory:
+     reducedt of 2 f32 sources of 64 MiB (one fold step of a gradient
+     bucket), of 9 bf16 sources of 32 MiB (the executor's cap, knomial
+     radix 8), of 2 f32 sources of 256 KiB (latency bound), each launching
+     ec_reduce warmup + iters times and followed by an EcCuda.reduce at its
+     shape held bitwise against the plain version; and an 8-rank
+     persistent allreduce of 64 MiB, which must launch the chunked ring
+     kernel warmup + iters times;
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms): torch.stack(srcs).sum(0)
    for allreduce and reduce_scatter, n x torch.cat(srcs, out=dst) for
    allgather, (n-1) x dst.copy_(src_root) for bcast, n x torch.cat(block r
-   of every src, out=dst_r) for alltoall.
+   of every src, out=dst_r) for alltoall; for ec_reduce at the three
+   reducedt shapes, torch.stack(srcs).sum(0).
 
 The last two lines are the kernels record and {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -102,7 +117,8 @@ def bits_equal(a, b) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if not a.is_floating_point():
-        return bool(torch.equal(a, b))
+        return bool(torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8)))
     na, nb = torch.isnan(a), torch.isnan(b)
     if not torch.equal(na, nb):
         return False
@@ -486,6 +502,144 @@ def phase_kernels_bcast_a2a() -> None:
         f"collectives")
 
 
+def ec_inputs(td, count, k, variant, seed):
+    """k sources of `count` elements of torch dtype `td` on the card:
+    random bytes for the integer types, normal values for the floats; the
+    "logical" variant zeroes about a third of each, the "nan" variant puts
+    NaNs (floats) into the first and last source."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    esz = torch.empty(0, dtype=td).element_size()
+    srcs = []
+    for _ in range(k):
+        if td.is_floating_point:
+            wide = torch.float64 if td == torch.float64 else torch.float32
+            x = torch.randn(count, generator=g, device="cuda",
+                            dtype=wide).to(td)
+        else:
+            x = torch.randint(0, 256, (count, esz), generator=g,
+                              device="cuda", dtype=torch.uint8)
+        if variant == "logical":
+            zero = torch.rand(count, generator=g, device="cuda") < 0.3
+            x[zero] = 0
+        srcs.append(x if td.is_floating_point else x.view(td).reshape(-1))
+    if variant == "nan" and td.is_floating_point and count > 3:
+        srcs[-1][3] = float("nan")
+        srcs[0][2] = float("nan")
+    return srcs
+
+
+def ec_dst(td, count):
+    """An output of `count` elements filled with a byte pattern."""
+    import torch
+    dst = torch.empty(count, dtype=td, device="cuda")
+    dst.view(torch.uint8).fill_(7)
+    return dst
+
+
+def check_ec(what, dst, srcs, count, dt, op, alpha=None) -> None:
+    """One ec_reduce launch into dst against its plain version on the same
+    tensors, bitwise."""
+    import torch
+    from ucc_tpu_torch.kernels import ec_reduce as ker
+    want = ker.ec_reduce_ref(srcs, count, dt, op, alpha)
+    dst.view(torch.uint8).fill_(7)
+    ker.ec_reduce(dst, srcs, count, dt, op, alpha)
+    torch.cuda.synchronize()
+    if not bits_equal(dst[:count], want):
+        raise AssertionError(f"ec_reduce {what} {dt.name} {op.name} "
+                             f"k={len(srcs)} count={count} alpha={alpha}: "
+                             "differs from the plain version")
+
+
+def phase_kernels_ec() -> None:
+    import torch
+    from ucc_tpu_torch import DataType, ReductionOp, Status, UccError
+    from ucc_tpu_torch.constants import dt_from_torch
+    from ucc_tpu_torch.ec.cuda import EcCuda
+    from ucc_tpu_torch.kernels import ec_reduce as ker
+    t0 = time.perf_counter()
+    cases = 0
+    maxmin = (ReductionOp.MAX, ReductionOp.MIN)
+    for ti, td in enumerate(ker.DTYPE_CODES):
+        dt = dt_from_torch(td)
+        ops = [op for op in ker.OPS
+               if not (td.is_floating_point and op in ker.BITWISE)]
+        for ci, count in enumerate((1, 7, 1000, (1 << 20) + 3)):
+            pools = {v: ec_inputs(td, count, 9, v, 100 * ti + 10 * ci + j)
+                     for j, v in enumerate(("plain", "logical", "nan"))}
+            dst = ec_dst(td, count)
+            for op in ops:
+                variant = "logical" if op in ker.LOGICAL else \
+                    "nan" if op in maxmin else "plain"
+                for k in (1, 2, 3, 9):
+                    for alpha in (None, 0.25):
+                        check_ec("", dst, pools[variant][:k], count, dt, op,
+                                 alpha)
+                        cases += 1
+    # strided sources at an odd element offset, through the executor
+    ec = EcCuda()
+    count, n_src2, stride = 1000, 8, 1003
+    for td in (torch.float32, torch.bfloat16, torch.int8, torch.float64):
+        dt = dt_from_torch(td)
+        base = ec_inputs(td, 1 + stride * n_src2, 1, "plain", 7)[0][1:]
+        src1 = ec_inputs(td, count, 1, "plain", 8)[0]
+        esz = base.element_size()
+        srcs = [src1] + [base[i * stride:i * stride + count]
+                         for i in range(n_src2)]
+        want = ker.ec_reduce_ref(srcs, count, dt, ReductionOp.SUM, 0.25)
+        dst = ec_dst(td, count)
+        t = ec.reduce_strided(dst, src1, base, stride * esz, n_src2, count,
+                              dt, ReductionOp.SUM, 0.25)
+        while ec.task_test(t) == Status.IN_PROGRESS:
+            pass
+        if t.array is not dst or not bits_equal(dst, want):
+            raise AssertionError(f"reduce_strided {td} at an odd offset "
+                                 "differs from the plain version")
+        cases += 1
+    # seven jobs of one reduce_multi_dst
+    jobs = []
+    for i in range(7):
+        td = (torch.float32, torch.bfloat16, torch.int32)[i % 3]
+        op = (ReductionOp.SUM, ReductionOp.MAX, ReductionOp.PROD)[i % 3]
+        s1, s2 = ec_inputs(td, 4096 + 13 * i, 2, "nan", 30 + i)
+        jobs.append(dict(dst=ec_dst(td, 4096 + 13 * i), src1=s1, src2=s2,
+                         count=4096 + 13 * i, dt=dt_from_torch(td), op=op,
+                         alpha=0.5 if i == 4 else None))
+    t = ec.reduce_multi_dst(jobs)
+    while ec.task_test(t) == Status.IN_PROGRESS:
+        pass
+    for j, d in zip(jobs, t.array):
+        want = ker.ec_reduce_ref([j["src1"], j["src2"]], j["count"], j["dt"],
+                                 j["op"], j["alpha"])
+        if d is not j["dst"] or not bits_equal(d, want):
+            raise AssertionError("reduce_multi_dst job differs from the "
+                                 "plain version")
+    cases += 7
+    for call, status in (
+            (lambda: ker.ec_reduce(ec_dst(torch.float32, 8),
+                                   [ec_dst(torch.float32, 8)] * 10, 8,
+                                   DataType.FLOAT32, ReductionOp.SUM),
+             Status.ERR_INVALID_PARAM),
+            (lambda: ker.ec_reduce(ec_dst(torch.float32, 8),
+                                   [ec_dst(torch.float32, 8)] * 2, 8,
+                                   DataType.FLOAT32, ReductionOp.BAND),
+             Status.ERR_NOT_SUPPORTED)):
+        try:
+            call()
+        except UccError as e:
+            if e.status != status:
+                raise
+        else:
+            raise AssertionError(f"ec_reduce did not raise {status.name}")
+    log(f"kernels: {cases} ec_reduce launches bitwise equal to their plain "
+        f"versions ({len(ker.DTYPE_CODES)} types x 11 ops, k in 1,2,3,9, "
+        f"counts 1/7/1000/2^20+3, alpha None/0.25, NaN for MAX/MIN, "
+        f"strided at an odd offset, 7-job multi_dst) in "
+        f"{time.perf_counter() - t0:.1f} s; 10 sources and BAND on f32 "
+        f"raise")
+
+
 def make_job(n):
     import ucc_tpu_torch as ucc
     world = ucc.ThreadOobWorld(n)
@@ -764,6 +918,111 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     return max_err, ms, plain_ms, library_ms
 
 
+#: ucc_perftest's reducedt runs on the main path: (arguments, dtype,
+#: sources, elements per source)
+PERFTEST_REDUCEDT = (
+    (["-d", "float32", "-o", "sum", "--nbufs", "2", "-b", "64M", "-e", "64M",
+      "--json", "-F"], "FLOAT32", 2, 16 << 20),
+    (["-d", "bfloat16", "-o", "sum", "--nbufs", "9", "-b", "32M", "-e",
+      "32M", "--json", "-F"], "BFLOAT16", 9, 16 << 20),
+    (["--nbufs", "2", "-b", "256K", "-e", "256K"], "FLOAT32", 2, 64 << 10),
+)
+PERFTEST_ALLREDUCE = ["-c", "allreduce", "-m", "cuda", "-p", "8",
+                      "--persistent", "-b", "64M", "-e", "64M", "--json",
+                      "-F"]
+
+
+def run_perftest(argv, counters):
+    """ucc_tpu_torch.tools.perftest.main(argv) with WARMUP + ITERS rounds,
+    every launch counter zeroed just before and read just after; returns
+    (launches by kernel, the JSON records it printed)."""
+    import contextlib
+    import io
+    from ucc_tpu_torch.tools import perftest
+    argv = [*argv, "-w", str(WARMUP), "-n", str(ITERS)]
+    for w in counters.values():
+        w.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = perftest.main(argv)
+    launches = {k: w.launches for k, w in counters.items()}
+    for line in out.getvalue().splitlines():
+        log(f"perftest {' '.join(argv)} | {line}")
+    if rc != 0:
+        raise AssertionError(f"perftest {argv} exited {rc}")
+    recs = [json.loads(x) for x in out.getvalue().splitlines()
+            if x.startswith("{")]
+    return launches, recs
+
+
+def main_path_perftest(counters, smi) -> dict:
+    """The perftest runs of the main path; returns ec_reduce's record, from
+    the first reducedt run (2 f32 sources of 64 MiB)."""
+    import torch
+    from ucc_tpu_torch import DataType, ReductionOp, Status
+    from ucc_tpu_torch.constants import dt_torch
+    from ucc_tpu_torch.ec.cuda import EcCuda
+    from ucc_tpu_torch.kernels import ec_reduce as ker
+    rounds = WARMUP + ITERS
+    sum_ = ReductionOp.SUM
+    record = None
+    for argv, dname, k, count in PERFTEST_REDUCEDT:
+        launches, recs = run_perftest(["-c", "reducedt", "-m", "cuda", *argv],
+                                      counters)
+        stray = {n: v for n, v in launches.items()
+                 if v and n != "ec_reduce"}
+        if launches["ec_reduce"] != rounds or stray:
+            raise AssertionError(f"perftest reducedt {argv}: launches "
+                                 f"{launches}, want ec_reduce {rounds}")
+        # perftest checks no result: the executor at this shape, bitwise
+        dt = DataType[dname]
+        srcs = ec_inputs(dt_torch(dt), count, k, "plain", 40 + k)
+        want = ker.ec_reduce_ref(srcs, count, dt, sum_)
+        ec = EcCuda()
+        task = ec.reduce(None, srcs, count, dt, sum_)
+        while ec.task_test(task) == Status.IN_PROGRESS:
+            pass
+        dst = task.array
+        if not bits_equal(dst, want):
+            raise AssertionError(f"EcCuda.reduce {dname} k={k} count={count}"
+                                 " differs from the plain version")
+        max_err = (dst.double() - want.double()).abs().nan_to_num(0).max()
+        ms = cuda_ms(lambda: ker.ec_reduce(dst, srcs, count, dt, sum_), 20)
+        plain_ms = cuda_ms(lambda: ker.ec_reduce_ref(srcs, count, dt, sum_),
+                           3)
+        library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
+        bound, bound_by = bound_ms((k + 1) * count * dst.element_size(),
+                                   (k - 1) * count)
+        p50 = f"p50 {recs[0]['p50_us']:.1f} us, " if recs else ""
+        log(f"main path perftest reducedt {dname} k={k} x {count} "
+            f"elements: {p50}launches {launches['ec_reduce']} | ec_reduce "
+            f"{ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), roofline "
+            f"share {bound / ms:.4f} | plain {plain_ms:.3f} ms | "
+            f"stack().sum(0) {library_ms:.4f} ms | EcCuda result bitwise "
+            f"the plain version | card {smi}")
+        if record is None:
+            record = {
+                "name": "ec_reduce", "route": "cuda",
+                "source": f"ucc_tpu_torch/csrc/{ker.SOURCE}",
+                "replaces": "ucc_tpu/ec/tpu.py:64",
+                "launches": launches["ec_reduce"],
+                "max_abs_err": max_err.item(),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": library_ms,
+            }
+        del srcs, want, dst, task
+        torch.cuda.empty_cache()
+    launches, recs = run_perftest(PERFTEST_ALLREDUCE, counters)
+    if launches["ring_allreduce_chunked"] != rounds:
+        raise AssertionError(f"perftest allreduce: launches {launches}, "
+                             f"want ring_allreduce_chunked {rounds}")
+    log(f"main path perftest allreduce 8 ranks x 64 MiB: p50 "
+        f"{recs[0]['p50_us']:.1f} us, busbw {recs[0]['busbw_GBps']} GB/s, "
+        f"launches {launches['ring_allreduce_chunked']} | card {smi}")
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -779,6 +1038,7 @@ def main() -> int:
     try:
         import ucc_tpu_torch as ucc
         from ucc_tpu_torch.kernels import build
+        from ucc_tpu_torch.kernels import ec_reduce as ker
         from ucc_tpu_torch.kernels import ring_allreduce as kr
         from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
         from ucc_tpu_torch.kernels import ring_rs_ag as krs
@@ -792,7 +1052,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
-    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE]
+    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE]
     build_s = build.build_all(sources)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
         f"{build_s:.1f} s")
@@ -801,6 +1061,7 @@ def main() -> int:
     phase_kernels()
     phase_kernels_rs_ag()
     phase_kernels_bcast_a2a()
+    phase_kernels_ec()
 
     # -- 3. main path ----------------------------------------------------
     os.environ["UCC_TL_RING_CUDA_TUNE"] = \
@@ -865,9 +1126,13 @@ def main() -> int:
         team.destroy()
     for c in ctxs:
         c.destroy()
+    counters = {k: w for k, (w, _) in kernels.items()}
+    counters["ec_reduce"] = ker.ec_reduce
+    records["ec_reduce"] = main_path_perftest(counters, smi)
 
     log(smi)
-    log(json.dumps({"kernels": [records[k] for k in KERNELS]}))
+    log(json.dumps({"kernels": [records[k] for k in KERNELS] +
+                    [records["ec_reduce"]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -236,7 +236,10 @@ def test_port_imports_without_jax():
             "from ucc_tpu_torch.tl import ring_cuda, device; "
             "from ucc_tpu_torch.kernels import ring_allreduce, build; "
             "from ucc_tpu_torch.kernels import ring_common, ring_rs_ag; "
-            "from ucc_tpu_torch.kernels import ring_bcast_a2a; "
+            "from ucc_tpu_torch.kernels import ring_bcast_a2a, ec_reduce; "
+            "from ucc_tpu_torch.ec import base, cpu, cuda; "
+            "from ucc_tpu_torch.tools import perftest; "
+            "base.create_executor(ucc_tpu_torch.MemoryType.CUDA); "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

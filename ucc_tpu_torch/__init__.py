@@ -7,9 +7,13 @@ size; collective layers (CL) composing transport layers (TL) — with the
 device path in PyTorch and hand-written CUDA kernels for NVIDIA Hopper.
 It imports neither JAX nor ``ucc_tpu``.
 
-Ported so far: the core objects, cl/basic, and tl/ring_cuda, whose
-allreduce runs every rank of an in-process team on one GPU through the
-ring kernels of ``kernels/ring_allreduce.py``.
+Ported so far: the core objects, cl/basic; tl/ring_cuda, whose
+allreduce, reduce_scatter, allgather, bcast and alltoall run every rank
+of an in-process team on one GPU through the ring kernels of
+``kernels/ring_allreduce.py``, ``kernels/ring_rs_ag.py`` and
+``kernels/ring_bcast_a2a.py``; the execution components ``ec/`` (numpy on
+the host, the reduce kernel of ``kernels/ec_reduce.py`` on GPU tensors);
+and ucc_perftest as ``python -m ucc_tpu_torch.tools.perftest``.
 
 Quick start (8 ranks of one GPU; context creation blocks on the OOB
 exchange, so each context is created on its own thread)::

@@ -149,8 +149,31 @@ _TORCH_TO_DT = {info[2]: dt for dt, info in _DT_INFO.items()
                 if info[2] is not None}
 
 
-def dt_size(dt: DataType) -> int:
+class GenericDataType:
+    """User-defined datatype (ucc_dt_create_generic): pack/unpack/reduce
+    callbacks over contiguous byte views. One without a reduce_cb serves
+    only non-reducing collectives, as in UCC."""
+
+    __slots__ = ("size", "pack_cb", "unpack_cb", "reduce_cb", "name")
+
+    def __init__(self, size: int, pack_cb=None, unpack_cb=None, reduce_cb=None,
+                 name: str = "generic"):
+        if size <= 0:
+            raise ValueError("generic datatype size must be positive")
+        self.size = int(size)
+        self.pack_cb = pack_cb
+        self.unpack_cb = unpack_cb
+        self.reduce_cb = reduce_cb
+        self.name = name
+
+    def __repr__(self):
+        return f"GenericDataType({self.name}, size={self.size})"
+
+
+def dt_size(dt: "DataType | GenericDataType") -> int:
     """Element size in bytes (ucc_dt_size analog)."""
+    if isinstance(dt, GenericDataType):
+        return dt.size
     return _DT_INFO[DataType(dt)][0]
 
 
