@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the four kernel sources from
+   versions, and the time to build the five kernel sources from
    ucc_tpu_torch/csrc/ (one nvcc each, started together);
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
@@ -32,6 +32,12 @@ Phases, each printing its own lines (any failure exits non-zero):
      for MAX/MIN, a strided reduce at an odd element offset and a 7-job
      reduce_multi_dst through EcCuda; more than 9 sources and BAND on f32
      must raise;
+   - the ring flash-attention kernel (ring_flash_attention_fwd) over a
+     covering set of n in {1, 2, 8}, (h, h_kv) in {(4, 4), (8, 2),
+     (32, 8)}, d in {8, 64, 128} (and 1, 256), s_local in {3, 100, 1024},
+     causal both ways, f32/bf16/f16, within a stated tolerance of its plain
+     version (TF32 off); mismatched heads must raise ValueError and d = 257
+     ERR_NOT_SUPPORTED;
 3. main path: 8 contexts over a ThreadOobWorld, one team, persistent
    requests driven like bench.py (5 warm-up and 20 timed rounds), the
    launch counters zeroed just before each run and read just after:
@@ -57,13 +63,24 @@ Phases, each printing its own lines (any failure exits non-zero):
      shape held bitwise against the plain version; and an 8-rank
      persistent allreduce of 64 MiB, which must launch the chunked ring
      kernel warmup + iters times;
+   - the long-context GQA block (ucc_tpu_torch.examples.long_context) at
+     Meta Llama 3 8B's attention widths (dm 4096, 32 heads, 8 KV heads,
+     head dim 128), bf16 weights from a seeded generator, batch 1 and the
+     full 8192-token context over 8 ranks, causal: 5 warm-up and 20 timed
+     forwards, which must launch ring_flash_attention_fwd exactly 25
+     times; its output is bitwise its projections' attention merged
+     through wo, that attention is within bf16 tolerance of the plain
+     version and, as a check only, of scaled_dot_product_attention on the
+     unsharded tensors;
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms): torch.stack(srcs).sum(0)
    for allreduce and reduce_scatter, n x torch.cat(srcs, out=dst) for
    allgather, (n-1) x dst.copy_(src_root) for bcast, n x torch.cat(block r
    of every src, out=dst_r) for alltoall; for ec_reduce at the three
-   reducedt shapes, torch.stack(srcs).sum(0).
+   reducedt shapes, torch.stack(srcs).sum(0); for ring flash-attention at
+   the main path's shapes, scaled_dot_product_attention on the unsharded
+   (1, 32, 8192, 128) q and (1, 8, 8192, 128) k, v.
 
 The last two lines are the kernels record and {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -80,6 +97,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores
 F32_FLOPS = 67e12
+#: H100 SXM dense bf16/fp16 tensor-core rate
+TENSOR16_FLOPS = 989e12
 
 #: GPU cycles of the sleep that cuda_ms queues ahead of a timed run
 #: (~50 ms at the H100's 1.98 GHz): longer than the host takes to enqueue
@@ -640,6 +659,235 @@ def phase_kernels_ec() -> None:
         f"raise")
 
 
+def attention_tolerance(dtype):
+    """(rtol, atol) of the attention kernel against its plain version. f32:
+    the reference's own (tests/test_ring_attention.py); the two sum the
+    same products in another order and fold a block in key tiles or at
+    once. bf16/f16: one ulp of the type (2^-7 relative for bf16, 2^-10 for
+    f16) with atol 1e-3 near zero; both accumulate in f32 and differ only
+    where the final rounding to the type does."""
+    import torch
+    if dtype == torch.float32:
+        return 2e-4, 2e-5
+    return (2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10), 1e-3
+
+
+def attention_inputs(n, h, h_kv, s, d, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple([torch.randn(heads, s, d, generator=g, device="cuda")
+                  .to(dtype) for _ in range(n)]
+                 for heads in (h, h_kv, h_kv))
+
+
+def check_attention(qs, ks, vs, causal, what) -> float:
+    """One launch of the attention kernel against its plain version on the
+    same tensors; returns the max abs difference."""
+    import torch
+    from ucc_tpu_torch.kernels import ring_attention as ka
+    scale = ka.default_scale(qs[0].shape[-1])
+    got = ka.ring_flash_attention_fwd(qs, ks, vs, scale, causal)
+    torch.cuda.synchronize()
+    return compare_attention(
+        got, ka.ring_flash_attention_ref(qs, ks, vs, scale, causal), what)
+
+
+def compare_attention(got, want, what) -> float:
+    """Each rank's kernel output finite and within attention_tolerance of
+    the plain version's; returns the max abs difference."""
+    import torch
+    rtol, atol = attention_tolerance(got[0].dtype)
+    err = 0.0
+    for r, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: rank {r} has non-finite values")
+        err = max(err, (a - b).abs().max().item())
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what}: rank {r} differs from the plain "
+                                 f"version by up to {err} (rtol {rtol}, "
+                                 f"atol {atol})")
+    return err
+
+
+#: the attention phase's cases (n, h, h_kv, d, s_local, causal, dtype
+#: name): every n, head layout, head dim and s_local with both maskings and
+#: with f32 and bf16, plus f16, head dims 1 and 256 and a ragged 37
+ATTENTION_CASES = (
+    (1, 4, 4, 8, 3, False, "float32"),
+    (1, 8, 2, 64, 100, True, "bfloat16"),
+    (1, 32, 8, 128, 1024, False, "float32"),
+    (2, 4, 4, 64, 1024, True, "bfloat16"),
+    (2, 8, 2, 128, 3, False, "float32"),
+    (2, 32, 8, 8, 100, True, "float32"),
+    (2, 8, 2, 128, 100, True, "float16"),
+    (8, 4, 4, 128, 100, False, "bfloat16"),
+    (8, 8, 2, 8, 1024, True, "float32"),
+    (8, 32, 8, 64, 3, True, "bfloat16"),
+    (8, 32, 8, 128, 1024, False, "bfloat16"),
+    (8, 4, 4, 128, 100, True, "float32"),
+    (8, 8, 2, 64, 100, False, "float16"),
+    (2, 4, 2, 256, 70, True, "float32"),
+    (8, 4, 4, 1, 37, True, "bfloat16"),
+)
+
+
+def phase_kernels_attention() -> None:
+    import torch
+    from ucc_tpu_torch import Status, UccError
+    from ucc_tpu_torch.fused_attention import ring_flash_attention
+    from ucc_tpu_torch.kernels import ring_attention as ka
+    t0 = time.perf_counter()
+    errs = {}
+    for i, (n, h, h_kv, d, s, causal, dname) in enumerate(ATTENTION_CASES):
+        dtype = getattr(torch, dname)
+        what = (f"ring_flash_attention_fwd n={n} h={h} h_kv={h_kv} d={d} "
+                f"s_local={s} causal={causal} {dname}")
+        err = check_attention(*attention_inputs(n, h, h_kv, s, d, dtype,
+                                                60 + i), causal, what)
+        errs[dname] = max(errs.get(dname, 0.0), err)
+    try:
+        ring_flash_attention(*attention_inputs(2, 5, 2, 16, 8, torch.float32,
+                                               90))
+    except ValueError as e:
+        if "GQA" not in str(e):
+            raise
+    else:
+        raise AssertionError("5 q heads over 2 k/v heads did not raise")
+    try:
+        ka.ring_flash_attention_fwd(
+            *attention_inputs(2, 4, 4, 16, ka.MAX_HEAD_DIM + 1,
+                              torch.float32, 91), 0.1, False)
+    except UccError as e:
+        if e.status != Status.ERR_NOT_SUPPORTED:
+            raise
+    else:
+        raise AssertionError(f"head dim {ka.MAX_HEAD_DIM + 1} did not raise")
+    log(f"kernels: {len(ATTENTION_CASES)} ring_flash_attention_fwd launches "
+        f"within tolerance of their plain versions (n in 1,2,8; (h, h_kv) in "
+        f"(4,4),(8,2),(32,8); d in 1,8,64,128,256; s_local in 3,37,70,100,"
+        f"1024; causal both ways; f32/bf16/f16; max abs err by dtype "
+        f"{errs}; TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}) in "
+        f"{time.perf_counter() - t0:.1f} s; mismatched heads raise "
+        f"ValueError, head dim {ka.MAX_HEAD_DIM + 1} ERR_NOT_SUPPORTED")
+
+
+#: Meta Llama 3 8B's attention widths (its config.json: hidden_size,
+#: num_attention_heads, num_key_value_heads, head_dim) and its full
+#: context (max_position_embeddings), sharded over N_RANKS
+LLAMA3_8B = dict(dm=4096, heads=32, kv_heads=8, e=128)
+CONTEXT = 8192
+
+
+def main_path_attention(smi) -> dict:
+    """The GQA block's forward at LLAMA3_8B over CONTEXT tokens, causal,
+    bf16, WARMUP + ITERS times with the launch counter zeroed just before;
+    then its attention held against the plain version and SDPA, and the
+    kernel timed at these shapes. Returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+    from ucc_tpu_torch.examples.long_context import (INIT_STD,
+                                                     GqaRingAttentionBlock,
+                                                     init_gqa_params)
+    from ucc_tpu_torch.kernels import ring_attention as ka
+    dm, h, h_kv, e = (LLAMA3_8B[k] for k in ("dm", "heads", "kv_heads", "e"))
+    s_local = CONTEXT // N_RANKS
+    g = torch.Generator(device="cuda").manual_seed(33)
+    block = GqaRingAttentionBlock(
+        init_gqa_params(dm, h, h_kv, e, generator=g,
+                        dtype=torch.bfloat16, device="cuda"),
+        h, h_kv, e, causal=True)
+    # tokens scaled so q, k and v have unit variance, as after the model's
+    # norm layer: x·w sums dm products of std x_std·INIT_STD
+    x_std = 1.0 / (INIT_STD * dm ** 0.5)
+    x = (torch.randn(1, CONTEXT, dm, generator=g, device="cuda") * x_std
+         ).to(torch.bfloat16)
+    xs = [t.contiguous() for t in x.split(s_local, dim=1)]
+    fwd = ka.ring_flash_attention_fwd
+    samples = []
+    with torch.no_grad():
+        fwd.launches = 0
+        for i in range(WARMUP + ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = block(xs)
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                samples.append(time.perf_counter() - t0)
+        launches = fwd.launches
+        if launches != WARMUP + ITERS:
+            raise AssertionError(f"the GQA block launched "
+                                 f"ring_flash_attention_fwd {launches} "
+                                 f"times, want {WARMUP + ITERS}")
+        if len(outs) != N_RANKS or any(
+                o.shape != (1, s_local, dm) or o.dtype != torch.bfloat16 or
+                not torch.isfinite(o).all() for o in outs):
+            raise AssertionError("the GQA block's outputs are not finite "
+                                 f"bf16 (1, {s_local}, {dm}) blocks")
+        # the attention inside that forward, checked
+        qs, ks, vs = block.project(xs)
+        scale = ka.default_scale(e)
+        attn = fwd(qs, ks, vs, scale, True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, m) for o, m in zip(outs,
+                                                     block.merge(attn, 1))):
+            raise AssertionError("the GQA block's output is not its "
+                                 "attention merged through wo")
+        max_err = compare_attention(
+            attn, ka.ring_flash_attention_ref(qs, ks, vs, scale, True),
+            "GQA block attention")
+        q, k, v = (torch.cat(t, dim=1)[None] for t in (qs, ks, vs))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        lib = sdpa()[0].float()
+        got = torch.cat(attn, dim=1).float()
+        rtol, _ = attention_tolerance(torch.bfloat16)
+        # SDPA rounds the probabilities to bf16 before P·V (2^-9 each, so
+        # an element moves by up to 2^-9·max|v|) on top of the output's
+        # rounding: atol 2^-8·max|v|
+        sdpa_atol = 2.0 ** -8 * v.float().abs().max().item()
+        sdpa_err = (got - lib).abs().max().item()
+        if not torch.allclose(got, lib, rtol=rtol, atol=sdpa_atol):
+            raise AssertionError(f"GQA block attention differs from "
+                                 f"scaled_dot_product_attention by up to "
+                                 f"{sdpa_err} (atol {sdpa_atol})")
+        del lib, got
+        ms = cuda_ms(lambda: fwd(qs, ks, vs, scale, True), ITERS)
+        plain_ms = cuda_ms(
+            lambda: ka.ring_flash_attention_ref(qs, ks, vs, scale, True), 3)
+        library_ms = cuda_ms(sdpa, ITERS)
+    # least work: the causal half of the S x S scores and of P·V, the
+    # diagonal included (4·h·d flops a pair); least bytes: q, k, v read
+    # and o written once
+    bound, bound_by = bound_ms(
+        N_RANKS * (2 * h + 2 * h_kv) * s_local * e * 2,
+        4 * h * e * CONTEXT * (CONTEXT + 1) // 2, TENSOR16_FLOPS)
+    samples.sort()
+    p50 = samples[len(samples) // 2]
+    log(f"main path GQA block (Llama 3 8B attention widths: dm {dm}, {h} "
+        f"heads, {h_kv} KV heads, head dim {e}), bf16, causal, {CONTEXT} "
+        f"tokens over {N_RANKS} ranks: forward p50 {p50 * 1e3:.3f} ms (p10 "
+        f"{samples[len(samples) // 10] * 1e3:.3f}, max "
+        f"{samples[-1] * 1e3:.3f}) over {ITERS} runs, "
+        f"{CONTEXT / p50:.0f} tokens/s | launches {launches} | "
+        f"ring_flash_attention_fwd {ms:.3f} ms, bound {bound:.4f} ms "
+        f"({bound_by}), roofline share {bound / ms:.4f} | plain "
+        f"{plain_ms:.3f} ms, max abs err {max_err} | SDPA {library_ms:.4f} "
+        f"ms, max abs diff {sdpa_err} (atol {sdpa_atol:.4f}) | card {smi}")
+    return {
+        "name": "ring_flash_attention_fwd", "route": "cuda",
+        "source": f"ucc_tpu_torch/csrc/{ka.SOURCE}",
+        "replaces": "ucc_tpu/fused_attention.py:44",
+        "launches": launches, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
 def make_job(n):
     import ucc_tpu_torch as ucc
     world = ucc.ThreadOobWorld(n)
@@ -850,12 +1098,12 @@ def least_bytes(coll, n, count, dst_count, elem=4) -> int:
     return n * (count + dst_count) * elem
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
     """(ms, "bytes" or "operations"): the least time, the longer of moving
-    `nbytes` at the HBM rate and doing the `flops` adds at the f32
-    rate."""
+    `nbytes` at the HBM rate and doing the `flops` at `flops_per_s` (the
+    f32 rate unless given)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else \
         (by_ops, "operations")
 
@@ -1040,6 +1288,7 @@ def main() -> int:
         from ucc_tpu_torch.kernels import build
         from ucc_tpu_torch.kernels import ec_reduce as ker
         from ucc_tpu_torch.kernels import ring_allreduce as kr
+        from ucc_tpu_torch.kernels import ring_attention as ka
         from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
         from ucc_tpu_torch.kernels import ring_rs_ag as krs
     except ImportError as e:
@@ -1052,7 +1301,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
-    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE]
+    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE, ka.SOURCE]
     build_s = build.build_all(sources)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
         f"{build_s:.1f} s")
@@ -1062,6 +1311,8 @@ def main() -> int:
     phase_kernels_rs_ag()
     phase_kernels_bcast_a2a()
     phase_kernels_ec()
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions
+    phase_kernels_attention()
 
     # -- 3. main path ----------------------------------------------------
     os.environ["UCC_TL_RING_CUDA_TUNE"] = \
@@ -1129,10 +1380,11 @@ def main() -> int:
     counters = {k: w for k, (w, _) in kernels.items()}
     counters["ec_reduce"] = ker.ec_reduce
     records["ec_reduce"] = main_path_perftest(counters, smi)
+    records["ring_flash_attention_fwd"] = main_path_attention(smi)
 
     log(smi)
-    log(json.dumps({"kernels": [records[k] for k in KERNELS] +
-                    [records["ec_reduce"]]}))
+    log(json.dumps({"kernels": [records[k] for k in KERNELS] + [
+        records["ec_reduce"], records["ring_flash_attention_fwd"]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -237,6 +237,9 @@ def test_port_imports_without_jax():
             "from ucc_tpu_torch.kernels import ring_allreduce, build; "
             "from ucc_tpu_torch.kernels import ring_common, ring_rs_ag; "
             "from ucc_tpu_torch.kernels import ring_bcast_a2a, ec_reduce; "
+            "from ucc_tpu_torch.kernels import ring_attention; "
+            "from ucc_tpu_torch import fused_attention; "
+            "from ucc_tpu_torch.examples import long_context; "
             "from ucc_tpu_torch.ec import base, cpu, cuda; "
             "from ucc_tpu_torch.tools import perftest; "
             "base.create_executor(ucc_tpu_torch.MemoryType.CUDA); "

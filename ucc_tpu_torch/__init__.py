@@ -13,7 +13,23 @@ of an in-process team on one GPU through the ring kernels of
 ``kernels/ring_allreduce.py``, ``kernels/ring_rs_ag.py`` and
 ``kernels/ring_bcast_a2a.py``; the execution components ``ec/`` (numpy on
 the host, the reduce kernel of ``kernels/ec_reduce.py`` on GPU tensors);
-and ucc_perftest as ``python -m ucc_tpu_torch.tools.perftest``.
+ucc_perftest as ``python -m ucc_tpu_torch.tools.perftest``; and
+context-parallel attention: ``fused_attention`` (ring flash-attention over
+the ranks' sequence blocks, forward through the kernel of
+``kernels/ring_attention.py``, backward by recompute) and the long-context
+GQA block of ``examples/long_context.py``.
+
+Attention on the CPU (the kernel's plain version runs on CPU tensors)::
+
+    import torch
+    from ucc_tpu_torch.fused_attention import make_ring_flash_attention
+    attn = make_ring_flash_attention(8, causal=True, device="cpu")
+    out = attn(torch.randn(32, 64, 16), torch.randn(8, 64, 16),
+               torch.randn(8, 64, 16))           # (heads, seq, head_dim)
+
+With the default ``device="cuda"`` it runs on the GPU (and raises without
+one); ``kernels.ring_attention.ring_flash_attention_fwd.launches`` counts
+the kernel's launches.
 
 Quick start (8 ranks of one GPU; context creation blocks on the OOB
 exchange, so each context is created on its own thread)::
