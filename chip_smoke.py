@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the five kernel sources from
+   versions, and the time to build the six kernel sources from
    ucc_tpu_torch/csrc/ (one nvcc each, started together);
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
@@ -26,6 +26,13 @@ Phases, each printing its own lines (any failure exits non-zero):
      cases and n = 1 for both;
    and a set error word must make an allreduce, a reduce_scatter, an
    allgather, a bcast and an alltoall wrapper raise;
+   - every ring kernel again on int8, uint8, int16 and float64;
+   - both entry points of the generated-collective kernel (gen_device_ring,
+     gen_device_gen) on every device program at n in {2, 4, 8}, counts
+     nchunks x 37, the nine types it takes, the five ops, bcast roots 0,
+     n/2 and n-1, in place; and on int8/fp8 edge-wire direct exchanges
+     with tail blocks (qblock 32 and 256); a set error word must make both
+     raise;
    - the execution component's reduce kernel (ec_reduce) over every type it
      takes x all 11 ops (BAND/BOR/BXOR on integers only), k in {1, 2, 3,
      9} sources, counts {1, 7, 1000, 2^20+3}, alpha None and 0.25, NaNs
@@ -72,13 +79,24 @@ Phases, each printing its own lines (any failure exits non-zero):
      through wo, that attention is within bf16 tolerance of the plain
      version and, as a check only, of scaled_dot_product_attention on the
      unsharded tensors;
+   - the generated device collectives through tl/torch_ops, UCC_GEN_DEVICE=y
+     and a UCC_TL_TORCH_OPS_TUNE pin per run (alg asserted, launches
+     counted, dst bitwise the plain version): allreduce SUM of 16 Mi and
+     64 Ki f32 via gen_dev_ring_c2, gen_dev_rhd_r2 and gen_dev_rhd_r8, 16 Mi
+     via gen_dev_qint8_direct (UCC_QUANT=int8, its own libs); bcast of
+     16 Mi from root 3 and 64 Ki from root 0 via gen_dev_bc_kn_r2 and
+     gen_dev_bc_chain_c2; and tl/torch_ops's library-ops default (xla)
+     for allreduce and bcast at 16 Mi; then, below the stack, int8 and
+     fp8 edge-wire direct exchanges of 16 Mi f32 over 8 ranks;
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms): torch.stack(srcs).sum(0)
    for allreduce and reduce_scatter, n x torch.cat(srcs, out=dst) for
    allgather, (n-1) x dst.copy_(src_root) for bcast, n x torch.cat(block r
    of every src, out=dst_r) for alltoall; for ec_reduce at the three
-   reducedt shapes, torch.stack(srcs).sum(0); for ring flash-attention at
+   reducedt shapes, torch.stack(srcs).sum(0); for the generated kernel,
+   torch.stack(srcs).sum(0) (allreduce) or (n-1) x copy_ (bcast); for
+   ring flash-attention at
    the main path's shapes, scaled_dot_product_attention on the unsharded
    (1, 32, 8192, 128) q and (1, 8, 8192, 128) k, v.
 
@@ -167,11 +185,13 @@ def make_inputs(n, count, dtype, op, seed):
     import torch
     from ucc_tpu_torch import ReductionOp
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if dtype == torch.int32:
-        return [torch.randint(-50, 50, (count,), generator=g, device="cuda",
-                              dtype=torch.int32) for _ in range(n)]
-    srcs = [torch.randn(count, generator=g, device="cuda").to(dtype)
-            for _ in range(n)]
+    if not dtype.is_floating_point:
+        lo = 0 if dtype == torch.uint8 else -50
+        return [torch.randint(lo, 50, (count,), generator=g, device="cuda",
+                              dtype=dtype) for _ in range(n)]
+    srcs = [torch.randn(count, generator=g, device="cuda",
+                        dtype=torch.float64 if dtype == torch.float64
+                        else torch.float32).to(dtype) for _ in range(n)]
     if op in (ReductionOp.MAX, ReductionOp.MIN):
         srcs[1][3] = float("nan")
     return srcs
@@ -519,6 +539,187 @@ def phase_kernels_bcast_a2a() -> None:
         f"place for both; f16, int64; n=1) in "
         f"{time.perf_counter() - t0:.1f} s; a set error word raises for both "
         f"collectives")
+
+
+#: the dtypes the ring kernels gained beside f32/f16/bf16/int32/int64
+WIDE_DTYPES = ("int8", "uint8", "int16", "float64")
+
+
+def phase_kernels_wide_types() -> None:
+    """Every ring kernel on int8, uint8, int16 and float64, bitwise against
+    its plain version: the allreduce and reduce_scatter kernels over the
+    five ops (integer sums and products wrap, AVG truncates), the data
+    movers on each type."""
+    import torch
+    from ucc_tpu_torch.kernels import ring_allreduce as kr
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
+    from ucc_tpu_torch.kernels import ring_rs_ag as krs
+    t0 = time.perf_counter()
+    cases = 0
+    for t, tname in enumerate(WIDE_DTYPES):
+        dtype = getattr(torch, tname)
+        for i, op in enumerate(kr.OPS):
+            n = (2, 4, 8)[(t + i) % 3]
+            seed = 5000 + 10 * t + i
+            check_kernel(kr.ring_allreduce_pass, kr.ring_allreduce_pass_ref,
+                         make_inputs(n, 1001, dtype, op, seed), op)
+            check_kernel(kr.ring_allreduce_chunked,
+                         kr.ring_allreduce_chunked_ref,
+                         make_inputs(n, kr.pass_elems(n) + 37, dtype, op,
+                                     seed + 1), op, inplace=i % 2 == 1)
+            check_reduce_scatter(krs.ring_reduce_scatter_pass,
+                                 krs.ring_reduce_scatter_ref,
+                                 make_inputs(n, n * 501, dtype, op, seed + 2),
+                                 op)
+            cases += 3
+        n = (2, 4, 8)[t % 3]
+        big = 2 * (krs.CHUNK_ELEMS // n) + 3
+        check_reduce_scatter(krs.ring_reduce_scatter_chunked,
+                             krs.ring_reduce_scatter_ref,
+                             make_inputs(n, n * big, dtype, kr.OPS[0],
+                                         5100 + t), kr.OPS[0])
+        check_allgather(krs.ring_allgather_pass, krs.ring_allgather_ref,
+                        make_inputs(n, 1001, dtype, kr.OPS[0], 5200 + t))
+        check_allgather(krs.ring_allgather_chunked, krs.ring_allgather_ref,
+                        make_inputs(n, big, dtype, kr.OPS[0], 5300 + t))
+        sub = kba.CHUNK_ELEMS // 2
+        check_bcast(kba.ring_bcast_pass, kba.ring_bcast_ref,
+                    make_inputs(n, 1001, dtype, kr.OPS[0], 5400 + t), n - 1)
+        check_bcast(kba.ring_bcast_chunked, kba.ring_bcast_ref,
+                    make_inputs(n, 3 * sub + 1, dtype, kr.OPS[0], 5500 + t),
+                    n // 2, inplace=True)
+        check_alltoall(kba.ring_alltoall_pass, kba.ring_alltoall_ref,
+                       make_inputs(n, n * 1001, dtype, kr.OPS[0], 5600 + t))
+        check_alltoall(kba.ring_alltoall_chunked, kba.ring_alltoall_ref,
+                       make_inputs(n, n * (kba.CHUNK_ELEMS // n + 5), dtype,
+                                   kr.OPS[0], 5700 + t))
+        cases += 7
+    log(f"kernels: {cases} ring launches on {'/'.join(WIDE_DTYPES)} bitwise "
+        f"equal to their plain versions (all ten ring kernels; allreduce and "
+        f"reduce_scatter x SUM/AVG/MAX/MIN/PROD) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+#: every type the generated device kernel takes (the ring kernels' list)
+GEN_DTYPES = ("float32", "float16", "bfloat16", "int32", "int64", "int8",
+              "uint8", "int16", "float64")
+
+
+def wire_direct(n, rs_wire, ag_wire):
+    """The direct exchange with int8/fp8 tags on the edges of its reduce
+    and gather rounds: a program that reaches the kernel's wire layers (no
+    registered candidate does: gen_q*_direct carries its precision on the
+    program, which the lowering reads from the edges)."""
+    from ucc_tpu_torch import CollType
+    from ucc_tpu_torch.dsl.ir import ProgramBuilder
+    b = ProgramBuilder("wdirect", CollType.ALLREDUCE, n, n)
+    b.next_round()
+    for p in range(n):
+        for q in range(n):
+            if p != q:
+                b.send(p, q, to=q, wire=rs_wire)
+    for q in range(n):
+        for p in range(n):
+            if p != q:
+                b.reduce(q, q, frm=p, wire=rs_wire)
+    b.next_round()
+    for q in range(n):
+        for p in range(n):
+            if p != q:
+                b.send(q, q, to=p, wire=ag_wire)
+    for p in range(n):
+        for q in range(n):
+            if p != q:
+                b.recv(p, q, frm=q, wire=ag_wire)
+    return b.build("gen_wdirect")
+
+
+def check_gen(prog, n, srcs, op, root=0, inplace=False, qblock=256,
+              qmode="") -> float:
+    """One launch of the generated kernel's entry point for *prog* (ring or
+    layers, as the lowering picks), bitwise against gen_device_ref on the
+    same tensors; bcast results also bitwise the root's src."""
+    import torch
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    plan = ld.device_plan(prog, n, srcs[0].numel(), root, qblock, qmode)
+    wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
+    data = srcs[root].clone()
+    want = kgd.gen_device_ref(srcs, plan, op)
+    dsts = [s.clone() for s in srcs] if inplace else \
+        [torch.full_like(s, 7) for s in srcs]
+    wrapper(dsts if inplace else srcs, dsts, op, plan=plan).wait()
+    torch.cuda.synchronize()
+    what = (f"{wrapper.__name__} {prog.name} n={n} {srcs[0].dtype} "
+            f"{getattr(op, 'name', op)} count={srcs[0].numel()} root={root}"
+            f"{' in place' if inplace else ''}{' ' + qmode if qmode else ''}")
+    if not plan.reducing:
+        compare(what + " vs the root's src", dsts, [data] * n)
+    return compare(what, dsts, want)
+
+
+def phase_kernels_gen_device() -> None:
+    """Both entry points of the generated device kernel against their plain
+    version: every device program at n = 2, 4, 8 on every type it takes,
+    the five ops turning with the type (NaNs for MAX/MIN, AVG on floating
+    types only), bcast roots 0, n/2 and n-1, every other case in place,
+    counts of nchunks x 37; then int8 and fp8 wire programs with tail
+    blocks; a set error word must make both entry points raise."""
+    import torch
+    from ucc_tpu_torch import CollType, ReductionOp
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    from ucc_tpu_torch.kernels import ring_common as kc
+    t0 = time.perf_counter()
+    cases = 0
+    entries = {"ring": 0, "gen": 0}
+    for n in (2, 4, 8):
+        progs = ld.device_programs(n, "int8") + [
+            p for p in ld.device_programs(n, "fp8") if "qfp8" in p.name]
+        for i, prog in enumerate(progs):
+            for j, tname in enumerate(GEN_DTYPES):
+                dtype = getattr(torch, tname)
+                op = kc.OPS[(i + j) % len(kc.OPS)]
+                if op == ReductionOp.AVG and not dtype.is_floating_point:
+                    op = ReductionOp.SUM
+                if prog.wire and dtype != torch.float32:
+                    continue                # wire programs take f32 only
+                root = [0, n // 2, n - 1][(i + j) % 3] \
+                    if prog.coll == CollType.BCAST else 0
+                srcs = make_inputs(n, prog.nchunks * 37, dtype, op,
+                                   7000 + 100 * n + 10 * i + j)
+                check_gen(prog, n, srcs, op, root, inplace=(i + j) % 2 == 1,
+                          qmode=prog.wire)
+                plan = ld.device_plan(prog, n, prog.nchunks * 37, root)
+                entries["ring" if plan.ring else "gen"] += 1
+                cases += 1
+    for n in (2, 4, 8):
+        for qmode in ("int8", "fp8"):
+            for rs, ag in ((qmode, qmode), (qmode, ""), ("", qmode)):
+                prog = wire_direct(n, rs, ag)
+                for qblock, ce in ((32, 40), (256, 256 * 3 + 17)):
+                    srcs = make_inputs(n, n * ce, torch.float32,
+                                       ReductionOp.SUM, 8000 + n + ce)
+                    check_gen(prog, n, srcs, ReductionOp.SUM, qblock=qblock,
+                              qmode=qmode, inplace=ce == 40)
+                    cases += 1
+                    entries["gen"] += 1
+    srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 27)
+    for name in ("gen_ring_c1", "gen_rhd_r2"):
+        prog = next(p for p in ld.device_programs(4) if p.name == name)
+        plan = ld.device_plan(prog, 4, srcs[0].numel())
+        wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
+        expect_fault(lambda: wrapper(
+            srcs, [torch.empty_like(s) for s in srcs], ReductionOp.SUM,
+            plan=plan, workspace=faulted_workspace()))
+    log(f"kernels: {cases} generated-collective launches ({entries['ring']} "
+        f"ring entry, {entries['gen']} layer entry) bitwise equal to "
+        f"gen_device_ref (every device program at n in 2,4,8 on "
+        f"{'/'.join(GEN_DTYPES)}; SUM/AVG/MAX/MIN/PROD with NaN for "
+        f"MAX/MIN; bcast roots 0, n/2, n-1, bitwise the root's src; counts "
+        f"nchunks x 37; in place; int8/fp8 wire layers, qblock 32 and 256, "
+        f"tail blocks) in {time.perf_counter() - t0:.1f} s; a set error word "
+        f"raises for both entry points")
 
 
 def ec_inputs(td, count, k, variant, seed):
@@ -888,10 +1089,12 @@ def main_path_attention(smi) -> dict:
     }
 
 
-def make_job(n):
+def make_job(n, **overrides):
+    """n contexts (their libs made with the config *overrides*) and one
+    team over them."""
     import ucc_tpu_torch as ucc
     world = ucc.ThreadOobWorld(n)
-    libs = [ucc.init() for _ in range(n)]
+    libs = [ucc.init(**overrides) for _ in range(n)]
     ctxs = [None] * n
     errs = []
 
@@ -911,6 +1114,13 @@ def make_job(n):
         raise errs[0]
     if any(t.is_alive() for t in threads):
         raise RuntimeError("context creation did not finish")
+    return ctxs, make_team(ctxs)
+
+
+def make_team(ctxs):
+    """A team over every context (the TUNE variables are read here)."""
+    import ucc_tpu_torch as ucc
+    n = len(ctxs)
     tworld = ucc.ThreadOobWorld(n)
     teams = [c.create_team_post(ucc.TeamParams(oob=tworld.endpoint(r)))
              for r, c in enumerate(ctxs)]
@@ -926,7 +1136,7 @@ def make_job(n):
             raise RuntimeError(f"team create failed: {bad[0]}")
         if time.monotonic() > deadline:
             raise RuntimeError("team create timed out")
-    return ctxs, teams
+    return teams
 
 
 #: the main path's runs: (collective, kernel it must launch, f32 elements
@@ -1166,6 +1376,204 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     return max_err, ms, plain_ms, library_ms
 
 
+#: the generated device collectives on the main path: (collective, the
+#: algorithm pinned by UCC_TL_TORCH_OPS_TUNE, the entry point it must
+#: launch, f32 elements per rank, root, seed, lib overrides). "xla" is
+#: tl/torch_ops's library-ops default, which launches no kernel.
+GEN_RUNS = (
+    ("ALLREDUCE", "gen_dev_ring_c2", "gen_device_ring", MAIN_COUNT, 0, 31),
+    ("ALLREDUCE", "gen_dev_ring_c2", "gen_device_ring", SMALL_COUNT, 0, 32),
+    ("ALLREDUCE", "gen_dev_rhd_r2", "gen_device_gen", MAIN_COUNT, 0, 33),
+    ("ALLREDUCE", "gen_dev_rhd_r2", "gen_device_gen", SMALL_COUNT, 0, 34),
+    ("ALLREDUCE", "gen_dev_rhd_r8", "gen_device_gen", MAIN_COUNT, 0, 35),
+    ("ALLREDUCE", "gen_dev_rhd_r8", "gen_device_gen", SMALL_COUNT, 0, 36),
+    ("BCAST", "gen_dev_bc_kn_r2", "gen_device_gen", MAIN_COUNT, 3, 37),
+    ("BCAST", "gen_dev_bc_kn_r2", "gen_device_gen", SMALL_COUNT, 0, 38),
+    ("BCAST", "gen_dev_bc_chain_c2", "gen_device_gen", MAIN_COUNT, 3, 39),
+    ("BCAST", "gen_dev_bc_chain_c2", "gen_device_gen", SMALL_COUNT, 0, 40),
+    ("ALLREDUCE", "xla", None, MAIN_COUNT, 0, 41),
+    ("BCAST", "xla", None, MAIN_COUNT, 3, 42),
+)
+#: UCC_QUANT is a lib setting: the quantized program's run has its own libs
+GEN_QUANT_RUNS = (
+    ("ALLREDUCE", "gen_dev_qint8_direct", "gen_device_gen", MAIN_COUNT, 0,
+     43),
+)
+#: the runs whose kernel numbers go into the kernels record
+GEN_RECORDS = {("gen_dev_ring_c2", MAIN_COUNT): "gen_device_ring",
+               ("gen_dev_rhd_r2", MAIN_COUNT): "gen_device_gen"}
+GEN_REPLACES = {"gen_device_ring": "ucc_tpu/dsl/lower_device.py:525",
+                "gen_device_gen": "ucc_tpu/dsl/lower_device.py:595"}
+
+
+def measure_gen(coll, prog, srcs, root, bufs, qblock=256, qmode=""):
+    """The generated kernel alone on the main path's inputs: bitwise
+    against gen_device_ref (max_abs_err), then timed with its workspace
+    and pointer table built once (a bcast in place on the main path's
+    buffers `bufs`); its plain version and one PyTorch call as
+    yardsticks: torch.stack(srcs).sum(0) for allreduce, (n-1) x copy_ of
+    the root's buffer for bcast."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    from ucc_tpu_torch.kernels import ring_common as kc
+    sum_ = ReductionOp.SUM
+    n = len(srcs)
+    max_err = check_gen(prog, n, srcs, sum_, root, qblock=qblock,
+                        qmode=qmode)
+    plan = ld.device_plan(prog, n, srcs[0].numel(), root, qblock, qmode)
+    wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
+    ins, out = (bufs, bufs) if coll == "BCAST" else \
+        (srcs, [torch.empty_like(s) for s in srcs])
+    ws = kc.RingWorkspace(srcs[0].device)
+    table = kc.make_ptr_table(ins, out)
+    ms = cuda_ms(lambda: wrapper(ins, out, sum_, plan=plan, workspace=ws,
+                                 ptr_table=table), 10)
+    plain_ms = cuda_ms(lambda: kgd.gen_device_ref(srcs, plan, sum_), 2)
+    if coll == "BCAST":
+        library_ms = cuda_ms(lambda: [o.copy_(srcs[root]) for r, o in
+                                      enumerate(out) if r != root], 20)
+    else:
+        library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
+    del ins, out, ws, table
+    return max_err, ms, plain_ms, library_ms
+
+
+def gen_bound(coll, n, count):
+    """The least time: 2·n·S bytes for allreduce (n srcs read, n dsts
+    written) with (n-1)·count adds, n·S for bcast."""
+    if coll == "BCAST":
+        return bound_ms(n * count * 4, 0)
+    return bound_ms(2 * n * count * 4, (n - 1) * count)
+
+
+def main_path_gen(smi) -> dict:
+    """The generated device collectives and tl/torch_ops's library ops
+    through the whole stack: init (UCC_GEN_DEVICE=y) -> contexts -> a team
+    per run with UCC_TL_TORCH_OPS_TUNE=<coll>:@<alg>:inf -> persistent
+    collective_init/post/test -> tl/torch_ops -> kernel B11. Each run's
+    launch counters are zeroed just before and read just after; the entry
+    point it names must have launched once per round, and no other gen
+    entry point. Returns the records of GEN_RECORDS."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    from ucc_tpu_torch.tl import torch_ops
+    rounds = WARMUP + ITERS
+    counters = {"gen_device_ring": kgd.gen_device_ring,
+                "gen_device_gen": kgd.gen_device_gen}
+    records = {}
+    progs = {ld.dev_alg_name(p): p
+             for p in ld.device_programs(N_RANKS, "int8")}
+    for runs, overrides in ((GEN_RUNS, {"GEN_DEVICE": "y"}),
+                            (GEN_QUANT_RUNS, {"GEN_DEVICE": "y",
+                                              "QUANT": "int8"})):
+        ctxs, teams = make_job(N_RANKS, **overrides)
+        for t in teams:
+            t.destroy()
+        for coll, alg, kname, count, root, seed in runs:
+            os.environ["UCC_TL_TORCH_OPS_TUNE"] = f"{coll.lower()}:@{alg}:inf"
+            teams = make_team(ctxs)
+            for w in counters.values():
+                w.launches = 0
+            samples, srcs, dsts, got_alg = run_main_path(
+                ctxs, teams, coll, count, count, root, seed)
+            launches = {k: w.launches for k, w in counters.items()}
+            for t in teams:
+                t.destroy()
+            if got_alg != alg:
+                raise AssertionError(f"{coll} selected {got_alg}, not {alg}")
+            want = {k: rounds if k == kname else 0 for k in counters}
+            if launches != want:
+                raise AssertionError(f"{coll} via {alg}: launches {launches},"
+                                     f" want {want}")
+            samples.sort()
+            p50 = samples[len(samples) // 2]
+            rooted = f" from root {root}" if coll == "BCAST" else ""
+            head = (f"main path {coll}{rooted} {count} f32/rank via "
+                    f"torch_ops/{alg}: p50 {p50 * 1e3:.3f} ms (p10 "
+                    f"{samples[len(samples) // 10] * 1e3:.3f}, max "
+                    f"{samples[-1] * 1e3:.3f}) over {ITERS} rounds")
+            if kname is None:
+                plain = [torch_ops.allreduce_ops(srcs, ucc.ReductionOp.SUM)
+                         if coll == "ALLREDUCE" else
+                         torch_ops.bcast_ops(srcs, root)] * N_RANKS
+                check_main_result(coll, srcs, dsts, plain, root)
+                log(f"{head} | library ops, no kernel | launches {launches} "
+                    f"| card {smi}")
+                del srcs, dsts, plain
+                torch.cuda.empty_cache()
+                continue
+            prog = progs[alg]
+            plan = ld.device_plan(prog, N_RANKS, count, root)
+            plain = kgd.gen_device_ref(srcs, plan, ucc.ReductionOp.SUM)
+            check_main_result(coll, srcs, dsts, plain, root)
+            bufs = dsts if coll == "BCAST" else None
+            del dsts, plain
+            bound, bound_by = gen_bound(coll, N_RANKS, count)
+            line = f"{head} | launches {launches[kname]}"
+            if count == MAIN_COUNT:
+                max_err, ms, plain_ms, library_ms = measure_gen(
+                    coll, prog, srcs, root, bufs, qmode=prog.wire)
+                library = "(n-1) x copy_" if coll == "BCAST" \
+                    else "stack().sum(0)"
+                line += (f" | {kname} {ms:.3f} ms, bound {bound:.4f} ms "
+                         f"({bound_by}), roofline share {bound / ms:.4f} | "
+                         f"plain {plain_ms:.3f} ms | {library} "
+                         f"{library_ms:.3f} ms")
+                if (alg, count) in GEN_RECORDS:
+                    records[kname] = {
+                        "name": kname, "route": "cuda",
+                        "source": f"ucc_tpu_torch/csrc/{kgd.SOURCE}",
+                        "replaces": GEN_REPLACES[kname],
+                        "launches": launches[kname], "max_abs_err": max_err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": library_ms,
+                    }
+            log(f"{line} | card {smi}")
+            del srcs, bufs
+            torch.cuda.empty_cache()
+        os.environ.pop("UCC_TL_TORCH_OPS_TUNE", None)
+        for c in ctxs:
+            c.destroy()
+    return records
+
+
+def wire_below_the_stack(smi) -> None:
+    """The kernel's wire layers at the main path's size, through the
+    wrapper: int8 and fp8 edge-tagged direct exchanges of 16 Mi f32 per
+    rank over 8 ranks (qblock 256), bitwise against the plain version,
+    with their error against the exact sum."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    for qmode in ("int8", "fp8"):
+        prog = wire_direct(N_RANKS, qmode, qmode)
+        srcs = make_inputs(N_RANKS, MAIN_COUNT, torch.float32,
+                           ReductionOp.SUM, 50 + len(qmode))
+        _, ms, plain_ms, library_ms = measure_gen(
+            "ALLREDUCE", prog, srcs, 0, None, qblock=256, qmode=qmode)
+        plan = ld.device_plan(prog, N_RANKS, MAIN_COUNT, 0, 256, qmode)
+        dsts = [torch.empty_like(s) for s in srcs]
+        kgd.gen_device_gen(srcs, dsts, ReductionOp.SUM, plan=plan).wait()
+        exact = torch.stack([s.double() for s in srcs]).sum(0)
+        rel = ((dsts[0].double() - exact).abs().max()
+               / exact.abs().max()).item()
+        bound, bound_by = gen_bound("ALLREDUCE", N_RANKS, MAIN_COUNT)
+        log(f"edge-wire {qmode} direct exchange {N_RANKS} x {MAIN_COUNT} "
+            f"f32 (qblock 256, arena {plan.arena >> 20} MiB/rank): "
+            f"gen_device_gen {ms:.3f} ms, bound {bound:.4f} ms "
+            f"({bound_by}), roofline share {bound / ms:.4f} | plain "
+            f"{plain_ms:.3f} ms | stack().sum(0) {library_ms:.3f} ms | "
+            f"bitwise the plain version | max error {rel:.5f} of max|sum| "
+            f"| card {smi}")
+        del srcs, dsts, exact
+        torch.cuda.empty_cache()
+
+
 #: ucc_perftest's reducedt runs on the main path: (arguments, dtype,
 #: sources, elements per source)
 PERFTEST_REDUCEDT = (
@@ -1264,7 +1672,8 @@ def main_path_perftest(counters, smi) -> dict:
     if launches["ring_allreduce_chunked"] != rounds:
         raise AssertionError(f"perftest allreduce: launches {launches}, "
                              f"want ring_allreduce_chunked {rounds}")
-    log(f"main path perftest allreduce 8 ranks x 64 MiB: p50 "
+    log(f"main path perftest allreduce 8 ranks x 64 MiB via tl/ring_cuda "
+        f"(pinned by UCC_TL_RING_CUDA_TUNE): p50 "
         f"{recs[0]['p50_us']:.1f} us, busbw {recs[0]['busbw_GBps']} GB/s, "
         f"launches {launches['ring_allreduce_chunked']} | card {smi}")
     torch.cuda.empty_cache()
@@ -1287,6 +1696,7 @@ def main() -> int:
         import ucc_tpu_torch as ucc
         from ucc_tpu_torch.kernels import build
         from ucc_tpu_torch.kernels import ec_reduce as ker
+        from ucc_tpu_torch.kernels import gen_device as kgd
         from ucc_tpu_torch.kernels import ring_allreduce as kr
         from ucc_tpu_torch.kernels import ring_attention as ka
         from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
@@ -1301,7 +1711,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
-    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE, ka.SOURCE]
+    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE, ka.SOURCE,
+               kgd.SOURCE]
     build_s = build.build_all(sources)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
         f"{build_s:.1f} s")
@@ -1310,11 +1721,15 @@ def main() -> int:
     phase_kernels()
     phase_kernels_rs_ag()
     phase_kernels_bcast_a2a()
+    phase_kernels_wide_types()
+    phase_kernels_gen_device()
     phase_kernels_ec()
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions
     phase_kernels_attention()
 
     # -- 3. main path ----------------------------------------------------
+    # the ring runs and perftest's allreduce measure tl/ring_cuda, pinned
+    # here (tl/torch_ops is the default TL for allreduce and bcast)
     os.environ["UCC_TL_RING_CUDA_TUNE"] = \
         "allreduce,reduce_scatter,allgather,bcast,alltoall:@ring_cuda:inf"
     t0 = time.perf_counter()
@@ -1381,10 +1796,15 @@ def main() -> int:
     counters["ec_reduce"] = ker.ec_reduce
     records["ec_reduce"] = main_path_perftest(counters, smi)
     records["ring_flash_attention_fwd"] = main_path_attention(smi)
+    # the generated device collectives and tl/torch_ops's defaults
+    os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+    records.update(main_path_gen(smi))
+    wire_below_the_stack(smi)
 
     log(smi)
     log(json.dumps({"kernels": [records[k] for k in KERNELS] + [
-        records["ec_reduce"], records["ring_flash_attention_fwd"]]}))
+        records[k] for k in ("ec_reduce", "ring_flash_attention_fwd",
+                             "gen_device_ring", "gen_device_gen")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -234,6 +234,7 @@ def _blocks(n=2, h=4, h_kv=2, s=3, d=8, dtype=torch.float32):
     ("dtype", Status.ERR_NOT_SUPPORTED),
     ("head_dim", Status.ERR_NOT_SUPPORTED),
     ("ranks", Status.ERR_NOT_SUPPORTED),
+    ("query_heads", Status.ERR_NOT_SUPPORTED),
     ("lists", Status.ERR_INVALID_PARAM),
     ("shape", Status.ERR_INVALID_PARAM),
     ("heads", Status.ERR_INVALID_PARAM),
@@ -251,6 +252,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, status):
         qs, ks, vs = _blocks(d=ka.MAX_HEAD_DIM + 1)
     elif bad == "ranks":
         qs, ks, vs = _blocks(n=ka.MAX_RANKS + 1, s=1, d=1)
+    elif bad == "query_heads":
+        # past the grid's y extent, which a CUDA launch refuses
+        qs, ks, vs = _blocks(n=2, h=ka.MAX_HEADS + 1, h_kv=1, s=1, d=1)
     elif bad == "lists":
         vs = vs[:1]
     elif bad == "shape":
@@ -270,6 +274,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, status):
     with pytest.raises(UccError) as ei:
         ka.ring_flash_attention_fwd(qs, ks, vs, 0.5, False)
     assert ei.value.status == status
+
+
+def test_check_args_takes_up_to_65535_query_heads():
+    qs, ks, vs = _blocks(n=2, h=ka.MAX_HEADS, h_kv=1, s=1, d=1)
+    assert ka.check_args(qs, ks, vs) == (2, 65535, 1, 1, 1)
 
 
 def test_head_dim_256_is_the_largest_taken():

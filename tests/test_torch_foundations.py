@@ -242,6 +242,11 @@ def test_port_imports_without_jax():
             "from ucc_tpu_torch.examples import long_context; "
             "from ucc_tpu_torch.ec import base, cpu, cuda; "
             "from ucc_tpu_torch.tools import perftest; "
+            "from ucc_tpu_torch.tl import torch_ops; "
+            "from ucc_tpu_torch.kernels import gen_device; "
+            "from ucc_tpu_torch.dsl import ir, verify, families, registry; "
+            "from ucc_tpu_torch.dsl import lower_device; "
+            "from ucc_tpu_torch import quant; "
             "base.create_executor(ucc_tpu_torch.MemoryType.CUDA); "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -255,14 +260,27 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     lib = ut.init()
     if torch.cuda.is_available():
         ctx = ut.Context(lib)
-        assert ctx.tl_contexts["ring_cuda"].obj.device == \
-            torch.device("cuda", 0)
+        for tl in ("ring_cuda", "torch_ops"):
+            assert ctx.tl_contexts[tl].obj.device == torch.device("cuda", 0)
         ctx.destroy()
     else:
         with pytest.raises(ut.UccError) as ei:
             ut.Context(lib)
         assert ei.value.status == ut.Status.ERR_NO_RESOURCE
         assert "cuda" in str(ei.value)
+
+
+def test_device_tls_read_one_device_setting(monkeypatch):
+    """The ranks of a team hand every device TL the same tensors, so one
+    variable places them all."""
+    from ucc_tpu_torch.tl.torch_ops import TlTorchOps
+    assert TlTorchOps.CONTEXT_CONFIG is TlRingCuda.CONTEXT_CONFIG \
+        is tdev.DEVICE_CONFIG
+    monkeypatch.setenv("UCC_TL_RING_CUDA_DEVICE", "cpu")
+    ctx = ut.Context(ut.init())
+    for tl in ("ring_cuda", "torch_ops"):
+        assert ctx.tl_contexts[tl].obj.device == torch.device("cpu")
+    ctx.destroy()
 
 
 def test_cpu_device_runs_a_one_rank_allreduce(monkeypatch):

@@ -23,7 +23,8 @@ import torch
 pytest.importorskip("jax")
 
 from torch_ring_cases import (AG_CHUNKED_BLOCK, AG_PASS_BLOCK,  # noqa: E402
-                              DTYPES, NS, bitwise_equal, jax_allgather,
+                              COVER_DTYPES, NS, bitwise_equal,
+                              jax_allgather,
                               make_inputs, torch_allgather)
 from ucc_tpu_torch.constants import ReductionOp  # noqa: E402
 from ucc_tpu_torch.kernels import ring_rs_ag as krs  # noqa: E402
@@ -32,7 +33,7 @@ from ucc_tpu_torch.status import Status, UccError  # noqa: E402
 
 @pytest.mark.parametrize("kernel,block", [("pass", AG_PASS_BLOCK),
                                           ("chunked", AG_CHUNKED_BLOCK)])
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", COVER_DTYPES)
 @pytest.mark.parametrize("n", NS)
 def test_allgather_matches_pallas_kernel(kernel, block, n, dt, monkeypatch):
     # MAX puts a NaN into rank 1's block: it must arrive as it left
@@ -102,8 +103,8 @@ def test_wrapper_rejects_bad_arguments(bad):
     elif bad == "ranks":
         dsts = dsts[:1]
     else:
-        srcs = [s.to(torch.uint8) for s in srcs]
-        dsts = [d.to(torch.uint8) for d in dsts]
+        srcs = [s.to(torch.uint16) for s in srcs]
+        dsts = [d.to(torch.uint16) for d in dsts]
         status = Status.ERR_NOT_SUPPORTED
     with pytest.raises(UccError) as ei:
         krs.ring_allgather_pass(srcs, dsts)

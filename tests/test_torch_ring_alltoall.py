@@ -22,7 +22,7 @@ import torch
 
 pytest.importorskip("jax")
 
-from torch_ring_cases import (DTYPES, NS, bitwise_equal,  # noqa: E402
+from torch_ring_cases import (COVER_DTYPES, NS, bitwise_equal,  # noqa: E402
                               jax_alltoall, make_inputs, torch_alltoall)
 from ucc_tpu_torch.kernels import ring_bcast_a2a as kba  # noqa: E402
 from ucc_tpu_torch.status import Status, UccError  # noqa: E402
@@ -33,7 +33,7 @@ def covering_cases():
     25 and 6, and the dtype turns with them, so every n and every kernel
     meets every dtype. Each case compiles its own Pallas program, about a
     second in interpret mode."""
-    dts = list(DTYPES)
+    dts = list(COVER_DTYPES)
     runs = [("pass", 25), ("pass", 6), ("chunked", 25), ("chunked", 6)]
     return [(kernel, blk, n, dts[(i + j) % 3])
             for i, n in enumerate(NS)
@@ -125,8 +125,8 @@ def test_wrapper_rejects_bad_arguments(bad):
     elif bad == "ranks":
         dsts = dsts[:1]
     else:
-        srcs = [s.to(torch.uint8) for s in srcs]
-        dsts = [d.to(torch.uint8) for d in dsts]
+        srcs = [s.to(torch.uint16) for s in srcs]
+        dsts = [d.to(torch.uint16) for d in dsts]
         status = Status.ERR_NOT_SUPPORTED
     with pytest.raises(UccError) as ei:
         kba.ring_alltoall_pass(srcs, dsts)

@@ -22,7 +22,7 @@ import torch
 
 pytest.importorskip("jax")
 
-from torch_ring_cases import (DTYPES, NS, bitwise_equal,  # noqa: E402
+from torch_ring_cases import (COVER_DTYPES, NS, bitwise_equal,  # noqa: E402
                               jax_bcast, make_inputs, torch_bcast)
 from ucc_tpu_torch.kernels import ring_bcast_a2a as kba  # noqa: E402
 from ucc_tpu_torch.status import Status, UccError  # noqa: E402
@@ -33,7 +33,7 @@ def covering_cases():
     counts, and the root (0, 1, n-1) and the dtype turn with them, so every
     n meets every root and dtype, and every kernel every dtype. Each case
     compiles its own Pallas program, about a second in interpret mode."""
-    dts = list(DTYPES)
+    dts = list(COVER_DTYPES)
     runs = [("pass", 500), ("pass", 96), ("chunked", 500), ("chunked", 96)]
     cases = []
     for i, n in enumerate(NS):
@@ -109,8 +109,8 @@ def test_wrapper_rejects_bad_arguments(bad):
     elif bad == "dst_count":
         dsts[2] = torch.zeros(c + 1)
     else:
-        srcs = [s.to(torch.uint8) for s in srcs]
-        dsts = [d.to(torch.uint8) for d in dsts]
+        srcs = [s.to(torch.uint16) for s in srcs]
+        dsts = [d.to(torch.uint16) for d in dsts]
         status = Status.ERR_NOT_SUPPORTED
     with pytest.raises(UccError) as ei:
         kba.ring_bcast_pass(srcs, dsts, root=root)

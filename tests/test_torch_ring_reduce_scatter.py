@@ -151,8 +151,8 @@ def test_wrapper_rejects_bad_arguments(bad):
     elif bad == "ranks":
         dsts = dsts[:1]
     else:
-        srcs = [s.double() for s in srcs]
-        dsts = [d.double() for d in dsts]
+        srcs = [s.to(torch.uint16) for s in srcs]
+        dsts = [d.to(torch.uint16) for d in dsts]
         status = Status.ERR_NOT_SUPPORTED
     with pytest.raises(UccError) as ei:
         krs.ring_reduce_scatter_pass(srcs, dsts, op)

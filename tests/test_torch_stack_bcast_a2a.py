@@ -44,7 +44,7 @@ def jax_job():
 
 @pytest.fixture(scope="module")
 def torch_job():
-    job = make_torch_job()
+    job = make_torch_job("bcast:@ring_cuda:inf")
     yield job
     job.cleanup()
 
@@ -203,8 +203,10 @@ def test_bad_arguments_are_invalid(torch_job, bad):
 
 @pytest.fixture
 def one_rank_team(monkeypatch):
+    """A 1-rank team of tl/ring_cuda alone: tl/torch_ops, which serves any
+    bcast, would otherwise take the refused counts."""
     monkeypatch.setenv("UCC_TL_RING_CUDA_DEVICE", "cpu")
-    ctx = ut.Context(ut.init())
+    ctx = ut.Context(ut.init(TLS="ring_cuda"))
     team = ctx.create_team(ut.TeamParams())
     yield team
     team.destroy()
@@ -243,3 +245,40 @@ def test_score_map_picks_ring_cuda_on_cuda_memory(torch_job, coll, msgsize):
     best = torch_job.teams[0].score_map.lookup(coll, ut.MemoryType.CUDA,
                                                msgsize)[0]
     assert best.alg_name == "ring_cuda"
+
+
+def test_alltoall_with_a_reduction_op_is_not_supported(jax_job, torch_job):
+    """An alltoall folds nothing, yet tl/ring_dma refuses ops other than
+    SUM/AVG/MAX/MIN/PROD for it (tl/ring_dma.py:1481-1487), and so does
+    tl/ring_cuda: BAND on device memory is ERR_NOT_SUPPORTED at init."""
+    from ucc_tpu.api.types import coll_args_msgsize as jmsgsize
+    from ucc_tpu.core.coll import InitArgs as JInitArgs
+    from ucc_tpu_torch.api.types import coll_args_msgsize
+    from ucc_tpu_torch.core.coll import InitArgs
+    job, teams = jax_job
+    dev = job.contexts[0].tl_contexts["ring_dma"].obj.device
+    jargs = ucc_tpu.CollArgs(
+        coll_type=ucc_tpu.CollType.ALLTOALL, op=ucc_tpu.ReductionOp.BAND,
+        src=ucc_tpu.BufferInfo(jax.device_put(np.zeros(N * 4, np.float32),
+                                              dev), N * 4,
+                               ucc_tpu.DataType.FLOAT32,
+                               mem_type=JMemoryType.TPU),
+        dst=ucc_tpu.BufferInfo(None, N * 4, ucc_tpu.DataType.FLOAT32,
+                               mem_type=JMemoryType.TPU))
+    args = ut.CollArgs(coll_type=ut.CollType.ALLTOALL,
+                       op=ut.ReductionOp.BAND, src=_buf(N * 4),
+                       dst=_buf(N * 4))
+    for team, a, mem, size, ia_cls, name in (
+            (teams[0], jargs, JMemoryType.TPU, jmsgsize(jargs, N, 0),
+             JInitArgs, "ring_dma"),
+            (torch_job.teams[0], args, ut.MemoryType.CUDA,
+             coll_args_msgsize(args, N, 0), InitArgs, "ring_cuda")):
+        cand = next(c for c in team.score_map.lookup(
+            a.coll_type, mem, size) if c.alg_name == name)
+        with pytest.raises(Exception) as ei:
+            cand.init(ia_cls(args=a, team=team, mem_type=mem, msgsize=size),
+                      cand.team)
+        assert ei.value.status.name == "ERR_NOT_SUPPORTED", name
+    with pytest.raises(ut.UccError) as ei:
+        torch_job.teams[0].collective_init(args)
+    assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED

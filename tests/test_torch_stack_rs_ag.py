@@ -42,7 +42,7 @@ def jax_job():
 
 @pytest.fixture(scope="module")
 def torch_job():
-    job = make_torch_job()
+    job = make_torch_job("allreduce:@ring_cuda:inf")
     yield job
     job.cleanup()
 

@@ -19,7 +19,12 @@ from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
 from ucc_tpu_torch.kernels import ring_rs_ag as krs
 from ucc_tpu_torch.utils.convert import from_numpy, to_numpy
 
-DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16, "i32": np.int32}
+DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16, "i32": np.int32,
+          "i8": np.int8, "u8": np.uint8, "i16": np.int16}
+#: the dtypes of the covering cases (each case a Pallas compile): the
+#: integer types added later meet the Pallas kernels in
+#: tests/test_torch_ring_dtypes.py
+COVER_DTYPES = ("f32", "bf16", "i32")
 OPS = ["SUM", "AVG", "MAX", "MIN", "PROD"]
 NS = [2, 4, 8]
 
@@ -33,7 +38,7 @@ def covering_cases(shift):
     take different shifts and so run 30 distinct triples together; the
     elementwise part of every dtype and op is held against ucc_tpu's own
     functions in tests/test_torch_ring_allreduce.py."""
-    dts = list(DTYPES)
+    dts = list(COVER_DTYPES)
     return [(n, dts[(i + j + shift) % len(dts)], op)
             for i, n in enumerate(NS) for j, op in enumerate(OPS)]
 #: a small chunk, so the chunked kernel runs several chunks cheaply
@@ -53,9 +58,11 @@ AG_CHUNKED_BLOCK = 150
 
 def make_inputs(n, count, dt, op, seed):
     rng = np.random.default_rng(seed)
-    if dt == "i32":
-        # products of 8 such values overflow int32: both sides wrap
-        arrs = [rng.integers(-50, 50, count).astype(np.int32)
+    if np.dtype(DTYPES[dt]).kind in "iu":
+        # products of 8 such values overflow every integer type, and sums
+        # overflow int8: both sides wrap
+        lo = 0 if np.dtype(DTYPES[dt]).kind == "u" else -50
+        arrs = [rng.integers(lo, 50, count).astype(DTYPES[dt])
                 for _ in range(n)]
     else:
         arrs = [rng.standard_normal(count).astype(DTYPES[dt])

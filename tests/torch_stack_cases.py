@@ -65,14 +65,15 @@ class TorchJob:
                 raise TimeoutError("progress_until timed out")
 
     def persistent(self, coll, hosts, op, dt, dst_count=None,
-                   inplace=False, root=None):
+                   inplace=False, root=None, alg="ring_cuda"):
         """Post one persistent request per rank ROUNDS times; returns each
         round's per-rank dst as numpy arrays. Out of place, *hosts* are
         the srcs and each dst has *dst_count* elements (default: the src's)
         filled with 7 before every round; in place, *hosts* are each
         rank's dst, restored before every round. With a *root* (bcast),
         each rank passes its host as src alone, restored before every
-        round, and the src is the result."""
+        round, and the src is the result. *alg* is the algorithm the
+        requests must have selected."""
         srcs = [from_numpy(h, "cpu") for h in hosts]
         if inplace or root is not None:
             dsts = [s.clone() for s in srcs]
@@ -97,7 +98,7 @@ class TorchJob:
                 flags=ut.CollArgsFlags.PERSISTENT)
 
         reqs = [self.teams[r].collective_init(args(r)) for r in range(self.n)]
-        assert reqs[0].task.alg_name == "ring_cuda"
+        assert reqs[0].task.alg_name == alg
         rounds = []
         for _ in range(ROUNDS):
             for d, s in zip(dsts, srcs):
@@ -140,30 +141,32 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def make_jax_job(tune: str):
-    """(UccJob, teams) of N ranks with tl/ring_dma tuned by *tune*."""
-    with _env(UCC_TL_RING_DMA_TUNE=tune):
+def make_jax_job(tune: str, tl: str = "ring_dma"):
+    """(UccJob, teams) of N ranks with tl/<tl> tuned by *tune*."""
+    with _env(**{f"UCC_TL_{tl.upper()}_TUNE": tune}):
         job = UccJob(N)
         return job, job.create_team()
 
 
-def make_torch_job(tune: str = ""):
-    """A TorchJob of N ranks on device "cpu"; *tune*, if given, tunes
-    tl/ring_cuda."""
-    env = {"UCC_TL_RING_CUDA_DEVICE": "cpu"}
+def make_torch_job(tune: str = "", n: int = N, **env):
+    """A TorchJob of *n* ranks on device "cpu"; *tune*, if given, tunes
+    tl/ring_cuda; *env* holds further variables, set while the job is
+    made."""
+    env["UCC_TL_RING_CUDA_DEVICE"] = "cpu"
     if tune:
         env["UCC_TL_RING_CUDA_TUNE"] = tune
     with _env(**env):
-        return TorchJob(N)
+        return TorchJob(n)
 
 
-def jax_persistent(job, teams, coll, hosts, op, dt, dst_count=None):
-    """tl/ring_dma's counterpart of ``TorchJob.persistent`` (out of place
+def jax_persistent(job, teams, coll, hosts, op, dt, dst_count=None,
+                   tl="ring_dma"):
+    """tl/<tl>'s counterpart of ``TorchJob.persistent`` (out of place
     only: its device TLs rebind ``dst.buffer`` to the result array)."""
     count = hosts[0].size
     argses = []
     for r in range(N):
-        dev = job.contexts[r].tl_contexts["ring_dma"].obj.device
+        dev = job.contexts[r].tl_contexts[tl].obj.device
         argses.append(ucc_tpu.CollArgs(
             coll_type=coll, op=op,
             src=ucc_tpu.BufferInfo(jax.device_put(jnp.asarray(hosts[r]), dev),
@@ -173,7 +176,7 @@ def jax_persistent(job, teams, coll, hosts, op, dt, dst_count=None):
                                    mem_type=ucc_tpu.MemoryType.TPU),
             flags=ucc_tpu.CollArgsFlags.PERSISTENT))
     reqs = [teams[r].collective_init(argses[r]) for r in range(N)]
-    assert reqs[0].task.alg_name == "ring_dma"
+    assert reqs[0].task.alg_name == ("ring_dma" if tl == "ring_dma" else "xla")
     rounds = []
     for _ in range(ROUNDS):
         for rq in reqs:
@@ -187,14 +190,14 @@ def jax_persistent(job, teams, coll, hosts, op, dt, dst_count=None):
     return rounds
 
 
-def jax_persistent_bcast(job, teams, hosts, root, dt):
-    """tl/ring_dma's bcast from *root*, each rank passing its host as src
+def jax_persistent_bcast(job, teams, hosts, root, dt, tl="ring_dma"):
+    """tl/<tl>'s bcast from *root*, each rank passing its host as src
     alone, posted ROUNDS times; each round's per-rank result (the rebound
     ``src.buffer``)."""
     count = hosts[0].size
     argses = []
     for r in range(N):
-        dev = job.contexts[r].tl_contexts["ring_dma"].obj.device
+        dev = job.contexts[r].tl_contexts[tl].obj.device
         argses.append(ucc_tpu.CollArgs(
             coll_type=ucc_tpu.CollType.BCAST, root=root,
             src=ucc_tpu.BufferInfo(jax.device_put(jnp.asarray(hosts[r]), dev),
@@ -202,7 +205,7 @@ def jax_persistent_bcast(job, teams, hosts, root, dt):
                                    mem_type=ucc_tpu.MemoryType.TPU),
             flags=ucc_tpu.CollArgsFlags.PERSISTENT))
     reqs = [teams[r].collective_init(argses[r]) for r in range(N)]
-    assert reqs[0].task.alg_name == "ring_dma"
+    assert reqs[0].task.alg_name == ("ring_dma" if tl == "ring_dma" else "xla")
     rounds = []
     for _ in range(ROUNDS):
         for rq in reqs:

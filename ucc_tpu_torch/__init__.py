@@ -11,7 +11,12 @@ Ported so far: the core objects, cl/basic; tl/ring_cuda, whose
 allreduce, reduce_scatter, allgather, bcast and alltoall run every rank
 of an in-process team on one GPU through the ring kernels of
 ``kernels/ring_allreduce.py``, ``kernels/ring_rs_ag.py`` and
-``kernels/ring_bcast_a2a.py``; the execution components ``ec/`` (numpy on
+``kernels/ring_bcast_a2a.py``; tl/torch_ops, the default for allreduce
+and bcast (library ops over the ranks' buffers, and, under
+``UCC_GEN_DEVICE=y``, the generated device collectives: verified programs
+of the collective DSL ``dsl/`` lowered by ``dsl/lower_device.py`` and run
+by the kernel of ``kernels/gen_device.py``; ``quant/`` holds the wire
+precisions' policy); the execution components ``ec/`` (numpy on
 the host, the reduce kernel of ``kernels/ec_reduce.py`` on GPU tensors);
 ucc_perftest as ``python -m ucc_tpu_torch.tools.perftest``; and
 context-parallel attention: ``fused_attention`` (ring flash-attention over

@@ -12,7 +12,7 @@ from ..api.types import LibAttr, LibParams
 from ..constants import COLL_TYPE_ALL, CollType
 from ..status import Status, UccError
 from ..utils.config import (Config, ConfigField, ConfigTable, parse_bool,
-                            parse_list, parse_string, parse_uint,
+                            parse_enum, parse_list, parse_string, parse_uint,
                             register_table)
 from ..utils.log import get_logger
 from .components import (available_cls, available_tls, discover_components,
@@ -20,8 +20,9 @@ from .components import (available_cls, available_tls, discover_components,
 
 logger = get_logger("core")
 
-#: global config table. The defaults are those of the JAX package's table
-#: except CLS, whose "hier" member is not ported yet.
+#: global config table: the fields of the JAX package's table that the
+#: port reads, with its defaults, except CLS, whose "hier" member is not
+#: ported yet.
 GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
     ConfigField("CLS", "basic", "comma-separated CL list ('all' for every "
                 "available CL)", parse_list),
@@ -45,6 +46,44 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
     ConfigField("QOS_AGE_MS", "10", "anti-starvation bound in milliseconds: "
                 "a queued task older than this is serviced regardless of "
                 "its lane's WRR cap", parse_string),
+    # the lib fields the generated device collectives read (dsl/, quant/),
+    # with the JAX package's defaults
+    ConfigField("QUANT", "off", "block-scaled wire precision for eligible "
+                "collectives: off = exact only (candidate lists "
+                "unchanged); int8/fp8 = register quantized variants",
+                parse_enum(("off", "int8", "fp8"))),
+    ConfigField("QUANT_ALLREDUCE", "", "per-collective precision override "
+                "for allreduce (off|int8|fp8; empty = inherit UCC_QUANT)",
+                parse_string),
+    ConfigField("QUANT_ALLGATHER", "", "per-collective precision override "
+                "for allgather (off|int8|fp8; empty = inherit UCC_QUANT)",
+                parse_string),
+    ConfigField("QUANT_BLOCK", "256", "elements per absmax scale block of "
+                "the quantized wire format", parse_uint),
+    ConfigField("QUANT_ERROR_BUDGET", "auto", "max tolerated relative "
+                "error (fraction of the per-block absmax) of quantized "
+                "candidates; auto = admit the selected precision (int8: "
+                "0.1, fp8: 1.0); an explicit float gates strictly",
+                parse_string),
+    ConfigField("QUANT_STOCHASTIC", "n", "stochastic rounding in the int8 "
+                "encoder (no device codec: device programs refuse it)",
+                parse_bool),
+    ConfigField("GEN_DEVICE", "n", "generated device collectives "
+                "(dsl/lower_device): y = lower verified DSL programs "
+                "(ring/rhd/bcast families plus the quantized direct "
+                "exchange under UCC_QUANT) to candidates of tl/torch_ops "
+                "named gen_dev_*, origin 'generated-device', at a low "
+                "score; n (default) keeps candidate lists unchanged",
+                parse_string),
+    ConfigField("GEN_DEVICE_FAMILIES", "", "device families and "
+                "parameter grids, e.g. 'ring(1,2,4),rhd(2,0),bc_kn(2,0),"
+                "bc_chain(2),qdirect'; empty = the default grid",
+                parse_string),
+    ConfigField("GEN_DEVICE_BACKEND", "auto", "backend of the generated "
+                "device collectives: auto and pallas = the CUDA kernel of "
+                "kernels/gen_device.py on a CUDA team, xla = the layer "
+                "plan as torch ops; a cpu team runs the plain version",
+                parse_string),
 ]))
 
 

@@ -161,6 +161,10 @@ const void* select_kernel(int chunked, int dtype) {
     case DT_BF16: return kernel_for<__nv_bfloat16>(chunked);
     case DT_I32: return kernel_for<int>(chunked);
     case DT_I64: return kernel_for<long long>(chunked);
+    case DT_I8: return kernel_for<signed char>(chunked);
+    case DT_U8: return kernel_for<unsigned char>(chunked);
+    case DT_I16: return kernel_for<short>(chunked);
+    case DT_F64: return kernel_for<double>(chunked);
     default: return nullptr;
   }
 }

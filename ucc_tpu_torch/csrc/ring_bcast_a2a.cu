@@ -214,6 +214,10 @@ const void* select_kernel(int kernel, int dtype) {
     case DT_BF16: return kernel_for<__nv_bfloat16>(kernel);
     case DT_I32: return kernel_for<int>(kernel);
     case DT_I64: return kernel_for<long long>(kernel);
+    case DT_I8: return kernel_for<signed char>(kernel);
+    case DT_U8: return kernel_for<unsigned char>(kernel);
+    case DT_I16: return kernel_for<short>(kernel);
+    case DT_F64: return kernel_for<double>(kernel);
     default: return nullptr;
   }
 }

@@ -24,12 +24,18 @@ constexpr int OP_MAX = 2;
 constexpr int OP_MIN = 3;
 constexpr int OP_AVG = 12;
 
-// dtype codes of ucc_tpu_torch/kernels/ring_common.py
+// dtype codes of ucc_tpu_torch/kernels/ring_common.py (unsigned 16-, 32-
+// and 64-bit integers have none: torch has no add, max or min for them on
+// the CPU, where the plain versions run)
 constexpr int DT_F32 = 0;
 constexpr int DT_F16 = 1;
 constexpr int DT_BF16 = 2;
 constexpr int DT_I32 = 3;
 constexpr int DT_I64 = 4;
+constexpr int DT_I8 = 5;
+constexpr int DT_U8 = 6;
+constexpr int DT_I16 = 7;
+constexpr int DT_F64 = 8;
 
 // error word values
 constexpr int ERR_SPIN_TIMEOUT = 1;
@@ -86,45 +92,46 @@ template <> struct Elem<__nv_bfloat16> {
   }
 };
 
-// integers wrap on overflow (unsigned arithmetic), as torch and jnp do;
-// AVG divides in float32 and truncates, as (x / n).to(int) does
-template <> struct Elem<int> {
-  using Bits = unsigned int;
-  static __device__ int add(int a, int b) {
-    return (int)((unsigned int)a + (unsigned int)b);
-  }
-  static __device__ int mul(int a, int b) {
-    return (int)((unsigned int)a * (unsigned int)b);
-  }
-  static __device__ bool is_nan(int) { return false; }
-  static __device__ float tof(int a) { return (float)a; }
-  static __device__ int avg(int a, int n) {
-    return (int)((float)a / (float)n);
-  }
+// integers wrap on overflow, as torch and jnp do: the arithmetic runs in
+// 64-bit unsigned (no signed overflow, no promotion to int) and keeps the
+// low bits; AVG divides in float32 and truncates, as (x / n).to(int) does
+template <typename T, typename U>
+struct IntElem {
+  using Bits = U;
+  using W = unsigned long long;
+  static __device__ T add(T a, T b) { return (T)(U)((W)a + (W)b); }
+  static __device__ T mul(T a, T b) { return (T)(U)((W)a * (W)b); }
+  static __device__ bool is_nan(T) { return false; }
+  static __device__ float tof(T a) { return (float)a; }
+  static __device__ T avg(T a, int n) { return (T)((float)a / (float)n); }
 };
 
-template <> struct Elem<long long> {
+template <> struct Elem<signed char> : IntElem<signed char, unsigned char> {};
+template <> struct Elem<unsigned char>
+    : IntElem<unsigned char, unsigned char> {};
+template <> struct Elem<short> : IntElem<short, unsigned short> {};
+template <> struct Elem<int> : IntElem<int, unsigned int> {};
+template <> struct Elem<long long>
+    : IntElem<long long, unsigned long long> {};
+
+// float64 keeps its own precision throughout (torch divides it in float64)
+template <> struct Elem<double> {
   using Bits = unsigned long long;
-  static __device__ long long add(long long a, long long b) {
-    return (long long)((unsigned long long)a + (unsigned long long)b);
-  }
-  static __device__ long long mul(long long a, long long b) {
-    return (long long)((unsigned long long)a * (unsigned long long)b);
-  }
-  static __device__ bool is_nan(long long) { return false; }
-  static __device__ float tof(long long a) { return (float)a; }
-  static __device__ long long avg(long long a, int n) {
-    return (long long)((float)a / (float)n);
-  }
+  static __device__ double add(double a, double b) { return a + b; }
+  static __device__ double mul(double a, double b) { return a * b; }
+  static __device__ bool is_nan(double a) { return a != a; }
+  static __device__ float tof(double a) { return (float)a; }
+  static __device__ double avg(double a, int n) { return a / (double)n; }
 };
 
-// Integers compare exactly; floats compare as float (exact for f16/bf16).
-template <typename T> __device__ bool gt(T a, T b) {
-  return Elem<T>::tof(a) > Elem<T>::tof(b);
+// 16-bit floats compare as float (exactly); every other type in its own.
+template <typename T> __device__ bool gt(T a, T b) { return a > b; }
+template <> __device__ bool gt<__half>(__half a, __half b) {
+  return Elem<__half>::tof(a) > Elem<__half>::tof(b);
 }
-template <> __device__ bool gt<int>(int a, int b) { return a > b; }
-template <> __device__ bool gt<long long>(long long a, long long b) {
-  return a > b;
+template <> __device__ bool gt<__nv_bfloat16>(__nv_bfloat16 a,
+                                              __nv_bfloat16 b) {
+  return Elem<__nv_bfloat16>::tof(a) > Elem<__nv_bfloat16>::tof(b);
 }
 
 // acc(local, incoming); MAX and MIN propagate NaN like torch.maximum /

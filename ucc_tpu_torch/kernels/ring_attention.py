@@ -42,6 +42,9 @@ MAX_HEAD_DIM = 256
 #: most ranks the kernel takes: the pointer table travels by value in the
 #: launch's parameters (4 pointers a rank)
 MAX_RANKS = 64
+#: most query heads the kernel takes: the head index is the grid's y, whose
+#: extent CUDA caps at 65535
+MAX_HEADS = 65535
 
 
 def check_args(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
@@ -52,7 +55,8 @@ def check_args(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     dtype and one device, for shapes that differ between ranks, for h not a
     multiple of h_kv and for empty blocks; ERR_NOT_SUPPORTED for dtypes
     other than float32, float16 and bfloat16, for a head dim above
-    MAX_HEAD_DIM and for more than MAX_RANKS ranks."""
+    MAX_HEAD_DIM, for more than MAX_HEADS query heads and for more than
+    MAX_RANKS ranks."""
     n = len(qs)
     if n == 0 or len(ks) != n or len(vs) != n:
         raise UccError(Status.ERR_INVALID_PARAM,
@@ -92,6 +96,10 @@ def check_args(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
         raise UccError(Status.ERR_NOT_SUPPORTED,
                        f"ring attention takes a head dim of at most "
                        f"{MAX_HEAD_DIM}, got {d}")
+    if h > MAX_HEADS:
+        raise UccError(Status.ERR_NOT_SUPPORTED,
+                       f"ring attention takes at most {MAX_HEADS} query "
+                       f"heads, got {h}")
     return n, h, h_kv, s, d
 
 

@@ -29,10 +29,14 @@ THREADS = 512
 OPS = (ReductionOp.SUM, ReductionOp.AVG, ReductionOp.MAX, ReductionOp.MIN,
        ReductionOp.PROD)
 
-#: torch dtype -> dtype code of the CUDA sources (csrc/ring_common.cuh)
+#: torch dtype -> dtype code of the CUDA sources (csrc/ring_common.cuh):
+#: every type of csrc/ec_reduce.cu but uint16, uint32 and uint64, for which
+#: torch has no add, maximum or minimum on the CPU, where the plain versions
+#: run
 DTYPE_CODES: Dict[torch.dtype, int] = {
     torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
-    torch.int32: 3, torch.int64: 4,
+    torch.int32: 3, torch.int64: 4, torch.int8: 5, torch.uint8: 6,
+    torch.int16: 7, torch.float64: 8,
 }
 SUPPORTED_DTYPES = tuple(DTYPE_CODES)
 
@@ -87,7 +91,8 @@ class RingWorkspace:
 
 class RingLaunch:
     """Completion handle of one wrapper call. On CUDA it holds the event
-    recorded after the kernel and a pinned copy of the error word."""
+    recorded after the work on *stream* and, for a kernel with an error
+    word *err*, a pinned copy of that word."""
 
     def __init__(self, stream=None, err: Optional[torch.Tensor] = None,
                  keep: tuple = (), what: str = "ring"):
@@ -101,6 +106,7 @@ class RingLaunch:
                                          pin_memory=True)
             with torch.cuda.stream(stream):
                 self._err_host.copy_(err, non_blocking=True)
+        if stream is not None:
             self._event = torch.cuda.Event()
             self._event.record(stream)
 
@@ -112,7 +118,8 @@ class RingLaunch:
                 return False
             self._event = None
             self._keep = ()
-            self.error = int(self._err_host[0])
+            if self._err_host is not None:
+                self.error = int(self._err_host[0])
         if self.error:
             raise UccError(Status.ERR_TIMED_OUT,
                            f"{self.what} kernel: a spin-wait ran out "
@@ -180,7 +187,14 @@ Plan = Tuple[int, int, int, int, int, int]
 
 
 class RingSource:
-    """One CUDA source of ring kernels, built and loaded at first use."""
+    """One CUDA source of ring kernels, built and loaded at first use.
+    ``ARGTYPES`` is the signature of its launch function (the common
+    interface above; a source with another one subclasses)."""
+
+    ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
     def __init__(self, source: str, prefix: str):
         self.source = source
@@ -192,11 +206,7 @@ class RingSource:
         if self._lib is None:
             lib = build.load(self.source)
             launch = getattr(lib, self.prefix)
-            launch.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            launch.argtypes = self.ARGTYPES
             launch.restype = ctypes.c_int
             query = getattr(lib, self.prefix + "_max_ctas")
             query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,

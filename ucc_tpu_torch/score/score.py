@@ -49,6 +49,12 @@ class MsgRange:
     #: alg-table defaults, "tune-str" = a UCC_*_TUNE overlay touched it.
     #: Shown in the score dump so team logs say WHY an algorithm was chosen.
     origin: str = "default"
+    #: wire-precision tag of quantized variants ("int8"/"fp8"; empty =
+    #: exact), kept across tune-str splits
+    precision: str = ""
+    #: generated-program family/parameter string of DSL candidates
+    #: ("ring(chunks=4)"; empty = hand-written), kept across splits
+    gen: str = ""
 
     def contains(self, msgsize: int) -> bool:
         return self.start <= msgsize < self.end or \
@@ -77,12 +83,14 @@ class CollScore:
     # ------------------------------------------------------------------
     def add_range(self, coll: CollType, mem: MemoryType, start: int, end: int,
                   score: int, init: Optional[Callable] = None, team: Any = None,
-                  alg_name: str = "", origin: str = "default") -> Status:
+                  alg_name: str = "", origin: str = "default",
+                  precision: str = "", gen: str = "") -> Status:
         """ucc_coll_score_add_range."""
         if start >= end or score < 0:
             return Status.ERR_INVALID_PARAM
         self.ranges.setdefault((coll, mem), []).append(
-            MsgRange(start, end, score, init, team, alg_name, origin=origin))
+            MsgRange(start, end, score, init, team, alg_name, origin=origin,
+                     precision=precision, gen=gen))
         return Status.OK
 
     def merge(self, other: "CollScore") -> "CollScore":

@@ -104,6 +104,13 @@ class ScoreMap:
                 comp = comp_name(r)
                 name = r.alg_name or comp
                 origin = r.origin or "default"
+                # quantized variants carry their wire precision, generated
+                # candidates their family/parameters:
+                # "(generated-device gen:ring(chunks=2))"
+                if r.precision:
+                    origin = f"{origin},{r.precision}"
+                if r.gen:
+                    origin = f"{origin} gen:{r.gen}"
                 key = (comp, name, r.start, r.end, r.score, origin)
                 if key in seen:
                     continue

@@ -26,6 +26,15 @@ class AlgSpec:
     #: default selection ranges "0-4k:score,4k-inf:score" (None -> whole
     #: range at the TL default score)
     default_select: Optional[str] = None
+    #: wire-precision tag of quantized variants ("int8"/"fp8"; empty =
+    #: exact), carried into every MsgRange the spec produces
+    precision: str = ""
+    #: provenance: "default" for hand-written algorithms,
+    #: "generated-device" for lowered DSL programs (dsl/lower_device)
+    origin: str = "default"
+    #: generated-program family/parameter string ("ring(chunks=4)");
+    #: empty for hand-written algorithms
+    gen: str = ""
 
 
 def build_scores(team: BaseTeam, default_score: int,
@@ -43,10 +52,15 @@ def build_scores(team: BaseTeam, default_score: int,
                         lo, hi = rng.split("-", 1)
                         score.add_range(coll, mt, parse_memunits(lo),
                                         parse_memunits(hi), int(sc),
-                                        spec.init, team, spec.name)
+                                        spec.init, team, spec.name,
+                                        origin=spec.origin,
+                                        precision=spec.precision,
+                                        gen=spec.gen)
                 else:
                     score.add_range(coll, mt, 0, SIZE_INF, default_score,
-                                    spec.init, team, spec.name)
+                                    spec.init, team, spec.name,
+                                    origin=spec.origin,
+                                    precision=spec.precision, gen=spec.gen)
     if tune_env:
         tune = os.environ.get(tune_env, "")
         if tune:

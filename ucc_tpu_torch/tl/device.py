@@ -10,7 +10,9 @@ by which thread happened to deposit last.
 
 Ranks of a team live on ONE device: ``DeviceTeamShared.devices`` names the
 same device n times, and each rank has its own buffers there. The device
-is the context config's ``DEVICE`` (default ``cuda``, meaning cuda:0); a
+is ``DEVICE_CONFIG``'s ``DEVICE`` (``UCC_TL_RING_CUDA_DEVICE``, default
+``cuda``, meaning cuda:0), one setting that every device TL's context
+reads, since the ranks of a team hand every TL the same tensors; a
 context that asks for CUDA on a machine without one raises. On ``cpu``
 the programs run the kernels' plain versions.
 
@@ -21,7 +23,8 @@ immutable.) A collective completes when its launch has finished on the
 device: ``test()`` polls the launch's CUDA event, so a caller may read
 ``dst`` on any stream once it returns OK.
 
-No TL is registered from this module; tl/ring_cuda builds on it.
+No TL is registered from this module; tl/ring_cuda and tl/torch_ops build
+on it.
 """
 from __future__ import annotations
 
@@ -38,11 +41,23 @@ from ..core.components import BaseContext
 from ..kernels.ring_common import RingWorkspace, make_ptr_table
 from ..schedule.task import CollTask
 from ..status import Status, UccError
+from ..utils.config import (ConfigField, ConfigTable, parse_string,
+                            register_table)
 from ..utils.ep_map import EpMap
 from ..utils.log import get_logger
 from .base import TlTeamBase
 
 logger = get_logger("tl_device")
+
+#: the context config of every device TL (tl/ring_cuda, tl/torch_ops): one
+#: DEVICE, named after the first of them
+DEVICE_CONFIG = register_table(ConfigTable(
+    prefix="TL_RING_CUDA_", name="tl/device", fields=[
+        ConfigField("DEVICE", "cuda", "device the ranks' buffers live on, "
+                    "for every device TL: cuda[:i] (raises at context "
+                    "creation when there is no GPU) or cpu (runs the "
+                    "kernels' plain versions)", parse_string),
+    ]))
 
 
 def resolve_device(spec: str) -> torch.device:
@@ -115,6 +130,10 @@ class DeviceTeamShared:
         #: persistent-collective launch cache: tag -> (pointers, table),
         #: the kernel's device pointer table of an unchanged buffer set
         self.launch_cache: Dict[int, Tuple[tuple, Any]] = {}
+        #: launch callables bound to their plan tables, by the task's key
+        #: (the generated device collectives' lowered programs); dropped
+        #: at team destroy
+        self.programs: Dict[Any, Any] = {}
         self.refcount = 0
         #: the one stream every launch of this team goes onto
         self.stream = None
@@ -139,6 +158,7 @@ class DeviceTeamShared:
             if self.refcount <= 0:
                 _SHARED.pop(self.key, None)
                 self.launch_cache.clear()
+                self.programs.clear()
                 self.pending.clear()
                 self.workspace = None
 

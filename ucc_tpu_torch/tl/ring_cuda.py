@@ -11,9 +11,10 @@ block) in global memory followed by a release flag
 and their sources under csrc/). The rendezvous and launch plumbing is
 tl/device.
 
-Collectives and routing, as ``RingDmaCollTask`` has them: ALLREDUCE and
-REDUCE_SCATTER take SUM/AVG/MAX/MIN/PROD; ALLGATHER, BCAST and ALLTOALL
-any op (they have none). Each runs its one-pass kernel up to a per-rank
+Collectives and routing, as ``RingDmaCollTask`` has them: ALLREDUCE,
+REDUCE_SCATTER and ALLTOALL take SUM/AVG/MAX/MIN/PROD (an alltoall folds
+nothing, but tl/ring_dma refuses the other ops for it all the same);
+ALLGATHER and BCAST any op (they have none). Each runs its one-pass kernel up to a per-rank
 src count and its chunked kernel above it: ``pass_elems(n)`` for
 allreduce, ``n·c > reduce_scatter_pass_elems(n)`` for reduce_scatter,
 ``c > allgather_pass_elems(n)`` for allgather, and a per-rank total above
@@ -39,18 +40,12 @@ from ..kernels import ring_common as kc
 from ..kernels import ring_rs_ag as krs
 from ..score.score import CollScore
 from ..status import Status, UccError
-from ..utils.config import (ConfigField, ConfigTable, parse_string,
-                            register_table)
 from .base import AlgSpec, build_scores
-from .device import DeviceCollTask, TlDeviceContext, TlDeviceTeam
+from .device import (DEVICE_CONFIG, DeviceCollTask, TlDeviceContext,
+                     TlDeviceTeam)
 
-TL_RING_CUDA_CONFIG = register_table(ConfigTable(
-    prefix="TL_RING_CUDA_", name="tl/ring_cuda", fields=[
-        ConfigField("DEVICE", "cuda", "device the ranks' buffers live on: "
-                    "cuda[:i] (raises at context creation when there is no "
-                    "GPU) or cpu (runs the kernels' plain versions)",
-                    parse_string),
-    ]))
+#: UCC_TL_RING_CUDA_DEVICE, which every device TL reads (tl/device)
+TL_RING_CUDA_CONFIG = DEVICE_CONFIG
 
 
 #: collective -> (per-rank src elements one pass covers, pass kernel,
@@ -69,8 +64,8 @@ _PROGRAMS = {
                         kba.ring_alltoall_chunked),
 }
 
-#: collectives that take no op
-_NO_OP = (CollType.ALLGATHER, CollType.BCAST, CollType.ALLTOALL)
+#: collectives whose op is not checked (tl/ring_dma's exemption)
+_NO_OP = (CollType.ALLGATHER, CollType.BCAST)
 
 
 class RingCudaCollTask(DeviceCollTask):

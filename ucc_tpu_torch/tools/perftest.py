@@ -9,12 +9,15 @@ Two benchmark paths:
 - collectives (``-c allreduce|reduce_scatter|allgather|bcast|alltoall``):
   ``-p N`` in-process ranks (default 4), each a context over a thread OOB,
   one team, collective_init/post/test per round (``--persistent``: init
-  once, post many; ``-S``: post every round before waiting). On ``-m
-  cuda``, the default, every rank's buffers go on the device that
-  ``UCC_TL_RING_CUDA_DEVICE`` names (default ``cuda``, which raises
-  without a GPU; ``cpu`` runs the kernels' plain versions), and the ranks
-  of a team share that one card. ``-m host`` has no TL in the port yet, so
-  collective_init fails and the run exits non-zero with its status;
+  once, post many; ``-S``: post every round before waiting). The score map
+  selects the TL: tl/torch_ops for allreduce and bcast, tl/ring_cuda for
+  the others (``UCC_TL_RING_CUDA_TUNE=allreduce:@ring_cuda:inf`` pins the
+  ring). On ``-m cuda``, the default, every rank's buffers go on the
+  device that ``UCC_TL_RING_CUDA_DEVICE`` names for every device TL
+  (default ``cuda``, which raises without a GPU; ``cpu`` runs on the CPU),
+  and the ranks of a team share that one card. ``-m host`` has no TL in
+  the port yet, so collective_init fails and the run exits non-zero with
+  its status;
 - executor ops (``-c memcpy|reducedt|reducedt_strided``, UCC's
   ucc_pt_op_{memcpy,reduce,reduce_strided}): the execution component's
   copy/reduce tasks timed directly, no team; ``--nbufs`` sources (caps 7
@@ -47,7 +50,7 @@ from ucc_tpu_torch import (BufferInfo, CollArgs, CollArgsFlags, CollType,
 from ucc_tpu_torch.constants import coll_type_str, dt_size, dt_torch
 from ucc_tpu_torch.utils.config import memunits_str, parse_memunits
 
-#: the collectives tl/ring_cuda serves
+#: the collectives the port's device TLs serve
 COLLS = {coll_type_str(c): c for c in (
     CollType.ALLREDUCE, CollType.REDUCE_SCATTER, CollType.ALLGATHER,
     CollType.BCAST, CollType.ALLTOALL)}
@@ -137,14 +140,13 @@ def resolve_mem(name: str) -> MemoryType:
 
 def buffer_device(mem: MemoryType) -> torch.device:
     """Where -m's buffers go: the CPU for host; for cuda, the device that
-    tl/ring_cuda's DEVICE config names (UCC_TL_RING_CUDA_DEVICE), which
+    the device TLs' DEVICE config names (UCC_TL_RING_CUDA_DEVICE), which
     raises when it names CUDA and there is none."""
     if mem == MemoryType.HOST:
         return torch.device("cpu")
-    from ..tl.device import resolve_device
-    from ..tl.ring_cuda import TL_RING_CUDA_CONFIG
+    from ..tl.device import DEVICE_CONFIG, resolve_device
     from ..utils.config import Config
-    return resolve_device(Config(TL_RING_CUDA_CONFIG).device)
+    return resolve_device(Config(DEVICE_CONFIG).device)
 
 
 def run_op_bench(args) -> int:
