@@ -43,8 +43,12 @@ Phases, each printing its own lines (any failure exits non-zero):
      covering set of n in {1, 2, 8}, (h, h_kv) in {(4, 4), (8, 2),
      (32, 8)}, d in {8, 64, 128} (and 1, 256), s_local in {3, 100, 1024},
      causal both ways, f32/bf16/f16, within a stated tolerance of its plain
-     version (TF32 off); mismatched heads must raise ValueError and d = 257
-     ERR_NOT_SUPPORTED;
+     version (TF32 off), each launch on the route its dtype chooses (f32 on
+     CUDA cores, f16/bf16 on tensor cores, counted by tc_launches): bf16
+     and f16 at d 8 and 256 with ragged s_local, a peaked softmax (q x 8)
+     at the main path's widths, misaligned blocks (2-byte loads), and a
+     negative and a zero scale; mismatched heads must raise ValueError
+     and d = 257 ERR_NOT_SUPPORTED;
 3. main path: 8 contexts over a ThreadOobWorld, one team, persistent
    requests driven like bench.py (5 warm-up and 20 timed rounds), the
    launch counters zeroed just before each run and read just after:
@@ -75,10 +79,10 @@ Phases, each printing its own lines (any failure exits non-zero):
      head dim 128), bf16 weights from a seeded generator, batch 1 and the
      full 8192-token context over 8 ranks, causal: 5 warm-up and 20 timed
      forwards, which must launch ring_flash_attention_fwd exactly 25
-     times; its output is bitwise its projections' attention merged
-     through wo, that attention is within bf16 tolerance of the plain
-     version and, as a check only, of scaled_dot_product_attention on the
-     unsharded tensors;
+     times, all on the tensor cores; its output is bitwise its
+     projections' attention merged through wo, that attention is within
+     bf16 tolerance of the plain version and, as a check only, of
+     scaled_dot_product_attention on the unsharded tensors;
    - the generated device collectives through tl/torch_ops, UCC_GEN_DEVICE=y
      and a UCC_TL_TORCH_OPS_TUNE pin per run (alg asserted, launches
      counted, dst bitwise the plain version): allreduce SUM of 16 Mi and
@@ -98,7 +102,13 @@ Phases, each printing its own lines (any failure exits non-zero):
    torch.stack(srcs).sum(0) (allreduce) or (n-1) x copy_ (bcast); for
    ring flash-attention at
    the main path's shapes, scaled_dot_product_attention on the unsharded
-   (1, 32, 8192, 128) q and (1, 8, 8192, 128) k, v.
+   (1, 32, 8192, 128) q and (1, 8, 8192, 128) k, v, timed in turns with
+   the kernel; the kernel's f32 route (CUDA cores) on the same shapes in
+   f32 beside SDPA in f32; nvcc -Xptxas -v's registers and spills of
+   every instance of the attention source, and the HGMMA (wgmma)
+   instructions in each instance's SASS: some in every tensor-core
+   instance, none in the f32 ones; and the GQA block's projections, merge
+   and whole forward in device time, beside its p50.
 
 The last two lines are the kernels record and {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -873,22 +883,33 @@ def attention_tolerance(dtype):
     return (2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10), 1e-3
 
 
-def attention_inputs(n, h, h_kv, s, d, dtype, seed):
+def attention_inputs(n, h, h_kv, s, d, dtype, seed, q_mul=1.0):
+    """Normal q, k and v blocks of n ranks, q times q_mul (8 peaks the
+    softmax)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple([torch.randn(heads, s, d, generator=g, device="cuda")
-                  .to(dtype) for _ in range(n)]
-                 for heads in (h, h_kv, h_kv))
+    return tuple([(torch.randn(heads, s, d, generator=g, device="cuda") *
+                   mul).to(dtype) for _ in range(n)]
+                 for heads, mul in ((h, q_mul), (h_kv, 1.0), (h_kv, 1.0)))
 
 
-def check_attention(qs, ks, vs, causal, what) -> float:
+def check_attention(qs, ks, vs, causal, what, scale=None) -> float:
     """One launch of the attention kernel against its plain version on the
-    same tensors; returns the max abs difference."""
+    same tensors, on the route its dtype chooses (tensor cores for f16 and
+    bf16, CUDA cores for f32); returns the max abs difference. `scale`
+    defaults to 1/sqrt(head dim)."""
     import torch
     from ucc_tpu_torch.kernels import ring_attention as ka
-    scale = ka.default_scale(qs[0].shape[-1])
-    got = ka.ring_flash_attention_fwd(qs, ks, vs, scale, causal)
+    if scale is None:
+        scale = ka.default_scale(qs[0].shape[-1])
+    fwd = ka.ring_flash_attention_fwd
+    before = fwd.launches, fwd.tc_launches
+    got = fwd(qs, ks, vs, scale, causal)
     torch.cuda.synchronize()
+    tc = int(qs[0].dtype in ka.TENSOR_CORE_DTYPES)
+    if (fwd.launches, fwd.tc_launches) != (before[0] + 1, before[1] + tc):
+        raise AssertionError(f"{what}: took the wrong route (launches "
+                             f"{before} -> {fwd.launches, fwd.tc_launches})")
     return compare_attention(
         got, ka.ring_flash_attention_ref(qs, ks, vs, scale, causal), what)
 
@@ -913,7 +934,9 @@ def compare_attention(got, want, what) -> float:
 
 #: the attention phase's cases (n, h, h_kv, d, s_local, causal, dtype
 #: name): every n, head layout, head dim and s_local with both maskings and
-#: with f32 and bf16, plus f16, head dims 1 and 256 and a ragged 37
+#: with f32 and bf16, plus f16, head dims 1 and 256 and a ragged 37; the
+#: last five put bf16 and f16 on the tensor cores at d 8 and 256 with
+#: ragged s_local
 ATTENTION_CASES = (
     (1, 4, 4, 8, 3, False, "float32"),
     (1, 8, 2, 64, 100, True, "bfloat16"),
@@ -930,7 +953,14 @@ ATTENTION_CASES = (
     (8, 8, 2, 64, 100, False, "float16"),
     (2, 4, 2, 256, 70, True, "float32"),
     (8, 4, 4, 1, 37, True, "bfloat16"),
+    (2, 8, 2, 8, 37, True, "bfloat16"),
+    (8, 4, 4, 8, 70, False, "float16"),
+    (2, 4, 2, 256, 70, True, "bfloat16"),
+    (1, 4, 4, 256, 100, True, "float16"),
+    (8, 32, 8, 256, 37, True, "bfloat16"),
 )
+#: a peaked softmax (q x 8) at the main path's widths, on the tensor cores
+PEAKED_CASE = (8, 32, 8, 128, 1024, True, "bfloat16")
 
 
 def phase_kernels_attention() -> None:
@@ -947,6 +977,29 @@ def phase_kernels_attention() -> None:
         err = check_attention(*attention_inputs(n, h, h_kv, s, d, dtype,
                                                 60 + i), causal, what)
         errs[dname] = max(errs.get(dname, 0.0), err)
+    n, h, h_kv, d, s, causal, dname = PEAKED_CASE
+    peaked_err = check_attention(
+        *attention_inputs(n, h, h_kv, s, d, getattr(torch, dname), 89,
+                          q_mul=8.0), causal,
+        f"ring_flash_attention_fwd peaked (q x 8) n={n} h={h} h_kv={h_kv} "
+        f"d={d} s_local={s} {dname}")
+    # blocks at an odd element offset: the tensor-core kernel's 2-byte loads
+    def misaligned(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype,
+                           device=t.device)[1:].view(t.shape).copy_(t)
+    blocks = attention_inputs(2, 8, 2, 100, 128, torch.bfloat16, 88)
+    errs["bfloat16 misaligned"] = check_attention(
+        *([misaligned(t) for t in b] for b in blocks), True,
+        "ring_flash_attention_fwd misaligned blocks n=2 h=8 h_kv=2 d=128 "
+        "s_local=100 bfloat16")
+    # a negative and a zero scale: the row max must follow the sign
+    for i, (dname, scale) in enumerate((("bfloat16", -0.125),
+                                        ("float16", 0.0))):
+        errs[f"{dname} scale {scale}"] = check_attention(
+            *attention_inputs(2, 8, 2, 100, 64, getattr(torch, dname),
+                              86 + i), True,
+            f"ring_flash_attention_fwd scale={scale} n=2 h=8 h_kv=2 d=64 "
+            f"s_local=100 {dname}", scale=scale)
     try:
         ring_flash_attention(*attention_inputs(2, 5, 2, 16, 8, torch.float32,
                                                90))
@@ -964,11 +1017,12 @@ def phase_kernels_attention() -> None:
             raise
     else:
         raise AssertionError(f"head dim {ka.MAX_HEAD_DIM + 1} did not raise")
-    log(f"kernels: {len(ATTENTION_CASES)} ring_flash_attention_fwd launches "
-        f"within tolerance of their plain versions (n in 1,2,8; (h, h_kv) in "
+    log(f"kernels: {len(ATTENTION_CASES) + 4} ring_flash_attention_fwd "
+        f"launches within tolerance of their plain versions, f32 on CUDA "
+        f"cores and f16/bf16 on tensor cores (n in 1,2,8; (h, h_kv) in "
         f"(4,4),(8,2),(32,8); d in 1,8,64,128,256; s_local in 3,37,70,100,"
         f"1024; causal both ways; f32/bf16/f16; max abs err by dtype "
-        f"{errs}; TF32 matmul "
+        f"{errs}; peaked q x 8 at the main widths {peaked_err}; TF32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}) in "
         f"{time.perf_counter() - t0:.1f} s; mismatched heads raise "
         f"ValueError, head dim {ka.MAX_HEAD_DIM + 1} ERR_NOT_SUPPORTED")
@@ -981,11 +1035,14 @@ LLAMA3_8B = dict(dm=4096, heads=32, kv_heads=8, e=128)
 CONTEXT = 8192
 
 
-def main_path_attention(smi) -> dict:
+def main_path_attention(smi, ptxas) -> dict:
     """The GQA block's forward at LLAMA3_8B over CONTEXT tokens, causal,
-    bf16, WARMUP + ITERS times with the launch counter zeroed just before;
-    then its attention held against the plain version and SDPA, and the
-    kernel timed at these shapes. Returns the kernel's record."""
+    bf16, WARMUP + ITERS times with the launch counters zeroed just before:
+    every launch must take the tensor-core route. Then its attention held
+    against the plain version and SDPA, the kernel and SDPA timed in turns
+    at these shapes, and the f32 route (CUDA cores) held and timed on the
+    same projections in f32. Returns the kernel's record, with `ptxas`
+    (registers and spills per instance) in it."""
     import torch
     import torch.nn.functional as F
     from ucc_tpu_torch.examples.long_context import (INIT_STD,
@@ -1008,7 +1065,7 @@ def main_path_attention(smi) -> dict:
     fwd = ka.ring_flash_attention_fwd
     samples = []
     with torch.no_grad():
-        fwd.launches = 0
+        fwd.launches = fwd.tc_launches = 0
         for i in range(WARMUP + ITERS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1016,11 +1073,12 @@ def main_path_attention(smi) -> dict:
             torch.cuda.synchronize()
             if i >= WARMUP:
                 samples.append(time.perf_counter() - t0)
-        launches = fwd.launches
-        if launches != WARMUP + ITERS:
+        launches, tc_launches = fwd.launches, fwd.tc_launches
+        if launches != WARMUP + ITERS or tc_launches != launches:
             raise AssertionError(f"the GQA block launched "
                                  f"ring_flash_attention_fwd {launches} "
-                                 f"times, want {WARMUP + ITERS}")
+                                 f"times, {tc_launches} on the tensor "
+                                 f"cores, want {WARMUP + ITERS} of both")
         if len(outs) != N_RANKS or any(
                 o.shape != (1, s_local, dm) or o.dtype != torch.bfloat16 or
                 not torch.isfinite(o).all() for o in outs):
@@ -1057,10 +1115,21 @@ def main_path_attention(smi) -> dict:
                                  f"scaled_dot_product_attention by up to "
                                  f"{sdpa_err} (atol {sdpa_atol})")
         del lib, got
-        ms = cuda_ms(lambda: fwd(qs, ks, vs, scale, True), ITERS)
+        # the kernel and SDPA in turns: kernel, SDPA, kernel, SDPA
+        turns = [(cuda_ms(lambda: fwd(qs, ks, vs, scale, True), ITERS),
+                  cuda_ms(sdpa, ITERS)) for _ in range(2)]
+        ms = sum(t[0] for t in turns) / len(turns)
+        library_ms = sum(t[1] for t in turns) / len(turns)
         plain_ms = cuda_ms(
             lambda: ka.ring_flash_attention_ref(qs, ks, vs, scale, True), 3)
-        library_ms = cuda_ms(sdpa, ITERS)
+        # the block's time outside the kernel, on the device: its
+        # projections and folds, its merge through wo, and the whole forward
+        # (p50 less this is the host's share)
+        split = {"project_ms": cuda_ms(lambda: block.project(xs), ITERS),
+                 "merge_ms": cuda_ms(lambda: block.merge(attn, 1), ITERS),
+                 "block_device_ms": cuda_ms(lambda: block(xs), ITERS)}
+        f32 = main_path_attention_f32(qs, ks, vs, scale,
+                                      launches - tc_launches)
     # least work: the causal half of the S x S scores and of P·V, the
     # diagonal included (4·h·d flops a pair); least bytes: q, k, v read
     # and o written once
@@ -1078,7 +1147,24 @@ def main_path_attention(smi) -> dict:
         f"ring_flash_attention_fwd {ms:.3f} ms, bound {bound:.4f} ms "
         f"({bound_by}), roofline share {bound / ms:.4f} | plain "
         f"{plain_ms:.3f} ms, max abs err {max_err} | SDPA {library_ms:.4f} "
-        f"ms, max abs diff {sdpa_err} (atol {sdpa_atol:.4f}) | card {smi}")
+        f"ms, max abs diff {sdpa_err} (atol {sdpa_atol:.4f}) | in turns "
+        f"(kernel, SDPA) {turns} | {tc_launches} launches on the tensor "
+        f"cores | device ms: project {split['project_ms']:.3f}, merge "
+        f"{split['merge_ms']:.3f}, whole forward "
+        f"{split['block_device_ms']:.3f} | card {smi}")
+    log(f"ring_flash_attention_fwd f32 route (CUDA cores) on the same "
+        f"projections in f32: {f32['ms']:.3f} ms, bound "
+        f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}), roofline share "
+        f"{f32['bound_ms'] / f32['ms']:.4f} | max abs err "
+        f"{f32['max_abs_err']} | SDPA f32 {f32['library_ms']:.4f} ms | card "
+        f"{smi}")
+    log(f"ptxas of {ka.SOURCE}: {json.dumps(ptxas)}")
+    # the f16/bf16 route issues wgmma (HGMMA in SASS), the f32 route none
+    wrong = [k for k, v in ptxas.items()
+             if (v["hgmma"] > 0) != ("ring_flash_attn_tc_kernel" in k)]
+    if wrong or not any("ring_flash_attn_tc_kernel" in k for k in ptxas):
+        raise AssertionError(f"wgmma missing from a tensor-core instance or "
+                             f"present in a CUDA-core one: {wrong}")
     return {
         "name": "ring_flash_attention_fwd", "route": "cuda",
         "source": f"ucc_tpu_torch/csrc/{ka.SOURCE}",
@@ -1086,7 +1172,96 @@ def main_path_attention(smi) -> dict:
         "launches": launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
         "library_ms": library_ms,
+        "kernel_route": "tensor cores (wgmma), f16/bf16",
+        "tc_launches": tc_launches, "f32_route": f32, "ptxas": ptxas,
+        "block_p50_ms": p50 * 1e3, **split,
     }
+
+
+def main_path_attention_f32(qs, ks, vs, scale, launches) -> dict:
+    """The f32 route (ring_flash_attn_kernel, CUDA cores) on the main path's
+    projections cast to f32: held against its plain version, timed beside
+    SDPA in f32 (TF32 off), bound by f32 FMAs outside the tensor cores.
+    `launches` is the route's count from the main path's run."""
+    import torch
+    import torch.nn.functional as F
+    from ucc_tpu_torch.kernels import ring_attention as ka
+    qs, ks, vs = ([t.float() for t in b] for b in (qs, ks, vs))
+    n, (h, s_local, e), h_kv = len(qs), qs[0].shape, ks[0].shape[0]
+    max_err = check_attention(qs, ks, vs, True, "f32 route, main shapes")
+    q, k, v = (torch.cat(t, dim=1)[None] for t in (qs, ks, vs))
+    ms = cuda_ms(lambda: ka.ring_flash_attention_fwd(qs, ks, vs, scale,
+                                                     True), ITERS)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), ITERS)
+    seq = n * s_local
+    bound, bound_by = bound_ms(n * (2 * h + 2 * h_kv) * s_local * e * 4,
+                               4 * h * e * seq * (seq + 1) // 2, F32_FLOPS)
+    return {"route": "CUDA cores (f32 FMAs)", "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def ptxas_start(source):
+    """nvcc -Xptxas -v of one csrc source into a throwaway object, started
+    in the background; ptxas_read parses its report."""
+    from ucc_tpu_torch.kernels import build
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+    obj = os.path.join(build.BUILD_DIR, f"ptxas_{os.getpid()}.o")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    return obj, subprocess.Popen(
+        [build.nvcc_path(), *flags, "-c", "-Xptxas", "-v", "-o", obj,
+         os.path.join(build.CSRC, source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_read(started) -> dict:
+    """{kernel instance: {registers, spill_stores, spill_loads, hgmma}}
+    (bytes for the spills; hgmma counts the warpgroup tensor-core
+    instructions in the object's SASS, by cuobjdump) from ptxas_start's
+    report; names demangled by cu++filt where the toolkit has it."""
+    import re
+    from ucc_tpu_torch.kernels import build
+    obj, proc = started
+    log_text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+         "-sass", obj], capture_output=True, text=True, check=True).stdout
+    os.remove(obj)
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            hgmma[name] = 0
+        elif name and re.search(r"\bHGMMA\.", line):
+            hgmma[name] += 1
+    out, name = {}, None
+    for line in log_text.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name = hit.group(1)
+            out[name] = {"hgmma": hgmma.get(name, 0)}
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", line)
+        if hit and name:
+            out[name]["spill_stores"] = int(hit.group(1))
+            out[name]["spill_loads"] = int(hit.group(2))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            out[name]["registers"] = int(hit.group(1))
+    filt = os.path.join(os.path.dirname(build.nvcc_path()), "cu++filt")
+    if os.path.isfile(filt) and out:
+        names = subprocess.run([filt], input="\n".join(out),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")
+        # "void <unnamed>::kernel<__half, (int)128, ...>(<unnamed>::Args)"
+        out = {re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|"
+                      r"\(int\)", "", plain).rsplit("(", 1)[0]: v
+               for plain, v in zip(names, out.values())}
+    return out
 
 
 def make_job(n, **overrides):
@@ -1713,7 +1888,9 @@ def main() -> int:
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
     sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE, ka.SOURCE,
                kgd.SOURCE]
+    ptxas = ptxas_start(ka.SOURCE)
     build_s = build.build_all(sources)
+    ptxas = ptxas_read(ptxas)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
         f"{build_s:.1f} s")
 
@@ -1795,7 +1972,7 @@ def main() -> int:
     counters = {k: w for k, (w, _) in kernels.items()}
     counters["ec_reduce"] = ker.ec_reduce
     records["ec_reduce"] = main_path_perftest(counters, smi)
-    records["ring_flash_attention_fwd"] = main_path_attention(smi)
+    records["ring_flash_attention_fwd"] = main_path_attention(smi, ptxas)
     # the generated device collectives and tl/torch_ops's defaults
     os.environ.pop("UCC_TL_RING_CUDA_TUNE")
     records.update(main_path_gen(smi))

@@ -18,8 +18,11 @@ position ``src·s + j`` only when it is not later.
 
 The wrapper takes one tensor per rank. On CPU tensors it runs the plain
 version ``ring_flash_attention_ref``; on CUDA tensors it launches the kernel
-on the current stream of their device, without synchronising, or raises. It
-counts its kernel launches in its ``launches`` attribute, a plain int.
+on the current stream of their device, without synchronising, or raises.
+The dtype chooses the kernel's route: float32 runs on CUDA cores, float16
+and bfloat16 on the tensor cores (``wgmma``, P split into two 16-bit
+halves). It counts its kernel launches in its ``launches`` attribute and
+those of the tensor-core route among them in ``tc_launches``, plain ints.
 """
 from __future__ import annotations
 
@@ -36,6 +39,9 @@ SOURCE = "ring_flash_attn.cu"
 
 #: torch dtype -> dtype code of csrc/ring_flash_attn.cu
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+#: dtypes the kernel runs on the tensor cores
+TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
 
 #: largest head dim the kernel takes (its widest register tile)
 MAX_HEAD_DIM = 256
@@ -191,7 +197,8 @@ def ring_flash_attention_fwd(qs: Sequence[torch.Tensor],
                              causal: bool) -> List[torch.Tensor]:
     """Ring attention of every rank's block: new output tensors (h, s, d),
     one per rank, in the dtype of q. ``scale`` multiplies q (after its cast
-    to float32) before the scores."""
+    to float32) before the scores; the tensor-core route multiplies the
+    scores, which differs by float32 rounding."""
     n, h, h_kv, s, d = check_args(qs, ks, vs)
     dev = qs[0].device
     if dev.type == "cpu":
@@ -216,7 +223,10 @@ def ring_flash_attention_fwd(qs: Sequence[torch.Tensor],
                        f"ring attention launch failed: CUDA error {rc} "
                        f"({what})")
     ring_flash_attention_fwd.launches += 1
+    if qs[0].dtype in TENSOR_CORE_DTYPES:
+        ring_flash_attention_fwd.tc_launches += 1
     return outs
 
 
 ring_flash_attention_fwd.launches = 0
+ring_flash_attention_fwd.tc_launches = 0
