@@ -10,11 +10,20 @@ Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build the six kernel sources from
-   ucc_tpu_torch/csrc/ (one nvcc each, started together);
+   ucc_tpu_torch/csrc/ (one nvcc each, started together); the allreduce
+   kernel's f32 and bf16 instances must hold 128-bit global loads and
+   stores in their SASS (cuobjdump);
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
    for MAX/MIN:
-   - both ring allreduce kernels, SUM/AVG/MAX/MIN/PROD;
+   - both allreduce entry points, SUM/AVG/MAX/MIN/PROD, and at n in
+     {3, 5, 7} (odd blocks, so vectors straddle block boundaries), counts
+     that are no multiple of the vector width, views with a storage offset
+     (f32, bf16, int8; mixed offsets take the kernel's scalar path), in
+     place at the main shape, n = 1, n = 257 (above the ranks whose
+     pointers a CTA stages in shared memory), and a launch on a faulted
+     workspace, which must neither raise nor touch it (the kernel has no
+     flags);
    - both ring reduce_scatter kernels over the five ops and both ring
      allgather kernels, several chunks for the chunked ones, in place for
      both collectives, f16 and int64 cases and n = 1;
@@ -24,8 +33,8 @@ Phases, each printing its own lines (any failure exits non-zero):
      alltoall kernels, several chunks for the chunked one, each also
      against torch.cat of block r of every src, in place; f16 and int64
      cases and n = 1 for both;
-   and a set error word must make an allreduce, a reduce_scatter, an
-   allgather, a bcast and an alltoall wrapper raise;
+   and a set error word must make a reduce_scatter, an allgather, a bcast
+   and an alltoall wrapper raise;
    - every ring kernel again on int8, uint8, int16 and float64;
    - both entry points of the generated-collective kernel (gen_device_ring,
      gen_device_gen) on every device program at n in {2, 4, 8}, counts
@@ -95,8 +104,9 @@ Phases, each printing its own lines (any failure exits non-zero):
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms): torch.stack(srcs).sum(0)
-   for allreduce and reduce_scatter, n x torch.cat(srcs, out=dst) for
-   allgather, (n-1) x dst.copy_(src_root) for bcast, n x torch.cat(block r
+   for allreduce (timed in turns with the kernel) and reduce_scatter, n x
+   torch.cat(srcs, out=dst) for allgather, (n-1) x dst.copy_(src_root)
+   for bcast, n x torch.cat(block r
    of every src, out=dst_r) for alltoall; for ec_reduce at the three
    reducedt shapes, torch.stack(srcs).sum(0); for the generated kernel,
    torch.stack(srcs).sum(0) (allreduce) or (n-1) x copy_ (bcast); for
@@ -385,14 +395,124 @@ def phase_kernels() -> None:
                              ReductionOp.AVG, 6), ReductionOp.AVG,
                  inplace=True)
     cases += 1
-    srcs = make_inputs(4, 4096, torch.float32, ReductionOp.SUM, 7)
-    expect_fault(lambda: kr.ring_allreduce_pass(
-        srcs, [torch.empty_like(s) for s in srcs], ReductionOp.SUM,
-        workspace=faulted_workspace()))
+    # odd n: blocks of odd length (the pass kernel's 10001; the chunked
+    # kernel's 349525 and 209715, and n = 7's 149796, no multiple of 8),
+    # so vectors straddle block boundaries
+    for n in (3, 5, 7):
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, op in enumerate(ops):
+                seed = 2000 * n + 10 * i + dtype.itemsize
+                check_kernel(kr.ring_allreduce_pass,
+                             kr.ring_allreduce_pass_ref,
+                             make_inputs(n, n * 10001 - 1, dtype, op, seed),
+                             op)
+                check_kernel(kr.ring_allreduce_chunked,
+                             kr.ring_allreduce_chunked_ref,
+                             make_inputs(n, 2 * kr.pass_elems(n) + 3, dtype,
+                                         op, seed + 1), op)
+                cases += 2
+    # counts that are no multiple of the vector width (4, 8, 16 elements)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for wrapper, ref in ((kr.ring_allreduce_pass,
+                              kr.ring_allreduce_pass_ref),
+                             (kr.ring_allreduce_chunked,
+                              kr.ring_allreduce_chunked_ref)):
+            check_kernel(wrapper, ref, make_inputs(
+                4, 16 * 1021 + 13, dtype, ReductionOp.SUM, 8), ReductionOp.SUM)
+            cases += 1
+    # views with a storage offset: some ranks at +1 element (every element
+    # on the kernel's scalar path), or every buffer at +1 (a scalar head,
+    # then vectors)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for wrapper, ref, count in (
+                (kr.ring_allreduce_pass, kr.ring_allreduce_pass_ref, 40003),
+                (kr.ring_allreduce_chunked, kr.ring_allreduce_chunked_ref,
+                 kr.pass_elems(5) + 37)):
+            for mixed in (True, False):
+                check_misaligned(wrapper, ref, 5, count, dtype, mixed, 9)
+                cases += 1
+    # n = 1 (a copy; AVG still divides), and a team above the ranks whose
+    # pointers a CTA stages in shared memory (integer SUM: any order is
+    # exact, so the check is torch's sum rather than the slow ring)
+    check_kernel(kr.ring_allreduce_pass, kr.ring_allreduce_pass_ref,
+                 make_inputs(1, 1001, torch.float32, ReductionOp.SUM, 11),
+                 ReductionOp.SUM)
+    check_kernel(kr.ring_allreduce_chunked, kr.ring_allreduce_chunked_ref,
+                 make_inputs(1, kr.pass_elems(1) + 5, torch.int32,
+                             ReductionOp.AVG, 12), ReductionOp.AVG,
+                 inplace=True)
+    srcs = make_inputs(257, 1001, torch.int32, ReductionOp.SUM, 13)
+    dsts = [torch.empty_like(s) for s in srcs]
+    kr.ring_allreduce_pass(srcs, dsts, ReductionOp.SUM).wait()
+    compare("ring_allreduce_pass n=257", dsts,
+            [torch.stack(srcs).sum(0, dtype=torch.int32)] * 257)
+    cases += 3
+    # in place at the main path's shape
+    check_kernel(kr.ring_allreduce_chunked, kr.ring_allreduce_chunked_ref,
+                 make_inputs(N_RANKS, MAIN_COUNT, torch.float32,
+                             ReductionOp.SUM, 10), ReductionOp.SUM,
+                 inplace=True)
+    cases += 1
+    torch.cuda.empty_cache()
+    check_flag_free()
     log(f"kernels: {cases} allreduce launches bitwise equal to their plain "
-        f"versions (n in 2,4,8; f32/bf16/int32 x SUM/AVG/MAX/MIN/PROD; "
-        f"ragged counts; NaN for MAX/MIN; f16, int64, in-place) in "
-        f"{time.perf_counter() - t0:.1f} s; a set error word raises")
+        f"versions (n in 2,4,8 x f32/bf16/int32 and n in 3,5,7 x f32/bf16, "
+        f"x SUM/AVG/MAX/MIN/PROD; ragged counts; NaN for MAX/MIN; f16, "
+        f"int64; misaligned views; n = 1 and 257; in place, also at 8 x "
+        f"{MAIN_COUNT}) in "
+        f"{time.perf_counter() - t0:.1f} s; a launch on a faulted "
+        f"workspace neither raises nor touches it")
+
+
+def check_misaligned(wrapper, ref, n, count, dtype, mixed, seed) -> float:
+    """An allreduce over views with a storage offset, bitwise against the
+    plain version: *mixed*, srcs of odd ranks and dsts of ranks 0 mod 3
+    start one element in; else every src and dst does. The elements
+    around each dst view must stay as they were."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    op = ReductionOp.SUM
+    bases = make_inputs(n, count + 1, dtype, op, seed)
+    src_at = [r % 2 if mixed else 1 for r in range(n)]
+    dst_at = [int(r % 3 == 0) if mixed else 1 for r in range(n)]
+    srcs = [b[a:a + count] for b, a in zip(bases, src_at)]
+    outs = [torch.full((count + 1,), 7, dtype=dtype, device="cuda")
+            for _ in range(n)]
+    dsts = [o[a:a + count] for o, a in zip(outs, dst_at)]
+    want = ref(srcs, op)
+    wrapper(srcs, dsts, op).wait()
+    torch.cuda.synchronize()
+    what = (f"{label(wrapper, srcs, op)} views at "
+            f"{'mixed offsets' if mixed else '+1'}")
+    for r, (o, a) in enumerate(zip(outs, dst_at)):
+        rest = torch.cat([o[:a], o[a + count:]])
+        if not torch.equal(rest, torch.full_like(rest, 7)):
+            raise AssertionError(f"{what}: rank {r} wrote outside its dst")
+    return compare(what, dsts, want)
+
+
+def check_flag_free() -> None:
+    """The allreduce kernel has no flags and no error word: a launch on a
+    workspace whose error word is set and whose flag words hold a pattern
+    must not raise, must be right, and must leave both as they were."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_allreduce as kr
+    ws = faulted_workspace()
+    _, flags, err = ws.get(64, 64)
+    flags.fill_(0x5A5A5A5A)
+    before = (flags.clone(), err.clone())
+    for wrapper, ref in ((kr.ring_allreduce_pass, kr.ring_allreduce_pass_ref),
+                         (kr.ring_allreduce_chunked,
+                          kr.ring_allreduce_chunked_ref)):
+        srcs = make_inputs(4, 4096, torch.float32, ReductionOp.SUM, 7)
+        dsts = [torch.empty_like(s) for s in srcs]
+        wrapper(srcs, dsts, ReductionOp.SUM, workspace=ws).wait()
+        torch.cuda.synchronize()
+        compare(label(wrapper, srcs, ReductionOp.SUM) + " on a faulted "
+                "workspace", dsts, ref(srcs, ReductionOp.SUM))
+    if not (torch.equal(flags, before[0]) and torch.equal(err, before[1])):
+        raise AssertionError("an allreduce launch touched the workspace")
 
 
 def phase_kernels_rs_ag() -> None:
@@ -1207,7 +1327,8 @@ def ptxas_start(source):
     in the background; ptxas_read parses its report."""
     from ucc_tpu_torch.kernels import build
     flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
-    obj = os.path.join(build.BUILD_DIR, f"ptxas_{os.getpid()}.o")
+    stem = os.path.splitext(source)[0]
+    obj = os.path.join(build.BUILD_DIR, f"ptxas_{stem}_{os.getpid()}.o")
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     return obj, subprocess.Popen(
         [build.nvcc_path(), *flags, "-c", "-Xptxas", "-v", "-o", obj,
@@ -1216,9 +1337,10 @@ def ptxas_start(source):
 
 
 def ptxas_read(started) -> dict:
-    """{kernel instance: {registers, spill_stores, spill_loads, hgmma}}
-    (bytes for the spills; hgmma counts the warpgroup tensor-core
-    instructions in the object's SASS, by cuobjdump) from ptxas_start's
+    """{kernel instance: {registers, spill_stores, spill_loads, hgmma,
+    ldg128, stg128}} (bytes for the spills; hgmma counts the warpgroup
+    tensor-core instructions in the object's SASS, by cuobjdump, ldg128
+    and stg128 its 128-bit global loads and stores) from ptxas_start's
     report; names demangled by cu++filt where the toolkit has it."""
     import re
     from ucc_tpu_torch.kernels import build
@@ -1230,20 +1352,24 @@ def ptxas_read(started) -> dict:
         [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
          "-sass", obj], capture_output=True, text=True, check=True).stdout
     os.remove(obj)
-    hgmma, name = {}, None
+    counts, name = {}, None
+    patterns = {"hgmma": r"\bHGMMA\.", "ldg128": r"\bLDG\.E\S*\.128\b",
+                "stg128": r"\bSTG\.E\S*\.128\b"}
     for line in sass.splitlines():
         hit = re.search(r"Function : (\S+)", line)
         if hit:
             name = hit.group(1)
-            hgmma[name] = 0
-        elif name and re.search(r"\bHGMMA\.", line):
-            hgmma[name] += 1
+            counts[name] = dict.fromkeys(patterns, 0)
+        elif name:
+            for key, pat in patterns.items():
+                if re.search(pat, line):
+                    counts[name][key] += 1
     out, name = {}, None
     for line in log_text.splitlines():
         hit = re.search(r"Compiling entry function '([^']+)'", line)
         if hit:
             name = hit.group(1)
-            out[name] = {"hgmma": hgmma.get(name, 0)}
+            out[name] = dict(counts.get(name, dict.fromkeys(patterns, 0)))
         hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                         r"loads", line)
         if hit and name:
@@ -1262,6 +1388,21 @@ def ptxas_read(started) -> dict:
                       r"\(int\)", "", plain).rsplit("(", 1)[0]: v
                for plain, v in zip(names, out.values())}
     return out
+
+
+def check_allreduce_sass(info) -> None:
+    """The allreduce kernel moves 16-byte vectors: its f32 and bf16
+    instances must hold 128-bit global loads and stores (LDG.E.128,
+    STG.E.128 in any cache variant) in their SASS."""
+    log(f"ptxas of ring_allreduce.cu: {json.dumps(info)}")
+    # demangled, or as mangled when the toolkit has no cu++filt
+    for names in (("<float>", "IfE"),
+                  ("<__nv_bfloat16>", "I13__nv_bfloat16E")):
+        hits = [v for k, v in info.items() if any(
+            f"ring_allreduce_kernel{t}" in k for t in names)]
+        if not hits or not (hits[0]["ldg128"] and hits[0]["stg128"]):
+            raise AssertionError(f"ring_allreduce_kernel{names[0]} has no "
+                                 f"128-bit global loads or stores: {hits}")
 
 
 def make_job(n, **overrides):
@@ -1509,7 +1650,7 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     pointer table built once, as the team's persistent launches reuse
     them (a bcast in place on the main path's buffers `bufs`, as the main
     path runs it); its plain version and one PyTorch call as
-    yardsticks."""
+    yardsticks (for allreduce timed in turns with the kernel)."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_common as kc
@@ -1532,8 +1673,21 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
         (srcs, [torch.empty(dst_count, device="cuda") for _ in srcs])
     ws = kc.RingWorkspace(srcs[0].device)
     table = kc.make_ptr_table(ins, out)
-    ms = cuda_ms(lambda: wrapper(ins, out, sum_, root=root, workspace=ws,
-                                 ptr_table=table), 20)
+    def kernel():
+        return wrapper(ins, out, sum_, root=root, workspace=ws,
+                       ptr_table=table)
+    if coll == "ALLREDUCE":
+        # kernel and library call in turns: library, kernel, kernel, library
+        turns = [cuda_ms(f, 20) for f in (
+            lambda: torch.stack(srcs).sum(0), kernel, kernel,
+            lambda: torch.stack(srcs).sum(0))]
+        log(f"{wrapper.__name__} n={n} count={srcs[0].numel()} in turns "
+            f"(stack().sum(0), kernel, kernel, stack().sum(0)): "
+            f"{', '.join(f'{t:.4f}' for t in turns)} ms")
+        ms, library_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain_ms = cuda_ms(lambda: ref(srcs, sum_, root), 3)
+        return max_err, ms, plain_ms, library_ms
+    ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(lambda: ref(srcs, sum_, root), 3)
     if coll == "ALLGATHER":
         library_ms = cuda_ms(lambda: [torch.cat(srcs, out=o) for o in out],
@@ -1889,10 +2043,12 @@ def main() -> int:
     sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE, ka.SOURCE,
                kgd.SOURCE]
     ptxas = ptxas_start(ka.SOURCE)
+    ar_ptxas = ptxas_start(kr.SOURCE)
     build_s = build.build_all(sources)
     ptxas = ptxas_read(ptxas)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
         f"{build_s:.1f} s")
+    check_allreduce_sass(ptxas_read(ar_ptxas))
 
     # -- 2. kernels against their plain versions ---------------------------
     phase_kernels()

@@ -1,8 +1,8 @@
-"""Ring allreduce over the n ranks of one device: the CUDA kernels of
-``csrc/ring_allreduce.cu``, their wrappers, and their plain PyTorch
+"""Allreduce over the n ranks of one device: the CUDA kernel of
+``csrc/ring_allreduce.cu``, its two entry points, and their plain PyTorch
 versions.
 
-Two kernels, one step schedule (see the note at the top of the source):
+Two entry points, one kernel (see the note at the top of the source):
 
 - ``ring_allreduce_pass`` replaces ``ucc_tpu/tl/ring_dma.py:_ring_kernel``
   in allreduce mode: one ring over the whole vector, padded to a multiple
@@ -10,18 +10,25 @@ Two kernels, one step schedule (see the note at the top of the source):
 - ``ring_allreduce_chunked`` replaces ``_hbm_allreduce_kernel``: the same
   ring once per chunk of ``csize = pass_elems(n)`` elements.
 
+The kernel is no ring: one pass over the ranks' buffers folds every
+element from its n srcs in the ring's order (block b from rank b on) and
+stores it into the n dsts, so its result is bitwise the ring's. It needs
+no comm slots, flag words or error word.
+
 A wrapper takes one src and one dst tensor per rank (``src is dst`` runs
 in place) and writes the result into the dst tensors. On CPU tensors it
 runs the plain version; on CUDA tensors it launches the kernel or raises.
-It returns a :class:`RingLaunch` whose ``done()``/``wait()`` raise if the
-kernel reported a fault. Each wrapper counts its kernel launches in its
-``launches`` attribute, a plain int.
+It returns a :class:`RingLaunch` whose ``done()``/``wait()`` tell when
+the launch has finished. Each wrapper counts its kernel launches in its
+``launches`` attribute, a plain int. ``workspace`` is accepted, as every
+ring wrapper takes it, and left untouched.
 
 The plain versions ``ring_allreduce_pass_ref`` /
-``ring_allreduce_chunked_ref`` run the same steps over the same geometry
-with PyTorch ops, so their results are bitwise those of the kernels and
-of the JAX package's Pallas kernels in interpret mode. The chunked one
-takes the chunk size as a parameter, so a test can use the JAX package's.
+``ring_allreduce_chunked_ref`` run the ring's steps over the same
+geometry with PyTorch ops, so their results are bitwise those of the
+kernel and of the JAX package's Pallas kernels in interpret mode. The
+chunked one takes the chunk size as a parameter, so a test can use the
+JAX package's.
 """
 from __future__ import annotations
 
@@ -32,20 +39,64 @@ import torch
 from ..constants import ReductionOp
 # RingWorkspace, make_ptr_table, THREADS, SUPPORTED_DTYPES and the plain
 # fold (_accum, _divide) stay importable from here
-from .ring_common import (OPS, SUPPORTED_DTYPES, THREADS,  # noqa: F401
-                          RingLaunch, RingSource, RingWorkspace, dispatch,
-                          make_ptr_table)
+from .ring_common import (DTYPE_CODES, OPS, SUPPORTED_DTYPES,  # noqa: F401
+                          THREADS, Plan, RingLaunch, RingSource,
+                          RingWorkspace, dispatch, make_ptr_table)
 from .ring_common import accumulate as _accum
 from .ring_common import divide as _divide
 
 SOURCE = "ring_allreduce.cu"
-_SOURCE = RingSource(SOURCE, "ucc_ring_allreduce")
+
+#: threads per CTA of the allreduce kernel (THREADS in the source)
+ALLREDUCE_THREADS = 256
+#: bytes of one vector access of the kernel
+VECTOR_BYTES = 16
+
+
+def launch_ctas(count: int, elem_size: int, cap: int) -> int:
+    """CTAs of one launch: one thread per 16-byte vector of a rank, so a
+    small count still spreads over the SMs, and no more than *cap* (the
+    CTAs the card holds at once, from the occupancy query); the kernel
+    walks the rest grid-stride."""
+    vectors = -(-count * elem_size // VECTOR_BYTES)
+    return max(1, min(cap, -(-vectors // ALLREDUCE_THREADS)))
+
+
+class _AllreduceSource(RingSource):
+    """The allreduce source: one kernel on a 1-D grid that takes no comm
+    slots, flag words or error word. A launch asks the workspace for
+    nothing, zeroes nothing and copies no error word back, and it needs
+    no co-resident CTAs: nothing spins."""
+
+    def launch(self, what: str, kernel: int, srcs, dsts, op, root: int,
+               plan: Plan, stream, workspace: Optional[RingWorkspace],
+               ptr_table: Optional[torch.Tensor]) -> RingLaunch:
+        count, blk, n_chunks = plan[:3]
+        device = srcs[0].device
+        code = DTYPE_CODES[srcs[0].dtype]
+        if stream is None:
+            stream = torch.cuda.current_stream(device)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            ctas = launch_ctas(count, srcs[0].element_size(),
+                               self.max_ctas(kernel, code, device,
+                                             ALLREDUCE_THREADS))
+            if ptr_table is None:
+                ptr_table = make_ptr_table(srcs, dsts)
+            self.check(getattr(self.lib(), self.prefix)(
+                kernel, code, ptr_table.data_ptr(), None, None, None, count,
+                blk, n_chunks, len(srcs), int(op), root, ctas,
+                ALLREDUCE_THREADS, stream.cuda_stream),
+                f"{what} launch")
+        return RingLaunch(stream, keep=(ptr_table,), what=what)
+
+
+_SOURCE = _AllreduceSource(SOURCE, "ucc_ring_allreduce")
 
 #: per-rank elements one pass covers; counts above pass_elems(n) run the
-#: chunked kernel. 1 Mi elements (4 MiB f32 per rank) keeps a chunk's
-#: comm slots (2 x csize elements over all ranks, 8 MiB f32) resident in
-#: the H100's 50 MB L2, so the neighbour exchange stays on chip, and keeps
-#: the slot memory a fixed size whatever the count.
+#: chunked entry point. The chunk fixes the blocks, and so the order in
+#: which an element's ranks are folded: it stays the ring's 1 Mi
+#: elements, though the kernel reads no comm slots and a chunk costs it
+#: nothing.
 CHUNK_ELEMS = 1 << 20
 
 
@@ -130,7 +181,7 @@ def _dispatch(chunked: int, srcs, dsts, op, geometry, ref, stream,
               workspace, ptr_table) -> Optional[RingLaunch]:
     def plan(count, n):
         blk, n_chunks = geometry(count, n)
-        return count, blk, n_chunks, blk, 2 * blk, 2
+        return count, blk, n_chunks, count, 0, 0
     return dispatch(_SOURCE, chunked, "ring allreduce", srcs, dsts, op,
                     ops=OPS, dst_count=lambda count, n: count,
                     ref=lambda: ref(srcs, op), plan=plan, stream=stream,

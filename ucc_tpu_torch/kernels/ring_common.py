@@ -10,7 +10,10 @@ n, op, root, lanes, threads, stream)`` launches kernel number *kernel* of
 the source cooperatively on a ``(lanes, n)`` grid, where ``a``, ``b`` and
 ``n_chunks`` are the kernel's geometry and ``root`` the rank a rooted
 collective starts from (0 for the others); ``P_max_ctas`` is the occupancy
-query and ``P_error_string`` names a CUDA error.
+query and ``P_error_string`` names a CUDA error. The allreduce source takes
+the same arguments but runs no ring: its kernel spins on nothing, ignores
+``comm``, ``flags`` and ``err``, and runs an ordinary launch of ``lanes``
+CTAs in all (``kernels/ring_allreduce.py``).
 """
 from __future__ import annotations
 
@@ -224,20 +227,27 @@ class RingSource:
             raise UccError(Status.ERR_NO_RESOURCE,
                            f"{what} failed: CUDA error {rc} ({msg.decode()})")
 
-    def lanes(self, kernel: int, code: int, n: int, span: int,
-              device: torch.device) -> int:
-        """CTAs per rank: enough for one element per thread of a chunk, no
-        more than the card can hold resident for all n ranks (the spins
-        need every CTA resident). The cap is the kernel's own, for its
-        dtype: each compiled kernel has its own register count."""
-        key = (device.index, self.source, kernel, code)
+    def max_ctas(self, kernel: int, code: int, device: torch.device,
+                 threads: int = THREADS) -> int:
+        """CTAs of *threads* threads that the card holds resident at once
+        for the kernel of this dtype (each compiled kernel has its own
+        register count); queried once and kept."""
+        key = (device.index, self.source, kernel, code, threads)
         cap = self._max_ctas.get(key)
         if cap is None:
             out = ctypes.c_int(0)
             self.check(getattr(self.lib(), self.prefix + "_max_ctas")(
-                kernel, code, THREADS, ctypes.byref(out)),
+                kernel, code, threads, ctypes.byref(out)),
                 f"{self.source} occupancy query")
             cap = self._max_ctas[key] = out.value
+        return cap
+
+    def lanes(self, kernel: int, code: int, n: int, span: int,
+              device: torch.device) -> int:
+        """CTAs per rank: enough for one element per thread of a chunk, no
+        more than the card can hold resident for all n ranks (the spins
+        need every CTA resident)."""
+        cap = self.max_ctas(kernel, code, device)
         if cap < n:
             raise UccError(Status.ERR_NO_RESOURCE,
                            f"a ring of {n} ranks needs {n} co-resident CTAs; "
