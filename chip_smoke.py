@@ -9,10 +9,12 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the six kernel sources from
-   ucc_tpu_torch/csrc/ (one nvcc each, started together); the allreduce
-   kernel's f32 and bf16 instances must hold 128-bit global loads and
-   stores in their SASS (cuobjdump);
+   versions, and the time to build the seven kernel sources from
+   ucc_tpu_torch/csrc/ (one nvcc each, started together, beside one
+   nvcc -Xptxas -v each); the f32 and bf16 instances of the allreduce and
+   reduce_scatter kernels must hold 128-bit global loads and stores in
+   their SASS (cuobjdump), and none of their instances may spill; the
+   instances of every source that spill are printed;
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
    for MAX/MIN:
@@ -24,17 +26,22 @@ Phases, each printing its own lines (any failure exits non-zero):
      pointers a CTA stages in shared memory), and a launch on a faulted
      workspace, which must neither raise nor touch it (the kernel has no
      flags);
-   - both ring reduce_scatter kernels over the five ops and both ring
-     allgather kernels, several chunks for the chunked ones, in place for
-     both collectives, f16 and int64 cases and n = 1;
+   - both reduce_scatter entry points over the five ops, also at n in
+     {3, 5, 7} (blocks whose srcs lie at offsets mod 16 that change with
+     the block, so one launch runs rows on the vector path and rows on
+     the scalar one), on views with a storage offset (f32, bf16, int8),
+     at n = 1, at n = 257 and in place at the main shape, and on a faulted
+     workspace, which must neither raise nor touch it; both ring allgather
+     kernels, several chunks for the chunked one; in place for both
+     collectives, f16 and int64 cases and n = 1;
    - both ring bcast kernels from roots 0, n/2 and n-1, several sub-blocks
      for the chunked one, each also against the root's saved src, in place
      (src = dst, as UCC's bcast passes src alone), and both pairwise
      alltoall kernels, several chunks for the chunked one, each also
      against torch.cat of block r of every src, in place; f16 and int64
      cases and n = 1 for both;
-   and a set error word must make a reduce_scatter, an allgather, a bcast
-   and an alltoall wrapper raise;
+   and a set error word must make an allgather, a bcast and an alltoall
+   wrapper raise;
    - every ring kernel again on int8, uint8, int16 and float64;
    - both entry points of the generated-collective kernel (gen_device_ring,
      gen_device_gen) on every device program at n in {2, 4, 8}, counts
@@ -104,7 +111,7 @@ Phases, each printing its own lines (any failure exits non-zero):
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms): torch.stack(srcs).sum(0)
-   for allreduce (timed in turns with the kernel) and reduce_scatter, n x
+   for allreduce and reduce_scatter (timed in turns with the kernel), n x
    torch.cat(srcs, out=dst) for allgather, (n-1) x dst.copy_(src_root)
    for bcast, n x torch.cat(block r
    of every src, out=dst_r) for alltoall; for ec_reduce at the three
@@ -460,59 +467,74 @@ def phase_kernels() -> None:
         f"x SUM/AVG/MAX/MIN/PROD; ragged counts; NaN for MAX/MIN; f16, "
         f"int64; misaligned views; n = 1 and 257; in place, also at 8 x "
         f"{MAIN_COUNT}) in "
-        f"{time.perf_counter() - t0:.1f} s; a launch on a faulted "
-        f"workspace neither raises nor touches it")
+        f"{time.perf_counter() - t0:.1f} s; an allreduce or reduce_scatter "
+        f"launch on a faulted workspace neither raises nor touches it")
 
 
-def check_misaligned(wrapper, ref, n, count, dtype, mixed, seed) -> float:
-    """An allreduce over views with a storage offset, bitwise against the
-    plain version: *mixed*, srcs of odd ranks and dsts of ranks 0 mod 3
-    start one element in; else every src and dst does. The elements
-    around each dst view must stay as they were."""
+def check_misaligned(wrapper, ref, n, count, dtype, mixed, seed,
+                     dst_count=None) -> float:
+    """An allreduce (or, with *dst_count*, a reduce_scatter) over views
+    with a storage offset, bitwise against the plain version: *mixed*,
+    srcs of odd ranks and dsts of ranks 0 mod 3 start one element in;
+    else every src and dst does. The elements around each dst view must
+    stay as they were."""
     import torch
     from ucc_tpu_torch import ReductionOp
     op = ReductionOp.SUM
+    dst_count = count if dst_count is None else dst_count
     bases = make_inputs(n, count + 1, dtype, op, seed)
     src_at = [r % 2 if mixed else 1 for r in range(n)]
     dst_at = [int(r % 3 == 0) if mixed else 1 for r in range(n)]
     srcs = [b[a:a + count] for b, a in zip(bases, src_at)]
-    outs = [torch.full((count + 1,), 7, dtype=dtype, device="cuda")
+    outs = [torch.full((dst_count + 1,), 7, dtype=dtype, device="cuda")
             for _ in range(n)]
-    dsts = [o[a:a + count] for o, a in zip(outs, dst_at)]
+    dsts = [o[a:a + dst_count] for o, a in zip(outs, dst_at)]
     want = ref(srcs, op)
     wrapper(srcs, dsts, op).wait()
     torch.cuda.synchronize()
     what = (f"{label(wrapper, srcs, op)} views at "
             f"{'mixed offsets' if mixed else '+1'}")
     for r, (o, a) in enumerate(zip(outs, dst_at)):
-        rest = torch.cat([o[:a], o[a + count:]])
+        rest = torch.cat([o[:a], o[a + dst_count:]])
         if not torch.equal(rest, torch.full_like(rest, 7)):
             raise AssertionError(f"{what}: rank {r} wrote outside its dst")
     return compare(what, dsts, want)
 
 
 def check_flag_free() -> None:
-    """The allreduce kernel has no flags and no error word: a launch on a
-    workspace whose error word is set and whose flag words hold a pattern
-    must not raise, must be right, and must leave both as they were."""
+    """The allreduce and reduce_scatter kernels have no flags and no error
+    word: a launch on a workspace whose error word is set and whose flag
+    words hold a pattern must not raise, must be right, and must leave
+    both as they were."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_allreduce as kr
+    from ucc_tpu_torch.kernels import ring_rs_ag as krs
     ws = faulted_workspace()
     _, flags, err = ws.get(64, 64)
     flags.fill_(0x5A5A5A5A)
     before = (flags.clone(), err.clone())
+    sum_ = ReductionOp.SUM
     for wrapper, ref in ((kr.ring_allreduce_pass, kr.ring_allreduce_pass_ref),
                          (kr.ring_allreduce_chunked,
                           kr.ring_allreduce_chunked_ref)):
-        srcs = make_inputs(4, 4096, torch.float32, ReductionOp.SUM, 7)
+        srcs = make_inputs(4, 4096, torch.float32, sum_, 7)
         dsts = [torch.empty_like(s) for s in srcs]
-        wrapper(srcs, dsts, ReductionOp.SUM, workspace=ws).wait()
+        wrapper(srcs, dsts, sum_, workspace=ws).wait()
         torch.cuda.synchronize()
-        compare(label(wrapper, srcs, ReductionOp.SUM) + " on a faulted "
-                "workspace", dsts, ref(srcs, ReductionOp.SUM))
+        compare(label(wrapper, srcs, sum_) + " on a faulted workspace",
+                dsts, ref(srcs, sum_))
+    for wrapper in (krs.ring_reduce_scatter_pass,
+                    krs.ring_reduce_scatter_chunked):
+        srcs = make_inputs(4, 4 * 4096, torch.float32, sum_, 18)
+        dsts = [torch.empty(4096, device="cuda") for _ in srcs]
+        wrapper(srcs, dsts, sum_, workspace=ws).wait()
+        torch.cuda.synchronize()
+        compare(label(wrapper, srcs, sum_) + " on a faulted workspace",
+                dsts, krs.ring_reduce_scatter_ref(srcs, sum_))
     if not (torch.equal(flags, before[0]) and torch.equal(err, before[1])):
-        raise AssertionError("an allreduce launch touched the workspace")
+        raise AssertionError("an allreduce or reduce_scatter launch touched "
+                             "the workspace")
 
 
 def phase_kernels_rs_ag() -> None:
@@ -572,19 +594,67 @@ def phase_kernels_rs_ag() -> None:
     check_allgather(*ag, make_inputs(1, 777, torch.float32,
                                      ReductionOp.SUM, 17))
     cases += 10
-    srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 18)
-    expect_fault(lambda: krs.ring_reduce_scatter_pass(
-        srcs, [torch.empty(4096, device="cuda") for _ in srcs],
-        ReductionOp.SUM, workspace=faulted_workspace()))
+    cases += reduce_scatter_edges(rs, rs_c)
+    srcs = make_inputs(4, 4096, torch.float32, ReductionOp.SUM, 18)
     expect_fault(lambda: krs.ring_allgather_chunked(
-        srcs, [torch.empty(16 * 4096, device="cuda") for _ in srcs],
+        srcs, [torch.empty(4 * 4096, device="cuda") for _ in srcs],
         workspace=faulted_workspace()))
     log(f"kernels: {cases} reduce_scatter/allgather launches bitwise equal "
         f"to their plain versions (n in 2,4,8; f32/bf16/int32; "
-        f"reduce_scatter x SUM/AVG/MAX/MIN/PROD with NaN for MAX/MIN; "
-        f"allgather with a NaN, bitwise torch.cat; ragged counts; 3 chunks; "
-        f"in place; f16, int64; n=1) in {time.perf_counter() - t0:.1f} s; "
-        f"a set error word raises for both collectives")
+        f"reduce_scatter x SUM/AVG/MAX/MIN/PROD with NaN for MAX/MIN, also "
+        f"at n in 3,5,7, on misaligned views, at n = 1 and 257 and in place "
+        f"at 8 x {MAIN_COUNT}; allgather with a NaN, bitwise torch.cat; "
+        f"ragged counts; 3 chunks; in place; f16, int64; n=1) in "
+        f"{time.perf_counter() - t0:.1f} s; a set error word raises for the "
+        f"allgather (the reduce_scatter has none: check_flag_free)")
+
+
+def reduce_scatter_edges(rs, rs_c) -> int:
+    """The reduce_scatter kernel's edges, each launch bitwise against the
+    plain version: odd n, whose blocks put the srcs' block r at offsets
+    mod 16 that change with r (rows on the vector path and rows on the
+    scalar one in one launch); views with a storage offset (at blocks of
+    4096 every row of "+1" views takes vectors after a scalar head, at
+    40003 some rows run scalar); n = 1; n = 257, more ranks than the card
+    holds co-resident CTAs (integer SUM: any order is exact, so the check
+    is torch's sum rather than the slow ring); in place at the main path's
+    shape. Returns the launches."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_rs_ag as krs
+    cases = 0
+    for n in (3, 5, 7):
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, op in enumerate(krs.OPS):
+                seed = 6000 * n + 10 * i + dtype.itemsize
+                check_reduce_scatter(*rs, make_inputs(
+                    n, n * 10001, dtype, op, seed), op)
+                check_reduce_scatter(*rs_c, make_inputs(
+                    n, n * (2 * (krs.CHUNK_ELEMS // n) + 3), dtype, op,
+                    seed + 1), op)
+                cases += 2
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for blk in (4096, 40003):
+            for mixed in (True, False):
+                check_misaligned(*rs, 5, 5 * blk, dtype, mixed, 9,
+                                 dst_count=blk)
+                cases += 1
+    check_reduce_scatter(*rs_c, make_inputs(
+        1, krs.reduce_scatter_pass_elems(1) + 5, torch.int32,
+        ReductionOp.AVG, 19), ReductionOp.AVG, inplace=True)
+    srcs = make_inputs(257, 257 * 1001, torch.int32, ReductionOp.SUM, 20)
+    dsts = [torch.empty(1001, dtype=torch.int32, device="cuda")
+            for _ in srcs]
+    krs.ring_reduce_scatter_pass(srcs, dsts, ReductionOp.SUM).wait()
+    total = torch.stack(srcs).sum(0, dtype=torch.int32)
+    compare("ring_reduce_scatter_pass n=257", dsts,
+            [total[r * 1001:(r + 1) * 1001] for r in range(257)])
+    del srcs, dsts, total
+    check_reduce_scatter(*rs_c, make_inputs(
+        N_RANKS, MAIN_COUNT, torch.float32, ReductionOp.SUM, 21),
+        ReductionOp.SUM, inplace=True)
+    torch.cuda.empty_cache()
+    return cases + 3
 
 
 def phase_kernels_bcast_a2a() -> None:
@@ -1390,19 +1460,41 @@ def ptxas_read(started) -> dict:
     return out
 
 
-def check_allreduce_sass(info) -> None:
-    """The allreduce kernel moves 16-byte vectors: its f32 and bf16
+#: the flag-free kernels that move 16-byte vectors: source -> kernel
+DIRECT_KERNELS = {"ring_allreduce.cu": "ring_allreduce_kernel",
+                  "reduce_scatter.cu": "reduce_scatter_kernel"}
+
+
+def check_direct_sass(source, info) -> None:
+    """A flag-free kernel moves 16-byte vectors: its f32 and bf16
     instances must hold 128-bit global loads and stores (LDG.E.128,
     STG.E.128 in any cache variant) in their SASS."""
-    log(f"ptxas of ring_allreduce.cu: {json.dumps(info)}")
+    kernel = DIRECT_KERNELS[source]
+    log(f"ptxas of {source}: {json.dumps(info)}")
     # demangled, or as mangled when the toolkit has no cu++filt
     for names in (("<float>", "IfE"),
                   ("<__nv_bfloat16>", "I13__nv_bfloat16E")):
         hits = [v for k, v in info.items() if any(
-            f"ring_allreduce_kernel{t}" in k for t in names)]
+            f"{kernel}{t}" in k for t in names)]
         if not hits or not (hits[0]["ldg128"] and hits[0]["stg128"]):
-            raise AssertionError(f"ring_allreduce_kernel{names[0]} has no "
-                                 f"128-bit global loads or stores: {hits}")
+            raise AssertionError(f"{kernel}{names[0]} has no 128-bit global "
+                                 f"loads or stores: {hits}")
+
+
+def check_spills(infos) -> None:
+    """Report every kernel instance that spills registers to local memory
+    (nvcc -Xptxas -v's spill bytes, stores and loads) in any source; no
+    instance of a flag-free kernel may, as each thread keeps GROUP x
+    UNROLL vectors in flight in registers."""
+    spills = {f"{src}: {k}": (v.get("spill_stores"), v.get("spill_loads"))
+              for src, info in infos.items() for k, v in info.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    counts = {src: len(info) for src, info in infos.items()}
+    log(f"ptxas: kernel instances per source {counts}; spill bytes "
+        f"(stores, loads): {spills}")
+    direct = [k for k in spills if k.split(":")[0] in DIRECT_KERNELS]
+    if direct:
+        raise AssertionError(f"flag-free kernel instances spill: {direct}")
 
 
 def make_job(n, **overrides):
@@ -1481,10 +1573,10 @@ KERNELS = {
     "ring_allreduce_chunked": ("ring_allreduce.cu",
                                "ucc_tpu/tl/ring_dma.py:966",
                                "ring_allreduce_chunked_ref"),
-    "ring_reduce_scatter_pass": ("ring_rs_ag.cu",
+    "ring_reduce_scatter_pass": ("reduce_scatter.cu",
                                  "ucc_tpu/tl/ring_dma.py:285",
                                  "ring_reduce_scatter_ref"),
-    "ring_reduce_scatter_chunked": ("ring_rs_ag.cu",
+    "ring_reduce_scatter_chunked": ("reduce_scatter.cu",
                                     "ucc_tpu/tl/ring_dma.py:1235",
                                     "ring_reduce_scatter_ref"),
     "ring_allgather_pass": ("ring_rs_ag.cu", "ucc_tpu/tl/ring_dma.py:285",
@@ -1510,6 +1602,7 @@ def wrappers():
     from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
     from ucc_tpu_torch.kernels import ring_rs_ag as krs
     mods = {m.SOURCE: m for m in (kr, krs, kba)}
+    mods[krs.RS_SOURCE] = krs
     out = {}
     for name, (source, _, ref_name) in KERNELS.items():
         mod = mods[source]
@@ -1650,7 +1743,8 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     pointer table built once, as the team's persistent launches reuse
     them (a bcast in place on the main path's buffers `bufs`, as the main
     path runs it); its plain version and one PyTorch call as
-    yardsticks (for allreduce timed in turns with the kernel)."""
+    yardsticks (for allreduce and reduce_scatter timed in turns with the
+    kernel)."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_common as kc
@@ -1676,7 +1770,7 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     def kernel():
         return wrapper(ins, out, sum_, root=root, workspace=ws,
                        ptr_table=table)
-    if coll == "ALLREDUCE":
+    if coll in ("ALLREDUCE", "REDUCE_SCATTER"):
         # kernel and library call in turns: library, kernel, kernel, library
         turns = [cuda_ms(f, 20) for f in (
             lambda: torch.stack(srcs).sum(0), kernel, kernel,
@@ -2037,18 +2131,23 @@ def main() -> int:
 
     # -- 1. device -------------------------------------------------------
     smi = smi_line()
+    t_build = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
-    sources = [kr.SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE, ka.SOURCE,
-               kgd.SOURCE]
-    ptxas = ptxas_start(ka.SOURCE)
-    ar_ptxas = ptxas_start(kr.SOURCE)
+    sources = [kr.SOURCE, krs.RS_SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE,
+               ka.SOURCE, kgd.SOURCE]
+    started = {src: ptxas_start(src) for src in sources}
     build_s = build.build_all(sources)
-    ptxas = ptxas_read(ptxas)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
         f"{build_s:.1f} s")
-    check_allreduce_sass(ptxas_read(ar_ptxas))
+    infos = {src: ptxas_read(p) for src, p in started.items()}
+    log(f"ptxas and SASS of every source: "
+        f"{time.perf_counter() - t_build:.1f} s from the start of the build")
+    for src in DIRECT_KERNELS:
+        check_direct_sass(src, infos[src])
+    check_spills(infos)
+    ptxas = infos[ka.SOURCE]
 
     # -- 2. kernels against their plain versions ---------------------------
     phase_kernels()

@@ -9,7 +9,7 @@ It imports neither JAX nor ``ucc_tpu``.
 
 Ported so far: the core objects, cl/basic; tl/ring_cuda, whose
 allreduce, reduce_scatter, allgather, bcast and alltoall run every rank
-of an in-process team on one GPU through the ring kernels of
+of an in-process team on one GPU through the kernels of
 ``kernels/ring_allreduce.py``, ``kernels/ring_rs_ag.py`` and
 ``kernels/ring_bcast_a2a.py``; tl/torch_ops, the default for allreduce
 and bcast (library ops over the ranks' buffers, and, under

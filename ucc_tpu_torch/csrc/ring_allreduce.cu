@@ -41,11 +41,13 @@
 // word and no cooperative launch. A thread owns an element in every
 // buffer: it reads all n values before it writes any, which keeps in place
 // (src == dst) safe. The work unit is one 16-byte vector per rank
-// (ld.global.cs.v4 / st.global.cs.v4: every byte is used once); a thread
-// takes UNROLL vectors at a time and issues the loads of GROUP ranks for
-// all of them before their folds. A vector knows its block from an offset
-// and a block index that the thread advances by a fixed step, so the loop
-// does no division. Edges stay in the kernel:
+// (ld.global.cs.v4 / st.global.cs.v4: every byte is used once; the vectors,
+// the pointer table and the fold are direct_fold.cuh's, shared with
+// reduce_scatter.cu); a thread takes UNROLL vectors at a time and issues
+// the loads of GROUP ranks for all of them before their folds. A vector
+// knows its block from an offset and a block index that the thread
+// advances by a fixed step, so the loop does no division. Edges stay in
+// the kernel:
 //   - a vector that straddles a block boundary (the chunked kernel's blk
 //     is odd for n = 3 and 5 and no multiple of 8 for n = 7, and blk may
 //     be shorter than a vector) folds element by element, each with its
@@ -70,19 +72,9 @@
 // passed the 0.8 below which TMA bulk copies (cp.async.bulk behind
 // mbarriers) were to be tried, so no TMA version was built or timed.
 
-#include "ring_common.cuh"
+#include "direct_fold.cuh"
 
 namespace {
-
-// ranks whose pointers a CTA stages in shared memory; a larger team reads
-// its pointer table from global memory
-constexpr int SMEM_RANKS = 256;
-// ranks whose loads are issued together, before their folds
-constexpr int GROUP = 4;
-// vectors each thread keeps in flight per rank: GROUP * UNROLL loads
-constexpr int UNROLL = 2;
-// threads per CTA (kernels/ring_allreduce.py: ALLREDUCE_THREADS)
-constexpr int THREADS = 256;
 
 struct Args {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
@@ -91,47 +83,6 @@ struct Args {
   int n;
   int op;
 };
-
-// The pointer table as the kernel reads it.
-struct Table {
-  void* const* p;
-  int n;
-  template <typename T>
-  __device__ const T* src(int r) const {
-    return static_cast<const T*>(p[r]);
-  }
-  template <typename T>
-  __device__ T* dst(int r) const {
-    return static_cast<T*>(p[n + r]);
-  }
-};
-
-// W elements of T in one 16-byte vector
-template <typename T, int W>
-struct alignas(16) Pack {
-  static_assert(W * sizeof(T) == 16, "a vector is 16 bytes");
-  T e[W];
-};
-
-template <typename T, int W>
-__device__ __forceinline__ Pack<T, W> load(const T* p) {
-  Pack<T, W> v;
-  *reinterpret_cast<uint4*>(&v) = __ldcs(reinterpret_cast<const uint4*>(p));
-  return v;
-}
-
-template <typename T, int W>
-__device__ __forceinline__ void store(T* p, const Pack<T, W>& v) {
-  __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&v));
-}
-
-// acc = acc(x, acc) lane by lane: x is the value of the rank the ring
-// reaches next (local), acc the fold so far (incoming)
-template <int OP, typename T, int W>
-__device__ __forceinline__ void fold(Pack<T, W>& acc, const Pack<T, W>& x) {
-#pragma unroll
-  for (int l = 0; l < W; ++l) acc.e[l] = accumulate(OP, x.e[l], acc.e[l]);
-}
 
 // One element g of block b, rank by rank: the path of single elements
 // and of each element of a vector that straddles a block boundary.

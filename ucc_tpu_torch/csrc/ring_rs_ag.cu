@@ -1,87 +1,60 @@
-// Ring reduce_scatter and ring allgather over the n ranks of one GPU, each
-// as one kernel launch.
+// Ring allgather over the n ranks of one GPU, as one kernel launch.
 //
 // Replaces the Pallas ring kernels of the JAX package:
-//   ring_reduce_scatter_pass    <- ucc_tpu/tl/ring_dma.py:_ring_kernel in
-//                                  reduce_scatter mode (build_ring_program);
-//   ring_reduce_scatter_chunked <- ucc_tpu/tl/ring_dma.py:
-//                                  _hbm_reduce_scatter_kernel;
-//   ring_allgather_pass         <- ucc_tpu/tl/ring_dma.py:_ring_kernel in
-//                                  allgather mode;
-//   ring_allgather_chunked      <- ucc_tpu/tl/ring_dma.py:
-//                                  _hbm_allgather_kernel.
+//   ring_allgather_pass    <- ucc_tpu/tl/ring_dma.py:_ring_kernel in
+//                             allgather mode (build_ring_program);
+//   ring_allgather_chunked <- ucc_tpu/tl/ring_dma.py:_hbm_allgather_kernel.
 // A pass entry is the one-chunk case of its chunked twin (cblk = blk); the
-// two share a body. The element arithmetic and the CTA-pair flag protocol
-// are those of ring_common.cuh.
+// two share a body. The CTA-pair flag protocol is that of ring_common.cuh.
+//
+// The ring reduce_scatter kernels that this source held until they were
+// redesigned (ring_reduce_scatter_pass, ring_reduce_scatter_chunked) are
+// in reduce_scatter.cu: one flag-free pass over the ranks' srcs, with no
+// comm slots, flags or cooperative launch.
 //
 // What it computes. Every rank's per-rank block holds blk elements; a
 // chunk is the same cblk-element sub-range of every block, and chunks run
-// one after another, each a ring of its own.
-// - reduce_scatter: rank r's src is n blocks, its dst is block r of the
-//   reduction. With the ring shift c = 1 of _ring_reduce_steps, step m
-//   (m = 0..n-2) folds the block received from the left into block
-//   r-m-2 as acc(local, incoming); after n-1 steps rank r holds block r,
-//   accumulated as acc(x_r, acc(x_{r-1}, ... acc(x_{r+2}, x_{r+1}))). That
-//   order depends on the block index alone, so every chunk size gives the
-//   same bits, and the bits of the plain PyTorch version in
-//   ucc_tpu_torch/kernels/ring_rs_ag.py. f16 and bf16 round after every
-//   operation; AVG is SUM divided by n in the last step.
-// - allgather: rank r's dst is the n blocks in rank order; block b leaves
-//   rank b and is forwarded n-1 times around the ring. Copies only, so the
-//   result is bitwise torch.cat.
+// one after another, each a ring of its own. Rank r's dst is the n blocks
+// in rank order; block b leaves rank b and is forwarded n-1 times around
+// the ring. Copies only, so the result is bitwise torch.cat, and the plain
+// PyTorch version in ucc_tpu_torch/kernels/ring_rs_ag.py
+// (ring_allgather_ref).
 //
 // Design. CTA (r, c) plays rank r on lane slice c of every chunk and talks
-// only to CTAs (r-1, c) and (r+1, c), with the release/acquire step
-// counters, bounded spins and sticky error word of ring_allreduce.cu; the
-// launch is cooperative, so every CTA is resident.
-// - reduce_scatter keeps no whole-vector work buffer (the Pallas kernel
-//   folds into a VMEM copy of its input): the block a rank sends at step
-//   m+1 is exactly the block it folded at step m, so a step reads the
-//   incoming slot and its own src block, and stores the fold straight into
-//   the right neighbour's next slot (the last fold goes to dst). The slots
-//   alternate with the message's parity, and the consumer ack of the TPU
-//   kernel is kept: before writing slot t&1 a sender waits until its right
-//   neighbour has consumed message t-2. Block r of src is read only in the
-//   last step, just before dst is written, so in place (src = the whole
-//   dst vector, dst = its block r) is safe.
-// - allgather stores straight into the right neighbour's dst block: every
-//   dst block is written exactly once, so it needs neither slots nor their
-//   2-slot parity and ack, only the step counter that says a block has
-//   arrived and may be forwarded. In place (src = block r of dst) skips
-//   the copy of the own block.
+// only to CTAs (r-1, c) and (r+1, c), with release/acquire step counters,
+// bounded spins and a sticky error word; the launch is cooperative, so
+// every CTA is resident. A CTA stores straight into the right neighbour's
+// dst block: every dst block is written exactly once, so the ring needs no
+// comm slots, their 2-slot parity or a consumer ack, only the step counter
+// that says a block has arrived and may be forwarded. In place (src =
+// block r of dst) skips the copy of the own block.
 //
-// What bounds it: bytes. The least traffic is each input read once and each
-// output written once: reduce_scatter n*(n*S) read and n*S written for S
-// bytes of output per rank; allgather n*S read and n*(n*S) written. On top
-// of that the reduce_scatter ring writes and reads every message through a
-// slot (2*(n-1)*S per rank) and the allgather ring reads each forwarded
-// block back ((n-2)*S per rank). With chunks of CHUNK_ELEMS / n elements per
-// block, the blocks of one chunk step over all ranks stay in the 50 MB L2,
-// so that extra traffic need not reach HBM.
+// What bounds it: bytes. The least traffic is each input read once and
+// each output written once, n*S read and n*(n*S) written for S bytes of
+// src per rank. On top of that the ring reads each forwarded block back
+// ((n-2)*S per rank). With chunks of CHUNK_ELEMS / n elements per block,
+// the blocks of one chunk step over all ranks stay in the 50 MB L2, so
+// that extra traffic need not reach HBM.
 //
 // This first version is plain: scalar loads and stores, one handshake per
-// step per CTA, as ring_allreduce.cu.
+// step per CTA.
 
 #include "ring_common.cuh"
 
 namespace {
 
 // kernel ids of ucc_tpu_torch/kernels/ring_rs_ag.py
-constexpr int K_RS_PASS = 0;
-constexpr int K_RS_CHUNKED = 1;
-constexpr int K_AG_PASS = 2;
-constexpr int K_AG_CHUNKED = 3;
+constexpr int K_AG_PASS = 0;
+constexpr int K_AG_CHUNKED = 1;
 
-struct RsAgArgs {
+struct AgArgs {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
-  void* comm;          // reduce_scatter: n ranks x 2 slots x cblk elements
   unsigned* flags;     // n ranks x C lanes x {recv counter, ack counter}
   int* err;            // sticky error word
   long long blk;       // elements of one rank-block
   long long cblk;      // elements of a block in one chunk
   int n_chunks;        // ceil(blk / cblk)
   int n;
-  int op;
 };
 
 // Lane slice [lo, hi) of a chunk's block that this CTA handles.
@@ -92,76 +65,7 @@ __device__ void lane_slice(long long cblk, long long* lo, long long* hi) {
 }
 
 template <typename T>
-__device__ T finish(int op, T v, int n) {
-  return op == OP_AVG ? Elem<T>::avg(v, n) : v;
-}
-
-template <typename T>
-__device__ void reduce_scatter_body(const RsAgArgs& a) {
-  __shared__ int abort_flag;
-  const int n = a.n;
-  const int r = blockIdx.y;
-  const int c = blockIdx.x;
-  const int right = (r + 1) % n;
-  const long long blk = a.blk;
-  const long long cblk = a.cblk;
-  long long lo, lane_hi;
-  lane_slice(cblk, &lo, &lane_hi);
-  const T* src = static_cast<const T*>(a.ptrs[r]);
-  T* dst = static_cast<T*>(a.ptrs[n + r]);
-  T* my_slots = static_cast<T*>(a.comm) + (size_t)r * 2 * cblk;
-  T* right_slots = static_cast<T*>(a.comm) + (size_t)right * 2 * cblk;
-  unsigned* my_recv = a.flags + ((size_t)r * gridDim.x + c) * 2;
-  unsigned* my_ack = my_recv + 1;
-  unsigned* right_recv = a.flags + ((size_t)right * gridDim.x + c) * 2;
-  const unsigned* right_ack = right_recv + 1;
-
-  if (threadIdx.x == 0) abort_flag = 0;
-  __syncthreads();
-  for (int k = 0; k < a.n_chunks; ++k) {
-    const long long base = (long long)k * cblk;
-    const long long hi = min(lane_hi, blk - base);  // real elements only
-    if (n == 1) {
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-        dst[base + i] = finish(a.op, src[base + i], n);
-      continue;
-    }
-    // Messages are numbered over the whole launch, n-1 per chunk; message
-    // u goes into the right neighbour's slot u&1. The first of a chunk is
-    // my block r-1 as it is.
-    const unsigned u = (unsigned)k * (n - 1);
-    if (u >= 2 && !wait_geq(right_ack, u - 1, a.err, &abort_flag)) return;
-    const T* first = src + (long long)mod(r - 1, n) * blk + base;
-    T* out = right_slots + (u & 1) * cblk;
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-      store_slot(out + i, first[i]);
-    publish(right_recv, u + 1);
-    for (int m = 0; m < n - 1; ++m) {
-      const unsigned t = u + m;  // the message folded now
-      const bool last = m == n - 2;
-      if (!wait_geq(my_recv, t + 1, a.err, &abort_flag)) return;
-      // the fold is message t+1: the right neighbour's slot (t+1)&1 is
-      // free once it consumed message t-1
-      if (!last && t >= 1 && !wait_geq(right_ack, t, a.err, &abort_flag))
-        return;
-      const T* in = my_slots + (t & 1) * cblk;
-      const T* mine = src + (long long)mod(r - m - 2, n) * blk + base;
-      T* next = right_slots + ((t + 1) & 1) * cblk;
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-        T v = accumulate(a.op, mine[i], load_slot(in + i));
-        if (last)
-          dst[base + i] = finish(a.op, v, n);
-        else
-          store_slot(next + i, v);
-      }
-      publish(my_ack, t + 1);
-      if (!last) publish(right_recv, t + 2);
-    }
-  }
-}
-
-template <typename T>
-__device__ void allgather_body(const RsAgArgs& a) {
+__device__ void allgather_body(const AgArgs& a) {
   __shared__ int abort_flag;
   const int n = a.n;
   const int r = blockIdx.y;
@@ -211,31 +115,18 @@ __device__ void allgather_body(const RsAgArgs& a) {
 }
 
 template <typename T>
-__global__ void ring_reduce_scatter_pass_kernel(RsAgArgs a) {
-  reduce_scatter_body<T>(a);
-}
-
-template <typename T>
-__global__ void ring_reduce_scatter_chunked_kernel(RsAgArgs a) {
-  reduce_scatter_body<T>(a);
-}
-
-template <typename T>
-__global__ void ring_allgather_pass_kernel(RsAgArgs a) {
+__global__ void ring_allgather_pass_kernel(AgArgs a) {
   allgather_body<T>(a);
 }
 
 template <typename T>
-__global__ void ring_allgather_chunked_kernel(RsAgArgs a) {
+__global__ void ring_allgather_chunked_kernel(AgArgs a) {
   allgather_body<T>(a);
 }
 
 template <typename T>
 const void* kernel_for(int kernel) {
   switch (kernel) {
-    case K_RS_PASS: return (const void*)ring_reduce_scatter_pass_kernel<T>;
-    case K_RS_CHUNKED:
-      return (const void*)ring_reduce_scatter_chunked_kernel<T>;
     case K_AG_PASS: return (const void*)ring_allgather_pass_kernel<T>;
     case K_AG_CHUNKED: return (const void*)ring_allgather_chunked_kernel<T>;
     default: return nullptr;
@@ -277,17 +168,17 @@ int ucc_ring_rs_ag_max_ctas(int kernel, int dtype, int threads, int* out) {
   return (int)e;
 }
 
-// Launch one ring reduce_scatter or allgather on `stream`; returns
-// cudaGetLastError() after the launch (0 on success). `root` is part of the
-// common interface and unused here.
+// Launch one ring allgather on `stream`; returns cudaGetLastError() after
+// the launch (0 on success). `comm`, `op` and `root` are part of the common
+// interface and unused here.
 int ucc_ring_rs_ag(int kernel, int dtype, void* const* ptrs, void* comm,
                    unsigned* flags, int* err, long long blk, long long cblk,
                    int n_chunks, int n, int op, int root, int lanes,
                    int threads, cudaStream_t stream) {
-  (void)root;
+  (void)comm, (void)op, (void)root;
   const void* kern = select_kernel(kernel, dtype);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
-  RsAgArgs a{ptrs, comm, flags, err, blk, cblk, n_chunks, n, op};
+  AgArgs a{ptrs, flags, err, blk, cblk, n_chunks, n};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(lanes, n),
                                               dim3(threads), params, 0,

@@ -37,60 +37,16 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..constants import ReductionOp
-# RingWorkspace, make_ptr_table, THREADS, SUPPORTED_DTYPES and the plain
-# fold (_accum, _divide) stay importable from here
-from .ring_common import (DTYPE_CODES, OPS, SUPPORTED_DTYPES,  # noqa: F401
-                          THREADS, Plan, RingLaunch, RingSource,
-                          RingWorkspace, dispatch, make_ptr_table)
+# RingWorkspace, make_ptr_table, THREADS, SUPPORTED_DTYPES, launch_ctas
+# and the plain fold (_accum, _divide) stay importable from here
+from .ring_common import (OPS, SUPPORTED_DTYPES, THREADS,  # noqa: F401
+                          DirectSource, RingLaunch, RingWorkspace, dispatch,
+                          launch_ctas, make_ptr_table)
 from .ring_common import accumulate as _accum
 from .ring_common import divide as _divide
 
 SOURCE = "ring_allreduce.cu"
-
-#: threads per CTA of the allreduce kernel (THREADS in the source)
-ALLREDUCE_THREADS = 256
-#: bytes of one vector access of the kernel
-VECTOR_BYTES = 16
-
-
-def launch_ctas(count: int, elem_size: int, cap: int) -> int:
-    """CTAs of one launch: one thread per 16-byte vector of a rank, so a
-    small count still spreads over the SMs, and no more than *cap* (the
-    CTAs the card holds at once, from the occupancy query); the kernel
-    walks the rest grid-stride."""
-    vectors = -(-count * elem_size // VECTOR_BYTES)
-    return max(1, min(cap, -(-vectors // ALLREDUCE_THREADS)))
-
-
-class _AllreduceSource(RingSource):
-    """The allreduce source: one kernel on a 1-D grid that takes no comm
-    slots, flag words or error word. A launch asks the workspace for
-    nothing, zeroes nothing and copies no error word back, and it needs
-    no co-resident CTAs: nothing spins."""
-
-    def launch(self, what: str, kernel: int, srcs, dsts, op, root: int,
-               plan: Plan, stream, workspace: Optional[RingWorkspace],
-               ptr_table: Optional[torch.Tensor]) -> RingLaunch:
-        count, blk, n_chunks = plan[:3]
-        device = srcs[0].device
-        code = DTYPE_CODES[srcs[0].dtype]
-        if stream is None:
-            stream = torch.cuda.current_stream(device)
-        with torch.cuda.device(device), torch.cuda.stream(stream):
-            ctas = launch_ctas(count, srcs[0].element_size(),
-                               self.max_ctas(kernel, code, device,
-                                             ALLREDUCE_THREADS))
-            if ptr_table is None:
-                ptr_table = make_ptr_table(srcs, dsts)
-            self.check(getattr(self.lib(), self.prefix)(
-                kernel, code, ptr_table.data_ptr(), None, None, None, count,
-                blk, n_chunks, len(srcs), int(op), root, ctas,
-                ALLREDUCE_THREADS, stream.cuda_stream),
-                f"{what} launch")
-        return RingLaunch(stream, keep=(ptr_table,), what=what)
-
-
-_SOURCE = _AllreduceSource(SOURCE, "ucc_ring_allreduce")
+_SOURCE = DirectSource(SOURCE, "ucc_ring_allreduce")
 
 #: per-rank elements one pass covers; counts above pass_elems(n) run the
 #: chunked entry point. The chunk fixes the blocks, and so the order in

@@ -7,13 +7,19 @@ checks and the launch itself.
 Every ring source under ``csrc/`` exports the same plain C interface, named
 by its prefix P: ``P(kernel, dtype, ptrs, comm, flags, err, a, b, n_chunks,
 n, op, root, lanes, threads, stream)`` launches kernel number *kernel* of
-the source cooperatively on a ``(lanes, n)`` grid, where ``a``, ``b`` and
-``n_chunks`` are the kernel's geometry and ``root`` the rank a rooted
-collective starts from (0 for the others); ``P_max_ctas`` is the occupancy
-query and ``P_error_string`` names a CUDA error. The allreduce source takes
-the same arguments but runs no ring: its kernel spins on nothing, ignores
-``comm``, ``flags`` and ``err``, and runs an ordinary launch of ``lanes``
-CTAs in all (``kernels/ring_allreduce.py``).
+the source, where ``a``, ``b`` and ``n_chunks`` are the kernel's geometry
+and ``root`` the rank a rooted collective starts from (0 for the others);
+``P_max_ctas`` is the occupancy query and ``P_error_string`` names a CUDA
+error. Two kinds of source stand behind it:
+
+- a ring source (``ring_rs_ag.cu``'s allgather, ``ring_bcast_a2a.cu``) runs
+  a cooperative launch on a ``(lanes, n)`` grid whose CTAs spin on step
+  flags in the workspace (:class:`RingSource`);
+- a direct source (``ring_allreduce.cu``, ``reduce_scatter.cu``) runs no
+  ring: one pass folds each element from the n srcs in the ring's order,
+  bitwise the ring's result. Its kernel spins on nothing, ignores
+  ``comm``, ``flags`` and ``err``, and runs an ordinary launch
+  (:class:`DirectSource`).
 """
 from __future__ import annotations
 
@@ -279,6 +285,67 @@ class RingSource:
                 stream.cuda_stream),
                 f"{what} launch")
         return RingLaunch(stream, err, keep=(ws, ptr_table), what=what)
+
+
+#: threads per CTA of a direct source's kernel (THREADS in
+#: csrc/direct_fold.cuh)
+DIRECT_THREADS = 256
+#: bytes of one vector access of a direct source's kernel
+VECTOR_BYTES = 16
+
+
+def launch_ctas(count: int, elem_size: int, cap: int) -> int:
+    """CTAs of one grid over *count* elements: one thread per 16-byte
+    vector, so a small count still spreads over the SMs, and no more than
+    *cap* (the CTAs the card holds at once, from the occupancy query); the
+    kernel walks the rest grid-stride."""
+    vectors = -(-count * elem_size // VECTOR_BYTES)
+    return max(1, min(cap, -(-vectors // DIRECT_THREADS)))
+
+
+class DirectSource(RingSource):
+    """A source whose one kernel reads the ranks' buffers directly and
+    takes no comm slots, flag words or error word. A launch asks the
+    workspace for nothing, zeroes nothing and copies no error word back,
+    and it needs no co-resident CTAs: nothing spins.
+
+    The plan's ``span`` is the elements one grid walks. Without
+    *per_rank* the kernel runs one 1-D grid of ``launch_ctas(span, ...)``
+    CTAs (the allreduce, span = count); with it, one row of CTAs per rank
+    (the reduce_scatter, span = blk), the n rows sharing the card's CTAs.
+    The C function is passed the CTAs of one row."""
+
+    def __init__(self, source: str, prefix: str, per_rank: bool = False):
+        super().__init__(source, prefix)
+        self.per_rank = per_rank
+
+    def row_ctas(self, span: int, elem_size: int, cap: int, n: int) -> int:
+        """CTAs of one row of a launch of n ranks, for a card that holds
+        *cap* CTAs at once."""
+        return launch_ctas(span, elem_size,
+                           max(1, cap // n) if self.per_rank else cap)
+
+    def launch(self, what: str, kernel: int, srcs, dsts, op, root: int,
+               plan: Plan, stream, workspace: Optional[RingWorkspace],
+               ptr_table: Optional[torch.Tensor]) -> RingLaunch:
+        a, b, n_chunks, span = plan[:4]
+        n = len(srcs)
+        device = srcs[0].device
+        code = DTYPE_CODES[srcs[0].dtype]
+        if stream is None:
+            stream = torch.cuda.current_stream(device)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            ctas = self.row_ctas(
+                span, srcs[0].element_size(),
+                self.max_ctas(kernel, code, device, DIRECT_THREADS), n)
+            if ptr_table is None:
+                ptr_table = make_ptr_table(srcs, dsts)
+            self.check(getattr(self.lib(), self.prefix)(
+                kernel, code, ptr_table.data_ptr(), None, None, None, a, b,
+                n_chunks, n, int(op), root, ctas, DIRECT_THREADS,
+                stream.cuda_stream),
+                f"{what} launch")
+        return RingLaunch(stream, keep=(ptr_table,), what=what)
 
 
 def dispatch(source: RingSource, kernel: int, what: str, srcs, dsts, op, *,

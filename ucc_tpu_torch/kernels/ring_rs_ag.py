@@ -1,20 +1,29 @@
-"""Ring reduce_scatter and ring allgather over the n ranks of one device:
-the CUDA kernels of ``csrc/ring_rs_ag.cu``, their wrappers, and their
-plain PyTorch versions.
+"""Reduce_scatter and ring allgather over the n ranks of one device: the
+CUDA kernels of ``csrc/reduce_scatter.cu`` and ``csrc/ring_rs_ag.cu``,
+their wrappers, and their plain PyTorch versions.
 
-Four kernels, two step schedules (see the note at the top of the source):
+Four entry points (see the notes at the top of the sources):
 
 - ``ring_reduce_scatter_pass`` replaces ``ucc_tpu/tl/ring_dma.py:
   _ring_kernel`` in reduce_scatter mode, ``ring_reduce_scatter_chunked``
   replaces ``_hbm_reduce_scatter_kernel``: rank r's src is n blocks of
-  ``blk`` elements, its dst is block r of the reduction;
+  ``blk`` elements, its dst is block r of the reduction. Both launch the
+  one kernel of ``csrc/reduce_scatter.cu``, which is no ring: one pass
+  over the ranks' srcs folds every element of block r from the n srcs in
+  the ring's order (from rank r+1 round to rank r) into dst r, so its
+  result is bitwise the ring's. It takes no comm slots, flag words, error
+  word or cooperative launch, and any n runs.
 - ``ring_allgather_pass`` replaces ``_ring_kernel`` in allgather mode,
   ``ring_allgather_chunked`` replaces ``_hbm_allgather_kernel``: rank r's
-  src is one block, its dst all n blocks in rank order.
+  src is one block, its dst all n blocks in rank order. Each is a ring
+  kernel of ``csrc/ring_rs_ag.cu``, a cooperative launch whose CTAs forward
+  the blocks behind step flags; the chunked one runs its ring once per
+  chunk, the same ``cblk``-element sub-range of every block, and the pass
+  one is the one-chunk case.
 
-A chunked kernel runs its ring once per chunk, the same ``cblk``-element
-sub-range of every block; a pass kernel is the one-chunk case. Neither
-result depends on the chunk size.
+No result depends on the chunk size: the pass and chunked entry points
+of a collective differ only in the TPU kernel each stands for, and in
+the counts that tl/ring_cuda routes to each.
 
 A wrapper takes one src and one dst tensor per rank and writes the result
 into the dst tensors: reduce_scatter takes n·c elements in and c out,
@@ -22,16 +31,18 @@ allgather c in and n·c out. In place, reduce_scatter's src is the whole
 dst vector and its dst that vector's block r; allgather's src is block r
 of its dst. On CPU tensors a wrapper runs the plain version; on CUDA
 tensors it launches the kernel or raises. It returns a ``RingLaunch``
-whose ``done()``/``wait()`` raise if the kernel reported a fault, and
-counts its kernel launches in its ``launches`` attribute, a plain int.
-Allgather takes an op, and every wrapper a ``root``, for the common
-calling shape, and ignores them.
+whose ``done()``/``wait()`` tell when the launch has finished, and for
+allgather raise if the kernel reported a fault; each wrapper counts its
+kernel launches in its ``launches`` attribute, a plain int. Allgather
+takes an op, and every wrapper a ``root`` and a ``workspace``, for the
+common calling shape; allgather ignores its op, reduce_scatter its root
+and workspace.
 
 The plain versions ``ring_reduce_scatter_ref`` / ``ring_allgather_ref``,
-one per collective, run the same steps with PyTorch ops, so their results
-are bitwise those of both kernels of their collective and of the JAX
-package's Pallas kernels in interpret mode. They take the chunk size as a
-parameter, so a test can use the JAX package's.
+one per collective, run the ring's steps with PyTorch ops, so their
+results are bitwise those of both kernels of their collective and of the
+JAX package's Pallas kernels in interpret mode. They take the chunk size
+as a parameter, so a test can use the JAX package's.
 """
 from __future__ import annotations
 
@@ -41,22 +52,26 @@ import torch
 
 from ..constants import ReductionOp
 from ..status import Status, UccError
-from .ring_common import (OPS, RingLaunch, RingSource, RingWorkspace,
-                          accumulate, divide, dispatch)
+from .ring_common import (OPS, DirectSource, RingLaunch, RingSource,
+                          RingWorkspace, accumulate, divide, dispatch)
 
+#: the allgather ring kernels' source
 SOURCE = "ring_rs_ag.cu"
 _SOURCE = RingSource(SOURCE, "ucc_ring_rs_ag")
+#: the reduce_scatter kernel's source
+RS_SOURCE = "reduce_scatter.cu"
+_RS_SOURCE = DirectSource(RS_SOURCE, "ucc_reduce_scatter", per_rank=True)
 
-#: kernel ids of the CUDA source
-K_RS_PASS, K_RS_CHUNKED, K_AG_PASS, K_AG_CHUNKED = range(4)
+#: kernel ids of the allgather source
+K_AG_PASS, K_AG_CHUNKED = range(2)
 
 #: the elements of one chunk over all n blocks; a block's chunk is
-#: CHUNK_ELEMS // n. For reduce_scatter, as the JAX package's cblk, a
-#: chunk's comm slots are then 2 x CHUNK_ELEMS elements over all ranks
-#: (8 MiB f32), resident in the H100's 50 MB L2. For allgather (whose
-#: kernel needs no slots) the JAX package takes CHUNK_ELEMS per block;
-#: CHUNK_ELEMS // n keeps one chunk step's blocks over all ranks (the ones
-#: forwarded next) in L2 all the same. The results do not depend on it.
+#: CHUNK_ELEMS // n, as the JAX package's reduce_scatter cblk. For
+#: allgather the JAX package takes CHUNK_ELEMS per block; CHUNK_ELEMS // n
+#: keeps one chunk step's blocks over all ranks (the ones forwarded next)
+#: in the H100's 50 MB L2. The reduce_scatter kernel reads no chunks, and
+#: no result depends on it: it sets the count above which tl/ring_cuda
+#: routes to the chunked entry points.
 CHUNK_ELEMS = 1 << 20
 
 
@@ -161,16 +176,17 @@ def _scatter_count(count: int, n: int) -> int:
     return count // n
 
 
-def _reduce_scatter(kernel: int, geometry, srcs, dsts, op, stream,
-                    workspace, ptr_table) -> Optional[RingLaunch]:
+def _reduce_scatter(chunked: int, srcs, dsts, op, stream,
+                    ptr_table) -> Optional[RingLaunch]:
     def plan(count, n):
+        # one row of CTAs per rank walks its blk elements; no chunks, comm
+        # slots or flag words
         blk = count // n
-        cblk, n_chunks = geometry(blk, n)
-        return blk, cblk, n_chunks, cblk, 2 * cblk, 2
-    return dispatch(_SOURCE, kernel, "ring reduce_scatter", srcs, dsts, op,
-                    ops=OPS, dst_count=_scatter_count,
+        return blk, blk, 1, blk, 0, 0
+    return dispatch(_RS_SOURCE, chunked, "ring reduce_scatter", srcs, dsts,
+                    op, ops=OPS, dst_count=_scatter_count,
                     ref=lambda: ring_reduce_scatter_ref(srcs, op), plan=plan,
-                    stream=stream, workspace=workspace, ptr_table=ptr_table)
+                    stream=stream, workspace=None, ptr_table=ptr_table)
 
 
 def _allgather(kernel: int, geometry, srcs, dsts, stream, workspace,
@@ -190,10 +206,10 @@ def ring_reduce_scatter_pass(srcs: Sequence[torch.Tensor],
                              workspace: Optional[RingWorkspace] = None,
                              ptr_table: Optional[torch.Tensor] = None,
                              root: int = 0) -> RingLaunch:
-    """One-pass ring reduce_scatter of ``srcs`` (n·c each) into ``dsts``
-    (c each)."""
-    h = _reduce_scatter(K_RS_PASS, pass_geometry, srcs, dsts, op, stream,
-                        workspace, ptr_table)
+    """Reduce_scatter of ``srcs`` (n·c each) into ``dsts`` (c each), for
+    the counts that the TPU's one-pass ring takes; ``workspace`` and
+    ``root`` are ignored."""
+    h = _reduce_scatter(0, srcs, dsts, op, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_reduce_scatter_pass.launches += 1
@@ -206,10 +222,10 @@ def ring_reduce_scatter_chunked(srcs: Sequence[torch.Tensor],
                                 workspace: Optional[RingWorkspace] = None,
                                 ptr_table: Optional[torch.Tensor] = None,
                                 root: int = 0) -> RingLaunch:
-    """Chunked ring reduce_scatter of ``srcs`` (n·c each) into ``dsts``
-    (c each)."""
-    h = _reduce_scatter(K_RS_CHUNKED, chunk_geometry, srcs, dsts, op,
-                        stream, workspace, ptr_table)
+    """Reduce_scatter of ``srcs`` (n·c each) into ``dsts`` (c each), for
+    the counts that the TPU's chunked ring takes; ``workspace`` and
+    ``root`` are ignored."""
+    h = _reduce_scatter(1, srcs, dsts, op, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_reduce_scatter_chunked.launches += 1
