@@ -9,12 +9,13 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the seven kernel sources from
+   versions, and the time to build the eight kernel sources from
    ucc_tpu_torch/csrc/ (one nvcc each, started together, beside one
-   nvcc -Xptxas -v each); the f32 and bf16 instances of the allreduce and
-   reduce_scatter kernels must hold 128-bit global loads and stores in
-   their SASS (cuobjdump), and none of their instances may spill; the
-   instances of every source that spill are printed;
+   nvcc -Xptxas -v each); the f32 and bf16 instances of the flag-free
+   kernels (allreduce, reduce_scatter, the generated programs' fold) must
+   hold 128-bit global loads and stores in their SASS (cuobjdump), and
+   none of their instances may spill or have a stack frame; the instances
+   of every source that do are printed;
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
    for MAX/MIN:
@@ -43,12 +44,16 @@ Phases, each printing its own lines (any failure exits non-zero):
    and a set error word must make an allgather, a bcast and an alltoall
    wrapper raise;
    - every ring kernel again on int8, uint8, int16 and float64;
-   - both entry points of the generated-collective kernel (gen_device_ring,
-     gen_device_gen) on every device program at n in {2, 4, 8}, counts
+   - both entry points of the generated collectives (gen_device_ring,
+     gen_device_gen), each launch asserted on its route: every device
+     program at n in {2, 4, 8} on the fold kernel (gen_fold.cu), counts
      nchunks x 37, the nine types it takes, the five ops, bcast roots 0,
-     n/2 and n-1, in place; and on int8/fp8 edge-wire direct exchanges
-     with tail blocks (qblock 32 and 256); a set error word must make both
-     raise;
+     n/2 and n-1, in place; rings, direct exchanges and bcasts at n in
+     {3, 5, 16, 32} and halving-doubling at 16 and 32; views with a storage
+     offset; in place at the main shape; a fold launch on a faulted
+     workspace, which must neither raise nor touch it; and int8/fp8
+     edge-wire direct exchanges with tail blocks (qblock 32 and 256) on
+     the layer kernel (gen_device.cu), where a set error word must raise;
    - the execution component's reduce kernel (ec_reduce) over every type it
      takes x all 11 ops (BAND/BOR/BXOR on integers only), k in {1, 2, 3,
      9} sources, counts {1, 7, 1000, 2^20+3}, alpha None and 0.25, NaNs
@@ -101,7 +106,8 @@ Phases, each printing its own lines (any failure exits non-zero):
      scaled_dot_product_attention on the unsharded tensors;
    - the generated device collectives through tl/torch_ops, UCC_GEN_DEVICE=y
      and a UCC_TL_TORCH_OPS_TUNE pin per run (alg asserted, launches
-     counted, dst bitwise the plain version): allreduce SUM of 16 Mi and
+     counted, every one on the fold route, dst bitwise the plain version):
+     allreduce SUM of 16 Mi and
      64 Ki f32 via gen_dev_ring_c2, gen_dev_rhd_r2 and gen_dev_rhd_r8, 16 Mi
      via gen_dev_qint8_direct (UCC_QUANT=int8, its own libs); bcast of
      16 Mi from root 3 and 64 Ki from root 0 via gen_dev_bc_kn_r2 and
@@ -115,8 +121,9 @@ Phases, each printing its own lines (any failure exits non-zero):
    torch.cat(srcs, out=dst) for allgather, (n-1) x dst.copy_(src_root)
    for bcast, n x torch.cat(block r
    of every src, out=dst_r) for alltoall; for ec_reduce at the three
-   reducedt shapes, torch.stack(srcs).sum(0); for the generated kernel,
-   torch.stack(srcs).sum(0) (allreduce) or (n-1) x copy_ (bcast); for
+   reducedt shapes, torch.stack(srcs).sum(0); for the generated kernels,
+   torch.stack(srcs).sum(0) (allreduce) or (n-1) x copy_ (bcast), timed
+   in turns with the kernel; for
    ring flash-attention at
    the main path's shapes, scaled_dot_product_attention on the unsharded
    (1, 32, 8192, 128) q and (1, 8, 8192, 128) k, v, timed in turns with
@@ -834,41 +841,118 @@ def wire_direct(n, rs_wire, ag_wire):
     return b.build("gen_wdirect")
 
 
-def check_gen(prog, n, srcs, op, root=0, inplace=False, qblock=256,
-              qmode="") -> float:
-    """One launch of the generated kernel's entry point for *prog* (ring or
-    layers, as the lowering picks), bitwise against gen_device_ref on the
-    same tensors; bcast results also bitwise the root's src."""
-    import torch
+def gen_route(prog, n, count, root=0, qblock=256, qmode=""):
+    """(plan, entry point, route) of *prog* at *count*: the ring or the
+    general entry point, as the lowering picks, and "fold" (gen_fold.cu)
+    when the plan has a fold plan, else "layer" (gen_device.cu)."""
     from ucc_tpu_torch.dsl import lower_device as ld
     from ucc_tpu_torch.kernels import gen_device as kgd
-    plan = ld.device_plan(prog, n, srcs[0].numel(), root, qblock, qmode)
+    plan = ld.device_plan(prog, n, count, root, qblock, qmode)
     wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
+    return plan, wrapper, "fold" if kgd.fold_plan(plan) else "layer"
+
+
+def launch_gen(wrapper, route, *args, **kw):
+    """One call of a generated entry point that must launch once, on
+    *route*; returns its handle."""
+    before = (wrapper.launches, wrapper.fold_launches)
+    h = wrapper(*args, **kw)
+    want = (before[0] + 1, before[1] + (route == "fold"))
+    if (wrapper.launches, wrapper.fold_launches) != want:
+        raise AssertionError(
+            f"{wrapper.__name__}: (launches, fold_launches) went from "
+            f"{before} to {(wrapper.launches, wrapper.fold_launches)}, want "
+            f"{want} (route {route})")
+    return h
+
+
+def check_gen(prog, n, srcs, op, root=0, inplace=False, qblock=256,
+              qmode="", route="fold") -> float:
+    """One launch of the generated kernel's entry point for *prog* (ring or
+    layers, as the lowering picks) on *route*, bitwise against
+    gen_device_ref on the same tensors; bcast results also bitwise the
+    root's src."""
+    import torch
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    plan, wrapper, got = gen_route(prog, n, srcs[0].numel(), root, qblock,
+                                   qmode)
+    what = (f"{wrapper.__name__} {prog.name} n={n} {srcs[0].dtype} "
+            f"{getattr(op, 'name', op)} count={srcs[0].numel()} root={root}"
+            f"{' in place' if inplace else ''}{' ' + qmode if qmode else ''}")
+    if got != route:
+        raise AssertionError(f"{what}: route {got}, want {route}")
     data = srcs[root].clone()
     want = kgd.gen_device_ref(srcs, plan, op)
     dsts = [s.clone() for s in srcs] if inplace else \
         [torch.full_like(s, 7) for s in srcs]
-    wrapper(dsts if inplace else srcs, dsts, op, plan=plan).wait()
+    launch_gen(wrapper, route, dsts if inplace else srcs, dsts, op,
+               plan=plan).wait()
     torch.cuda.synchronize()
-    what = (f"{wrapper.__name__} {prog.name} n={n} {srcs[0].dtype} "
-            f"{getattr(op, 'name', op)} count={srcs[0].numel()} root={root}"
-            f"{' in place' if inplace else ''}{' ' + qmode if qmode else ''}")
     if not plan.reducing:
         compare(what + " vs the root's src", dsts, [data] * n)
     return compare(what, dsts, want)
 
 
+def check_gen_views(prog, n, count, dtype, mixed, seed) -> float:
+    """A generated collective over views with a storage offset, as
+    check_misaligned runs the allreduce (*mixed*: srcs of odd ranks and
+    dsts of ranks 0 mod 3 one element in, else every buffer), on the fold
+    route, bitwise against gen_device_ref."""
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    plan, wrapper, route = gen_route(prog, n, count, n - 1)
+
+    def entry(srcs, dsts, op):
+        return launch_gen(wrapper, "fold", srcs, dsts, op, plan=plan)
+
+    entry.__name__ = f"{wrapper.__name__} {prog.name}"
+    if route != "fold":
+        raise AssertionError(f"{entry.__name__}: route {route}, want fold")
+    return check_misaligned(entry, lambda s, op: kgd.gen_device_ref(
+        s, plan, op), n, count, dtype, mixed, seed)
+
+
+def check_gen_flag_free(srcs) -> None:
+    """The fold route has no flags and no error word: gen_ring_c1 and
+    gen_rhd_r2 on a workspace whose error word is set and whose flag words
+    hold a pattern must not raise, must be right, and must leave both as
+    they were."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    ws = faulted_workspace()
+    _, flags, err = ws.get(64, 64)
+    flags.fill_(0x5A5A5A5A)
+    before = (flags.clone(), err.clone())
+    n = len(srcs)
+    for name in ("gen_ring_c1", "gen_rhd_r2"):
+        prog = next(p for p in ld.device_programs(n) if p.name == name)
+        plan, wrapper, route = gen_route(prog, n, srcs[0].numel())
+        dsts = [torch.empty_like(s) for s in srcs]
+        launch_gen(wrapper, "fold", srcs, dsts, ReductionOp.SUM, plan=plan,
+                   workspace=ws).wait()
+        torch.cuda.synchronize()
+        compare(f"{wrapper.__name__} {name} on a faulted workspace", dsts,
+                kgd.gen_device_ref(srcs, plan, ReductionOp.SUM))
+    if not (torch.equal(flags, before[0]) and torch.equal(err, before[1])):
+        raise AssertionError("a generated launch on the fold route touched "
+                             "the workspace")
+
+
 def phase_kernels_gen_device() -> None:
-    """Both entry points of the generated device kernel against their plain
-    version: every device program at n = 2, 4, 8 on every type it takes,
-    the five ops turning with the type (NaNs for MAX/MIN, AVG on floating
-    types only), bcast roots 0, n/2 and n-1, every other case in place,
-    counts of nchunks x 37; then int8 and fp8 wire programs with tail
-    blocks; a set error word must make both entry points raise."""
+    """The generated device collectives against their plain version: every
+    device program at n = 2, 4, 8 on every type it takes, the five ops
+    turning with the type (NaNs for MAX/MIN, AVG on floating types only),
+    bcast roots 0, n/2 and n-1, every other case in place, counts of
+    nchunks x 37, each on the fold route; the ring, direct and bcast
+    programs at n = 3, 5, 16 and 32 (rhd_r2 at 16 and 32), views with a
+    storage offset, and in place at the main shape, on the fold route too;
+    then int8 and fp8 wire programs with tail blocks on the layer route. A
+    fold launch on a faulted workspace must neither raise nor touch it; a
+    set error word must make the layer route raise."""
     import torch
     from ucc_tpu_torch import CollType, ReductionOp
     from ucc_tpu_torch.dsl import lower_device as ld
-    from ucc_tpu_torch.kernels import gen_device as kgd
     from ucc_tpu_torch.kernels import ring_common as kc
     t0 = time.perf_counter()
     cases = 0
@@ -893,6 +977,42 @@ def phase_kernels_gen_device() -> None:
                 plan = ld.device_plan(prog, n, prog.nchunks * 37, root)
                 entries["ring" if plan.ring else "gen"] += 1
                 cases += 1
+    # more team sizes: a ring, the direct exchange and both bcasts at n =
+    # 3, 5, 16 and 32, halving-doubling at 16 and 32 (its deepest trees)
+    for n in (3, 5, 16, 32):
+        by_name = {p.name: p for p in ld.device_programs(n)}
+        names = ["gen_ring_c2", f"gen_rhd_r{n}", "gen_bc_kn_r2",
+                 "gen_bc_chain_c2"] + (["gen_rhd_r2"] if n >= 16 else [])
+        for i, name in enumerate(names):
+            prog = by_name[name]
+            for k, dtype in enumerate((torch.float32, torch.bfloat16)):
+                op = kc.OPS[(i + k + n) % len(kc.OPS)]
+                root = [n // 2, n - 1][k] \
+                    if prog.coll == CollType.BCAST else 0
+                srcs = make_inputs(n, prog.nchunks * 37, dtype, op,
+                                   7500 + 10 * n + i + k)
+                check_gen(prog, n, srcs, op, root, inplace=k == 1)
+                cases += 1
+    # views with a storage offset: mixed offsets take the scalar path, one
+    # offset for all a scalar head, then vectors
+    for name in ("gen_ring_c2", "gen_rhd_r2", "gen_bc_kn_r2"):
+        prog = next(p for p in ld.device_programs(5 if "ring" in name else 4)
+                    if p.name == name)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for mixed in (True, False):
+                check_gen_views(prog, prog.nranks, prog.nchunks * 4001,
+                                dtype, mixed, 7900 + len(name))
+                cases += 1
+    # in place at the main shape
+    by_name = {p.name: p for p in ld.device_programs(N_RANKS)}
+    for name, root in (("gen_ring_c2", 0), ("gen_bc_kn_r2", 3)):
+        prog = by_name[name]
+        check_gen(prog, N_RANKS, make_inputs(
+            N_RANKS, MAIN_COUNT, torch.float32, ReductionOp.SUM, 7990),
+            ReductionOp.SUM, root, inplace=True)
+        cases += 1
+        torch.cuda.empty_cache()
+    wire = 0
     for n in (2, 4, 8):
         for qmode in ("int8", "fp8"):
             for rs, ag in ((qmode, qmode), (qmode, ""), ("", qmode)):
@@ -901,25 +1021,30 @@ def phase_kernels_gen_device() -> None:
                     srcs = make_inputs(n, n * ce, torch.float32,
                                        ReductionOp.SUM, 8000 + n + ce)
                     check_gen(prog, n, srcs, ReductionOp.SUM, qblock=qblock,
-                              qmode=qmode, inplace=ce == 40)
+                              qmode=qmode, inplace=ce == 40, route="layer")
                     cases += 1
+                    wire += 1
                     entries["gen"] += 1
     srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 27)
-    for name in ("gen_ring_c1", "gen_rhd_r2"):
-        prog = next(p for p in ld.device_programs(4) if p.name == name)
-        plan = ld.device_plan(prog, 4, srcs[0].numel())
-        wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
-        expect_fault(lambda: wrapper(
-            srcs, [torch.empty_like(s) for s in srcs], ReductionOp.SUM,
-            plan=plan, workspace=faulted_workspace()))
+    check_gen_flag_free(srcs)
+    plan, wrapper, route = gen_route(wire_direct(4, "int8", "int8"), 4,
+                                     srcs[0].numel(), qblock=256,
+                                     qmode="int8")
+    expect_fault(lambda: launch_gen(
+        wrapper, route, srcs, [torch.empty_like(s) for s in srcs],
+        ReductionOp.SUM, plan=plan, workspace=faulted_workspace()))
     log(f"kernels: {cases} generated-collective launches ({entries['ring']} "
-        f"ring entry, {entries['gen']} layer entry) bitwise equal to "
-        f"gen_device_ref (every device program at n in 2,4,8 on "
-        f"{'/'.join(GEN_DTYPES)}; SUM/AVG/MAX/MIN/PROD with NaN for "
-        f"MAX/MIN; bcast roots 0, n/2, n-1, bitwise the root's src; counts "
-        f"nchunks x 37; in place; int8/fp8 wire layers, qblock 32 and 256, "
-        f"tail blocks) in {time.perf_counter() - t0:.1f} s; a set error word "
-        f"raises for both entry points")
+        f"ring entry, {entries['gen']} general entry at n in 2,4,8; "
+        f"{cases - wire} on the fold route, {wire} on the layer route) "
+        f"bitwise equal to gen_device_ref (every device program at n in "
+        f"2,4,8 on {'/'.join(GEN_DTYPES)}; ring, direct and bcast programs "
+        f"at n in 3,5,16,32, rhd_r2 at 16 and 32; SUM/AVG/MAX/MIN/PROD with "
+        f"NaN for MAX/MIN; bcast roots 0, n/2, n-1, bitwise the root's src; "
+        f"counts nchunks x 37; in place, also at 8 x {MAIN_COUNT}; views at "
+        f"+1 and mixed offsets; int8/fp8 wire layers, qblock 32 and 256, "
+        f"tail blocks) in {time.perf_counter() - t0:.1f} s; fold launches "
+        f"on a faulted workspace neither raise nor touch it, and a set "
+        f"error word makes the layer route raise")
 
 
 def ec_inputs(td, count, k, variant, seed):
@@ -1407,8 +1532,9 @@ def ptxas_start(source):
 
 
 def ptxas_read(started) -> dict:
-    """{kernel instance: {registers, spill_stores, spill_loads, hgmma,
-    ldg128, stg128}} (bytes for the spills; hgmma counts the warpgroup
+    """{kernel instance: {registers, stack_frame, spill_stores,
+    spill_loads, hgmma, ldg128, stg128}} (bytes for the stack frame and the
+    spills; hgmma counts the warpgroup
     tensor-core instructions in the object's SASS, by cuobjdump, ldg128
     and stg128 its 128-bit global loads and stores) from ptxas_start's
     report; names demangled by cu++filt where the toolkit has it."""
@@ -1440,11 +1566,12 @@ def ptxas_read(started) -> dict:
         if hit:
             name = hit.group(1)
             out[name] = dict(counts.get(name, dict.fromkeys(patterns, 0)))
-        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                        r"loads", line)
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", line)
         if hit and name:
-            out[name]["spill_stores"] = int(hit.group(1))
-            out[name]["spill_loads"] = int(hit.group(2))
+            out[name]["stack_frame"] = int(hit.group(1))
+            out[name]["spill_stores"] = int(hit.group(2))
+            out[name]["spill_loads"] = int(hit.group(3))
         hit = re.search(r"Used (\d+) registers", line)
         if hit and name:
             out[name]["registers"] = int(hit.group(1))
@@ -1462,7 +1589,8 @@ def ptxas_read(started) -> dict:
 
 #: the flag-free kernels that move 16-byte vectors: source -> kernel
 DIRECT_KERNELS = {"ring_allreduce.cu": "ring_allreduce_kernel",
-                  "reduce_scatter.cu": "reduce_scatter_kernel"}
+                  "reduce_scatter.cu": "reduce_scatter_kernel",
+                  "gen_fold.cu": "gen_fold_kernel"}
 
 
 def check_direct_sass(source, info) -> None:
@@ -1483,18 +1611,22 @@ def check_direct_sass(source, info) -> None:
 
 def check_spills(infos) -> None:
     """Report every kernel instance that spills registers to local memory
-    (nvcc -Xptxas -v's spill bytes, stores and loads) in any source; no
-    instance of a flag-free kernel may, as each thread keeps GROUP x
-    UNROLL vectors in flight in registers."""
-    spills = {f"{src}: {k}": (v.get("spill_stores"), v.get("spill_loads"))
+    or has a stack frame (nvcc -Xptxas -v's bytes: stack frame, spill
+    stores, spill loads) in any source; no instance of a flag-free kernel
+    may, as each thread keeps its vectors in flight (and gen_fold.cu its
+    stack) in registers."""
+    spills = {f"{src}: {k}": (v.get("stack_frame"), v.get("spill_stores"),
+                              v.get("spill_loads"))
               for src, info in infos.items() for k, v in info.items()
-              if v.get("spill_stores") or v.get("spill_loads")}
+              if v.get("stack_frame") or v.get("spill_stores") or
+              v.get("spill_loads")}
     counts = {src: len(info) for src, info in infos.items()}
-    log(f"ptxas: kernel instances per source {counts}; spill bytes "
-        f"(stores, loads): {spills}")
+    log(f"ptxas: kernel instances per source {counts}; bytes of stack "
+        f"frame, spill stores, spill loads: {spills}")
     direct = [k for k in spills if k.split(":")[0] in DIRECT_KERNELS]
     if direct:
-        raise AssertionError(f"flag-free kernel instances spill: {direct}")
+        raise AssertionError(f"flag-free kernel instances spill or have a "
+                             f"stack frame: {direct}")
 
 
 def make_job(n, **overrides):
@@ -1822,43 +1954,57 @@ GEN_QUANT_RUNS = (
     ("ALLREDUCE", "gen_dev_qint8_direct", "gen_device_gen", MAIN_COUNT, 0,
      43),
 )
-#: the runs whose kernel numbers go into the kernels record
+#: the runs whose kernel numbers go into the kernels record, under these
+#: names (every one on the fold route, csrc/gen_fold.cu)
 GEN_RECORDS = {("gen_dev_ring_c2", MAIN_COUNT): "gen_device_ring",
-               ("gen_dev_rhd_r2", MAIN_COUNT): "gen_device_gen"}
+               ("gen_dev_rhd_r2", MAIN_COUNT): "gen_device_gen",
+               ("gen_dev_bc_kn_r2", MAIN_COUNT): "gen_device_gen bcast"}
 GEN_REPLACES = {"gen_device_ring": "ucc_tpu/dsl/lower_device.py:525",
-                "gen_device_gen": "ucc_tpu/dsl/lower_device.py:595"}
+                "gen_device_gen": "ucc_tpu/dsl/lower_device.py:595",
+                "gen_device_gen bcast": "ucc_tpu/dsl/lower_device.py:595"}
 
 
-def measure_gen(coll, prog, srcs, root, bufs, qblock=256, qmode=""):
-    """The generated kernel alone on the main path's inputs: bitwise
-    against gen_device_ref (max_abs_err), then timed with its workspace
-    and pointer table built once (a bcast in place on the main path's
-    buffers `bufs`); its plain version and one PyTorch call as
-    yardsticks: torch.stack(srcs).sum(0) for allreduce, (n-1) x copy_ of
-    the root's buffer for bcast."""
+def measure_gen(coll, prog, srcs, root, bufs, qblock=256, qmode="",
+                route="fold"):
+    """The generated kernel alone on the main path's inputs, on *route*:
+    bitwise against gen_device_ref (max_abs_err), then timed with its
+    workspace and pointer table built once (a bcast in place on the main
+    path's buffers `bufs`), in turns with one PyTorch call as a yardstick
+    (library, kernel, kernel, library): torch.stack(srcs).sum(0) for
+    allreduce, (n-1) x copy_ of the root's buffer for bcast; and its plain
+    version."""
     import torch
     from ucc_tpu_torch import ReductionOp
-    from ucc_tpu_torch.dsl import lower_device as ld
     from ucc_tpu_torch.kernels import gen_device as kgd
     from ucc_tpu_torch.kernels import ring_common as kc
     sum_ = ReductionOp.SUM
     n = len(srcs)
     max_err = check_gen(prog, n, srcs, sum_, root, qblock=qblock,
-                        qmode=qmode)
-    plan = ld.device_plan(prog, n, srcs[0].numel(), root, qblock, qmode)
-    wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
+                        qmode=qmode, route=route)
+    plan, wrapper, _ = gen_route(prog, n, srcs[0].numel(), root, qblock,
+                                 qmode)
     ins, out = (bufs, bufs) if coll == "BCAST" else \
         (srcs, [torch.empty_like(s) for s in srcs])
     ws = kc.RingWorkspace(srcs[0].device)
     table = kc.make_ptr_table(ins, out)
-    ms = cuda_ms(lambda: wrapper(ins, out, sum_, plan=plan, workspace=ws,
-                                 ptr_table=table), 10)
-    plain_ms = cuda_ms(lambda: kgd.gen_device_ref(srcs, plan, sum_), 2)
+
+    def kernel():
+        return wrapper(ins, out, sum_, plan=plan, workspace=ws,
+                       ptr_table=table)
+
     if coll == "BCAST":
-        library_ms = cuda_ms(lambda: [o.copy_(srcs[root]) for r, o in
-                                      enumerate(out) if r != root], 20)
+        def library():
+            return [o.copy_(srcs[root]) for r, o in enumerate(out)
+                    if r != root]
     else:
-        library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
+        def library():
+            return torch.stack(srcs).sum(0)
+    turns = [cuda_ms(f, 10) for f in (library, kernel, kernel, library)]
+    log(f"{wrapper.__name__} {prog.name} n={n} count={srcs[0].numel()} "
+        f"({route} route) in turns (library, kernel, kernel, library): "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms")
+    ms, library_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    plain_ms = cuda_ms(lambda: kgd.gen_device_ref(srcs, plan, sum_), 2)
     del ins, out, ws, table
     return max_err, ms, plain_ms, library_ms
 
@@ -1877,8 +2023,9 @@ def main_path_gen(smi) -> dict:
     per run with UCC_TL_TORCH_OPS_TUNE=<coll>:@<alg>:inf -> persistent
     collective_init/post/test -> tl/torch_ops -> kernel B11. Each run's
     launch counters are zeroed just before and read just after; the entry
-    point it names must have launched once per round, and no other gen
-    entry point. Returns the records of GEN_RECORDS."""
+    point it names must have launched once per round, every launch on the
+    fold route (csrc/gen_fold.cu), and no other gen entry point. Returns
+    the records of GEN_RECORDS."""
     import torch
     import ucc_tpu_torch as ucc
     from ucc_tpu_torch.dsl import lower_device as ld
@@ -1900,18 +2047,20 @@ def main_path_gen(smi) -> dict:
             os.environ["UCC_TL_TORCH_OPS_TUNE"] = f"{coll.lower()}:@{alg}:inf"
             teams = make_team(ctxs)
             for w in counters.values():
-                w.launches = 0
+                w.launches = w.fold_launches = 0
             samples, srcs, dsts, got_alg = run_main_path(
                 ctxs, teams, coll, count, count, root, seed)
             launches = {k: w.launches for k, w in counters.items()}
+            folds = {k: w.fold_launches for k, w in counters.items()}
             for t in teams:
                 t.destroy()
             if got_alg != alg:
                 raise AssertionError(f"{coll} selected {got_alg}, not {alg}")
             want = {k: rounds if k == kname else 0 for k in counters}
-            if launches != want:
+            if launches != want or folds != want:
                 raise AssertionError(f"{coll} via {alg}: launches {launches},"
-                                     f" want {want}")
+                                     f" fold route {folds}, want {want} "
+                                     f"for both")
             samples.sort()
             p50 = samples[len(samples) // 2]
             rooted = f" from root {root}" if coll == "BCAST" else ""
@@ -1936,7 +2085,8 @@ def main_path_gen(smi) -> dict:
             bufs = dsts if coll == "BCAST" else None
             del dsts, plain
             bound, bound_by = gen_bound(coll, N_RANKS, count)
-            line = f"{head} | launches {launches[kname]}"
+            line = (f"{head} | launches {launches[kname]}, all on the fold "
+                    f"route")
             if count == MAIN_COUNT:
                 max_err, ms, plain_ms, library_ms = measure_gen(
                     coll, prog, srcs, root, bufs, qmode=prog.wire)
@@ -1946,11 +2096,12 @@ def main_path_gen(smi) -> dict:
                          f"({bound_by}), roofline share {bound / ms:.4f} | "
                          f"plain {plain_ms:.3f} ms | {library} "
                          f"{library_ms:.3f} ms")
-                if (alg, count) in GEN_RECORDS:
-                    records[kname] = {
-                        "name": kname, "route": "cuda",
-                        "source": f"ucc_tpu_torch/csrc/{kgd.SOURCE}",
-                        "replaces": GEN_REPLACES[kname],
+                record = GEN_RECORDS.get((alg, count))
+                if record:
+                    records[record] = {
+                        "name": record, "route": "cuda",
+                        "source": f"ucc_tpu_torch/csrc/{kgd.FOLD_SOURCE}",
+                        "replaces": GEN_REPLACES[record],
                         "launches": launches[kname], "max_abs_err": max_err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": library_ms,
@@ -1978,7 +2129,8 @@ def wire_below_the_stack(smi) -> None:
         srcs = make_inputs(N_RANKS, MAIN_COUNT, torch.float32,
                            ReductionOp.SUM, 50 + len(qmode))
         _, ms, plain_ms, library_ms = measure_gen(
-            "ALLREDUCE", prog, srcs, 0, None, qblock=256, qmode=qmode)
+            "ALLREDUCE", prog, srcs, 0, None, qblock=256, qmode=qmode,
+            route="layer")
         plan = ld.device_plan(prog, N_RANKS, MAIN_COUNT, 0, 256, qmode)
         dsts = [torch.empty_like(s) for s in srcs]
         kgd.gen_device_gen(srcs, dsts, ReductionOp.SUM, plan=plan).wait()
@@ -2136,7 +2288,7 @@ def main() -> int:
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
     sources = [kr.SOURCE, krs.RS_SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE,
-               ka.SOURCE, kgd.SOURCE]
+               ka.SOURCE, kgd.SOURCE, kgd.FOLD_SOURCE]
     started = {src: ptxas_start(src) for src in sources}
     build_s = build.build_all(sources)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
@@ -2236,7 +2388,7 @@ def main() -> int:
     log(smi)
     log(json.dumps({"kernels": [records[k] for k in KERNELS] + [
         records[k] for k in ("ec_reduce", "ring_flash_attention_fwd",
-                             "gen_device_ring", "gen_device_gen")]}))
+                             *GEN_RECORDS.values())]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

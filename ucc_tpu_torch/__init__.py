@@ -15,7 +15,7 @@ of an in-process team on one GPU through the kernels of
 and bcast (library ops over the ranks' buffers, and, under
 ``UCC_GEN_DEVICE=y``, the generated device collectives: verified programs
 of the collective DSL ``dsl/`` lowered by ``dsl/lower_device.py`` and run
-by the kernel of ``kernels/gen_device.py``; ``quant/`` holds the wire
+by the kernels of ``kernels/gen_device.py``; ``quant/`` holds the wire
 precisions' policy); the execution components ``ec/`` (numpy on
 the host, the reduce kernel of ``kernels/ec_reduce.py`` on GPU tensors);
 ucc_perftest as ``python -m ucc_tpu_torch.tools.perftest``; and

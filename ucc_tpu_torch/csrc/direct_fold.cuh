@@ -1,8 +1,10 @@
 // Vector machinery of the flag-free kernels of this directory
-// (ring_allreduce.cu, reduce_scatter.cu), which read the ranks' buffers
-// directly and fold each element from its n srcs in the ring's order: the
-// launch constants, the pointer table as the kernels read it, 16-byte
-// vectors with cache-streaming loads and stores, and the lane-by-lane fold.
+// (ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu), which read the
+// ranks' buffers directly and fold each element from its srcs in a fixed
+// order: the launch constants, the pointer table as the kernels read it
+// (staged in shared memory, with the launch's alignment decision), 16-byte
+// vectors with cache-streaming loads and stores, and the lane-by-lane fold
+// with the operands either way round.
 //
 // Everything here has internal linkage: each source that includes it is
 // built into its own library.
@@ -62,6 +64,35 @@ template <int OP, typename T, int W>
 __device__ __forceinline__ void fold(Pack<T, W>& acc, const Pack<T, W>& x) {
 #pragma unroll
   for (int l = 0; l < W; ++l) acc.e[l] = accumulate(OP, x.e[l], acc.e[l]);
+}
+
+// acc = acc(acc, x) lane by lane: the fold so far is the local operand
+template <int OP, typename T, int W>
+__device__ __forceinline__ void fold_swapped(Pack<T, W>& acc,
+                                             const Pack<T, W>& x) {
+#pragma unroll
+  for (int l = 0; l < W; ++l) acc.e[l] = accumulate(OP, acc.e[l], x.e[l]);
+}
+
+// The launch's pointer table, the 2n pointers staged in `staged` when n <=
+// SMEM_RANKS (read from global memory above), and whether every buffer may
+// take the vector path: `aligned` when all 2n pointers lie at one offset
+// mod 16, with `head` the elements before the first 16-byte boundary (at
+// most `count`). Every thread of the CTA calls it.
+template <typename T>
+__device__ __forceinline__ Table stage_table(void* const* ptrs, int n,
+                                             void** staged, long long count,
+                                             bool& aligned, long long& head) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(ptrs[0]) & 15;
+  int odd = mis % sizeof(T) != 0;
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
+    void* p = ptrs[i];
+    if (n <= SMEM_RANKS) staged[i] = p;
+    odd |= (reinterpret_cast<uintptr_t>(p) & 15) != mis;
+  }
+  aligned = !__syncthreads_or(odd);  // also publishes `staged`
+  head = min(count, (long long)((16 - mis) & 15) / (long long)sizeof(T));
+  return Table{n <= SMEM_RANKS ? staged : ptrs, n};
 }
 
 }  // namespace

@@ -1,40 +1,31 @@
-// Generated device collectives: a lowered DSL program over the n ranks of
-// one GPU, as one kernel launch.
+// Generated device collectives with wire layers: a lowered DSL program
+// over the n ranks of one GPU, layer by layer, as one kernel launch.
 //
-// Replaces ucc_tpu/dsl/lower_device.py:_build_pallas_device_program, the
-// Pallas kernel that runs a verified collective program's layer plan
-// (ring_kernel for shift-by-one rings, gen_kernel for everything else).
-// The plan's tables come from ucc_tpu_torch/dsl/lower_device.py:
-// device_plan; kernels/gen_device.py holds the wrappers and the plain
-// PyTorch version, which follows the same steps with the same rounding, so
-// the two agree bitwise.
+// Replaces ucc_tpu/dsl/lower_device.py:_build_pallas_device_program's
+// gen_kernel for the plans that have a wire layer (an edge tagged int8 or
+// fp8). Every exact plan, rings included, runs gen_fold.cu instead: one
+// flag-free pass that evaluates each unit's expression (kernels/
+// gen_device.py:fold_plan). The plan's tables come from ucc_tpu_torch/dsl/
+// lower_device.py:device_plan; kernels/gen_device.py holds the wrappers and
+// the plain PyTorch version, which follows the same steps with the same
+// rounding, so the two agree bitwise.
 //
-// Two entry points, both launched cooperatively on a (lanes, n) grid: CTA
-// (c, r) plays lane c of rank r.
-//
-// - Ring (kernel 0). Step t of rank r sends blk elements from offset
-//   tab[2t][r] to its right neighbour, which folds them (reduce) or
-//   overwrites at tab[2t+1][r]. Every offset is a multiple of blk (the
-//   lowering checks), so lane c owns the same positions of every block,
-//   and talks only to lane c of its neighbours: the flag protocol of
-//   ring_common.cuh (2-slot parity slots, a release store of the step
-//   counter, an acquire spin, and the consumer ack that keeps a sender
-//   from overwriting a slot its neighbour has not read yet).
-// - Layers (kernel 1). An instruction list, each entry one phase over all
-//   ranks, with a grid-wide barrier after each, since a later phase may
-//   read what any CTA of any rank wrote before (the lanes of a rank split
-//   each run, and the runs of consecutive layers need not line up):
-//     exact layer: receiver q folds the run of its sender p = src[q],
-//       read straight from p's buffer (within a round no rank writes a
-//       chunk it sends, so the run is what p held when the layer began);
-//     wire send: the sender quantizes its run per qblock (one qblock per
-//       CTA at a time, its absmax one block reduction), writes the int8 or
-//       fp8 payload and the float32 scales into the receiver's single-use
-//       arena slot, and its own decoded copy back into its run;
-//     wire receive: the receiver adds q * scale in float32;
-//     copy: one chunk to another within a rank.
-//   Unlike the Pallas kernel, exact layers need no arena: every rank's
-//   buffer is in this card's memory.
+// A cooperative launch on a (lanes, n) grid: CTA (c, r) plays lane c of
+// rank r. An instruction list, each entry one phase over all ranks, with a
+// grid-wide barrier after each, since a later phase may read what any CTA
+// of any rank wrote before (the lanes of a rank split each run, and the
+// runs of consecutive layers need not line up):
+//   exact layer: receiver q folds the run of its sender p = src[q], read
+//     straight from p's buffer (within a round no rank writes a chunk it
+//     sends, so the run is what p held when the layer began);
+//   wire send: the sender quantizes its run per qblock (one qblock per CTA
+//     at a time, its absmax one block reduction), writes the int8 or fp8
+//     payload and the float32 scales into the receiver's single-use arena
+//     slot, and its own decoded copy back into its run;
+//   wire receive: the receiver adds q * scale in float32;
+//   copy: one chunk to another within a rank.
+// Unlike the Pallas kernel, exact layers need no arena: every rank's
+// buffer is in this card's memory.
 // AVG is SUM, then one multiply by dtype(1/n) (alpha), as in the Pallas
 // kernel. The wire arithmetic is unfused and in round-to-nearest: the
 // scale is amax times float32(1/QMAX) (the Pallas kernel divides by the
@@ -45,13 +36,11 @@
 // decode.
 //
 // What bounds it: bytes. An allreduce must read n*S and write n*S bytes
-// for S bytes per rank (2*n*S at 3.35 TB/s on an H100 SXM), a bcast n*S.
-// The program moves more: every layer reads the sender's run and reads
-// and writes the receiver's, and the src->dst copy adds 2*S per rank.
-// This first version is plain: scalar loads and stores, one grid barrier
-// per phase; vector loads, fewer barriers (only where two phases touch the
-// same positions through different lanes) and a ring in shared memory are
-// for later.
+// for S bytes per rank (2*n*S at 3.35 TB/s on an H100 SXM). The program
+// moves more: every layer reads the sender's run and reads and writes the
+// receiver's, and the src->dst copy adds 2*S per rank. This first version
+// is plain: scalar loads and stores, one qblock per CTA at a time, one grid
+// barrier per phase.
 
 #include "ring_common.cuh"
 
@@ -59,8 +48,7 @@
 
 namespace {
 
-constexpr int K_RING = 0;
-constexpr int K_GEN = 1;
+constexpr int K_GEN = 0;
 
 // instruction kinds and layout of kernels/gen_device.py
 constexpr int I_EXACT = 0;
@@ -75,16 +63,15 @@ constexpr int Q_FP8 = 2;
 
 struct GenArgs {
   void* const* ptrs;      // device array: n src pointers, then n dst
-  void* comm;             // ring: n x 2 x blk elements; layers: n x arena
-  unsigned* flags;        // ring: n x lanes x {recv, ack}; layers: barrier
+  void* comm;             // n x arena
+  unsigned* flags;        // the grid barrier's counter
   int* err;               // sticky error word
-  const int* tab;         // ring: (2 steps, n); layers: (6 layers, n)
-  const long long* prog;  // ring: reduce flag per step; layers: instructions
-  const int* ctab;        // layers: (3 copies, n)
+  const int* tab;         // (6 layers, n)
+  const long long* prog;  // instructions
+  const int* ctab;        // (3 copies, n)
   long long count;        // elements per rank
-  long long blk;          // ring: elements per step
-  long long arena;        // layers: wire arena bytes per rank
-  int n_items;            // ring: steps; layers: instructions
+  long long arena;        // wire arena bytes per rank
+  int n_items;            // instructions
   int n;
   int op;
   int avg;                // multiply by alpha at the end
@@ -92,22 +79,6 @@ struct GenArgs {
   int qmode;
   int qblock;
 };
-
-template <typename T> __device__ T from_float(float v) { return (T)v; }
-template <> __device__ __half from_float<__half>(float v) {
-  return __float2half_rn(v);
-}
-template <> __device__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T> __device__ T from_double(double v) { return (T)v; }
-template <> __device__ __half from_double<__half>(double v) {
-  return __float2half_rn((float)v);
-}
-template <> __device__ __nv_bfloat16 from_double<__nv_bfloat16>(double v) {
-  return __float2bfloat16_rn((float)v);
-}
 
 __device__ float fp8_to_float(unsigned char b) {
   __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)b, __NV_E4M3);
@@ -143,65 +114,6 @@ __device__ float block_absmax(float v, float* red) {
   float m = 0.f;
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
   return m;
-}
-
-// ---------------------------------------------------------------------
-// ring entry
-
-template <typename T>
-__device__ void ring_entry(const GenArgs& a) {
-  __shared__ int abort_flag;
-  const int n = a.n;
-  const int r = blockIdx.y;
-  const int c = blockIdx.x;
-  const int lanes = gridDim.x;
-  const int right = (r + 1) % n;
-  const long long blk = a.blk;
-  const long long lane = (blk + lanes - 1) / lanes;
-  const long long lo = min(blk, (long long)c * lane);
-  const long long hi = min(blk, lo + lane);
-  const T* src = static_cast<const T*>(a.ptrs[r]);
-  T* work = static_cast<T*>(a.ptrs[n + r]);
-  T* my_slots = static_cast<T*>(a.comm) + (size_t)r * 2 * blk;
-  T* right_slots = static_cast<T*>(a.comm) + (size_t)right * 2 * blk;
-  unsigned* my_recv = a.flags + ((size_t)r * lanes + c) * 2;
-  unsigned* my_ack = my_recv + 1;
-  unsigned* right_recv = a.flags + ((size_t)right * lanes + c) * 2;
-  const unsigned* right_ack = right_recv + 1;
-  const long long n_blocks = a.count / blk;
-
-  if (threadIdx.x == 0) abort_flag = 0;
-  if (src != work)
-    for (long long b = 0; b < n_blocks; ++b)
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-        work[b * blk + i] = src[b * blk + i];
-  __syncthreads();
-
-  for (int t = 0; t < a.n_items; ++t) {
-    const long long so = a.tab[(size_t)(2 * t) * n + r];
-    const long long ro = a.tab[(size_t)(2 * t + 1) * n + r];
-    // slot t&1 of the right neighbour is free once it consumed step t-2
-    if (t >= 2 && !wait_geq(right_ack, t - 1, a.err, &abort_flag)) return;
-    T* out_slot = right_slots + (t & 1) * blk;
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-      store_slot(out_slot + i, work[so + i]);
-    publish(right_recv, t + 1);
-    if (!wait_geq(my_recv, t + 1, a.err, &abort_flag)) return;
-    const T* in_slot = my_slots + (t & 1) * blk;
-    const bool reduce = a.prog[t] != 0;
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      T in = load_slot(in_slot + i);
-      work[ro + i] = reduce ? accumulate(a.op, work[ro + i], in) : in;
-    }
-    publish(my_ack, t + 1);
-  }
-
-  if (a.avg) {
-    const T inv = from_double<T>(a.alpha);
-    for (long long b = 0; b < n_blocks; ++b)
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-        work[b * blk + i] = Elem<T>::mul(work[b * blk + i], inv);
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -345,35 +257,22 @@ __device__ void gen_entry(const GenArgs& a) {
 }
 
 template <typename T>
-__global__ void gen_device_ring_kernel(GenArgs a) {
-  ring_entry<T>(a);
-}
-
-template <typename T>
 __global__ void gen_device_gen_kernel(GenArgs a) {
   gen_entry<T>(a);
 }
 
-template <typename T>
-const void* kernel_for(int kernel) {
-  switch (kernel) {
-    case K_RING: return (const void*)gen_device_ring_kernel<T>;
-    case K_GEN: return (const void*)gen_device_gen_kernel<T>;
-    default: return nullptr;
-  }
-}
-
 const void* select_kernel(int kernel, int dtype) {
+  if (kernel != K_GEN) return nullptr;
   switch (dtype) {
-    case DT_F32: return kernel_for<float>(kernel);
-    case DT_F16: return kernel_for<__half>(kernel);
-    case DT_BF16: return kernel_for<__nv_bfloat16>(kernel);
-    case DT_I32: return kernel_for<int>(kernel);
-    case DT_I64: return kernel_for<long long>(kernel);
-    case DT_I8: return kernel_for<signed char>(kernel);
-    case DT_U8: return kernel_for<unsigned char>(kernel);
-    case DT_I16: return kernel_for<short>(kernel);
-    case DT_F64: return kernel_for<double>(kernel);
+    case DT_F32: return (const void*)gen_device_gen_kernel<float>;
+    case DT_F16: return (const void*)gen_device_gen_kernel<__half>;
+    case DT_BF16: return (const void*)gen_device_gen_kernel<__nv_bfloat16>;
+    case DT_I32: return (const void*)gen_device_gen_kernel<int>;
+    case DT_I64: return (const void*)gen_device_gen_kernel<long long>;
+    case DT_I8: return (const void*)gen_device_gen_kernel<signed char>;
+    case DT_U8: return (const void*)gen_device_gen_kernel<unsigned char>;
+    case DT_I16: return (const void*)gen_device_gen_kernel<short>;
+    case DT_F64: return (const void*)gen_device_gen_kernel<double>;
     default: return nullptr;
   }
 }
@@ -382,8 +281,8 @@ const void* select_kernel(int kernel, int dtype) {
 
 extern "C" {
 
-// Most CTAs of `threads` threads that can be resident at once for this
-// kernel (SMs x blocks per SM): the bound on n x lanes.
+// Most CTAs of `threads` threads that can be resident at once for the
+// layer kernel (SMs x blocks per SM): the bound on n x lanes.
 int ucc_gen_device_max_ctas(int kernel, int dtype, int threads, int* out) {
   const void* kern = select_kernel(kernel, dtype);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
@@ -398,20 +297,19 @@ int ucc_gen_device_max_ctas(int kernel, int dtype, int threads, int* out) {
   return (int)e;
 }
 
-// Launch one generated collective on `stream`; returns cudaGetLastError()
-// after the launch (0 on success).
+// Launch one generated collective with wire layers on `stream`; returns
+// cudaGetLastError() after the launch (0 on success).
 int ucc_gen_device(int kernel, int dtype, void* const* ptrs, void* comm,
                    unsigned* flags, int* err, const int* tab,
                    const long long* prog, const int* ctab, long long count,
-                   long long blk, long long arena, int n_items, int n, int op,
+                   long long arena, int n_items, int n, int op,
                    int avg, double alpha, int qmode, int qblock, int lanes,
                    int threads, cudaStream_t stream) {
   const void* kern = select_kernel(kernel, dtype);
-  if (kern == nullptr || n < 1 || (kernel == K_RING && blk < 1) ||
-      (qmode != 0 && qblock < 1))
+  if (kern == nullptr || n < 1 || (qmode != 0 && qblock < 1))
     return (int)cudaErrorInvalidValue;
-  GenArgs a{ptrs, comm, flags, err, tab, prog, ctab, count, blk, arena,
-            n_items, n, op, avg, alpha, qmode, qblock};
+  GenArgs a{ptrs, comm, flags, err, tab, prog, ctab, count, arena, n_items,
+            n, op, avg, alpha, qmode, qblock};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(lanes, n),
                                               dim3(threads), params, 0,

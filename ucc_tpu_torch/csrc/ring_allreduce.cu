@@ -234,19 +234,9 @@ __device__ void allreduce(const Table& t, const Args& a, bool aligned,
 template <typename T>
 __global__ void __launch_bounds__(THREADS) ring_allreduce_kernel(Args a) {
   __shared__ void* staged[2 * SMEM_RANKS];
-  const int n = a.n;
-  // the vector path needs every pointer at one offset mod 16
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(a.ptrs[0]) & 15;
-  int odd = mis % sizeof(T) != 0;
-  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
-    void* p = a.ptrs[i];
-    if (n <= SMEM_RANKS) staged[i] = p;
-    odd |= (reinterpret_cast<uintptr_t>(p) & 15) != mis;
-  }
-  const bool aligned = !__syncthreads_or(odd);  // also publishes `staged`
-  const long long head =
-      min(a.count, (long long)((16 - mis) & 15) / (long long)sizeof(T));
-  const Table t{n <= SMEM_RANKS ? staged : a.ptrs, n};
+  bool aligned;
+  long long head;
+  const Table t = stage_table<T>(a.ptrs, a.n, staged, a.count, aligned, head);
   switch (a.op) {
     case OP_SUM: allreduce<T, OP_SUM>(t, a, aligned, head); break;
     case OP_PROD: allreduce<T, OP_PROD>(t, a, aligned, head); break;

@@ -125,6 +125,24 @@ template <> struct Elem<double> {
   static __device__ double avg(double a, int n) { return a / (double)n; }
 };
 
+// A float or double value in T, rounded to nearest (16-bit floats through
+// float: the values given are exact there).
+template <typename T> __device__ T from_float(float v) { return (T)v; }
+template <> __device__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <> __device__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T> __device__ T from_double(double v) { return (T)v; }
+template <> __device__ __half from_double<__half>(double v) {
+  return __float2half_rn((float)v);
+}
+template <> __device__ __nv_bfloat16 from_double<__nv_bfloat16>(double v) {
+  return __float2bfloat16_rn((float)v);
+}
+
 // 16-bit floats compare as float (exactly); every other type in its own.
 template <typename T> __device__ bool gt(T a, T b) { return a > b; }
 template <> __device__ bool gt<__half>(__half a, __half b) {

@@ -12,12 +12,17 @@ Layer wires come from the EDGES, as in the reference: a program whose
 precision is set on the program (``gen_qint8_direct``) lowers exact.
 
 **Backends.** :func:`device_plan` turns the layer plan into the tables of
-``kernels/gen_device.py``: a pure shift-by-one ring runs the kernel's ring
-entry, every other program its layer entry (``auto`` and ``pallas`` on a
-CUDA team). ``xla`` runs the same tables as PyTorch ops
-(``gen_device_torch_ops``). On a ``cpu`` team the wrappers run their plain
-version. The reference's VMEM bound (``pallas_fits``) has no counterpart:
-the arenas live in device memory.
+``kernels/gen_device.py``: a ring plan for a pure shift-by-one ring
+(``gen_device_ring``), a layer plan for every other program
+(``gen_device_gen``). On a CUDA team (``auto`` and ``pallas``) every exact
+plan, which is every registered program, takes the flag-free fold kernel
+(``csrc/gen_fold.cu``: one pass that evaluates each unit's expression,
+``gen_device.fold_plan``); only plans with wire layers run the
+cooperative layer kernel (``csrc/gen_device.cu``), layer by layer.
+``xla`` runs the same tables as PyTorch ops (``gen_device_torch_ops``).
+On a ``cpu`` team the wrappers run their plain version. The reference's
+VMEM bound (``pallas_fits``) has no counterpart: the arenas live in device
+memory.
 
 :func:`registered_device_programs` lists the programs that tl/torch_ops
 registers as candidates named ``gen_dev_*`` (``UCC_GEN_DEVICE=y``; off
@@ -310,8 +315,7 @@ def ring_schedule(plans: List[_RoundPlan], n: int
     block length and no copies. Returns per-round
     (block_len, kind) schedule info as a list of
     (length, kind), with the tables read from the single layer, or
-    None. Ring programs run the kernel's ring entry (2-slot parity slots
-    with consumer acks) instead of single-use slots."""
+    None. Ring programs get a ring plan (``gen_device_ring``)."""
     if n < 2:
         return None
     out = []
@@ -359,9 +363,9 @@ def device_plan(prog: Program, n: int, count: int, root: int = 0,
                 qblock: int = 256, qmode: str = "") -> kgd.GenPlan:
     """The tables of ``kernels/gen_device.py`` for *prog* at *count*
     elements per rank (a multiple of ``prog.nchunks``). A ring program
-    whose blocks all start at a multiple of the block length takes the
-    ring entry (each lane then owns the same positions of every block);
-    everything else the layer entry."""
+    whose blocks all start at a multiple of the block length, and whose
+    plan has a fold plan, gets a ring plan; everything else a layer
+    plan."""
     plans = plan_rounds(prog, n, root)
     ce = count // prog.nchunks
     reducing = prog.coll in _REDUCING
@@ -376,10 +380,12 @@ def device_plan(prog: Program, n: int, count: int, root: int = 0,
         if blk and count % blk == 0 and not (tab % blk).any():
             steps = np.array([kind == OpKind.REDUCE for _, kind in ring],
                              np.int64)
-            return kgd.GenPlan(n, count, True, tab, steps,
+            plan = kgd.GenPlan(n, count, True, tab, steps,
                                np.zeros((1, n), np.int32), blk=blk,
                                span=blk, qmode=qmode, qblock=qblock,
                                reducing=reducing)
+            if kgd.fold_plan(plan) is not None:
+                return plan
     rows, ins, crows = [], [], []
     wb = sum(-(-lay.length * ce // qblock) * qblock
              for rp in plans for lay in rp.layers if lay.wire)
@@ -425,7 +431,7 @@ def device_plan(prog: Program, n: int, count: int, root: int = 0,
 def build_device_program(prog: Program, n: int, count: int, root: int,
                          backend: str, qblock: int, qmode: str):
     """The launch callable of tl/device's kernel contract, bound to the
-    plan of *prog* at *count*: the kernel's ring or layer entry, or, for
+    plan of *prog* at *count*: the ring or the general entry point, or, for
     the ``xla`` backend, the plan as PyTorch ops. The task resolved
     *backend* at init, so a failure here is a launch failure."""
     plan = device_plan(prog, n, count, root, qblock, qmode)

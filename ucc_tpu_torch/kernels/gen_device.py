@@ -1,43 +1,57 @@
-"""Generated device collectives: the CUDA kernel of ``csrc/gen_device.cu``
-that runs a lowered DSL program over the n ranks of one device, its two
-wrappers, its plain PyTorch version and the layer plan they share.
+"""Generated device collectives: the CUDA kernels that run a lowered DSL
+program over the n ranks of one device (``csrc/gen_fold.cu`` for exact
+plans, ``csrc/gen_device.cu`` for plans with wire layers), their two
+wrappers, their plain PyTorch versions and the plans they share.
 
-It replaces ``ucc_tpu/dsl/lower_device.py:_build_pallas_device_program``,
+They replace ``ucc_tpu/dsl/lower_device.py:_build_pallas_device_program``,
 the Pallas kernel that runs a verified collective program as one launch.
 ``dsl/lower_device.py`` lowers a program into a :class:`GenPlan` (the
-tables below); the kernel computes what the Pallas kernel computes for the
-same tables, through one of two entry points:
+tables below), of one of two shapes:
 
-- ``gen_device_ring``: a pure shift-by-one ring (``gen_ring``). Step t of
-  rank r sends ``blk`` elements from offset ``tab[2t][r]`` to its right
-  neighbour, which folds them with ``op`` (REDUCE) or overwrites (RECV) at
-  ``tab[2t+1][r]``.
-- ``gen_device_gen``: every other program, as a list of instructions, each
-  one phase over all ranks. An exact layer: receiver q folds the run of its
-  sender p (``src`` row) into its own. A wire layer (an edge tagged int8 or
-  fp8) takes two: the sender quantizes its run per ``qblock`` (scale =
-  amax · float32(1/QMAX), or 1 for a zero block; q = the value divided by
-  the scale, rounded to int8
-  (half to even, clipped to +-127) or to fp8-e4m3 (clipped to +-448)),
-  writes the payload and the float32 scales into the receiver's single-use
-  arena slot and its own decoded copy back into its run; then the receiver
-  adds ``q * scale`` in float32. A copy moves one chunk within each rank.
+- a ring plan, for a pure shift-by-one ring (``gen_ring``), taken by
+  ``gen_device_ring``: step t of rank r sends ``blk`` elements from offset
+  ``tab[2t][r]`` to its right neighbour, which folds them with ``op``
+  (REDUCE) or overwrites (RECV) at ``tab[2t+1][r]``;
+- a layer plan, for every other program, taken by ``gen_device_gen``: a
+  list of instructions, each one phase over all ranks. An exact layer:
+  receiver q folds the run of its sender p (``src`` row) into its own. A
+  wire layer (an edge tagged int8 or fp8) takes two: the sender quantizes
+  its run per ``qblock`` (scale = amax · float32(1/QMAX), or 1 for a zero
+  block; q = the value divided by the scale, rounded to int8 (half to
+  even, clipped to +-127) or to fp8-e4m3 (clipped to +-448)), writes the
+  payload and the float32 scales into the receiver's single-use arena slot
+  and its own decoded copy back into its run; then the receiver adds
+  ``q * scale`` in float32. A copy moves one chunk within each rank.
+
+Two routes run them on the card, chosen on the host from the plan's own
+shape. :func:`fold_plan` runs an exact plan's steps on symbolic units
+(:func:`fold_exprs`): when every unit ends, on every rank, as one
+expression over that same unit of the srcs (every registered program
+does), the plan is a :class:`FoldPlan`, one short program per unit, and
+``csrc/gen_fold.cu`` evaluates it in one flag-free pass, an ordinary
+launch with no workspace. Plans with a wire layer keep the cooperative
+layer kernel of ``csrc/gen_device.cu``, layer by layer behind grid-wide
+barriers, with its workspace and error word.
 
 AVG is SUM, then one multiply by ``dtype(1/n)``, as the JAX package's
 kernel has it (integer AVG is refused by the task, where that factor is 0).
 
 A wrapper takes one src and one dst tensor per rank (``src is dst`` runs in
 place) and the plan, and writes the result into the dsts. On CPU tensors it
-runs the plain version; on CUDA tensors it launches the kernel or raises.
-``gen_device_ring.launches`` and ``gen_device_gen.launches`` count the
-kernel's launches. The plain version ``gen_device_ref`` runs the same plan
-step by step with PyTorch ops (unfused, in the kernel's rounding), so the
-two agree bitwise; ``gen_device_torch_ops`` is the same code on any device,
-the ``xla`` backend of ``UCC_GEN_DEVICE_BACKEND``.
+runs the plain version; on CUDA tensors it launches a kernel or raises.
+``launches`` counts a wrapper's launches on either route,
+``fold_launches`` those on the fold route. The plain version
+``gen_device_ref`` runs the plan step by step with PyTorch ops (unfused,
+in the kernels' rounding), so the kernels agree with it bitwise;
+``gen_device_fold_ref`` evaluates the fold plan in the fold kernel's
+order, bitwise ``gen_device_ref`` (the tests hold it so; nothing on the
+CUDA path calls it). ``gen_device_torch_ops`` is ``gen_device_ref``'s code
+on any device, the ``xla`` backend of ``UCC_GEN_DEVICE_BACKEND``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -46,15 +60,15 @@ import torch
 
 from ..constants import ReductionOp
 from ..status import Status, UccError
-from .ring_common import (DTYPE_CODES, OPS, THREADS, RingLaunch, RingSource,
-                          RingWorkspace, accumulate, check_buffers,
-                          make_ptr_table)
+from .ring_common import (DIRECT_THREADS, DTYPE_CODES, OPS, THREADS,
+                          RingLaunch, RingSource, RingWorkspace, accumulate,
+                          check_buffers, launch_ctas, make_ptr_table)
 
 SOURCE = "gen_device.cu"
+FOLD_SOURCE = "gen_fold.cu"
 
-#: kernel numbers of the source
-K_RING = 0
-K_GEN = 1
+#: the layer kernel, the one kernel of gen_device.cu
+K_GEN = 0
 
 #: instruction kinds of GenPlan.prog (csrc/gen_device.cu)
 I_EXACT = 0
@@ -79,13 +93,25 @@ class _GenSource(RingSource):
     ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+class _FoldSource(RingSource):
+    """gen_fold.cu: the occupancy query and error names of the ring
+    sources, with a launch function of its own signature (dtype, pointer
+    table, units, code, count, unit, n, op, alpha, CTAs, threads,
+    stream)."""
+
+    ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
 
 
 _SOURCE = _GenSource(SOURCE, "ucc_gen_device")
+_FOLD = _FoldSource(FOLD_SOURCE, "ucc_gen_fold")
 
 
 @dataclass
@@ -115,6 +141,8 @@ class GenPlan:
     reducing: bool = True
     _dev: Dict[torch.device, tuple] = field(default_factory=dict,
                                             repr=False)
+    #: (fold_plan's result,) once computed
+    _fold: Optional[tuple] = field(default=None, repr=False)
 
     def device_tables(self, device: torch.device):
         """(tab, prog, ctab) on *device*, copied there once."""
@@ -229,6 +257,246 @@ def gen_device_ref(srcs: Sequence[torch.Tensor], plan: GenPlan,
 
 
 # ---------------------------------------------------------------------------
+# fold plans: an exact program as one expression per unit
+# ---------------------------------------------------------------------------
+
+#: step kinds of a fold program (csrc/gen_fold.cu). A leaf step takes the
+#: next leaf x (rank q's src at the element): LOAD pushes x; FOLD_L makes
+#: the top acc(x, top), FOLD_R acc(top, x). COMB pops the value below the
+#: top and makes the top acc(below, top), COMB_SWAP acc(top, below).
+S_LOAD, S_FOLD_L, S_FOLD_R, S_COMB, S_COMB_SWAP = range(5)
+#: values a fold program may hold at once (csrc/gen_fold.cu: STACK)
+FOLD_STACK = 5
+#: words of a program before its leaf ranks: steps, leaves, and the rank
+#: of its only leaf (-1 when it has more)
+FOLD_HEADER = 3
+
+
+@dataclass
+class FoldPlan:
+    """An exact plan as one expression per unit of ``unit`` elements:
+    element i of unit j ends, on every rank, as the fold program
+    ``code[units[j]:]`` over element j·unit + i of the leaves' srcs (each
+    leaf a rank's src at the same element). A program is ``FOLD_HEADER``
+    words, its leaf ranks in the order its steps take them, then its step
+    kinds; units with one expression share one program. ``depth`` is the
+    most values the programs hold at once."""
+
+    unit: int
+    depth: int
+    units: np.ndarray
+    code: np.ndarray
+    _dev: Dict[torch.device, tuple] = field(default_factory=dict,
+                                            repr=False)
+
+    def device_tables(self, device: torch.device):
+        """(units, code) on *device*, copied there once."""
+        tabs = self._dev.get(device)
+        if tabs is None:
+            tabs = self._dev[device] = tuple(
+                torch.from_numpy(a).to(device)
+                for a in (self.units, self.code))
+        return tabs
+
+    def program(self, j: int):
+        """(leaf ranks, step kinds) of unit j's program."""
+        off = int(self.units[j])
+        steps, leaves, _ = self.code[off:off + FOLD_HEADER].tolist()
+        first = off + FOLD_HEADER
+        return (self.code[first:first + leaves].tolist(),
+                self.code[first + leaves:first + leaves + steps].tolist())
+
+
+def fold_unit(plan: GenPlan) -> int:
+    """The largest run of elements that every step of *plan* moves whole:
+    the gcd of the count, the block and every offset and length of its
+    tables."""
+    vals = [plan.count]
+    if plan.ring:
+        vals += [plan.blk, *plan.tab.ravel().tolist()]
+    else:
+        rows = plan.tab.reshape(-1, TAB_ROWS, plan.n) \
+            if len(plan.tab) % TAB_ROWS == 0 else plan.tab[:0]
+        vals += plan.prog[:, 2].tolist() + rows[:, 0].ravel().tolist() + \
+            rows[:, 2].ravel().tolist() + plan.ctab[0::3].ravel().tolist() + \
+            plan.ctab[1::3].ravel().tolist()
+    return math.gcd(*(int(v) for v in vals))
+
+
+def fold_exprs(plan: GenPlan):
+    """*plan* run on symbolic units, phase by phase as ``_run_plan`` runs
+    it (every send of a phase is read before any receive of it is
+    written). Returns (unit, nodes, final): ``nodes[e]`` is ``(0, q, j)``
+    for unit j of rank q's src or ``(1, cur, inc)`` for ``acc(cur, inc)``,
+    hash-consed, and ``final[r][j]`` the expression unit j of rank r ends
+    as. None when the plan has a wire instruction."""
+    if not plan.ring and \
+            not np.isin(plan.prog[:, 0], (I_EXACT, I_COPY)).all():
+        return None
+    unit = fold_unit(plan)
+    n, m = plan.n, plan.count // unit
+    nodes: List[tuple] = []
+    ids: Dict[tuple, int] = {}
+
+    def intern(key):
+        e = ids.get(key)
+        if e is None:
+            e = ids[key] = len(nodes)
+            nodes.append(key)
+        return e
+
+    def land(w, at, inc, reduce):
+        w[at:at + len(inc)] = [intern((1, c, i)) if reduce else i
+                               for c, i in zip(w[at:at + len(inc)], inc)]
+
+    work = [[intern((0, r, j)) for j in range(m)] for r in range(n)]
+    if plan.ring:
+        b = plan.blk // unit
+        for t, reduce in enumerate(plan.prog.tolist()):
+            so, ro = plan.tab[2 * t] // unit, plan.tab[2 * t + 1] // unit
+            sent = [work[r][so[r]:so[r] + b] for r in range(n)]
+            for r in range(n):
+                land(work[r], ro[r], sent[(r - 1) % n], reduce)
+        return unit, nodes, work
+    for kind, li, L, reduce, _, _, _, _ in plan.prog.tolist():
+        b = L // unit
+        if kind == I_COPY:
+            so, do, has = plan.ctab[3 * li:3 * li + 3]
+            for r in range(n):
+                if has[r]:
+                    s, d = so[r] // unit, do[r] // unit
+                    work[r][d:d + b] = work[r][s:s + b]
+            continue
+        so, hs, ro, hr, _, src = plan.tab[TAB_ROWS * li:TAB_ROWS * (li + 1)]
+        sent = {p: work[p][so[p] // unit:so[p] // unit + b]
+                for p in range(n) if hs[p]}
+        for q in range(n):
+            if hr[q]:
+                land(work[q], ro[q] // unit, sent[src[q]], reduce)
+    return unit, nodes, work
+
+
+def fold_plan(plan: GenPlan) -> Optional[FoldPlan]:
+    """*plan*'s fold plan, derived once and kept on the plan; None when
+    the plan keeps the layer kernel: it has a wire instruction, a unit
+    ends as different expressions on different ranks, a leaf of unit j is
+    another unit of its src, or a program needs more than ``FOLD_STACK``
+    values at once."""
+    if plan._fold is None:
+        plan._fold = (_make_fold_plan(plan),)
+    return plan._fold[0]
+
+
+def _make_fold_plan(plan: GenPlan) -> Optional[FoldPlan]:
+    run = fold_exprs(plan)
+    if run is None:
+        return None
+    unit, nodes, final = run
+    need: Dict[int, int] = {}
+
+    def values(e):
+        """Values held at once while e is evaluated (Sethi-Ullman, a leaf
+        operand folded straight into the other side's value)."""
+        if e not in need:
+            if nodes[e][0] == 0:
+                need[e] = 1
+            else:
+                _, a, b = nodes[e]
+                if nodes[b][0] == 0:
+                    need[e] = values(a)
+                elif nodes[a][0] == 0:
+                    need[e] = values(b)
+                else:
+                    va, vb = values(a), values(b)
+                    need[e] = va + 1 if va == vb else max(va, vb)
+        return need[e]
+
+    def emit(e, j, leaves, kinds):
+        """Steps of e in Sethi-Ullman order; False when a leaf is not
+        unit j."""
+        if nodes[e][0] == 0:
+            leaves.append(nodes[e][1])
+            kinds.append(S_LOAD)
+            return nodes[e][2] == j
+        _, a, b = nodes[e]
+        if nodes[b][0] == 0:
+            ok = emit(a, j, leaves, kinds)
+            leaves.append(nodes[b][1])
+            kinds.append(S_FOLD_R)
+            return ok and nodes[b][2] == j
+        if nodes[a][0] == 0:
+            ok = emit(b, j, leaves, kinds)
+            leaves.append(nodes[a][1])
+            kinds.append(S_FOLD_L)
+            return ok and nodes[a][2] == j
+        first, second, kind = (a, b, S_COMB) if values(a) >= values(b) \
+            else (b, a, S_COMB_SWAP)
+        ok = emit(first, j, leaves, kinds) and emit(second, j, leaves, kinds)
+        kinds.append(kind)
+        return ok
+
+    n = plan.n
+    code: List[int] = []
+    offsets: Dict[tuple, int] = {}
+    units, depth = [], 1
+    for j, e in enumerate(final[0]):
+        if any(final[r][j] != e for r in range(1, n)):
+            return None
+        leaves: List[int] = []
+        kinds: List[int] = []
+        if not emit(e, j, leaves, kinds):
+            return None
+        depth = max(depth, values(e))
+        key = (tuple(leaves), tuple(kinds))
+        if key not in offsets:
+            offsets[key] = len(code)
+            code += [len(kinds), len(leaves),
+                     leaves[0] if len(leaves) == 1 else -1, *leaves, *kinds]
+        units.append(offsets[key])
+    if depth > FOLD_STACK:
+        return None
+    return FoldPlan(unit, depth, np.array(units, np.int32),
+                    np.array(code, np.int32))
+
+
+def gen_device_fold_ref(srcs: Sequence[torch.Tensor], plan: GenPlan,
+                        op: Optional[ReductionOp]) -> List[torch.Tensor]:
+    """Plain version of the fold kernel: each unit's program evaluated
+    with PyTorch ops, step by step in the kernel's order, then AVG's
+    multiply; every rank's result. Bitwise ``gen_device_ref`` on every
+    plan that has a fold plan."""
+    fp = fold_plan(plan)
+    if fp is None:
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       "gen_device_fold_ref: the plan has no fold plan")
+    acc = accumulate(op if op in OPS else ReductionOp.SUM)
+    flat = [s.reshape(-1) for s in srcs]
+    out = [torch.empty_like(f) for f in flat]
+    u = fp.unit
+    for j in range(len(fp.units)):
+        leaves, kinds = fp.program(j)
+        xs = iter(f[j * u:(j + 1) * u] for f in (flat[q] for q in leaves))
+        stack: List[torch.Tensor] = []
+        for kind in kinds:
+            if kind == S_LOAD:
+                stack.append(next(xs))
+            elif kind == S_FOLD_L:
+                stack[-1] = acc(next(xs), stack[-1])
+            elif kind == S_FOLD_R:
+                stack[-1] = acc(stack[-1], next(xs))
+            else:
+                top = stack.pop()
+                stack[-1] = acc(stack[-1], top) if kind == S_COMB \
+                    else acc(top, stack[-1])
+        (val,) = stack
+        if plan.reducing and op == ReductionOp.AVG:
+            val = val * avg_factor(val.dtype, plan.n).to(val.device)
+        for o in out:
+            o[j * u:(j + 1) * u] = val
+    return out
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -251,48 +519,98 @@ def _check(what, srcs, dsts, op, plan: GenPlan):
     return n, count
 
 
-def _dispatch(kernel: int, what: str, srcs, dsts, op, plan: GenPlan, stream,
-              workspace, ptr_table) -> Optional[RingLaunch]:
-    """None when the buffers lie on the CPU and the plain version already
-    wrote them; otherwise the kernel's launch handle."""
-    n, count = _check(what, srcs, dsts, op, plan)
+def _avg(plan: GenPlan, op, dtype):
+    """(avg flag, alpha) of a launch: AVG of a reducing plan multiplies by
+    ``dtype(1/n)`` at the end."""
+    avg = int(plan.reducing and op == ReductionOp.AVG)
+    return avg, float(avg_factor(dtype, plan.n)) if avg else 0.0
+
+
+def _launch_fold(what, srcs, dsts, op, plan: GenPlan, fp: FoldPlan, stream,
+                 ptr_table) -> RingLaunch:
+    """An ordinary launch of csrc/gen_fold.cu: no workspace, flags or error
+    word, a 1-D grid from the occupancy query."""
     device = srcs[0].device
-    if device.type == "cpu":
-        for d, out in zip(dsts, gen_device_ref(srcs, plan, op)):
-            d.copy_(out)
-        return None
-    if device.type != "cuda":
-        raise UccError(Status.ERR_NOT_SUPPORTED,
-                       f"{what} runs on cuda or cpu tensors, not "
-                       f"{device.type}")
     dtype = srcs[0].dtype
     code = DTYPE_CODES[dtype]
-    avg = int(plan.reducing and op == ReductionOp.AVG)
-    alpha = float(avg_factor(dtype, n)) if avg else 0.0
-    if stream is None:
-        stream = torch.cuda.current_stream(device)
+    _, alpha = _avg(plan, op, dtype)
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        lanes = _SOURCE.lanes(kernel, code, n, plan.span, device)
+        units, prog = fp.device_tables(device)
+        if ptr_table is None:
+            ptr_table = make_ptr_table(srcs, dsts)
+        ctas = launch_ctas(plan.count, srcs[0].element_size(),
+                           _FOLD.max_ctas(0, code, device, DIRECT_THREADS))
+        _FOLD.check(_FOLD.lib().ucc_gen_fold(
+            code, ptr_table.data_ptr(), units.data_ptr(), prog.data_ptr(),
+            plan.count, fp.unit, plan.n,
+            int(op) if plan.reducing else int(ReductionOp.SUM), alpha, ctas,
+            DIRECT_THREADS, stream.cuda_stream),
+            f"{what} launch")
+    return RingLaunch(stream, keep=(ptr_table, units, prog), what=what)
+
+
+def _launch_layers(what, srcs, dsts, op, plan: GenPlan, stream, workspace,
+                   ptr_table) -> RingLaunch:
+    """A cooperative launch of csrc/gen_device.cu's layer kernel on a
+    (lanes, n) grid, with its workspace (the wire arena, the barrier
+    counter) and error word."""
+    n = plan.n
+    device = srcs[0].device
+    dtype = srcs[0].dtype
+    code = DTYPE_CODES[dtype]
+    avg, alpha = _avg(plan, op, dtype)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        lanes = _SOURCE.lanes(K_GEN, code, n, plan.span, device)
         ws = workspace if workspace is not None else RingWorkspace(device)
-        if plan.ring:
-            comm_bytes = n * 2 * plan.blk * srcs[0].element_size()
-            n_flags = n * lanes * 2
-        else:
-            comm_bytes, n_flags = n * plan.arena, 1
-        comm, flags, err = ws.get(max(comm_bytes, 16), n_flags)
+        comm, flags, err = ws.get(max(n * plan.arena, 16), 1)
         tab, prog, ctab = plan.device_tables(device)
         if ptr_table is None:
             ptr_table = make_ptr_table(srcs, dsts)
         flags.zero_()
         _SOURCE.check(_SOURCE.lib().ucc_gen_device(
-            kernel, code, ptr_table.data_ptr(), comm.data_ptr(),
+            K_GEN, code, ptr_table.data_ptr(), comm.data_ptr(),
             flags.data_ptr(), err.data_ptr(), tab.data_ptr(),
-            prog.data_ptr(), ctab.data_ptr(), count, plan.blk, plan.arena,
+            prog.data_ptr(), ctab.data_ptr(), plan.count, plan.arena,
             len(prog), n, 0 if op is None else int(op), avg, alpha,
             QMODES[plan.qmode], plan.qblock, lanes, THREADS,
             stream.cuda_stream), f"{what} launch")
     return RingLaunch(stream, err, keep=(ws, ptr_table, tab, prog, ctab),
                       what=what)
+
+
+def _dispatch(wrapper, what: str, srcs, dsts, op, plan: GenPlan, stream,
+              workspace, ptr_table) -> RingLaunch:
+    """One wrapper call. CPU buffers: the plain version writes them.
+    CUDA buffers: the fold kernel when the plan has a fold plan, else the
+    layer kernel; both counted in ``wrapper.launches``, the fold route
+    also in ``wrapper.fold_launches``."""
+    _check(what, srcs, dsts, op, plan)
+    device = srcs[0].device
+    if device.type == "cpu":
+        for d, out in zip(dsts, gen_device_ref(srcs, plan, op)):
+            d.copy_(out)
+        return RingLaunch()
+    if device.type != "cuda":
+        raise UccError(Status.ERR_NOT_SUPPORTED,
+                       f"{what} runs on cuda or cpu tensors, not "
+                       f"{device.type}")
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    fp = fold_plan(plan)
+    if fp is not None:
+        h = _launch_fold(what, srcs, dsts, op, plan, fp, stream, ptr_table)
+        wrapper.fold_launches += 1
+    elif plan.ring:
+        # device_plan lowers such a ring as layers; only a hand-made plan
+        # gets here
+        raise UccError(Status.ERR_NOT_SUPPORTED,
+                       f"{what}: a ring plan that is not one expression "
+                       "per unit has no kernel")
+    else:
+        h = _launch_layers(what, srcs, dsts, op, plan, stream, workspace,
+                           ptr_table)
+    wrapper.launches += 1
+    return h
 
 
 def gen_device_ring(srcs: Sequence[torch.Tensor],
@@ -301,16 +619,13 @@ def gen_device_ring(srcs: Sequence[torch.Tensor],
                     workspace: Optional[RingWorkspace] = None,
                     ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
     """The ring entry point: a shift-by-one ring *plan* over ``srcs``
-    into ``dsts``; ``root`` is in the plan's tables already."""
+    into ``dsts`` (the fold kernel); ``root`` is in the plan's tables
+    already and ``workspace`` is accepted and left untouched."""
     if not plan.ring:
         raise UccError(Status.ERR_INVALID_PARAM,
                        "gen_device_ring takes a ring plan")
-    h = _dispatch(K_RING, "generated ring", srcs, dsts, op, plan, stream,
-                  workspace, ptr_table)
-    if h is None:
-        return RingLaunch()
-    gen_device_ring.launches += 1
-    return h
+    return _dispatch(gen_device_ring, "generated ring", srcs, dsts, op, plan,
+                     stream, workspace, ptr_table)
 
 
 def gen_device_gen(srcs: Sequence[torch.Tensor],
@@ -319,16 +634,14 @@ def gen_device_gen(srcs: Sequence[torch.Tensor],
                    workspace: Optional[RingWorkspace] = None,
                    ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
     """The general entry point: the layers and copies of *plan* over
-    ``srcs`` into ``dsts``; ``root`` is in the plan's tables already."""
+    ``srcs`` into ``dsts`` (the fold kernel on an exact plan, the layer
+    kernel on one with wire layers); ``root`` is in the plan's tables
+    already."""
     if plan.ring:
         raise UccError(Status.ERR_INVALID_PARAM,
                        "gen_device_gen takes a layer plan")
-    h = _dispatch(K_GEN, "generated collective", srcs, dsts, op, plan,
-                  stream, workspace, ptr_table)
-    if h is None:
-        return RingLaunch()
-    gen_device_gen.launches += 1
-    return h
+    return _dispatch(gen_device_gen, "generated collective", srcs, dsts, op,
+                     plan, stream, workspace, ptr_table)
 
 
 def gen_device_torch_ops(srcs: Sequence[torch.Tensor],
@@ -353,4 +666,6 @@ def gen_device_torch_ops(srcs: Sequence[torch.Tensor],
 
 
 gen_device_ring.launches = 0
+gen_device_ring.fold_launches = 0
 gen_device_gen.launches = 0
+gen_device_gen.fold_launches = 0

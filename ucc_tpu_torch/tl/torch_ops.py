@@ -15,8 +15,9 @@ on the team's stream (the rendezvous and launch plumbing is tl/device):
   -0.0 at the root arrives as +0.0 everywhere). They need no kernel of
   their own.
 - ``gen_dev_*`` (ids 200+, score 2, behind ``UCC_GEN_DEVICE=y``): verified
-  DSL programs lowered by ``dsl/lower_device`` and run by the kernel of
-  ``kernels/gen_device.py``.
+  DSL programs lowered by ``dsl/lower_device`` and run by the kernels of
+  ``kernels/gen_device.py`` (exact plans by the flag-free fold kernel,
+  plans with wire layers by the layer kernel).
 
 Default score 40, as tl/xla's, above tl/ring_cuda's 20: ALLREDUCE and BCAST
 on CUDA memory select this TL unless a TUNE string says otherwise, e.g.
