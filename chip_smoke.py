@@ -9,10 +9,11 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the eight kernel sources from
+   versions, and the time to build the nine kernel sources from
    ucc_tpu_torch/csrc/ (one nvcc each, started together, beside one
    nvcc -Xptxas -v each); the f32 and bf16 instances of the flag-free
-   kernels (allreduce, reduce_scatter, the generated programs' fold) must
+   kernels (allreduce, reduce_scatter, the generated programs' fold,
+   alltoall) must
    hold 128-bit global loads and stores in their SASS (cuobjdump), and
    none of their instances may spill or have a stack frame; the instances
    of every source that do are printed;
@@ -37,12 +38,16 @@ Phases, each printing its own lines (any failure exits non-zero):
      collectives, f16 and int64 cases and n = 1;
    - both ring bcast kernels from roots 0, n/2 and n-1, several sub-blocks
      for the chunked one, each also against the root's saved src, in place
-     (src = dst, as UCC's bcast passes src alone), and both pairwise
-     alltoall kernels, several chunks for the chunked one, each also
-     against torch.cat of block r of every src, in place; f16 and int64
-     cases and n = 1 for both;
-   and a set error word must make an allgather, a bcast and an alltoall
-   wrapper raise;
+     (src = dst, as UCC's bcast passes src alone), and both alltoall
+     entry points (one flag-free kernel), each also against torch.cat of
+     block r of every src, in place; at n in {3, 5, 7} with blocks whose
+     bytes are no multiple of 16 (units on the vector path and units on
+     the scalar one in one launch), on views with a storage offset (f32,
+     bf16, int8), at n = 16 and n = 257, and in place at the main shape;
+     f16 and int64 cases and n = 1 for both;
+   and a set error word must make an allgather and a bcast wrapper raise,
+   while an alltoall launch on a faulted workspace neither raises nor
+   touches it;
    - every ring kernel again on int8, uint8, int16 and float64;
    - both entry points of the generated collectives (gen_device_ring,
      gen_device_gen), each launch asserted on its route: every device
@@ -120,7 +125,8 @@ Phases, each printing its own lines (any failure exits non-zero):
    for allreduce and reduce_scatter (timed in turns with the kernel), n x
    torch.cat(srcs, out=dst) for allgather, (n-1) x dst.copy_(src_root)
    for bcast, n x torch.cat(block r
-   of every src, out=dst_r) for alltoall; for ec_reduce at the three
+   of every src, out=dst_r) for alltoall (timed in turns with the
+   kernel); for ec_reduce at the three
    reducedt shapes, torch.stack(srcs).sum(0); for the generated kernels,
    torch.stack(srcs).sum(0) (allreduce) or (n-1) x copy_ (bcast), timed
    in turns with the kernel; for
@@ -128,13 +134,17 @@ Phases, each printing its own lines (any failure exits non-zero):
    the main path's shapes, scaled_dot_product_attention on the unsharded
    (1, 32, 8192, 128) q and (1, 8, 8192, 128) k, v, timed in turns with
    the kernel; the kernel's f32 route (CUDA cores) on the same shapes in
-   f32 beside SDPA in f32; nvcc -Xptxas -v's registers and spills of
+   f32 beside its plain version and SDPA in f32; nvcc -Xptxas -v's
+   registers and spills of
    every instance of the attention source, and the HGMMA (wgmma)
    instructions in each instance's SASS: some in every tensor-core
    instance, none in the f32 ones; and the GQA block's projections, merge
    and whole forward in device time, beside its p50.
 
-The last two lines are the kernels record and {"ok": true, "device": ...}.
+The last two lines are the kernels record (one record per kernel entry
+point or route of the kernel table in PERF.md, the f32 attention route and
+the int8/fp8 wire layers among them, with launches 0: the main path runs
+neither) and {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
 """
@@ -474,14 +484,16 @@ def phase_kernels() -> None:
         f"x SUM/AVG/MAX/MIN/PROD; ragged counts; NaN for MAX/MIN; f16, "
         f"int64; misaligned views; n = 1 and 257; in place, also at 8 x "
         f"{MAIN_COUNT}) in "
-        f"{time.perf_counter() - t0:.1f} s; an allreduce or reduce_scatter "
-        f"launch on a faulted workspace neither raises nor touches it")
+        f"{time.perf_counter() - t0:.1f} s; an allreduce, reduce_scatter or "
+        f"alltoall launch on a faulted workspace neither raises nor touches "
+        f"it")
 
 
 def check_misaligned(wrapper, ref, n, count, dtype, mixed, seed,
                      dst_count=None) -> float:
-    """An allreduce (or, with *dst_count*, a reduce_scatter) over views
-    with a storage offset, bitwise against the plain version: *mixed*,
+    """An allreduce or alltoall (or, with *dst_count*, a reduce_scatter)
+    over views with a storage offset, bitwise against the plain version
+    ``ref(srcs, op)``: *mixed*,
     srcs of odd ranks and dsts of ranks 0 mod 3 start one element in;
     else every src and dst does. The elements around each dst view must
     stay as they were."""
@@ -509,13 +521,14 @@ def check_misaligned(wrapper, ref, n, count, dtype, mixed, seed,
 
 
 def check_flag_free() -> None:
-    """The allreduce and reduce_scatter kernels have no flags and no error
-    word: a launch on a workspace whose error word is set and whose flag
-    words hold a pattern must not raise, must be right, and must leave
-    both as they were."""
+    """The allreduce, reduce_scatter and alltoall kernels have no flags and
+    no error word: a launch on a workspace whose error word is set and
+    whose flag words hold a pattern must not raise, must be right, and
+    must leave both as they were."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_allreduce as kr
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
     from ucc_tpu_torch.kernels import ring_rs_ag as krs
     ws = faulted_workspace()
     _, flags, err = ws.get(64, 64)
@@ -539,9 +552,16 @@ def check_flag_free() -> None:
         torch.cuda.synchronize()
         compare(label(wrapper, srcs, sum_) + " on a faulted workspace",
                 dsts, krs.ring_reduce_scatter_ref(srcs, sum_))
+    for wrapper in (kba.ring_alltoall_pass, kba.ring_alltoall_chunked):
+        srcs = make_inputs(4, 4 * 4096, torch.float32, sum_, 27)
+        dsts = [torch.empty_like(s) for s in srcs]
+        wrapper(srcs, dsts, workspace=ws).wait()
+        torch.cuda.synchronize()
+        compare(label(wrapper, srcs, None) + " on a faulted workspace",
+                dsts, kba.ring_alltoall_ref(srcs))
     if not (torch.equal(flags, before[0]) and torch.equal(err, before[1])):
-        raise AssertionError("an allreduce or reduce_scatter launch touched "
-                             "the workspace")
+        raise AssertionError("an allreduce, reduce_scatter or alltoall "
+                             "launch touched the workspace")
 
 
 def phase_kernels_rs_ag() -> None:
@@ -732,20 +752,66 @@ def phase_kernels_bcast_a2a() -> None:
     check_bcast(*bc, make_inputs(8, 64 << 10, torch.float32,
                                  ReductionOp.SUM, 25), 0, inplace=True)
     cases += 4
+    cases += alltoall_edges(a2a, a2a_c)
     srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 26)
     expect_fault(lambda: kba.ring_bcast_chunked(
         srcs, [torch.empty_like(s) for s in srcs], root=2,
         workspace=faulted_workspace()))
-    expect_fault(lambda: kba.ring_alltoall_pass(
-        srcs, [torch.empty_like(s) for s in srcs],
-        workspace=faulted_workspace()))
     log(f"kernels: {cases} bcast/alltoall launches bitwise equal to their "
         f"plain versions (n in 2,4,8; f32/bf16/int32 with a NaN; bcast from "
         f"roots 0, n/2, n-1, bitwise the root's src; alltoall bitwise "
-        f"torch.cat of block r; ragged counts; 2-4 sub-blocks, 3 chunks; in "
+        f"torch.cat of block r, also at n in 3,5,7 with blocks misaligned "
+        f"per unit, on misaligned views, at n = 16 and 257 and in place at "
+        f"8 x {MAIN_COUNT}; ragged counts; 2-4 sub-blocks, 3 chunks; in "
         f"place for both; f16, int64; n=1) in "
-        f"{time.perf_counter() - t0:.1f} s; a set error word raises for both "
-        f"collectives")
+        f"{time.perf_counter() - t0:.1f} s; a set error word raises for the "
+        f"bcast (the alltoall has none: check_flag_free)")
+
+
+def alltoall_edges(a2a, a2a_c) -> int:
+    """The alltoall kernel's edges, each launch bitwise against the plain
+    version and torch.cat of block r: odd n with blocks whose bytes are no
+    multiple of 16, so a pair's four addresses lie at offsets mod 16 that
+    change with its blocks (units on the vector path and units on the
+    scalar one in one launch); views with a storage offset; n = 16; n =
+    257, above the ranks whose pointers a CTA stages in shared memory; in
+    place at the main path's shape. Returns the launches."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
+    cases = 0
+    for n in (3, 5, 7):
+        for dtype in (torch.float32, torch.bfloat16):
+            seed = 7000 * n + dtype.itemsize
+            check_alltoall(*a2a, make_inputs(
+                n, n * (kba.CHUNK_ELEMS // n // 3 + 5), dtype,
+                ReductionOp.MAX, seed))
+            check_alltoall(*a2a_c, make_inputs(
+                n, n * (2 * (kba.CHUNK_ELEMS // n) + 3), dtype,
+                ReductionOp.MAX, seed + 1), inplace=dtype == torch.bfloat16)
+            cases += 2
+    # views with a storage offset: units whose addresses disagree mod 16
+    # go element by element, the others take vectors
+    def ref(srcs, op):
+        return kba.ring_alltoall_ref(srcs)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for wrapper, blk in ((a2a[0], 4096), (a2a[0], 40003),
+                             (a2a_c[0], kba.CHUNK_ELEMS // 5 + 37)):
+            for mixed in (True, False):
+                check_misaligned(wrapper, ref, 5, 5 * blk, dtype, mixed, 9)
+                cases += 1
+    check_alltoall(*a2a, make_inputs(16, 16 * (kba.CHUNK_ELEMS // 16 // 3
+                                               + 5), torch.float32,
+                                     ReductionOp.MAX, 28))
+    check_alltoall(*a2a_c, make_inputs(16, 16 * (kba.CHUNK_ELEMS // 16 + 3),
+                                       torch.int32, ReductionOp.SUM, 29),
+                   inplace=True)
+    check_alltoall(*a2a, make_inputs(257, 257 * 67, torch.float32,
+                                     ReductionOp.MAX, 30))
+    check_alltoall(*a2a_c, make_inputs(N_RANKS, MAIN_COUNT, torch.float32,
+                                       ReductionOp.MAX, 31), inplace=True)
+    torch.cuda.empty_cache()
+    return cases + 4
 
 
 #: the dtypes the ring kernels gained beside f32/f16/bf16/int32/int64
@@ -802,7 +868,8 @@ def phase_kernels_wide_types() -> None:
                                    kr.OPS[0], 5700 + t))
         cases += 7
     log(f"kernels: {cases} ring launches on {'/'.join(WIDE_DTYPES)} bitwise "
-        f"equal to their plain versions (all ten ring kernels; allreduce and "
+        f"equal to their plain versions (all ten ring entry points; "
+        f"allreduce and "
         f"reduce_scatter x SUM/AVG/MAX/MIN/PROD) in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1471,7 +1538,8 @@ def main_path_attention(smi, ptxas) -> dict:
         f"projections in f32: {f32['ms']:.3f} ms, bound "
         f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}), roofline share "
         f"{f32['bound_ms'] / f32['ms']:.4f} | max abs err "
-        f"{f32['max_abs_err']} | SDPA f32 {f32['library_ms']:.4f} ms | card "
+        f"{f32['max_abs_err']} | plain {f32['plain_ms']:.3f} ms | SDPA f32 "
+        f"{f32['library_ms']:.4f} ms | launches {f32['launches']} | card "
         f"{smi}")
     log(f"ptxas of {ka.SOURCE}: {json.dumps(ptxas)}")
     # the f16/bf16 route issues wgmma (HGMMA in SASS), the f32 route none
@@ -1496,8 +1564,9 @@ def main_path_attention(smi, ptxas) -> dict:
 def main_path_attention_f32(qs, ks, vs, scale, launches) -> dict:
     """The f32 route (ring_flash_attn_kernel, CUDA cores) on the main path's
     projections cast to f32: held against its plain version, timed beside
-    SDPA in f32 (TF32 off), bound by f32 FMAs outside the tensor cores.
-    `launches` is the route's count from the main path's run."""
+    its plain version and SDPA in f32 (TF32 off), bound by f32 FMAs outside
+    the tensor cores. `launches` is the route's count from the main path's
+    run."""
     import torch
     import torch.nn.functional as F
     from ucc_tpu_torch.kernels import ring_attention as ka
@@ -1509,12 +1578,18 @@ def main_path_attention_f32(qs, ks, vs, scale, launches) -> dict:
                                                      True), ITERS)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), ITERS)
+    plain_ms = cuda_ms(
+        lambda: ka.ring_flash_attention_ref(qs, ks, vs, scale, True), 3)
     seq = n * s_local
     bound, bound_by = bound_ms(n * (2 * h + 2 * h_kv) * s_local * e * 4,
                                4 * h * e * seq * (seq + 1) // 2, F32_FLOPS)
-    return {"route": "CUDA cores (f32 FMAs)", "launches": launches,
-            "max_abs_err": max_err, "ms": ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms}
+    return {"name": "ring_flash_attention_fwd f32", "route": "cuda",
+            "source": f"ucc_tpu_torch/csrc/{ka.SOURCE}",
+            "replaces": "ucc_tpu/fused_attention.py:44",
+            "kernel_route": "CUDA cores (f32 FMAs)", "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def ptxas_start(source):
@@ -1590,7 +1665,8 @@ def ptxas_read(started) -> dict:
 #: the flag-free kernels that move 16-byte vectors: source -> kernel
 DIRECT_KERNELS = {"ring_allreduce.cu": "ring_allreduce_kernel",
                   "reduce_scatter.cu": "reduce_scatter_kernel",
-                  "gen_fold.cu": "gen_fold_kernel"}
+                  "gen_fold.cu": "gen_fold_kernel",
+                  "alltoall.cu": "alltoall_kernel"}
 
 
 def check_direct_sass(source, info) -> None:
@@ -1720,9 +1796,9 @@ KERNELS = {
                         "ring_bcast_ref"),
     "ring_bcast_chunked": ("ring_bcast_a2a.cu", "ucc_tpu/tl/ring_dma.py:533",
                            "ring_bcast_ref"),
-    "ring_alltoall_pass": ("ring_bcast_a2a.cu", "ucc_tpu/tl/ring_dma.py:350",
+    "ring_alltoall_pass": ("alltoall.cu", "ucc_tpu/tl/ring_dma.py:350",
                            "ring_alltoall_ref"),
-    "ring_alltoall_chunked": ("ring_bcast_a2a.cu",
+    "ring_alltoall_chunked": ("alltoall.cu",
                               "ucc_tpu/tl/ring_dma.py:733",
                               "ring_alltoall_ref"),
 }
@@ -1735,6 +1811,7 @@ def wrappers():
     from ucc_tpu_torch.kernels import ring_rs_ag as krs
     mods = {m.SOURCE: m for m in (kr, krs, kba)}
     mods[krs.RS_SOURCE] = krs
+    mods[kba.A2A_SOURCE] = kba
     out = {}
     for name, (source, _, ref_name) in KERNELS.items():
         mod = mods[source]
@@ -1875,8 +1952,8 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     pointer table built once, as the team's persistent launches reuse
     them (a bcast in place on the main path's buffers `bufs`, as the main
     path runs it); its plain version and one PyTorch call as
-    yardsticks (for allreduce and reduce_scatter timed in turns with the
-    kernel)."""
+    yardsticks (for allreduce, reduce_scatter and alltoall timed in turns
+    with the kernel)."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_common as kc
@@ -1902,13 +1979,21 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     def kernel():
         return wrapper(ins, out, sum_, root=root, workspace=ws,
                        ptr_table=table)
-    if coll in ("ALLREDUCE", "REDUCE_SCATTER"):
+    if coll in ("ALLREDUCE", "REDUCE_SCATTER", "ALLTOALL"):
         # kernel and library call in turns: library, kernel, kernel, library
-        turns = [cuda_ms(f, 20) for f in (
-            lambda: torch.stack(srcs).sum(0), kernel, kernel,
-            lambda: torch.stack(srcs).sum(0))]
+        if coll == "ALLTOALL":
+            b = srcs[0].numel() // n
+
+            def library():
+                for r, o in enumerate(out):
+                    torch.cat([s[r * b:(r + 1) * b] for s in srcs], out=o)
+        else:
+            def library():
+                return torch.stack(srcs).sum(0)
+        turns = [cuda_ms(f, 20) for f in (library, kernel, kernel, library)]
+        yardstick = CONVENTIONS[coll][1]
         log(f"{wrapper.__name__} n={n} count={srcs[0].numel()} in turns "
-            f"(stack().sum(0), kernel, kernel, stack().sum(0)): "
+            f"({yardstick}, kernel, kernel, {yardstick}): "
             f"{', '.join(f'{t:.4f}' for t in turns)} ms")
         ms, library_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         plain_ms = cuda_ms(lambda: ref(srcs, sum_, root), 3)
@@ -1921,11 +2006,6 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     elif coll == "BCAST":
         library_ms = cuda_ms(lambda: [o.copy_(srcs[root]) for r, o in
                                       enumerate(out) if r != root], 20)
-    elif coll == "ALLTOALL":
-        b = srcs[0].numel() // n
-        library_ms = cuda_ms(lambda: [
-            torch.cat([s[r * b:(r + 1) * b] for s in srcs], out=o)
-            for r, o in enumerate(out)], 20)
     else:
         library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
     return max_err, ms, plain_ms, library_ms
@@ -2115,20 +2195,23 @@ def main_path_gen(smi) -> dict:
     return records
 
 
-def wire_below_the_stack(smi) -> None:
+def wire_below_the_stack(smi) -> list:
     """The kernel's wire layers at the main path's size, through the
     wrapper: int8 and fp8 edge-tagged direct exchanges of 16 Mi f32 per
     rank over 8 ranks (qblock 256), bitwise against the plain version,
-    with their error against the exact sum."""
+    with their error against the exact sum. Returns their kernels records
+    (no registered candidate reaches the layer route, so the main path
+    launched it no time)."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.dsl import lower_device as ld
     from ucc_tpu_torch.kernels import gen_device as kgd
+    records = []
     for qmode in ("int8", "fp8"):
         prog = wire_direct(N_RANKS, qmode, qmode)
         srcs = make_inputs(N_RANKS, MAIN_COUNT, torch.float32,
                            ReductionOp.SUM, 50 + len(qmode))
-        _, ms, plain_ms, library_ms = measure_gen(
+        max_err, ms, plain_ms, library_ms = measure_gen(
             "ALLREDUCE", prog, srcs, 0, None, qblock=256, qmode=qmode,
             route="layer")
         plan = ld.device_plan(prog, N_RANKS, MAIN_COUNT, 0, 256, qmode)
@@ -2145,8 +2228,17 @@ def wire_below_the_stack(smi) -> None:
             f"{plain_ms:.3f} ms | stack().sum(0) {library_ms:.3f} ms | "
             f"bitwise the plain version | max error {rel:.5f} of max|sum| "
             f"| card {smi}")
+        records.append({
+            "name": f"gen_device_gen wire {qmode}", "route": "cuda",
+            "source": f"ucc_tpu_torch/csrc/{kgd.SOURCE}",
+            "replaces": "ucc_tpu/dsl/lower_device.py:595",
+            "kernel_route": "layer", "launches": 0, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "error_of_max_sum": rel})
         del srcs, dsts, exact
         torch.cuda.empty_cache()
+    return records
 
 
 #: ucc_perftest's reducedt runs on the main path: (arguments, dtype,
@@ -2287,8 +2379,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
-    sources = [kr.SOURCE, krs.RS_SOURCE, krs.SOURCE, kba.SOURCE, ker.SOURCE,
-               ka.SOURCE, kgd.SOURCE, kgd.FOLD_SOURCE]
+    sources = [kr.SOURCE, krs.RS_SOURCE, krs.SOURCE, kba.SOURCE,
+               kba.A2A_SOURCE, ker.SOURCE, ka.SOURCE, kgd.SOURCE,
+               kgd.FOLD_SOURCE]
     started = {src: ptxas_start(src) for src in sources}
     build_s = build.build_all(sources)
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
@@ -2383,12 +2476,16 @@ def main() -> int:
     # the generated device collectives and tl/torch_ops's defaults
     os.environ.pop("UCC_TL_RING_CUDA_TUNE")
     records.update(main_path_gen(smi))
-    wire_below_the_stack(smi)
+    wire = wire_below_the_stack(smi)
 
+    # every row of the kernel table: the f32 attention route (12b) and the
+    # wire layers (11b wire) have records of their own
+    attention = records["ring_flash_attention_fwd"]
     log(smi)
     log(json.dumps({"kernels": [records[k] for k in KERNELS] + [
         records[k] for k in ("ec_reduce", "ring_flash_attention_fwd",
-                             *GEN_RECORDS.values())]}))
+                             *GEN_RECORDS.values())] + [
+        attention["f32_route"], *wire]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

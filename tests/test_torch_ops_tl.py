@@ -95,20 +95,86 @@ def test_torch_ops_is_the_default_for_allreduce_and_bcast(torch_job):
     assert TlTorchOps.DEFAULT_SCORE == TlXla.DEFAULT_SCORE == 40
 
 
-@pytest.mark.parametrize("coll,op", [("REDUCE", "SUM"), ("ALLREDUCE", "BXOR"),
-                                     ("ALLTOALL", "SUM")])
-def test_what_torch_ops_refuses(torch_job, coll, op):
+def other_op_inputs(op, dt, count, seed):
+    """Inputs of the logical, bitwise and loc ops, from a seed: logical
+    ops see zeros (and, in f32, -0.0 and a NaN) on some ranks and not on
+    others; bitwise ops any 32-bit pattern; loc ops (value, index) pairs
+    whose values come from three levels (in f32 with +0.0 and -0.0 among
+    them), so that several ranks tie on most values, with indices that
+    differ across the tying ranks."""
+    rng = np.random.default_rng(seed)
+    if op in ("LAND", "LOR", "LXOR"):
+        if dt == "INT32":
+            return [rng.integers(-2, 3, count).astype(np.int32)
+                    for _ in range(N)]
+        hosts = [rng.choice(np.array([0.0, -0.0, 1.5, -2.0], np.float32),
+                            count) for _ in range(N)]
+        hosts[2][5] = np.nan
+        return hosts
+    if op in ("BAND", "BOR", "BXOR"):
+        return [rng.integers(-2**31, 2**31, count, dtype=np.int64)
+                .astype(np.int32) for _ in range(N)]
+    levels = np.array([-1.0, 0.0, -0.0, 2.0] if dt == "FLOAT32"
+                      else [-7, 0, 3], dtype=np.float32 if dt == "FLOAT32"
+                      else np.int32)
+    hosts = []
+    for r in range(N):
+        h = np.empty(count, dtype=levels.dtype)
+        h[0::2] = rng.choice(levels, count // 2)
+        h[1::2] = rng.permutation(np.arange(100, 100 + count // 2))[::-1] \
+            - 10 * r
+        hosts.append(h)
+    return hosts
+
+
+OTHER_OPS = [(op, dt) for op in ("LAND", "LOR", "LXOR")
+             for dt in ("FLOAT32", "INT32")] + \
+    [(op, "INT32") for op in ("BAND", "BOR", "BXOR")] + \
+    [(op, dt) for op in ("MINLOC", "MAXLOC") for dt in ("FLOAT32", "INT32")]
+
+
+@pytest.mark.parametrize("op,dt", OTHER_OPS)
+def test_logical_bitwise_and_loc_ops_match_tl_xla(jax_job, torch_job, op,
+                                                  dt):
+    """Every op tl/xla's ``xla`` runs, bitwise: the logical ops as 0/1 in
+    the dtype, the bitwise ones as a fold over the ranks, the loc ops with
+    ties to the lowest index."""
+    hosts = other_op_inputs(op, dt, 38, seed=sum(map(ord, op + dt)))
+    want = jax_persistent(*jax_job, ucc_tpu.CollType.ALLREDUCE, hosts,
+                          ucc_tpu.ReductionOp[op], ucc_tpu.DataType[dt],
+                          tl="xla")
+    got = torch_job.persistent(ut.CollType.ALLREDUCE, hosts,
+                               ut.ReductionOp[op], ut.DataType[dt],
+                               alg="xla")
+    for w_round, g_round in zip(want, got):
+        for w, g in zip(w_round, g_round):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(bits(g), bits(w))
+    if op in ("MINLOC", "MAXLOC"):
+        # ties across ranks were there to break
+        vals = np.stack(hosts)[:, 0::2]
+        best = vals.min(0) if op == "MINLOC" else vals.max(0)
+        assert ((vals == best).sum(0) > 1).any()
+
+
+def args_for(coll, op, dt="FLOAT32", count=8 * N):
+    """One rank's arguments: zeros in and out, on CUDA memory."""
+    import torch
+    buf = torch.zeros(count, dtype=torch.float32 if dt == "FLOAT32"
+                      else torch.int32)
+    return ut.CollArgs(
+        coll_type=ut.CollType[coll], op=ut.ReductionOp[op],
+        src=ut.BufferInfo(buf, count, ut.DataType[dt],
+                          mem_type=ut.MemoryType.CUDA),
+        dst=ut.BufferInfo(buf.clone(), count, ut.DataType[dt],
+                          mem_type=ut.MemoryType.CUDA))
+
+
+def refused(torch_job, args):
+    """The status with which a tl/torch_ops task refuses *args*."""
     from ucc_tpu_torch.api.types import coll_args_msgsize
     from ucc_tpu_torch.core.coll import InitArgs
     from ucc_tpu_torch.tl.torch_ops import TorchOpsCollTask
-    import torch
-    buf = torch.zeros(8 * N)
-    args = ut.CollArgs(
-        coll_type=ut.CollType[coll], op=ut.ReductionOp[op],
-        src=ut.BufferInfo(buf, 8 * N, ut.DataType.FLOAT32,
-                          mem_type=ut.MemoryType.CUDA),
-        dst=ut.BufferInfo(buf.clone(), 8 * N, ut.DataType.FLOAT32,
-                          mem_type=ut.MemoryType.CUDA))
     team = torch_job.teams[0]
     ops = next(t for t in team.cl_teams[0].tl_teams
                if t.NAME == "torch_ops")
@@ -116,4 +182,27 @@ def test_what_torch_ops_refuses(torch_job, coll, op):
                   msgsize=coll_args_msgsize(args, N, 0))
     with pytest.raises(ut.UccError) as ei:
         TorchOpsCollTask(ia, ops)
+    return ei.value.status
+
+
+@pytest.mark.parametrize("op,dt,count", [
+    ("BAND", "FLOAT32", 8), ("BOR", "FLOAT32", 8), ("BXOR", "FLOAT32", 8),
+    ("MINLOC", "FLOAT32", 7), ("MAXLOC", "INT32", 37)])
+def test_what_the_reference_fails_at_run_time_is_refused_at_init(
+        torch_job, op, dt, count):
+    """A bitwise op on a floating type (jnp.bitwise_* raise on floats) and
+    a loc op on an odd count (values and indices do not pair up) fail in
+    tl/xla when its program runs; tl/torch_ops refuses them at init, and
+    so does the whole stack, as tl/ring_cuda takes none of these ops."""
+    args = args_for("ALLREDUCE", op, dt, count)
+    assert refused(torch_job, args) == ut.Status.ERR_NOT_SUPPORTED
+    with pytest.raises(ut.UccError) as ei:
+        torch_job.teams[0].collective_init(args)
     assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
+
+
+@pytest.mark.parametrize("coll,op", [("REDUCE", "SUM"), ("ALLREDUCE", "BXOR"),
+                                     ("ALLTOALL", "SUM")])
+def test_what_torch_ops_refuses(torch_job, coll, op):
+    assert refused(torch_job, args_for(coll, op)) == \
+        ut.Status.ERR_NOT_SUPPORTED

@@ -1,7 +1,7 @@
 // Vector machinery of the flag-free kernels of this directory
-// (ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu), which read the
-// ranks' buffers directly and fold each element from its srcs in a fixed
-// order: the launch constants, the pointer table as the kernels read it
+// (ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu, and alltoall.cu,
+// which only copies), which read the ranks' buffers directly and fold each
+// element from its srcs in a fixed order: the launch constants, the pointer table as the kernels read it
 // (staged in shared memory, with the launch's alignment decision), 16-byte
 // vectors with cache-streaming loads and stores, and the lane-by-lane fold
 // with the operands either way round.

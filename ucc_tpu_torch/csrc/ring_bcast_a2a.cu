@@ -1,24 +1,19 @@
-// Ring-pipelined bcast and pairwise alltoall over the n ranks of one GPU,
-// each as one kernel launch.
+// Ring-pipelined bcast over the n ranks of one GPU, as one kernel launch.
 //
 // Replaces the Pallas kernels of the JAX package:
 //   ring_bcast_pass        <- ucc_tpu/tl/ring_dma.py:_bcast_kernel
 //                             (build_bcast_program);
 //   ring_bcast_chunked     <- ucc_tpu/tl/ring_dma.py:_hbm_bcast_kernel
-//                             (build_hbm_bcast_program);
-//   ring_alltoall_pass     <- ucc_tpu/tl/ring_dma.py:_alltoall_kernel with
-//                             _all_rank_barrier (build_alltoall_program);
-//   ring_alltoall_chunked  <- ucc_tpu/tl/ring_dma.py:_hbm_alltoall_kernel
-//                             (build_hbm_alltoall_program).
-// A pass entry and its chunked twin share a body; they differ in geometry
-// only. The flag protocol and the all-rank barrier are ring_common.cuh's.
-// Both collectives only copy, so every result is bitwise the input it came
-// from, whatever the sub-block or chunk size, as in the plain PyTorch
-// versions of ucc_tpu_torch/kernels/ring_bcast_a2a.py.
+//                             (build_hbm_bcast_program).
+// The two entry points share a body; they differ in geometry only. The
+// flag protocol is ring_common.cuh's. A bcast only copies, so every result
+// is bitwise the root's src, whatever the sub-block size, as in the plain
+// PyTorch version of ucc_tpu_torch/kernels/ring_bcast_a2a.py. (That module's
+// alltoall launches alltoall.cu's kernel.)
 //
-// bcast. The root's count elements go to every rank, in nsub sub-blocks of
-// blk elements (the last one ragged), around the ring from the root: the
-// rank at ring distance d from the root receives sub-block s from its left
+// The root's count elements go to every rank, in nsub sub-blocks of blk
+// elements (the last one ragged), around the ring from the root: the rank
+// at ring distance d from the root receives sub-block s from its left
 // neighbour and forwards it to its right one, so sub-block s reaches it at
 // step s + d - 1 of the reference's nsub + n - 2 steps. Nothing stages
 // through slots: every non-root dst sub-block is written exactly once (as
@@ -35,37 +30,14 @@
 // pairs steps for static slot parity) has no counterpart: the sub-block
 // loop runs inside the CTA.
 //
-// alltoall. Rank r's src and dst are n blocks of blk elements; dst_p's
-// block r is src_r's block p. The reference moves block r+s to rank r+s at
-// step s through single-use slots. Here every rank's buffers are in one
-// address space, so the kernel exchanges pairs: the owner of the pair
-// {r, p} reads src_r's block p and src_p's block r and writes dst_p's
-// block r and dst_r's block p, each element by one thread that reads both
-// before writing either. Every location a launch touches then has exactly
-// one owner thread, so in place (src = dst) is safe with no staging, and
-// the chunked kernel reuses nothing between chunks, so it needs neither
-// slots nor the reference's n-1 acks at a chunk boundary. Pair {r, r+s}
-// belongs to r when 2s < n, and, when 2s = n, to the lower rank: each rank
-// owns (n-1)/2 pairs, rounded up or down.
-//   On one GPU the launch boundary orders the exchange against everything
-// else on the stream, so neither flag is needed for the result. The kernel
-// keeps both all the same, on the all-rank barrier of ring_common.cuh:
-// an entry barrier (every rank's CTA of the lane has started, as
-// _all_rank_barrier makes sure the partner kernels run) and an exit
-// barrier (every partner has finished the pairs that touch my buffers
-// before my CTA leaves). That keeps the protocol the one that spans GPUs
-// once the pointers are CUDA IPC peer pointers and each rank launches its
-// own grid, at the cost of two flag rounds per launch.
-//
-// What bounds both: bytes. bcast must read the root's S bytes once and
+// What bounds it: bytes. A bcast must read the root's S bytes once and
 // write (n-1) copies, n*S in all; the ring reads every forwarded sub-block
 // back ((n-2)*S more), from L2 where the sub-block just landed: with blk
 // = CHUNK_ELEMS/2 (2 MiB f32) a step of 8 ranks touches 16 MiB, inside the
-// 50 MB L2. alltoall reads n*S and writes n*S for S bytes per rank; the
-// pair exchange moves exactly that.
+// 50 MB L2.
 //
 // This first version is plain: scalar loads and stores, one handshake per
-// sub-block per CTA, as ring_allreduce.cu.
+// sub-block per CTA.
 
 #include "ring_common.cuh"
 
@@ -74,23 +46,19 @@ namespace {
 // kernel ids of ucc_tpu_torch/kernels/ring_bcast_a2a.py
 constexpr int K_BCAST_PASS = 0;
 constexpr int K_BCAST_CHUNKED = 1;
-constexpr int K_A2A_PASS = 2;
-constexpr int K_A2A_CHUNKED = 3;
 
-struct BcastA2aArgs {
+struct BcastArgs {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
-  unsigned* flags;     // bcast: n ranks x C lanes x {recv counter};
-                       // alltoall: n ranks x C lanes x n senders
+  unsigned* flags;     // n ranks x C lanes x {recv counter}
   int* err;            // sticky error word
-  long long count;     // bcast: elements per rank; alltoall: per block
-  long long sub;       // bcast: sub-block elements; alltoall: chunk of a
-                       // block
-  int n_sub;           // sub-blocks (bcast) or chunks (alltoall)
+  long long count;     // elements per rank
+  long long sub;       // sub-block elements
+  int n_sub;           // sub-blocks
   int n;
-  int root;            // bcast's root rank
+  int root;            // the root rank
 };
 
-// Lane slice [lo, hi) of a sub-block or chunk that this CTA handles.
+// Lane slice [lo, hi) of a sub-block that this CTA handles.
 __device__ void lane_slice(long long span, long long* lo, long long* hi) {
   const long long lane = (span + gridDim.x - 1) / gridDim.x;
   *lo = min(span, (long long)blockIdx.x * lane);
@@ -98,7 +66,7 @@ __device__ void lane_slice(long long span, long long* lo, long long* hi) {
 }
 
 template <typename T>
-__device__ void bcast_body(const BcastA2aArgs& a) {
+__device__ void bcast_body(const BcastArgs& a) {
   __shared__ int abort_flag;
   const int n = a.n;
   const int r = blockIdx.y;
@@ -138,62 +106,13 @@ __device__ void bcast_body(const BcastA2aArgs& a) {
 }
 
 template <typename T>
-__device__ void alltoall_body(const BcastA2aArgs& a) {
-  __shared__ int abort_flag;
-  const int n = a.n;
-  const int r = blockIdx.y;
-  const long long blk = a.count;
-  long long lo, lane_hi;
-  lane_slice(a.sub, &lo, &lane_hi);
-  const T* src = static_cast<const T*>(a.ptrs[r]);
-  T* dst = static_cast<T*>(a.ptrs[n + r]);
-
-  if (threadIdx.x == 0) abort_flag = 0;
-  if (!all_rank_barrier(a.flags, n, 1, a.err, &abort_flag)) return;
-  for (int k = 0; k < a.n_sub; ++k) {
-    const long long base = (long long)k * a.sub;
-    const long long hi = min(lane_hi, blk - base);  // real elements only
-    if (dst != src) {
-      const long long own = (long long)r * blk + base;
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-        dst[own + i] = src[own + i];
-    }
-    for (int s = 1; s < n; ++s) {
-      const int p = (r + s) % n;
-      if (!(2 * s < n || (2 * s == n && r < p))) continue;  // p's pair
-      const T* src_p = static_cast<const T*>(a.ptrs[p]);
-      T* dst_p = static_cast<T*>(a.ptrs[n + p]);
-      const long long to_p = (long long)p * blk + base;    // block p of r
-      const long long to_r = (long long)r * blk + base;    // block r of p
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-        T mine = src[to_p + i];
-        T theirs = src_p[to_r + i];
-        dst_p[to_r + i] = mine;
-        dst[to_p + i] = theirs;
-      }
-    }
-  }
-  all_rank_barrier(a.flags, n, 2, a.err, &abort_flag);
-}
-
-template <typename T>
-__global__ void ring_bcast_pass_kernel(BcastA2aArgs a) {
+__global__ void ring_bcast_pass_kernel(BcastArgs a) {
   bcast_body<T>(a);
 }
 
 template <typename T>
-__global__ void ring_bcast_chunked_kernel(BcastA2aArgs a) {
+__global__ void ring_bcast_chunked_kernel(BcastArgs a) {
   bcast_body<T>(a);
-}
-
-template <typename T>
-__global__ void ring_alltoall_pass_kernel(BcastA2aArgs a) {
-  alltoall_body<T>(a);
-}
-
-template <typename T>
-__global__ void ring_alltoall_chunked_kernel(BcastA2aArgs a) {
-  alltoall_body<T>(a);
 }
 
 template <typename T>
@@ -201,8 +120,6 @@ const void* kernel_for(int kernel) {
   switch (kernel) {
     case K_BCAST_PASS: return (const void*)ring_bcast_pass_kernel<T>;
     case K_BCAST_CHUNKED: return (const void*)ring_bcast_chunked_kernel<T>;
-    case K_A2A_PASS: return (const void*)ring_alltoall_pass_kernel<T>;
-    case K_A2A_CHUNKED: return (const void*)ring_alltoall_chunked_kernel<T>;
     default: return nullptr;
   }
 }
@@ -243,9 +160,9 @@ int ucc_ring_bcast_a2a_max_ctas(int kernel, int dtype, int threads,
   return (int)e;
 }
 
-// Launch one bcast or alltoall on `stream`; returns cudaGetLastError()
-// after the launch (0 on success). Neither collective uses comm slots or an
-// op: `comm` and `op` are part of the common interface.
+// Launch one bcast on `stream`; returns cudaGetLastError() after the
+// launch (0 on success). A bcast uses no comm slots or op: `comm` and `op`
+// are part of the common interface.
 int ucc_ring_bcast_a2a(int kernel, int dtype, void* const* ptrs, void* comm,
                        unsigned* flags, int* err, long long count,
                        long long sub, int n_sub, int n, int op, int root,
@@ -254,7 +171,7 @@ int ucc_ring_bcast_a2a(int kernel, int dtype, void* const* ptrs, void* comm,
   (void)op;
   const void* kern = select_kernel(kernel, dtype);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
-  BcastA2aArgs a{ptrs, flags, err, count, sub, n_sub, n, root};
+  BcastArgs a{ptrs, flags, err, count, sub, n_sub, n, root};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(lanes, n),
                                               dim3(threads), params, 0,

@@ -1,6 +1,7 @@
 // Device building blocks shared by the kernels of this directory
 // (ring_rs_ag.cu, ring_bcast_a2a.cu, gen_device.cu, and through
-// direct_fold.cuh ring_allreduce.cu and reduce_scatter.cu): element arithmetic
+// direct_fold.cuh ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu and
+// alltoall.cu): element arithmetic
 // in the rounding of PyTorch's own kernels, the comm-slot loads and stores,
 // the CTA-pair flag protocol (a release store of a step counter, an acquire
 // spin on it, bounded, with a sticky error word), and the all-rank barrier
@@ -249,6 +250,10 @@ __device__ void publish(unsigned* p, unsigned v) {
 // earlier stores) and read by its receiver alone (an acquire spin, bounded
 // by spin_geq). Epochs grow within a launch; the launch zeroes the words.
 // Every thread returns false when a spin ran out.
+//   No kernel calls it now: the alltoall, its last caller, is one flag-free
+// pass (alltoall.cu) on one GPU, where the stream orders it. It stays for
+// the slice that spans processes (ROADMAP A5), whose flag-free kernels need
+// an all-rank barrier on entry and on exit.
 __device__ bool all_rank_barrier(unsigned* words, int n, unsigned epoch,
                                  int* err, volatile int* abort_flag) {
   const int r = blockIdx.y;

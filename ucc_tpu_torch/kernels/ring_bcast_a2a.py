@@ -1,20 +1,23 @@
 """Ring-pipelined bcast and pairwise alltoall over the n ranks of one
-device: the CUDA kernels of ``csrc/ring_bcast_a2a.cu``, their wrappers,
-and their plain PyTorch versions.
-
-Four kernels, two step schedules (see the note at the top of the source):
+device: the CUDA kernels of ``csrc/ring_bcast_a2a.cu`` (bcast) and
+``csrc/alltoall.cu`` (alltoall), their wrappers, and their plain PyTorch
+versions.
 
 - ``ring_bcast_pass`` replaces ``ucc_tpu/tl/ring_dma.py:_bcast_kernel``,
   ``ring_bcast_chunked`` replaces ``_hbm_bcast_kernel``: the root's count
   elements reach every rank in sub-blocks of ``blk`` elements, forwarded
-  around the ring from the root;
+  around the ring from the root (two ring kernels that share a body and
+  differ in geometry only);
 - ``ring_alltoall_pass`` replaces ``_alltoall_kernel`` (with
   ``_all_rank_barrier``), ``ring_alltoall_chunked`` replaces
   ``_hbm_alltoall_kernel``: rank r's src and dst are n blocks, and dst_p's
-  block r is src_r's block p.
+  block r is src_r's block p. Both launch the one flag-free kernel of
+  ``csrc/alltoall.cu`` with the same arguments: each diagonal block and
+  each pair of ranks (``alltoall_units``, owned as ``owns_pair`` says) is
+  moved by the threads that own its elements, with no flags, error word
+  or workspace.
 
-The pass and chunked kernels of a collective share a body and differ in
-geometry only; neither result depends on it.
+Neither result depends on the geometry.
 
 A wrapper takes one src and one dst tensor per rank, of the same count,
 and writes the result into the dst tensors. bcast takes the ``root``
@@ -24,14 +27,16 @@ result and is not copied onto itself. alltoall's count is n blocks; in
 place its src is its dst. On CPU tensors a wrapper runs the plain version
 (computing the whole result before writing any dst); on CUDA tensors it
 launches the kernel or raises. It returns a ``RingLaunch`` whose
-``done()``/``wait()`` raise if the kernel reported a fault, and counts its
-kernel launches in its ``launches`` attribute, a plain int. Both take an
-op for the common calling shape and ignore it; alltoall ignores ``root``.
+``done()``/``wait()`` tell when the launch has finished (for bcast they
+raise if the kernel reported a fault), and counts its kernel launches in
+its ``launches`` attribute, a plain int. Both take an op for the common
+calling shape and ignore it; alltoall ignores ``root`` and
+``workspace``.
 
 The plain versions ``ring_bcast_ref`` / ``ring_alltoall_ref`` run the
 kernels' schedules with PyTorch ops, sub-block by sub-block and step by
-step, and take the sub-block or chunk size as a parameter, so a test can
-use the JAX package's.
+step (bcast) or unit by unit (alltoall), and take the sub-block or chunk
+size as a parameter, so a test can use the JAX package's.
 """
 from __future__ import annotations
 
@@ -41,24 +46,31 @@ import torch
 
 from ..constants import ReductionOp
 from ..status import Status, UccError
-from .ring_common import RingLaunch, RingSource, RingWorkspace, dispatch
-from .ring_rs_ag import pass_geometry
+from .ring_common import (DirectSource, RingLaunch, RingSource,
+                          RingWorkspace, dispatch)
 
+#: the bcast ring kernels' source
 SOURCE = "ring_bcast_a2a.cu"
 _SOURCE = RingSource(SOURCE, "ucc_ring_bcast_a2a")
+#: the alltoall kernel's source
+A2A_SOURCE = "alltoall.cu"
+_A2A_SOURCE = DirectSource(A2A_SOURCE, "ucc_alltoall")
 
-#: kernel ids of the CUDA source
-K_BCAST_PASS, K_BCAST_CHUNKED, K_A2A_PASS, K_A2A_CHUNKED = range(4)
+#: kernel ids of the bcast source
+K_BCAST_PASS, K_BCAST_CHUNKED = range(2)
+#: the alltoall entry points (one kernel; the id is the common interface's)
+K_A2A_PASS, K_A2A_CHUNKED = range(2)
+#: the most ranks an alltoall launch takes (csrc/alltoall.cu: MAX_RANKS)
+A2A_MAX_RANKS = 32768
 
 #: per-rank elements one pass covers, for both collectives; larger counts
-#: on more than one rank run the chunked kernels, as tl/ring_dma routes
-#: the TPU's. A bcast sub-block is CHUNK_ELEMS // 2 elements (2 MiB f32),
-#: as the JAX package's: one ring step of 8 ranks then touches 16 MiB,
-#: inside the H100's 50 MB L2, where the sub-block a rank forwards next has
-#: just landed. An alltoall chunk is CHUNK_ELEMS // n elements of every
-#: block, so one chunk is CHUNK_ELEMS elements of every rank's src (the JAX
-#: package bounds its slots with CHUNK_ELEMS // (2(n-1)); the port has no
-#: slots).
+#: on more than one rank run the chunked entry points, as tl/ring_dma
+#: routes the TPU's. A bcast sub-block is CHUNK_ELEMS // 2 elements (2 MiB
+#: f32), as the JAX package's: one ring step of 8 ranks then touches
+#: 16 MiB, inside the H100's 50 MB L2, where the sub-block a rank forwards
+#: next has just landed. The alltoall kernel reads no chunks; its plain
+#: version walks a block in chunks of CHUNK_ELEMS // n elements, which
+#: changes no bit.
 CHUNK_ELEMS = 1 << 20
 
 
@@ -80,7 +92,7 @@ def bcast_geometry(count: int, blk: Optional[int] = None) -> Tuple[int, int]:
 
 def alltoall_chunk_geometry(blk: int, n: int,
                             cblk: Optional[int] = None) -> Tuple[int, int]:
-    """(cblk, n_chunks) of the chunked alltoall over blocks of *blk*
+    """(cblk, n_chunks) of the plain alltoall's walk over blocks of *blk*
     elements: chunks of *cblk* elements per block (default ``CHUNK_ELEMS
     // n``, never more than blk), the last one ragged."""
     if cblk is None:
@@ -95,6 +107,20 @@ def owns_pair(r: int, p: int, n: int) -> bool:
     r owns {r, r+s} when 2s < n, and, when 2s = n, if it is the lower."""
     s = (p - r) % n
     return 2 * s < n or (2 * s == n and r < p)
+
+
+def alltoall_units(n: int) -> List[Tuple[int, int]]:
+    """The alltoall kernel's work units in its order, as (r, q): the n
+    diagonals (r, r), then for s = 1 .. (n-1)//2 the pairs (r, r+s) of
+    each rank r in turn, then, for even n, (r, r + n/2) for r < n/2. Unit
+    (r, q) moves src_r's block q to dst_q's block r and src_q's block r to
+    dst_r's block q; r owns it (``owns_pair``)."""
+    m = (n - 1) // 2
+    units = [(r, r) for r in range(n)]
+    units += [(r, (r + s) % n) for r in range(n) for s in range(1, m + 1)]
+    if n % 2 == 0:
+        units += [(r, r + n // 2) for r in range(n // 2)]
+    return units
 
 
 # ---------------------------------------------------------------------------
@@ -125,26 +151,23 @@ def ring_bcast_ref(srcs: Sequence[torch.Tensor], root: int,
 
 def ring_alltoall_ref(srcs: Sequence[torch.Tensor],
                       cblk: Optional[int] = None) -> List[torch.Tensor]:
-    """Plain version of both alltoall kernels: chunk by chunk of *cblk*
-    elements per block (default ``alltoall_chunk_geometry``'s), each rank
-    copies its own block and exchanges the pairs it owns (``owns_pair``):
-    dst_p's block r takes src_r's block p and dst_r's block p takes src_p's
+    """Plain version of both alltoall entry points: unit by unit
+    (``alltoall_units``: the diagonals, then the owned pairs), each block
+    walked in chunks of *cblk* elements (default
+    ``alltoall_chunk_geometry``'s; the order changes no bit): dst_q's
+    block r takes src_r's block q and dst_r's block q takes src_q's
     block r."""
     n = len(srcs)
     blk = srcs[0].numel() // n
     cblk, n_chunks = alltoall_chunk_geometry(blk, n, cblk)
     out = [torch.empty_like(s) for s in srcs]
-    for k in range(n_chunks):
-        lo, hi = k * cblk, min((k + 1) * cblk, blk)
-        for r in range(n):
-            out[r][r * blk + lo:r * blk + hi] = srcs[r][r * blk + lo:
-                                                        r * blk + hi]
-            for p in range(n):
-                if p != r and owns_pair(r, p, n):
-                    out[p][r * blk + lo:r * blk + hi] = \
-                        srcs[r][p * blk + lo:p * blk + hi]
-                    out[r][p * blk + lo:p * blk + hi] = \
-                        srcs[p][r * blk + lo:r * blk + hi]
+    for r, q in alltoall_units(n):
+        for k in range(n_chunks):
+            lo, hi = k * cblk, min((k + 1) * cblk, blk)
+            out[q][r * blk + lo:r * blk + hi] = \
+                srcs[r][q * blk + lo:q * blk + hi]
+            out[r][q * blk + lo:q * blk + hi] = \
+                srcs[q][r * blk + lo:r * blk + hi]
     return out
 
 
@@ -177,16 +200,23 @@ def _alltoall_count(count: int, n: int) -> int:
     return count
 
 
-def _alltoall(kernel: int, geometry, srcs, dsts, stream, workspace,
+def alltoall_plan(count: int, n: int):
+    """The alltoall kernel's launch plan: blocks of count // n elements,
+    and the elements of its n(n+1)/2 units, which size its grid."""
+    if n > A2A_MAX_RANKS:
+        raise UccError(Status.ERR_NOT_SUPPORTED,
+                       f"ring alltoall takes at most {A2A_MAX_RANKS} ranks "
+                       f"(got {n})")
+    blk = count // n
+    return blk, blk, 1, n * (n + 1) // 2 * blk, 0, 0
+
+
+def _alltoall(kernel: int, srcs, dsts, stream,
               ptr_table) -> Optional[RingLaunch]:
-    def plan(count, n):
-        blk = count // n
-        cblk, n_chunks = geometry(blk, n)
-        return blk, cblk, n_chunks, cblk, 0, n
-    return dispatch(_SOURCE, kernel, "ring alltoall", srcs, dsts, None,
+    return dispatch(_A2A_SOURCE, kernel, "ring alltoall", srcs, dsts, None,
                     ops=None, dst_count=_alltoall_count,
-                    ref=lambda: ring_alltoall_ref(srcs), plan=plan,
-                    stream=stream, workspace=workspace, ptr_table=ptr_table)
+                    ref=lambda: ring_alltoall_ref(srcs), plan=alltoall_plan,
+                    stream=stream, workspace=None, ptr_table=ptr_table)
 
 
 def ring_bcast_pass(srcs: Sequence[torch.Tensor],
@@ -225,10 +255,10 @@ def ring_alltoall_pass(srcs: Sequence[torch.Tensor],
                        stream=None, workspace: Optional[RingWorkspace] = None,
                        ptr_table: Optional[torch.Tensor] = None
                        ) -> RingLaunch:
-    """One-pass pairwise alltoall of ``srcs`` (n·b each) into ``dsts``
-    (n·b each); ``op`` and ``root`` are ignored."""
-    h = _alltoall(K_A2A_PASS, pass_geometry, srcs, dsts, stream, workspace,
-                  ptr_table)
+    """Pairwise alltoall of ``srcs`` (n·b each) into ``dsts`` (n·b each),
+    for the counts that the TPU's one-pass kernel takes; ``op``, ``root``
+    and ``workspace`` are ignored."""
+    h = _alltoall(K_A2A_PASS, srcs, dsts, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_alltoall_pass.launches += 1
@@ -242,10 +272,10 @@ def ring_alltoall_chunked(srcs: Sequence[torch.Tensor],
                           workspace: Optional[RingWorkspace] = None,
                           ptr_table: Optional[torch.Tensor] = None
                           ) -> RingLaunch:
-    """Chunked pairwise alltoall of ``srcs`` (n·b each) into ``dsts`` (n·b
-    each); ``op`` and ``root`` are ignored."""
-    h = _alltoall(K_A2A_CHUNKED, alltoall_chunk_geometry, srcs, dsts,
-                  stream, workspace, ptr_table)
+    """Pairwise alltoall of ``srcs`` (n·b each) into ``dsts`` (n·b each),
+    for the counts that the TPU's chunked kernel takes; ``op``, ``root``
+    and ``workspace`` are ignored."""
+    h = _alltoall(K_A2A_CHUNKED, srcs, dsts, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_alltoall_chunked.launches += 1

@@ -12,14 +12,15 @@ and ``root`` the rank a rooted collective starts from (0 for the others);
 ``P_max_ctas`` is the occupancy query and ``P_error_string`` names a CUDA
 error. Two kinds of source stand behind it:
 
-- a ring source (``ring_rs_ag.cu``'s allgather, ``ring_bcast_a2a.cu``) runs
-  a cooperative launch on a ``(lanes, n)`` grid whose CTAs spin on step
-  flags in the workspace (:class:`RingSource`);
-- a direct source (``ring_allreduce.cu``, ``reduce_scatter.cu``) runs no
-  ring: one pass folds each element from the n srcs in the ring's order,
-  bitwise the ring's result. Its kernel spins on nothing, ignores
-  ``comm``, ``flags`` and ``err``, and runs an ordinary launch
-  (:class:`DirectSource`).
+- a ring source (``ring_rs_ag.cu``'s allgather, ``ring_bcast_a2a.cu``'s
+  bcast) runs a cooperative launch on a ``(lanes, n)`` grid whose CTAs
+  spin on step flags in the workspace (:class:`RingSource`);
+- a direct source (``ring_allreduce.cu``, ``reduce_scatter.cu``,
+  ``alltoall.cu``) runs no ring: one pass folds each element from the n
+  srcs in the ring's order, bitwise the ring's result (the alltoall only
+  copies, each element by the thread that owns it). Its kernel spins on
+  nothing, ignores ``comm``, ``flags`` and ``err`` (and the alltoall
+  ``op``), and runs an ordinary launch (:class:`DirectSource`).
 """
 from __future__ import annotations
 
@@ -311,9 +312,11 @@ class DirectSource(RingSource):
 
     The plan's ``span`` is the elements one grid walks. Without
     *per_rank* the kernel runs one 1-D grid of ``launch_ctas(span, ...)``
-    CTAs (the allreduce, span = count); with it, one row of CTAs per rank
-    (the reduce_scatter, span = blk), the n rows sharing the card's CTAs.
-    The C function is passed the CTAs of one row."""
+    CTAs (the allreduce, span = count; the alltoall, span = the elements
+    of its n(n+1)/2 units); with it, one row of CTAs per rank (the
+    reduce_scatter, span = blk), the n rows sharing the card's CTAs. The C
+    function is passed the CTAs of one row, and op 0 when the collective
+    takes none."""
 
     def __init__(self, source: str, prefix: str, per_rank: bool = False):
         super().__init__(source, prefix)
@@ -342,7 +345,8 @@ class DirectSource(RingSource):
                 ptr_table = make_ptr_table(srcs, dsts)
             self.check(getattr(self.lib(), self.prefix)(
                 kernel, code, ptr_table.data_ptr(), None, None, None, a, b,
-                n_chunks, n, int(op), root, ctas, DIRECT_THREADS,
+                n_chunks, n, 0 if op is None else int(op), root, ctas,
+                DIRECT_THREADS,
                 stream.cuda_stream),
                 f"{what} launch")
         return RingLaunch(stream, keep=(ptr_table,), what=what)

@@ -7,10 +7,15 @@ on the team's stream (the rendezvous and launch plumbing is tl/device):
 
 - ``xla`` (id 0; the reference's name, so TUNE strings and score rows
   carry over with only the TL name mapped): ALLREDUCE as one reduction
-  over the stacked ranks (SUM, AVG of floating types, MAX, MIN, PROD;
-  tl/xla's AVG of an integer type returns floats, which the caller's
-  integer dst cannot hold, so that one falls to tl/ring_cuda's truncated
-  mean), BCAST as the root's
+  over the stacked ranks, every op with the meaning of the reference's
+  ``ops.allreduce`` (SUM, AVG of floating types, MAX, MIN, PROD; LAND,
+  LOR and LXOR as 0/1 in the dtype; BAND, BOR and BXOR on integer types;
+  MINLOC and MAXLOC on interleaved (value, index) pairs, an even count,
+  ties to the lowest index). tl/xla's AVG of an integer type returns
+  floats, which the caller's integer dst cannot hold, so that one falls to
+  tl/ring_cuda's truncated mean; a bitwise op on a floating type and a loc
+  op on an odd count fail at run time in the reference and are refused
+  here at init. BCAST as the root's
   buffer plus zero into every rank, as the reference's masked psum (a
   -0.0 at the root arrives as +0.0 everywhere). They need no kernel of
   their own.
@@ -48,9 +53,41 @@ from .device import (DEVICE_CONFIG, DeviceCollTask, TlDeviceContext,
 _COLLS = (CollType.ALLREDUCE, CollType.BCAST)
 
 
+#: BAND, BOR, BXOR: a left fold over ranks 0..n-1, on integer types
+_BITWISE = {ReductionOp.BAND: torch.bitwise_and,
+            ReductionOp.BOR: torch.bitwise_or,
+            ReductionOp.BXOR: torch.bitwise_xor}
+#: interleaved (value, index) pairs
+_LOC = (ReductionOp.MINLOC, ReductionOp.MAXLOC)
+
+
+def _loc(stack: torch.Tensor, op: ReductionOp) -> torch.Tensor:
+    """MINLOC / MAXLOC over the ranks of (value, index) pairs, even
+    elements the values and odd ones the indices: the value of the first
+    rank whose value is least (most), a NaN before any number, as the
+    reference's argmin (argmax); its index the lowest index among the
+    ranks whose value equals it (none for a NaN: then the dtype's infinity
+    or largest integer, as the reference's)."""
+    vals, idxs = stack[:, 0::2], stack[:, 1::2]
+    sel = vals[0]
+    for v in vals[1:]:
+        better = v < sel if op == ReductionOp.MINLOC else v > sel
+        if stack.dtype.is_floating_point:
+            better |= v.isnan() & ~sel.isnan()
+        sel = torch.where(better, v, sel)
+    big = float("inf") if stack.dtype.is_floating_point else \
+        torch.iinfo(stack.dtype).max
+    out = torch.empty_like(stack[0])
+    out[0::2] = sel
+    out[1::2] = torch.where(vals == sel, idxs,
+                            torch.full_like(idxs, big)).amin(0)
+    return out
+
+
 def allreduce_ops(srcs, op: ReductionOp) -> torch.Tensor:
     """One reduction over the stacked ranks, in the buffers' dtype
-    (integers wrap)."""
+    (integers wrap), with the meaning of the reference's
+    ``ops.allreduce`` for every op."""
     stack = torch.stack([s.reshape(-1) for s in srcs])
     if op in (ReductionOp.SUM, ReductionOp.AVG):
         out = stack.sum(0)
@@ -60,8 +97,20 @@ def allreduce_ops(srcs, op: ReductionOp) -> torch.Tensor:
         out = stack.amax(0)
     elif op == ReductionOp.MIN:
         out = stack.amin(0)
-    else:
+    elif op == ReductionOp.PROD:
         out = stack.prod(0)
+    elif op == ReductionOp.LAND:
+        out = (stack != 0).all(0)
+    elif op == ReductionOp.LOR:
+        out = (stack != 0).any(0)
+    elif op == ReductionOp.LXOR:
+        out = (stack != 0).sum(0) % 2
+    elif op in _BITWISE:                       # integer types only
+        out = stack[0]
+        for x in stack[1:]:
+            out = _BITWISE[op](out, x)
+    else:                                      # MINLOC, MAXLOC; even count
+        out = _loc(stack, op)
     return out.to(stack.dtype)
 
 
@@ -107,18 +156,32 @@ class TorchOpsCollTask(DeviceCollTask):
         if self.coll not in _COLLS:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/torch_ops does not implement {self.coll}")
-        if self.coll == CollType.ALLREDUCE and self.op not in kc.OPS:
+        if self.coll == CollType.ALLREDUCE and self.op not in ReductionOp:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/torch_ops does not implement op {self.op}")
         if self.dtype not in kc.SUPPORTED_DTYPES:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/torch_ops does not implement {self.dtype}")
-        if self.op == ReductionOp.AVG and self.coll == CollType.ALLREDUCE \
-                and not self.dtype.is_floating_point:
+        if self.coll != CollType.ALLREDUCE:
+            return
+        floating = self.dtype.is_floating_point
+        if self.op == ReductionOp.AVG and not floating:
             # tl/xla's pmean of an integer type is a float array, which an
             # integer dst cannot hold: tl/ring_cuda's truncated mean serves
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            "tl/torch_ops takes AVG of floating types only")
+        if self.op in _BITWISE and floating:
+            # the reference's jnp.bitwise_* raise on floats at run time
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           f"tl/torch_ops takes {self.op.name} of integer "
+                           "types only")
+        bi = self.args.src if self.args.src is not None else self.args.dst
+        if self.op in _LOC and int(bi.count) % 2:
+            # an odd count has one value more than indices: the
+            # reference's g[..., 0::2] and g[..., 1::2] do not pair up
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           f"tl/torch_ops takes {self.op.name} of an even "
+                           f"count of (value, index) pairs, not {bi.count}")
 
     def build_program(self, shared):
         return xla_allreduce if self.coll == CollType.ALLREDUCE \
