@@ -13,7 +13,7 @@ Phases, each printing its own lines (any failure exits non-zero):
    ucc_tpu_torch/csrc/ (one nvcc each, started together, beside one
    nvcc -Xptxas -v each); the f32 and bf16 instances of the flag-free
    kernels (allreduce, reduce_scatter, the generated programs' fold,
-   alltoall) must
+   alltoall; the bcast's 4- and 2-byte ones) must
    hold 128-bit global loads and stores in their SASS (cuobjdump), and
    none of their instances may spill or have a stack frame; the instances
    of every source that do are printed;
@@ -36,17 +36,22 @@ Phases, each printing its own lines (any failure exits non-zero):
      workspace, which must neither raise nor touch it; both ring allgather
      kernels, several chunks for the chunked one; in place for both
      collectives, f16 and int64 cases and n = 1;
-   - both ring bcast kernels from roots 0, n/2 and n-1, several sub-blocks
-     for the chunked one, each also against the root's saved src, in place
-     (src = dst, as UCC's bcast passes src alone), and both alltoall
+   - both bcast entry points (one flag-free kernel) from roots 0, n/2 and
+     n-1, ragged counts, each also byte for byte against the root's saved
+     src, which must stay untouched when it is not the root's dst, and in
+     place (src = dst, as UCC's bcast passes src alone); on views with a
+     storage offset (f32, bf16, int8: every buffer at +1, mixed offsets,
+     and only the unread non-root srcs at +1), at n = 16 and n = 257, with
+     NaN payloads, infinities and -0.0, and in place at the main shape
+     from root 3; and both alltoall
      entry points (one flag-free kernel), each also against torch.cat of
      block r of every src, in place; at n in {3, 5, 7} with blocks whose
      bytes are no multiple of 16 (units on the vector path and units on
      the scalar one in one launch), on views with a storage offset (f32,
      bf16, int8), at n = 16 and n = 257, and in place at the main shape;
      f16 and int64 cases and n = 1 for both;
-   and a set error word must make an allgather and a bcast wrapper raise,
-   while an alltoall launch on a faulted workspace neither raises nor
+   and a set error word must make an allgather wrapper raise, while a
+   bcast or alltoall launch on a faulted workspace neither raises nor
    touches it;
    - every ring kernel again on int8, uint8, int16 and float64;
    - both entry points of the generated collectives (gen_device_ring,
@@ -125,8 +130,8 @@ Phases, each printing its own lines (any failure exits non-zero):
    for allreduce and reduce_scatter (timed in turns with the kernel), n x
    torch.cat(srcs, out=dst) for allgather, (n-1) x dst.copy_(src_root)
    for bcast, n x torch.cat(block r
-   of every src, out=dst_r) for alltoall (timed in turns with the
-   kernel); for ec_reduce at the three
+   of every src, out=dst_r) for alltoall (bcast and alltoall timed in
+   turns with the kernel); for ec_reduce at the three
    reducedt shapes, torch.stack(srcs).sum(0); for the generated kernels,
    torch.stack(srcs).sum(0) (allreduce) or (n-1) x copy_ (bcast), timed
    in turns with the kernel; for
@@ -319,10 +324,19 @@ def check_allgather(wrapper, ref, srcs, inplace=False) -> float:
     return compare(label(wrapper, srcs, None), dsts, want)
 
 
+def raw_equal(a, b) -> bool:
+    """Byte-for-byte equality of two tensors of one dtype and shape (NaN
+    payloads and the sign of zero included)."""
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
 def check_bcast(wrapper, ref, srcs, root, inplace=False) -> float:
     """The same for a bcast kernel from `root` (c in, c out per rank),
-    which must also be bitwise the root's src. In place, each rank's src is
-    its dst, as when UCC's bcast passes src alone."""
+    which must also be byte for byte the root's src. In place, each rank's
+    src is its dst, as when UCC's bcast passes src alone; else the root's
+    src must be byte for byte what it was."""
     import torch
     data = srcs[root].clone()
     want = ref(srcs, root)
@@ -334,7 +348,12 @@ def check_bcast(wrapper, ref, srcs, root, inplace=False) -> float:
         wrapper(srcs, dsts, root=root).wait()
     torch.cuda.synchronize()
     what = f"{label(wrapper, srcs, None)} root={root}"
-    compare(what + " vs the root's src", dsts, [data] * len(srcs))
+    for r, d in enumerate(dsts):
+        if not raw_equal(d, data):
+            raise AssertionError(f"{what}: rank {r} is not byte for byte "
+                                 f"the root's src")
+    if not inplace and not raw_equal(srcs[root], data):
+        raise AssertionError(f"{what}: the root's src changed")
     return compare(what, dsts, want)
 
 
@@ -484,9 +503,9 @@ def phase_kernels() -> None:
         f"x SUM/AVG/MAX/MIN/PROD; ragged counts; NaN for MAX/MIN; f16, "
         f"int64; misaligned views; n = 1 and 257; in place, also at 8 x "
         f"{MAIN_COUNT}) in "
-        f"{time.perf_counter() - t0:.1f} s; an allreduce, reduce_scatter or "
-        f"alltoall launch on a faulted workspace neither raises nor touches "
-        f"it")
+        f"{time.perf_counter() - t0:.1f} s; an allreduce, reduce_scatter, "
+        f"alltoall or bcast launch on a faulted workspace neither raises nor "
+        f"touches it")
 
 
 def check_misaligned(wrapper, ref, n, count, dtype, mixed, seed,
@@ -521,10 +540,10 @@ def check_misaligned(wrapper, ref, n, count, dtype, mixed, seed,
 
 
 def check_flag_free() -> None:
-    """The allreduce, reduce_scatter and alltoall kernels have no flags and
-    no error word: a launch on a workspace whose error word is set and
-    whose flag words hold a pattern must not raise, must be right, and
-    must leave both as they were."""
+    """The allreduce, reduce_scatter, alltoall and bcast kernels have no
+    flags and no error word: a launch on a workspace whose error word is
+    set and whose flag words hold a pattern must not raise, must be right,
+    and must leave both as they were."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_allreduce as kr
@@ -559,9 +578,17 @@ def check_flag_free() -> None:
         torch.cuda.synchronize()
         compare(label(wrapper, srcs, None) + " on a faulted workspace",
                 dsts, kba.ring_alltoall_ref(srcs))
+    for wrapper, count in ((kba.ring_bcast_pass, 4096),
+                           (kba.ring_bcast_chunked, 4 * 4096 + 3)):
+        srcs = make_inputs(4, count, torch.float32, sum_, 26)
+        dsts = [torch.empty_like(s) for s in srcs]
+        wrapper(srcs, dsts, root=2, workspace=ws).wait()
+        torch.cuda.synchronize()
+        compare(label(wrapper, srcs, None) + " root=2 on a faulted "
+                "workspace", dsts, kba.ring_bcast_ref(srcs, 2))
     if not (torch.equal(flags, before[0]) and torch.equal(err, before[1])):
-        raise AssertionError("an allreduce, reduce_scatter or alltoall "
-                             "launch touched the workspace")
+        raise AssertionError("an allreduce, reduce_scatter, alltoall or "
+                             "bcast launch touched the workspace")
 
 
 def phase_kernels_rs_ag() -> None:
@@ -753,19 +780,19 @@ def phase_kernels_bcast_a2a() -> None:
                                  ReductionOp.SUM, 25), 0, inplace=True)
     cases += 4
     cases += alltoall_edges(a2a, a2a_c)
-    srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 26)
-    expect_fault(lambda: kba.ring_bcast_chunked(
-        srcs, [torch.empty_like(s) for s in srcs], root=2,
-        workspace=faulted_workspace()))
+    cases += bcast_edges(bc, bc_c)
     log(f"kernels: {cases} bcast/alltoall launches bitwise equal to their "
         f"plain versions (n in 2,4,8; f32/bf16/int32 with a NaN; bcast from "
-        f"roots 0, n/2, n-1, bitwise the root's src; alltoall bitwise "
+        f"roots 0, n/2, n-1, byte for byte the root's src, which stays "
+        f"untouched, also on misaligned views, at n = 16 and 257, with NaN "
+        f"payloads and -0.0 and in place at 8 x {MAIN_COUNT} from root 3; "
+        f"alltoall bitwise "
         f"torch.cat of block r, also at n in 3,5,7 with blocks misaligned "
         f"per unit, on misaligned views, at n = 16 and 257 and in place at "
         f"8 x {MAIN_COUNT}; ragged counts; 2-4 sub-blocks, 3 chunks; in "
         f"place for both; f16, int64; n=1) in "
-        f"{time.perf_counter() - t0:.1f} s; a set error word raises for the "
-        f"bcast (the alltoall has none: check_flag_free)")
+        f"{time.perf_counter() - t0:.1f} s (neither has flags or an error "
+        f"word: check_flag_free)")
 
 
 def alltoall_edges(a2a, a2a_c) -> int:
@@ -812,6 +839,110 @@ def alltoall_edges(a2a, a2a_c) -> int:
                                        ReductionOp.MAX, 31), inplace=True)
     torch.cuda.empty_cache()
     return cases + 4
+
+
+def check_bcast_views(wrapper, n, count, dtype, root, src_at, dst_at,
+                      seed) -> None:
+    """A bcast from `root` over views with a storage offset: rank r's src
+    starts src_at[r] elements into its base, its dst dst_at[r] elements
+    in. Every dst must be byte for byte the root's data and the plain
+    version, the elements around each dst view and the root's src must stay
+    as they were."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
+    bases = make_inputs(n, count + 1, dtype, ReductionOp.MAX, seed)
+    srcs = [b[a:a + count] for b, a in zip(bases, src_at)]
+    data = srcs[root].clone()
+    outs = [torch.full((count + 1,), 7, dtype=dtype, device="cuda")
+            for _ in range(n)]
+    dsts = [o[a:a + count] for o, a in zip(outs, dst_at)]
+    want = kba.ring_bcast_ref(srcs, root)
+    wrapper(srcs, dsts, root=root).wait()
+    torch.cuda.synchronize()
+    what = (f"{label(wrapper, srcs, None)} root={root} views, srcs at "
+            f"{src_at}, dsts at {dst_at}")
+    for r, (o, a) in enumerate(zip(outs, dst_at)):
+        rest = torch.cat([o[:a], o[a + count:]])
+        if not torch.equal(rest, torch.full_like(rest, 7)):
+            raise AssertionError(f"{what}: rank {r} wrote outside its dst")
+        if not raw_equal(dsts[r], data):
+            raise AssertionError(f"{what}: rank {r} is not byte for byte "
+                                 f"the root's src")
+    if not raw_equal(srcs[root], data):
+        raise AssertionError(f"{what}: the root's src changed")
+    compare(what, dsts, want)
+
+
+def special_values(n, count, dtype, seed):
+    """n buffers of `count` floats from a seed, with NaNs of several
+    payloads and signs, infinities and -0.0 every few elements."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    srcs = make_inputs(n, count, dtype, ReductionOp.SUM, seed)
+    ints = {torch.float32: (torch.int32, (0x7FC01234, 0x7F800001,
+                                          -0x00400001, -0x80000000,
+                                          0x7F800000)),
+            torch.bfloat16: (torch.int16, (0x7FC1, 0x7F81, -0x003F,
+                                           -0x8000, 0x7F80))}
+    view, bits = ints[dtype]
+    for s in srcs:
+        raw = s.view(view)
+        for i, b in enumerate(bits):
+            raw[i::7 * len(bits)] = b
+    return srcs
+
+
+def bcast_edges(bc, bc_c) -> int:
+    """The bcast kernel's edges, each launch byte for byte the root's src
+    and bitwise the plain version: views with a storage offset (every
+    buffer at +1: a scalar head, then vectors; mixed offsets: every element
+    on the scalar path; only non-root srcs at +1, which the kernel never
+    reads and whose offsets decide nothing); n = 16, and n = 257, above the
+    ranks whose dst pointers a CTA stages in shared memory; NaN payloads,
+    infinities and -0.0; in place at the main path's shape from root 3;
+    and, not in place, the root's src untouched (check_bcast). Returns the
+    launches."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
+    cases = 0
+    n = 5
+    layouts = (([1] * n, [1] * n),
+               ([r % 2 for r in range(n)], [int(r % 3 == 0)
+                                             for r in range(n)]),
+               ([int(r != 2) for r in range(n)], [0] * n))
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for wrapper, count in ((bc[0], 40003),
+                               (bc_c[0], kba.CHUNK_ELEMS + 37)):
+            for src_at, dst_at in layouts:
+                check_bcast_views(wrapper, n, count, dtype, 2, src_at,
+                                  dst_at, 9 + cases)
+                cases += 1
+    for i, root in enumerate((0, 8, 15)):
+        check_bcast(*bc, make_inputs(16, kba.CHUNK_ELEMS // 3 + 5,
+                                     torch.float32, ReductionOp.MAX,
+                                     40 + i), root)
+        check_bcast(*bc_c, make_inputs(16, kba.CHUNK_ELEMS + 7,
+                                       torch.bfloat16, ReductionOp.SUM,
+                                       43 + i), root, inplace=i == 1)
+        cases += 2
+    check_bcast(*bc, make_inputs(257, 4099, torch.float32, ReductionOp.MAX,
+                                 46), 128)
+    check_bcast(*bc_c, make_inputs(257, 3 * 4099, torch.int32,
+                                   ReductionOp.SUM, 47), 256, inplace=True)
+    cases += 2
+    for dtype in (torch.float32, torch.bfloat16):
+        check_bcast(*bc, special_values(4, 10007, dtype, 48), 1)
+        check_bcast(*bc_c, special_values(4, kba.CHUNK_ELEMS + 9, dtype,
+                                          49), 3, inplace=True)
+        cases += 2
+    check_bcast(*bc_c, make_inputs(N_RANKS, MAIN_COUNT, torch.float32,
+                                   ReductionOp.MAX, 50), 3, inplace=True)
+    check_bcast(*bc_c, make_inputs(N_RANKS, MAIN_COUNT // 4, torch.float32,
+                                   ReductionOp.SUM, 51), 5)
+    torch.cuda.empty_cache()
+    return cases + 2
 
 
 #: the dtypes the ring kernels gained beside f32/f16/bf16/int32/int64
@@ -1662,22 +1793,27 @@ def ptxas_read(started) -> dict:
     return out
 
 
-#: the flag-free kernels that move 16-byte vectors: source -> kernel
-DIRECT_KERNELS = {"ring_allreduce.cu": "ring_allreduce_kernel",
-                  "reduce_scatter.cu": "reduce_scatter_kernel",
-                  "gen_fold.cu": "gen_fold_kernel",
-                  "alltoall.cu": "alltoall_kernel"}
+#: the f32 and bf16 instances of a kernel templated on its element type,
+#: demangled and as mangled (when the toolkit has no cu++filt)
+BY_TYPE = (("<float>", "IfE"), ("<__nv_bfloat16>", "I13__nv_bfloat16E"))
+#: the flag-free kernels that move 16-byte vectors: source -> (kernel, its
+#: f32 and bf16 instances); bcast.cu's are named by element width
+DIRECT_KERNELS = {"ring_allreduce.cu": ("ring_allreduce_kernel", BY_TYPE),
+                  "reduce_scatter.cu": ("reduce_scatter_kernel", BY_TYPE),
+                  "gen_fold.cu": ("gen_fold_kernel", BY_TYPE),
+                  "alltoall.cu": ("alltoall_kernel", BY_TYPE),
+                  "bcast.cu": ("bcast_kernel", (("<4>", "ILi4E"),
+                                                ("<2>", "ILi2E")))}
 
 
 def check_direct_sass(source, info) -> None:
     """A flag-free kernel moves 16-byte vectors: its f32 and bf16
-    instances must hold 128-bit global loads and stores (LDG.E.128,
-    STG.E.128 in any cache variant) in their SASS."""
-    kernel = DIRECT_KERNELS[source]
+    instances (bcast.cu's 4- and 2-byte ones) must hold 128-bit global
+    loads and stores (LDG.E.128, STG.E.128 in any cache variant) in their
+    SASS."""
+    kernel, instances = DIRECT_KERNELS[source]
     log(f"ptxas of {source}: {json.dumps(info)}")
-    # demangled, or as mangled when the toolkit has no cu++filt
-    for names in (("<float>", "IfE"),
-                  ("<__nv_bfloat16>", "I13__nv_bfloat16E")):
+    for names in instances:
         hits = [v for k, v in info.items() if any(
             f"{kernel}{t}" in k for t in names)]
         if not hits or not (hits[0]["ldg128"] and hits[0]["stg128"]):
@@ -1792,9 +1928,9 @@ KERNELS = {
     "ring_allgather_chunked": ("ring_rs_ag.cu",
                                "ucc_tpu/tl/ring_dma.py:1088",
                                "ring_allgather_ref"),
-    "ring_bcast_pass": ("ring_bcast_a2a.cu", "ucc_tpu/tl/ring_dma.py:460",
+    "ring_bcast_pass": ("bcast.cu", "ucc_tpu/tl/ring_dma.py:460",
                         "ring_bcast_ref"),
-    "ring_bcast_chunked": ("ring_bcast_a2a.cu", "ucc_tpu/tl/ring_dma.py:533",
+    "ring_bcast_chunked": ("bcast.cu", "ucc_tpu/tl/ring_dma.py:533",
                            "ring_bcast_ref"),
     "ring_alltoall_pass": ("alltoall.cu", "ucc_tpu/tl/ring_dma.py:350",
                            "ring_alltoall_ref"),
@@ -1952,8 +2088,8 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     pointer table built once, as the team's persistent launches reuse
     them (a bcast in place on the main path's buffers `bufs`, as the main
     path runs it); its plain version and one PyTorch call as
-    yardsticks (for allreduce, reduce_scatter and alltoall timed in turns
-    with the kernel)."""
+    yardsticks (for allreduce, reduce_scatter, bcast and alltoall timed in
+    turns with the kernel)."""
     import torch
     from ucc_tpu_torch import ReductionOp
     from ucc_tpu_torch.kernels import ring_common as kc
@@ -1979,7 +2115,7 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
     def kernel():
         return wrapper(ins, out, sum_, root=root, workspace=ws,
                        ptr_table=table)
-    if coll in ("ALLREDUCE", "REDUCE_SCATTER", "ALLTOALL"):
+    if coll in ("ALLREDUCE", "REDUCE_SCATTER", "BCAST", "ALLTOALL"):
         # kernel and library call in turns: library, kernel, kernel, library
         if coll == "ALLTOALL":
             b = srcs[0].numel() // n
@@ -1987,6 +2123,11 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
             def library():
                 for r, o in enumerate(out):
                     torch.cat([s[r * b:(r + 1) * b] for s in srcs], out=o)
+        elif coll == "BCAST":
+            def library():
+                for r, o in enumerate(out):
+                    if r != root:
+                        o.copy_(srcs[root])
         else:
             def library():
                 return torch.stack(srcs).sum(0)
@@ -1998,16 +2139,10 @@ def measure(coll, wrapper, ref, srcs, dst_count, root, bufs=None):
         ms, library_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         plain_ms = cuda_ms(lambda: ref(srcs, sum_, root), 3)
         return max_err, ms, plain_ms, library_ms
+    # the allgather
     ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(lambda: ref(srcs, sum_, root), 3)
-    if coll == "ALLGATHER":
-        library_ms = cuda_ms(lambda: [torch.cat(srcs, out=o) for o in out],
-                             20)
-    elif coll == "BCAST":
-        library_ms = cuda_ms(lambda: [o.copy_(srcs[root]) for r, o in
-                                      enumerate(out) if r != root], 20)
-    else:
-        library_ms = cuda_ms(lambda: torch.stack(srcs).sum(0), 20)
+    library_ms = cuda_ms(lambda: [torch.cat(srcs, out=o) for o in out], 20)
     return max_err, ms, plain_ms, library_ms
 
 

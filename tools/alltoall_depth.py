@@ -39,19 +39,18 @@ SHAPES = (16 << 20, 64 << 10)
 N = 8
 
 
-def build(out_dir, unroll, min_ctas):
-    """Compile one copy; returns (library path, -Xptxas -v report)."""
+def compile_copy(out_dir, source, name, replacements):
+    """Compile a copy of csrc/*source* with each (old, new) text of
+    *replacements* substituted, as lib<name>.so in *out_dir* (which holds
+    copies of the headers); returns (library path, -Xptxas -v report)."""
     from ucc_tpu_torch.kernels import build as kb
-    with open(os.path.join(kb.CSRC, "alltoall.cu")) as fh:
+    with open(os.path.join(kb.CSRC, source)) as fh:
         text = fh.read()
-    if UNROLL not in text or BOUNDS not in text:
-        raise RuntimeError("csrc/alltoall.cu no longer has the text this "
-                           "tool substitutes")
-    text = text.replace(UNROLL, f"constexpr int A2A_UNROLL = {unroll};")
-    if min_ctas:
-        text = text.replace(
-            BOUNDS, f"__launch_bounds__(THREADS, {min_ctas}) alltoall_kernel")
-    name = f"alltoall_{unroll}_{min_ctas}"
+    for old, new in replacements:
+        if old not in text:
+            raise RuntimeError(f"csrc/{source} no longer has the text this "
+                               f"tool substitutes: {old!r}")
+        text = text.replace(old, new)
     src = os.path.join(out_dir, name + ".cu")
     with open(src, "w") as fh:
         fh.write(text)
@@ -64,20 +63,40 @@ def build(out_dir, unroll, min_ctas):
     return lib, proc.stdout + proc.stderr
 
 
-def source(path):
-    """A DirectSource whose library is the copy at *path*."""
+def ptxas_summary(report):
+    """(registers, spill stores in bytes) of a -Xptxas -v report, each a
+    sorted list over the copy's kernel instances."""
+    regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers",
+                                               report)})
+    spills = sorted({int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                                report)})
+    return regs, spills
+
+
+def load_copy(path, source, prefix):
+    """A DirectSource for csrc/*source* whose library is the copy at
+    *path*, with C entry points named by *prefix*."""
     from ucc_tpu_torch.kernels import ring_common as kc
-    src = kc.DirectSource("alltoall.cu", "ucc_alltoall")
+    src = kc.DirectSource(source, prefix)
     lib = ctypes.CDLL(path)
-    launch = lib.ucc_alltoall
+    launch = getattr(lib, prefix)
     launch.argtypes, launch.restype = src.ARGTYPES, ctypes.c_int
-    query = lib.ucc_alltoall_max_ctas
+    query = getattr(lib, prefix + "_max_ctas")
     query.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     query.restype = ctypes.c_int
-    names = lib.ucc_alltoall_error_string
+    names = getattr(lib, prefix + "_error_string")
     names.argtypes, names.restype = [ctypes.c_int], ctypes.c_char_p
     src._lib = lib
     return src
+
+
+def copy_headers(prefix):
+    """A fresh directory holding copies of csrc's headers."""
+    from ucc_tpu_torch.kernels import build as kb
+    out_dir = tempfile.mkdtemp(prefix=prefix)
+    for header in ("direct_fold.cuh", "ring_common.cuh"):
+        shutil.copy(os.path.join(kb.CSRC, header), out_dir)
+    return out_dir
 
 
 def main(argv=None) -> int:
@@ -86,24 +105,24 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     import torch
     import chip_smoke as cs
-    from ucc_tpu_torch.kernels import build as kb
     from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
     from ucc_tpu_torch.kernels import ring_common as kc
     if not torch.cuda.is_available():
         print("alltoall_depth: no CUDA device", file=sys.stderr)
         return 2
     smi = cs.smi_line()
-    out_dir = tempfile.mkdtemp(prefix="alltoall_depth_")
-    for header in ("direct_fold.cuh", "ring_common.cuh"):
-        shutil.copy(os.path.join(kb.CSRC, header), out_dir)
+    out_dir = copy_headers("alltoall_depth_")
     copies = {}
     for unroll, min_ctas in COPIES:
-        lib, report = build(out_dir, unroll, min_ctas)
-        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers",
-                                                   report)})
-        spills = sorted({int(b) for b in re.findall(
-            r"(\d+) bytes spill stores", report)})
-        copies[(unroll, min_ctas)] = source(lib)
+        subs = [(UNROLL, f"constexpr int A2A_UNROLL = {unroll};")]
+        if min_ctas:
+            subs.append((BOUNDS, f"__launch_bounds__(THREADS, {min_ctas}) "
+                                 "alltoall_kernel"))
+        lib, report = compile_copy(out_dir, "alltoall.cu",
+                                   f"alltoall_{unroll}_{min_ctas}", subs)
+        regs, spills = ptxas_summary(report)
+        copies[(unroll, min_ctas)] = load_copy(lib, "alltoall.cu",
+                                               "ucc_alltoall")
         print(f"copy unroll={unroll} min_ctas={min_ctas}: registers {regs}, "
               f"spill stores {spills} bytes", flush=True)
     shipped = kba._A2A_SOURCE

@@ -70,13 +70,6 @@
 
 namespace {
 
-// an unsigned integer of B bytes: one element as raw bits
-template <int B> struct Raw;
-template <> struct Raw<1> { using U = unsigned char; };
-template <> struct Raw<2> { using U = unsigned short; };
-template <> struct Raw<4> { using U = unsigned int; };
-template <> struct Raw<8> { using U = unsigned long long; };
-
 // the most ranks a launch takes: n(n+1)/2 units and the grid stride stay
 // inside the kernel's 32-bit unit index (kernels/ring_bcast_a2a.py:
 // A2A_MAX_RANKS)

@@ -1,10 +1,11 @@
 // Vector machinery of the flag-free kernels of this directory
-// (ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu, and alltoall.cu,
-// which only copies), which read the ranks' buffers directly and fold each
-// element from its srcs in a fixed order: the launch constants, the pointer table as the kernels read it
-// (staged in shared memory, with the launch's alignment decision), 16-byte
-// vectors with cache-streaming loads and stores, and the lane-by-lane fold
-// with the operands either way round.
+// (ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu, and alltoall.cu and
+// bcast.cu, which only copy), which read the ranks' buffers directly and
+// fold each element from its srcs in a fixed order: the launch constants,
+// the pointer table as the kernels read it (staged in shared memory, with
+// the launch's alignment decision), elements as raw bits, 16-byte vectors
+// with cache-streaming loads and stores, and the lane-by-lane fold with the
+// operands either way round.
 //
 // Everything here has internal linkage: each source that includes it is
 // built into its own library.
@@ -38,6 +39,14 @@ struct Table {
     return static_cast<T*>(p[n + r]);
   }
 };
+
+// an unsigned integer of B bytes: one element as raw bits, for the kernels
+// that only copy (alltoall.cu, bcast.cu)
+template <int B> struct Raw;
+template <> struct Raw<1> { using U = unsigned char; };
+template <> struct Raw<2> { using U = unsigned short; };
+template <> struct Raw<4> { using U = unsigned int; };
+template <> struct Raw<8> { using U = unsigned long long; };
 
 // W elements of T in one 16-byte vector
 template <typename T, int W>

@@ -1,7 +1,7 @@
 // Device building blocks shared by the kernels of this directory
-// (ring_rs_ag.cu, ring_bcast_a2a.cu, gen_device.cu, and through
-// direct_fold.cuh ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu and
-// alltoall.cu): element arithmetic
+// (ring_rs_ag.cu, gen_device.cu, and through direct_fold.cuh
+// ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu, alltoall.cu and
+// bcast.cu): element arithmetic
 // in the rounding of PyTorch's own kernels, the comm-slot loads and stores,
 // the CTA-pair flag protocol (a release store of a step counter, an acquire
 // spin on it, bounded, with a sticky error word), and the all-rank barrier

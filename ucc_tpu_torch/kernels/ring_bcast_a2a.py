@@ -1,13 +1,13 @@
-"""Ring-pipelined bcast and pairwise alltoall over the n ranks of one
-device: the CUDA kernels of ``csrc/ring_bcast_a2a.cu`` (bcast) and
-``csrc/alltoall.cu`` (alltoall), their wrappers, and their plain PyTorch
-versions.
+"""Bcast and pairwise alltoall over the n ranks of one device: the CUDA
+kernels of ``csrc/bcast.cu`` (bcast) and ``csrc/alltoall.cu`` (alltoall),
+their wrappers, and their plain PyTorch versions.
 
 - ``ring_bcast_pass`` replaces ``ucc_tpu/tl/ring_dma.py:_bcast_kernel``,
   ``ring_bcast_chunked`` replaces ``_hbm_bcast_kernel``: the root's count
-  elements reach every rank in sub-blocks of ``blk`` elements, forwarded
-  around the ring from the root (two ring kernels that share a body and
-  differ in geometry only);
+  elements reach every rank. Both launch the one flag-free kernel of
+  ``csrc/bcast.cu`` with the same arguments: the grid copies the root's
+  src into every other dst (and into the root's dst when it is not the
+  root's src) in one pass, with no flags, error word or workspace;
 - ``ring_alltoall_pass`` replaces ``_alltoall_kernel`` (with
   ``_all_rank_barrier``), ``ring_alltoall_chunked`` replaces
   ``_hbm_alltoall_kernel``: rank r's src and dst are n blocks, and dst_p's
@@ -27,16 +27,16 @@ result and is not copied onto itself. alltoall's count is n blocks; in
 place its src is its dst. On CPU tensors a wrapper runs the plain version
 (computing the whole result before writing any dst); on CUDA tensors it
 launches the kernel or raises. It returns a ``RingLaunch`` whose
-``done()``/``wait()`` tell when the launch has finished (for bcast they
-raise if the kernel reported a fault), and counts its kernel launches in
-its ``launches`` attribute, a plain int. Both take an op for the common
-calling shape and ignore it; alltoall ignores ``root`` and
-``workspace``.
+``done()``/``wait()`` tell when the launch has finished, and counts its
+kernel launches in its ``launches`` attribute, a plain int. Both take an
+op for the common calling shape and ignore it, and accept a
+``workspace`` and leave it untouched; alltoall ignores ``root``.
 
 The plain versions ``ring_bcast_ref`` / ``ring_alltoall_ref`` run the
-kernels' schedules with PyTorch ops, sub-block by sub-block and step by
-step (bcast) or unit by unit (alltoall), and take the sub-block or chunk
-size as a parameter, so a test can use the JAX package's.
+TPU kernels' schedules with PyTorch ops, sub-block by sub-block and step
+by step around the ring (bcast) or unit by unit (alltoall), and take the
+sub-block or chunk size as a parameter, so a test can use the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -46,17 +46,16 @@ import torch
 
 from ..constants import ReductionOp
 from ..status import Status, UccError
-from .ring_common import (DirectSource, RingLaunch, RingSource,
-                          RingWorkspace, dispatch)
+from .ring_common import DirectSource, RingLaunch, RingWorkspace, dispatch
 
-#: the bcast ring kernels' source
-SOURCE = "ring_bcast_a2a.cu"
-_SOURCE = RingSource(SOURCE, "ucc_ring_bcast_a2a")
+#: the bcast kernel's source
+SOURCE = "bcast.cu"
+_SOURCE = DirectSource(SOURCE, "ucc_bcast")
 #: the alltoall kernel's source
 A2A_SOURCE = "alltoall.cu"
 _A2A_SOURCE = DirectSource(A2A_SOURCE, "ucc_alltoall")
 
-#: kernel ids of the bcast source
+#: the bcast entry points (one kernel; the id is the common interface's)
 K_BCAST_PASS, K_BCAST_CHUNKED = range(2)
 #: the alltoall entry points (one kernel; the id is the common interface's)
 K_A2A_PASS, K_A2A_CHUNKED = range(2)
@@ -65,12 +64,10 @@ A2A_MAX_RANKS = 32768
 
 #: per-rank elements one pass covers, for both collectives; larger counts
 #: on more than one rank run the chunked entry points, as tl/ring_dma
-#: routes the TPU's. A bcast sub-block is CHUNK_ELEMS // 2 elements (2 MiB
-#: f32), as the JAX package's: one ring step of 8 ranks then touches
-#: 16 MiB, inside the H100's 50 MB L2, where the sub-block a rank forwards
-#: next has just landed. The alltoall kernel reads no chunks; its plain
-#: version walks a block in chunks of CHUNK_ELEMS // n elements, which
-#: changes no bit.
+#: routes the TPU's. Neither kernel reads sub-blocks or chunks; the plain
+#: bcast walks the ring in sub-blocks of CHUNK_ELEMS // 2 elements, as the
+#: JAX package's, and the plain alltoall walks a block in chunks of
+#: CHUNK_ELEMS // n elements, which changes no bit.
 CHUNK_ELEMS = 1 << 20
 
 
@@ -80,7 +77,7 @@ def pass_elems(n: int) -> int:
 
 
 def bcast_geometry(count: int, blk: Optional[int] = None) -> Tuple[int, int]:
-    """(blk, nsub) of both bcast kernels: sub-blocks of *blk* elements
+    """(blk, nsub) of the plain bcast's ring: sub-blocks of *blk* elements
     (default ``CHUNK_ELEMS // 2``, never more than count), the last one
     ragged."""
     if blk is None:
@@ -129,11 +126,11 @@ def alltoall_units(n: int) -> List[Tuple[int, int]]:
 
 def ring_bcast_ref(srcs: Sequence[torch.Tensor], root: int,
                    blk: Optional[int] = None) -> List[torch.Tensor]:
-    """Plain version of both bcast kernels: the root's src in sub-blocks of
-    *blk* elements (default ``bcast_geometry``'s), over the steps of the
-    ring: at step t the rank at distance d >= 1 from the root takes
-    sub-block t - (d - 1) from its left neighbour. Non-root srcs are not
-    read."""
+    """Plain version of both bcast entry points: the root's src in
+    sub-blocks of *blk* elements (default ``bcast_geometry``'s), over the
+    steps of the TPU kernels' ring: at step t the rank at distance d >= 1
+    from the root takes sub-block t - (d - 1) from its left neighbour
+    (the order changes no bit). Non-root srcs are not read."""
     n = len(srcs)
     count = srcs[root].numel()
     blk, nsub = bcast_geometry(count, blk)
@@ -175,20 +172,22 @@ def ring_alltoall_ref(srcs: Sequence[torch.Tensor],
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _bcast(kernel: int, srcs, dsts, root, stream, workspace,
+def bcast_plan(count: int, n: int):
+    """The bcast kernel's launch plan: count elements per rank, which also
+    size its grid."""
+    return count, count, 1, count, 0, 0
+
+
+def _bcast(kernel: int, srcs, dsts, root, stream,
            ptr_table) -> Optional[RingLaunch]:
     n = len(srcs)
     if not 0 <= root < max(n, 1):
         raise UccError(Status.ERR_INVALID_PARAM,
                        f"ring bcast: root {root} is not a rank of {n}")
-
-    def plan(count, n):
-        blk, nsub = bcast_geometry(count)
-        return count, blk, nsub, blk, 0, 1
     return dispatch(_SOURCE, kernel, "ring bcast", srcs, dsts, None,
                     ops=None, dst_count=lambda count, n: count,
-                    ref=lambda: ring_bcast_ref(srcs, root), plan=plan,
-                    stream=stream, workspace=workspace, ptr_table=ptr_table,
+                    ref=lambda: ring_bcast_ref(srcs, root), plan=bcast_plan,
+                    stream=stream, workspace=None, ptr_table=ptr_table,
                     root=root)
 
 
@@ -224,9 +223,10 @@ def ring_bcast_pass(srcs: Sequence[torch.Tensor],
                     op: Optional[ReductionOp] = None, *, root: int = 0,
                     stream=None, workspace: Optional[RingWorkspace] = None,
                     ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
-    """One-pass ring bcast of ``srcs[root]`` into ``dsts`` (c each); ``op``
-    is ignored."""
-    h = _bcast(K_BCAST_PASS, srcs, dsts, root, stream, workspace, ptr_table)
+    """Bcast of ``srcs[root]`` into ``dsts`` (c each), for the counts that
+    the TPU's one-pass kernel takes; ``op`` and ``workspace`` are
+    ignored."""
+    h = _bcast(K_BCAST_PASS, srcs, dsts, root, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_bcast_pass.launches += 1
@@ -239,10 +239,10 @@ def ring_bcast_chunked(srcs: Sequence[torch.Tensor],
                        stream=None, workspace: Optional[RingWorkspace] = None,
                        ptr_table: Optional[torch.Tensor] = None
                        ) -> RingLaunch:
-    """Chunked ring bcast of ``srcs[root]`` into ``dsts`` (c each); ``op``
-    is ignored."""
-    h = _bcast(K_BCAST_CHUNKED, srcs, dsts, root, stream, workspace,
-               ptr_table)
+    """Bcast of ``srcs[root]`` into ``dsts`` (c each), for the counts that
+    the TPU's chunked kernel takes; ``op`` and ``workspace`` are
+    ignored."""
+    h = _bcast(K_BCAST_CHUNKED, srcs, dsts, root, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_bcast_chunked.launches += 1

@@ -12,15 +12,16 @@ and ``root`` the rank a rooted collective starts from (0 for the others);
 ``P_max_ctas`` is the occupancy query and ``P_error_string`` names a CUDA
 error. Two kinds of source stand behind it:
 
-- a ring source (``ring_rs_ag.cu``'s allgather, ``ring_bcast_a2a.cu``'s
-  bcast) runs a cooperative launch on a ``(lanes, n)`` grid whose CTAs
-  spin on step flags in the workspace (:class:`RingSource`);
+- a ring source (``ring_rs_ag.cu``'s allgather) runs a cooperative
+  launch on a ``(lanes, n)`` grid whose CTAs spin on step flags in the
+  workspace (:class:`RingSource`);
 - a direct source (``ring_allreduce.cu``, ``reduce_scatter.cu``,
-  ``alltoall.cu``) runs no ring: one pass folds each element from the n
-  srcs in the ring's order, bitwise the ring's result (the alltoall only
-  copies, each element by the thread that owns it). Its kernel spins on
-  nothing, ignores ``comm``, ``flags`` and ``err`` (and the alltoall
-  ``op``), and runs an ordinary launch (:class:`DirectSource`).
+  ``alltoall.cu``, ``bcast.cu``) runs no ring: one pass folds each element
+  from the n srcs in the ring's order, bitwise the ring's result (the
+  alltoall and the bcast only copy: the alltoall each element by the
+  thread that owns it, the bcast from the root's src alone). Its kernel
+  spins on nothing, ignores ``comm``, ``flags`` and ``err`` (and the
+  copies' ``op``), and runs an ordinary launch (:class:`DirectSource`).
 """
 from __future__ import annotations
 
@@ -312,11 +313,11 @@ class DirectSource(RingSource):
 
     The plan's ``span`` is the elements one grid walks. Without
     *per_rank* the kernel runs one 1-D grid of ``launch_ctas(span, ...)``
-    CTAs (the allreduce, span = count; the alltoall, span = the elements
-    of its n(n+1)/2 units); with it, one row of CTAs per rank (the
-    reduce_scatter, span = blk), the n rows sharing the card's CTAs. The C
-    function is passed the CTAs of one row, and op 0 when the collective
-    takes none."""
+    CTAs (the allreduce and the bcast, span = count; the alltoall, span =
+    the elements of its n(n+1)/2 units); with it, one row of CTAs per rank
+    (the reduce_scatter, span = blk), the n rows sharing the card's CTAs.
+    The C function is passed the CTAs of one row, and op 0 when the
+    collective takes none."""
 
     def __init__(self, source: str, prefix: str, per_rank: bool = False):
         super().__init__(source, prefix)
