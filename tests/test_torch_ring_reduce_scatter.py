@@ -129,7 +129,6 @@ def test_geometry_routes_like_the_tpu_kernels():
     assert krs.chunk_geometry((16 << 20) // n, n) == (krs.CHUNK_ELEMS // n,
                                                       16)
     assert krs.chunk_geometry(40, 4, 16) == (16, 3)
-    assert krs.pass_geometry(37, 8) == (37, 1)
     with pytest.raises(ValueError):
         krs.chunk_geometry(40, 4, 0)
 

@@ -1,6 +1,6 @@
 // Vector machinery of the flag-free kernels of this directory
-// (ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu, and alltoall.cu and
-// bcast.cu, which only copy), which read the ranks' buffers directly and
+// (ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu, and alltoall.cu,
+// bcast.cu and allgather.cu, which only copy), which read the ranks' buffers directly and
 // fold each element from its srcs in a fixed order: the launch constants,
 // the pointer table as the kernels read it (staged in shared memory, with
 // the launch's alignment decision), elements as raw bits, 16-byte vectors
@@ -41,7 +41,7 @@ struct Table {
 };
 
 // an unsigned integer of B bytes: one element as raw bits, for the kernels
-// that only copy (alltoall.cu, bcast.cu)
+// that only copy (alltoall.cu, bcast.cu, allgather.cu)
 template <int B> struct Raw;
 template <> struct Raw<1> { using U = unsigned char; };
 template <> struct Raw<2> { using U = unsigned short; };

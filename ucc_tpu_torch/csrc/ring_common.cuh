@@ -1,11 +1,10 @@
 // Device building blocks shared by the kernels of this directory
-// (ring_rs_ag.cu, gen_device.cu, and through direct_fold.cuh
-// ring_allreduce.cu, reduce_scatter.cu, gen_fold.cu, alltoall.cu and
-// bcast.cu): element arithmetic
-// in the rounding of PyTorch's own kernels, the comm-slot loads and stores,
-// the CTA-pair flag protocol (a release store of a step counter, an acquire
-// spin on it, bounded, with a sticky error word), and the all-rank barrier
-// built from the same release stores and bounded spins.
+// (gen_device.cu, and through direct_fold.cuh ring_allreduce.cu,
+// reduce_scatter.cu, gen_fold.cu, alltoall.cu, bcast.cu and allgather.cu):
+// element arithmetic in the rounding of PyTorch's own kernels, the
+// comm-slot loads and stores, a bounded acquire spin on a release-stored
+// counter with a sticky error word, and the all-rank barrier built from
+// the same release stores and bounded spins.
 //
 // Everything here has internal linkage: each source that includes it is
 // built into its own library.
@@ -221,26 +220,6 @@ __device__ void spin_geq(const unsigned* p, unsigned target, int* err,
   }
 }
 
-// Thread 0 spins until *p >= target; every thread returns false when the
-// spin ran out (here or in another CTA).
-__device__ bool wait_geq(const unsigned* p, unsigned target, int* err,
-                         volatile int* abort_flag) {
-  if (threadIdx.x == 0) {
-    spin_geq(p, target, err, abort_flag);
-    __threadfence();
-  }
-  __syncthreads();
-  return *abort_flag == 0;
-}
-
-__device__ void publish(unsigned* p, unsigned v) {
-  __syncthreads();  // every thread's stores of this step are issued
-  if (threadIdx.x == 0) {
-    __threadfence();
-    store_release(p, v);
-  }
-}
-
 // All-rank barrier of one lane, the counterpart of ring_dma.py's
 // _all_rank_barrier: CTA (r, c) of an n-rank grid posts `epoch` into the
 // word it owns at every other rank, then waits until every other rank has
@@ -274,7 +253,5 @@ __device__ bool all_rank_barrier(unsigned* words, int n, unsigned epoch,
   __syncthreads();
   return *abort_flag == 0;
 }
-
-__device__ int mod(int a, int n) { return ((a % n) + n) % n; }
 
 }  // namespace

@@ -1,8 +1,8 @@
 """Launch plumbing shared by the ring kernels (``kernels/ring_allreduce.py``,
-``kernels/ring_rs_ag.py``, ``kernels/ring_bcast_a2a.py``): the dtypes and
-ops they take, the elementwise fold of their plain versions, the reused
-workspace, the completion handle, the device pointer table, the buffer
-checks and the launch itself.
+``kernels/ring_rs_ag.py``, ``kernels/ring_bcast_a2a.py``,
+``kernels/gen_device.py``): the dtypes and ops they take, the elementwise
+fold of their plain versions, the reused workspace, the completion handle,
+the device pointer table, the buffer checks and the launch itself.
 
 Every ring source under ``csrc/`` exports the same plain C interface, named
 by its prefix P: ``P(kernel, dtype, ptrs, comm, flags, err, a, b, n_chunks,
@@ -12,16 +12,19 @@ and ``root`` the rank a rooted collective starts from (0 for the others);
 ``P_max_ctas`` is the occupancy query and ``P_error_string`` names a CUDA
 error. Two kinds of source stand behind it:
 
-- a ring source (``ring_rs_ag.cu``'s allgather) runs a cooperative
-  launch on a ``(lanes, n)`` grid whose CTAs spin on step flags in the
-  workspace (:class:`RingSource`);
 - a direct source (``ring_allreduce.cu``, ``reduce_scatter.cu``,
-  ``alltoall.cu``, ``bcast.cu``) runs no ring: one pass folds each element
-  from the n srcs in the ring's order, bitwise the ring's result (the
-  alltoall and the bcast only copy: the alltoall each element by the
-  thread that owns it, the bcast from the root's src alone). Its kernel
-  spins on nothing, ignores ``comm``, ``flags`` and ``err`` (and the
-  copies' ``op``), and runs an ordinary launch (:class:`DirectSource`).
+  ``allgather.cu``, ``alltoall.cu``, ``bcast.cu``) runs no ring: one pass
+  folds each element from the n srcs in the ring's order, bitwise the
+  ring's result (the allgather, the alltoall and the bcast only copy: the
+  allgather each src into its block of every dst, the alltoall each
+  element by the thread that owns it, the bcast from the root's src
+  alone). Its kernel spins on nothing, ignores ``comm``, ``flags`` and
+  ``err`` (and the copies' ``op``), and runs an ordinary launch
+  (:class:`DirectSource`);
+- a cooperative source (:class:`RingSource`) runs a cooperative launch on
+  a ``(lanes, n)`` grid whose CTAs spin on flags in the workspace, with an
+  error word: only ``gen_device.cu``'s layer kernel (its own C signature,
+  ``kernels/gen_device._GenSource``) is one.
 """
 from __future__ import annotations
 
@@ -192,15 +195,18 @@ def check_buffers(what: str, srcs, dsts, op, ops,
 
 
 #: (a, b, n_chunks, span, slot_elems, flag_words) of a launch: the kernel's
-#: geometry, the elements per chunk that the lanes split, the comm slot
-#: elements per rank, and the flag words per (rank, lane)
+#: geometry, the elements one grid walks, and the comm slot elements per
+#: rank and flag words per (rank, lane) it asks of the workspace (0 for
+#: every direct source)
 Plan = Tuple[int, int, int, int, int, int]
 
 
 class RingSource:
-    """One CUDA source of ring kernels, built and loaded at first use.
-    ``ARGTYPES`` is the signature of its launch function (the common
-    interface above; a source with another one subclasses)."""
+    """One CUDA source of ring kernels, built and loaded at first use: its
+    library, occupancy query and error names. ``ARGTYPES`` is the
+    signature of its launch function (the common interface above; a source
+    with another one subclasses); :class:`DirectSource` launches it, and
+    ``kernels/gen_device.py`` launches its own."""
 
     ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -262,32 +268,6 @@ class RingSource:
                            f"this card holds {cap}")
         return max(1, min(cap // n, -(-span // THREADS)))
 
-    def launch(self, what: str, kernel: int, srcs, dsts, op, root: int,
-               plan: Plan, stream, workspace: Optional[RingWorkspace],
-               ptr_table: Optional[torch.Tensor]) -> RingLaunch:
-        a, b, n_chunks, span, slot_elems, flag_words = plan
-        n = len(srcs)
-        device = srcs[0].device
-        code = DTYPE_CODES[srcs[0].dtype]
-        if stream is None:
-            stream = torch.cuda.current_stream(device)
-        with torch.cuda.device(device), torch.cuda.stream(stream):
-            lanes = self.lanes(kernel, code, n, span, device)
-            ws = workspace if workspace is not None else RingWorkspace(device)
-            comm, flags, err = ws.get(
-                n * slot_elems * srcs[0].element_size(),
-                n * lanes * flag_words)
-            if ptr_table is None:
-                ptr_table = make_ptr_table(srcs, dsts)
-            flags.zero_()
-            self.check(getattr(self.lib(), self.prefix)(
-                kernel, code, ptr_table.data_ptr(), comm.data_ptr(),
-                flags.data_ptr(), err.data_ptr(), a, b, n_chunks, n,
-                0 if op is None else int(op), root, lanes, THREADS,
-                stream.cuda_stream),
-                f"{what} launch")
-        return RingLaunch(stream, err, keep=(ws, ptr_table), what=what)
-
 
 #: threads per CTA of a direct source's kernel (THREADS in
 #: csrc/direct_fold.cuh)
@@ -313,8 +293,9 @@ class DirectSource(RingSource):
 
     The plan's ``span`` is the elements one grid walks. Without
     *per_rank* the kernel runs one 1-D grid of ``launch_ctas(span, ...)``
-    CTAs (the allreduce and the bcast, span = count; the alltoall, span =
-    the elements of its n(n+1)/2 units); with it, one row of CTAs per rank
+    CTAs (the allreduce and the bcast, span = count; the allgather, span =
+    n·count; the alltoall, span = the elements of its n(n+1)/2 units);
+    with it, one row of CTAs per rank
     (the reduce_scatter, span = blk), the n rows sharing the card's CTAs.
     The C function is passed the CTAs of one row, and op 0 when the
     collective takes none."""
@@ -353,7 +334,7 @@ class DirectSource(RingSource):
         return RingLaunch(stream, keep=(ptr_table,), what=what)
 
 
-def dispatch(source: RingSource, kernel: int, what: str, srcs, dsts, op, *,
+def dispatch(source: DirectSource, kernel: int, what: str, srcs, dsts, op, *,
              ops, dst_count: Callable[[int, int], int],
              ref: Callable[[], List[torch.Tensor]],
              plan: Callable[[int, int], Plan], stream, workspace,

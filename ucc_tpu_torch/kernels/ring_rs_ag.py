@@ -1,6 +1,6 @@
-"""Reduce_scatter and ring allgather over the n ranks of one device: the
-CUDA kernels of ``csrc/reduce_scatter.cu`` and ``csrc/ring_rs_ag.cu``,
-their wrappers, and their plain PyTorch versions.
+"""Reduce_scatter and allgather over the n ranks of one device: the CUDA
+kernels of ``csrc/reduce_scatter.cu`` and ``csrc/allgather.cu``, their
+wrappers, and their plain PyTorch versions.
 
 Four entry points (see the notes at the top of the sources):
 
@@ -11,19 +11,20 @@ Four entry points (see the notes at the top of the sources):
   one kernel of ``csrc/reduce_scatter.cu``, which is no ring: one pass
   over the ranks' srcs folds every element of block r from the n srcs in
   the ring's order (from rank r+1 round to rank r) into dst r, so its
-  result is bitwise the ring's. It takes no comm slots, flag words, error
-  word or cooperative launch, and any n runs.
+  result is bitwise the ring's.
 - ``ring_allgather_pass`` replaces ``_ring_kernel`` in allgather mode,
   ``ring_allgather_chunked`` replaces ``_hbm_allgather_kernel``: rank r's
-  src is one block, its dst all n blocks in rank order. Each is a ring
-  kernel of ``csrc/ring_rs_ag.cu``, a cooperative launch whose CTAs forward
-  the blocks behind step flags; the chunked one runs its ring once per
-  chunk, the same ``cblk``-element sub-range of every block, and the pass
-  one is the one-chunk case.
+  src is one block, its dst all n blocks in rank order. Both launch the
+  one kernel of ``csrc/allgather.cu``, which is no ring either: one pass
+  copies each rank's src into its block of every dst (skipping a rank's
+  own block when it is its src), so its result is bitwise
+  ``torch.cat(srcs)`` and the ring's.
 
-No result depends on the chunk size: the pass and chunked entry points
-of a collective differ only in the TPU kernel each stands for, and in
-the counts that tl/ring_cuda routes to each.
+Neither kernel takes comm slots, flag words, an error word or a
+cooperative launch, and any n runs. No result depends on the chunk size:
+the pass and chunked entry points of a collective differ only in the TPU
+kernel each stands for, and in the counts that tl/ring_cuda routes to
+each.
 
 A wrapper takes one src and one dst tensor per rank and writes the result
 into the dst tensors: reduce_scatter takes n·c elements in and c out,
@@ -31,12 +32,11 @@ allgather c in and n·c out. In place, reduce_scatter's src is the whole
 dst vector and its dst that vector's block r; allgather's src is block r
 of its dst. On CPU tensors a wrapper runs the plain version; on CUDA
 tensors it launches the kernel or raises. It returns a ``RingLaunch``
-whose ``done()``/``wait()`` tell when the launch has finished, and for
-allgather raise if the kernel reported a fault; each wrapper counts its
-kernel launches in its ``launches`` attribute, a plain int. Allgather
+whose ``done()``/``wait()`` tell when the launch has finished, and counts
+its kernel launches in its ``launches`` attribute, a plain int. Allgather
 takes an op, and every wrapper a ``root`` and a ``workspace``, for the
-common calling shape; allgather ignores its op, reduce_scatter its root
-and workspace.
+common calling shape; each ignores them (reduce_scatter uses its op) and
+leaves the workspace untouched.
 
 The plain versions ``ring_reduce_scatter_ref`` / ``ring_allgather_ref``,
 one per collective, run the ring's steps with PyTorch ops, so their
@@ -52,26 +52,24 @@ import torch
 
 from ..constants import ReductionOp
 from ..status import Status, UccError
-from .ring_common import (OPS, DirectSource, RingLaunch, RingSource,
-                          RingWorkspace, accumulate, divide, dispatch)
+from .ring_common import (OPS, DirectSource, RingLaunch, RingWorkspace,
+                          accumulate, divide, dispatch)
 
-#: the allgather ring kernels' source
-SOURCE = "ring_rs_ag.cu"
-_SOURCE = RingSource(SOURCE, "ucc_ring_rs_ag")
+#: the allgather kernel's source
+SOURCE = "allgather.cu"
+_SOURCE = DirectSource(SOURCE, "ucc_allgather")
 #: the reduce_scatter kernel's source
 RS_SOURCE = "reduce_scatter.cu"
 _RS_SOURCE = DirectSource(RS_SOURCE, "ucc_reduce_scatter", per_rank=True)
 
-#: kernel ids of the allgather source
+#: the allgather entry points (one kernel; the id is the common interface's)
 K_AG_PASS, K_AG_CHUNKED = range(2)
 
 #: the elements of one chunk over all n blocks; a block's chunk is
-#: CHUNK_ELEMS // n, as the JAX package's reduce_scatter cblk. For
-#: allgather the JAX package takes CHUNK_ELEMS per block; CHUNK_ELEMS // n
-#: keeps one chunk step's blocks over all ranks (the ones forwarded next)
-#: in the H100's 50 MB L2. The reduce_scatter kernel reads no chunks, and
-#: no result depends on it: it sets the count above which tl/ring_cuda
-#: routes to the chunked entry points.
+#: CHUNK_ELEMS // n, as the JAX package's reduce_scatter cblk. Neither
+#: kernel reads chunks, and no result depends on them: the value sets the
+#: count above which tl/ring_cuda routes to the chunked entry points, and
+#: the chunks of the plain versions.
 CHUNK_ELEMS = 1 << 20
 
 
@@ -89,19 +87,14 @@ def allgather_pass_elems(n: int) -> int:
 
 def chunk_geometry(blk: int, n: int,
                    cblk: Optional[int] = None) -> Tuple[int, int]:
-    """(cblk, n_chunks) of a chunked kernel over blocks of *blk* elements:
-    chunks of *cblk* elements per block (default ``CHUNK_ELEMS // n``,
+    """(cblk, n_chunks) of the plain versions' walk over blocks of *blk*
+    elements: chunks of *cblk* elements per block (default ``CHUNK_ELEMS // n``,
     never more than blk), the last one ragged."""
     if cblk is None:
         cblk = min(max(1, CHUNK_ELEMS // n), max(blk, 1))
     elif cblk < 1:
         raise ValueError(f"chunk size {cblk} is not positive")
     return cblk, -(-blk // cblk)
-
-
-def pass_geometry(blk: int, n: int) -> Tuple[int, int]:
-    """(cblk, n_chunks) of a pass kernel: one chunk of the whole block."""
-    return max(blk, 1), 1
 
 
 # ---------------------------------------------------------------------------
@@ -189,15 +182,19 @@ def _reduce_scatter(chunked: int, srcs, dsts, op, stream,
                     stream=stream, workspace=None, ptr_table=ptr_table)
 
 
-def _allgather(kernel: int, geometry, srcs, dsts, stream, workspace,
+def allgather_plan(count: int, n: int):
+    """The allgather kernel's launch plan: count elements per rank, and the
+    n·count elements of its n units, which size its grid."""
+    return count, count, 1, n * count, 0, 0
+
+
+def _allgather(kernel: int, srcs, dsts, stream,
                ptr_table) -> Optional[RingLaunch]:
-    def plan(count, n):
-        cblk, n_chunks = geometry(count, n)
-        return count, cblk, n_chunks, cblk, 0, 2
     return dispatch(_SOURCE, kernel, "ring allgather", srcs, dsts, None,
                     ops=None, dst_count=lambda count, n: n * count,
-                    ref=lambda: ring_allgather_ref(srcs), plan=plan,
-                    stream=stream, workspace=workspace, ptr_table=ptr_table)
+                    ref=lambda: ring_allgather_ref(srcs),
+                    plan=allgather_plan, stream=stream, workspace=None,
+                    ptr_table=ptr_table)
 
 
 def ring_reduce_scatter_pass(srcs: Sequence[torch.Tensor],
@@ -238,10 +235,10 @@ def ring_allgather_pass(srcs: Sequence[torch.Tensor],
                         workspace: Optional[RingWorkspace] = None,
                         ptr_table: Optional[torch.Tensor] = None,
                         root: int = 0) -> RingLaunch:
-    """One-pass ring allgather of ``srcs`` (c each) into ``dsts`` (n·c
-    each); ``op`` is ignored."""
-    h = _allgather(K_AG_PASS, pass_geometry, srcs, dsts, stream, workspace,
-                   ptr_table)
+    """Allgather of ``srcs`` (c each) into ``dsts`` (n·c each), for the
+    counts that the TPU's one-pass ring takes; ``op``, ``root`` and
+    ``workspace`` are ignored."""
+    h = _allgather(K_AG_PASS, srcs, dsts, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_allgather_pass.launches += 1
@@ -254,10 +251,10 @@ def ring_allgather_chunked(srcs: Sequence[torch.Tensor],
                            workspace: Optional[RingWorkspace] = None,
                            ptr_table: Optional[torch.Tensor] = None,
                            root: int = 0) -> RingLaunch:
-    """Chunked ring allgather of ``srcs`` (c each) into ``dsts`` (n·c
-    each); ``op`` is ignored."""
-    h = _allgather(K_AG_CHUNKED, chunk_geometry, srcs, dsts, stream,
-                   workspace, ptr_table)
+    """Allgather of ``srcs`` (c each) into ``dsts`` (n·c each), for the
+    counts that the TPU's chunked ring takes; ``op``, ``root`` and
+    ``workspace`` are ignored."""
+    h = _allgather(K_AG_CHUNKED, srcs, dsts, stream, ptr_table)
     if h is None:
         return RingLaunch()
     ring_allgather_chunked.launches += 1

@@ -3,15 +3,13 @@ ranks of one device (the counterpart of the JAX package's tl/ring_dma).
 
 Where tl/ring_dma drives inter-chip remote DMAs from Pallas kernels, this
 TL runs every rank of an in-process team on one GPU and launches ONE
-kernel over all of their buffers. For allgather, CTA (r, c) plays rank r
-on lane slice c, and a "remote copy" is a store into the right
-neighbour's dst block in global memory followed by a release flag
-(kernels/ring_rs_ag.py). Allreduce and reduce_scatter fold every element
-from the n srcs in the ring's order in one pass, with no flags
-(kernels/ring_allreduce.py, kernels/ring_rs_ag.py); alltoall exchanges
-each pair of ranks' blocks and bcast copies the root's src into every
-other dst in one pass, with no flags (kernels/ring_bcast_a2a.py). The
-sources are under csrc/; the rendezvous and launch plumbing is tl/device.
+kernel over all of their buffers, in one pass with no flags: allreduce
+and reduce_scatter fold every element from the n srcs in the ring's order
+(kernels/ring_allreduce.py, kernels/ring_rs_ag.py); allgather copies each
+rank's src into its block of every dst (kernels/ring_rs_ag.py); alltoall
+exchanges each pair of ranks' blocks and bcast copies the root's src into
+every other dst (kernels/ring_bcast_a2a.py). The sources are under csrc/;
+the rendezvous and launch plumbing is tl/device.
 
 Collectives and routing, as ``RingDmaCollTask`` has them: ALLREDUCE,
 REDUCE_SCATTER and ALLTOALL take SUM/AVG/MAX/MIN/PROD (an alltoall folds
