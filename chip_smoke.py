@@ -16,7 +16,9 @@ Phases, each printing its own lines (any failure exits non-zero):
    alltoall; the bcast's and the allgather's 4- and 2-byte ones) must
    hold 128-bit global loads and stores in their SASS (cuobjdump), and
    none of their instances may spill or have a stack frame; the instances
-   of every source that do are printed;
+   of every source that do are printed; every f32 instance of the
+   attention kernel must hold 128-bit shared loads (LDS.128) and have no
+   stack frame or spill, and its FFMA and LDS counts are printed;
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
    for MAX/MIN:
@@ -85,7 +87,12 @@ Phases, each printing its own lines (any failure exits non-zero):
      CUDA cores, f16/bf16 on tensor cores, counted by tc_launches): bf16
      and f16 at d 8 and 256 with ragged s_local, a peaked softmax (q x 8)
      at the main path's widths, misaligned blocks (2-byte loads), and a
-     negative and a zero scale; mismatched heads must raise ValueError
+     negative and a zero scale; f32 at n = 3, d 1, 37 and 256, s_local 37
+     and 300, blocks at a storage offset of one element (4-byte copies),
+     a negative and a zero scale, and a peaked softmax at the main path's
+     widths, held to the float64 result: within the f32 tolerance or, as
+     the plain version itself misses it there, within twice the plain
+     version's distance; mismatched heads must raise ValueError
      and d = 257 ERR_NOT_SUPPORTED;
 3. main path: 8 contexts over a ThreadOobWorld, one team, persistent
    requests driven like bench.py (5 warm-up and 20 timed rounds), the
@@ -145,7 +152,8 @@ Phases, each printing its own lines (any failure exits non-zero):
    the main path's shapes, scaled_dot_product_attention on the unsharded
    (1, 32, 8192, 128) q and (1, 8, 8192, 128) k, v, timed in turns with
    the kernel; the kernel's f32 route (CUDA cores) on the same shapes in
-   f32 beside its plain version and SDPA in f32; nvcc -Xptxas -v's
+   f32 beside its plain version, and in turns with SDPA in f32; nvcc
+   -Xptxas -v's
    registers and spills of
    every instance of the attention source, and the HGMMA (wgmma)
    instructions in each instance's SASS: some in every tensor-core
@@ -1559,11 +1567,82 @@ def compare_attention(got, want, what) -> float:
     return err
 
 
+def exact_attention(qs, ks, vs, scale, causal):
+    """softmax(scale · q kᵀ) v of the whole sequence in float64 on the
+    card, one K/V head's group of query heads at a time; per-rank blocks
+    of float64 out."""
+    import torch
+    n, (h, s, d), h_kv = len(qs), qs[0].shape, ks[0].shape[0]
+    g, seq = h // h_kv, n * s
+    q, k, v = (torch.cat(b, dim=1).double() for b in (qs, ks, vs))
+    out = torch.empty_like(q)
+    later = torch.ones(seq, seq, dtype=torch.bool,
+                       device=q.device).triu(1) if causal else None
+    for j in range(h_kv):
+        sc = (q[j * g:(j + 1) * g] * scale) @ k[j].T
+        if causal:
+            sc.masked_fill_(later, float("-inf"))
+        out[j * g:(j + 1) * g] = sc.softmax(-1) @ v[j]
+        del sc
+    return list(out.split(s, dim=1))
+
+
+def exact_margin(got, exact) -> float:
+    """max |got - exact| / (atol + rtol·|exact|) at the f32 tolerance:
+    above 1 misses it."""
+    rtol, atol = attention_tolerance(got[0].dtype)
+    return max(((a.double() - b).abs() / (atol + rtol * b.abs())).max()
+               .item() for a, b in zip(got, exact))
+
+
+#: how much further from the float64 result than the plain version an f32
+#: kernel may be, where the plain version itself misses the tolerance
+PLAIN_FACTOR = 2.0
+
+
+def check_attention_exact(qs, ks, vs, causal, what) -> dict:
+    """One f32 launch on the CUDA-core route held to the float64 result:
+    within the f32 tolerance or, where the plain version (the JAX package's
+    arithmetic) misses it too, within PLAIN_FACTOR times the plain
+    version's margin. A peaked softmax puts float32's rounding of S at the
+    tolerance: two float32 evaluations then differ by more than it (at the
+    main widths with q x 8, the plain version itself is 1.18 tolerances
+    from float64; tests/test_torch_attention_f32.py prints smaller cases'
+    margins on the CPU). Returns the margins: kernel and plain version
+    against float64, and kernel against the plain version."""
+    import torch
+    from ucc_tpu_torch.kernels import ring_attention as ka
+    scale = ka.default_scale(qs[0].shape[-1])
+    fwd = ka.ring_flash_attention_fwd
+    before = fwd.launches, fwd.tc_launches
+    got = fwd(qs, ks, vs, scale, causal)
+    torch.cuda.synchronize()
+    if (fwd.launches, fwd.tc_launches) != (before[0] + 1, before[1]):
+        raise AssertionError(f"{what}: took the wrong route (launches "
+                             f"{before} -> {fwd.launches, fwd.tc_launches})")
+    if not all(torch.isfinite(o).all() for o in got):
+        raise AssertionError(f"{what}: non-finite values")
+    plain = ka.ring_flash_attention_ref(qs, ks, vs, scale, causal)
+    exact = exact_attention(qs, ks, vs, scale, causal)
+    margins = {"kernel_vs_float64": exact_margin(got, exact),
+               "plain_vs_float64": exact_margin(plain, exact),
+               "kernel_vs_plain": exact_margin(
+                   got, [p.double() for p in plain])}
+    if margins["kernel_vs_float64"] > max(
+            1.0, PLAIN_FACTOR * margins["plain_vs_float64"]):
+        raise AssertionError(f"{what}: further from the float64 result "
+                             f"than the f32 tolerance and twice the plain "
+                             f"version allow: {margins}")
+    return margins
+
+
 #: the attention phase's cases (n, h, h_kv, d, s_local, causal, dtype
 #: name): every n, head layout, head dim and s_local with both maskings and
-#: with f32 and bf16, plus f16, head dims 1 and 256 and a ragged 37; the
-#: last five put bf16 and f16 on the tensor cores at d 8 and 256 with
-#: ragged s_local
+#: with f32 and bf16, plus f16, head dims 1 and 256 and a ragged 37; then
+#: five put bf16 and f16 on the tensor cores at d 8 and 256 with ragged
+#: s_local; the last six put f32 at n = 3, d 1, 37 (4-byte copies) and 256
+#: (64-row CTAs), s_local 37 and 300 (query tiles of 128 rows, the last
+#: ragged)
 ATTENTION_CASES = (
     (1, 4, 4, 8, 3, False, "float32"),
     (1, 8, 2, 64, 100, True, "bfloat16"),
@@ -1585,9 +1664,17 @@ ATTENTION_CASES = (
     (2, 4, 2, 256, 70, True, "bfloat16"),
     (1, 4, 4, 256, 100, True, "float16"),
     (8, 32, 8, 256, 37, True, "bfloat16"),
+    (3, 4, 4, 1, 37, True, "float32"),
+    (3, 32, 8, 37, 100, False, "float32"),
+    (8, 8, 2, 37, 37, True, "float32"),
+    (1, 4, 4, 256, 37, False, "float32"),
+    (3, 8, 2, 256, 100, True, "float32"),
+    (3, 4, 2, 128, 300, True, "float32"),
 )
 #: a peaked softmax (q x 8) at the main path's widths, on the tensor cores
+#: and on the CUDA cores
 PEAKED_CASE = (8, 32, 8, 128, 1024, True, "bfloat16")
+PEAKED_F32_CASE = (8, 32, 8, 128, 1024, True, "float32")
 
 
 def phase_kernels_attention() -> None:
@@ -1610,21 +1697,32 @@ def phase_kernels_attention() -> None:
                           q_mul=8.0), causal,
         f"ring_flash_attention_fwd peaked (q x 8) n={n} h={h} h_kv={h_kv} "
         f"d={d} s_local={s} {dname}")
-    # blocks at an odd element offset: the tensor-core kernel's 2-byte loads
+    n, h, h_kv, d, s, causal, dname = PEAKED_F32_CASE
+    peaked_f32 = check_attention_exact(
+        *attention_inputs(n, h, h_kv, s, d, getattr(torch, dname), 85,
+                          q_mul=8.0), causal,
+        f"ring_flash_attention_fwd peaked (q x 8) n={n} h={h} h_kv={h_kv} "
+        f"d={d} s_local={s} {dname}")
+    # blocks at an element offset of one: the tensor-core kernel's 2-byte
+    # loads, the f32 kernel's 4-byte copies
     def misaligned(t):
         return torch.empty(t.numel() + 1, dtype=t.dtype,
                            device=t.device)[1:].view(t.shape).copy_(t)
-    blocks = attention_inputs(2, 8, 2, 100, 128, torch.bfloat16, 88)
-    errs["bfloat16 misaligned"] = check_attention(
-        *([misaligned(t) for t in b] for b in blocks), True,
-        "ring_flash_attention_fwd misaligned blocks n=2 h=8 h_kv=2 d=128 "
-        "s_local=100 bfloat16")
+    for i, dname in enumerate(("bfloat16", "float32")):
+        blocks = attention_inputs(2, 8, 2, 100, 128, getattr(torch, dname),
+                                  88 - 5 * i)
+        errs[f"{dname} misaligned"] = check_attention(
+            *([misaligned(t) for t in b] for b in blocks), True,
+            f"ring_flash_attention_fwd misaligned blocks n=2 h=8 h_kv=2 "
+            f"d=128 s_local=100 {dname}")
     # a negative and a zero scale: the row max must follow the sign
-    for i, (dname, scale) in enumerate((("bfloat16", -0.125),
-                                        ("float16", 0.0))):
+    for dname, scale, seed in (("bfloat16", -0.125, 86),
+                               ("float16", 0.0, 87),
+                               ("float32", -0.125, 76),
+                               ("float32", 0.0, 77)):
         errs[f"{dname} scale {scale}"] = check_attention(
             *attention_inputs(2, 8, 2, 100, 64, getattr(torch, dname),
-                              86 + i), True,
+                              seed), True,
             f"ring_flash_attention_fwd scale={scale} n=2 h=8 h_kv=2 d=64 "
             f"s_local=100 {dname}", scale=scale)
     try:
@@ -1644,14 +1742,15 @@ def phase_kernels_attention() -> None:
             raise
     else:
         raise AssertionError(f"head dim {ka.MAX_HEAD_DIM + 1} did not raise")
-    log(f"kernels: {len(ATTENTION_CASES) + 4} ring_flash_attention_fwd "
+    log(f"kernels: {len(ATTENTION_CASES) + 7} ring_flash_attention_fwd "
         f"launches within tolerance of their plain versions, f32 on CUDA "
-        f"cores and f16/bf16 on tensor cores (n in 1,2,8; (h, h_kv) in "
-        f"(4,4),(8,2),(32,8); d in 1,8,64,128,256; s_local in 3,37,70,100,"
-        f"1024; causal both ways; f32/bf16/f16; max abs err by dtype "
-        f"{errs}; peaked q x 8 at the main widths {peaked_err}; TF32 matmul "
-        f"{torch.backends.cuda.matmul.allow_tf32}) in "
-        f"{time.perf_counter() - t0:.1f} s; mismatched heads raise "
+        f"cores and f16/bf16 on tensor cores (n in 1,2,3,8; (h, h_kv) in "
+        f"(4,4),(8,2),(4,2),(32,8); d in 1,8,37,64,128,256; s_local in 3,"
+        f"37,70,100,300,1024; causal both ways; f32/bf16/f16; max abs err "
+        f"by dtype {errs}; peaked q x 8 at the main widths {peaked_err}; "
+        f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}) in "
+        f"{time.perf_counter() - t0:.1f} s; peaked f32 at the main widths "
+        f"against float64: {peaked_f32}; mismatched heads raise "
         f"ValueError, head dim {ka.MAX_HEAD_DIM + 1} ERR_NOT_SUPPORTED")
 
 
@@ -1784,7 +1883,8 @@ def main_path_attention(smi, ptxas) -> dict:
         f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}), roofline share "
         f"{f32['bound_ms'] / f32['ms']:.4f} | max abs err "
         f"{f32['max_abs_err']} | plain {f32['plain_ms']:.3f} ms | SDPA f32 "
-        f"{f32['library_ms']:.4f} ms | launches {f32['launches']} | card "
+        f"{f32['library_ms']:.4f} ms | in turns (kernel, SDPA, SDPA, "
+        f"kernel) {f32['turns']} | launches {f32['launches']} | card "
         f"{smi}")
     log(f"ptxas of {ka.SOURCE}: {json.dumps(ptxas)}")
     # the f16/bf16 route issues wgmma (HGMMA in SASS), the f32 route none
@@ -1808,10 +1908,10 @@ def main_path_attention(smi, ptxas) -> dict:
 
 def main_path_attention_f32(qs, ks, vs, scale, launches) -> dict:
     """The f32 route (ring_flash_attn_kernel, CUDA cores) on the main path's
-    projections cast to f32: held against its plain version, timed beside
-    its plain version and SDPA in f32 (TF32 off), bound by f32 FMAs outside
-    the tensor cores. `launches` is the route's count from the main path's
-    run."""
+    projections cast to f32: held against its plain version, timed in
+    turns with SDPA in f32 (TF32 off) and beside its plain version, bound
+    by f32 FMAs outside the tensor cores. `launches` is the route's count
+    from the main path's run."""
     import torch
     import torch.nn.functional as F
     from ucc_tpu_torch.kernels import ring_attention as ka
@@ -1819,10 +1919,17 @@ def main_path_attention_f32(qs, ks, vs, scale, launches) -> dict:
     n, (h, s_local, e), h_kv = len(qs), qs[0].shape, ks[0].shape[0]
     max_err = check_attention(qs, ks, vs, True, "f32 route, main shapes")
     q, k, v = (torch.cat(t, dim=1)[None] for t in (qs, ks, vs))
-    ms = cuda_ms(lambda: ka.ring_flash_attention_fwd(qs, ks, vs, scale,
-                                                     True), ITERS)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), ITERS)
+
+    def kernel():
+        ka.ring_flash_attention_fwd(qs, ks, vs, scale, True)
+
+    def sdpa():
+        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       enable_gqa=True)
+
+    # in turns: kernel, SDPA, SDPA, kernel
+    turns = [cuda_ms(f, ITERS) for f in (kernel, sdpa, sdpa, kernel)]
+    ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     plain_ms = cuda_ms(
         lambda: ka.ring_flash_attention_ref(qs, ks, vs, scale, True), 3)
     seq = n * s_local
@@ -1834,7 +1941,7 @@ def main_path_attention_f32(qs, ks, vs, scale, launches) -> dict:
             "kernel_route": "CUDA cores (f32 FMAs)", "launches": launches,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "turns": turns}
 
 
 def ptxas_start(source):
@@ -1853,11 +1960,13 @@ def ptxas_start(source):
 
 def ptxas_read(started) -> dict:
     """{kernel instance: {registers, stack_frame, spill_stores,
-    spill_loads, hgmma, ldg128, stg128}} (bytes for the stack frame and the
-    spills; hgmma counts the warpgroup
+    spill_loads, hgmma, ldg128, stg128, ffma, lds, lds128}} (bytes for the
+    stack frame and the spills; hgmma counts the warpgroup
     tensor-core instructions in the object's SASS, by cuobjdump, ldg128
-    and stg128 its 128-bit global loads and stores) from ptxas_start's
-    report; names demangled by cu++filt where the toolkit has it."""
+    and stg128 its 128-bit global loads and stores, ffma its f32 FMAs, lds
+    its shared loads and lds128 the 128-bit ones among them) from
+    ptxas_start's report; names demangled by cu++filt where the toolkit
+    has it."""
     import re
     from ucc_tpu_torch.kernels import build
     obj, proc = started
@@ -1870,7 +1979,8 @@ def ptxas_read(started) -> dict:
     os.remove(obj)
     counts, name = {}, None
     patterns = {"hgmma": r"\bHGMMA\.", "ldg128": r"\bLDG\.E\S*\.128\b",
-                "stg128": r"\bSTG\.E\S*\.128\b"}
+                "stg128": r"\bSTG\.E\S*\.128\b", "ffma": r"\bFFMA\b",
+                "lds": r"\bLDS\b", "lds128": r"\bLDS\S*\.128\b"}
     for line in sass.splitlines():
         hit = re.search(r"Function : (\S+)", line)
         if hit:
@@ -1956,6 +2066,26 @@ def check_spills(infos) -> None:
     if direct:
         raise AssertionError(f"flag-free kernel instances spill or have a "
                              f"stack frame: {direct}")
+
+
+def check_attention_f32_sass(info) -> None:
+    """Every f32 instance of the attention kernel (the CUDA-core route,
+    one per head dim and copy width) reads its operands with 128-bit shared
+    loads (LDS.128) and keeps its register tiles without a stack frame or
+    spill; prints each instance's registers and its FFMA and LDS counts
+    (static, in the SASS)."""
+    f32 = {k: v for k, v in info.items() if "ring_flash_attn_kernel" in k}
+    log("ptxas of the f32 attention instances (registers, FFMA, LDS, "
+        "LDS.128): " + "; ".join(
+            f"{k}: {v.get('registers')}, {v['ffma']}, {v['lds']}, "
+            f"{v['lds128']}" for k, v in f32.items()))
+    bad = {k: v for k, v in f32.items()
+           if not v["lds128"] or v.get("stack_frame") or
+           v.get("spill_stores") or v.get("spill_loads")}
+    if len(f32) != 10 or bad:
+        raise AssertionError(f"f32 attention instances without LDS.128 or "
+                             f"with a stack frame or spill (want 10 "
+                             f"instances, got {len(f32)}): {bad}")
 
 
 def make_job(n, **overrides):
@@ -2641,6 +2771,7 @@ def main() -> int:
     for src in DIRECT_KERNELS:
         check_direct_sass(src, infos[src])
     check_spills(infos)
+    check_attention_f32_sass(infos[ka.SOURCE])
     ptxas = infos[ka.SOURCE]
 
     # -- 2. kernels against their plain versions ---------------------------

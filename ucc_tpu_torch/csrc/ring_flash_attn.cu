@@ -8,6 +8,8 @@
 // the whole sequence. The arithmetic is the Pallas kernel's, step for step:
 // - q is cast to float and multiplied by `scale` before the dot (the
 //   tensor-core route below scales the dot instead);
+// - exp(x) is computed as exp2(x·log2 e), with log2 e folded into `scale`
+//   (the float route's exp2f, the tensor-core route's ex2.approx);
 // - query head j reads K/V head j / (h / h_kv) (GQA, consecutive groups);
 // - for t = 0..n-1 the K/V block of rank src = (me - t) mod n is folded in:
 //   S = q·Kᵀ in float; under causal, S = -inf where the global query
@@ -17,9 +19,9 @@
 //   corr = isfinite(m) ? exp(m - safe_m) : 0;
 //   l = l·corr + rowsum p; acc = acc·corr + p·V; m = m_new;
 // - o = acc / (l == 0 ? 1 : l), rounded to T to nearest even.
-// The kernel folds a block in key tiles of kBK rows, so one block is
-// several such updates; the result differs from one update per block only
-// by float rounding.
+// The kernels fold a block in key tiles (kF32BK, kTcBK rows), so one block
+// is several such updates; the result differs from one update per block
+// only by float rounding.
 //
 // Pull, not push. On the TPU a chip reads only its own VMEM, so K/V
 // rotate: a remote DMA per step into 2-slot parity buffers, throttled by a
@@ -48,14 +50,38 @@
 // dtype:
 //
 // float: ring_flash_attn_kernel, float FMAs on CUDA cores, so float inputs
-// keep their full precision. A CTA of 256 threads (16 x 16) takes kBQ = 64
-// query rows of one head of one rank; each thread owns 4 rows x 4 score
-// columns and 4 rows x d/16 output columns. The scaled Q tile stays in
-// shared memory in float; K and then V of each key tile are staged through
-// one float buffer (rows padded by one word, so the score loop's column
-// reads are conflict-free), and P goes through shared memory to the P·V
-// product. Row max and row sum are reduced across the 16 lanes of a row
-// with shuffles.
+// keep their full precision: every product is an IEEE f32 FFMA. Those
+// FFMAs bound it, at 67 TFLOP/s on the H100: at the GQA block's shape in
+// f32 (8 ranks x 1024 rows, 32 heads over 8, d 128, causal) its 5.50e11
+// flops take 8.21 ms, its bytes 0.10 ms. The first version of this route
+// took 24.869 ms there (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W), a
+// third of that rate, for four reasons, each answered here:
+// - shared memory set the pace: a thread held 4 x 4 scores and read each
+//   operand with a 32-bit load, 2 to 2.7 FFMA a load. Now a CTA of
+//   kF32Threads = 256 (16 x 16) takes kF32BQ = 128 query rows (kF32BQ256
+//   = 64 at DT 256) and key tiles of kF32BK = 64; thread (ty, tx) holds
+//   rows ty + 16i of S and O (8 of them), keys tx + 16j of S (4) and head
+//   columns 4tx + 64c + 0..3 of O (8 at DT 128), and reads its operands
+//   with 128-bit loads: S steps d four columns at a time (8 Q and 4 K
+//   loads for 128 FFMA), P·V four keys at a time (8 P and 8 V loads for
+//   256). A warp is 2 rows x 16 lanes, so a Q or P load is a broadcast of
+//   2 addresses and a K or V load 16 distinct 16-byte words; Q, K and V
+//   rows are padded by 4 floats and P rows by 16, so consecutive rows sit
+//   on other banks and each load takes one or two wavefronts. A row's max
+//   and sum take 4 shuffles within its 16 lanes;
+// - no copy overlapped a product: K and then V of a tile went through one
+//   buffer by scalar loads, four barriers a tile. Now K and V have a buffer
+//   each, filled by cp.async (16 bytes a copy where d % 4 == 0 and the
+//   blocks are 16-byte aligned, else 4; zeros beyond s and d), and the
+//   copies leapfrog: V(i) is issued before S(i) and its softmax, K(i + 1)
+//   before P·V(i), so each copy overlaps a product and a tile takes two
+//   barriers. Q is copied once per CTA and scaled in place;
+// - the DT 32 instance spilled; no instance may now (chip_smoke.py fails
+//   on a stack frame or spill, and on an instance without LDS.128);
+// - a CTA did 64 rows of a tile between four barriers; now one CTA of 256
+//   threads an SM (172 KiB of shared memory at DT 128) does 128 rows between
+//   two, four times the FFMAs a barrier.
+// P goes through shared memory to the P·V product.
 //
 // half and bfloat16: ring_flash_attn_tc_kernel, warpgroup tensor cores
 // (wgmma.mma_async m64n64k16, f32 accumulators). A CTA of 384 threads
@@ -119,13 +145,8 @@
 namespace {
 
 constexpr int kMaxRanks = 64;
-constexpr int kThreads = 256;           // 16 x 16
-constexpr int kBQ = 64;                 // query rows of a CTA
-constexpr int kBK = 64;                 // key rows of a tile
-constexpr int kRows = kBQ / 16;         // query rows of a thread
-constexpr int kCols = kBK / 16;         // score columns of a thread
-constexpr int kPStride = kBK + 16;      // P rows: ty and ty+1 on other banks
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const void* q[kMaxRanks];
@@ -136,8 +157,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -151,24 +170,112 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-constexpr size_t smem_bytes(int dt) {
-  return sizeof(float) * ((size_t)(kBQ + kBK) * (dt + 1) +
-                          (size_t)kBQ * kPStride);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rows [r0, r0 + rows) of a (s, d) block into a [rows][DT + 1] float tile,
-// times `mul`; zeros beyond s and d, so a ragged tile adds nothing
-template <typename T, int DT, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int s, int d, float mul) {
-  for (int idx = threadIdx.x; idx < ROWS * DT; idx += kThreads) {
-    const int r = idx / DT, c = idx % DT;
-    float x = 0.f;
-    if (r0 + r < s && c < d) x = to_f32(src[(size_t)(r0 + r) * d + c]) * mul;
-    dst[r * (DT + 1) + c] = x;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// float: register tiles on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// The f32 route's tiles: query rows of a CTA and keys of a tile, at DT <=
+// 128 and at DT 256 (whose O tile is twice as wide, so it takes half the
+// rows rather than spill). tools/attention_f32_depth.py builds copies with
+// other values by substituting these lines.
+constexpr int kF32Threads = 256;        // 16 x 16
+constexpr int kF32BQ = 128;
+constexpr int kF32BK = 64;
+constexpr int kF32BQ256 = 64;
+constexpr int kF32BK256 = 64;
+
+template <int DT> struct F32Tile {
+  static constexpr int kBQ = DT == 256 ? kF32BQ256 : kF32BQ;
+  static constexpr int kBK = DT == 256 ? kF32BK256 : kF32BK;
+  static constexpr int kRows = kBQ / 16;     // rows of S and O a thread
+  static constexpr int kKeys = kBK / 16;     // keys of S a thread
+  static constexpr int kCols = DT / 16;      // head columns of O a thread
+  static constexpr int kVec = kCols < 4 ? kCols : 4;   // floats a V load
+  // Q, K and V rows: 4 floats of padding put consecutive rows on other
+  // 16-byte bank groups; P rows: 16, so rows ty and ty + 1 do too
+  static constexpr int kStride = DT + 4;
+  static constexpr int kPStride = kBK + 16;
+  static constexpr int kSmem =
+      (int)sizeof(float) * ((kBQ + 2 * kBK) * kStride + kBQ * kPStride);
+  static_assert(kBQ % 16 == 0 && kBK % 16 == 0, "16 x 16 threads");
+  static_assert(kSmem <= 232448, "a block has at most 227 KB");
+};
+
+// one 16-byte (VEC) or 4-byte cp.async; `ok` false writes zeros and reads
+// nothing (`src` must still be a valid address)
+template <bool VEC>
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool ok) {
+  if (VEC)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+}
+
+// rows [r0, r0 + ROWS) of an (s, d) block into a [ROWS][DT + 4] tile by
+// cp.async, 4 floats a copy (VEC) or 1; zeros beyond s and d, so a ragged
+// tile adds nothing. Issued, not committed.
+template <int DT, int ROWS, bool VEC>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
+                                          int r0, int s, int d) {
+  constexpr int kW = VEC ? 4 : 1;
+  constexpr int kPer = DT / kW;               // copies a row
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < ROWS * kPer; idx += kF32Threads) {
+    const int r = idx / kPer, c = idx % kPer * kW;
+    const bool ok = r0 + r < s && c < d;
+    cp_async_f32<VEC>(dst + r * (DT + 4) + c,
+                      ok ? src + (size_t)(r0 + r) * d + c : src, ok);
   }
 }
 
+// what copy_tile<DT, ROWS, VEC> of this thread wrote, times `mul`, once
+// those copies have landed (a thread sees its own cp.async writes after
+// its wait)
+template <int DT, int ROWS, bool VEC>
+__device__ __forceinline__ void scale_tile(float* dst, float mul) {
+  constexpr int kW = VEC ? 4 : 1;
+  constexpr int kPer = DT / kW;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < ROWS * kPer; idx += kF32Threads) {
+    float* at = dst + idx / kPer * (DT + 4) + idx % kPer * kW;
+#pragma unroll
+    for (int e = 0; e < kW; ++e) at[e] *= mul;
+  }
+}
+
+// N consecutive floats of shared memory in one load (N = 4: LDS.128)
+template <int N>
+__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// max and sum over the 16 lanes of a row (a half warp)
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -182,153 +289,211 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int DT>
-__global__ void __launch_bounds__(kThreads) ring_flash_attn_kernel(
+template <int DT, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, 1) ring_flash_attn_kernel(
     const Args a) {
-  constexpr int kStride = DT + 1;
-  constexpr int kDCols = DT / 16;       // output columns of a thread
-  extern __shared__ float smem[];
-  float* sq = smem;                     // [kBQ][kStride]: q · scale
-  float* skv = sq + kBQ * kStride;      // [kBK][kStride]: K, then V
-  float* sp = skv + kBK * kStride;      // [kBQ][kPStride]: p
+  using F = F32Tile<DT>;
+  constexpr int BQ = F::kBQ, BK = F::kBK, TM = F::kRows, TN = F::kKeys;
+  constexpr int TD = F::kCols, VW = F::kVec, QS = F::kStride;
+  constexpr int PS = F::kPStride;
+  extern __shared__ float4 f32_smem[];
+  float* sq = reinterpret_cast<float*>(f32_smem);   // [BQ][QS]: q·scale·log2 e
+  float* sk = sq + BQ * QS;                          // [BK][QS]: K of tile i
+  float* sv = sk + BK * QS;                          // [BK][QS]: V of tile i
+  float* sp = sv + BK * QS;                          // [BQ][PS]: p of tile i
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int n = a.n, s = a.s, d = a.d;
+  const bool causal = a.causal != 0;
   // the ranks and query tiles with the most causal work are dispatched first
   const int me = n - 1 - (int)blockIdx.z;
-  const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * kBQ;
+  const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * BQ;
   const int head = blockIdx.y;
   const int kvh = head / (a.h / a.h_kv);
   const size_t q_off = (size_t)head * s * d;
   const size_t kv_off = (size_t)kvh * s * d;
 
-  load_tile<T, DT, kBQ>(sq, static_cast<const T*>(a.q[me]) + q_off, q0, s,
-                        d, a.scale);
+  // The CTA's key tiles in order: the ring's blocks t = 0, 1, ... (src =
+  // me - t), skipping wholly masked blocks and, in the diagonal block, the
+  // tiles after the CTA's last query. Under causal the diagonal block is t
+  // = 0 and the blocks kept are t <= me. (src, j0) is the tile whose K is
+  // in (or on its way to) sk.
+  int src = me, j0 = 0, end = causal ? min(s, q0 + BQ) : s;
+  const int count = (end + BK - 1) / BK + (causal ? me : n - 1) *
+                                              ((s + BK - 1) / BK);
+  auto kv_block = [&](const void* const* blocks, int r) {
+    return static_cast<const float*>(blocks[r]) + kv_off;
+  };
 
-  float m[kRows], l[kRows], acc[kRows][kDCols];
+  copy_tile<DT, BQ, VEC>(sq, static_cast<const float*>(a.q[me]) + q_off, q0,
+                         s, d);
+  copy_tile<DT, BK, VEC>(sk, kv_block(a.k, src), 0, s, d);
+  cp_async_commit();
+  cp_async_wait<0>();
+  scale_tile<DT, BQ, VEC>(sq, a.scale * kLog2e);
+  __syncthreads();
+
+  float m[TM], l[TM], acc[TM][TD];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < TM; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kDCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < TD; ++c) acc[i][c] = 0.f;
   }
 
-  for (int t = 0; t < n; ++t) {
-    const int src = (me - t + n) % n;
-    if (a.causal && src > me) continue;          // wholly masked: exact skip
-    const T* kb = static_cast<const T*>(a.k[src]) + kv_off;
-    const T* vb = static_cast<const T*>(a.v[src]) + kv_off;
-    // in the diagonal block, tiles after the CTA's last query: exact skip
-    const int j_end = (a.causal && src == me) ? min(s, q0 + kBQ) : s;
-    const long long q_base = (long long)me * s, k_base = (long long)src * s;
-    for (int j0 = 0; j0 < j_end; j0 += kBK) {
-      __syncthreads();                // the last tile's P and V are read
-      load_tile<T, DT, kBK>(skv, kb, j0, s, d, 1.f);
-      __syncthreads();
+  for (int it = 0; it < count; ++it) {
+    const int t_src = src, t_j0 = j0;
+    copy_tile<DT, BK, VEC>(sv, kv_block(a.v, t_src), t_j0, s, d);
+    cp_async_commit();
 
-      float sc[kRows][kCols];
+    // S = (q·scale·log2 e)·Kᵀ, four head columns a step
+    float sc[TM][TN];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) sc[i][j] = 0.f;
-      for (int c = 0; c < d; ++c) {
-        float qv[kRows], kv[kCols];
+      for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < DT; c += 4) {
+      float qv[TM][4], kv[TN][4];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          qv[i] = sq[(ty + 16 * i) * kStride + c];
+      for (int i = 0; i < TM; ++i) lds(qv[i], sq + (ty + 16 * i) * QS + c);
 #pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          kv[j] = skv[(tx + 16 * j) * kStride + c];
+      for (int j = 0; j < TN; ++j) lds(kv[j], sk + (tx + 16 * j) * QS + c);
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-          for (int j = 0; j < kCols; ++j)
-            sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-      }
-
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const long long qpos = q_base + q0 + ty + 16 * i;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int kj = j0 + tx + 16 * j;
-          if (kj >= s || (a.causal && qpos < k_base + kj))
-            sc[i][j] = -INFINITY;
-          mx = fmaxf(mx, sc[i][j]);
-        }
-        const float m_new = fmaxf(m[i], row_max(mx));
-        // exp(-inf - -inf) would be NaN; fully masked rows keep p = 0
-        const float safe_m = isfinite(m_new) ? m_new : 0.f;
-        const float corr = isfinite(m[i]) ? expf(m[i] - safe_m) : 0.f;
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const float p =
-              isfinite(sc[i][j]) ? expf(sc[i][j] - safe_m) : 0.f;
-          sp[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-          rs += p;
-        }
-        l[i] = l[i] * corr + row_sum(rs);
-#pragma unroll
-        for (int c = 0; c < kDCols; ++c) acc[i][c] *= corr;
-        m[i] = m_new;
-      }
-
-      __syncthreads();                // K is read, P is written
-      load_tile<T, DT, kBK>(skv, vb, j0, s, d, 1.f);
-      __syncthreads();
-      const int jn = min(kBK, s - j0);
-      for (int j = 0; j < jn; ++j) {
-        float pv[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          pv[i] = sp[(ty + 16 * i) * kPStride + j];
-#pragma unroll
-        for (int c = 0; c < kDCols; ++c) {
-          const float vv = skv[j * kStride + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
+          for (int j = 0; j < TN; ++j)
+            sc[i][j] = fmaf(qv[i][e], kv[j][e], sc[i][j]);
     }
+
+    // the online softmax of rows ty + 16i; masking only where a key may be
+    // beyond s or, in the diagonal block, after a row of the CTA
+    const bool diag = causal && t_src == me;
+    const bool edge = t_j0 + BK > s || (diag && t_j0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int key = t_j0 + tx + 16 * j;
+        if (edge && (key >= s || (diag && key > row))) sc[i][j] = -INFINITY;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      // exp(-inf - -inf) would be NaN; fully masked rows keep p = 0
+      const float safe_m = isfinite(m_new) ? m_new : 0.f;
+      const float corr = isfinite(m[i]) ? exp2f(m[i] - safe_m) : 0.f;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float p = isfinite(sc[i][j]) ? exp2f(sc[i][j] - safe_m) : 0.f;
+        sp[(ty + 16 * i) * PS + tx + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * corr + row_sum(rs);
+#pragma unroll
+      for (int c = 0; c < TD; ++c) acc[i][c] *= corr;
+      m[i] = m_new;
+    }
+
+    cp_async_wait<0>();
+    __syncthreads();              // V(i) and P(i) are in, K(i) is read
+    j0 += BK;
+    if (j0 >= end) {
+      j0 = 0;
+      end = s;
+      src = src == 0 ? n - 1 : src - 1;
+    }
+    if (it + 1 < count) {
+      copy_tile<DT, BK, VEC>(sk, kv_block(a.k, src), j0, s, d);
+      cp_async_commit();
+    }
+
+    // O += P·V, four keys a step; a thread's columns are VW·tx + 16·VW·cc
+#pragma unroll 4
+    for (int k = 0; k < BK; k += 4) {
+      float pv[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) lds(pv[i], sp + (ty + 16 * i) * PS + k);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int cc = 0; cc < TD / VW; ++cc) {
+          float vv[VW];
+          lds(vv, sv + (k + e) * QS + VW * tx + 16 * VW * cc);
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int u = 0; u < VW; ++u)
+              acc[i][VW * cc + u] = fmaf(pv[i][e], vv[u], acc[i][VW * cc + u]);
+        }
+    }
+
+    cp_async_wait<0>();
+    __syncthreads();              // K(i + 1) is in, P(i) and V(i) are read
   }
 
-  T* o = static_cast<T*>(a.o[me]) + q_off;
+  float* o = static_cast<float*>(a.o[me]) + q_off;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < TM; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= s) continue;
     const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-    for (int c = 0; c < kDCols; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) o[(size_t)row * d + col] = from_f32<T>(acc[i][c] / den);
+    for (int cc = 0; cc < TD / VW; ++cc) {
+      const int col = VW * tx + 16 * VW * cc;
+      float x[VW];
+#pragma unroll
+      for (int u = 0; u < VW; ++u) x[u] = acc[i][VW * cc + u] / den;
+      float* at = o + (size_t)row * d + col;
+      if constexpr (VEC && VW == 4) {
+        // d % 4 == 0 and o 16-byte aligned: col < d holds the whole vector
+        if (col < d)
+          *reinterpret_cast<float4*>(at) = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < VW; ++u)
+          if (col + u < d) at[u] = x[u];
+      }
     }
   }
 }
 
-template <typename T, int DT>
+template <int DT, bool VEC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(DT);
+  using F = F32Tile<DT>;
   cudaError_t e = cudaFuncSetAttribute(
-      ring_flash_attn_kernel<T, DT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ring_flash_attn_kernel<DT, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.s + kBQ - 1) / kBQ, a.h, a.n);
-  ring_flash_attn_kernel<T, DT><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.s + F::kBQ - 1) / F::kBQ, a.h, a.n);
+  ring_flash_attn_kernel<DT, VEC><<<grid, kF32Threads, F::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <bool VEC>
 cudaError_t by_dim(const Args& a, cudaStream_t stream) {
-  if (a.d <= 16) return launch<T, 16>(a, stream);
-  if (a.d <= 32) return launch<T, 32>(a, stream);
-  if (a.d <= 64) return launch<T, 64>(a, stream);
-  if (a.d <= 128) return launch<T, 128>(a, stream);
-  return launch<T, 256>(a, stream);
+  if (a.d <= 16) return launch<16, VEC>(a, stream);
+  if (a.d <= 32) return launch<32, VEC>(a, stream);
+  if (a.d <= 64) return launch<64, VEC>(a, stream);
+  if (a.d <= 128) return launch<128, VEC>(a, stream);
+  return launch<256, VEC>(a, stream);
+}
+
+// 16-byte copies where rows are whole vectors and every block (o too, for
+// its float4 stores) is 16-byte aligned; else 4-byte copies
+cudaError_t cuda_cores(const Args& a, cudaStream_t stream) {
+  bool aligned = a.d % 4 == 0;
+  for (int r = 0; r < a.n; ++r)
+    aligned = aligned && (reinterpret_cast<uintptr_t>(a.q[r]) |
+                          reinterpret_cast<uintptr_t>(a.k[r]) |
+                          reinterpret_cast<uintptr_t>(a.v[r]) |
+                          reinterpret_cast<uintptr_t>(a.o[r])) % 16 == 0;
+  return aligned ? by_dim<true>(a, stream) : by_dim<false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,7 +505,6 @@ constexpr int kTcThreads = (kConsumers + 1) * 128;  // + a producer
 constexpr int kTcBQ = kConsumers * 64;             // query rows of a CTA
 constexpr int kTcBK = 64;                          // key rows of a tile
 constexpr int kPanel = 64 * 128;   // bytes of a panel: 64 rows x 128 B
-constexpr float kLog2e = 1.4426950408889634f;
 // an mbarrier wait that has not completed after this many cycles (~10 s)
 // traps, so a fault ends the launch with an error instead of hanging
 constexpr long long kSpinCycles = 20000000000LL;
@@ -428,10 +592,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // wgmma's matrix descriptor of a tile in the 128-byte swizzled layout:
 // start address, leading and stride byte offsets (16-byte units)
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -492,12 +652,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // this thread's shared-memory writes, made visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -1015,7 +1169,7 @@ int ucc_ring_flash_attn(int dtype, const void* const* ptrs, int n, int h,
   a.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return by_dim<float>(a, st);
+    case 0: return cuda_cores(a, st);
     case 1:
       return tensor_cores<__half>(ta, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     case 2:
