@@ -16,8 +16,12 @@ Phases, each printing its own lines (any failure exits non-zero):
    alltoall; the bcast's and the allgather's 4- and 2-byte ones) must
    hold 128-bit global loads and stores in their SASS (cuobjdump), and
    none of their instances may spill or have a stack frame; the instances
-   of every source that do are printed; every f32 instance of the
-   attention kernel must hold 128-bit shared loads (LDS.128) and have no
+   of every source that do are printed; neither may the 8 instances of
+   the generated wire fold (gen_device.cu) or the f32, f16 and bf16 ones
+   of ec_reduce.cu's scalar and vector kernels (216 instances in all), and
+   the wire fold's instances of 4 and 8 values a lane and ec_reduce's
+   vector f32 and bf16 SUM instances must hold 128-bit global loads and
+   stores; every f32 instance of the attention kernel must hold 128-bit shared loads (LDS.128) and have no
    stack frame or spill, and its FFMA and LDS counts are printed;
 2. kernels, each launch bitwise equal to its plain version on the same
    CUDA tensors, n in {2, 4, 8}, f32/bf16/int32, ragged counts, NaN inputs
@@ -70,13 +74,20 @@ Phases, each printing its own lines (any failure exits non-zero):
      n/2 and n-1, in place; rings, direct exchanges and bcasts at n in
      {3, 5, 16, 32} and halving-doubling at 16 and 32; views with a storage
      offset; in place at the main shape; a fold launch on a faulted
-     workspace, which must neither raise nor touch it; and int8/fp8
-     edge-wire direct exchanges with tail blocks (qblock 32 and 256) on
-     the layer kernel (gen_device.cu), where a set error word must raise;
+     workspace, which must neither raise nor touch it; int8/fp8
+     edge-wire direct exchanges (n 2, 3, 4, 8, the three wirings, qblock 8
+     to 256 with partial groups, AVG, MAX, in place, views at +1 and mixed
+     offsets) on the wire fold (gen_device.cu), and the wire plans without
+     a fold plan (qblock 512, wire runs of two units whose unit is no
+     multiple of qblock) on the layer kernel (gen_device.cu), where a set
+     error word must raise;
    - the execution component's reduce kernel (ec_reduce) over every type it
      takes x all 11 ops (BAND/BOR/BXOR on integers only), k in {1, 2, 3,
      9} sources, counts {1, 7, 1000, 2^20+3}, alpha None and 0.25, NaNs
-     for MAX/MIN, a strided reduce at an odd element offset and a 7-job
+     for MAX/MIN, views with every buffer aligned, every buffer one
+     element in (scalar head and tail around 16-byte vectors) and mixed
+     offsets (scalar throughout) at k in {1, 2, 9}, a strided reduce at an
+     odd element offset and a 7-job
      reduce_multi_dst through EcCuda; more than 9 sources and BAND on f32
      must raise;
    - the ring flash-attention kernel (ring_flash_attention_fwd) over a
@@ -137,7 +148,8 @@ Phases, each printing its own lines (any failure exits non-zero):
      16 Mi from root 3 and 64 Ki from root 0 via gen_dev_bc_kn_r2 and
      gen_dev_bc_chain_c2; and tl/torch_ops's library-ops default (xla)
      for allreduce and bcast at 16 Mi; then, below the stack, int8 and
-     fp8 edge-wire direct exchanges of 16 Mi f32 over 8 ranks;
+     fp8 edge-wire direct exchanges of 16 Mi f32 over 8 ranks on the wire
+     fold, and the layer kernel on the same plans, timed in turns;
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms), timed in turns with
@@ -162,8 +174,9 @@ Phases, each printing its own lines (any failure exits non-zero):
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
-the int8/fp8 wire layers among them, with launches 0: the main path runs
-neither) and {"ok": true, "device": ...}.
+the int8/fp8 wire fold and the layer kernel on the same plans among
+them, with launches 0: the main path runs none of them) and {"ok": true,
+"device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
 """
@@ -1161,23 +1174,66 @@ def wire_direct(n, rs_wire, ag_wire):
     return b.build("gen_wdirect")
 
 
+def wire_pairs(n, wire):
+    """An edge-wired direct exchange over 2n chunks whose reduce round
+    moves runs of two chunks (rank q owns chunks 2q and 2q + 1) and whose
+    gather round moves them one at a time: at 40 elements a chunk and
+    qblock 32 its wire runs are two units long and the unit is no multiple
+    of qblock, a plan only the layer kernel runs."""
+    from ucc_tpu_torch import CollType
+    from ucc_tpu_torch.dsl.ir import ProgramBuilder
+    b = ProgramBuilder("wpairs", CollType.ALLREDUCE, n, 2 * n)
+    b.next_round()
+    for p in range(n):
+        for q in range(n):
+            if p != q:
+                for c in (2 * q, 2 * q + 1):
+                    b.send(p, c, to=q, wire=wire)
+    for q in range(n):
+        for p in range(n):
+            if p != q:
+                for c in (2 * q, 2 * q + 1):
+                    b.reduce(q, c, frm=p, wire=wire)
+    b.next_round()
+    for q in range(n):
+        for p in range(n):
+            if p != q:
+                for c in (2 * q + 1, 2 * q):
+                    b.send(q, c, to=p, wire=wire)
+    for p in range(n):
+        for q in range(n):
+            if p != q:
+                for c in (2 * q + 1, 2 * q):
+                    b.recv(p, c, frm=q, wire=wire)
+    return b.build("gen_wpairs")
+
+
+#: the routes of the generated entry points that count fold_launches
+FOLD_ROUTES = ("fold", "wire fold")
+
+
 def gen_route(prog, n, count, root=0, qblock=256, qmode=""):
     """(plan, entry point, route) of *prog* at *count*: the ring or the
     general entry point, as the lowering picks, and "fold" (gen_fold.cu)
-    when the plan has a fold plan, else "layer" (gen_device.cu)."""
+    when the plan has an exact fold plan, "wire fold" (gen_device.cu's
+    wire fold) when it has a wire fold plan, else "layer" (gen_device.cu's
+    layer kernel)."""
     from ucc_tpu_torch.dsl import lower_device as ld
     from ucc_tpu_torch.kernels import gen_device as kgd
     plan = ld.device_plan(prog, n, count, root, qblock, qmode)
     wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
-    return plan, wrapper, "fold" if kgd.fold_plan(plan) else "layer"
+    fp = kgd.fold_plan(plan)
+    route = "layer" if fp is None else "wire fold" if fp.qmode else "fold"
+    return plan, wrapper, route
 
 
 def launch_gen(wrapper, route, *args, **kw):
     """One call of a generated entry point that must launch once, on
-    *route*; returns its handle."""
+    *route* (a fold route adds one to fold_launches, the layer kernel
+    does not); returns its handle."""
     before = (wrapper.launches, wrapper.fold_launches)
     h = wrapper(*args, **kw)
-    want = (before[0] + 1, before[1] + (route == "fold"))
+    want = (before[0] + 1, before[1] + (route in FOLD_ROUTES))
     if (wrapper.launches, wrapper.fold_launches) != want:
         raise AssertionError(
             f"{wrapper.__name__}: (launches, fold_launches) went from "
@@ -1267,7 +1323,10 @@ def phase_kernels_gen_device() -> None:
     nchunks x 37, each on the fold route; the ring, direct and bcast
     programs at n = 3, 5, 16 and 32 (rhd_r2 at 16 and 32), views with a
     storage offset, and in place at the main shape, on the fold route too;
-    then int8 and fp8 wire programs with tail blocks on the layer route. A
+    then int8 and fp8 wire programs with tail groups on the wire fold
+    (n = 2, 3, 4, 8, the three wirings, qblock 8 to 256, AVG, MAX, in
+    place, views at +1 and mixed offsets), and the wire plans that have
+    no fold plan (qblock 512, runs of two units) on the layer kernel. A
     fold launch on a faulted workspace must neither raise nor touch it; a
     set error word must make the layer route raise."""
     import torch
@@ -1332,7 +1391,7 @@ def phase_kernels_gen_device() -> None:
             ReductionOp.SUM, root, inplace=True)
         cases += 1
         torch.cuda.empty_cache()
-    wire = 0
+    wire = layer = 0
     for n in (2, 4, 8):
         for qmode in ("int8", "fp8"):
             for rs, ag in ((qmode, qmode), (qmode, ""), ("", qmode)):
@@ -1341,30 +1400,88 @@ def phase_kernels_gen_device() -> None:
                     srcs = make_inputs(n, n * ce, torch.float32,
                                        ReductionOp.SUM, 8000 + n + ce)
                     check_gen(prog, n, srcs, ReductionOp.SUM, qblock=qblock,
-                              qmode=qmode, inplace=ce == 40, route="layer")
-                    cases += 1
+                              qmode=qmode, inplace=ce == 40,
+                              route="wire fold")
                     wire += 1
-                    entries["gen"] += 1
+    # AVG; MAX in the exact reduce round beside a wired gather round (wire
+    # receives add whatever the op); qblock 8 and 37, one lane's value and
+    # two, with partial groups; no NaNs: the reference's cast of a NaN to
+    # int8 is not pinned
+    for n, qmode, (rs, ag), op, qblock, ce in (
+            (4, "int8", ("int8", "int8"), ReductionOp.AVG, 37, 100),
+            (8, "fp8", ("", "fp8"), ReductionOp.MAX, 8, 44),
+            (3, "fp8", ("fp8", "fp8"), ReductionOp.AVG, 64, 200)):
+        srcs = make_inputs(n, n * ce, torch.float32, ReductionOp.SUM,
+                           8100 + n)
+        check_gen(wire_direct(n, rs, ag), n, srcs, op, qblock=qblock,
+                  qmode=qmode, route="wire fold", inplace=n == 4)
+        wire += 1
+    # views at +1 (groups starting on a 16-byte boundary take vectors, the
+    # rest scalars) and mixed offsets (every group scalar)
+    for qmode in ("int8", "fp8"):
+        for mixed in (True, False):
+            check_wire_views(wire_direct(4, qmode, qmode), 4, 4 * 1031, 256,
+                             qmode, mixed, 8200 + mixed)
+            wire += 1
+    # the layer kernel keeps the wire plans that have no fold plan: qblock
+    # 512 (a group wider than a warp's), and wire runs of two units whose
+    # unit is no multiple of qblock (groups that straddle units)
+    for n, qmode in ((2, "int8"), (4, "fp8"), (8, "int8")):
+        srcs = make_inputs(n, n * 600, torch.float32, ReductionOp.SUM,
+                           8300 + n)
+        check_gen(wire_direct(n, qmode, qmode), n, srcs, ReductionOp.SUM,
+                  qblock=512, qmode=qmode, route="layer")
+        srcs = make_inputs(n, 2 * n * 40, torch.float32, ReductionOp.SUM,
+                           8400 + n)
+        check_gen(wire_pairs(n, qmode), n, srcs, ReductionOp.SUM, qblock=32,
+                  qmode=qmode, route="layer", inplace=n == 4)
+        layer += 2
+    cases += wire + layer
+    entries["gen"] += wire + layer
     srcs = make_inputs(4, 4 * 4096, torch.float32, ReductionOp.SUM, 27)
     check_gen_flag_free(srcs)
     plan, wrapper, route = gen_route(wire_direct(4, "int8", "int8"), 4,
-                                     srcs[0].numel(), qblock=256,
+                                     srcs[0].numel(), qblock=512,
                                      qmode="int8")
+    if route != "layer":
+        raise AssertionError(f"qblock 512: route {route}, want layer")
     expect_fault(lambda: launch_gen(
         wrapper, route, srcs, [torch.empty_like(s) for s in srcs],
         ReductionOp.SUM, plan=plan, workspace=faulted_workspace()))
     log(f"kernels: {cases} generated-collective launches ({entries['ring']} "
         f"ring entry, {entries['gen']} general entry at n in 2,4,8; "
-        f"{cases - wire} on the fold route, {wire} on the layer route) "
-        f"bitwise equal to gen_device_ref (every device program at n in "
-        f"2,4,8 on {'/'.join(GEN_DTYPES)}; ring, direct and bcast programs "
+        f"{cases - wire - layer} on the fold route, {wire} on the wire "
+        f"fold, {layer} on the layer kernel) bitwise equal to "
+        f"gen_device_ref (every device program at n in 2,4,8 on "
+        f"{'/'.join(GEN_DTYPES)}; ring, direct and bcast programs "
         f"at n in 3,5,16,32, rhd_r2 at 16 and 32; SUM/AVG/MAX/MIN/PROD with "
         f"NaN for MAX/MIN; bcast roots 0, n/2, n-1, bitwise the root's src; "
         f"counts nchunks x 37; in place, also at 8 x {MAIN_COUNT}; views at "
-        f"+1 and mixed offsets; int8/fp8 wire layers, qblock 32 and 256, "
-        f"tail blocks) in {time.perf_counter() - t0:.1f} s; fold launches "
-        f"on a faulted workspace neither raise nor touch it, and a set "
-        f"error word makes the layer route raise")
+        f"+1 and mixed offsets; int8/fp8 wire plans at n in 2,3,4,8, the "
+        f"three wirings, qblock 8, 32, 37, 64 and 256 with partial groups, "
+        f"AVG, MAX, in place and views on the wire fold; qblock 512 and "
+        f"runs of two units on the layer kernel) in "
+        f"{time.perf_counter() - t0:.1f} s; fold launches on a faulted "
+        f"workspace neither raise nor touch it, and a set error word makes "
+        f"the layer route raise")
+
+
+def check_wire_views(prog, n, count, qblock, qmode, mixed, seed) -> float:
+    """A wire plan over views with a storage offset, as check_misaligned
+    runs the allreduce, on the wire fold, bitwise against gen_device_ref."""
+    import torch
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    plan, wrapper, route = gen_route(prog, n, count, 0, qblock, qmode)
+
+    def entry(srcs, dsts, op):
+        return launch_gen(wrapper, "wire fold", srcs, dsts, op, plan=plan)
+
+    entry.__name__ = f"{wrapper.__name__} {prog.name} {qmode}"
+    if route != "wire fold":
+        raise AssertionError(f"{entry.__name__}: route {route}, want wire "
+                             "fold")
+    return check_misaligned(entry, lambda s, op: kgd.gen_device_ref(
+        s, plan, op), n, count, torch.float32, mixed, seed)
 
 
 def ec_inputs(td, count, k, variant, seed):
@@ -1442,6 +1559,24 @@ def phase_kernels_ec() -> None:
                         check_ec("", dst, pools[variant][:k], count, dt, op,
                                  alpha)
                         cases += 1
+    # views: every buffer at one offset (aligned, or one element in: a
+    # scalar head, 16-byte vectors, a scalar tail), and mixed offsets (the
+    # scalar path for the whole launch)
+    views = {"aligned": lambda j: 0, "+1": lambda j: 1,
+             "mixed": lambda j: j % 2}
+    for ti, td in enumerate((torch.float32, torch.bfloat16, torch.int8,
+                             torch.float64)):
+        dt = dt_from_torch(td)
+        count = (1 << 16) + 5
+        for k in (1, 2, 9):
+            bases = ec_inputs(td, count + 1, k + 1, "plain", 900 + ti + k)
+            for kind, at in views.items():
+                dst = bases[0][at(0):at(0) + count]
+                srcs = [b[at(j):at(j) + count]
+                        for j, b in enumerate(bases[1:], 1)]
+                for op in (ReductionOp.SUM, ReductionOp.MAX):
+                    check_ec(f"views {kind}", dst, srcs, count, dt, op)
+                    cases += 1
     # strided sources at an odd element offset, through the executor
     ec = EcCuda()
     count, n_src2, stride = 1000, 8, 1003
@@ -1499,8 +1634,9 @@ def phase_kernels_ec() -> None:
             raise AssertionError(f"ec_reduce did not raise {status.name}")
     log(f"kernels: {cases} ec_reduce launches bitwise equal to their plain "
         f"versions ({len(ker.DTYPE_CODES)} types x 11 ops, k in 1,2,3,9, "
-        f"counts 1/7/1000/2^20+3, alpha None/0.25, NaN for MAX/MIN, "
-        f"strided at an odd offset, 7-job multi_dst) in "
+        f"counts 1/7/1000/2^20+3, alpha None/0.25, NaN for MAX/MIN, views "
+        f"aligned, at +1 and at mixed offsets, strided at an odd offset, "
+        f"7-job multi_dst) in "
         f"{time.perf_counter() - t0:.1f} s; 10 sources and BAND on f32 "
         f"raise")
 
@@ -2068,6 +2204,66 @@ def check_spills(infos) -> None:
                              f"stack frame: {direct}")
 
 
+#: instances of the wire fold with 4 or 8 values a lane (16-byte vectors)
+#: and ec_reduce's vector kernel's f32 and bf16 SUM instances, demangled
+#: or as mangled
+WIRE_VECTOR_INSTANCE = r"(, [48]>|ELi[48]EE)"
+EC_VECTOR_INSTANCES = (("ec_reduce_vec_kernel<float, 0>",
+                        "ec_reduce_vec_kernelIfLi0EE"),
+                       ("ec_reduce_vec_kernel<__nv_bfloat16, 0>",
+                        "ec_reduce_vec_kernelI13__nv_bfloat16Li0EE"))
+
+
+#: ec_reduce's f32, f16 and bf16 instances (the main path's types),
+#: demangled or as mangled
+EC_FLOAT_TYPES = ("<float,", "<__half,", "<__nv_bfloat16,", "IfLi",
+                  "I6__halfLi", "I13__nv_bfloat16Li")
+
+
+def check_wire_and_ec_sass(wire_info, ec_info) -> None:
+    """The wire fold (gen_device.cu, 8 instances) keeps its leaves and its
+    groups' values in registers: no instance may spill or have a stack
+    frame. ec_reduce.cu has 108 instances of the scalar kernel and 108 of
+    the vector kernel; its f32, f16 and bf16 ones may not spill or have a
+    stack frame either, and the others that do are printed. The wire
+    fold's instances of 4 and 8 values a lane and ec_reduce's vector f32
+    and bf16 SUM instances must hold 128-bit global loads and stores
+    (LDG.E.128, STG.E.128). Prints the wire fold's registers and
+    ec_reduce's range of them."""
+    import re
+    wire = {k: v for k, v in wire_info.items() if "gen_wire_fold_kernel" in k}
+    ec = {k: v for k, v in ec_info.items() if "ec_reduce" in k}
+    regs = sorted(v.get("registers", 0) for v in ec.values()) or [0]
+
+    def framed(v):
+        return v.get("stack_frame") or v.get("spill_stores") or \
+            v.get("spill_loads")
+
+    others = sorted(k for k, v in ec.items() if framed(v) and not any(
+        t in k for t in EC_FLOAT_TYPES))
+    log("ptxas of the wire fold's instances (registers): " + "; ".join(
+        f"{k}: {v.get('registers')}" for k, v in wire.items()) +
+        f" | ec_reduce's {len(ec)} instances: {regs[0]}-{regs[-1]} "
+        f"registers; its other instances with a stack frame or spill: "
+        f"{others}")
+    bad = [k for k, v in wire.items() if framed(v)] + [
+        k for k, v in ec.items() if framed(v) and k not in others]
+    if len(wire) != 8 or len(ec) != 216 or bad:
+        raise AssertionError(f"want 8 wire fold and 216 ec_reduce instances "
+                             f"(got {len(wire)}, {len(ec)}), none of the "
+                             f"wire fold's or ec_reduce's f32/f16/bf16 with a "
+                             f"stack frame or spill: {bad}")
+    vec = [k for k in wire if re.search(WIRE_VECTOR_INSTANCE, k)]
+    vec += [k for k in ec for names in EC_VECTOR_INSTANCES
+            if any(t in k for t in names)]
+    flat = [k for k in vec if not ({**wire, **ec}[k]["ldg128"] and
+                                   {**wire, **ec}[k]["stg128"])]
+    if len(vec) != 6 or flat:
+        raise AssertionError(f"instances without 128-bit global loads or "
+                             f"stores (want 6 to check, got {len(vec)}): "
+                             f"{flat}")
+
+
 def check_attention_f32_sass(info) -> None:
     """Every f32 instance of the attention kernel (the CUDA-core route,
     one per head dim and copy width) reads its operands with 128-bit shared
@@ -2575,47 +2771,91 @@ def main_path_gen(smi) -> dict:
 
 
 def wire_below_the_stack(smi) -> list:
-    """The kernel's wire layers at the main path's size, through the
-    wrapper: int8 and fp8 edge-tagged direct exchanges of 16 Mi f32 per
-    rank over 8 ranks (qblock 256), bitwise against the plain version,
-    with their error against the exact sum. Returns their kernels records
-    (no registered candidate reaches the layer route, so the main path
-    launched it no time)."""
+    """The wire plans at the main path's size, through the wrapper: int8
+    and fp8 edge-tagged direct exchanges of 16 Mi f32 per rank over 8 ranks
+    (qblock 256), which take the wire fold; the layer kernel on the same
+    plans, launched straight (the wrapper gives it only the plans without
+    a fold plan); both bitwise against the plain version, with their error
+    against the exact sum, and timed in turns with each other and with
+    torch.stack(srcs).sum(0). Returns their kernels records (no registered
+    candidate reaches a wire plan, so the main path launched neither)."""
     import torch
     from ucc_tpu_torch import ReductionOp
-    from ucc_tpu_torch.dsl import lower_device as ld
     from ucc_tpu_torch.kernels import gen_device as kgd
+    from ucc_tpu_torch.kernels import ring_common as kc
+    sum_ = ReductionOp.SUM
     records = []
     for qmode in ("int8", "fp8"):
         prog = wire_direct(N_RANKS, qmode, qmode)
-        srcs = make_inputs(N_RANKS, MAIN_COUNT, torch.float32,
-                           ReductionOp.SUM, 50 + len(qmode))
-        max_err, ms, plain_ms, library_ms = measure_gen(
-            "ALLREDUCE", prog, srcs, 0, None, qblock=256, qmode=qmode,
-            route="layer")
-        plan = ld.device_plan(prog, N_RANKS, MAIN_COUNT, 0, 256, qmode)
-        dsts = [torch.empty_like(s) for s in srcs]
-        kgd.gen_device_gen(srcs, dsts, ReductionOp.SUM, plan=plan).wait()
+        srcs = make_inputs(N_RANKS, MAIN_COUNT, torch.float32, sum_,
+                           50 + len(qmode))
+        plan, wrapper, route = gen_route(prog, N_RANKS, MAIN_COUNT, 0, 256,
+                                         qmode)
+        if route != "wire fold":
+            raise AssertionError(f"edge-wire {qmode} direct exchange at the "
+                                 f"main shape: route {route}, want wire fold")
+        want = kgd.gen_device_ref(srcs, plan, sum_)
+        fold_out = [torch.full_like(s, 7) for s in srcs]
+        layer_out = [torch.full_like(s, 7) for s in srcs]
+        fold_table = kc.make_ptr_table(srcs, fold_out)
+        layer_table = kc.make_ptr_table(srcs, layer_out)
+        ws = kc.RingWorkspace(srcs[0].device)
+        stream = torch.cuda.current_stream()
+
+        def fold():
+            return wrapper(srcs, fold_out, sum_, plan=plan,
+                           ptr_table=fold_table)
+
+        def layer():
+            return kgd._launch_layers("wire layers", srcs, layer_out, sum_,
+                                      plan, stream, ws, layer_table)
+
+        def library():
+            return torch.stack(srcs).sum(0)
+
+        launch_gen(wrapper, route, srcs, fold_out, sum_, plan=plan,
+                   ptr_table=fold_table).wait()
+        layer().wait()
+        torch.cuda.synchronize()
+        what = f"edge-wire {qmode} direct exchange {N_RANKS} x {MAIN_COUNT}"
+        errs = {"wire fold": compare(f"{what} (wire fold)", fold_out, want),
+                "layer": compare(f"{what} (layer kernel)", layer_out, want)}
+        turns = [cuda_ms(f, 10) for f in (library, fold, layer, layer, fold,
+                                          library)]
+        ms = {"wire fold": (turns[1] + turns[4]) / 2,
+              "layer": (turns[2] + turns[3]) / 2}
+        library_ms = (turns[0] + turns[5]) / 2
+        plain_ms = cuda_ms(lambda: kgd.gen_device_ref(srcs, plan, sum_), 2)
         exact = torch.stack([s.double() for s in srcs]).sum(0)
-        rel = ((dsts[0].double() - exact).abs().max()
-               / exact.abs().max()).item()
-        bound, bound_by = gen_bound("ALLREDUCE", N_RANKS, MAIN_COUNT)
-        log(f"edge-wire {qmode} direct exchange {N_RANKS} x {MAIN_COUNT} "
-            f"f32 (qblock 256, arena {plan.arena >> 20} MiB/rank): "
-            f"gen_device_gen {ms:.3f} ms, bound {bound:.4f} ms "
-            f"({bound_by}), roofline share {bound / ms:.4f} | plain "
-            f"{plain_ms:.3f} ms | stack().sum(0) {library_ms:.3f} ms | "
-            f"bitwise the plain version | max error {rel:.5f} of max|sum| "
-            f"| card {smi}")
-        records.append({
-            "name": f"gen_device_gen wire {qmode}", "route": "cuda",
-            "source": f"ucc_tpu_torch/csrc/{kgd.SOURCE}",
-            "replaces": "ucc_tpu/dsl/lower_device.py:595",
-            "kernel_route": "layer", "launches": 0, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "error_of_max_sum": rel})
-        del srcs, dsts, exact
+        rel = max(((d.double() - exact).abs().max() / exact.abs().max())
+                  .item() for d in fold_out)
+        # bytes: n srcs read, n dsts written; operations: the n - 1 adds
+        # and 7 a value for each QDQ (|x|, max, divide, round, two clips,
+        # decode)
+        fp = kgd.fold_plan(plan)
+        qdqs = fp.program(0)[1].count(kgd.S_QDQ)
+        bound, bound_by = bound_ms(2 * N_RANKS * MAIN_COUNT * 4,
+                                   (N_RANKS - 1 + 7 * qdqs) * MAIN_COUNT)
+        log(f"{what} f32 (qblock 256) in turns (stack().sum(0), wire fold, "
+            f"layer kernel, layer kernel, wire fold, stack().sum(0)): "
+            f"{', '.join(f'{t:.4f}' for t in turns)} ms | wire fold "
+            f"{ms['wire fold']:.4f} ms, layer kernel {ms['layer']:.3f} ms "
+            f"(arena {plan.arena >> 20} MiB/rank), bound {bound:.4f} ms "
+            f"({bound_by}), roofline shares {bound / ms['wire fold']:.4f} "
+            f"and {bound / ms['layer']:.4f} | plain {plain_ms:.3f} ms | "
+            f"both bitwise the plain version | max error {rel:.5f} of "
+            f"max|sum| | card {smi}")
+        for kroute, suffix in (("wire fold", ""), ("layer", " layer")):
+            records.append({
+                "name": f"gen_device_gen wire {qmode}{suffix}",
+                "route": "cuda", "source": f"ucc_tpu_torch/csrc/{kgd.SOURCE}",
+                "replaces": "ucc_tpu/dsl/lower_device.py:595",
+                "kernel_route": kroute, "launches": 0,
+                "max_abs_err": errs[kroute], "ms": ms[kroute],
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "error_of_max_sum": rel})
+        del srcs, want, fold_out, layer_out, exact, ws
         torch.cuda.empty_cache()
     return records
 
@@ -2771,6 +3011,7 @@ def main() -> int:
     for src in DIRECT_KERNELS:
         check_direct_sass(src, infos[src])
     check_spills(infos)
+    check_wire_and_ec_sass(infos[kgd.SOURCE], infos[ker.SOURCE])
     check_attention_f32_sass(infos[ka.SOURCE])
     ptxas = infos[ka.SOURCE]
 

@@ -541,3 +541,187 @@ def test_ec_cpu_copies():
     assert dst[:8].tolist() == list(range(8)) and not dst[8:].any()
     with pytest.raises(UccError):
         EcCpu().copy_multi([(np.zeros(2), np.ones(2), 16)] * 8)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's walk (csrc/ec_reduce.cu)
+# ---------------------------------------------------------------------------
+
+def _ec_source():
+    import os
+    from ucc_tpu_torch.kernels import build
+    with open(os.path.join(build.CSRC, ker.SOURCE)) as fh:
+        return fh.read()
+
+
+def _ec_constant(text, name):
+    import re
+    hit = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert hit, f"{name} is no longer a constexpr of {ker.SOURCE}"
+    return int(hit.group(1))
+
+
+EC_TEXT = _ec_source()
+#: vectors of each source a thread loads before it folds them, the sources
+#: the k loop is unrolled to, threads per block
+EC_DEPTH = _ec_constant(EC_TEXT, "kDepth")
+EC_MAX_SRCS = _ec_constant(EC_TEXT, "kMaxSrcs")
+EC_THREADS = _ec_constant(EC_TEXT, "kThreads")
+
+
+def ec_walk(count, esz, addrs, cap_blocks, threads=EC_THREADS,
+            depth=EC_DEPTH):
+    """A launch's path and each thread's steps in program order, as the
+    source has them: *addrs* are the byte addresses (mod 16 is what
+    counts) of dst, then the k sources. Returns (vector path, steps),
+    a step ("vec", [first elements of its vectors]) loaded together and
+    then folded and stored, or ("elem", i)."""
+    mis = addrs[0] % 16
+    vec = mis % esz == 0 and all(a % 16 == mis for a in addrs[1:])
+    w = 16 // esz
+    if vec:
+        head = min(count, (16 - mis) % 16 // esz)
+        vecs = (count - head) // w
+        items = max(1, -(-vecs // depth))
+    else:
+        head = vecs = 0
+        items = count
+    stride = min(cap_blocks, -(-items // threads)) * threads
+    tail = head + vecs * w
+    steps = []
+    for first in range(stride):
+        if not vec:
+            steps += [("elem", i) for i in range(first, count, stride)]
+            continue
+        for u in range(first, vecs, depth * stride):
+            steps.append(("vec", [head + (u + d * stride) * w
+                                  for d in range(depth)
+                                  if u + d * stride < vecs]))
+        steps += [("elem", i) for i in range(first, head, stride)]
+        steps += [("elem", i) for i in range(tail + first, count, stride)]
+    return vec, steps
+
+
+def ec_model(dst, srcs, count, dt, op, alpha, addrs, cap_blocks=3,
+             threads=32):
+    """The kernel on CPU tensors: each step reads its elements of every
+    source, folds them with the plain version's rules (elementwise, so a
+    slice folds as the whole does) and only then writes dst, which may be a
+    source. Returns (vector path, writes per element)."""
+    td = ker.check_args(count, dt, op, len(srcs))
+    esz = torch.empty(0, dtype=td).element_size()
+    vec, steps = ec_walk(count, esz, addrs, cap_blocks, threads)
+    written = torch.zeros(count, dtype=torch.int64)
+    flat = [s.reshape(-1) for s in srcs]
+    # torch writes unsigned 16-64 bit tensors through their signed view
+    signed = ker._SIGNED.get(td, td)
+    out = dst.reshape(-1).view(signed)
+    for kind, at in steps:
+        idx = torch.tensor([at]) if kind == "elem" else torch.cat(
+            [torch.arange(e, e + 16 // esz) for e in at])
+        got = ker._reduce_ref([f[idx] for f in flat], len(idx), td, op,
+                              alpha)
+        out[idx] = got.view(signed)
+        written[idx] += 1
+    return vec, written
+
+
+def check_ec_model(dt, op, k, count, alpha, offsets, seed, inplace=False,
+                   **kw):
+    """Sources (and dst) as views at *offsets* elements into buffers of
+    their own; the model bitwise ec_reduce_ref, every element written
+    once. Returns whether the launch took the vector path."""
+    base = make_inputs(dt, op, k + 1, count + 16, seed)
+    ts = [from_numpy(b, "cpu") for b in base]
+    srcs = [t[o:o + count] for t, o in zip(ts[1:], offsets[1:])]
+    esz = ts[0].element_size()
+    want = ker.ec_reduce_ref(srcs, count, DataType[dt], ReductionOp[op],
+                             alpha)
+    dst = srcs[0] if inplace else ts[0][offsets[0]:offsets[0] + count]
+    addrs = [esz * o for o in offsets]
+    vec, written = ec_model(dst, srcs, count, DataType[dt], ReductionOp[op],
+                            alpha, addrs, **kw)
+    assert torch.equal(written, torch.ones_like(written))
+    assert bits_equal(to_numpy(dst), to_numpy(want))
+    return vec
+
+
+@pytest.mark.parametrize("dt,op,alpha", [
+    ("FLOAT32", "SUM", None), ("BFLOAT16", "AVG", 0.25),
+    ("FLOAT16", "MAX", None), ("INT8", "LXOR", None),
+    ("UINT16", "MIN", None), ("FLOAT64", "PROD", 0.25),
+    ("INT64", "BXOR", None), ("INT32", "LAND", None)])
+def test_walk_heads_and_tails_across_alignment_classes(dt, op, alpha):
+    """Every offset mod 16 that an element of the type can take, shared by
+    dst and every source: a scalar head up to the first 16-byte boundary,
+    whole vectors, a scalar tail; counts shorter than the head, than one
+    vector and than one round of the grid, and several rounds."""
+    esz = np.dtype(NP[dt]).itemsize
+    for c, count in enumerate((1, 3, 17, 16 // esz * 37 + 5, 1000)):
+        for off in range(16 // esz):
+            k = 1 + (c + off) % EC_MAX_SRCS
+            vec = check_ec_model(dt, op, k, count, alpha, [off] * (k + 1),
+                                 seed=7 * c + off)
+            assert vec
+
+
+@pytest.mark.parametrize("k", range(1, 10))
+def test_walk_at_every_source_count(k):
+    """k = 1..9: aligned sources on the vector path, in place (dst the
+    first source) too; one source a single element off takes the scalar
+    path for the whole launch."""
+    for i, (dt, op) in enumerate((("FLOAT32", "SUM"), ("BFLOAT16", "MAX"),
+                                  ("UINT8", "LOR"))):
+        assert check_ec_model(dt, op, k, 777, None, [0] * (k + 1),
+                              seed=k + i, inplace=k % 2 == 1)
+        offsets = [0] * (k + 1)
+        offsets[k] = 1
+        assert not check_ec_model(dt, op, k, 777, None, offsets,
+                                  seed=k + i)
+
+
+@pytest.mark.parametrize("dt", ["FLOAT32", "BFLOAT16", "INT8", "FLOAT64"])
+def test_walk_on_strided_sources_at_odd_offsets(dt):
+    """reduce_strided's sources: base + i·stride elements, the base one
+    element in, stride 1003: offsets mod 16 differ, so the scalar path;
+    a stride that keeps every source at one offset mod 16 (and the dst
+    there too) takes the vector path."""
+    esz = np.dtype(NP[dt]).itemsize
+    count, k = 300, 5
+    stride = 1003
+    offsets = [0, 0] + [1 + i * stride for i in range(k - 1)]
+    assert not check_ec_model_strided(dt, count, offsets, seed=3)
+    stride = 16 // esz * 70
+    offsets = [1, 1] + [1 + i * stride for i in range(k - 1)]
+    assert check_ec_model_strided(dt, count, offsets, seed=4)
+
+
+def check_ec_model_strided(dt, count, offsets, seed):
+    """check_ec_model with the sources but the first as views into one
+    base buffer at the given element offsets."""
+    rng = np.random.default_rng(seed)
+    big = from_numpy(rng.standard_normal(max(offsets) + count + 1)
+                     .astype(NP[dt]), "cpu")
+    first = from_numpy(rng.standard_normal(count + 16).astype(NP[dt]),
+                       "cpu")
+    dst_buf = torch.zeros(count + 16, dtype=big.dtype)
+    srcs = [first[offsets[1]:offsets[1] + count]] + [
+        big[o:o + count] for o in offsets[2:]]
+    want = ker.ec_reduce_ref(srcs, count, DataType[dt], ReductionOp.SUM,
+                             0.25)
+    dst = dst_buf[offsets[0]:offsets[0] + count]
+    esz = big.element_size()
+    vec, written = ec_model(dst, srcs, count, DataType[dt], ReductionOp.SUM,
+                            0.25, [esz * o for o in offsets])
+    assert torch.equal(written, torch.ones_like(written))
+    assert bits_equal(to_numpy(dst), to_numpy(want))
+    return vec
+
+
+def test_walk_grid_is_the_sources():
+    """The model's launch constants are the source's: a grid from the
+    occupancy query over ceil(vectors / kDepth) threads, and the k loop
+    unrolled to the executor's cap of sources."""
+    assert EC_MAX_SRCS == ec_base.EXECUTOR_NUM_BUFS
+    assert EC_DEPTH >= 1 and EC_THREADS % 32 == 0
+    assert "items = (vecs + kDepth - 1) / kDepth;" in EC_TEXT

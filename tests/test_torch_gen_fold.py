@@ -12,8 +12,9 @@ tests hold:
   plan: each unit ends as one expression on every rank, whose leaves are
   all that unit of some src, within the kernel's stack (at most
   log2(n) + 1 values at once), and a ring's chain visits every rank once;
-- plans with a wire layer, a leaf moved to another unit, or a tree deeper
-  than the stack have none;
+- plans with a leaf moved to another unit, or a tree deeper than the
+  stack, have none; plans with a wire layer get a wire fold plan or keep
+  the layer kernel (``test_torch_gen_wire_fold.py`` holds which);
 - ``gen_device_fold_ref`` is bitwise ``gen_device_ref`` (NaN positions
   compared as NaN) on every dtype of ``DTYPE_CODES`` and the five ops,
   with NaNs and signed zeros under MAX/MIN, AVG on floating types, ragged
@@ -187,14 +188,24 @@ def wire_direct(n, rs_wire, ag_wire):
 @pytest.mark.parametrize("n", [2, 4, 8])
 @pytest.mark.parametrize("qmode", ["int8", "fp8"])
 def test_wire_plans_keep_the_layer_kernel(n, qmode):
+    """Wire plans keep the layer kernel only where they have no fold plan
+    (tests/test_torch_gen_wire_fold.py holds the wire fold): the direct
+    exchange with wired edges at qblock 32 gets a wire fold plan at every
+    wiring, at qblock 512 it keeps the layer kernel."""
     for rs, ag in ((qmode, qmode), (qmode, ""), ("", qmode)):
         plan = ld.device_plan(wire_direct(n, rs, ag), n, n * 40, 0, 32,
                               qmode)
         assert not plan.ring and plan.arena > 0
-        assert kgd.fold_plan(plan) is None and kgd.fold_exprs(plan) is None
-    # the same exchange with exact edges folds
+        fp = kgd.fold_plan(plan)
+        assert fp is not None and fp.qmode == qmode and fp.qblock == 32
+        assert kgd.fold_exprs(plan) is not None
+        plan = ld.device_plan(wire_direct(n, rs, ag), n, n * 600, 0, 512,
+                              qmode)
+        assert kgd.fold_plan(plan) is None
+    # the same exchange with exact edges folds on gen_fold.cu's route
     plan = ld.device_plan(wire_direct(n, "", ""), n, n * 40)
-    assert kgd.fold_plan(plan) is not None
+    fp = kgd.fold_plan(plan)
+    assert fp is not None and fp.qmode == ""
 
 
 def test_a_leaf_in_another_unit_has_no_fold_plan():

@@ -23,15 +23,21 @@ tables below), of one of two shapes:
   and its own decoded copy back into its run; then the receiver adds
   ``q * scale`` in float32. A copy moves one chunk within each rank.
 
-Two routes run them on the card, chosen on the host from the plan's own
-shape. :func:`fold_plan` runs an exact plan's steps on symbolic units
-(:func:`fold_exprs`): when every unit ends, on every rank, as one
-expression over that same unit of the srcs (every registered program
-does), the plan is a :class:`FoldPlan`, one short program per unit, and
-``csrc/gen_fold.cu`` evaluates it in one flag-free pass, an ordinary
-launch with no workspace. Plans with a wire layer keep the cooperative
-layer kernel of ``csrc/gen_device.cu``, layer by layer behind grid-wide
-barriers, with its workspace and error word.
+Three routes run them on the card, chosen on the host from the plan
+alone. :func:`fold_plan` runs a plan's steps on symbolic units
+(:func:`fold_exprs`). When every unit of an exact plan ends, on every
+rank, as one expression over that same unit of the srcs (every
+registered program does), the plan is a :class:`FoldPlan`, one short
+program per unit, and ``csrc/gen_fold.cu`` evaluates it in one flag-free
+pass, an ordinary launch with no workspace. A wire plan's units end as
+expressions with one more operation, QDQ (a wire send: quantize per
+qblock group, decode), and its ranks need not agree (each gather layer
+re-quantizes); when its qblock groups lie inside units and each rank's
+expression is a top of one program per unit, its fold plan adds STORE
+steps, and ``csrc/gen_device.cu``'s wire fold evaluates it in one
+flag-free pass, one warp per qblock group. The other wire plans keep the
+cooperative layer kernel of ``csrc/gen_device.cu``, layer by layer behind
+grid-wide barriers, with its workspace and error word.
 
 AVG is SUM, then one multiply by ``dtype(1/n)``, as the JAX package's
 kernel has it (integer AVG is refused by the task, where that factor is 0).
@@ -43,7 +49,7 @@ runs the plain version; on CUDA tensors it launches a kernel or raises.
 ``fold_launches`` those on the fold route. The plain version
 ``gen_device_ref`` runs the plan step by step with PyTorch ops (unfused,
 in the kernels' rounding), so the kernels agree with it bitwise;
-``gen_device_fold_ref`` evaluates the fold plan in the fold kernel's
+``gen_device_fold_ref`` evaluates the fold plan in the fold kernels'
 order, bitwise ``gen_device_ref`` (the tests hold it so; nothing on the
 CUDA path calls it). ``gen_device_torch_ops`` is ``gen_device_ref``'s code
 on any device, the ``xla`` backend of ``UCC_GEN_DEVICE_BACKEND``.
@@ -67,8 +73,10 @@ from .ring_common import (DIRECT_THREADS, DTYPE_CODES, OPS, THREADS,
 SOURCE = "gen_device.cu"
 FOLD_SOURCE = "gen_fold.cu"
 
-#: the layer kernel, the one kernel of gen_device.cu
+#: kernel numbers of gen_device.cu: the layer kernel, then the wire
+#: fold's instances from WIRE_KERNELS on (:func:`wire_kernel`)
 K_GEN = 0
+WIRE_KERNELS = 1
 
 #: instruction kinds of GenPlan.prog (csrc/gen_device.cu)
 I_EXACT = 0
@@ -88,7 +96,10 @@ QMAX = {"int8": 127.0, "fp8": 448.0}
 
 class _GenSource(RingSource):
     """gen_device.cu: the ring sources' occupancy query and error names,
-    with a launch function of its own signature."""
+    with a launch function of its own signature for the layer kernel and
+    one for the wire fold (``ucc_gen_wire_fold``: kernel, pointer table,
+    units, code, count, unit, qblock, n, op, avg, alpha, CTAs, threads,
+    stream)."""
 
     ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -96,6 +107,18 @@ class _GenSource(RingSource):
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    WIRE_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
+
+    def lib(self):
+        if self._lib is None:
+            wire = super().lib().ucc_gen_wire_fold
+            wire.argtypes = self.WIRE_ARGTYPES
+            wire.restype = ctypes.c_int
+        return self._lib
 
 
 class _FoldSource(RingSource):
@@ -265,27 +288,50 @@ def gen_device_ref(srcs: Sequence[torch.Tensor], plan: GenPlan,
 #: the top acc(x, top), FOLD_R acc(top, x). COMB pops the value below the
 #: top and makes the top acc(below, top), COMB_SWAP acc(top, below).
 S_LOAD, S_FOLD_L, S_FOLD_R, S_COMB, S_COMB_SWAP = range(5)
+#: step kinds that only wire programs have (csrc/gen_device.cu's wire
+#: fold): QDQ quantizes the top per qblock group and decodes it; WADD pops
+#: the value below the top and makes the top below + top in float32 (a
+#: wire receive that reduces, the receiver first), WADD_SWAP top + below;
+#: STORE writes the top into the next store rank's dst
+S_QDQ, S_WADD, S_WADD_SWAP, S_STORE = range(5, 9)
 #: values a fold program may hold at once (csrc/gen_fold.cu: STACK)
 FOLD_STACK = 5
 #: words of a program before its leaf ranks: steps, leaves, and the rank
-#: of its only leaf (-1 when it has more)
+#: of its only leaf (-1 when it has more); a wire program's third word is
+#: its number of stores, whose ranks follow the leaf ranks
 FOLD_HEADER = 3
+#: the widest qblock of a wire fold plan: one warp's group, at most 8
+#: float32 values a lane (csrc/gen_device.cu: WIRE_MAX_QBLOCK)
+WIRE_MAX_QBLOCK = 256
+#: threads of a wire fold CTA (csrc/gen_device.cu: WIRE_THREADS)
+WIRE_THREADS = 128
 
 
 @dataclass
 class FoldPlan:
-    """An exact plan as one expression per unit of ``unit`` elements:
-    element i of unit j ends, on every rank, as the fold program
-    ``code[units[j]:]`` over element j·unit + i of the leaves' srcs (each
-    leaf a rank's src at the same element). A program is ``FOLD_HEADER``
-    words, its leaf ranks in the order its steps take them, then its step
-    kinds; units with one expression share one program. ``depth`` is the
-    most values the programs hold at once."""
+    """A plan as one program per unit of ``unit`` elements.
+
+    Exact plans (``qmode`` empty): element i of unit j ends, on every rank,
+    as the fold program ``code[units[j]:]`` over element j·unit + i of the
+    leaves' srcs (each leaf a rank's src at the same element). A program
+    is ``FOLD_HEADER`` words, its leaf ranks in the order its steps take
+    them, then its step kinds; units with one expression share one
+    program.
+
+    Wire plans (``qmode`` int8 or fp8): the ranks' expressions of a unit
+    are the tops of one program at its STORE steps. A program is
+    ``FOLD_HEADER`` words (steps, leaves, stores), its leaf ranks, its
+    store ranks in the order its STORE steps take them, then its step
+    kinds; QDQ runs per group of ``qblock`` elements counted from the
+    unit's start, the last one partial. ``depth`` is the most values the
+    programs hold at once."""
 
     unit: int
     depth: int
     units: np.ndarray
     code: np.ndarray
+    qmode: str = ""
+    qblock: int = 0
     _dev: Dict[torch.device, tuple] = field(default_factory=dict,
                                             repr=False)
 
@@ -301,10 +347,19 @@ class FoldPlan:
     def program(self, j: int):
         """(leaf ranks, step kinds) of unit j's program."""
         off = int(self.units[j])
-        steps, leaves, _ = self.code[off:off + FOLD_HEADER].tolist()
-        first = off + FOLD_HEADER
-        return (self.code[first:first + leaves].tolist(),
-                self.code[first + leaves:first + leaves + steps].tolist())
+        steps, leaves, third = self.code[off:off + FOLD_HEADER].tolist()
+        first = off + FOLD_HEADER + leaves + (third if self.qmode else 0)
+        return (self.code[off + FOLD_HEADER:
+                          off + FOLD_HEADER + leaves].tolist(),
+                self.code[first:first + steps].tolist())
+
+    def stores(self, j: int) -> List[int]:
+        """The ranks whose dsts unit j's wire program stores into, in the
+        order of its STORE steps."""
+        off = int(self.units[j])
+        _, leaves, stores = self.code[off:off + FOLD_HEADER].tolist()
+        first = off + FOLD_HEADER + leaves
+        return self.code[first:first + stores].tolist()
 
 
 def fold_unit(plan: GenPlan) -> int:
@@ -323,17 +378,28 @@ def fold_unit(plan: GenPlan) -> int:
     return math.gcd(*(int(v) for v in vals))
 
 
+def has_wire(plan: GenPlan) -> bool:
+    """Whether *plan* has a wire layer (an int8 or fp8 edge)."""
+    return not plan.ring and \
+        bool(np.isin(plan.prog[:, 0], (I_WSEND, I_WRECV)).any())
+
+
 def fold_exprs(plan: GenPlan):
     """*plan* run on symbolic units, phase by phase as ``_run_plan`` runs
     it (every send of a phase is read before any receive of it is
     written). Returns (unit, nodes, final): ``nodes[e]`` is ``(0, q, j)``
-    for unit j of rank q's src or ``(1, cur, inc)`` for ``acc(cur, inc)``,
-    hash-consed, and ``final[r][j]`` the expression unit j of rank r ends
-    as. None when the plan has a wire instruction."""
-    if not plan.ring and \
-            not np.isin(plan.prog[:, 0], (I_EXACT, I_COPY)).all():
-        return None
+    for unit j of rank q's src, ``(1, cur, inc)`` for ``acc(cur, inc)``,
+    ``(2, x)`` for x quantized per qblock group and decoded (a wire send:
+    the groups counted from the unit's start) and ``(3, cur, inc)`` for
+    ``cur + inc`` in float32 (a wire receive that reduces), hash-consed,
+    and ``final[r][j]`` the expression unit j of rank r ends as. None when
+    a wire run is longer than a unit and the unit is no multiple of
+    qblock: its groups then straddle units."""
     unit = fold_unit(plan)
+    if has_wire(plan):
+        wire = np.isin(plan.prog[:, 0], (I_WSEND, I_WRECV))
+        if unit % plan.qblock and (plan.prog[wire, 2] != unit).any():
+            return None
     n, m = plan.n, plan.count // unit
     nodes: List[tuple] = []
     ids: Dict[tuple, int] = {}
@@ -345,8 +411,8 @@ def fold_exprs(plan: GenPlan):
             nodes.append(key)
         return e
 
-    def land(w, at, inc, reduce):
-        w[at:at + len(inc)] = [intern((1, c, i)) if reduce else i
+    def land(w, at, inc, reduce, how=1):
+        w[at:at + len(inc)] = [intern((how, c, i)) if reduce else i
                                for c, i in zip(w[at:at + len(inc)], inc)]
 
     work = [[intern((0, r, j)) for j in range(m)] for r in range(n)]
@@ -358,6 +424,7 @@ def fold_exprs(plan: GenPlan):
             for r in range(n):
                 land(work[r], ro[r], sent[(r - 1) % n], reduce)
         return unit, nodes, work
+    payload = {}
     for kind, li, L, reduce, _, _, _, _ in plan.prog.tolist():
         b = L // unit
         if kind == I_COPY:
@@ -368,6 +435,21 @@ def fold_exprs(plan: GenPlan):
                     work[r][d:d + b] = work[r][s:s + b]
             continue
         so, hs, ro, hr, _, src = plan.tab[TAB_ROWS * li:TAB_ROWS * (li + 1)]
+        if kind == I_WSEND:
+            # the sender's run becomes its decoded copy, which is also what
+            # the receiver gets
+            for p in range(n):
+                if hs[p]:
+                    s = so[p] // unit
+                    work[p][s:s + b] = payload[(li, p)] = [
+                        intern((2, e)) for e in work[p][s:s + b]]
+            continue
+        if kind == I_WRECV:
+            for q in range(n):
+                if hr[q]:
+                    land(work[q], ro[q] // unit,
+                         payload.pop((li, int(src[q]))), reduce, how=3)
+            continue
         sent = {p: work[p][so[p] // unit:so[p] // unit + b]
                 for p in range(n) if hs[p]}
         for q in range(n):
@@ -378,16 +460,27 @@ def fold_exprs(plan: GenPlan):
 
 def fold_plan(plan: GenPlan) -> Optional[FoldPlan]:
     """*plan*'s fold plan, derived once and kept on the plan; None when
-    the plan keeps the layer kernel: it has a wire instruction, a unit
-    ends as different expressions on different ranks, a leaf of unit j is
-    another unit of its src, or a program needs more than ``FOLD_STACK``
-    values at once."""
+    the plan keeps the layer kernel: a leaf of unit j is another unit of
+    its src, or a program needs more than ``FOLD_STACK`` values at once;
+    for an exact plan, a unit ends as different expressions on different
+    ranks; for a wire plan, its qblock groups straddle units (a wire run
+    longer than a unit that is no multiple of qblock), its qblock exceeds
+    ``WIRE_MAX_QBLOCK``, some rank's expression of a unit is no top of
+    that unit's program, or a store would come before a leaf's load (in
+    place, the load would read the stored value)."""
     if plan._fold is None:
         plan._fold = (_make_fold_plan(plan),)
     return plan._fold[0]
 
 
+#: steps that take the next leaf
+_LEAF_STEPS = (S_LOAD, S_FOLD_L, S_FOLD_R)
+
+
 def _make_fold_plan(plan: GenPlan) -> Optional[FoldPlan]:
+    wire = has_wire(plan)
+    if wire and (plan.qmode not in QMAX or plan.qblock > WIRE_MAX_QBLOCK):
+        return None
     run = fold_exprs(plan)
     if run is None:
         return None
@@ -396,75 +489,149 @@ def _make_fold_plan(plan: GenPlan) -> Optional[FoldPlan]:
 
     def values(e):
         """Values held at once while e is evaluated (Sethi-Ullman, a leaf
-        operand folded straight into the other side's value)."""
+        operand of acc folded straight into the other side's value, QDQ in
+        place on the top)."""
         if e not in need:
-            if nodes[e][0] == 0:
+            node = nodes[e]
+            if node[0] == 0:
                 need[e] = 1
+            elif node[0] == 2:
+                need[e] = values(node[1])
             else:
-                _, a, b = nodes[e]
-                if nodes[b][0] == 0:
+                _, a, b = node
+                if node[0] == 1 and nodes[b][0] == 0:
                     need[e] = values(a)
-                elif nodes[a][0] == 0:
+                elif node[0] == 1 and nodes[a][0] == 0:
                     need[e] = values(b)
                 else:
                     va, vb = values(a), values(b)
                     need[e] = va + 1 if va == vb else max(va, vb)
         return need[e]
 
-    def emit(e, j, leaves, kinds):
-        """Steps of e in Sethi-Ullman order; False when a leaf is not
-        unit j."""
-        if nodes[e][0] == 0:
-            leaves.append(nodes[e][1])
+    def emit(e, j, leaves, kinds, tops):
+        """Steps of e in Sethi-Ullman order, and after each the node on
+        the top; False when a leaf is not unit j."""
+        node = nodes[e]
+        if node[0] == 0:
+            leaves.append(node[1])
             kinds.append(S_LOAD)
-            return nodes[e][2] == j
-        _, a, b = nodes[e]
-        if nodes[b][0] == 0:
-            ok = emit(a, j, leaves, kinds)
+            tops.append(e)
+            return node[2] == j
+        if node[0] == 2:
+            ok = emit(node[1], j, leaves, kinds, tops)
+            kinds.append(S_QDQ)
+            tops.append(e)
+            return ok
+        _, a, b = node
+        if node[0] == 1 and nodes[b][0] == 0:
+            ok = emit(a, j, leaves, kinds, tops)
             leaves.append(nodes[b][1])
             kinds.append(S_FOLD_R)
+            tops.append(e)
             return ok and nodes[b][2] == j
-        if nodes[a][0] == 0:
-            ok = emit(b, j, leaves, kinds)
+        if node[0] == 1 and nodes[a][0] == 0:
+            ok = emit(b, j, leaves, kinds, tops)
             leaves.append(nodes[a][1])
             kinds.append(S_FOLD_L)
+            tops.append(e)
             return ok and nodes[a][2] == j
-        first, second, kind = (a, b, S_COMB) if values(a) >= values(b) \
-            else (b, a, S_COMB_SWAP)
-        ok = emit(first, j, leaves, kinds) and emit(second, j, leaves, kinds)
+        comb, swap = (S_COMB, S_COMB_SWAP) if node[0] == 1 \
+            else (S_WADD, S_WADD_SWAP)
+        first, second, kind = (a, b, comb) if values(a) >= values(b) \
+            else (b, a, swap)
+        ok = emit(first, j, leaves, kinds, tops) and \
+            emit(second, j, leaves, kinds, tops)
         kinds.append(kind)
+        tops.append(e)
         return ok
+
+    size: Dict[int, int] = {}
+
+    def nodes_in(e):
+        """Nodes of e's tree (a shared node counted at each use)."""
+        if e not in size:
+            size[e] = 1 + sum(nodes_in(c) for c in nodes[e][1:]
+                              if nodes[e][0] != 0)
+        return size[e]
+
+    def wire_program(j):
+        """(leaf ranks, store ranks, step kinds) of unit j: the deepest
+        expression whose program has every rank's expression on its top
+        at some step, a STORE after that step per rank; None if there is
+        none, or a store would come before a leaf step."""
+        ends = [final[r][j] for r in range(n)]
+        for e in sorted(set(ends), key=lambda x: (-nodes_in(x), x)):
+            leaves: List[int] = []
+            kinds: List[int] = []
+            tops: List[int] = []
+            if not emit(e, j, leaves, kinds, tops):
+                return None
+            at = {}
+            for i, t in enumerate(tops):
+                at.setdefault(t, i)
+            if all(x in at for x in ends):
+                break
+        else:
+            return None
+        stores: List[int] = []
+        steps: List[int] = []
+        for i, kind in enumerate(kinds):
+            steps.append(kind)
+            for r in range(n):
+                if at[ends[r]] == i:
+                    stores.append(r)
+                    steps.append(S_STORE)
+        last_leaf = max(i for i, k in enumerate(steps) if k in _LEAF_STEPS)
+        if steps.index(S_STORE) < last_leaf:
+            return None
+        return leaves, stores, steps, values(e)
 
     n = plan.n
     code: List[int] = []
     offsets: Dict[tuple, int] = {}
     units, depth = [], 1
     for j, e in enumerate(final[0]):
-        if any(final[r][j] != e for r in range(1, n)):
-            return None
-        leaves: List[int] = []
-        kinds: List[int] = []
-        if not emit(e, j, leaves, kinds):
-            return None
-        depth = max(depth, values(e))
-        key = (tuple(leaves), tuple(kinds))
+        if wire:
+            got = wire_program(j)
+            if got is None:
+                return None
+            leaves, stores, kinds, need_j = got
+            key = (tuple(leaves), tuple(stores), tuple(kinds))
+            words = [len(kinds), len(leaves), len(stores), *leaves, *stores,
+                     *kinds]
+        else:
+            if any(final[r][j] != e for r in range(1, n)):
+                return None
+            leaves, kinds = [], []
+            if not emit(e, j, leaves, kinds, []):
+                return None
+            need_j = values(e)
+            key = (tuple(leaves), tuple(kinds))
+            words = [len(kinds), len(leaves),
+                     leaves[0] if len(leaves) == 1 else -1, *leaves, *kinds]
+        depth = max(depth, need_j)
         if key not in offsets:
             offsets[key] = len(code)
-            code += [len(kinds), len(leaves),
-                     leaves[0] if len(leaves) == 1 else -1, *leaves, *kinds]
+            code += words
         units.append(offsets[key])
     if depth > FOLD_STACK:
         return None
+    if wire:
+        # the wire fold fetches each step kind one step ahead: a padding
+        # word keeps the last program's fetch inside the array
+        code.append(0)
     return FoldPlan(unit, depth, np.array(units, np.int32),
-                    np.array(code, np.int32))
+                    np.array(code, np.int32),
+                    plan.qmode if wire else "", plan.qblock if wire else 0)
 
 
 def gen_device_fold_ref(srcs: Sequence[torch.Tensor], plan: GenPlan,
                         op: Optional[ReductionOp]) -> List[torch.Tensor]:
-    """Plain version of the fold kernel: each unit's program evaluated
-    with PyTorch ops, step by step in the kernel's order, then AVG's
-    multiply; every rank's result. Bitwise ``gen_device_ref`` on every
-    plan that has a fold plan."""
+    """Plain version of both fold kernels: each unit's program evaluated
+    with PyTorch ops, step by step in the kernel's order (QDQ with
+    ``quantize``'s arithmetic over the unit, whose groups start at its
+    first element), AVG's multiply on what is stored; every rank's result.
+    Bitwise ``gen_device_ref`` on every plan that has a fold plan."""
     fp = fold_plan(plan)
     if fp is None:
         raise UccError(Status.ERR_INVALID_PARAM,
@@ -473,9 +640,16 @@ def gen_device_fold_ref(srcs: Sequence[torch.Tensor], plan: GenPlan,
     flat = [s.reshape(-1) for s in srcs]
     out = [torch.empty_like(f) for f in flat]
     u = fp.unit
+    avg = plan.reducing and op == ReductionOp.AVG
+
+    def scaled(val):
+        return val * avg_factor(val.dtype, plan.n).to(val.device) \
+            if avg else val
+
     for j in range(len(fp.units)):
         leaves, kinds = fp.program(j)
         xs = iter(f[j * u:(j + 1) * u] for f in (flat[q] for q in leaves))
+        stores = iter(fp.stores(j)) if fp.qmode else None
         stack: List[torch.Tensor] = []
         for kind in kinds:
             if kind == S_LOAD:
@@ -484,15 +658,22 @@ def gen_device_fold_ref(srcs: Sequence[torch.Tensor], plan: GenPlan,
                 stack[-1] = acc(next(xs), stack[-1])
             elif kind == S_FOLD_R:
                 stack[-1] = acc(stack[-1], next(xs))
+            elif kind == S_QDQ:
+                # groups counted from the unit's start, the last one
+                # padded with zeros, as a wire send of a run of one unit
+                stack[-1] = quantize(stack[-1], fp.qmode, fp.qblock)[2]
+            elif kind == S_STORE:
+                out[next(stores)][j * u:(j + 1) * u] = scaled(stack[-1])
             else:
                 top = stack.pop()
-                stack[-1] = acc(stack[-1], top) if kind == S_COMB \
-                    else acc(top, stack[-1])
-        (val,) = stack
-        if plan.reducing and op == ReductionOp.AVG:
-            val = val * avg_factor(val.dtype, plan.n).to(val.device)
-        for o in out:
-            o[j * u:(j + 1) * u] = val
+                f = acc if kind in (S_COMB, S_COMB_SWAP) else torch.add
+                stack[-1] = f(stack[-1], top) \
+                    if kind in (S_COMB, S_WADD) else f(top, stack[-1])
+        if not fp.qmode:
+            (val,) = stack
+            val = scaled(val)
+            for o in out:
+                o[j * u:(j + 1) * u] = val
     return out
 
 
@@ -549,6 +730,38 @@ def _launch_fold(what, srcs, dsts, op, plan: GenPlan, fp: FoldPlan, stream,
     return RingLaunch(stream, keep=(ptr_table, units, prog), what=what)
 
 
+def wire_kernel(qmode: str, qblock: int) -> int:
+    """gen_device.cu's number of the wire fold instance for *qmode* and
+    *qblock*: its values a lane are the fewest of 1, 2, 4 and 8 that cover
+    a group of qblock elements with a warp."""
+    vals = next(v for v in (1, 2, 4, 8) if 32 * v >= qblock)
+    return WIRE_KERNELS + 4 * (QMODES[qmode] - 1) + vals.bit_length() - 1
+
+
+def _launch_wire_fold(what, srcs, dsts, op, plan: GenPlan, fp: FoldPlan,
+                      stream, ptr_table) -> RingLaunch:
+    """An ordinary launch of gen_device.cu's wire fold: no workspace,
+    arena, flags or error word, one warp per qblock group, a 1-D grid from
+    the occupancy query."""
+    device = srcs[0].device
+    kernel = wire_kernel(fp.qmode, fp.qblock)
+    avg, alpha = _avg(plan, op, torch.float32)
+    groups = plan.count // fp.unit * -(-fp.unit // fp.qblock)
+    warps = WIRE_THREADS // 32
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        units, prog = fp.device_tables(device)
+        if ptr_table is None:
+            ptr_table = make_ptr_table(srcs, dsts)
+        ctas = max(1, min(-(-groups // warps), _SOURCE.max_ctas(
+            kernel, DTYPE_CODES[torch.float32], device, WIRE_THREADS)))
+        _SOURCE.check(_SOURCE.lib().ucc_gen_wire_fold(
+            kernel, ptr_table.data_ptr(), units.data_ptr(), prog.data_ptr(),
+            plan.count, fp.unit, fp.qblock, plan.n,
+            int(op) if plan.reducing else int(ReductionOp.SUM), avg, alpha,
+            ctas, WIRE_THREADS, stream.cuda_stream), f"{what} launch")
+    return RingLaunch(stream, keep=(ptr_table, units, prog), what=what)
+
+
 def _launch_layers(what, srcs, dsts, op, plan: GenPlan, stream, workspace,
                    ptr_table) -> RingLaunch:
     """A cooperative launch of csrc/gen_device.cu's layer kernel on a
@@ -581,9 +794,12 @@ def _launch_layers(what, srcs, dsts, op, plan: GenPlan, stream, workspace,
 def _dispatch(wrapper, what: str, srcs, dsts, op, plan: GenPlan, stream,
               workspace, ptr_table) -> RingLaunch:
     """One wrapper call. CPU buffers: the plain version writes them.
-    CUDA buffers: the fold kernel when the plan has a fold plan, else the
-    layer kernel; both counted in ``wrapper.launches``, the fold route
-    also in ``wrapper.fold_launches``."""
+    CUDA buffers: when the plan has a fold plan, the fold kernel
+    (gen_fold.cu) for an exact plan or the wire fold (gen_device.cu) for a
+    wire plan, else the layer kernel; every launch counted in
+    ``wrapper.launches``, the two fold routes also in
+    ``wrapper.fold_launches``. A failed launch raises; nothing retries on
+    another route."""
     _check(what, srcs, dsts, op, plan)
     device = srcs[0].device
     if device.type == "cpu":
@@ -598,7 +814,8 @@ def _dispatch(wrapper, what: str, srcs, dsts, op, plan: GenPlan, stream,
         stream = torch.cuda.current_stream(device)
     fp = fold_plan(plan)
     if fp is not None:
-        h = _launch_fold(what, srcs, dsts, op, plan, fp, stream, ptr_table)
+        launch = _launch_wire_fold if fp.qmode else _launch_fold
+        h = launch(what, srcs, dsts, op, plan, fp, stream, ptr_table)
         wrapper.fold_launches += 1
     elif plan.ring:
         # device_plan lowers such a ring as layers; only a hand-made plan
@@ -634,9 +851,9 @@ def gen_device_gen(srcs: Sequence[torch.Tensor],
                    workspace: Optional[RingWorkspace] = None,
                    ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
     """The general entry point: the layers and copies of *plan* over
-    ``srcs`` into ``dsts`` (the fold kernel on an exact plan, the layer
-    kernel on one with wire layers); ``root`` is in the plan's tables
-    already."""
+    ``srcs`` into ``dsts`` (the fold kernel on an exact plan, the wire fold
+    or else the layer kernel on one with wire layers); ``root`` is in the
+    plan's tables already."""
     if plan.ring:
         raise UccError(Status.ERR_INVALID_PARAM,
                        "gen_device_gen takes a layer plan")
