@@ -150,6 +150,23 @@ Phases, each printing its own lines (any failure exits non-zero):
      for allreduce and bcast at 16 Mi; then, below the stack, int8 and
      fp8 edge-wire direct exchanges of 16 Mi f32 over 8 ranks on the wire
      fold, and the layer kernel on the same plans, timed in turns;
+   - tl/torch_ops as the default device TL (tl/xla's table), each run
+     with every kernel counter zeroed before and still 0 after: every
+     collective type by the default selection, 8 ranks of 16 Mi f32
+     (allreduce, reduce from root 3, bcast from root 3, allgather and
+     gather of 2 Mi blocks, allgatherv and gatherv of uneven blocks,
+     alltoall, alltoallv with uneven per-pair counts, reduce_scatter of
+     16 Mi and of 16 Mi + 3 (near-equal blocks), reduce_scatterv,
+     scatter and scatterv from root 3) asserted to select torch_ops's
+     xla (barrier, fanin and fanout, of message size 0, its short), moves
+     byte for byte against the expected layout, reductions bitwise the
+     same torch expression outside the stack and within 1e-5 of float64,
+     beside tl/ring_cuda's p50 at the same shape for reduce_scatter,
+     allgather and alltoall; ring (pinned) on SUM and AVG at 16 Mi;
+     short at 1 KiB for allreduce, bcast, allgather and alltoall;
+     bfloat16 PROD at 8 x 4096 within rtol 1e-2 of float64; a 1-rank
+     team's allreduce and bcast of CUDA tensors through tl/self, and the
+     README's quick start in the port;
 4. per kernel: its time alone (CUDA events, reused workspace and pointer
    table), its plain version's, its byte bound, and one PyTorch call as a
    yardstick the package never calls (library_ms), timed in turns with
@@ -2432,6 +2449,16 @@ def run_main_path(ctxs, teams, coll, count, dst_count, root, seed):
             flags=ucc.CollArgsFlags.PERSISTENT) for r in range(n)]
     reqs = [teams[r].collective_init(argses[r]) for r in range(n)]
     alg = reqs[0].task.alg_name
+    samples = time_rounds(ctxs, reqs, coll)
+    return samples, srcs, dsts, alg
+
+
+def time_rounds(ctxs, reqs, what):
+    """WARMUP + ITERS rounds of the persistent requests (post every one,
+    progress until none is in progress, each must be OK); the ITERS
+    rounds' host seconds. Finalizes the requests."""
+    import torch
+    import ucc_tpu_torch as ucc
 
     def one_round():
         for rq in reqs:
@@ -2444,10 +2471,10 @@ def run_main_path(ctxs, teams, coll, count, dst_count, root, seed):
             for c in ctxs:
                 c.progress()
             if time.monotonic() > deadline:
-                raise RuntimeError(f"{coll} did not complete in 60 s")
+                raise RuntimeError(f"{what} did not complete in 60 s")
         bad = [s for s in sts if s != ucc.Status.OK]
         if bad:
-            raise RuntimeError(f"{coll} failed: {bad[0]}")
+            raise RuntimeError(f"{what} failed: {bad[0]}")
 
     for _ in range(WARMUP):
         one_round()
@@ -2459,7 +2486,7 @@ def run_main_path(ctxs, teams, coll, count, dst_count, root, seed):
     for rq in reqs:
         rq.finalize()
     torch.cuda.synchronize()
-    return samples, srcs, dsts, alg
+    return samples
 
 
 def check_main_result(coll, srcs, dsts, plain, root) -> None:
@@ -2966,6 +2993,439 @@ def main_path_perftest(counters, smi) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# 3b. the default device TL's collective types (tl/torch_ops), tl/self
+# ---------------------------------------------------------------------------
+
+#: the default TL's runs: (collective, variant, root); every rank moves
+#: 16 Mi f32 (allgather(v) and gather(v) gather 16 Mi from 2 Mi blocks,
+#: scatter(v) and reduce_scatter(v) scatter 16 Mi into 2 Mi blocks)
+DEFAULT_RUNS = (
+    ("ALLREDUCE", "", 0), ("REDUCE", "", 3), ("BCAST", "", 3),
+    ("ALLGATHER", "", 0), ("GATHER", "", 3), ("ALLGATHERV", "uneven", 0),
+    ("GATHERV", "uneven", 3), ("ALLTOALL", "", 0),
+    ("ALLTOALLV", "uneven", 0), ("REDUCE_SCATTER", "", 0),
+    ("REDUCE_SCATTER", "total 16 Mi + 3", 0),
+    ("REDUCE_SCATTERV", "uneven", 0), ("SCATTER", "", 3),
+    ("SCATTERV", "uneven", 3), ("BARRIER", "", 0), ("FANIN", "", 3),
+    ("FANOUT", "", 3),
+)
+#: what the runs that reduce are checked against: within this of float64
+DEFAULT_RTOL = DEFAULT_ATOL = 1e-5
+
+
+def uneven(total, n):
+    """n counts of a ramp around total / n that sum to total."""
+    step = total // n // (4 * n)
+    counts = [total // n + (2 * r - (n - 1)) * step // 2 for r in range(n)]
+    counts[0] += total - sum(counts)
+    return counts
+
+
+def displs_of(counts):
+    out, acc = [], 0
+    for c in counts:
+        out.append(acc)
+        acc += c
+    return out
+
+
+def default_case(coll, variant, root, n, g):
+    """(every rank's CollArgs, the srcs, the result buffers, a function
+    returning every rank's expected result (None: not compared) and, for
+    the runs that reduce, the float64 values of the same elements)."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.tl import torch_ops
+    f32, C = ucc.DataType.FLOAT32, MAIN_COUNT
+    B = C // n
+    P = ucc.CollArgsFlags.PERSISTENT
+    CT = ucc.CollType[coll]
+    SUM = ucc.ReductionOp.SUM
+
+    def randn(c):
+        return torch.randn(c, generator=g, device="cuda")
+
+    def bi(t, c=None):
+        return ucc.BufferInfo(t, t.numel() if c is None else c, f32)
+
+    def biv(t, counts):
+        return ucc.BufferInfoV(t, counts, None, f32,
+                               mem_type=ucc.MemoryType.CUDA)
+
+    if coll in ("BARRIER", "FANIN", "FANOUT"):
+        none = ucc.BufferInfo(None, 0, ucc.DataType.UINT8,
+                              mem_type=ucc.MemoryType.CUDA)
+        argses = [ucc.CollArgs(coll_type=CT, root=root, src=none, flags=P)
+                  for _ in range(n)]
+        return argses, [], [], lambda: ([None] * n, None)
+    if coll in ("ALLREDUCE", "REDUCE"):
+        srcs = [randn(C) for _ in range(n)]
+        dsts = [torch.empty(C, device="cuda")
+                if coll == "ALLREDUCE" or r == root else None
+                for r in range(n)]
+        argses = [ucc.CollArgs(coll_type=CT, op=SUM, root=root,
+                               src=bi(srcs[r]),
+                               dst=None if dsts[r] is None else bi(dsts[r]),
+                               flags=P) for r in range(n)]
+
+        def want():
+            out = torch_ops.allreduce_ops(srcs, SUM)
+            exact = torch.stack(srcs).double().sum(0)
+            return ([out if d is not None else None for d in dsts],
+                    [exact if d is not None else None for d in dsts])
+        return argses, srcs, dsts, want
+    if coll == "BCAST":
+        bufs = [randn(C) for _ in range(n)]
+        srcs = [bufs[root].clone()] * n
+        argses = [ucc.CollArgs(coll_type=CT, root=root, src=bi(bufs[r]),
+                               flags=P) for r in range(n)]
+        return argses, srcs, bufs, \
+            lambda: ([torch_ops.bcast_ops(srcs, root)] * n, None)
+    if coll in ("ALLGATHER", "GATHER", "ALLGATHERV", "GATHERV"):
+        counts = uneven(C, n) if variant else [B] * n
+        srcs = [randn(c) for c in counts]
+        receives = [coll.startswith("ALL") or r == root for r in range(n)]
+        dsts = [torch.empty(C, device="cuda") if rc else None
+                for rc in receives]
+        argses = [ucc.CollArgs(
+            coll_type=CT, root=root, src=bi(srcs[r]),
+            dst=(biv(dsts[r], counts) if coll.endswith("V") else
+                 None if dsts[r] is None else bi(dsts[r])), flags=P)
+            for r in range(n)]
+        return argses, srcs, dsts, lambda: ([
+            torch.cat(srcs) if rc else None for rc in receives], None)
+    if coll in ("ALLTOALL", "ALLTOALLV"):
+        if variant:
+            ramp = [c - B for c in uneven(C, n)]
+            m = [[B + ramp[(i + j) % n] for j in range(n)] for i in range(n)]
+        else:
+            m = [[B] * n for _ in range(n)]
+        srcs = [randn(C) for _ in range(n)]
+        dsts = [torch.empty(C, device="cuda") for _ in range(n)]
+        sd = [displs_of(m[i]) for i in range(n)]
+        if variant:
+            argses = [ucc.CollArgs(
+                coll_type=CT, src=biv(srcs[r], m[r]),
+                dst=biv(dsts[r], [m[i][r] for i in range(n)]), flags=P)
+                for r in range(n)]
+        else:
+            argses = [ucc.CollArgs(coll_type=CT, src=bi(srcs[r]),
+                                   dst=bi(dsts[r]), flags=P)
+                      for r in range(n)]
+        return argses, srcs, dsts, lambda: ([torch.cat([
+            srcs[i][sd[i][p]:sd[i][p] + m[i][p]] for i in range(n)])
+            for p in range(n)], None)
+    if coll in ("REDUCE_SCATTER", "REDUCE_SCATTERV"):
+        from ucc_tpu_torch.utils.mathutils import block_count, block_offset
+        total = C + 3 if variant.startswith("total") else C
+        if coll == "REDUCE_SCATTERV":
+            counts = uneven(total, n)
+            offs = displs_of(counts)
+        else:
+            counts = [block_count(total, n, r) for r in range(n)]
+            offs = [block_offset(total, n, r) for r in range(n)]
+        srcs = [randn(total) for _ in range(n)]
+        dsts = [torch.empty(c, device="cuda") for c in counts]
+        argses = [ucc.CollArgs(
+            coll_type=CT, op=SUM, src=bi(srcs[r]),
+            dst=(biv(dsts[r], counts) if coll.endswith("V") else
+                 bi(dsts[r])), flags=P) for r in range(n)]
+
+        def want():
+            full = torch_ops.allreduce_ops(srcs, SUM)
+            exact = torch.stack(srcs).double().sum(0)
+            return ([full[o:o + c] for o, c in zip(offs, counts)],
+                    [exact[o:o + c] for o, c in zip(offs, counts)])
+        return argses, srcs, dsts, want
+    # SCATTER, SCATTERV
+    counts = uneven(C, n) if variant else [B] * n
+    offs = displs_of(counts)
+    src = randn(C)
+    dsts = [torch.empty(c, device="cuda") for c in counts]
+    argses = [ucc.CollArgs(
+        coll_type=CT, root=root,
+        src=None if r != root else (biv(src, counts) if variant
+                                    else bi(src)),
+        dst=bi(dsts[r]), flags=P) for r in range(n)]
+    return argses, [src], dsts, lambda: ([
+        src[o:o + c] for o, c in zip(offs, counts)], None)
+
+
+def check_default(what, dsts, want, exact=None) -> None:
+    """Every rank's result bitwise its expected one (for the runs that
+    reduce, the same torch expression outside the stack) and, where
+    *exact* gives the float64 values, finite and within
+    DEFAULT_RTOL/ATOL of them."""
+    import torch
+    for r, (d, w) in enumerate(zip(dsts, want)):
+        if w is None:
+            continue
+        if not bits_equal(d, w):
+            raise AssertionError(f"{what} rank {r}: not bitwise its "
+                                 "expected result")
+        if exact is None:
+            continue
+        if not torch.isfinite(d).all():
+            raise AssertionError(f"{what} rank {r}: non-finite result")
+        if not torch.allclose(d.double(), exact[r], rtol=DEFAULT_RTOL,
+                              atol=DEFAULT_ATOL):
+            err = (d.double() - exact[r]).abs().max().item()
+            raise AssertionError(f"{what} rank {r}: {err} off the float64 "
+                                 "reduction")
+
+
+def p50_line(samples) -> str:
+    samples = sorted(samples)
+    return (f"p50 {samples[len(samples) // 2] * 1e3:.3f} ms (p10 "
+            f"{samples[len(samples) // 10] * 1e3:.3f}, max "
+            f"{samples[-1] * 1e3:.3f}) over {ITERS} rounds")
+
+
+def main_path_defaults(smi, counters, ring_p50) -> None:
+    """tl/torch_ops as the default device TL and tl/self: 8 contexts, one
+    team per case, persistent requests through the whole stack, every
+    kernel launch counter zeroed before each run and required to stay 0
+    (library ops, no kernel):
+    - every collective type of tl/xla's table at 16 Mi f32 per rank by the
+      default selection, which must be torch_ops's ``xla`` (``short`` for
+      the buffer-less three, whose message size is 0, as the reference's);
+    - ``ring`` (pinned by UCC_TL_TORCH_OPS_TUNE) on SUM and AVG at 16 Mi;
+    - ``short`` at 1 KiB for allreduce, bcast, allgather and alltoall;
+    - bfloat16 PROD at 8 x 4096 (the repaired rounding) within rtol 1e-2
+      of the float64 product;
+    - a 1-rank team: allreduce and bcast of CUDA tensors through tl/self,
+      and the README's quick start in the port.
+    Prints each run's p50 beside the card; for reduce_scatter, allgather
+    and alltoall also tl/ring_cuda's p50 at the same shape, from the
+    pinned runs above (*ring_p50*)."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.tl import torch_ops
+    n = N_RANKS
+    ctxs, teams = make_job(n)
+
+    def zero():
+        for w in counters.values():
+            w.launches = 0
+
+    def launched():
+        return {k: w.launches for k, w in counters.items() if w.launches}
+
+    g = torch.Generator(device="cuda").manual_seed(60)
+    for coll, variant, root in DEFAULT_RUNS:
+        argses, srcs, dsts, want = default_case(coll, variant, root, n, g)
+        zero()
+        reqs = [teams[r].collective_init(a) for r, a in enumerate(argses)]
+        algs = {rq.task.alg_name for rq in reqs}
+        teams_of = {type(rq.task).__module__ for rq in reqs}
+        expect = "short" if not srcs else "xla"
+        if algs != {expect} or teams_of != {torch_ops.__name__}:
+            raise AssertionError(f"{coll} selected {algs} of {teams_of}, "
+                                 f"not torch_ops/{expect}")
+        samples = time_rounds(ctxs, reqs, coll)
+        if launched():
+            raise AssertionError(f"{coll} launched kernels: {launched()}")
+        what = f"default {coll}{' ' + variant if variant else ''}" + (
+            f" from root {root}" if argses[0].root else "")
+        expected, exact = want()
+        check_default(what, dsts, expected, exact)
+        size = "16 Mi f32/rank" if srcs else "no buffers"
+        line = f"{what} {size} via torch_ops/{expect}: {p50_line(samples)}"
+        key = (coll, variant)
+        if key in ring_p50:
+            line += (f" | tl/ring_cuda at the same shape (pinned run above) "
+                     f"p50 {ring_p50[key] * 1e3:.3f} ms")
+        checked = "none (no buffers)" if not srcs else "byte for byte" \
+            if exact is None else \
+            "bitwise the same torch expression, within 1e-5 of float64"
+        log(f"{line} | results {checked} | card {smi}")
+        del argses, srcs, dsts, reqs, expected, exact
+        torch.cuda.empty_cache()
+    for t in teams:
+        t.destroy()
+
+    # ring, pinned
+    os.environ["UCC_TL_TORCH_OPS_TUNE"] = "allreduce:@ring:inf"
+    teams = make_team(ctxs)
+    os.environ.pop("UCC_TL_TORCH_OPS_TUNE")
+    for op in ("SUM", "AVG"):
+        srcs = [torch.randn(MAIN_COUNT, generator=g, device="cuda")
+                for _ in range(n)]
+        dsts = [torch.empty(MAIN_COUNT, device="cuda") for _ in range(n)]
+        rop = ucc.ReductionOp[op]
+        reqs = [teams[r].collective_init(ucc.CollArgs(
+            coll_type=ucc.CollType.ALLREDUCE, op=rop,
+            src=ucc.BufferInfo(srcs[r], MAIN_COUNT, ucc.DataType.FLOAT32),
+            dst=ucc.BufferInfo(dsts[r], MAIN_COUNT, ucc.DataType.FLOAT32),
+            flags=ucc.CollArgsFlags.PERSISTENT)) for r in range(n)]
+        if {rq.task.alg_name for rq in reqs} != {"ring"}:
+            raise AssertionError("the ring pin did not select ring")
+        zero()
+        samples = time_rounds(ctxs, reqs, f"ring {op}")
+        if launched():
+            raise AssertionError(f"ring {op} launched kernels: {launched()}")
+        plain = torch_ops.allreduce_ring_ops(srcs, rop)
+        exact = torch.stack(srcs).double().sum(0) / (n if op == "AVG" else 1)
+        for r, d in enumerate(dsts):
+            if not bits_equal(d, plain):
+                raise AssertionError(f"ring {op} rank {r}: not bitwise "
+                                     "allreduce_ring_ops")
+            if not torch.allclose(d.double(), exact, rtol=DEFAULT_RTOL,
+                                  atol=DEFAULT_ATOL):
+                raise AssertionError(f"ring {op} rank {r}: off float64")
+        log(f"ring ALLREDUCE {op} 16 Mi f32/rank via torch_ops/ring "
+            f"(pinned by UCC_TL_TORCH_OPS_TUNE): {p50_line(samples)} | "
+            f"bitwise allreduce_ring_ops, within 1e-5 of float64 | "
+            f"card {smi}")
+        del srcs, dsts, plain, exact, reqs
+        torch.cuda.empty_cache()
+    for t in teams:
+        t.destroy()
+
+    # short at 1 KiB and the repaired bf16 PROD, by the default selection
+    teams = make_team(ctxs)
+    small = 256                                   # 1 KiB of f32
+    for coll, root in (("ALLREDUCE", 0), ("BCAST", 3), ("ALLGATHER", 0),
+                       ("ALLTOALL", 0)):
+        count = small // n if coll == "ALLGATHER" else small
+        srcs = [torch.randn(count, generator=g, device="cuda")
+                for _ in range(n)]
+        srcs[root][5] = -0.0
+        bufs = [s.clone() for s in srcs]
+        dsts = bufs if coll == "BCAST" else [
+            torch.empty(small, device="cuda") for _ in range(n)]
+        f32 = ucc.DataType.FLOAT32
+        reqs = [teams[r].collective_init(ucc.CollArgs(
+            coll_type=ucc.CollType[coll], op=ucc.ReductionOp.SUM, root=root,
+            src=ucc.BufferInfo(bufs[r], count, f32),
+            dst=None if coll == "BCAST" else ucc.BufferInfo(dsts[r], small,
+                                                           f32),
+            flags=ucc.CollArgsFlags.PERSISTENT)) for r in range(n)]
+        if {rq.task.alg_name for rq in reqs} != {"short"}:
+            raise AssertionError(f"short {coll}: selected "
+                                 f"{ {rq.task.alg_name for rq in reqs} }")
+        zero()
+        samples = time_rounds(ctxs, reqs, f"short {coll}")
+        if launched():
+            raise AssertionError(f"short {coll} launched {launched()}")
+        b = small // n
+        want = {"ALLREDUCE": [torch_ops.short_fold_ops(
+                    srcs, ucc.ReductionOp.SUM)] * n,
+                "BCAST": [srcs[root]] * n,
+                "ALLGATHER": [torch.cat(srcs)] * n,
+                "ALLTOALL": [torch.cat([s[p * b:(p + 1) * b] for s in srcs])
+                             for p in range(n)]}[coll]
+        check_default(f"short {coll}", dsts, want)
+        checked = {"ALLREDUCE": "the left fold short_fold_ops",
+                   "BCAST": "the root's bits, -0.0 kept"}.get(
+                       coll, "the expected layout")
+        log(f"short {coll} 1 KiB/rank via torch_ops/short (default below "
+            f"4 KiB on a GPU): {p50_line(samples)} | bitwise {checked} | "
+            f"card {smi}")
+    for seed in range(3):
+        gb = torch.Generator(device="cuda").manual_seed(seed)
+        srcs = [(1 + 0.3 * torch.randn(4096, generator=gb, device="cuda"))
+                .to(torch.bfloat16) for _ in range(n)]
+        dsts = [torch.empty_like(s) for s in srcs]
+        bf = ucc.DataType.BFLOAT16
+        reqs = [teams[r].collective_init(ucc.CollArgs(
+            coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.PROD,
+            src=ucc.BufferInfo(srcs[r], 4096, bf),
+            dst=ucc.BufferInfo(dsts[r], 4096, bf),
+            flags=ucc.CollArgsFlags.PERSISTENT)) for r in range(n)]
+        if {rq.task.alg_name for rq in reqs} != {"xla"}:
+            raise AssertionError("bf16 PROD did not select xla")
+        samples = time_rounds(ctxs, reqs, "bf16 PROD")
+        exact = torch.stack(srcs).double().prod(0)
+        worst = max(((d.double() - exact).abs() / exact.abs())
+                    .nan_to_num(float("inf")).max().item() for d in dsts)
+        if not all(torch.allclose(d.double(), exact, rtol=1e-2, atol=0)
+                   for d in dsts):
+            raise AssertionError(f"bf16 PROD seed {seed}: worst relative "
+                                 f"error {worst}, above 1e-2")
+        log(f"bf16 PROD 8 x 4096 (1 + 0.3 N(0,1), seed {seed}) via "
+            f"torch_ops/xla: worst relative error {worst:.5f} of the "
+            f"float64 product (rtol 1e-2) | {p50_line(samples)} | "
+            f"card {smi}")
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+    one_rank_self(smi, counters)
+
+
+#: the README's quick start, in the port (tests/test_torch_self.py holds
+#: the same text to the README)
+QUICK_START = """
+import numpy as np, ucc_tpu_torch
+
+lib  = ucc_tpu_torch.init()
+ctx  = ucc_tpu_torch.Context(lib)                      # no OOB -> 1-rank world
+team = ctx.create_team(ucc_tpu_torch.TeamParams())
+
+src = np.arange(4, dtype=np.float32); dst = np.zeros_like(src)
+req = team.collective_init(ucc_tpu_torch.CollArgs(
+    coll_type=ucc_tpu_torch.CollType.ALLREDUCE,
+    src=ucc_tpu_torch.BufferInfo(src, 4, ucc_tpu_torch.DataType.FLOAT32),
+    dst=ucc_tpu_torch.BufferInfo(dst, 4, ucc_tpu_torch.DataType.FLOAT32),
+    op=ucc_tpu_torch.ReductionOp.SUM))
+req.post(); req.wait()
+"""
+
+
+def one_rank_self(smi, counters) -> None:
+    """A 1-rank context and team on the card: allreduce of 16 Mi f32 CUDA
+    tensors and a bcast of them (src alone) through tl/self, the team's
+    service team tl/self's, and the README's quick start."""
+    import torch
+    import ucc_tpu_torch as ucc
+    ctx = ucc.Context(ucc.init())
+    team = ctx.create_team(ucc.TeamParams())
+    if team.service_team is None or team.service_team.NAME != "self":
+        raise AssertionError("a 1-rank team has no tl/self service team")
+    src = torch.randn(MAIN_COUNT, device="cuda")
+    dst = torch.empty_like(src)
+    keep = src.clone()
+    f32 = ucc.DataType.FLOAT32
+    for coll, args in (
+            ("ALLREDUCE", ucc.CollArgs(
+                coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+                src=ucc.BufferInfo(src, MAIN_COUNT, f32),
+                dst=ucc.BufferInfo(dst, MAIN_COUNT, f32),
+                flags=ucc.CollArgsFlags.PERSISTENT)),
+            ("BCAST", ucc.CollArgs(
+                coll_type=ucc.CollType.BCAST, root=0,
+                src=ucc.BufferInfo(src, MAIN_COUNT, f32),
+                flags=ucc.CollArgsFlags.PERSISTENT))):
+        for w in counters.values():
+            w.launches = 0
+        req = team.collective_init(args)
+        if req.task.alg_name != "self":
+            raise AssertionError(f"1-rank {coll} selected "
+                                 f"{req.task.alg_name}, not self")
+        samples = time_rounds([ctx], [req], f"1-rank {coll}")
+        if any(w.launches for w in counters.values()):
+            raise AssertionError(f"1-rank {coll} launched a kernel")
+        if not bits_equal(src, keep) or (coll == "ALLREDUCE" and
+                                         not bits_equal(dst, keep)):
+            raise AssertionError(f"1-rank {coll}: not the src's bits")
+        log(f"1-rank {coll} 16 Mi f32 CUDA tensors via self: "
+            f"{p50_line(samples)} | dst bitwise src | card {smi}")
+    team.destroy()
+    ctx.destroy()
+    scope = {}
+    exec(QUICK_START, scope)
+    if scope["req"].test() != ucc.Status.OK or \
+            scope["req"].task.alg_name != "self" or \
+            not (scope["dst"] == scope["src"]).all():
+        raise AssertionError("the README's quick start failed in the port")
+    scope["team"].destroy()
+    scope["ctx"].destroy()
+    log("README quick start in the port (1-rank world, numpy buffers): OK "
+        "via self")
+
+
 def main() -> int:
     try:
         import torch
@@ -3027,7 +3487,7 @@ def main() -> int:
 
     # -- 3. main path ----------------------------------------------------
     # the ring runs and perftest's allreduce measure tl/ring_cuda, pinned
-    # here (tl/torch_ops is the default TL for allreduce and bcast)
+    # here (tl/torch_ops is the default TL for every collective type)
     os.environ["UCC_TL_RING_CUDA_TUNE"] = \
         "allreduce,reduce_scatter,allgather,bcast,alltoall:@ring_cuda:inf"
     t0 = time.perf_counter()
@@ -3035,6 +3495,7 @@ def main() -> int:
     log(f"job: {N_RANKS} contexts + team in {time.perf_counter() - t0:.1f} s")
     kernels = wrappers()
     records = {}
+    ring_p50 = {}          # the chunked runs' p50, beside the defaults'
     for coll, kname, count, dst_count, root, seed in MAIN_RUNS:
         for wrapper, _ in kernels.values():
             wrapper.launches = 0
@@ -3060,6 +3521,8 @@ def main() -> int:
             least_bytes(coll, N_RANKS, count, dst_count), flops)
         samples.sort()
         p50 = samples[len(samples) // 2]
+        if count in (MAIN_COUNT, AG_MAIN_COUNT):
+            ring_p50[(coll, "")] = p50
         # the nccl-tests conventions: the full vector's bytes over p50
         nbytes = max(count, dst_count) * 4
         algbw = nbytes / p50 / 1e9
@@ -3098,6 +3561,10 @@ def main() -> int:
     os.environ.pop("UCC_TL_RING_CUDA_TUNE")
     records.update(main_path_gen(smi))
     wire = wire_below_the_stack(smi)
+    counters.update(gen_device_ring=kgd.gen_device_ring,
+                    gen_device_gen=kgd.gen_device_gen,
+                    ring_flash_attention_fwd=ka.ring_flash_attention_fwd)
+    main_path_defaults(smi, counters, ring_p50)
 
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own

@@ -284,8 +284,10 @@ def test_device_tls_read_one_device_setting(monkeypatch):
 
 
 def test_cpu_device_runs_a_one_rank_allreduce(monkeypatch):
+    """Through a device TL: tl/self, which takes any 1-rank collective, is
+    left out."""
     monkeypatch.setenv("UCC_TL_RING_CUDA_DEVICE", "cpu")
-    ctx = ut.Context(ut.init())
+    ctx = ut.Context(ut.init(TLS="ring_cuda,torch_ops"))
     team = ctx.create_team(ut.TeamParams())
     src = torch.arange(5, dtype=torch.float32)
     dst = torch.zeros(5)
@@ -304,17 +306,20 @@ def test_cpu_device_runs_a_one_rank_allreduce(monkeypatch):
 
 
 def test_unsupported_collectives_have_no_candidate(monkeypatch):
+    """Without tl/self, which takes every 1-rank collective: HOST memory
+    (no host TL is ported) and a bitwise op on floats (tl/torch_ops
+    refuses it, tl/ring_cuda takes no such op)."""
     monkeypatch.setenv("UCC_TL_RING_CUDA_DEVICE", "cpu")
-    ctx = ut.Context(ut.init())
+    ctx = ut.Context(ut.init(TLS="ring_cuda,torch_ops"))
     team = ctx.create_team(ut.TeamParams())
     buf = torch.zeros(4)
     with pytest.raises(ut.UccError) as ei:
         team.collective_init(ut.CollArgs(
             coll_type=ut.CollType.REDUCE, op=ut.ReductionOp.SUM,
             src=ut.BufferInfo(buf, 4, ut.DataType.FLOAT32,
-                              mem_type=ut.MemoryType.CUDA),
+                              mem_type=ut.MemoryType.HOST),
             dst=ut.BufferInfo(buf.clone(), 4, ut.DataType.FLOAT32,
-                              mem_type=ut.MemoryType.CUDA)))
+                              mem_type=ut.MemoryType.HOST)))
     assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
     with pytest.raises(ut.UccError) as ei:
         team.collective_init(ut.CollArgs(

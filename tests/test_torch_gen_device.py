@@ -438,17 +438,28 @@ def test_score_rows_match_tl_xla(torch_gen_job):
 
 
 def test_off_leaves_the_candidate_lists_unchanged():
+    """No gen_dev_* row: tl/torch_ops's short (4096 bytes lie below its
+    cpu threshold), xla and, for allreduce, ring; then tl/ring_cuda's
+    five."""
+    from ucc_tpu_torch.tl.ring_cuda import TlRingCuda
     job = make_torch_job(n=2)
     try:
         smap = job.teams[0].score_map
+        short = (ut.CollType.ALLREDUCE | ut.CollType.REDUCE |
+                 ut.CollType.BCAST | ut.CollType.ALLGATHER |
+                 ut.CollType.ALLTOALL | ut.CollType.BARRIER |
+                 ut.CollType.FANIN | ut.CollType.FANOUT)
         for coll in ut.CollType:
             rows = [(r.team.NAME, r.alg_name, r.score, r.origin)
                     for r in smap.lookup(coll, ut.MemoryType.CUDA, 4096)]
-            if coll in (ut.CollType.ALLREDUCE, ut.CollType.BCAST):
-                assert rows == [("torch_ops", "xla", 40, "default"),
-                                ("ring_cuda", "ring_cuda", 20, "default")]
-            elif rows:
-                assert rows == [("ring_cuda", "ring_cuda", 20, "default")]
+            want = [("torch_ops", "short", 45, "default")] \
+                if coll & short else []
+            want.append(("torch_ops", "xla", 40, "default"))
+            if coll == ut.CollType.ALLREDUCE:
+                want.append(("torch_ops", "ring", 39, "default"))
+            if coll & TlRingCuda.SUPPORTED_COLLS:
+                want.append(("ring_cuda", "ring_cuda", 20, "default"))
+            assert rows == want
     finally:
         job.cleanup()
 
@@ -502,8 +513,9 @@ def test_eligibility_refusals_fall_back_to_xla(torch_gen_job, alg, count, dt,
         return
     task, chosen = team.score_map.init_coll(
         ut.CollType.ALLREDUCE, ut.MemoryType.CUDA, msgsize, ia, gen + rest)
-    # xla takes AVG of floating types only: an integer mean is the ring's
-    assert chosen.alg_name == ("ring_cuda" if op == "AVG" else "xla")
+    # the library ops take AVG of floating types only: an integer mean is
+    # the ring's; at these sizes they run as ``short``, as tl/xla's do
+    assert chosen.alg_name == ("ring_cuda" if op == "AVG" else "short")
 
 
 def test_quant_knobs_gate_the_wire_program():

@@ -1,6 +1,6 @@
 """The whole stack for bcast and alltoall: 8-rank persistent requests
-through ucc_tpu_torch (tl/ring_cuda on device "cpu", selected by its
-default score) against ucc_tpu's tl/ring_dma on the virtual CPU mesh
+through ucc_tpu_torch (tl/ring_cuda on device "cpu", pinned by its TUNE
+string over tl/torch_ops, the default) against ucc_tpu's tl/ring_dma on the virtual CPU mesh
 (Pallas interpret mode), on the same numpy inputs, with the jobs of
 tests/torch_stack_cases.py. Each request is posted 3 times, the fast
 re-post lane included, and every round is compared bitwise: at one-pass
@@ -44,7 +44,7 @@ def jax_job():
 
 @pytest.fixture(scope="module")
 def torch_job():
-    job = make_torch_job("bcast:@ring_cuda:inf")
+    job = make_torch_job("bcast,alltoall:@ring_cuda:inf")
     yield job
     job.cleanup()
 
@@ -176,15 +176,31 @@ def _buf(count):
                          mem_type=ut.MemoryType.CUDA)
 
 
+def _ring_cuda_init(torch_job, args):
+    """tl/ring_cuda's task for *args* on rank 0, built directly."""
+    from ucc_tpu_torch.api.types import coll_args_msgsize
+    from ucc_tpu_torch.core.coll import InitArgs
+    team = torch_job.teams[0]
+    ring = next(t for t in team.cl_teams[0].tl_teams
+                if t.NAME == "ring_cuda")
+    return RingCudaCollTask(InitArgs(args=args, team=team,
+                                     mem_type=ut.MemoryType.CUDA,
+                                     msgsize=coll_args_msgsize(args, N, 0)),
+                            ring)
+
+
 @pytest.mark.parametrize("inplace", [False, True])
 def test_indivisible_alltoall_is_not_supported(torch_job, inplace):
+    """tl/ring_cuda's refusal (the stack then falls to tl/torch_ops, which
+    splits the count as the reference pads it,
+    tests/test_torch_ops_tl_colls)."""
     count = N * 5 + 3
     args = ut.CollArgs(coll_type=ut.CollType.ALLTOALL, dst=_buf(count),
                        src=None if inplace else _buf(count),
                        flags=ut.CollArgsFlags.IN_PLACE if inplace
                        else ut.CollArgsFlags(0))
     with pytest.raises(ut.UccError) as ei:
-        torch_job.teams[0].collective_init(args)
+        _ring_cuda_init(torch_job, args)
     assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
 
 
@@ -250,7 +266,10 @@ def test_score_map_picks_ring_cuda_on_cuda_memory(torch_job, coll, msgsize):
 def test_alltoall_with_a_reduction_op_is_not_supported(jax_job, torch_job):
     """An alltoall folds nothing, yet tl/ring_dma refuses ops other than
     SUM/AVG/MAX/MIN/PROD for it (tl/ring_dma.py:1481-1487), and so does
-    tl/ring_cuda: BAND on device memory is ERR_NOT_SUPPORTED at init."""
+    tl/ring_cuda: BAND is ERR_NOT_SUPPORTED at its init. The stack then
+    falls to tl/torch_ops (``short`` at this size), as the reference's
+    falls to tl/xla (initialised on every rank, so that the tags stay in
+    step, and not posted)."""
     from ucc_tpu.api.types import coll_args_msgsize as jmsgsize
     from ucc_tpu.core.coll import InitArgs as JInitArgs
     from ucc_tpu_torch.api.types import coll_args_msgsize
@@ -279,6 +298,11 @@ def test_alltoall_with_a_reduction_op_is_not_supported(jax_job, torch_job):
             cand.init(ia_cls(args=a, team=team, mem_type=mem, msgsize=size),
                       cand.team)
         assert ei.value.status.name == "ERR_NOT_SUPPORTED", name
-    with pytest.raises(ut.UccError) as ei:
-        torch_job.teams[0].collective_init(args)
-    assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
+    jreqs = [t.collective_init(jargs) for t in teams]
+    reqs = [t.collective_init(ut.CollArgs(
+        coll_type=ut.CollType.ALLTOALL, op=ut.ReductionOp.BAND,
+        src=_buf(N * 4), dst=_buf(N * 4))) for t in torch_job.teams]
+    assert {rq.task.alg_name for rq in jreqs} == \
+        {rq.task.alg_name for rq in reqs} == {"short"}
+    for rq in jreqs + reqs:
+        rq.finalize()

@@ -1,6 +1,6 @@
 """The whole stack for reduce_scatter and allgather: 8-rank persistent
-requests through ucc_tpu_torch (tl/ring_cuda on device "cpu", selected by
-its default score) against ucc_tpu's tl/ring_dma on the virtual CPU mesh
+requests through ucc_tpu_torch (tl/ring_cuda on device "cpu", pinned by
+its TUNE string over tl/torch_ops, the default) against ucc_tpu's tl/ring_dma on the virtual CPU mesh
 (Pallas interpret mode), on the same numpy inputs, with the jobs of
 tests/torch_stack_cases.py. Each request is posted 3 times, the fast
 re-post lane included, and every round is compared bitwise: at one-pass
@@ -42,7 +42,7 @@ def jax_job():
 
 @pytest.fixture(scope="module")
 def torch_job():
-    job = make_torch_job("allreduce:@ring_cuda:inf")
+    job = make_torch_job("allreduce,reduce_scatter,allgather:@ring_cuda:inf")
     yield job
     job.cleanup()
 
@@ -199,9 +199,19 @@ def _args(coll, src_count, dst_count, inplace=False):
     (ut.CollType.ALLGATHER, 0, N * 5 + 3, True)])
 def test_indivisible_totals_are_not_supported(torch_job, coll, src_count,
                                               dst_count, inplace):
+    """tl/ring_cuda's refusal (the stack then falls to tl/torch_ops, which
+    splits a reduce_scatter near-equally, tests/test_torch_ops_tl_colls)."""
+    from ucc_tpu_torch.api.types import coll_args_msgsize
+    from ucc_tpu_torch.core.coll import InitArgs
+    team = torch_job.teams[0]
+    ring = next(t for t in team.cl_teams[0].tl_teams
+                if t.NAME == "ring_cuda")
+    args = _args(coll, src_count, dst_count, inplace)
     with pytest.raises(ut.UccError) as ei:
-        torch_job.teams[0].collective_init(
-            _args(coll, src_count, dst_count, inplace))
+        RingCudaCollTask(InitArgs(args=args, team=team,
+                                  mem_type=ut.MemoryType.CUDA,
+                                  msgsize=coll_args_msgsize(args, N, 0)),
+                         ring)
     assert ei.value.status == ut.Status.ERR_NOT_SUPPORTED
 
 

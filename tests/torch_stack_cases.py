@@ -141,10 +141,10 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def make_jax_job(tune: str, tl: str = "ring_dma"):
-    """(UccJob, teams) of N ranks with tl/<tl> tuned by *tune*."""
+def make_jax_job(tune: str, tl: str = "ring_dma", n: int = N):
+    """(UccJob, teams) of *n* ranks with tl/<tl> tuned by *tune*."""
     with _env(**{f"UCC_TL_{tl.upper()}_TUNE": tune}):
-        job = UccJob(N)
+        job = UccJob(n)
         return job, job.create_team()
 
 
@@ -225,4 +225,116 @@ def jax_persistent_allreduce(job, teams, hosts, op, dt):
 
 
 def bits(a):
-    return a.view({2: np.uint16, 4: np.uint32, 8: np.uint64}[a.dtype.itemsize])
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32,
+                   8: np.uint64}[a.dtype.itemsize])
+
+
+# ---------------------------------------------------------------------------
+# any collective on both sides: rooted, v- and buffer-less ones included
+# ---------------------------------------------------------------------------
+
+class Buf:
+    """One buffer of a rank on both sides: *data* (numpy) or, for a result
+    buffer, *size* elements (7s in the port, no buffer in the reference,
+    whose device TLs rebind it); with *counts* (and *displs*) a
+    BufferInfoV."""
+
+    def __init__(self, data=None, size=None, counts=None, displs=None):
+        self.data, self.counts, self.displs = data, counts, displs
+        self.size = int(data.size) if size is None else int(size)
+
+
+def torch_buffer_info(b, dt, td):
+    """The port's BufferInfo(V) of *b* on device "cpu", CUDA memory."""
+    if b is None:
+        return None
+    t = from_numpy(b.data, "cpu") if b.data is not None else \
+        torch.full((b.size,), 7, dtype=td)
+    mt = ut.MemoryType.CUDA
+    if b.counts is not None:
+        return ut.BufferInfoV(t, b.counts, b.displs, dt, mem_type=mt)
+    return ut.BufferInfo(t, b.size, dt, mem_type=mt)
+
+
+def jax_buffer_info(job, r, b, dt, tl="xla"):
+    """The reference's BufferInfo(V) of *b* on rank r's device."""
+    if b is None:
+        return None
+    arr = None
+    if b.data is not None:
+        dev = job.contexts[r].tl_contexts[tl].obj.device
+        arr = jax.device_put(jnp.asarray(b.data), dev)
+    mt = ucc_tpu.MemoryType.TPU
+    if b.counts is not None:
+        return ucc_tpu.BufferInfoV(arr, b.counts, b.displs, dt, mem_type=mt)
+    return ucc_tpu.BufferInfo(arr, b.size, dt, mem_type=mt)
+
+
+def _result(bi, to_np):
+    if bi is None or bi.buffer is None:
+        return None
+    return to_np(bi.buffer)
+
+
+def torch_coll(job, coll, bufs, dt, op=None, root=0, alg="xla",
+               inplace=False, rounds=ROUNDS):
+    """*coll* on every rank of a TorchJob, rank r passing ``bufs[r] =
+    (src Buf, dst Buf)`` (either None); persistent, posted *rounds* times,
+    every result buffer refilled with 7 (or its data) before each round.
+    Asserts that every rank selected *alg*; returns each round's per-rank
+    result, the dst's tensor (the src's where there is no dst), as numpy
+    (None where a rank has neither)."""
+    td = ut.dt_torch(ut.DataType[dt])
+    flags = ut.CollArgsFlags.PERSISTENT
+    if inplace:
+        flags |= ut.CollArgsFlags.IN_PLACE
+    argses = [ut.CollArgs(coll_type=ut.CollType[coll], root=root,
+                          op=None if op is None else ut.ReductionOp[op],
+                          src=torch_buffer_info(s, ut.DataType[dt], td),
+                          dst=torch_buffer_info(d, ut.DataType[dt], td),
+                          flags=flags) for s, d in bufs]
+    first = [[None if bi is None else bi.buffer.clone()
+              for bi in (a.src, a.dst)] for a in argses]
+    reqs = [job.teams[r].collective_init(a) for r, a in enumerate(argses)]
+    assert [rq.task.alg_name for rq in reqs] == [alg] * job.n
+    out = []
+    for _ in range(rounds):
+        for a, (s0, d0) in zip(argses, first):
+            for bi, t0 in ((a.src, s0), (a.dst, d0)):
+                if bi is not None:
+                    bi.buffer.copy_(t0)
+        for rq in reqs:
+            rq.post()
+        job.progress_until(lambda: all(
+            [rq.test() != ut.Status.IN_PROGRESS for rq in reqs]))
+        assert all(rq.test() == ut.Status.OK for rq in reqs)
+        out.append([_result(a.dst if a.dst is not None else a.src,
+                            to_numpy) for a in argses])
+    for rq in reqs:
+        rq.finalize()
+    return out
+
+
+def jax_coll(job, teams, coll, bufs, dt, op=None, root=0, alg="xla",
+             tl="xla"):
+    """The reference's *coll* through tl/<tl>, rank r passing ``bufs[r]``
+    (one post); each rank's result, the rebound dst (the src where there
+    is no dst), as numpy (None where a rank has neither)."""
+    argses = [ucc_tpu.CollArgs(
+        coll_type=ucc_tpu.CollType[coll], root=root,
+        op=None if op is None else ucc_tpu.ReductionOp[op],
+        src=jax_buffer_info(job, r, s, ucc_tpu.DataType[dt], tl),
+        dst=jax_buffer_info(job, r, d, ucc_tpu.DataType[dt], tl))
+        for r, (s, d) in enumerate(bufs)]
+    reqs = [teams[r].collective_init(a) for r, a in enumerate(argses)]
+    assert [rq.task.alg_name for rq in reqs] == [alg] * len(teams)
+    for rq in reqs:
+        rq.post()
+    job.progress_until(lambda: all(
+        [rq.test() != ucc_tpu.Status.IN_PROGRESS for rq in reqs]))
+    assert all(rq.test() == ucc_tpu.Status.OK for rq in reqs)
+    out = [_result(a.dst if a.dst is not None else a.src, np.asarray)
+           for a in argses]
+    for rq in reqs:
+        rq.finalize()
+    return out

@@ -11,8 +11,11 @@ Ported so far: the core objects, cl/basic; tl/ring_cuda, whose
 allreduce, reduce_scatter, allgather, bcast and alltoall run every rank
 of an in-process team on one GPU through the kernels of
 ``kernels/ring_allreduce.py``, ``kernels/ring_rs_ag.py`` and
-``kernels/ring_bcast_a2a.py``; tl/torch_ops, the default for allreduce
-and bcast (library ops over the ranks' buffers, and, under
+``kernels/ring_bcast_a2a.py``; tl/self, every collective type on a
+1-rank team (and its service team); tl/torch_ops, the default device TL
+for every collective type of the JAX package's tl/xla, with its
+``xla``, ``ring`` and ``short`` algorithms (library ops over the ranks'
+buffers, and, under
 ``UCC_GEN_DEVICE=y``, the generated device collectives: verified programs
 of the collective DSL ``dsl/`` lowered by ``dsl/lower_device.py`` and run
 by the kernels of ``kernels/gen_device.py``; ``quant/`` holds the wire

@@ -8,9 +8,11 @@ Creation is UCC's nonblocking state machine (ucc_team_create_test):
 - ADDR_EXCHANGE: per-team OOB allgather of context ranks -> ``ctx_map``,
   plus a process-unique team key (leader's context counter).
 - SERVICE_TEAM: internal TL team providing service collectives for the
-  core. No TL of this package is service-capable yet, so there is none.
-- ALLOC_ID: with no service team every member takes its context's counter,
-  which ordered team creation keeps identical across members.
+  core. The only service-capable TL of this package is tl/self, so a
+  1-rank team has one and a larger team none.
+- ALLOC_ID: a 1-rank team, and a team with no service team, takes its
+  context's counter, which ordered team creation keeps identical across
+  members.
 - CL_CREATE: create each CL's team; failures fall back to remaining CLs.
 - CL_AGREE: one OOB round keeps only the CLs that exist on every member.
 - TUNER_SYNC: no tuner in this package; the state passes straight through.
@@ -210,7 +212,7 @@ class Team:
     def _alloc_id_step(self) -> None:
         if self.id is not None:
             return
-        if self.service_team is not None:
+        if self.size > 1 and self.service_team is not None:
             raise UccError(Status.ERR_NOT_IMPLEMENTED,
                            "team id agreement over a service team is not "
                            "ported yet")

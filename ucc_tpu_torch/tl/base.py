@@ -1,4 +1,5 @@
-"""TL shared infrastructure: algorithm tables, score building, team base.
+"""TL shared infrastructure: buffer views, algorithm tables, score
+building, team base.
 
 The per-TL score construction pattern of UCC: defaults from the TL's
 algorithm table, then the user's ``UCC_TL_<NAME>_TUNE`` overlay.
@@ -9,11 +10,41 @@ import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
-from ..constants import CollType, MemoryType
+import numpy as np
+import torch
+
+from ..api.types import BufferInfoV
+from ..constants import CollType, MemoryType, dt_size
 from ..core.components import BaseTeam
 from ..score.score import CollScore
-from ..status import UccError
+from ..status import Status, UccError
 from ..utils.config import SIZE_INF, parse_memunits
+
+
+def binfo_u8(bi) -> torch.Tensor:
+    """Flat uint8 view of a buffer's first ``count`` elements (of a
+    BufferInfoV: ``sum(counts)``, from its start), as a tensor on the
+    buffer's device: a torch tensor's own storage, a numpy array's or a
+    writable bytes-like object's memory, or a copy of a read-only one."""
+    counts = (bi.counts or []) if isinstance(bi, BufferInfoV) \
+        else [bi.count]
+    nbytes = sum(int(c) for c in counts) * dt_size(bi.datatype)
+    buf = bi.buffer
+    if isinstance(buf, torch.Tensor):
+        if not buf.is_contiguous():
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           "buffers must be contiguous tensors")
+        flat = buf.reshape(-1).view(torch.uint8)
+    else:
+        if isinstance(buf, np.ndarray):
+            if not buf.flags.c_contiguous:
+                raise UccError(Status.ERR_INVALID_PARAM,
+                               "buffers must be contiguous arrays")
+            arr = buf.reshape(-1).view(np.uint8)
+        else:
+            arr = np.frombuffer(buf, dtype=np.uint8)
+        flat = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    return flat[:nbytes]
 
 
 @dataclass

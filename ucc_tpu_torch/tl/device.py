@@ -24,7 +24,8 @@ device: ``test()`` polls the launch's CUDA event, so a caller may read
 ``dst`` on any stream once it returns OK.
 
 No TL is registered from this module; tl/ring_cuda and tl/torch_ops build
-on it.
+on it. A rank's src or dst may be None (a rooted collective's non-root
+ranks, the buffer-less barrier): the launch gets None there.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..api.types import BufferInfoV
-from ..constants import (CollType, MemoryType, ReductionOp,
+from ..constants import (ROOTED_COLLS, CollType, MemoryType, ReductionOp,
                          coll_type_str, dt_torch)
 from ..core.components import BaseContext
 from ..kernels.ring_common import RingWorkspace, make_ptr_table
@@ -197,24 +198,8 @@ class DeviceTeamShared:
             for _, (_s, _d, ready, _t) in items:
                 if ready is not None:
                     self.stream.wait_event(ready)
-            kernel = proto.build_program(self)
-            table = None
-            if proto.args.is_persistent and self.stream is not None:
-                ptrs = tuple(t.data_ptr() for t in srcs + dsts)
-                cached = self.launch_cache.get(proto.tag)
-                if cached is not None and cached[0] == ptrs:
-                    # persistent re-post on unchanged buffers: reuse the
-                    # device pointer table (LRU refresh keeps hot tags
-                    # alive under the LAUNCH_CACHE_MAX bound)
-                    table = cached[1]
-                    self.launch_cache[proto.tag] = \
-                        self.launch_cache.pop(proto.tag)
-                else:
-                    table = make_ptr_table(srcs, dsts)
-                    self._cache_insert(proto.tag, (ptrs, table))
-            launch = kernel(srcs, dsts, proto.op, root=proto.root,
-                            stream=self.stream, workspace=self.workspace,
-                            ptr_table=table)
+            launch = proto.launch(self, srcs, dsts,
+                                  tuple(it[1][3] for it in items))
             for _, (_s, _d, _r, task) in items:
                 task.set_result(launch)
         except Exception:  # noqa: BLE001 - build/launch failure
@@ -231,7 +216,8 @@ class DeviceCollTask(CollTask):
     """One rank's view of a device collective. Subclasses provide
     ``validate()`` and ``build_program(shared)``, which returns the kernel
     wrapper to launch: ``kernel(srcs, dsts, op, *, root, stream,
-    workspace, ptr_table)`` returning a launch handle with ``done()``."""
+    workspace, ptr_table)`` returning a launch handle with ``done()``; or
+    they replace ``launch`` and the buffer conventions as a whole."""
 
     def __init__(self, init_args, team: "TlDeviceTeam"):
         super().__init__(team=team, args=init_args.args)
@@ -248,21 +234,20 @@ class DeviceCollTask(CollTask):
                            "device TLs do not run active-set collectives")
         self.coll = args.coll_type
         self.op = args.op if args.op is not None else ReductionOp.SUM
-        self.root = int(args.root) if self.coll == CollType.BCAST else 0
+        self.root = int(args.root) if self.coll & ROOTED_COLLS else 0
         if not 0 <= self.root < team.size:
             raise UccError(Status.ERR_INVALID_PARAM,
                            f"root {self.root} is not a rank of a team of "
                            f"{team.size}")
+        self.check_buffer_infos()
         bi = args.src if args.src is not None else args.dst
-        if bi is None or isinstance(bi, BufferInfoV) or (
-                args.dst is not None and isinstance(args.dst, BufferInfoV)):
-            raise UccError(Status.ERR_NOT_SUPPORTED,
-                           "device TLs take contiguous BufferInfo buffers")
-        try:
-            self.dtype = dt_torch(bi.datatype)
-        except (TypeError, ValueError, KeyError):
-            raise UccError(Status.ERR_NOT_SUPPORTED,
-                           f"no torch dtype for {bi.datatype}") from None
+        self.dtype = None                  # collectives without buffers
+        if bi is not None:
+            try:
+                self.dtype = dt_torch(bi.datatype)
+            except (TypeError, ValueError, KeyError):
+                raise UccError(Status.ERR_NOT_SUPPORTED,
+                               f"no torch dtype for {bi.datatype}") from None
         self._contrib_src = args.src is not None and not args.is_inplace
         self.validate()
         self.src_count, self.dst_count = self._buffer_counts()
@@ -270,6 +255,15 @@ class DeviceCollTask(CollTask):
         # tag allocation LAST: a validation error above must not consume a
         # team tag, or this rank's tag sequence desyncs from its peers
         self.tag = team.next_coll_tag()
+
+    def check_buffer_infos(self) -> None:
+        """A contiguous BufferInfo as src or dst (the kernels' rule)."""
+        args = self.args
+        bi = args.src if args.src is not None else args.dst
+        if bi is None or isinstance(bi, BufferInfoV) or (
+                args.dst is not None and isinstance(args.dst, BufferInfoV)):
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "device TLs take contiguous BufferInfo buffers")
 
     def validate(self) -> None:
         """The TL's own NOT_SUPPORTED rules, run before the tag is taken."""
@@ -360,15 +354,39 @@ class DeviceCollTask(CollTask):
     def _deposit(self) -> None:
         src, dst = self.local_buffers()
         ready = None
-        if src.device.type == "cuda":
+        device = self.tl_team.shared.device
+        if device.type == "cuda":
             # the launch stream waits for this rank's writes, made on the
             # posting thread's current stream
             if self._ready is None:
                 self._ready = torch.cuda.Event()
-            self._ready.record(torch.cuda.current_stream(src.device))
+            self._ready.record(torch.cuda.current_stream(device))
             ready = self._ready
         self.tl_team.shared.deposit(self.tag, self.tl_team.rank, src, dst,
                                     ready, self)
+
+    def launch(self, shared: DeviceTeamShared, srcs, dsts, tasks):
+        """The one launch over every rank's buffers (*tasks*: every rank's
+        task, in rank order), on the launching thread under the
+        rendezvous lock; returns the launch handle."""
+        table = None
+        if self.args.is_persistent and shared.stream is not None:
+            ptrs = tuple(t.data_ptr() for t in srcs + dsts)
+            cached = shared.launch_cache.get(self.tag)
+            if cached is not None and cached[0] == ptrs:
+                # persistent re-post on unchanged buffers: reuse the
+                # device pointer table (LRU refresh keeps hot tags alive
+                # under the LAUNCH_CACHE_MAX bound)
+                table = cached[1]
+                shared.launch_cache[self.tag] = \
+                    shared.launch_cache.pop(self.tag)
+            else:
+                table = make_ptr_table(srcs, dsts)
+                shared._cache_insert(self.tag, (ptrs, table))
+        kernel = self.build_program(shared)
+        return kernel(srcs, dsts, self.op, root=self.root,
+                      stream=shared.stream, workspace=shared.workspace,
+                      ptr_table=table)
 
     # -- lifecycle --------------------------------------------------------
     def post_fn(self) -> Status:

@@ -10,9 +10,11 @@ Two benchmark paths:
   ``-p N`` in-process ranks (default 4), each a context over a thread OOB,
   one team, collective_init/post/test per round (``--persistent``: init
   once, post many; ``-S``: post every round before waiting). The score map
-  selects the TL: tl/torch_ops for allreduce and bcast, tl/ring_cuda for
-  the others (``UCC_TL_RING_CUDA_TUNE=allreduce:@ring_cuda:inf`` pins the
-  ring). On ``-m cuda``, the default, every rank's buffers go on the
+  selects tl/torch_ops for all five, as the JAX perftest selects tl/xla on
+  device memory: ``short`` below its threshold (4 KiB on a GPU, 128 KiB on
+  ``cpu``; reduce_scatter has none), ``xla`` above
+  (``UCC_TL_RING_CUDA_TUNE=allreduce:@ring_cuda:inf`` pins the ring for
+  one). On ``-m cuda``, the default, every rank's buffers go on the
   device that ``UCC_TL_RING_CUDA_DEVICE`` names for every device TL
   (default ``cuda``, which raises without a GPU; ``cpu`` runs on the CPU),
   and the ranks of a team share that one card. ``-m host`` has no TL in
@@ -264,8 +266,8 @@ def run_op_bench(args) -> int:
 
 
 #: detail.transport of a collective record. The JAX perftest names the
-#: host transport tier serving the team; the port's teams run on
-#: tl/ring_cuda alone and have no host transport to name.
+#: host transport tier serving the team; the port's teams run on its
+#: device TLs alone and have no host transport to name.
 TRANSPORT = "unknown"
 
 
