@@ -187,12 +187,42 @@ Phases, each printing its own lines (any failure exits non-zero):
    every instance of the attention source, and the HGMMA (wgmma)
    instructions in each instance's SASS: some in every tensor-core
    instance, none in the f32 ones; and the GQA block's projections, merge
-   and whole forward in device time, beside its p50.
+   and whole forward in device time, beside its p50;
+5. training, the in-graph API (``ops`` over an in-process
+   ``mesh.RankMesh`` of 8 ranks on the card) and the paths built on it,
+   f32 with TF32 off, the launch counters zeroed just before each run and
+   read just after:
+   - the GQA train step of examples/long_context.py at Meta Llama 3 8B's
+     attention widths (dm 4096, 32 heads, 8 KV heads, head dim 128), mesh
+     dp 2 x sp 4, batch 2 x 4096 tokens, causal, tokens scaled as the GQA
+     block's, lr 1.0: 3 steps whose loss must fall, whose replicas must be
+     bitwise equal after every step, and whose first step's averaged
+     gradients must be within 1e-4 (of max |dense|) of the dense
+     single-rank gradient of the global mean loss; ring_flash_attention_fwd
+     must launch on the f32 route and never on the tensor cores; then 5
+     timed steps: p50 split into forward (the attention kernel's device
+     ms beside it), backward, gradient AVG and update, tokens/s and
+     torch.cuda.max_memory_allocated; all of it twice, the gradient AVG by
+     the default selection (tl/torch_ops's xla) and pinned to tl/ring_cuda,
+     which must launch ring_allreduce_chunked;
+   - then once each, tl/ring_cuda pinned for allreduce and alltoall, each
+     checked against its reference and printed with its p50 over 3 runs:
+     the MHA step (32 heads of 128, same mesh and tokens; gradients
+     against the dense gradient), the DP x TP step at Llama 3 8B's MLP
+     widths (4096 -> 14336, dp 2 x tp 4, 4096 tokens; new weights against
+     the dense update), the pipeline (8 stages of 4096, 8 microbatches of
+     512; reference_pipeline), MoE at Mixtral 8x7B's expert widths (8
+     experts of 4096 -> 14336, one a rank, 1024 tokens a rank, capacity
+     factor 1.0; reference_moe), and the ring and Ulysses attentions (32
+     heads of 128, 8192 tokens over 8 ranks; reference_attention), within
+     float32 rtol 2e-4 / atol 2e-5.
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
 the int8/fp8 wire fold and the layer kernel on the same plans among
-them, with launches 0: the main path runs none of them) and {"ok": true,
+them, with launches 0: the main path runs none of them; the f32 route's
+launches are the GQA train step's, and every record carries its launches
+over phase 5 as training_launches) and {"ok": true,
 "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -3426,6 +3456,505 @@ def one_rank_self(smi, counters) -> None:
         "via self")
 
 
+# ---------------------------------------------------------------------------
+# 5. training: the in-graph API (ops over a RankMesh) and the steps on it
+# ---------------------------------------------------------------------------
+
+#: the training phase's mesh: one sequence a dp rank, its 4096 tokens over
+#: 4 sp ranks (8192 tokens a step)
+TRAIN_MESH = {"dp": 2, "sp": 4}
+TRAIN_SEQ = 4096
+#: SGD's learning rate in the training phase. At dm 1024 on the CPU (the
+#: same init and token scales) lr 1.0 lowers the loss 1.6 % a step, far
+#: above the f32 mean's rounding, and 10 and 100 still descend
+TRAIN_LR = 1.0
+#: steps checked (loss falls, replicas bitwise), then steps timed
+TRAIN_STEPS, TRAIN_TIMED = 3, 5
+#: a step's averaged gradient against the dense single-rank gradient of the
+#: global mean loss, max |difference| over max |dense|: both are float32
+#: (TF32 off) sums over 8192 tokens x 4096 features in other orders; at
+#: dm 1024 on the CPU they differ by 4e-7 to 1.2e-6, so 1e-4 leaves room
+#: for the card's summation orders and 4x the width
+GRAD_RTOL = 1e-4
+#: the examples against their reference_* functions: the JAX tests' own
+#: float32 tolerance (tests/test_pipeline_parallel.py, test_moe_ep.py)
+EXAMPLE_RTOL, EXAMPLE_ATOL = 2e-4, 2e-5
+#: Meta Llama 3 8B's MLP widths (config.json: intermediate_size) and
+#: Mixtral 8x7B's expert widths (num_local_experts, hidden_size,
+#: intermediate_size)
+LLAMA3_8B_MLP = 14336
+MIXTRAL_EXPERTS = dict(n=8, dm=4096, hidden=14336)
+#: the examples pin tl/ring_cuda for their allreduces and alltoalls
+EXAMPLE_TUNE = "allreduce,alltoall:@ring_cuda:inf"
+EXAMPLE_RUNS = 3
+
+
+class pinned:
+    """UCC_TL_RING_CUDA_TUNE set while the teams of a mesh are made."""
+
+    def __init__(self, tune):
+        self.tune = tune
+
+    def __enter__(self):
+        os.environ["UCC_TL_RING_CUDA_TUNE"] = self.tune
+
+    def __exit__(self, *exc):
+        os.environ.pop("UCC_TL_RING_CUDA_TUNE", None)
+
+
+def zero(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+    counters["ring_flash_attention_fwd"].tc_launches = 0
+
+
+def launched(counters) -> dict:
+    return {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def median_ms(samples) -> float:
+    return sorted(samples)[len(samples) // 2] * 1e3
+
+
+def dense_grads(loss_fn, params):
+    """The loss and its gradient with respect to every weight, on one rank
+    over the whole batch."""
+    import torch
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    loss = loss_fn(leaves)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in params])
+    return loss.item(), dict(zip(params, grads))
+
+
+def causal_softmax_av(q, k, v):
+    """softmax(q kᵀ / sqrt(d), causal) v over (..., seq, d), in float32."""
+    import torch
+    seq = q.shape[-2]
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    s = s.masked_fill(~torch.ones(seq, seq, dtype=torch.bool,
+                                  device=q.device).tril(), float("-inf"))
+    return s.softmax(-1) @ v
+
+
+def check_grads(what, got, want) -> float:
+    """max |got - want| / max |want| over the weights, within GRAD_RTOL."""
+    worst = 0.0
+    for name, w in want.items():
+        err = ((got[name] - w).abs().max() / w.abs().max()).item()
+        worst = max(worst, err)
+        if not err <= GRAD_RTOL:
+            raise AssertionError(f"{what}: the averaged {name} gradient is "
+                                 f"{err} (of max |dense|) from the dense "
+                                 f"gradient, above {GRAD_RTOL}")
+    return worst
+
+
+def check_replicas(what, params) -> None:
+    import torch
+    for name, reps in params.items():
+        if not all(torch.equal(r, reps[0]) for r in reps[1:]):
+            raise AssertionError(f"{what}: the replicas of {name} differ")
+
+
+def run_steps(what, step, w, xs, ys, dense, counters):
+    """TRAIN_STEPS steps, the launch counters zeroed just before: each
+    step's replicas bitwise equal, the loss falling step by step; the first
+    step's averaged gradients against `dense` (loss, grads) and its loss
+    against the dense loss. Returns (weights, losses, grad error,
+    launches)."""
+    import torch
+    zero(counters)
+    losses, err = [], None
+    step.keep_grads = True
+    for i in range(TRAIN_STEPS):
+        out, w = step(w, xs, ys)
+        if not all(torch.equal(v, out[0]) for v in out):
+            raise AssertionError(f"{what}: the ranks' losses differ")
+        check_replicas(what, w)
+        losses.append(out[0].item())
+        if i == 0:
+            err = check_grads(what, {k: g[0] for k, g in step.grads.items()},
+                              dense[1])
+            if abs(losses[0] - dense[0]) > 1e-5 * abs(dense[0]):
+                raise AssertionError(f"{what}: loss {losses[0]}, dense "
+                                     f"{dense[0]}")
+            step.keep_grads, step.grads = False, None
+    launches = launched(counters)
+    if not all(b < a for a, b in zip(losses, losses[1:])) or \
+            not all(abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{what}: the loss did not fall at lr "
+                             f"{TRAIN_LR}: {losses}")
+    return w, losses, err, launches
+
+
+def timed_steps(step, w, xs, ys, n):
+    """n steps with the split marks on; (weights, {part: [seconds]})."""
+    import torch
+    step.timed = True
+    parts = {}
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, w = step(w, xs, ys)
+        torch.cuda.synchronize()
+        parts.setdefault("step", []).append(time.perf_counter() - t0)
+        for k, v in step.last.items():
+            parts.setdefault(k, []).append(v)
+    step.timed = False
+    return w, parts
+
+
+def gqa_training(smi, counters) -> dict:
+    """The GQA train step at Llama 3 8B's attention widths over a dp 2 x
+    sp 4 mesh, f32, causal: TRAIN_STEPS checked steps with the gradient
+    AVG on the default TL, TRAIN_TIMED timed ones, then the same with
+    tl/ring_cuda pinned for the AVG (B2 must launch). Returns the numbers
+    the kernels record and PERF.md take."""
+    import torch
+    from ucc_tpu_torch.examples import long_context as lc
+    from ucc_tpu_torch.fused_attention import ring_flash_attention
+    from ucc_tpu_torch.kernels import ring_attention as ka
+    from ucc_tpu_torch.mesh import RankMesh
+    dm, h, h_kv, e = (LLAMA3_8B[k] for k in ("dm", "heads", "kv_heads", "e"))
+    batch = TRAIN_MESH["dp"]
+    tokens = batch * TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(44)
+    params = lc.init_gqa_params(dm, h, h_kv, e, generator=g, device="cuda")
+    # tokens scaled as main_path_attention scales them
+    x_std = 1.0 / (lc.INIT_STD * dm ** 0.5)
+    x = torch.randn(batch, TRAIN_SEQ, dm, generator=g, device="cuda") * x_std
+    y = torch.randn(batch, TRAIN_SEQ, dm, generator=g, device="cuda") * 0.1
+
+    def dense_loss(w):
+        def heads(t, n):
+            return t.reshape(batch, TRAIN_SEQ, n, e).transpose(1, 2)
+        q = heads(x @ w["wq"], h)
+        k = heads(x @ w["wk"], h_kv).repeat_interleave(h // h_kv, 1)
+        v = heads(x @ w["wv"], h_kv).repeat_interleave(h // h_kv, 1)
+        a = causal_softmax_av(q, k, v).transpose(1, 2).reshape(
+            batch, TRAIN_SEQ, h * e)
+        return ((a @ w["wo"] - y) ** 2).mean()
+
+    t0 = time.perf_counter()
+    dense = dense_grads(dense_loss, params)
+    torch.cuda.empty_cache()
+    spec = ("dp", "sp")
+    fwd = ka.ring_flash_attention_fwd
+    out = {}
+    for alg, tune in (("xla", None), ("ring_cuda", "allreduce:@ring_cuda:inf")):
+        if tune:
+            with pinned(tune):
+                mesh = RankMesh(TRAIN_MESH)
+                mesh.teams(lc.JOINT)
+        else:
+            mesh = RankMesh(TRAIN_MESH)
+        step = lc.make_gqa_train_step(mesh, h, h_kv, e, lr=TRAIN_LR)
+        xs, ys = mesh.shard(x, spec), mesh.shard(y, spec)
+        w = lc.replicate(params, mesh)
+        w, losses, err, launches = run_steps(
+            f"GQA step ({alg} gradient AVG)", step, w, xs, ys, dense,
+            counters)
+        f32 = launches.get("ring_flash_attention_fwd", 0) - fwd.tc_launches
+        if f32 <= 0 or fwd.tc_launches:
+            raise AssertionError(f"the GQA step launched the f32 attention "
+                                 f"route {f32} times ({fwd.tc_launches} on "
+                                 f"the tensor cores)")
+        if (alg == "ring_cuda") != ("ring_allreduce_chunked" in launches):
+            raise AssertionError(f"the gradient AVG via {alg} launched "
+                                 f"{launches}")
+        torch.cuda.reset_peak_memory_stats()
+        w, parts = timed_steps(step, w, xs, ys, TRAIN_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+        out[alg] = {"losses": losses, "grad_err": err, "launches": launches,
+                    "f32_launches": f32,
+                    **{f"{k}_p50_ms": median_ms(v) for k, v in parts.items()},
+                    "peak_bytes": peak}
+        if alg == "xla":
+            # the forward kernel alone, at the step's shapes: one launch a
+            # sp ring, f32 route
+            with torch.no_grad():
+                qs = [lc.gqa_fold(t @ w["wq"][r], h, e)
+                      for r, t in enumerate(xs)]
+                ks = [lc.gqa_fold(t @ w["wk"][r], h_kv, e)
+                      for r, t in enumerate(xs)]
+                vs = [lc.gqa_fold(t @ w["wv"][r], h_kv, e)
+                      for r, t in enumerate(xs)]
+            rings = mesh.groups("sp")
+            scale = ka.default_scale(e)
+            out[alg]["fwd_kernel_ms"] = cuda_ms(lambda: [fwd(
+                [qs[r] for r in grp], [ks[r] for r in grp],
+                [vs[r] for r in grp], scale, True) for grp in rings], 10)
+            # the attention's forward and backward (the per-query-rank
+            # recompute) alone, on the device
+            leaves = [t.requires_grad_() for t in qs + ks + vs]
+            cots = [torch.randn_like(q) for q in qs]
+            out[alg]["attn_fwd_bwd_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(ring_flash_attention(
+                    qs, ks, vs, causal=True, mesh=mesh, axis_name="sp"),
+                    leaves, cots), 3)
+            del qs, ks, vs, leaves, cots
+        del w, xs, ys, step
+        mesh.destroy()
+        torch.cuda.empty_cache()
+    xla, ring = out["xla"], out["ring_cuda"]
+    log(f"training GQA step (Llama 3 8B attention widths: dm {dm}, {h} "
+        f"heads, {h_kv} KV heads, head dim {e}), f32, causal, TF32 off, "
+        f"mesh dp {TRAIN_MESH['dp']} x sp {TRAIN_MESH['sp']}, batch {batch} "
+        f"x {TRAIN_SEQ} tokens, lr {TRAIN_LR}: losses {xla['losses']} "
+        f"(falling; replicas bitwise equal every step) | first step's "
+        f"averaged gradients vs the dense single-rank gradient: max err "
+        f"{xla['grad_err']:.3e} of max |dense| (rtol {GRAD_RTOL}), loss "
+        f"{dense[0]} dense | launches {xla['launches']} (f32 route "
+        f"{xla['f32_launches']}) | card {smi}")
+    log(f"training GQA step p50 {xla['step_p50_ms']:.3f} ms over "
+        f"{TRAIN_TIMED} steps, {tokens / xla['step_p50_ms'] * 1e3:.0f} "
+        f"tokens/s: forward {xla['forward_p50_ms']:.3f} ms (the attention "
+        f"kernel {xla['fwd_kernel_ms']:.3f} ms of it on the device, 2 "
+        f"launches), backward {xla['backward_p50_ms']:.3f} ms (the "
+        f"attention's recompute backward "
+        f"{xla['attn_fwd_bwd_ms'] - xla['fwd_kernel_ms']:.3f} ms of it on "
+        f"the device: {xla['attn_fwd_bwd_ms']:.3f} ms forward and backward "
+        f"less the kernel), gradient "
+        f"AVG {xla['grad_avg_p50_ms']:.3f} ms via xla / "
+        f"{ring['grad_avg_p50_ms']:.3f} ms via ring_cuda (step p50 "
+        f"{ring['step_p50_ms']:.3f} ms; launches {ring['launches']}), "
+        f"update {xla['update_p50_ms']:.3f} ms | peak memory "
+        f"{xla['peak_bytes'] / 2**30:.2f} GiB (ring_cuda "
+        f"{ring['peak_bytes'] / 2**30:.2f}) | phase "
+        f"{time.perf_counter() - t0:.1f} s | card {smi}")
+    return out
+
+
+def mha_training(smi, counters) -> dict:
+    """The MHA train step: 32 heads of 128, batch 2 x 4096 tokens over
+    dp 2 x sp 4, f32, causal; checked as the GQA step (gradients against
+    the dense single-rank gradient)."""
+    import torch
+    from ucc_tpu_torch.examples import long_context as lc
+    from ucc_tpu_torch.mesh import RankMesh
+    h, d = LLAMA3_8B["heads"], LLAMA3_8B["e"]
+    batch = TRAIN_MESH["dp"]
+    g = torch.Generator(device="cuda").manual_seed(45)
+    params = lc.init_params(h, d, generator=g, device="cuda")
+    # q = x·wq sums d products of std x_std·INIT_STD: unit variance
+    x_std = 1.0 / (lc.INIT_STD * d ** 0.5)
+    x = torch.randn(batch, h, TRAIN_SEQ, d, generator=g, device="cuda") * \
+        x_std
+    y = torch.randn(batch, h, TRAIN_SEQ, d, generator=g, device="cuda") * 0.1
+
+    def dense_loss(w):
+        q, k, v = (torch.einsum("bhsd,hde->bhse", x, w[n])
+                   for n in ("wq", "wk", "wv"))
+        out = torch.einsum("bhse,hed->bhsd", causal_softmax_av(q, k, v),
+                           w["wo"])
+        return ((out - y) ** 2).mean()
+
+    dense = dense_grads(dense_loss, params)
+    spec = ("dp", None, "sp")
+    with pinned(EXAMPLE_TUNE):
+        mesh = RankMesh(TRAIN_MESH)
+        mesh.teams(lc.JOINT)
+    step = lc.make_train_step(mesh, lr=TRAIN_LR)
+    xs, ys = mesh.shard(x, spec), mesh.shard(y, spec)
+    w, losses, err, launches = run_steps(
+        "MHA step", step, lc.replicate(params, mesh), xs, ys, dense, counters)
+    _, parts = timed_steps(step, w, xs, ys, EXAMPLE_RUNS)
+    mesh.destroy()
+    p50 = median_ms(parts["step"])
+    log(f"training MHA step ({h} heads of {d}), f32, causal, mesh dp 2 x "
+        f"sp 4, batch {batch} x {TRAIN_SEQ} tokens, lr {TRAIN_LR}: losses "
+        f"{losses} (falling, replicas bitwise), gradient max err "
+        f"{err:.3e} of max |dense| | p50 {p50:.3f} ms over {EXAMPLE_RUNS} "
+        f"steps (forward {median_ms(parts['forward']):.3f}, backward "
+        f"{median_ms(parts['backward']):.3f}, gradient AVG "
+        f"{median_ms(parts['grad_avg']):.3f} via ring_cuda) | launches "
+        f"{launches} | card {smi}")
+    return {"p50_ms": p50, "launches": launches}
+
+
+def example_p50(fn, runs=EXAMPLE_RUNS):
+    """(last result, p50 ms of `runs` calls on the host clock, synchronised)."""
+    import torch
+    samples = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return res, median_ms(samples)
+
+
+def check_close(what, got, want) -> float:
+    import torch
+    err = (got - want).abs().max().item()
+    if got.shape != want.shape or not torch.isfinite(got).all() or \
+            not torch.allclose(got, want, rtol=EXAMPLE_RTOL,
+                               atol=EXAMPLE_ATOL):
+        raise AssertionError(f"{what}: max abs diff {err} from its "
+                             f"reference (rtol {EXAMPLE_RTOL}, atol "
+                             f"{EXAMPLE_ATOL})")
+    return err
+
+
+def dp_tp_training(smi, counters) -> dict:
+    """One DP x TP step at Llama 3 8B's MLP widths (4096 -> 14336), dp 2 x
+    tp 4, 2 x 2048 tokens, against the dense single-rank step: the new
+    weights equal w - lr·(dense gradient) up to GRAD_RTOL of lr·max|grad|
+    and the update's rounding (2 ulp of max|w|)."""
+    import torch
+    import torch.nn.functional as F
+    from ucc_tpu_torch.examples import dp_tp_training as dt
+    from ucc_tpu_torch.mesh import RankMesh
+    dm, hid, tokens = LLAMA3_8B["dm"], LLAMA3_8B_MLP, 4096
+    g = torch.Generator(device="cuda").manual_seed(46)
+    params = dt.init_params(dm, hid, generator=g, device="cuda")
+    x = torch.randn(tokens, dm, generator=g, device="cuda")
+    y = torch.randn(tokens, dm, generator=g, device="cuda")
+    _, grads = dense_grads(lambda w: ((F.gelu(x @ w["w1"], approximate="tanh")
+                                       @ w["w2"] - y) ** 2).mean(), params)
+    with pinned(EXAMPLE_TUNE):
+        mesh = RankMesh({"dp": 2, "tp": 4})
+        mesh.teams("dp")
+        mesh.teams("tp")
+    step = dt.make_train_step(mesh, lr=TRAIN_LR)
+    args = (mesh.shard(params["w1"], dt.W1_SPEC),
+            mesh.shard(params["w2"], dt.W2_SPEC),
+            mesh.shard(x, dt.X_SPEC), mesh.shard(y, dt.X_SPEC))
+    zero(counters)
+    (w1s, w2s, losses), p50 = example_p50(lambda: step(*args))
+    launches = launched(counters)
+    errs = []
+    for name, new, spec in (("w1", w1s, dt.W1_SPEC), ("w2", w2s, dt.W2_SPEC)):
+        old, gd = params[name], grads[name]
+        err = (mesh.unshard(new, spec) - (old - TRAIN_LR * gd)).abs().max()
+        limit = TRAIN_LR * GRAD_RTOL * gd.abs().max() + \
+            2 * torch.finfo(torch.float32).eps * old.abs().max()
+        if not err <= limit:
+            raise AssertionError(f"DP x TP step: {name} is {err.item()} "
+                                 f"from the dense update (limit "
+                                 f"{limit.item()})")
+        errs.append(err.item() / (TRAIN_LR * gd.abs().max().item()))
+    mesh.destroy()
+    log(f"training DP x TP step (Llama 3 8B MLP widths {dm} -> {hid}), "
+        f"f32, dp 2 x tp 4, {tokens} tokens: loss {losses[0].item()} | new "
+        f"weights vs the dense update: max err {max(errs):.3e} of "
+        f"lr·max|grad| | p50 {p50:.3f} ms over {EXAMPLE_RUNS} steps | "
+        f"launches {launches} | card {smi}")
+    return {"p50_ms": p50, "launches": launches}
+
+
+def pipeline_run(smi, counters) -> dict:
+    """8 stages of 4096 (gelu(x @ w)), 8 microbatches of 512 tokens,
+    against reference_pipeline."""
+    import torch
+    from ucc_tpu_torch.examples import pipeline_parallel as pp
+    from ucc_tpu_torch.mesh import RankMesh
+    n, d, n_micro, b = 8, LLAMA3_8B["dm"], 8, 512
+    g = torch.Generator(device="cuda").manual_seed(47)
+    x = torch.randn(n_micro, b, d, generator=g, device="cuda")
+    w = torch.randn(n, d, d, generator=g, device="cuda") * 1.5 / d ** 0.5
+    with pinned(EXAMPLE_TUNE):
+        mesh = RankMesh({"pp": n})
+        mesh.teams("pp")
+    fn = pp.make_pipeline(mesh, n_micro)
+    zero(counters)
+    got, p50 = example_p50(lambda: fn(x, w))
+    launches = launched(counters)
+    err = check_close("pipeline", got, pp.reference_pipeline(x, w))
+    mesh.destroy()
+    log(f"pipeline: {n} stages of {d}, {n_micro} microbatches of {b} "
+        f"tokens, f32: max abs diff {err:.3e} from reference_pipeline | "
+        f"p50 {p50:.3f} ms over {EXAMPLE_RUNS} runs | launches {launches} "
+        f"| card {smi}")
+    return {"p50_ms": p50, "launches": launches}
+
+
+def moe_run(smi, counters) -> dict:
+    """Mixtral 8x7B's experts (8 of 4096 -> 14336, one a rank), 1024
+    tokens a rank, capacity 1024 / 8 (factor 1.0: tokens beyond it are
+    dropped), against reference_moe."""
+    import torch
+    from ucc_tpu_torch.examples import moe_ep
+    from ucc_tpu_torch.mesh import RankMesh
+    n, d, hid = (MIXTRAL_EXPERTS[k] for k in ("n", "dm", "hidden"))
+    per = 1024
+    cap = per // n                  # capacity factor 1.0
+    g = torch.Generator(device="cuda").manual_seed(48)
+    x = torch.randn(n * per, d, generator=g, device="cuda")
+    w_up = torch.randn(n, d, hid, generator=g, device="cuda") / d ** 0.5
+    w_dn = torch.randn(n, hid, d, generator=g, device="cuda") / hid ** 0.5
+    assign = torch.randint(0, n, (n * per,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    with pinned(EXAMPLE_TUNE):
+        mesh = RankMesh({"ep": n})
+        mesh.teams("ep")
+    fn = moe_ep.make_moe_layer(mesh, d, cap)
+    zero(counters)
+    got, p50 = example_p50(lambda: fn(x, w_up, w_dn, assign))
+    launches = launched(counters)
+    want = moe_ep.reference_moe(x, w_up, w_dn, assign, cap)
+    dropped = int((want.abs().sum(1) == 0).sum())
+    err = check_close("MoE", got, want)
+    mesh.destroy()
+    log(f"MoE: Mixtral 8x7B experts ({n} of {d} -> {hid}, one a rank), "
+        f"{per} tokens a rank, capacity {cap}, f32: max abs diff {err:.3e} "
+        f"from reference_moe ({dropped} tokens dropped) | p50 {p50:.3f} ms "
+        f"over {EXAMPLE_RUNS} runs | launches {launches} | card {smi}")
+    return {"p50_ms": p50, "launches": launches}
+
+
+def sp_attention_runs(smi, counters) -> dict:
+    """The ring and Ulysses attentions at 32 heads of 128 over 8192 tokens
+    on 8 sp ranks, f32, against reference_attention."""
+    import torch
+    from ucc_tpu_torch.examples import ring_attention as ra
+    from ucc_tpu_torch.mesh import RankMesh
+    h, d = LLAMA3_8B["heads"], LLAMA3_8B["e"]
+    g = torch.Generator(device="cuda").manual_seed(49)
+    q, k, v = (torch.randn(h, CONTEXT, d, generator=g, device="cuda")
+               for _ in range(3))
+    want = ra.reference_attention(q, k, v)
+    out = {}
+    with pinned(EXAMPLE_TUNE):
+        mesh = RankMesh({"sp": N_RANKS})
+        mesh.teams("sp")
+    for kind, make in (("ring", ra.make_ring_attention),
+                       ("ulysses", ra.make_ulysses_attention)):
+        fn = make(mesh)
+        zero(counters)
+        got, p50 = example_p50(lambda: fn(q, k, v))
+        launches = launched(counters)
+        err = check_close(f"{kind} attention", got, want)
+        log(f"{kind} attention: {h} heads of {d}, {CONTEXT} tokens over "
+            f"{N_RANKS} sp ranks, f32: max abs diff {err:.3e} from "
+            f"reference_attention | p50 {p50:.3f} ms over {EXAMPLE_RUNS} "
+            f"runs | launches {launches} | card {smi}")
+        out[kind] = {"p50_ms": p50, "launches": launches}
+        del got
+    mesh.destroy()
+    return out
+
+
+def main_path_training(smi, counters) -> dict:
+    """The in-graph API's paths: the GQA step at full width (default and
+    pinned gradient AVG), then the MHA step, DP x TP, the pipeline, MoE,
+    and the ring and Ulysses attentions once each."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"gqa": gqa_training(smi, counters)}
+    for name, fn in (("mha", mha_training), ("dp_tp", dp_tp_training),
+                     ("pipeline", pipeline_run), ("moe", moe_run)):
+        out[name] = fn(smi, counters)
+        torch.cuda.empty_cache()
+    out.update(sp_attention_runs(smi, counters))
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3566,9 +4095,26 @@ def main() -> int:
                     ring_flash_attention_fwd=ka.ring_flash_attention_fwd)
     main_path_defaults(smi, counters, ring_p50)
 
+    # -- 5. training: ops over a RankMesh, and the steps on it -------------
+    training = main_path_training(smi, counters)
+    attention = records["ring_flash_attention_fwd"]
+    # the f32 attention route's main path is now the GQA train step; every
+    # kernel also carries its launches over the training phase's runs
+    runs = [training["gqa"]["xla"], training["gqa"]["ring_cuda"],
+            *(training[k] for k in ("mha", "dp_tp", "pipeline", "moe",
+                                    "ring", "ulysses"))]
+    attention["f32_route"]["launches"] = training["gqa"]["xla"][
+        "f32_launches"]
+    for kname, rec in records.items():
+        rec["training_launches"] = sum(r["launches"].get(kname, 0)
+                                       for r in runs)
+    # the phase's attention is all f32: its launches are the f32 route's
+    attention["f32_route"]["training_launches"] = \
+        attention["training_launches"]
+    attention["training_launches"] = 0
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own
-    attention = records["ring_flash_attention_fwd"]
     log(smi)
     log(json.dumps({"kernels": [records[k] for k in KERNELS] + [
         records[k] for k in ("ec_reduce", "ring_flash_attention_fwd",

@@ -29,7 +29,7 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from ucc_tpu import fused_attention as jfa  # noqa: E402
 from ucc_tpu.utils.jaxshim import shard_map_compat  # noqa: E402
 from ucc_tpu_torch.fused_attention import (  # noqa: E402
-    make_ring_flash_attention, ring_flash_attention)
+    make_ring_flash_attention, ring_flash_attention, ring_shard)
 from ucc_tpu_torch.kernels import ring_attention as ka  # noqa: E402
 from ucc_tpu_torch.status import Status, UccError  # noqa: E402
 
@@ -113,8 +113,9 @@ def test_bf16_matches_pallas_kernel():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("n,h,h_kv", [(4, 4, 4), (8, 4, 2)])
 def test_gradients_match_jax_custom_vjp(n, h, h_kv, causal):
-    """d sum(out²) / d(q, k, v) through the port's autograd.Function (the
-    plain version recomputed and differentiated) against jax.grad through
+    """d sum(out²) / d(q, k, v) through the port's autograd.Function
+    (``ring_shard`` recomputed one query rank at a time and differentiated)
+    against jax.grad through
     the JAX package's custom_vjp (its lax ring schedule differentiated)."""
     seq, d = 24, 4
     q, k, v = inputs(h, h_kv, seq, d, seed=30 + h_kv + int(causal))
@@ -192,10 +193,21 @@ def test_backward_is_the_gradient_of_the_plain_version():
     for b in blocks:
         for t in b:
             t.grad = None
+    # the backward is the gradient of ring_shard, one query rank at a
+    # time, each rank's dk/dv added in rank order: bitwise
+    qs, ks, vs = blocks
+    for me in range(n):
+        out = ring_shard(qs[me], ks, vs, me, scale, True)
+        torch.autograd.backward(out, outs[me].detach() * 3)
+    for g, t in zip(got, [t for b in blocks for t in b]):
+        assert torch.equal(g, t.grad)
+        t.grad = None
+    # and the gradient of the plain version, whose sums over ranks run in
+    # another order: within float32 rounding of the sums
     refs = ka.ring_flash_attention_ref(*blocks, scale, True)
     torch.autograd.backward(refs, [o * 3 for o in refs])
     for g, t in zip(got, [t for b in blocks for t in b]):
-        assert torch.equal(g, t.grad)
+        torch.testing.assert_close(g, t.grad, rtol=1e-5, atol=1e-6)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch():

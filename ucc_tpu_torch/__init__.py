@@ -24,8 +24,12 @@ the host, the reduce kernel of ``kernels/ec_reduce.py`` on GPU tensors);
 ucc_perftest as ``python -m ucc_tpu_torch.tools.perftest``; and
 context-parallel attention: ``fused_attention`` (ring flash-attention over
 the ranks' sequence blocks, forward through the kernel of
-``kernels/ring_attention.py``, backward by recompute) and the long-context
-GQA block of ``examples/long_context.py``.
+``kernels/ring_attention.py``, backward by recompute); the in-graph API,
+``ops`` over the named axes of a ``mesh.RankMesh`` (collectives through
+the library, differentiable, traceable by ``torch.compile``); and the
+examples built on it: the long-context MHA and GQA train steps of
+``examples/long_context.py``, DP x TP, the pipeline, MoE, and the ring and
+Ulysses attentions.
 
 Attention on the CPU (the kernel's plain version runs on CPU tensors)::
 

@@ -21,7 +21,6 @@ from ..api.types import ContextParams
 from ..constants import ThreadMode
 from ..schedule.progress import ProgressQueue, ProgressQueueMT
 from ..status import Status, UccError
-from ..utils.config import Config
 from ..utils.log import get_logger
 from .lib import Lib
 
@@ -31,8 +30,7 @@ logger = get_logger("core")
 class TlContextHandle:
     def __init__(self, tl_lib, context: "Context"):
         self.tl_lib = tl_lib
-        cfg = Config(tl_lib.tl_cls.CONTEXT_CONFIG) \
-            if tl_lib.tl_cls.CONTEXT_CONFIG else None
+        cfg = context.lib.component_config(tl_lib.tl_cls.CONTEXT_CONFIG)
         self.obj = tl_lib.tl_cls.context_cls(tl_lib.obj, context, cfg)
 
     @property
@@ -43,8 +41,7 @@ class TlContextHandle:
 class ClContextHandle:
     def __init__(self, cl_lib, context: "Context"):
         self.cl_lib = cl_lib
-        cfg = Config(cl_lib.cl_cls.CONTEXT_CONFIG) \
-            if cl_lib.cl_cls.CONTEXT_CONFIG else None
+        cfg = context.lib.component_config(cl_lib.cl_cls.CONTEXT_CONFIG)
         self.obj = cl_lib.cl_cls.context_cls(cl_lib.obj, context, cfg)
 
     @property

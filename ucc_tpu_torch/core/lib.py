@@ -93,7 +93,7 @@ class TlLib:
     def __init__(self, lib: "Lib", tl_cls):
         self.lib = lib
         self.tl_cls = tl_cls
-        cfg = Config(tl_cls.LIB_CONFIG) if tl_cls.LIB_CONFIG else None
+        cfg = lib.component_config(tl_cls.LIB_CONFIG)
         self.obj = tl_cls.lib_cls(lib, cfg)
 
     @property
@@ -107,7 +107,7 @@ class ClLib:
     def __init__(self, lib: "Lib", cl_cls):
         self.lib = lib
         self.cl_cls = cl_cls
-        cfg = Config(cl_cls.LIB_CONFIG) if cl_cls.LIB_CONFIG else None
+        cfg = lib.component_config(cl_cls.LIB_CONFIG)
         self.obj = cl_cls.lib_cls(lib, cfg)
 
     @property
@@ -122,6 +122,7 @@ class Lib:
                  config_overrides: Optional[Dict[str, str]] = None):
         self.params = params or LibParams()
         discover_components()
+        self.config_overrides = dict(config_overrides or {})
         self.config = Config(GLOBAL_CONFIG, overrides=config_overrides)
 
         cls_req: List[str] = self.config.cls
@@ -166,6 +167,19 @@ class Lib:
         logger.info("ucc_tpu_torch lib init: cls=%s tls=%s",
                     [c.name for c in self.cl_libs], list(self.tl_libs))
 
+    def component_config(self, table: Optional[ConfigTable]
+                         ) -> Optional[Config]:
+        """A component's config (None without a table): its environment
+        variables, overridden by this lib's overrides that carry the
+        table's prefix, e.g. ``init(TL_RING_CUDA_DEVICE="cpu")`` sets the
+        DEVICE of every device TL's context config."""
+        if table is None:
+            return None
+        own = {k[len(table.prefix):]: v
+               for k, v in self.config_overrides.items()
+               if table.prefix and k.startswith(table.prefix)}
+        return Config(table, overrides=own or None)
+
     # ------------------------------------------------------------------
     def get_attr(self) -> LibAttr:
         return self.attr
@@ -176,5 +190,8 @@ class Lib:
 
 
 def init(params: Optional[LibParams] = None, **overrides) -> Lib:
-    """ucc_init."""
+    """ucc_init. Each override names a config field without ``UCC_``: a
+    global field (``TLS="ring_cuda,torch_ops"``) or a component's, prefix
+    included (``TL_RING_CUDA_DEVICE="cpu"``); it wins over the
+    environment."""
     return Lib(params, config_overrides=overrides or None)

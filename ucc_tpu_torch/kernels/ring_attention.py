@@ -113,55 +113,67 @@ def check_args(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
+def ring_shard(q: torch.Tensor, ks: Sequence[torch.Tensor],
+               vs: Sequence[torch.Tensor], me: int, scale: float,
+               causal: bool) -> torch.Tensor:
+    """Rank ``me``'s output of the ring: ``_xla_ring_shard`` of the JAX
+    package on that rank, in plain torch ops (differentiable). At step t
+    the rank holds the K/V block of rank (me - t) mod n, which is where
+    ``ops.ring_shift`` would have carried it, and folds it into a running
+    max, normalizer and accumulator in float32 with the kernel's causal
+    mask. Under ``causal`` a step whose keys all lie after the rank's
+    queries (src > me) changes nothing (p = 0, correction 1) and is
+    skipped, as the kernel skips it. The backward of
+    ``fused_attention.ring_flash_attention`` differentiates it, one rank
+    at a time."""
+    n = len(ks)
+    h, s, d = q.shape
+    h_kv = ks[0].shape[0]
+    g = h // h_kv
+    dev = q.device
+    # GQA fold, as the kernel's: q (h, s, d) -> (h_kv, g*s, d), row r =
+    # (group r // s, position r % s); only the h_kv K/V heads travel
+    qf = q.float().reshape(h_kv, g * s, d) * scale
+    iq = torch.arange(g * s, device=dev).remainder(s)[:, None]
+    ik = torch.arange(s, device=dev)[None, :]
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    zero = torch.tensor(0.0, device=dev)
+    acc = torch.zeros(h_kv, g * s, d, device=dev)
+    m_run = torch.full((h_kv, g * s), float("-inf"), device=dev)
+    l_run = torch.zeros(h_kv, g * s, device=dev)
+    for t in range(n):
+        src = (me - t) % n
+        if causal and src > me:
+            continue
+        sc = torch.einsum("hqd,hkd->hqk", qf, ks[src].float())
+        if causal:
+            mask = (me * s + iq) >= (src * s + ik)
+            sc = torch.where(mask[None], sc, neg_inf)
+        m_new = torch.maximum(m_run, sc.amax(dim=-1))
+        # exp(-inf - -inf) would be NaN; fully masked rows keep p = 0
+        safe_m = torch.where(torch.isfinite(m_new), m_new, zero)
+        p = torch.exp(torch.where(torch.isfinite(sc),
+                                  sc - safe_m[..., None], neg_inf))
+        corr = torch.where(torch.isfinite(m_run),
+                           torch.exp(m_run - safe_m), zero)
+        l_run = l_run * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "hqk,hkd->hqd", p, vs[src].float())
+        m_run = m_new
+    out = acc / torch.where(l_run == 0.0, torch.ones_like(l_run),
+                            l_run)[..., None]
+    return out.reshape(h, s, d).to(q.dtype)
+
+
 def ring_flash_attention_ref(qs: Sequence[torch.Tensor],
                              ks: Sequence[torch.Tensor],
                              vs: Sequence[torch.Tensor], scale: float,
                              causal: bool) -> List[torch.Tensor]:
     """Plain version of the kernel: ``_xla_ring_shard`` of the JAX package
-    over per-rank lists, step by step. Torch ops only, so it is
-    differentiable; the backward of ``fused_attention.ring_flash_attention``
-    differentiates it."""
-    n = len(qs)
-    h, s, d = qs[0].shape
-    h_kv = ks[0].shape[0]
-    g = h // h_kv
-    dev = qs[0].device
-    # GQA fold: q (h, s, d) -> (h_kv, g*s, d), row r = (group r // s,
-    # position r % s); only the h_kv K/V heads travel the ring
-    qf = [q.float().reshape(h_kv, g * s, d) * scale for q in qs]
-    iq = torch.arange(g * s, device=dev).remainder(s)[:, None]
-    ik = torch.arange(s, device=dev)[None, :]
-    neg_inf = torch.tensor(float("-inf"), device=dev)
-    zero = torch.tensor(0.0, device=dev)
-    acc = [torch.zeros(h_kv, g * s, d, device=dev) for _ in range(n)]
-    m_run = [torch.full((h_kv, g * s), float("-inf"), device=dev)
-             for _ in range(n)]
-    l_run = [torch.zeros(h_kv, g * s, device=dev) for _ in range(n)]
-    kc, vc = list(ks), list(vs)
-    for t in range(n):
-        for me in range(n):
-            sc = torch.einsum("hqd,hkd->hqk", qf[me], kc[me].float())
-            if causal:
-                src = (me - t) % n
-                mask = (me * s + iq) >= (src * s + ik)
-                sc = torch.where(mask[None], sc, neg_inf)
-            m_new = torch.maximum(m_run[me], sc.amax(dim=-1))
-            # exp(-inf - -inf) would be NaN; fully masked rows keep p = 0
-            safe_m = torch.where(torch.isfinite(m_new), m_new, zero)
-            p = torch.exp(torch.where(torch.isfinite(sc),
-                                      sc - safe_m[..., None], neg_inf))
-            corr = torch.where(torch.isfinite(m_run[me]),
-                               torch.exp(m_run[me] - safe_m), zero)
-            l_run[me] = l_run[me] * corr + p.sum(dim=-1)
-            acc[me] = acc[me] * corr[..., None] + torch.einsum(
-                "hqk,hkd->hqd", p, vc[me].float())
-            m_run[me] = m_new
-        # ops.ring_shift: rank r receives the block rank r - 1 held
-        kc = [kc[(r - 1) % n] for r in range(n)]
-        vc = [vc[(r - 1) % n] for r in range(n)]
-    return [(a / torch.where(l == 0.0, torch.ones_like(l), l)[..., None])
-            .reshape(h, s, d).to(q.dtype)
-            for a, l, q in zip(acc, l_run, qs)]
+    over per-rank lists, ``ring_shard`` of every rank. Torch ops only; the
+    tests and ``chip_smoke.py`` hold the kernel against it."""
+    return [ring_shard(q, ks, vs, me, scale, causal)
+            for me, q in enumerate(qs)]
 
 
 # ---------------------------------------------------------------------------
