@@ -217,13 +217,52 @@ Phases, each printing its own lines (any failure exits non-zero):
      heads of 128, 8192 tokens over 8 ranks; reference_attention), within
      float32 rtol 2e-4 / atol 2e-5.
 
+6. core, the library's foundations on the card (ucc_tpu_torch.core.ee,
+   Team.create_from_parent, the runtime fallback, coll plugins, metrics
+   and profiling), 8 ranks of 16 Mi f32, the launch counters zeroed just
+   before each run and read just after:
+   - an allreduce triggered by data readiness (EeType.CUDA_STREAM): each
+     src made by mul_(2) on a side stream behind a sleep, then
+     triggered_post(UccEvent(payload=src)); while the producers run, no
+     launch and every request not yet posted, then exactly one launch of
+     ring_allreduce_chunked (pinned), dst bitwise the plain version of
+     2·src and one post and one completion event per rank; the same by
+     the default selection (torch_ops/xla, no kernel); a persistent
+     request whose fast re-post lane is armed by two plain rounds, then
+     triggered, then plain again (the lane again); a CPU_THREAD EE over
+     ThreadMode.MULTIPLE contexts, held until the host sets its events;
+     the p50 of 20 triggered rounds beside 20 plain persistent ones on
+     the fast lane and 20 with a user callback (the generic path);
+   - sub-teams: [0..3] and [4..7] split from the 8-rank team, and [0, 2]
+     from the first, pinned to ring_cuda: each 4-rank team runs
+     allreduce, reduce_scatter (16 Mi in), allgather (2 Mi in), bcast
+     (root 1) and alltoall for 25 rounds, bitwise the plain version, one
+     launch a round; the first's kernels timed alone at n = 4 with their
+     bound and share; a 4-rank allreduce by the default; the 2-rank
+     team's allreduce;
+   - the runtime fallback: 5 non-persistent allreduces whose first
+     candidate (ring_cuda) fails at post before committing data end OK
+     on the next (xla), bitwise xla alone, coll_fallback_runtime 1 per
+     rank each; their host time beside xla's alone;
+   - a coll plugin registered at run time (a module in sys.modules) adds
+     an allreduce to tl/ring_cuda, selected by
+     UCC_TL_RING_CUDA_COLL_PLUGINS and TUNE: its inits counted and one
+     ring_allreduce_chunked launch per round;
+   - UCC_GEN_DEVICE_BACKEND=xla: gen_dev_ring_c2 at 16 Mi as torch ops,
+     no launch, bitwise the fold kernel on the same srcs;
+   - in child processes of this script (the environment is read at
+     import): UCC_STATS=y, the persistent allreduce's 25 rounds count
+     coll_posted 25 and coll_fast_repost 24 a rank; UCC_PROFILE_MODE=log,
+     4 non-persistent rounds write one coll_allreduce B/E pair a request
+     around its task's span of the same id.
+
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
 the int8/fp8 wire fold and the layer kernel on the same plans among
 them, with launches 0: the main path runs none of them; the f32 route's
 launches are the GQA train step's, and every record carries its launches
-over phase 5 as training_launches) and {"ok": true,
-"device": ...}.
+over phase 5 as training_launches and over phase 6 as core_launches) and
+{"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
 """
@@ -2331,12 +2370,12 @@ def check_attention_f32_sass(info) -> None:
                              f"instances, got {len(f32)}): {bad}")
 
 
-def make_job(n, **overrides):
-    """n contexts (their libs made with the config *overrides*) and one
-    team over them."""
+def make_job(n, params=None, **overrides):
+    """n contexts (their libs made with *params* and the config
+    *overrides*) and one team over them."""
     import ucc_tpu_torch as ucc
     world = ucc.ThreadOobWorld(n)
-    libs = [ucc.init(**overrides) for _ in range(n)]
+    libs = [ucc.init(params, **overrides) for _ in range(n)]
     ctxs = [None] * n
     errs = []
 
@@ -3955,6 +3994,700 @@ def main_path_training(smi, counters) -> dict:
     return out
 
 
+# -- 6. core: triggered collectives, sub-teams, runtime fallback, coll
+#    plugins, metrics and profiling --------------------------------------
+
+#: the phase's pin: every ring_cuda collective (the sub-teams run all five)
+RING_TUNE = "allreduce,reduce_scatter,allgather,bcast,alltoall:@ring_cuda:inf"
+#: a sub-team's runs: (collective, f32 elements in and out per rank of a
+#: 4-rank team, root, seed): phase 3's shapes, the allgather's 2 Mi shard
+#: gathered 4 ways
+SUB_RUNS = (
+    ("ALLREDUCE", MAIN_COUNT, MAIN_COUNT, 0, 61),
+    ("REDUCE_SCATTER", MAIN_COUNT, MAIN_COUNT // 4, 0, 62),
+    ("ALLGATHER", AG_MAIN_COUNT, AG_MAIN_COUNT * 4, 0, 63),
+    ("BCAST", MAIN_COUNT, MAIN_COUNT, 1, 64),
+    ("ALLTOALL", MAIN_COUNT, MAIN_COUNT, 0, 65),
+)
+#: the coll plugin's module, registered in sys.modules at run time
+PLUGIN = "chip_smoke_coll_plugin"
+#: profiled rounds in the profiling child
+PROFILED_ROUNDS = 4
+
+
+def until(ctxs, cond, what, timeout=60.0) -> None:
+    """Progress every context until cond() holds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        for c in ctxs:
+            c.progress()
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what} did not complete in {timeout} s")
+
+
+def settled(reqs) -> bool:
+    """Every request ran to an end (polled, each of them, every pass)."""
+    import ucc_tpu_torch as ucc
+    sts = [rq.test() for rq in reqs]
+    return all(s not in (ucc.Status.IN_PROGRESS,
+                         ucc.Status.OPERATION_INITIALIZED) for s in sts)
+
+
+def all_ok(reqs, what) -> None:
+    import ucc_tpu_torch as ucc
+    bad = [s for s in (rq.test() for rq in reqs) if s != ucc.Status.OK]
+    if bad:
+        raise AssertionError(f"{what} failed: {bad[0]}")
+
+
+def allreduce_reqs(teams, srcs, dsts, persistent=True, cb=None):
+    """An allreduce SUM request per rank, src -> dst, with the user
+    callback *cb*."""
+    import ucc_tpu_torch as ucc
+    f32 = ucc.DataType.FLOAT32
+    flags = ucc.CollArgsFlags.PERSISTENT if persistent else \
+        ucc.CollArgsFlags(0)
+    return [t.collective_init(ucc.CollArgs(
+        coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+        src=ucc.BufferInfo(s, s.numel(), f32),
+        dst=ucc.BufferInfo(d, d.numel(), f32), flags=flags, cb=cb))
+        for t, s, d in zip(teams, srcs, dsts)]
+
+
+def out_types(ees):
+    """Each EE's out events' types, popped until it has none."""
+    return [[ev.ev_type for ev in iter(ee.get_event, None)] for ee in ees]
+
+
+def one_round(ctxs, reqs, what) -> None:
+    for rq in reqs:
+        rq.post()
+    until(ctxs, lambda: settled(reqs), what)
+    all_ok(reqs, what)
+
+
+def check_events(what, ees, rounds=1) -> None:
+    want = [["collective_post", "collective_complete"] * rounds] * len(ees)
+    got = out_types(ees)
+    if got != want:
+        raise AssertionError(f"{what}: event_out {got}, want {want[0]} on "
+                             f"every rank")
+
+
+def split(parents, ranks):
+    """Team.create_from_parent on every parent rank; the members' teams in
+    the new team's rank order (non-members must get None)."""
+    import ucc_tpu_torch as ucc
+    subs = [ucc.Team.create_from_parent(t, ranks) for t in parents]
+    if [i for i, t in enumerate(subs) if t is not None] != sorted(ranks):
+        raise AssertionError(f"create_from_parent({ranks}) gave teams to "
+                             f"{[t is not None for t in subs]}")
+    return [subs[r] for r in ranks]
+
+
+def create(ctxs, teams, what) -> None:
+    import ucc_tpu_torch as ucc
+    until(ctxs, lambda: all([t.create_test() != ucc.Status.IN_PROGRESS
+                             for t in teams]), what)
+    bad = [s for s in (t.create_test() for t in teams) if s != ucc.Status.OK]
+    if bad:
+        raise AssertionError(f"{what}: team create failed: {bad[0]}")
+
+
+def core_triggered(smi, ctxs, pinned, default, counters, kernels) -> dict:
+    """EE-triggered allreduces of 16 Mi f32 on the 8 ranks: pinned to
+    ring_cuda and by the default selection, each src made on a side stream
+    behind a sleep; the fast-lane regression; a CPU_THREAD EE; the p50 of
+    triggered rounds beside plain persistent rounds. Returns the runs'
+    launches."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.tl import torch_ops
+    n = N_RANKS
+    sum_ = ucc.ReductionOp.SUM
+    total = {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    g = torch.Generator(device="cuda").manual_seed(51)
+    srcs = [torch.randn(MAIN_COUNT, generator=g, device="cuda")
+            for _ in range(n)]
+    dsts = [torch.empty_like(s) for s in srcs]
+    ring_ref = kernels["ring_allreduce_chunked"][1]
+
+    def plain(alg):
+        if alg == "xla":
+            return [torch_ops.allreduce_ops(srcs, sum_)] * n
+        return ring_ref(srcs, sum_, 0)
+
+    # data readiness: the producers still run when the checks are made
+    for teams, alg, want in ((pinned, "ring_cuda",
+                              {"ring_allreduce_chunked": 1}),
+                             (default, "xla", {})):
+        reqs = allreduce_reqs(teams, srcs, dsts)
+        got_alg = {rq.task.alg_name for rq in reqs}
+        if got_alg != {alg}:
+            raise AssertionError(f"triggered allreduce selected {got_alg}")
+        ees = [ucc.Ee(t, ucc.EeType.CUDA_STREAM) for t in teams]
+        side = torch.cuda.Stream()
+        torch.cuda.synchronize()
+        zero(counters)
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            for s in srcs:
+                s.mul_(2)
+            events = [ucc.UccEvent(payload=s) for s in srcs]
+        for ee, ev, rq in zip(ees, events, reqs):
+            ee.triggered_post(ev, rq)
+        for _ in range(64):
+            for c in ctxs:
+                c.progress()
+        early = launched(counters)
+        held = {rq.test().name for rq in reqs}
+        if side.query():
+            raise AssertionError("the producers finished before the checks "
+                                 "were made: raise SLEEP_CYCLES")
+        if early or held != {"OPERATION_INITIALIZED"}:
+            raise AssertionError(f"triggered {alg}: before its producers "
+                                 f"finished, launches {early}, requests "
+                                 f"{held}")
+        until(ctxs, lambda: settled(reqs), f"triggered {alg}")
+        all_ok(reqs, f"triggered {alg}")
+        torch.cuda.synchronize()
+        got = launched(counters)
+        if got != want:
+            raise AssertionError(f"triggered {alg}: launches {got}, want "
+                                 f"{want}")
+        add(got)
+        err = compare(f"triggered {alg} allreduce of 2 x src", dsts,
+                      plain(alg))
+        check_events(f"triggered {alg}", ees)
+        for ee in ees:
+            ee.destroy()
+        for rq in reqs:
+            rq.finalize()
+        log(f"core: triggered allreduce (CUDA_STREAM, src made on a side "
+            f"stream behind a {SLEEP_CYCLES}-cycle sleep) via {alg}: "
+            f"requests {held.pop()} and launches {early or 0} while the "
+            f"producers ran, then {got or 'no kernel'}; dst bitwise the "
+            f"plain version (max abs err {err}); event_out post + "
+            f"complete on every rank")
+
+    # the fast-lane regression: two plain rounds arm the lane, then a
+    # triggered round must still deliver its completion event, and the
+    # next plain round takes the lane again
+    reqs = allreduce_reqs(pinned, srcs, dsts)
+    zero(counters)
+    for _ in range(2):
+        one_round(ctxs, reqs, "plain round")
+    if not reqs[0]._fast:
+        raise AssertionError("two plain rounds did not arm the fast lane")
+    ees = [ucc.Ee(t, ucc.EeType.CUDA_STREAM) for t in pinned]
+    for ee, s, rq in zip(ees, srcs, reqs):
+        ee.triggered_post(ucc.UccEvent(payload=s), rq)
+    until(ctxs, lambda: settled(reqs), "triggered round after the lane")
+    all_ok(reqs, "triggered round after the lane")
+    check_events("triggered round after the lane", ees)
+    if any(rq.task.cb is not None for rq in reqs):
+        raise AssertionError("the EE left its callback on the task")
+    one_round(ctxs, reqs, "plain round after the trigger")
+    torch.cuda.synchronize()
+    got = launched(counters)
+    if got != {"ring_allreduce_chunked": 4}:
+        raise AssertionError(f"fast-lane regression: launches {got}")
+    add(got)
+    compare("fast-lane regression", dsts, plain("ring_cuda"))
+    for ee in ees:
+        ee.destroy()
+    for rq in reqs:
+        rq.finalize()
+    log("core: fast-lane regression: 2 plain rounds (lane armed), a "
+        "triggered round (post + complete on every rank), a plain round "
+        "on the lane again; 4 launches, bitwise")
+
+    # a CPU_THREAD EE: its thread progresses the context; the host sets
+    # the events
+    reqs = allreduce_reqs(pinned, srcs, dsts, persistent=False)
+    ees = [ucc.Ee(t, ucc.EeType.CPU_THREAD) for t in pinned]
+    zero(counters)
+    evs = [ucc.UccEvent() for _ in ees]
+    for ee, ev, rq in zip(ees, evs, reqs):
+        ee.triggered_post(ev, rq)
+    time.sleep(0.05)
+    held = {rq.test().name for rq in reqs}
+    if held != {"OPERATION_INITIALIZED"} or launched(counters):
+        raise AssertionError(f"CPU_THREAD EE posted before its events: "
+                             f"{held}, {launched(counters)}")
+    for ee, ev in zip(ees, evs):
+        ee.set_event(ev)
+    deadline = time.monotonic() + 60
+    while not settled(reqs):
+        time.sleep(0.0005)
+        if time.monotonic() > deadline:
+            raise RuntimeError("CPU_THREAD EE allreduce did not complete")
+    all_ok(reqs, "CPU_THREAD EE allreduce")
+    torch.cuda.synchronize()
+    got = launched(counters)
+    if got != {"ring_allreduce_chunked": 1}:
+        raise AssertionError(f"CPU_THREAD EE: launches {got}")
+    add(got)
+    compare("CPU_THREAD EE allreduce", dsts, plain("ring_cuda"))
+    check_events("CPU_THREAD EE", ees)
+    for ee in ees:
+        ee.destroy()
+    log("core: CPU_THREAD EE (ThreadMode.MULTIPLE contexts): held until "
+        "the host set the events, then 1 launch from the EE threads, "
+        "bitwise")
+
+    # triggered rounds against plain persistent rounds, on the fast lane
+    # and, with a user callback (an observer), on the generic path, in
+    # one call
+    reqs = allreduce_reqs(pinned, srcs, dsts)
+    zero(counters)
+    plain_samples = time_rounds(ctxs, reqs, "plain persistent allreduce")
+    reqs = allreduce_reqs(pinned, srcs, dsts, cb=lambda task, st: None)
+    generic_samples = time_rounds(ctxs, reqs, "generic persistent allreduce")
+    reqs = allreduce_reqs(pinned, srcs, dsts)
+    ees = [ucc.Ee(t, ucc.EeType.CUDA_STREAM) for t in pinned]
+    trig_samples = []
+    for i in range(WARMUP + ITERS):
+        t0 = time.perf_counter()
+        for ee, s, rq in zip(ees, srcs, reqs):
+            ee.triggered_post(ucc.UccEvent(payload=s), rq)
+        until(ctxs, lambda: settled(reqs), "triggered round")
+        if i >= WARMUP:
+            trig_samples.append(time.perf_counter() - t0)
+        all_ok(reqs, "triggered round")
+        check_events("timed triggered round", ees)
+    torch.cuda.synchronize()
+    got = launched(counters)
+    if got != {"ring_allreduce_chunked": 3 * (WARMUP + ITERS)}:
+        raise AssertionError(f"timed rounds: launches {got}")
+    add(got)
+    compare("timed triggered rounds", dsts, plain("ring_cuda"))
+    for ee in ees:
+        ee.destroy()
+    for rq in reqs:
+        rq.finalize()
+    log(f"core: allreduce 16 Mi f32 x 8 via ring_cuda, persistent: plain "
+        f"(fast lane) {p50_line(plain_samples)} | plain with a callback "
+        f"(generic path) {p50_line(generic_samples)} | triggered "
+        f"(CUDA_STREAM, ready src) {p50_line(trig_samples)} | card {smi}")
+    del srcs, dsts
+    torch.cuda.empty_cache()
+    return {"launches": total, "plain_p50_ms": median_ms(plain_samples),
+            "generic_p50_ms": median_ms(generic_samples),
+            "triggered_p50_ms": median_ms(trig_samples)}
+
+
+def core_sub_teams(smi, ctxs, pinned, counters, kernels) -> dict:
+    """create_from_parent: [0..3] and [4..7] of the pinned 8-rank team,
+    then [0, 2] of the first; each 4-rank team runs SUB_RUNS pinned to
+    ring_cuda (25 rounds, bitwise the plain version), the first's kernels
+    timed alone at n = 4; a 4-rank team by the default selection; the
+    2-rank team's allreduce. Returns the runs' launches and the n = 4
+    kernel records."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.tl import torch_ops
+    sum_ = ucc.ReductionOp.SUM
+    rounds = WARMUP + ITERS
+    total, timed = {}, {}
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = RING_TUNE
+    lo, hi = split(pinned, [0, 1, 2, 3]), split(pinned, [4, 5, 6, 7])
+    create(ctxs, lo + hi, "4-rank sub-teams")
+    pair = split(lo, [0, 2])
+    create(ctxs, pair, "2-rank sub-team of a sub-team")
+    os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+    low = split(pinned, [0, 1, 2, 3])        # read without the TUNE
+    create(ctxs, low, "4-rank sub-team, default selection")
+    if [t.size for t in lo + hi + pair] != [4] * 8 + [2] * 2 or \
+            [t.rank for t in lo] != [0, 1, 2, 3]:
+        raise AssertionError("sub-team sizes or ranks are wrong")
+
+    def run(teams, coll, count, dst_count, root, seed, alg, what):
+        zero(counters)
+        samples, srcs, dsts, got_alg = run_main_path(
+            ctxs, teams, coll, count, dst_count, root, seed)
+        got = launched(counters)
+        if got_alg != alg:
+            raise AssertionError(f"{what} selected {got_alg}, not {alg}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return samples, srcs, dsts, got
+
+    for name, teams in (("[0, 1, 2, 3]", lo), ("[4, 5, 6, 7]", hi)):
+        for coll, count, dst_count, root, seed in SUB_RUNS:
+            what = f"sub-team {name} {coll}"
+            samples, srcs, dsts, got = run(teams, coll, count, dst_count,
+                                           root, seed, "ring_cuda", what)
+            if len(got) != 1 or list(got.values()) != [rounds]:
+                raise AssertionError(f"{what}: launches {got}, want one "
+                                     f"kernel {rounds} times")
+            kname = next(iter(got))
+            wrapper, ref = kernels[kname]
+            plain = ref(srcs, sum_, root)
+            check_main_result(coll, srcs, dsts, plain, root)
+            line = (f"core: {what} {count} f32/rank in, {dst_count} out via "
+                    f"ring_cuda: {p50_line(samples)} | {kname} launches "
+                    f"{got[kname]}, bitwise")
+            if teams is lo:
+                bufs = dsts if coll == "BCAST" else None
+                del dsts, plain
+                max_err, ms, plain_ms, library_ms = measure(
+                    coll, wrapper, ref, srcs, dst_count, root, bufs)
+                flops = 3 * count if coll in ("ALLREDUCE",
+                                              "REDUCE_SCATTER") else 0
+                bound, bound_by = bound_ms(
+                    least_bytes(coll, 4, count, dst_count), flops)
+                timed[kname] = {"n": 4, "ms": ms, "bound_ms": bound,
+                                "bound_by": bound_by, "share": bound / ms,
+                                "plain_ms": plain_ms,
+                                "library_ms": library_ms,
+                                "max_abs_err": max_err}
+                line += (f" | {kname} n=4 {ms:.4f} ms, bound {bound:.4f} "
+                         f"ms ({bound_by}), roofline share "
+                         f"{bound / ms:.4f} | plain {plain_ms:.3f} ms | "
+                         f"{CONVENTIONS[coll][1]} {library_ms:.4f} ms")
+                del bufs
+            log(f"{line} | card {smi}")
+            del srcs
+            torch.cuda.empty_cache()
+
+    samples, srcs, dsts, got = run(low, "ALLREDUCE", MAIN_COUNT, MAIN_COUNT,
+                                   0, 66, "xla", "default 4-rank allreduce")
+    if got:
+        raise AssertionError(f"default 4-rank allreduce launched {got}")
+    check_main_result("ALLREDUCE", srcs, dsts,
+                      [torch_ops.allreduce_ops(srcs, sum_)] * 4, 0)
+    log(f"core: sub-team [0, 1, 2, 3] ALLREDUCE 16 Mi by the default "
+        f"(torch_ops/xla): {p50_line(samples)} | no kernel | card {smi}")
+    samples, srcs, dsts, got = run(pair, "ALLREDUCE", MAIN_COUNT,
+                                   MAIN_COUNT, 0, 67, "ring_cuda",
+                                   "2-rank allreduce")
+    if len(got) != 1 or list(got.values()) != [rounds]:
+        raise AssertionError(f"2-rank allreduce: launches {got}")
+    kname = next(iter(got))
+    check_main_result("ALLREDUCE", srcs, dsts,
+                      kernels[kname][1](srcs, sum_, 0), 0)
+    log(f"core: sub-team [0, 2] of [0, 1, 2, 3] ALLREDUCE 16 Mi via "
+        f"ring_cuda: {p50_line(samples)} | {kname} launches {got[kname]}, "
+        f"bitwise | card {smi}")
+    del srcs, dsts
+    for t in lo + hi + pair + low:
+        t.destroy()
+    torch.cuda.empty_cache()
+    return {"launches": total, "n4": timed}
+
+
+#: rounds of the runtime fallback, and of its next candidate alone
+FALLBACK_ROUNDS = 5
+
+
+def core_fallback(smi, ctxs, pinned, default, counters) -> dict:
+    """FALLBACK_ROUNDS non-persistent allreduces of 16 Mi f32 whose first
+    candidate (ring_cuda, pinned) fails at post before committing data:
+    each must end OK on the next candidate, bitwise that candidate's
+    result alone, with coll_fallback_runtime 1 per rank; then as many
+    rounds of the candidate alone. Returns both medians, in host ms."""
+    import tempfile
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.obs import metrics
+    n = N_RANKS
+    g = torch.Generator(device="cuda").manual_seed(68)
+    srcs = [torch.randn(MAIN_COUNT, generator=g, device="cuda")
+            for _ in range(n)]
+    dsts = [torch.empty_like(s) for s in srcs]
+    alone = [torch.empty_like(s) for s in srcs]
+
+    def timed(reqs, what):
+        t0 = time.perf_counter()
+        one_round(ctxs, reqs, what)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    fb_s, alone_s = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics.enable(file=os.path.join(tmp, "stats.json"))
+        try:
+            for _ in range(FALLBACK_ROUNDS):
+                reqs = allreduce_reqs(pinned, srcs, dsts, persistent=False)
+                if {rq.task.alg_name for rq in reqs} != {"ring_cuda"} or \
+                        not all(rq._fallback for rq in reqs):
+                    raise AssertionError("the fallback run's first candidate "
+                                         "is not ring_cuda with a chain "
+                                         "behind it")
+                for rq in reqs:
+                    rq.task.post_fn = lambda: ucc.Status.ERR_NO_RESOURCE
+                    rq.task.data_committed = False
+                metrics.reset()
+                zero(counters)
+                fb_s.append(timed(reqs, "allreduce with a failing first "
+                                        "candidate"))
+                got = launched(counters)
+                fb = metrics.snapshot()["counters"].get(
+                    "coll_fallback_runtime")
+                algs = {rq.task.alg_name for rq in reqs}
+                if algs != {"xla"} or got or \
+                        not all(rq._fb_used for rq in reqs):
+                    raise AssertionError(f"runtime fallback ran {algs}, "
+                                         f"launches {got}")
+                if fb != {"core|allreduce|xla": n}:
+                    raise AssertionError(f"coll_fallback_runtime {fb}, want "
+                                         f"{n} (1 per rank)")
+                plain = allreduce_reqs(default, srcs, alone,
+                                       persistent=False)
+                if {rq.task.alg_name for rq in plain} != {"xla"}:
+                    raise AssertionError("the default is not xla")
+                alone_s.append(timed(plain, "the next candidate alone"))
+                compare("runtime fallback vs its candidate alone", dsts,
+                        alone)
+        finally:
+            metrics.disable()
+            metrics.reset()
+    out = {"fallback_ms": median_ms(fb_s), "alone_ms": median_ms(alone_s)}
+    log(f"core: runtime fallback, {FALLBACK_ROUNDS} rounds: ring_cuda "
+        f"failed at post (ERR_NO_RESOURCE, nothing committed) -> xla on "
+        f"every rank, bitwise xla alone, coll_fallback_runtime 1 per rank "
+        f"each round; host ms per round, median (each round): "
+        f"{out['fallback_ms']:.3f} "
+        f"({', '.join(f'{t * 1e3:.3f}' for t in fb_s)}) with the fallback, "
+        f"{out['alone_ms']:.3f} "
+        f"({', '.join(f'{t * 1e3:.3f}' for t in alone_s)}) alone | card "
+        f"{smi}")
+    del srcs, dsts, alone
+    torch.cuda.empty_cache()
+    return out
+
+
+def core_plugin(smi, ctxs, counters, kernels) -> dict:
+    """A coll plugin made at run time (a module in sys.modules) adds an
+    allreduce AlgSpec to tl/ring_cuda that delegates to the ring task;
+    UCC_TL_RING_CUDA_COLL_PLUGINS and TUNE select it."""
+    import types
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.tl.base import AlgSpec
+    from ucc_tpu_torch.tl.ring_cuda import RingCudaCollTask
+    plugin = types.ModuleType(PLUGIN)
+    plugin.registrations = plugin.inits = 0
+
+    def ucc_coll_plugin(tl_team):
+        plugin.registrations += 1
+
+        def init(ia, team):
+            plugin.inits += 1
+            return RingCudaCollTask(ia, team)
+        return {ucc.CollType.ALLREDUCE: [AlgSpec(100, "plugin_ring", init)]}
+
+    plugin.ucc_coll_plugin = ucc_coll_plugin
+    sys.modules[PLUGIN] = plugin
+    os.environ["UCC_TL_RING_CUDA_COLL_PLUGINS"] = PLUGIN
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = "allreduce:@plugin_ring:inf"
+    try:
+        teams = make_team(ctxs)
+    finally:
+        os.environ.pop("UCC_TL_RING_CUDA_COLL_PLUGINS")
+        os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+        sys.modules.pop(PLUGIN)
+    zero(counters)
+    samples, srcs, dsts, alg = run_main_path(
+        ctxs, teams, "ALLREDUCE", MAIN_COUNT, MAIN_COUNT, 0, 69)
+    got = launched(counters)
+    rounds = WARMUP + ITERS
+    if alg != "plugin_ring" or got != {"ring_allreduce_chunked": rounds} \
+            or plugin.inits != N_RANKS or plugin.registrations != N_RANKS:
+        raise AssertionError(f"coll plugin: alg {alg}, launches {got}, "
+                             f"{plugin.registrations} registrations, "
+                             f"{plugin.inits} inits")
+    check_main_result("ALLREDUCE", srcs, dsts,
+                      kernels["ring_allreduce_chunked"][1](
+                          srcs, ucc.ReductionOp.SUM, 0), 0)
+    for t in teams:
+        t.destroy()
+    log(f"core: coll plugin 'plugin_ring' on tl/ring_cuda (registered by "
+        f"{plugin.registrations} TL teams, {plugin.inits} inits): "
+        f"{p50_line(samples)} | ring_allreduce_chunked launches "
+        f"{got['ring_allreduce_chunked']}, bitwise | card {smi}")
+    return {"launches": got}
+
+
+def core_gen_backend(smi, counters) -> None:
+    """UCC_GEN_DEVICE_BACKEND=xla: gen_dev_ring_c2 at 16 Mi through the
+    stack as torch ops (no kernel), bitwise the fold route's kernel on the
+    same srcs."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    os.environ["UCC_TL_TORCH_OPS_TUNE"] = "allreduce:@gen_dev_ring_c2:inf"
+    try:
+        ctxs, teams = make_job(N_RANKS, GEN_DEVICE="y",
+                               GEN_DEVICE_BACKEND="xla")
+    finally:
+        os.environ.pop("UCC_TL_TORCH_OPS_TUNE")
+    zero(counters)
+    samples, srcs, dsts, alg = run_main_path(
+        ctxs, teams, "ALLREDUCE", MAIN_COUNT, MAIN_COUNT, 0, 70)
+    got = launched(counters)
+    if alg != "gen_dev_ring_c2" or got:
+        raise AssertionError(f"backend xla: alg {alg}, launches {got}")
+    prog = {ld.dev_alg_name(p): p for p in
+            ld.device_programs(N_RANKS, "int8")}["gen_dev_ring_c2"]
+    plan = ld.device_plan(prog, N_RANKS, MAIN_COUNT)
+    fold = [torch.empty_like(s) for s in srcs]
+    kgd.gen_device_ring(srcs, fold, ucc.ReductionOp.SUM, plan=plan).done()
+    torch.cuda.synchronize()
+    compare("gen_dev_ring_c2 backend xla vs the fold route", dsts, fold)
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+    log(f"core: gen_dev_ring_c2 allreduce 16 Mi with "
+        f"UCC_GEN_DEVICE_BACKEND=xla (torch ops, no launch): "
+        f"{p50_line(samples)} | bitwise the fold kernel on the same srcs "
+        f"| card {smi}")
+    del srcs, dsts, fold
+    torch.cuda.empty_cache()
+
+
+def core_child(mode: str) -> int:
+    """The metrics or profiling run, in a process of its own so that
+    UCC_STATS / UCC_PROFILE_MODE are read at import: 8 ranks pinned to
+    ring_cuda, 16 Mi f32. ``stats``: the main allreduce's persistent rounds;
+    prints the counters. ``profile``: PROFILED_ROUNDS non-persistent
+    rounds. Its last line is one JSON object."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.obs import metrics
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = RING_TUNE
+    ctxs, teams = make_job(N_RANKS)
+    g = torch.Generator(device="cuda").manual_seed(71)
+    srcs = [torch.randn(MAIN_COUNT, generator=g, device="cuda")
+            for _ in range(N_RANKS)]
+    dsts = [torch.empty_like(s) for s in srcs]
+    out = {"mode": mode}
+    if mode == "stats":
+        reqs = allreduce_reqs(teams, srcs, dsts)
+        time_rounds(ctxs, reqs, "stats child allreduce")
+        out["counters"] = metrics.snapshot()["counters"]
+        out["fast"] = bool(reqs[0]._fast)
+    else:
+        seqs = []
+        for _ in range(PROFILED_ROUNDS):
+            reqs = allreduce_reqs(teams, srcs, dsts, persistent=False)
+            seqs.append([rq.task.seq_num for rq in reqs])
+            one_round(ctxs, reqs, "profiled allreduce")
+            for rq in reqs:
+                rq.finalize()
+        out["seqs"] = seqs
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+    torch.cuda.synchronize()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_child(mode: str, env: dict) -> dict:
+    """chip_smoke.py --core-child <mode> under *env*; its last line."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--core-child", mode],
+        env={**os.environ, **env}, capture_output=True, text=True,
+        timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"the {mode} child failed ({res.returncode}): "
+                           f"{res.stderr[-4000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def core_metrics_profiling(smi) -> None:
+    """UCC_STATS=y: the main allreduce's rounds count coll_posted every
+    round and coll_fast_repost every round from the second (the probe
+    arms the lane on the second post). UCC_PROFILE_MODE=log: each profiled
+    request writes one coll_allreduce B/E pair, and its task's span, with
+    the request's id, inside it."""
+    import tempfile
+    rounds = WARMUP + ITERS
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = run_child("stats", {
+            "UCC_STATS": "y",
+            "UCC_STATS_FILE": os.path.join(tmp, "stats.json")})
+        trace = os.path.join(tmp, "trace.json")
+        prof = run_child("profile", {"UCC_PROFILE_MODE": "log",
+                                     "UCC_PROFILE_FILE": trace})
+        with open(trace) as fh:
+            recs = [json.loads(line) for line in fh]
+    key = "core|allreduce|ring_cuda"
+    c = stats["counters"]
+    want = {"coll_posted": N_RANKS * rounds,
+            "coll_fast_repost": N_RANKS * (rounds - 1)}
+    got = {k: c.get(k, {}).get(key) for k in want}
+    if got != want or not stats["fast"]:
+        raise AssertionError(f"UCC_STATS counters {c}, want {want} under "
+                             f"{key}")
+    pairs = 0
+    for seq in (s for rnd in prof["seqs"] for s in rnd):
+        seen = [(r["name"], r["ph"]) for r in recs if r.get("span") == seq]
+        if seen != [("coll_allreduce", "B"), ("task_RingCudaCollTask", "B"),
+                    ("task_RingCudaCollTask", "E"), ("coll_allreduce", "E")]:
+            raise AssertionError(f"profile of request {seq}: {seen}")
+        pairs += 1
+    log(f"core: UCC_STATS=y ({stats['seconds']:.1f} s child): "
+        f"{rounds} persistent rounds x {N_RANKS} ranks -> coll_posted "
+        f"{got['coll_posted']}, coll_fast_repost {got['coll_fast_repost']} "
+        f"(every round from the second) | UCC_PROFILE_MODE=log "
+        f"({prof['seconds']:.1f} s child): {pairs} coll_allreduce B/E "
+        f"pairs ({PROFILED_ROUNDS} rounds x {N_RANKS} ranks), each around "
+        f"its task's span of the same id | card {smi}")
+
+
+def main_path_core(smi, counters) -> dict:
+    """Phase 6: the core's foundations on the card. Returns every kernel's
+    launches over the phase's runs, the triggered and plain p50s and the
+    n = 4 kernel times."""
+    import torch
+    import ucc_tpu_torch as ucc
+    t0 = time.perf_counter()
+    kernels = wrappers()
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = RING_TUNE
+    try:
+        ctxs, pinned = make_job(
+            N_RANKS, ucc.LibParams(thread_mode=ucc.ThreadMode.MULTIPLE))
+    finally:
+        os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+    default = make_team(ctxs)
+    out = {"launches": {}}
+
+    def add(got):
+        for k, v in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    trig = core_triggered(smi, ctxs, pinned, default, counters, kernels)
+    add(trig.pop("launches"))
+    out.update(trig)
+    sub = core_sub_teams(smi, ctxs, pinned, counters, kernels)
+    add(sub["launches"])
+    out["n4"] = sub["n4"]
+    out.update(core_fallback(smi, ctxs, pinned, default, counters))
+    add(core_plugin(smi, ctxs, counters, kernels)["launches"])
+    for t in pinned + default:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+    torch.cuda.empty_cache()
+    core_gen_backend(smi, counters)
+    core_metrics_profiling(smi)
+    log(f"core phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3980,6 +4713,8 @@ def main() -> int:
         print(f"chip_smoke: ucc_tpu_torch not importable here: {e}",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--core-child"]:
+        return core_child(sys.argv[2])
 
     # -- 1. device -------------------------------------------------------
     smi = smi_line()
@@ -4113,13 +4848,22 @@ def main() -> int:
         attention["training_launches"]
     attention["training_launches"] = 0
 
+    # -- 6. core: EE, sub-teams, runtime fallback, plugins, metrics -------
+    core = main_path_core(smi, counters)
+
     # every row of the kernel table: the f32 attention route (12b) and the
-    # wire layers (11b wire) have records of their own
-    log(smi)
-    log(json.dumps({"kernels": [records[k] for k in KERNELS] + [
+    # wire layers (11b wire) have records of their own; each carries its
+    # launches over phase 6 as core_launches
+    kernel_records = [records[k] for k in KERNELS] + [
         records[k] for k in ("ec_reduce", "ring_flash_attention_fwd",
                              *GEN_RECORDS.values())] + [
-        attention["f32_route"], *wire]}))
+        attention["f32_route"], *wire]
+    for rec in kernel_records:
+        rec["core_launches"] = core["launches"].get(rec["name"], 0)
+        if rec["name"] in core["n4"]:
+            rec["core_n4"] = core["n4"][rec["name"]]
+    log(smi)
+    log(json.dumps({"kernels": kernel_records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -47,6 +47,15 @@ def test_enum_values_match(name):
     assert got == want
 
 
+def test_ee_type_values_match_with_the_stream_renamed():
+    """EeType keeps the reference's values; the reference's TPU_STREAM is
+    UCC's own UCC_EE_CUDA_STREAM in the port."""
+    rename = {"TPU_STREAM": "CUDA_STREAM"}
+    want = {rename.get(m.name, m.name): int(m) for m in jc.EeType}
+    got = {m.name: int(m) for m in tc.EeType}
+    assert got == want == {"CUDA_STREAM": 0, "CPU_THREAD": 1, "LAST": 2}
+
+
 def test_status_values_match():
     want = {m.name: int(m) for m in js.Status}
     got = {m.name: int(m) for m in ut.Status}
@@ -247,6 +256,11 @@ def test_port_imports_without_jax():
             "from ucc_tpu_torch.dsl import ir, verify, families, registry; "
             "from ucc_tpu_torch.dsl import lower_device; "
             "from ucc_tpu_torch import quant; "
+            "from ucc_tpu_torch.core import ee; "
+            "from ucc_tpu_torch.obs import metrics; "
+            "from ucc_tpu_torch.mc import pool; "
+            "from ucc_tpu_torch.schedule import pipelined; "
+            "from ucc_tpu_torch.utils import mpool, profiling, mathutils; "
             "base.create_executor(ucc_tpu_torch.MemoryType.CUDA); "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

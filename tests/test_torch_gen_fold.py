@@ -262,6 +262,39 @@ def test_fold_ref_is_bitwise_the_plain_plan(n, dtype):
                     break                   # the op does not matter
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_torch_ops_backend_is_bitwise_the_fold_route(n, dtype):
+    """UCC_GEN_DEVICE_BACKEND=xla's entry point, gen_device_torch_ops, and
+    the plan run in place on dsts that hold the srcs (what it does on a
+    CUDA tensor, on its stream), both bitwise the fold route's plain
+    version: every program, the five ops, bcast roots 0, n/2, n-1, out of
+    place and in place."""
+    for i, prog in enumerate(registered(n)):
+        for k, op in enumerate(OPS):
+            if op == ReductionOp.AVG and not dtype.is_floating_point:
+                continue
+            for root in roots(prog, n):
+                count = prog.nchunks * 37
+                plan = ld.device_plan(prog, n, count, root)
+                srcs = make_srcs(n, count, dtype, op, 7000 * n + 10 * i + k)
+                want = kgd.gen_device_fold_ref(srcs, plan, op)
+                dsts = [torch.full_like(x, 7) for x in srcs]
+                kgd.gen_device_torch_ops(srcs, dsts, op, plan=plan,
+                                         root=root).done()
+                inplace = [x.clone() for x in srcs]
+                kgd.gen_device_torch_ops(inplace, inplace, op, plan=plan,
+                                         root=root).done()
+                work = [x.clone() for x in srcs]
+                kgd._run_plan(work, plan, op)
+                for got in (dsts, inplace, work):
+                    assert all(same_bits(g, w) for g, w in zip(got, want)), \
+                        (prog.name, op, root)
+                if not plan.reducing:
+                    break                   # the op does not matter
+
+
 @pytest.mark.parametrize("n", [16, 32])
 def test_fold_ref_at_the_largest_teams(n):
     for i, prog in enumerate(registered(n)):

@@ -28,10 +28,10 @@ class TorchJob:
     bootstrapped by a thread OOB (contexts are created in threads: the
     address exchange blocks), then driven cooperatively."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, lib_params=None):
         self.n = n
         world = ut.ThreadOobWorld(n)
-        libs = [ut.init() for _ in range(n)]
+        libs = [ut.init(lib_params) for _ in range(n)]
         self.contexts = [None] * n
         errs = []
 
@@ -148,15 +148,15 @@ def make_jax_job(tune: str, tl: str = "ring_dma", n: int = N):
         return job, job.create_team()
 
 
-def make_torch_job(tune: str = "", n: int = N, **env):
-    """A TorchJob of *n* ranks on device "cpu"; *tune*, if given, tunes
-    tl/ring_cuda; *env* holds further variables, set while the job is
-    made."""
+def make_torch_job(tune: str = "", n: int = N, lib_params=None, **env):
+    """A TorchJob of *n* ranks on device "cpu", its libs made with
+    *lib_params*; *tune*, if given, tunes tl/ring_cuda; *env* holds
+    further variables, set while the job is made."""
     env["UCC_TL_RING_CUDA_DEVICE"] = "cpu"
     if tune:
         env["UCC_TL_RING_CUDA_TUNE"] = tune
     with _env(**env):
-        return TorchJob(n)
+        return TorchJob(n, lib_params)
 
 
 def jax_persistent(job, teams, coll, hosts, op, dt, dst_count=None,

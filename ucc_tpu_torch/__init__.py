@@ -29,7 +29,12 @@ the ranks' sequence blocks, forward through the kernel of
 the library, differentiable, traceable by ``torch.compile``); and the
 examples built on it: the long-context MHA and GQA train steps of
 ``examples/long_context.py``, DP x TP, the pipeline, MoE, and the ring and
-Ulysses attentions.
+Ulysses attentions; and the core's foundations: execution engines and
+triggered collectives (``core/ee.py``), sub-teams
+(``Team.create_from_parent`` over ``core/oob.SubsetOob``), the runtime
+fallback, TL coll plugins, metrics (``obs/metrics.py``) and profiling
+(``utils/profiling.py``), pipelined schedules
+(``schedule/pipelined.py``) and the host scratch pool (``mc/pool.py``).
 
 Attention on the CPU (the kernel's plain version runs on CPU tensors)::
 
@@ -73,7 +78,7 @@ exchange, so each context is created on its own thread)::
 """
 
 from .constants import (CollArgsFlags, CollSyncType, CollType,  # noqa: F401
-                        DataType, EventType, MemoryType, ReductionOp,
+                        DataType, EeType, EventType, MemoryType, ReductionOp,
                         ThreadMode, coll_type_str, dt_size, dt_torch)
 from .status import Status, UccError, check  # noqa: F401
 from .api.types import (ActiveSet, BufferInfo, BufferInfoV, CollArgs,  # noqa: F401
@@ -83,6 +88,7 @@ from .core.lib import Lib, init  # noqa: F401
 from .core.context import Context  # noqa: F401
 from .core.team import Team, TeamState  # noqa: F401
 from .core.coll import CollRequest, collective_init  # noqa: F401
-from .core.oob import ThreadOob, ThreadOobWorld  # noqa: F401
+from .core.oob import SubsetOob, ThreadOob, ThreadOobWorld  # noqa: F401
+from .core.ee import Ee, UccEvent  # noqa: F401
 
 __version__ = "0.1.0"

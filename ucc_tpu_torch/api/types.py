@@ -181,6 +181,12 @@ class CollArgs:
     timeout: float = 0.0                     # seconds, used with FLAG TIMEOUT
     active_set: Optional[ActiveSet] = None
     cb: Optional[Callable[[Any, Status], None]] = None
+    global_work_buffer: Any = None           # one-sided scratchpad
+    #: mem_map handles of one-sided collectives: one exported handle
+    #: (local) or a list of one per team rank (global; flags
+    #: MEM_MAP_SRC_MEMH / MEM_MAP_DST_MEMH)
+    src_memh: Any = None
+    dst_memh: Any = None
 
     # -- convenience predicates ------------------------------------------
     @property

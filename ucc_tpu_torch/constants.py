@@ -238,3 +238,12 @@ class EventType(enum.IntEnum):
     EVENT_COMPLETED_SCHEDULE = 3
     EVENT_ERROR = 4
     EVENT_LAST = 5
+
+
+class EeType(enum.IntEnum):
+    """Execution-engine types (ucc_ee_type_t). The values are the JAX
+    package's; its TPU_STREAM (0) is UCC's own UCC_EE_CUDA_STREAM."""
+
+    CUDA_STREAM = 0    # triggered on data readiness on the card's streams
+    CPU_THREAD = 1
+    LAST = 2

@@ -1,9 +1,10 @@
 """Collective dispatch — the hot path (UCC's ``ucc_collective_init``).
 
 Memtype auto-detect via MC, the zero-size fast path with a stub task
-(host memory only), the active-set restriction to bcast, the score-map
-lookup with fallback, timeout stamping, persistent re-post and the user
-callback.
+(host memory only), the active-set restriction to bcast, the gate of
+one-sided args, the score-map lookup with fallback at init and, once, at
+run time, timeout stamping, persistent re-post, the user callback, and
+the request's metrics and profiling spans.
 """
 from __future__ import annotations
 
@@ -14,8 +15,10 @@ from typing import Optional
 from ..api.types import BufferInfo, BufferInfoV, CollArgs, coll_args_msgsize
 from ..constants import CollArgsFlags, CollType, MemoryType, coll_type_str
 from ..mc.base import detect_mem_type
+from ..obs import metrics
 from ..schedule.task import CollTask
 from ..status import Status, UccError
+from ..utils import profiling
 from ..utils.log import get_logger
 from .team import Team
 
@@ -40,6 +43,16 @@ class _StubTask(CollTask):
         return Status.OK
 
 
+#: task failure statuses eligible for the runtime fallback: local
+#: resource and support failures. Timeouts and cancels are excluded (peers
+#: were engaged already), as is INVALID_PARAM (another algorithm will not
+#: fix the caller's arguments).
+_FALLBACK_ELIGIBLE = frozenset((Status.ERR_NOT_SUPPORTED,
+                                Status.ERR_NO_RESOURCE,
+                                Status.ERR_NO_MESSAGE,
+                                Status.ERR_NO_MEMORY))
+
+
 class CollRequest:
     """ucc_coll_req_h: post/test/finalize + persistent re-post."""
 
@@ -48,6 +61,10 @@ class CollRequest:
         self.team = team
         self.args = args
         self._posted = False
+        #: runtime fallback chain: (init_args, [remaining MsgRange]), set
+        #: by collective_init for plain non-persistent requests
+        self._fallback = None
+        self._fb_used = False
         self._persistent = args.is_persistent
         self._trace = bool(team.context.lib.config.coll_trace)
         # persistent fast re-post lane (TL opt-in, e.g. DeviceCollTask):
@@ -73,15 +90,28 @@ class CollRequest:
             if self._fast or (self._fast is None and st == Status.OK and
                               self._probe_fast()):
                 # the probe caches STRUCTURAL eligibility; observers
-                # attached between posts divert this round to the generic
+                # attached between posts (an EE's chained cb, a triggered
+                # proxy, schedule events) divert this round to the generic
                 # path, which runs them
                 task = self.task
-                if task.cb is None and task.schedule is None and \
-                        not task.timeout and not any(task.em.listeners):
+                if task.cb is None and task.triggered_task is None and \
+                        task.schedule is None and not task.timeout and \
+                        not any(task.em.listeners):
+                    if metrics.ENABLED:
+                        metrics.inc("coll_posted", component="core",
+                                    coll=task.coll_name or "",
+                                    alg=task.alg_name or "")
+                        metrics.inc("coll_fast_repost", component="core",
+                                    coll=task.coll_name or "",
+                                    alg=task.alg_name or "")
                     return task.fast_repost()
             self.task.reset()
         self._posted = True
         self.task.progress_queue = self.team.context.progress_queue
+        if metrics.ENABLED:
+            metrics.inc("coll_posted", component="core",
+                        coll=self.task.coll_name or "",
+                        alg=self.task.alg_name or "")
         if self._trace:
             logger.info("coll post: %s team %s seq %d",
                         coll_type_str(self.args.coll_type), self.team.id,
@@ -101,7 +131,61 @@ class CollRequest:
             # fast-posted tasks are on no progress queue: their owner
             # observes completion here
             st = self.task.fast_test()
+        if st.is_error and self._try_runtime_fallback():
+            return Status.IN_PROGRESS
         return st
+
+    def _try_runtime_fallback(self) -> bool:
+        """The score map's fallback walk, extended to run time: a posted
+        task that failed with a local resource error BEFORE committing any
+        data is re-initialized once on the next candidate of the chain and
+        re-posted, invisibly to the caller (test() keeps returning
+        IN_PROGRESS across the swap). A task that sent or received
+        anything is not retried: peers may have consumed part of the first
+        attempt. Device tasks keep ``data_committed`` True, so a failed
+        kernel launch is never retried."""
+        fb = self._fallback
+        task = self.task
+        if fb is None or self._fb_used or not self._posted or \
+                self._persistent or task.data_committed or \
+                task.super_status not in _FALLBACK_ELIGIBLE:
+            return False
+        if task.cb is not None or any(task.em.listeners) or \
+                task.triggered_task is not None:
+            # observers (a user callback, event subscribers, an EE) saw the
+            # first attempt's error completion already: a fallback would
+            # signal one collective twice (error, then success)
+            return False
+        init_args, remaining = fb
+        for cand in remaining:
+            if cand.init is None:
+                continue
+            try:
+                new_task = cand.init(init_args, cand.team)
+            except UccError:
+                continue
+            self._fb_used = True
+            new_task.coll_name = task.coll_name
+            new_task.alg_name = str(cand.alg_name or cand.team)
+            new_task.timeout = task.timeout
+            new_task.progress_queue = self.team.context.progress_queue
+            logger.warning(
+                "runtime fallback: %s alg %s failed (%s) before data "
+                "commit; retrying once on %s", task.coll_name,
+                task.alg_name, task.super_status.name, new_task.alg_name)
+            if metrics.ENABLED:
+                metrics.inc("coll_fallback_runtime", component="core",
+                            coll=new_task.coll_name or "",
+                            alg=new_task.alg_name or "")
+            try:
+                task.finalize()
+            except Exception:  # noqa: BLE001 - the old task's teardown is
+                # best-effort; the replacement is wired in already
+                logger.exception("finalize of the failed task raised")
+            self.task = new_task
+            new_task.post()
+            return True
+        return False
 
     def wait(self, timeout: float = 60.0) -> Status:
         deadline = time.monotonic() + timeout
@@ -164,10 +248,23 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
         raise UccError(Status.ERR_NOT_SUPPORTED,
                        "active sets supported for bcast only")
     mem_type = _resolve_mem_type(args)
-    if _is_zero_size(args) and mem_type == MemoryType.HOST:
+    onesided_args = (args.global_work_buffer is not None
+                     or args.src_memh is not None
+                     or args.dst_memh is not None
+                     or bool(args.flags & CollArgsFlags.MEM_MAPPED_BUFFERS))
+    if onesided_args and mem_type == MemoryType.CUDA:
+        # one-sided args on host memory go on to the score map (the host
+        # TLs that serve them are not ported yet); on device memory they
+        # are refused, as the JAX package refuses them on TPU memory
+        raise UccError(Status.ERR_NOT_SUPPORTED,
+                       "one-sided (global_work_buffer / mem-mapped) "
+                       "collectives are host-memory only")
+    if _is_zero_size(args) and mem_type == MemoryType.HOST and \
+            not onesided_args:
         # zero-size fast path — HOST memory only: device collectives meet
         # in a rendezvous, where a rank that stubs out would desync the
-        # team's deposit count
+        # team's deposit count. One-sided collectives are excluded: peers
+        # count this rank's puts, so a zero-count rank must still post
         task: CollTask = _StubTask()
         task.coll_name = coll_type_str(ct)
         task.alg_name = "zero_size_stub"
@@ -187,7 +284,34 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
                     coll_type_str(ct), mem_type.name.lower(), msgsize,
                     chosen.alg_name or chosen.team, chosen.score, team.id)
     _attach_user_opts(task, args)
-    return CollRequest(task, team, args)
+    if profiling.ENABLED:
+        _attach_profiling(task, ct)
+    req = CollRequest(task, team, args)
+    if not args.is_persistent:
+        # keep the chain's tail for the runtime fallback; a persistent
+        # request's re-post lanes cache the task's identity
+        try:
+            rest = candidates[candidates.index(chosen) + 1:]
+        except ValueError:
+            rest = []
+        if rest:
+            req._fallback = (init_args, rest)
+    return req
+
+
+def _attach_profiling(task: CollTask, ct: CollType) -> None:
+    name = coll_type_str(ct)
+    # the request's span id IS the task's seq_num; the task's own span
+    # carries the same id, so one collective's request -> task lifetime
+    # reassembles offline
+    profiling.request_new(name, task.seq_num, alg=task.alg_name or "")
+    prev = task.cb
+
+    def cb(t, st):
+        profiling.request_complete(name, t.seq_num, status=st.name)
+        if prev is not None:
+            prev(t, st)
+    task.cb = cb
 
 
 def _attach_user_opts(task: CollTask, args: CollArgs) -> None:

@@ -300,6 +300,40 @@ class Team:
         from .coll import collective_init
         return collective_init(args, self)
 
+    @classmethod
+    def create_from_parent(cls, parent: "Team", ranks: List[int],
+                           dead: Optional[List[int]] = None,
+                           admit_ctx: Optional[List[int]] = None
+                           ) -> Optional["Team"]:
+        """ucc_team_create_from_parent: split `parent` by explicit
+        parent-team `ranks` (that order is the new team's). Every parent
+        rank calls it; non-members get None. The new team is posted: drive
+        its ``create_test()`` as any team's.
+
+        Over a subset-capable parent OOB (a thread OOB, or a team split
+        from one) non-members skip the subset's rounds entirely; over any
+        other they ride along once per round (``SubsetOob.participate``).
+        The rebuilds of fault tolerance (`dead`, `admit_ctx`) are not
+        ported yet."""
+        if dead or admit_ctx:
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "create_from_parent with dead or admitted ranks "
+                           "(the shrink and grow rebuilds) is not ported "
+                           "yet")
+        from .oob import SubsetOob
+        if parent.oob is None:
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           "parent team has no OOB to split")
+        if parent.rank not in ranks:
+            # one contribution per OOB round of the members' team create
+            # (a no-op each over a subset-capable parent): the address
+            # exchange and, with more than one member, the CL agreement
+            for _ in range(2 if len(ranks) > 1 else 1):
+                SubsetOob.participate(parent.oob)
+            return None
+        return Team(parent.context,
+                    TeamParams(oob=SubsetOob(parent.oob, ranks)))
+
     def destroy(self) -> Status:
         """Release the team's component teams. Safe on a half-created team
         and idempotent."""

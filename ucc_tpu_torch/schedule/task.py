@@ -19,14 +19,21 @@ import time
 from typing import Any, Callable, List, Optional, Tuple
 
 from ..constants import EventType
+from ..obs import metrics
 from ..status import Status
+from ..utils import profiling
 from ..utils.log import get_logger
 
 logger = get_logger("schedule")
 
-#: next() on an itertools.count is atomic under the GIL, so tasks created
-#: from several rank threads never share a sequence number
+#: one counter for the whole process, which holds every rank: profiling
+#: spans key on seq_num. next() on an itertools.count is atomic under the
+#: GIL, so tasks created from several rank threads never share a number
 _seq_counter = itertools.count(1)
+
+
+def _next_seq() -> int:
+    return next(_seq_counter)
 
 
 class EventManager:
@@ -63,9 +70,17 @@ class CollTask:
     #: labels stamped by core dispatch
     coll_name: Optional[str] = None
     alg_name: Optional[str] = None
+    _span_open = False
     #: exception that crashed the task (set by the progress queue when a
     #: progress_fn escapes — the real traceback behind an ERR_NO_MESSAGE)
     exc: Optional[BaseException] = None
+    #: has this task put data on the wire or into peer-visible state? The
+    #: runtime fallback of core/coll.py retries only a failed task that
+    #: provably committed nothing, so the class default is True: a task
+    #: type that does not track the transition is never retried. A task
+    #: that does sets an instance copy False at post and True on its
+    #: first send.
+    data_committed: bool = True
 
     def __init__(self, team=None, args=None, flags_internal: bool = False):
         self.team = team
@@ -81,8 +96,9 @@ class CollTask:
         self.cb: Optional[Callable[["CollTask", Status], None]] = None
         self.start_time: float = 0.0
         self.timeout: float = 0.0      # seconds; 0 = no timeout
-        self.seq_num = next(_seq_counter)
+        self.seq_num = _next_seq()
         self.progress_queue = None     # set at post time by core/schedule
+        self.triggered_task = None     # EE proxy task when triggered
 
     # ------------------------------------------------------------------ hooks
     def post_fn(self) -> Status:
@@ -98,6 +114,9 @@ class CollTask:
         """Abort the underlying operation. Must be idempotent and
         best-effort — cancel() swallows anything it raises."""
 
+    def triggered_post_setup(self) -> Status:
+        return Status.OK
+
     # ------------------------------------------------------------------ core
     def post(self, inherit_start: bool = False) -> Status:
         """Stamp start time, run post_fn, then hand the task to the
@@ -112,6 +131,17 @@ class CollTask:
             self.start_time = time.monotonic()
         self.status = Status.IN_PROGRESS
         self.super_status = Status.IN_PROGRESS
+        if profiling.ENABLED:
+            self._span_open = True
+            fields = {}
+            if self.coll_name:
+                fields["coll"] = self.coll_name
+            if self.alg_name:
+                fields["alg"] = self.alg_name
+            profiling.span_begin(
+                f"task_{type(self).__name__}", self.seq_num,
+                parent=self.schedule.seq_num if self.schedule is not None
+                else None, **fields)
         st = self.post_fn()
         if isinstance(st, Status) and st.is_error:
             self.status = st
@@ -147,6 +177,9 @@ class CollTask:
         except Exception:  # noqa: BLE001 - teardown is best-effort
             logger.exception("cancel_fn of %s seq %d raised",
                              type(self).__name__, self.seq_num)
+        if metrics.ENABLED:
+            metrics.inc("coll_cancelled", component="core",
+                        coll=self.coll_name or "", alg=self.alg_name or "")
         if not self.is_completed():  # cancel_fn may have completed us
             self.complete(status)
 
@@ -191,6 +224,19 @@ class CollTask:
         # re-enter complete() from the EVENT handlers, and the idempotence
         # guard above must already see the final state
         self.super_status = st
+        if self._span_open:
+            # set only under profiling.ENABLED: the E closes the B of
+            # post(), so pairs stay balanced through error cascades too
+            self._span_open = False
+            profiling.span_end(f"task_{type(self).__name__}", self.seq_num,
+                               status=st.name)
+        if metrics.ENABLED and self.coll_name:
+            alg = self.alg_name or ""
+            if st == Status.ERR_TIMED_OUT:
+                metrics.inc("coll_timed_out", component="core",
+                            coll=self.coll_name, alg=alg)
+            metrics.inc("coll_failed" if st.is_error else "coll_completed",
+                        component="core", coll=self.coll_name, alg=alg)
         if st.is_error:
             if self.timeout and st == Status.ERR_TIMED_OUT:
                 logger.warning(

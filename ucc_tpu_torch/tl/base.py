@@ -2,7 +2,8 @@
 building, team base.
 
 The per-TL score construction pattern of UCC: defaults from the TL's
-algorithm table, then the user's ``UCC_TL_<NAME>_TUNE`` overlay.
+algorithm table and its coll plugins, then the user's
+``UCC_TL_<NAME>_TUNE`` overlay.
 """
 from __future__ import annotations
 
@@ -68,11 +69,54 @@ class AlgSpec:
     gen: str = ""
 
 
+def load_coll_plugins(tl_name: str):
+    """TL coll plugins (UCC's tlcp modules): modules outside this package
+    that add algorithms and score ranges to an existing TL.
+
+    ``UCC_TL_<NAME>_COLL_PLUGINS`` is a comma-separated list of importable
+    module paths; each module exposes
+
+        def ucc_coll_plugin(tl_team) -> Dict[CollType, List[AlgSpec]]
+
+    whose AlgSpecs join the TL's algorithm table before its scores are
+    built: a plugin algorithm gets default ranges from its
+    ``default_select`` and is named in the TUNE string like a built-in
+    one. Returns [(path, ucc_coll_plugin)]; a plugin that fails to import
+    is ERR_INVALID_PARAM, as a requested but broken tlcp is in UCC."""
+    import importlib
+
+    raw = os.environ.get(f"UCC_TL_{tl_name.upper()}_COLL_PLUGINS", "")
+    plugins = []
+    for path in filter(None, (m.strip() for m in raw.split(","))):
+        try:
+            mod = importlib.import_module(path)
+            plugins.append((path, getattr(mod, "ucc_coll_plugin")))
+        except Exception as e:  # noqa: BLE001 - surface the broken plugin
+            raise UccError(
+                Status.ERR_INVALID_PARAM,
+                f"coll plugin '{path}' for tl/{tl_name} failed to "
+                f"load: {e}") from e
+    return plugins
+
+
 def build_scores(team: BaseTeam, default_score: int,
                  alg_table: Dict[CollType, List[AlgSpec]],
                  mem_types: Sequence[MemoryType],
                  tune_env: str = "") -> CollScore:
-    """Default ranges + built-in per-alg selection + user TUNE overlay."""
+    """Default ranges + built-in per-alg selection + coll plugins + user
+    TUNE overlay."""
+    plugins = load_coll_plugins(getattr(team, "NAME", ""))
+    if plugins:
+        alg_table = {k: list(v) for k, v in alg_table.items()}
+        for path, fn in plugins:
+            try:
+                extra = fn(team)
+            except Exception as e:  # noqa: BLE001 - surface the broken plugin
+                raise UccError(Status.ERR_INVALID_PARAM,
+                               f"coll plugin '{path}' registration "
+                               f"failed: {e}") from e
+            for coll, specs in (extra or {}).items():
+                alg_table.setdefault(coll, []).extend(specs)
     score = CollScore()
     for coll, specs in alg_table.items():
         for mt in mem_types:
