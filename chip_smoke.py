@@ -256,12 +256,40 @@ Phases, each printing its own lines (any failure exits non-zero):
      4 non-persistent rounds write one coll_allreduce B/E pair a request
      around its task's span of the same id.
 
+7. host, the host transports of one process (tl/shm over the tl/host
+   algorithms and the port's native core), 8 ranks:
+   - the native core: its path (built from ucc_tpu_torch/native_src/ into
+     ucc_tpu_torch/build/) and build seconds; every tl/shm endpoint must
+     match natively;
+   - every collective type tl/shm serves by the default selection on
+     HOST memory (CPU tensors; numpy arrays for alltoallv): allreduce,
+     reduce_scatter, allgather, allgatherv, bcast, reduce, gather and
+     scatter (root 3), alltoall, alltoallv, barrier, fanin and fanout,
+     at 64 Ki and 16 Mi f32 a rank (allgather's, gather's and scatter's
+     blocks 1/8 of that) and an int32 allreduce, integer-valued so any
+     summation order is exact: every result bitwise its expected value,
+     the selected algorithm and the p50 of 20 persistent rounds printed
+     beside the host CPU (lscpu), no kernel launched; allreduce and
+     alltoall at 16 Mi again on UCC_TL_SHM_NATIVE=n contexts, bitwise
+     the native matcher's;
+   - on the same 8-rank team, a CUDA allreduce of 16 Mi pinned to
+     ring_cuda after the HOST ones: 25 launches of ring_allreduce_chunked,
+     bitwise; sub-teams [0..3] and [4..7], whose members must hold one id
+     each (so must every team a phase makes with a service team);
+   - UCC_CHECK_ASYMMETRIC_DT=y: a CUDA bcast of 16 Mi from root 3 pinned
+     to ring_cuda, bitwise with 25 launches, its p50 beside the same
+     bcast unchecked; then rank 5 passes INT32: every rank's request ends
+     ERR_INVALID_PARAM and ring_bcast_chunked is not launched;
+   - the median ms of an 8-rank team create, with its tl/shm service team
+     and on contexts without tl/shm.
+
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
 the int8/fp8 wire fold and the layer kernel on the same plans among
 them, with launches 0: the main path runs none of them; the f32 route's
 launches are the GQA train step's, and every record carries its launches
-over phase 5 as training_launches and over phase 6 as core_launches) and
+over phase 5 as training_launches, over phase 6 as core_launches and over
+phase 7 as host_launches) and
 {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -2417,6 +2445,9 @@ def make_team(ctxs):
             raise RuntimeError(f"team create failed: {bad[0]}")
         if time.monotonic() > deadline:
             raise RuntimeError("team create timed out")
+    if teams[0].service_team is not None:
+        # ids are agreed over a multi-rank service team (tl/shm)
+        check_ids(teams, "a team over every context")
     return teams
 
 
@@ -4303,6 +4334,9 @@ def core_sub_teams(smi, ctxs, pinned, counters, kernels) -> dict:
     os.environ.pop("UCC_TL_RING_CUDA_TUNE")
     low = split(pinned, [0, 1, 2, 3])        # read without the TUNE
     create(ctxs, low, "4-rank sub-team, default selection")
+    for what, teams in (("[0..3]", lo), ("[4..7]", hi), ("[0, 2]", pair),
+                        ("[0..3] by the default", low)):
+        check_ids(teams, f"sub-team {what}")
     if [t.size for t in lo + hi + pair] != [4] * 8 + [2] * 2 or \
             [t.rank for t in lo] != [0, 1, 2, 3]:
         raise AssertionError("sub-team sizes or ranks are wrong")
@@ -4688,6 +4722,422 @@ def main_path_core(smi, counters) -> dict:
     return out
 
 
+#: phase 7: every collective type tl/shm serves by the default selection,
+#: on HOST memory (collective, root, variant)
+HOST_RUNS = (
+    ("ALLREDUCE", 0, ""), ("REDUCE_SCATTER", 0, ""), ("ALLGATHER", 0, ""),
+    ("ALLGATHERV", 0, ""), ("BCAST", 3, ""), ("REDUCE", 3, ""),
+    ("GATHER", 3, ""), ("SCATTER", 3, ""), ("ALLTOALL", 0, ""),
+    ("ALLTOALLV", 0, "numpy"), ("BARRIER", 0, ""), ("FANIN", 3, ""),
+    ("FANOUT", 3, ""), ("ALLREDUCE", 0, "int32"),
+)
+#: rounds of a host run: one to warm the pool's leases, then the timed
+HOST_WARMUP = 1
+
+
+def host_cpu() -> str:
+    """The host CPU: lscpu's model name, or where the machine reports none
+    ("unknown" in a virtual machine), its vendor, family, model and MHz
+    from /proc/cpuinfo; and the CPU count."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, _, val = line.partition(":")
+                if not key.strip():
+                    break                       # the first CPU only
+                info.setdefault(key.strip(), val.strip())
+    except OSError:
+        pass
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    for line in out.splitlines():
+        key, _, val = line.partition(":")
+        if key.strip() == "Model name":
+            info["model name"] = val.strip()
+    model = info.get("model name", "")
+    if model in ("", "unknown"):
+        model = (f"{info.get('vendor_id', 'unknown vendor')} family "
+                 f"{info.get('cpu family', '?')} model "
+                 f"{info.get('model', '?')} (model name not reported), "
+                 f"{info.get('cpu MHz', '?')} MHz")
+    return f"{model}, {os.cpu_count()} CPUs"
+
+
+def host_case(coll, root, variant, n, count, seed):
+    """(every rank's persistent CollArgs, the result buffers, every rank's
+    expected result (None: not compared)) of one host run: CPU tensors
+    (numpy arrays for variant "numpy") of integer-valued f32 (int32 for
+    variant "int32"), so any summation order is exact. `count` is the
+    per-rank f32 count of allreduce, reduce, bcast, reduce_scatter's src
+    and alltoall; allgather, gather and scatter move count / n a rank."""
+    import numpy as np
+    import torch
+    import ucc_tpu_torch as ucc
+    g = torch.Generator().manual_seed(seed)
+    itype = variant == "int32"
+    dt = ucc.DataType.INT32 if itype else ucc.DataType.FLOAT32
+    tdt = torch.int32 if itype else torch.float32
+    P = ucc.CollArgsFlags.PERSISTENT
+    CT = ucc.CollType[coll]
+    SUM = ucc.ReductionOp.SUM
+    B = count // n
+
+    def ints(c):
+        return torch.randint(-64, 64, (c,), generator=g).to(tdt)
+
+    def bi(t):
+        return ucc.BufferInfo(t, t.numel() if hasattr(t, "numel")
+                              else t.size, dt)
+
+    def biv(t, counts):
+        return ucc.BufferInfoV(t, counts, None, dt)
+
+    if coll in ("BARRIER", "FANIN", "FANOUT"):
+        return [ucc.CollArgs(coll_type=CT, root=root, flags=P)
+                for _ in range(n)], [], []
+    if coll in ("ALLREDUCE", "REDUCE"):
+        srcs = [ints(count) for _ in range(n)]
+        dsts = [torch.zeros(count, dtype=tdt)
+                if coll == "ALLREDUCE" or r == root else None
+                for r in range(n)]
+        total = torch.stack(srcs).sum(0, dtype=tdt)
+        return [ucc.CollArgs(coll_type=CT, op=SUM, root=root,
+                             src=bi(srcs[r]),
+                             dst=None if dsts[r] is None else bi(dsts[r]),
+                             flags=P) for r in range(n)], dsts, \
+            [total if d is not None else None for d in dsts]
+    if coll == "BCAST":
+        bufs = [ints(count) if r == root else torch.zeros(count, dtype=tdt)
+                for r in range(n)]
+        want = bufs[root].clone()
+        return [ucc.CollArgs(coll_type=CT, root=root, src=bi(bufs[r]),
+                             flags=P) for r in range(n)], bufs, [want] * n
+    if coll == "REDUCE_SCATTER":
+        srcs = [ints(count) for _ in range(n)]
+        dsts = [torch.zeros(B, dtype=tdt) for _ in range(n)]
+        total = torch.stack(srcs).sum(0, dtype=tdt)
+        return [ucc.CollArgs(coll_type=CT, op=SUM, src=bi(srcs[r]),
+                             dst=bi(dsts[r]), flags=P) for r in range(n)], \
+            dsts, [total[r * B:(r + 1) * B] for r in range(n)]
+    if coll in ("ALLGATHER", "ALLGATHERV", "GATHER"):
+        counts = uneven(count, n) if coll.endswith("V") else [B] * n
+        srcs = [ints(c) for c in counts]
+        receives = [coll != "GATHER" or r == root for r in range(n)]
+        dsts = [torch.zeros(count, dtype=tdt) if rc else None
+                for rc in receives]
+        return [ucc.CollArgs(
+            coll_type=CT, root=root, src=bi(srcs[r]),
+            dst=(biv(dsts[r], counts) if coll.endswith("V") else
+                 None if dsts[r] is None else bi(dsts[r])), flags=P)
+            for r in range(n)], dsts, \
+            [torch.cat(srcs) if rc else None for rc in receives]
+    if coll == "SCATTER":
+        src = ints(count)
+        dsts = [torch.zeros(B, dtype=tdt) for _ in range(n)]
+        return [ucc.CollArgs(coll_type=CT, root=root,
+                             src=bi(src) if r == root else None,
+                             dst=bi(dsts[r]), flags=P)
+                for r in range(n)], dsts, \
+            [src[r * B:(r + 1) * B] for r in range(n)]
+    # ALLTOALL, ALLTOALLV (numpy arrays: the one case of numpy buffers)
+    if coll == "ALLTOALLV":
+        ramp = [c - B for c in uneven(count, n)]
+        m = [[B + ramp[(i + j) % n] for j in range(n)] for i in range(n)]
+    else:
+        m = [[B] * n for _ in range(n)]
+    srcs = [ints(count) for _ in range(n)]
+    sd = [displs_of(m[i]) for i in range(n)]
+    want = [torch.cat([srcs[i][sd[i][p]:sd[i][p] + m[i][p]]
+                       for i in range(n)]) for p in range(n)]
+    if variant == "numpy":
+        srcs = [s.numpy() for s in srcs]
+        dsts = [np.zeros(int(w.numel()), np.float32) for w in want]
+        return [ucc.CollArgs(
+            coll_type=CT, src=biv(srcs[r], m[r]),
+            dst=biv(dsts[r], [m[i][r] for i in range(n)]), flags=P)
+            for r in range(n)], dsts, want
+    dsts = [torch.zeros(count, dtype=tdt) for _ in range(n)]
+    return [ucc.CollArgs(coll_type=CT, src=bi(srcs[r]), dst=bi(dsts[r]),
+                         flags=P) for r in range(n)], dsts, want
+
+
+def host_rounds(ctxs, reqs, what):
+    """HOST_WARMUP + ITERS rounds of persistent host requests; the ITERS
+    rounds' seconds. Finalizes the requests."""
+    def one_round():
+        for rq in reqs:
+            rq.post()
+        until(ctxs, lambda: settled(reqs), what)
+        all_ok(reqs, what)
+
+    for _ in range(HOST_WARMUP):
+        one_round()
+    samples = []
+    for _ in range(ITERS):
+        t0 = time.perf_counter()
+        one_round()
+        samples.append(time.perf_counter() - t0)
+    for rq in reqs:
+        rq.finalize()
+    return samples
+
+
+def host_run(ctxs, teams, coll, root, variant, count, seed, what):
+    """One host run: init, the rounds, every result bitwise its expected
+    one. Returns (alg, samples, dsts as tensors)."""
+    import torch
+    argses, dsts, want = host_case(coll, root, variant, len(teams), count,
+                                   seed)
+    reqs = [t.collective_init(a) for t, a in zip(teams, argses)]
+    algs = {rq.task.alg_name for rq in reqs}
+    if len(algs) != 1:
+        raise AssertionError(f"{what}: ranks selected {algs}")
+    samples = host_rounds(ctxs, reqs, what)
+    got = [None if d is None else
+           (torch.from_numpy(d) if not isinstance(d, torch.Tensor) else d)
+           for d in dsts]
+    for r, (d, w) in enumerate(zip(got, want)):
+        if w is not None and not bits_equal(d, w):
+            raise AssertionError(f"{what} rank {r}: not bitwise its "
+                                 "expected result")
+    return algs.pop(), samples, got
+
+
+def check_ids(teams, what) -> int:
+    """Every member of a team holds one id; returns it."""
+    ids = {t.id for t in teams}
+    if len(ids) != 1 or None in ids:
+        raise AssertionError(f"{what}: members hold ids {sorted(ids)}")
+    return ids.pop()
+
+
+def host_create_ms(ctxs, reps=9) -> float:
+    """Median ms to create an 8-rank team over *ctxs* (then destroyed)."""
+    import ucc_tpu_torch as ucc
+    samples = []
+    for _ in range(reps):
+        tw = ucc.ThreadOobWorld(len(ctxs))
+        t0 = time.perf_counter()
+        teams = [c.create_team_post(ucc.TeamParams(oob=tw.endpoint(r)))
+                 for r, c in enumerate(ctxs)]
+        create(ctxs, teams, "timed team create")
+        samples.append(time.perf_counter() - t0)
+        if teams[0].service_team is not None:
+            check_ids(teams, "timed team create")
+        for t in teams:
+            t.destroy()
+    return median_ms(samples)
+
+
+def main_path_host(smi, counters, kernels) -> dict:
+    """Phase 7: the host transports in one process. Returns every kernel's
+    launches over the phase's runs."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch import native
+    t0 = time.perf_counter()
+    cpu = host_cpu()
+    here = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(here, "ucc_tpu_torch")
+    lib = native.get_lib()
+    if lib is None or os.path.dirname(native._SRC_PATH) != \
+            os.path.join(pkg, "native_src") or \
+            not native.lib_path.startswith(os.path.join(pkg, "build") +
+                                           os.sep):
+        raise AssertionError(f"native core not built from ucc_tpu_torch/"
+                             f"native_src: {native.lib_path}, "
+                             f"{native.build_error()}")
+    log(f"host: native core {native.lib_path} (ABI "
+        f"{int(lib.ucc_abi_version())}), built in {native.build_seconds:.1f}"
+        f" s by this process (0.0: it was on disk) | host CPU {cpu}")
+    total = {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = RING_TUNE
+    try:
+        ctxs, teams = make_job(N_RANKS)
+    finally:
+        os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+    eps = [c.tl_contexts["shm"].obj.transport for c in ctxs]
+    if any(ep.native is None for ep in eps):
+        raise AssertionError("a tl/shm endpoint matches in Python, not "
+                             "natively")
+    sends = sum(ep.n_direct + ep.n_eager + ep.n_rndv for ep in eps)
+
+    # -- every collective type tl/shm serves, 64 Ki and 16 Mi a rank ------
+    p50s, kept = {}, {}
+    zero(counters)
+    for count in (SMALL_COUNT, MAIN_COUNT):
+        for i, (coll, root, variant) in enumerate(HOST_RUNS):
+            if count == SMALL_COUNT and coll in ("BARRIER", "FANIN",
+                                                 "FANOUT"):
+                continue
+            what = f"host {coll}{' ' + variant if variant else ''}"
+            alg, samples, dsts = host_run(ctxs, teams, coll, root, variant,
+                                          count, 70 + i, what)
+            p50s[(coll, variant, count)] = samples
+            if count == MAIN_COUNT and coll in ("ALLREDUCE", "ALLTOALL") \
+                    and not variant:
+                # the native matcher's results, for the Python matcher's
+                kept[coll] = (70 + i, dsts)
+            del dsts
+            size = "no data" if coll in ("BARRIER", "FANIN", "FANOUT") \
+                else f"{count} {'int32' if variant == 'int32' else 'f32'}" \
+                     f"/rank{' (numpy arrays)' if variant == 'numpy' else ''}"
+            rooted = f" from root {root}" if coll in (
+                "BCAST", "REDUCE", "GATHER", "SCATTER", "FANIN",
+                "FANOUT") else ""
+            log(f"host: {coll}{rooted} {size} via shm/{alg}: "
+                f"{p50_line(samples)}, bitwise | host CPU {cpu} | card "
+                f"{smi}")
+    if launched(counters):
+        raise AssertionError(f"host collectives launched {launched(counters)}")
+    sent = sum(ep.n_direct + ep.n_eager + ep.n_rndv for ep in eps) - sends
+    log(f"host: sends {sent} (direct "
+        f"{sum(ep.n_direct for ep in eps)}, eager "
+        f"{sum(ep.n_eager for ep in eps)}, rndv "
+        f"{sum(ep.n_rndv for ep in eps)}), every endpoint native")
+
+    # -- the Python matcher, bitwise the native one ------------------------
+    os.environ["UCC_TL_SHM_NATIVE"] = "n"
+    try:
+        py_ctxs, py_teams = make_job(N_RANKS)
+    finally:
+        os.environ.pop("UCC_TL_SHM_NATIVE")
+    if any(c.tl_contexts["shm"].obj.transport.native is not None
+           for c in py_ctxs):
+        raise AssertionError("UCC_TL_SHM_NATIVE=n left a native endpoint")
+    for coll, (seed, nat) in kept.items():
+        what = f"host {coll} 16 Mi"
+        alg, samples, py = host_run(py_ctxs, py_teams, coll, 0, "",
+                                    MAIN_COUNT, seed, f"{what} python")
+        if not all(bits_equal(a, b) for a, b in zip(nat, py)):
+            raise AssertionError(f"{what}: the Python matcher's result is "
+                                 "not bitwise the native one")
+        log(f"host: {coll} {MAIN_COUNT} f32/rank via shm/{alg} on the "
+            f"Python matcher (UCC_TL_SHM_NATIVE=n): {p50_line(samples)}, "
+            f"bitwise the native matcher's (native: "
+            f"{p50_line(p50s[(coll, '', MAIN_COUNT)])}) | host CPU {cpu} | "
+            f"card {smi}")
+        del nat, py
+    kept.clear()
+    for t in py_teams:
+        t.destroy()
+    for c in py_ctxs:
+        c.destroy()
+
+    # -- one team, two memory types: the HOST allreduce above, then a CUDA
+    # one on the same team --------------------------------------------------
+    host_samples = p50s[("ALLREDUCE", "", MAIN_COUNT)]
+    zero(counters)
+    samples, srcs, dsts, alg = run_main_path(ctxs, teams, "ALLREDUCE",
+                                             MAIN_COUNT, MAIN_COUNT, 0, 91)
+    got = launched(counters)
+    add(got)
+    want = WARMUP + ITERS
+    if alg != "ring_cuda" or got != {"ring_allreduce_chunked": want}:
+        raise AssertionError(f"CUDA allreduce beside host ones: {alg}, "
+                             f"launches {got}")
+    check_main_result("ALLREDUCE", srcs, dsts, kernels[
+        "ring_allreduce_chunked"][1](srcs, ucc.ReductionOp.SUM, 0), 0)
+    log(f"host: one team, two memory types: HOST allreduce 16 Mi via shm "
+        f"({p50_line(host_samples)}), then CUDA allreduce 16 Mi via "
+        f"{alg}: {p50_line(samples)} | ring_allreduce_chunked launches "
+        f"{got['ring_allreduce_chunked']}, bitwise | card {smi}")
+    del srcs, dsts
+    zero(counters)
+    plain_samples, srcs, dsts, alg = run_main_path(
+        ctxs, teams, "BCAST", MAIN_COUNT, MAIN_COUNT, 3, 92)
+    add(launched(counters))
+    del srcs, dsts
+    torch.cuda.empty_cache()
+
+    # -- team ids: the teams of phase 7 and two sub-teams -------------------
+    ids = [check_ids(teams, "the phase's 8-rank team")]
+    lo, hi = split(teams, [0, 1, 2, 3]), split(teams, [4, 5, 6, 7])
+    create(ctxs, lo + hi, "host sub-teams")
+    ids += [check_ids(lo, "sub-team [0..3]"), check_ids(hi, "sub-team [4..7]")]
+    for t in lo + hi:
+        t.destroy()
+    shm_ms = host_create_ms(ctxs)
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+
+    # -- the datatype check --------------------------------------------------
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = RING_TUNE
+    try:
+        chk_ctxs, chk = make_job(N_RANKS, CHECK_ASYMMETRIC_DT="y")
+    finally:
+        os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+    ids.append(check_ids(chk, "the dt-checked team"))
+    zero(counters)
+    samples, srcs, dsts, alg = run_main_path(chk_ctxs, chk, "BCAST",
+                                             MAIN_COUNT, MAIN_COUNT, 3, 92)
+    got = launched(counters)
+    add(got)
+    if alg != "ring_cuda" or got != {"ring_bcast_chunked": want}:
+        raise AssertionError(f"dt-checked bcast: {alg}, launches {got}")
+    check_main_result("BCAST", srcs, dsts, kernels["ring_bcast_chunked"][1](
+        srcs, None, 3), 3)
+    log(f"host: UCC_CHECK_ASYMMETRIC_DT=y, CUDA bcast 16 Mi from root 3 via "
+        f"{alg}: {p50_line(samples)} | without the check "
+        f"{p50_line(plain_samples)} | ring_bcast_chunked launches "
+        f"{got['ring_bcast_chunked']}, bitwise | card {smi}")
+    del srcs, dsts
+    bufs = [torch.zeros(MAIN_COUNT, device="cuda",
+                        dtype=torch.int32 if r == 5 else torch.float32)
+            for r in range(N_RANKS)]
+    reqs = [t.collective_init(ucc.CollArgs(
+        coll_type=ucc.CollType.BCAST, root=3, src=ucc.BufferInfo(
+            b, MAIN_COUNT, ucc.DataType.INT32 if r == 5
+            else ucc.DataType.FLOAT32, mem_type=ucc.MemoryType.CUDA)))
+        for r, (t, b) in enumerate(zip(chk, bufs))]
+    zero(counters)
+    for rq in reqs:
+        rq.post()
+    until(chk_ctxs, lambda: settled(reqs), "asymmetric bcast")
+    sts = [rq.test() for rq in reqs]
+    if any(s != ucc.Status.ERR_INVALID_PARAM for s in sts) or \
+            launched(counters):
+        raise AssertionError(f"asymmetric bcast: {sts}, launches "
+                             f"{launched(counters)}")
+    for rq in reqs:
+        rq.finalize()
+    log(f"host: asymmetric bcast (rank 5 INT32, the others FLOAT32): "
+        f"ERR_INVALID_PARAM on all {N_RANKS} ranks, no launch")
+    del bufs
+    for t in chk:
+        t.destroy()
+    for c in chk_ctxs:
+        c.destroy()
+    torch.cuda.empty_cache()
+
+    # -- team create with and without a tl/shm service team ---------------
+    bare, bare_teams = make_job(N_RANKS, TLS="ring_cuda,torch_ops,self")
+    if bare_teams[0].service_team is not None:
+        raise AssertionError("a team without tl/shm has a service team")
+    for t in bare_teams:
+        t.destroy()
+    bare_ms = host_create_ms(bare)
+    for c in bare:
+        c.destroy()
+    log(f"host: team ids agreed: {ids} (the phase's team, sub-teams "
+        f"[0..3] and [4..7], the dt-checked team) | 8-rank team create "
+        f"median {shm_ms:.3f} ms with its tl/shm service team, "
+        f"{bare_ms:.3f} ms without tl/shm | host CPU {cpu} | card {smi}")
+    log(f"host phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -4851,6 +5301,10 @@ def main() -> int:
     # -- 6. core: EE, sub-teams, runtime fallback, plugins, metrics -------
     core = main_path_core(smi, counters)
 
+    # -- 7. host: tl/shm, the host algorithms, the native core, the service
+    # team behind team ids and the datatype check ---------------------------
+    host = main_path_host(smi, counters, wrappers())
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -4860,6 +5314,7 @@ def main() -> int:
         attention["f32_route"], *wire]
     for rec in kernel_records:
         rec["core_launches"] = core["launches"].get(rec["name"], 0)
+        rec["host_launches"] = host["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

@@ -335,15 +335,20 @@ def test_onesided_host_memory_passes_through(count):
 
 
 def test_onesided_host_memory_reaches_the_score_map():
-    """On a multi-rank team the port has no host TL yet: the request gets
-    past the one-sided gate and the score map finds no candidate."""
+    """On a multi-rank team the request gets past the one-sided gate and
+    the score map selects a tl/shm algorithm, the one the reference
+    selects for the same request (the one-sided rows score 1)."""
+    jjob = UccJob(2)
     job = make_torch_job(n=2)
     try:
-        with pytest.raises(ut.UccError) as err:
-            _host_alltoall(ut, job.teams[0], 4, True)
-        assert "one-sided" not in str(err.value)
+        jteams = jjob.create_team()
+        want = _host_alltoall(ucc_tpu, jteams[0], 4, True)[0]
+        rq = _host_alltoall(ut, job.teams[0], 4, True)[0]
+        assert rq.task.alg_name == want.task.alg_name
+        assert "one-sided" not in rq.task.alg_name
     finally:
         job.cleanup()
+        jjob.cleanup()
 
 
 # ---------------------------------------------------------------------------

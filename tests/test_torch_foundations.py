@@ -261,12 +261,49 @@ def test_port_imports_without_jax():
             "from ucc_tpu_torch.mc import pool; "
             "from ucc_tpu_torch.schedule import pipelined; "
             "from ucc_tpu_torch.utils import mpool, profiling, mathutils; "
+            "from ucc_tpu_torch import native; "
+            "from ucc_tpu_torch.tl import shm; "
+            "from ucc_tpu_torch.tl.host import (transport, task, team, "
+            "config_fields, knomial, knomial2, ring, sra, dbt, allgather, "
+            "alltoall); "
             "base.create_executor(ucc_tpu_torch.MemoryType.CUDA); "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+HOST_MODULES = ["tl/shm.py", "native.py"] + [
+    f"tl/host/{m}.py" for m in ("transport", "task", "config_fields", "team",
+                                "knomial", "knomial2", "ring", "sra", "dbt",
+                                "allgather", "alltoall")]
+
+
+@pytest.mark.parametrize("rel", HOST_MODULES)
+def test_host_modules_stand_alone(rel):
+    """The host transports import neither JAX nor the JAX package, and the
+    native core is the port's own copy: no module reaches the JAX
+    package's native/ directory or its library."""
+    path = PKG / rel
+    for mod in _imports(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "ucc_tpu"), mod
+    text = path.read_text()
+    assert "libucc_tpu_core" not in text and "ucc_tpu_core.cc" not in text
+
+
+def test_the_native_core_builds_from_the_port_only():
+    from ucc_tpu_torch import native
+    assert pathlib.Path(native._SRC_PATH) == \
+        PKG / "native_src" / "ucc_tpu_torch_core.cc"
+    assert pathlib.Path(native._BUILD_DIR) == PKG / "build"
+
+
+def test_the_native_source_ships_with_the_package():
+    assert (PKG / "native_src" / "ucc_tpu_torch_core.cc").is_file()
+    assert "ucc_tpu_torch/native_src/*.cc" in \
+        (REPO / "MANIFEST.in").read_text().replace("include ", "")
+    assert "native_src/*.cc" in (REPO / "pyproject.toml").read_text()
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

@@ -128,7 +128,10 @@ def test_unported_modes_are_refused(flag):
     assert ei.value.code not in (0, None)
 
 
-def test_host_collective_exits_with_the_init_status(capsys):
+def test_host_collective_exits_with_the_init_status(capsys, monkeypatch):
+    """A host collective whose init fails exits with that status: here no
+    host TL is loaded (tl/shm serves -m host by default)."""
+    monkeypatch.setenv("UCC_TLS", "ring_cuda,torch_ops,self")
     with pytest.raises(SystemExit) as ei:
         perf.main(["-c", "allreduce", "-m", "host", "-p", "2", "-b", "64",
                    "-e", "64"])

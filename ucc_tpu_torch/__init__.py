@@ -34,7 +34,16 @@ triggered collectives (``core/ee.py``), sub-teams
 (``Team.create_from_parent`` over ``core/oob.SubsetOob``), the runtime
 fallback, TL coll plugins, metrics (``obs/metrics.py``) and profiling
 (``utils/profiling.py``), pipelined schedules
-(``schedule/pipelined.py``) and the host scratch pool (``mc/pool.py``).
+(``schedule/pipelined.py``) and the host scratch pool (``mc/pool.py``);
+and the host transports of one process: tl/shm, which runs the
+``tl/host`` algorithm suite (knomial, SRA, ring, DBT, the allgather and
+alltoall families; every collective type) on HOST memory (CPU tensors,
+numpy arrays) over in-process mailboxes matched by the port's own copy of
+the native C++ core (``native.py``, built with g++ into
+``ucc_tpu_torch/build/`` on first use), and is the service team of every
+multi-rank team of one process, over which the core agrees team ids and
+runs the datatype check of rooted collectives
+(``UCC_CHECK_ASYMMETRIC_DT=y``).
 
 Attention on the CPU (the kernel's plain version runs on CPU tensors)::
 

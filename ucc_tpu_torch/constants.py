@@ -185,6 +185,17 @@ def dt_numpy(dt: DataType) -> np.dtype:
     return nd
 
 
+_NP_TO_DT = {info[1]: dt for dt, info in _DT_INFO.items()
+             if info[1] is not None}
+
+
+def dt_from_numpy(nd) -> DataType:
+    nd = np.dtype(nd)
+    if nd not in _NP_TO_DT:
+        raise TypeError(f"no predefined DataType for numpy dtype {nd}")
+    return _NP_TO_DT[nd]
+
+
 def dt_torch(dt: DataType) -> torch.dtype:
     """torch dtype for a predefined DataType; raises for 128-bit types."""
     td = _DT_INFO[DataType(dt)][2]

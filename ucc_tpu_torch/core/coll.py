@@ -3,8 +3,9 @@
 Memtype auto-detect via MC, the zero-size fast path with a stub task
 (host memory only), the active-set restriction to bcast, the gate of
 one-sided args, the score-map lookup with fallback at init and, once, at
-run time, timeout stamping, persistent re-post, the user callback, and
-the request's metrics and profiling spans.
+run time, the datatype check of rooted collectives
+(``UCC_CHECK_ASYMMETRIC_DT``), timeout stamping, persistent re-post, the
+user callback, and the request's metrics and profiling spans.
 """
 from __future__ import annotations
 
@@ -12,10 +13,15 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
+
 from ..api.types import BufferInfo, BufferInfoV, CollArgs, coll_args_msgsize
-from ..constants import CollArgsFlags, CollType, MemoryType, coll_type_str
+from ..constants import (CollArgsFlags, CollType, DataType, EventType,
+                         GenericDataType, MemoryType, ReductionOp,
+                         coll_type_str)
 from ..mc.base import detect_mem_type
 from ..obs import metrics
+from ..schedule.schedule import Schedule
 from ..schedule.task import CollTask
 from ..status import Status, UccError
 from ..utils import profiling
@@ -23,6 +29,43 @@ from ..utils.log import get_logger
 from .team import Team
 
 logger = get_logger("coll")
+
+
+class _DtCheckTask(CollTask):
+    """Datatype consistency check of a rooted collective (UCC's
+    ucc_service_coll dt check): a service allreduce(MIN) over [dt, -dt,
+    mem, -mem]; if min(dt) != -min(-dt) some rank passed another datatype
+    (or memory type), and the collective ends ERR_INVALID_PARAM on every
+    rank instead of corrupting data."""
+
+    def __init__(self, team: Team, dt_id: int, mem_id: int):
+        super().__init__(team=team)
+        self.core_team = team
+        self.vec = np.array([dt_id, -dt_id, mem_id, -mem_id], dtype=np.int64)
+        self._svc = None
+
+    def post_fn(self) -> Status:
+        self._svc = self.core_team.service_team.service_allreduce(
+            self.vec, ReductionOp.MIN)
+        self._svc.post()
+        return Status.OK
+
+    def progress_fn(self) -> None:
+        svc = self._svc
+        if svc is None or not svc.is_completed():
+            return
+        self._svc = None
+        svc.finalize()
+        if svc.super_status.is_error:
+            self.status = svc.super_status
+            return
+        r = svc.result
+        if int(r[0]) != -int(r[1]) or int(r[2]) != -int(r[3]):
+            logger.error("asymmetric datatype/memtype detected across team "
+                         "%s ranks", self.core_team.id)
+            self.status = Status.ERR_INVALID_PARAM
+            return
+        self.status = Status.OK
 
 
 @dataclass
@@ -283,13 +326,19 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
         logger.info("coll init: %s/%s msgsize %d -> %s (score %d) team %s",
                     coll_type_str(ct), mem_type.name.lower(), msgsize,
                     chosen.alg_name or chosen.team, chosen.score, team.id)
+    inner = task
+    task = _maybe_wrap_dt_check(task, args, team, mem_type)
+    if task is not inner:
+        task.coll_name = inner.coll_name
+        task.alg_name = inner.alg_name
     _attach_user_opts(task, args)
     if profiling.ENABLED:
         _attach_profiling(task, ct)
     req = CollRequest(task, team, args)
-    if not args.is_persistent:
+    if task is inner and not args.is_persistent:
         # keep the chain's tail for the runtime fallback; a persistent
-        # request's re-post lanes cache the task's identity
+        # request's re-post lanes cache the task's identity, and a
+        # dt-checked schedule's failure status is the schedule's
         try:
             rest = candidates[candidates.index(chosen) + 1:]
         except ValueError:
@@ -297,6 +346,36 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
         if rest:
             req._fallback = (init_args, rest)
     return req
+
+
+def _maybe_wrap_dt_check(task: CollTask, args: CollArgs, team: Team,
+                         mem_type: MemoryType) -> CollTask:
+    """Under UCC_CHECK_ASYMMETRIC_DT, a rooted collective (gather(v),
+    scatter(v), bcast, reduce) of a multi-rank team with a service team
+    becomes a schedule: the datatype check, then the collective. Active
+    sets are excluded (only the subset posts, the check is team-wide), as
+    are generic datatypes and zero-size calls (the stub path)."""
+    checked = (CollType.GATHER | CollType.GATHERV | CollType.SCATTER
+               | CollType.SCATTERV | CollType.BCAST | CollType.REDUCE)
+    if not (args.coll_type & checked) or team.size <= 1 or \
+            args.active_set is not None:
+        return task
+    if not team.context.lib.config.check_asymmetric_dt:
+        return task
+    if team.service_team is None or \
+            not hasattr(team.service_team, "service_allreduce"):
+        return task
+    bi = args.src if args.src is not None else args.dst
+    if bi is None or isinstance(bi.datatype, GenericDataType):
+        return task
+    sched = Schedule(team=team, args=args)
+    chk = _DtCheckTask(team, int(DataType(bi.datatype)) + 1,
+                       int(mem_type) + 1)
+    sched.add_task(chk)
+    sched.add_dep_on_schedule_start(chk)
+    sched.add_task(task)
+    task.subscribe_dep(chk, EventType.EVENT_COMPLETED)
+    return sched
 
 
 def _attach_profiling(task: CollTask, ct: CollType) -> None:

@@ -32,6 +32,11 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
                 "selected CL/TL", parse_bool),
     ConfigField("TEAM_IDS_POOL_SIZE", "32", "team id pool size per context",
                 parse_uint),
+    ConfigField("CHECK_ASYMMETRIC_DT", "n", "validate datatype and memory "
+                "type consistency of rooted collectives (gather(v), "
+                "scatter(v), bcast, reduce) with a service allreduce before "
+                "the collective; needs a multi-rank service team (tl/shm). "
+                "Off by default, as in UCC", parse_bool),
     # read from the environment by schedule/progress.py and core/team.py;
     # listed here so config dumps document them
     ConfigField("TEAM_PRIORITY", "1", "default QoS priority class for teams "

@@ -8,11 +8,12 @@ Creation is UCC's nonblocking state machine (ucc_team_create_test):
 - ADDR_EXCHANGE: per-team OOB allgather of context ranks -> ``ctx_map``,
   plus a process-unique team key (leader's context counter).
 - SERVICE_TEAM: internal TL team providing service collectives for the
-  core. The only service-capable TL of this package is tl/self, so a
-  1-rank team has one and a larger team none.
-- ALLOC_ID: a 1-rank team, and a team with no service team, takes its
-  context's counter, which ordered team creation keeps identical across
-  members.
+  core: tl/self for a 1-rank team, tl/shm for a larger team whose ranks
+  share a process, none when no loaded TL accepts the team.
+- ALLOC_ID: a nonblocking service allreduce(MAX) over every member's
+  proposal (its context's counter), so all members agree on a fresh id
+  and move their counters past it. A 1-rank team, and a team with no
+  service team, takes its context's counter.
 - CL_CREATE: create each CL's team; failures fall back to remaining CLs.
 - CL_AGREE: one OOB round keeps only the CLs that exist on every member.
 - TUNER_SYNC: no tuner in this package; the state passes straight through.
@@ -25,7 +26,10 @@ import os
 import pickle
 from typing import Any, List, Optional
 
+import numpy as np
+
 from ..api.types import OobRequest, TeamAttr, TeamParams
+from ..constants import ReductionOp
 from ..score.score import CollScore
 from ..score.score_map import ScoreMap
 from ..status import Status, UccError
@@ -91,6 +95,7 @@ class Team:
         self.score_map: Optional[ScoreMap] = None
         self.seq_num = 0            # per-team collective tag counter
         self._pending_req: Optional[OobRequest] = None
+        self._pending_task = None
         self._cl_iter: Optional[List] = None
         self._cl_current = None
         self._failed_status = Status.OK
@@ -162,7 +167,9 @@ class Team:
             self.state = TeamState.ALLOC_ID
 
         if self.state == TeamState.ALLOC_ID:
-            self._alloc_id_step()
+            st = self._alloc_id_step()
+            if st == Status.IN_PROGRESS:
+                return st
             self.state = TeamState.CL_CREATE
 
         if self.state == TeamState.CL_CREATE:
@@ -209,15 +216,31 @@ class Team:
                 continue
         return None
 
-    def _alloc_id_step(self) -> None:
+    def _alloc_id_step(self) -> Status:
         if self.id is not None:
-            return
-        if self.size > 1 and self.service_team is not None:
-            raise UccError(Status.ERR_NOT_IMPLEMENTED,
-                           "team id agreement over a service team is not "
-                           "ported yet")
-        self.id = self.context._team_id_counter
-        self.context._team_id_counter += 1
+            return Status.OK
+        if self.size == 1 or self.service_team is None or \
+                not hasattr(self.service_team, "service_allreduce"):
+            self.id = self.context._team_id_counter
+            self.context._team_id_counter += 1
+            return Status.OK
+        if self._pending_task is None:
+            proposal = np.array([self.context._team_id_counter],
+                                dtype=np.int64)
+            self._pending_task = self.service_team.service_allreduce(
+                proposal, ReductionOp.MAX)
+            self._pending_task.post()
+        task = self._pending_task
+        if not task.is_completed():
+            return Status.IN_PROGRESS
+        self._pending_task = None
+        task.finalize()     # the service task's scratch goes back to the pool
+        if task.super_status.is_error:
+            raise UccError(task.super_status, "team id allreduce failed")
+        new_id = int(task.result[0])
+        self.id = new_id
+        self.context._team_id_counter = new_id + 1
+        return Status.OK
 
     def _cl_create_step(self) -> Status:
         if self._cl_iter is None:
@@ -292,6 +315,29 @@ class Team:
         return TeamAttr(size=self.size, ep=self.rank,
                         coll_types=self.context.lib.attr.coll_types)
 
+    def _tl_tag_spaces(self):
+        """(team_key, transport) pairs of every host TL team of this team:
+        the service team and the CL teams' TL teams (an epoch fence must
+        cover them all; perftest names the transport tier from them)."""
+        spaces = []
+
+        def visit(t):
+            if t is None:
+                return
+            tk = getattr(t, "team_key", None)
+            tr = getattr(t, "transport", None)
+            if tk is not None and tr is not None and hasattr(tr, "fence"):
+                spaces.append((tk, tr))
+            for sub in getattr(t, "tl_teams", ()) or ():
+                visit(sub)
+            for sub in getattr(t, "_pending", ()) or ():
+                visit(sub)
+
+        visit(self.service_team)
+        for cl in self.cl_teams:
+            visit(cl)
+        return spaces
+
     def next_tag(self) -> int:
         self.seq_num += 1
         return self.seq_num
@@ -340,6 +386,9 @@ class Team:
         if self._destroyed:
             return Status.OK
         self._destroyed = True
+        task, self._pending_task = self._pending_task, None
+        if task is not None and not task.is_completed():
+            task.cancel()
         cur, self._cl_current = self._cl_current, None
         teams = ([cur] if cur is not None else []) + list(self.cl_teams)
         self.cl_teams = []

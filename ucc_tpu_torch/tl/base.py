@@ -48,6 +48,54 @@ def binfo_u8(bi) -> torch.Tensor:
     return flat[:nbytes]
 
 
+def _host_u8(buf) -> np.ndarray:
+    """Flat uint8 numpy view of a host buffer (``mc/cpu._as_u8``) that a
+    collective may write through: a contiguous CPU tensor or numpy array,
+    or a bytes-like object."""
+    from ..mc.cpu import _as_u8
+    if isinstance(buf, torch.Tensor):
+        if buf.device.type != "cpu":
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           f"host collectives need CPU tensors, got a "
+                           f"tensor on {buf.device}")
+        buf = buf.detach()
+    contiguous = buf.is_contiguous() if isinstance(buf, torch.Tensor) \
+        else not isinstance(buf, np.ndarray) or buf.flags.c_contiguous
+    if not contiguous:
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       "collective buffers must be contiguous")
+    return _as_u8(buf)
+
+
+def binfo_typed(bi, count: Optional[int] = None,
+                elem_offset: int = 0) -> np.ndarray:
+    """Typed 1-D numpy view (zero-copy) of `count` elements of a host
+    buffer from `elem_offset` (default: all of ``count``, or
+    ``sum(counts)`` of a BufferInfoV). bfloat16 is its uint16 bit
+    pattern (``ec/cpu.storage_dtype``); a generic datatype is raw bytes
+    of count * size."""
+    from ..constants import GenericDataType
+    from ..ec.cpu import storage_dtype
+    if count is None:
+        count = int(bi.count) if not isinstance(bi, BufferInfoV) else \
+            sum(int(c) for c in (bi.counts or []))
+    flat = _host_u8(bi.buffer)
+    if isinstance(bi.datatype, GenericDataType):
+        esz = bi.datatype.size
+        return flat[elem_offset * esz:(elem_offset + count) * esz]
+    return flat.view(storage_dtype(bi.datatype))[elem_offset:
+                                                 elem_offset + count]
+
+
+def binfo_v_block(bi: BufferInfoV, block: int) -> np.ndarray:
+    """Typed view of rank `block`'s section of a vector host buffer."""
+    counts = bi.counts or []
+    displs = bi.displacements
+    if displs is None:
+        displs = np.cumsum([0] + [int(c) for c in counts[:-1]])
+    return binfo_typed(bi, int(counts[block]), int(displs[block]))
+
+
 @dataclass
 class AlgSpec:
     """One algorithm of a coll within a TL."""

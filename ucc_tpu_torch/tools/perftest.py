@@ -17,9 +17,11 @@ Two benchmark paths:
   one). On ``-m cuda``, the default, every rank's buffers go on the
   device that ``UCC_TL_RING_CUDA_DEVICE`` names for every device TL
   (default ``cuda``, which raises without a GPU; ``cpu`` runs on the CPU),
-  and the ranks of a team share that one card. ``-m host`` has no TL in
-  the port yet, so collective_init fails and the run exits non-zero with
-  its status;
+  and the ranks of a team share that one card. On ``-m host`` the
+  buffers are CPU tensors and tl/shm serves every collective (its
+  ``tl/host`` algorithms over the in-process transport, the native
+  matcher when it builds); ``detail.transport`` is then ``shm-thread``,
+  the JAX perftest's name of that tier;
 - executor ops (``-c memcpy|reducedt|reducedt_strided``, UCC's
   ucc_pt_op_{memcpy,reduce,reduce_strided}): the execution component's
   copy/reduce tasks timed directly, no team; ``--nbufs`` sources (caps 7
@@ -265,10 +267,26 @@ def run_op_bench(args) -> int:
     return 0
 
 
-#: detail.transport of a collective record. The JAX perftest names the
-#: host transport tier serving the team; the port's teams run on its
-#: device TLs alone and have no host transport to name.
+#: detail.transport of a collective record on device memory: its data
+#: moves through a device TL, not a host transport, so there is no host
+#: tier to name
 TRANSPORT = "unknown"
+
+
+def transport_tier(team) -> str:
+    """The host transport tier serving a team's host tag spaces, as the
+    JAX perftest names it: ``socket`` or ``shm-thread`` (in-process
+    mailboxes). The port's only host transport is the in-process one;
+    "unknown" when the team has no host tag space."""
+    try:
+        spaces = team._tl_tag_spaces()
+    except Exception:  # noqa: BLE001 - classification must not kill a run
+        return "unknown"
+    if not spaces:
+        return "unknown"
+    if any("Socket" in type(tr).__name__ for _key, tr in spaces):
+        return "socket"
+    return "shm-thread"
 
 
 class InProcJob:
@@ -354,6 +372,8 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
     op = OPS[args.op]
     esz = dt_size(dt)
     n = job.n
+    transport = transport_tier(job.teams[0]) if mem == MemoryType.HOST \
+        else TRANSPORT
     if not args.json:
         hdr = f"{'count':>12} {'size':>10} {'time avg(us)':>14} " \
               f"{'min(us)':>10} {'max(us)':>10} {'p50(us)':>10} " \
@@ -362,7 +382,7 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
             hdr += f" {'bus bw(GB/s)':>14}"
         print(f"# ucc_perftest: {args.coll} {args.dtype} {args.op} "
               f"mem={args.mem} ranks={n} "
-              f"transport={TRANSPORT}")
+              f"transport={transport}")
         print(hdr)
 
     def argses(persistent):
@@ -418,7 +438,7 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
                    **{k: round(v, 3) for k, v in st.items()}}
             if args.full:
                 rec["busbw_GBps"] = round(bw, 3)
-            rec["detail"] = {"transport": TRANSPORT}
+            rec["detail"] = {"transport": transport}
             print(json.dumps(rec), flush=True)
         else:
             line = f"{count:>12} {memunits_str(size):>10} " \

@@ -58,6 +58,13 @@ def parse_uint(s: str) -> int:
     return n
 
 
+def parse_uint_auto(s: str) -> int:
+    """Unsigned int or 'auto' -> SIZE_AUTO (the per-use-site default)."""
+    if s.strip().lower() == "auto":
+        return SIZE_AUTO
+    return parse_uint(s)
+
+
 def parse_double(s: str) -> float:
     return float(s.strip())
 
@@ -94,6 +101,53 @@ def memunits_str(n: int) -> str:
         if n >= mul and n % mul == 0:
             return f"{n // mul}{suf}"
     return str(n)
+
+
+@dataclass
+class MRangeUint:
+    """Per-message-size-range unsigned knob (ucc_mrange_uint_t): the syntax
+    ``0-4k:4,4k-inf:8``, with an optional memory-type qualifier
+    ``host:0-4k:4``; ``auto`` picks the algorithm's default."""
+
+    ranges: List[Tuple[int, int, Optional[str], int]] = field(
+        default_factory=list)
+    # each entry: (start, end, memtype-or-None, value)
+    default: int = SIZE_AUTO
+
+    def get(self, msgsize: int, mem_type: Optional[str] = None) -> int:
+        for start, end, mt, val in self.ranges:
+            if start <= msgsize <= end and (mt is None or mt == mem_type):
+                return val
+        return self.default
+
+
+def parse_mrange_uint(s: str) -> MRangeUint:
+    out = MRangeUint()
+    s = s.strip()
+    if not s:
+        return out
+    for tok in s.split(","):
+        parts = tok.strip().split(":")
+        if len(parts) == 1:
+            out.default = SIZE_AUTO if parts[0].lower() == "auto" \
+                else parse_uint(parts[0])
+            continue
+        mt = None
+        if len(parts) == 3:
+            mt, rng, val = parts
+            mt = mt.strip().lower()
+        elif len(parts) == 2:
+            rng, val = parts
+        else:
+            raise ValueError(f"invalid mrange token '{tok}'")
+        if "-" not in rng:
+            raise ValueError(f"invalid range '{rng}' in '{tok}'")
+        lo, hi = rng.split("-", 1)
+        start = parse_memunits(lo)
+        end = parse_memunits(hi)
+        v = SIZE_AUTO if val.strip().lower() == "auto" else parse_uint(val)
+        out.ranges.append((start, end, mt, v))
+    return out
 
 
 def parse_list(s: str) -> List[str]:

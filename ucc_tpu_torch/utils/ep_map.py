@@ -134,3 +134,24 @@ class EpMap:
         if self.ep_num != other.ep_num:
             return False
         return all(self.eval(i) == other.eval(i) for i in range(self.ep_num))
+
+
+@dataclass
+class Subset:
+    """ucc_subset_t: an ep_map plus my local rank in it (the group ranks a
+    host algorithm speaks: a team, an active set)."""
+
+    map: EpMap
+    myrank: int
+
+    @property
+    def size(self) -> int:
+        return self.map.ep_num
+
+    def rank_to_parent(self, r: int) -> int:
+        return self.map.eval(r)
+
+
+def active_set_map(start: int, stride: int, size: int) -> EpMap:
+    """Active-set subset: start/stride/size over team ranks."""
+    return EpMap.strided(start, stride, size)
