@@ -282,14 +282,43 @@ Phases, each printing its own lines (any failure exits non-zero):
      ERR_INVALID_PARAM and ring_bcast_chunked is not launched;
    - the median ms of an 8-rank team create, with its tl/shm service team
      and on contexts without tl/shm.
+8. procs, host teams across processes: 4 worker processes of this script
+   (``--procs-child``; one rank each, contexts and teams over TcpStoreOob
+   on held loopback ports), after the kernels and the native core are
+   built:
+   - the ipc tier (default TLS): tier ``ipc`` and service team tl/ipc on
+     every worker, one id per team across them; allreduce,
+     reduce_scatter, allgather, bcast and reduce (root 3), alltoall,
+     alltoallv (numpy), barrier and an int32 allreduce at 64 Ki and 1 Mi
+     f32 a rank (below the arena's 8 MiB message), integer-valued, each
+     bitwise its expected value, the algorithm and the slowest rank's
+     p50 of 20 persistent rounds printed beside the host CPU; the
+     one-sided algorithms (alltoall and alltoallv ``onesided``,
+     allreduce ``sliding_window``, pinned by TUNE, with handles
+     exchanged through the team's store and without) end
+     ERR_NOT_SUPPORTED on every worker (the arena serves one-sided ops
+     within one process, as in the JAX package); a CUDA allreduce of 16
+     Mi f32 is refused at init on every worker, with no launch;
+   - the socket tier (UCC_TLS=socket,self): the same runs, bitwise, tier
+     ``socket``; the one-sided runs OK and bitwise; a team over a
+     TcpTreeOob (ppn 2, radix 2);
+   - the one-sided algorithms on the ipc tier within one process (4
+     ranks, UCC_TL_IPC_ENABLE=y), bitwise;
+   - B2 (allreduce) and B9 (alltoall) at 16 Mi f32 pinned to ring_cuda on
+     an 8-rank team built over TcpStoreOob in this process: 25 launches
+     each, bitwise, p50 beside phase 3's; team create over the store
+     against ThreadOob;
+   - perftest ``--procs 4 -m host``: allreduce (tier ``ipc``, and
+     ``socket`` under UCC_TLS=socket,self) and ``-O -c alltoall``;
+   - no ``ucc-torch-ipc-*`` segment is left in /dev/shm, no worker alive.
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
 the int8/fp8 wire fold and the layer kernel on the same plans among
 them, with launches 0: the main path runs none of them; the f32 route's
 launches are the GQA train step's, and every record carries its launches
-over phase 5 as training_launches, over phase 6 as core_launches and over
-phase 7 as host_launches) and
+over phase 5 as training_launches, over phase 6 as core_launches, over
+phase 7 as host_launches and over phase 8 as procs_launches) and
 {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -5138,6 +5167,502 @@ def main_path_host(smi, counters, kernels) -> dict:
     return {"launches": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: host teams across processes
+# ---------------------------------------------------------------------------
+
+#: phase 8's workers, one rank each
+PROCS_N = 4
+#: f32 a rank of phase 8's host runs: both below the arena's largest
+#: message (8 MiB)
+PROCS_COUNTS = (64 << 10, 1 << 20)
+PROCS_RUNS = (
+    ("ALLREDUCE", 0, ""), ("REDUCE_SCATTER", 0, ""), ("ALLGATHER", 0, ""),
+    ("BCAST", 3, ""), ("REDUCE", 3, ""), ("ALLTOALL", 0, ""),
+    ("ALLTOALLV", 0, "numpy"), ("BARRIER", 0, ""), ("ALLREDUCE", 0, "int32"),
+)
+#: the one-sided algorithms, pinned by TUNE, at this count a rank
+ONESIDED_RUNS = (("ALLTOALL", "alltoall:@onesided"),
+                 ("ALLTOALLV", "alltoallv:@onesided"),
+                 ("ALLREDUCE", "allreduce:@sliding_window"))
+ONESIDED_COUNT = 64 << 10
+#: the team over a TcpTreeOob: ranks per node and radix
+TREE_PPN, TREE_RADIX = 2, 2
+#: where the workers put their arenas
+ARENA_GLOB = "ucc-torch-ipc-"
+
+
+def procs_onesided(ucc, team, team_oob, rank, n, coll, memh, seed):
+    """One one-sided run on this rank: (status, algorithm, bitwise)."""
+    import numpy as np
+    import torch
+    argses, dsts, want = host_case(coll, 0, "numpy" if coll == "ALLTOALLV"
+                                   else "", n, ONESIDED_COUNT, seed)
+    args = argses[rank]
+    args.flags = ucc.CollArgsFlags(0)
+    ctx = team.context
+    handles = []
+    if memh:
+        # the handles travel through the team's OOB (the TCP store)
+        sides = ("src", "dst") if coll == "ALLREDUCE" else ("dst",)
+        for side in sides:
+            h = ctx.mem_map(getattr(args, side).buffer)
+            handles.append(h)
+            req = team_oob.allgather(h)
+            setattr(args, f"{side}_memh", list(req.wait()))
+            args.flags |= (ucc.CollArgsFlags.MEM_MAP_SRC_MEMH if side == "src"
+                           else ucc.CollArgsFlags.MEM_MAP_DST_MEMH)
+        if coll == "ALLTOALLV":
+            # the one-sided alltoallv's dst displacements name where this
+            # rank's block lands in each peer's dst
+            m = [a.src.counts for a in argses]
+            args.dst.displacements = [sum(m[q][p] for q in range(rank))
+                                      for p in range(n)]
+    req = team.collective_init(args)
+    req.post()
+    st = req.wait(timeout=60)
+    alg = req.task.alg_name
+    req.finalize()
+    for h in handles:
+        ctx.mem_unmap(h)
+    ok = None
+    if st == ucc.Status.OK:
+        d = dsts[rank]
+        d = torch.from_numpy(d) if not isinstance(d, torch.Tensor) else d
+        ok = bits_equal(d, want[rank])
+    return st.name, alg, ok
+
+
+def procs_child(spec_json: str) -> int:
+    """One rank of a phase-8 job, in a process of its own: a context over
+    a TcpStoreOob, a team over another; the host runs (20 persistent
+    rounds each, every result bitwise its expected one), the one-sided
+    runs pinned through the spec's TUNE variable, with handles exchanged
+    through the team's store and without; optionally a CUDA allreduce
+    (refused at init: no device TL takes a team across processes) and a
+    team over a TcpTreeOob. Its last line is one JSON object."""
+    import torch
+    spec = json.loads(spec_json)
+    os.environ.update(spec["env"])
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.tools.perftest import transport_tier
+    rank, n, ports = spec["rank"], spec["n"], spec["ports"]
+    t0 = time.perf_counter()
+    ctx_oob = ucc.TcpStoreOob(rank, n, port=ports[0])
+    ctx = ucc.Context(ucc.init(), ucc.ContextParams(oob=ctx_oob))
+    team_oob = ucc.TcpStoreOob(rank, n, port=ports[1])
+
+    def new_team(tune=None, oob=team_oob):
+        var = spec["tune_var"]
+        if tune:
+            os.environ[var] = tune
+        try:
+            return ctx.create_team(ucc.TeamParams(oob=oob))
+        finally:
+            os.environ.pop(var, None)
+
+    team = new_team()
+    out = {"rank": rank, "pid": os.getpid(), "tier": transport_tier(team),
+           "svc": team.service_team.TL_CLS.NAME, "ids": [team.id],
+           "setup_s": time.perf_counter() - t0, "runs": [], "onesided": []}
+    for count in PROCS_COUNTS:
+        for i, (coll, root, variant) in enumerate(PROCS_RUNS):
+            if coll == "BARRIER" and count != PROCS_COUNTS[0]:
+                continue
+            argses, dsts, want = host_case(coll, root, variant, n, count,
+                                           80 + i)
+            req = team.collective_init(argses[rank])
+            alg = req.task.alg_name
+            samples = host_rounds([ctx], [req], f"procs {coll}")
+            ok = True
+            if want and want[rank] is not None:
+                d = dsts[rank]
+                d = torch.from_numpy(d) if not isinstance(d, torch.Tensor) \
+                    else d
+                ok = bits_equal(d, want[rank])
+            out["runs"].append({"coll": coll, "root": root,
+                                "variant": variant, "count": count,
+                                "alg": alg, "ok": ok,
+                                "p50": sorted(samples)[len(samples) // 2]})
+            del argses, dsts, want
+    for i, (coll, tune) in enumerate(ONESIDED_RUNS):
+        for memh in (True, False):
+            t = new_team(tune)
+            out["ids"].append(t.id)
+            st, alg, ok = procs_onesided(ucc, t, team_oob, rank, n, coll,
+                                         memh, 90 + i)
+            out["onesided"].append({"coll": coll, "memh": memh,
+                                    "status": st, "alg": alg, "ok": ok})
+            t.destroy()
+    if spec.get("cuda"):
+        kernels = wrappers()
+        x = torch.ones(MAIN_COUNT, device="cuda")
+        y = torch.empty_like(x)
+        f32 = ucc.DataType.FLOAT32
+        try:
+            team.collective_init(ucc.CollArgs(
+                coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+                src=ucc.BufferInfo(x, MAIN_COUNT, f32,
+                                   mem_type=ucc.MemoryType.CUDA),
+                dst=ucc.BufferInfo(y, MAIN_COUNT, f32,
+                                   mem_type=ucc.MemoryType.CUDA)))
+            out["cuda"] = "OK"
+        except ucc.UccError as e:
+            out["cuda"] = e.status.name
+        torch.cuda.synchronize()
+        out["cuda_launches"] = sum(w.launches for w, _ in kernels.values())
+        del x, y
+    if spec.get("tree"):
+        tree = ucc.TcpTreeOob(rank, n, base_port=spec["tree"],
+                              ppn=TREE_PPN, radix=TREE_RADIX, key="tree")
+        t = ctx.create_team(ucc.TeamParams(oob=tree))
+        argses, dsts, want = host_case("ALLREDUCE", 0, "", n,
+                                       PROCS_COUNTS[0], 99)
+        req = t.collective_init(argses[rank])
+        samples = host_rounds([ctx], [req], "tree team allreduce")
+        out["tree"] = {"levels": tree.stats["levels"],
+                       "max_fanin": tree.stats["max_fanin"],
+                       "ok": bits_equal(dsts[rank], want[rank]),
+                       "id": t.id,
+                       "p50": sorted(samples)[len(samples) // 2]}
+        t.destroy()
+        tree.close()
+    team.destroy()
+    ctx.destroy()
+    team_oob.close()
+    ctx_oob.close()
+    out["jax"] = sys.modules.get("jax") is not None
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def procs_job(env, cuda=False, tree=False, timeout=240):
+    """PROCS_N processes of procs_child (this script with --procs-child),
+    joined by TCP stores on held ports; every process's result. No worker
+    outlives the call."""
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.tools.perftest import HeldPorts
+    held = HeldPorts(2)
+    block = HeldPorts(ucc.TcpTreeOob.ports_needed(
+        PROCS_N, TREE_PPN, TREE_RADIX), contiguous=True) if tree else None
+    procs = []
+    try:
+        for r in range(PROCS_N):
+            spec = {"rank": r, "n": PROCS_N, "ports": held.ports,
+                    "env": env, "cuda": cuda,
+                    "tree": block.ports[0] if block else None,
+                    "tune_var": "UCC_TL_SOCKET_TUNE"
+                    if env.get("UCC_TLS", "").startswith("socket")
+                    else "UCC_TL_IPC_TUNE"}
+            # one intra-op thread a worker, as perftest --procs (and
+            # torchrun) give several processes of one host
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--procs-child",
+                 json.dumps(spec)], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                env={**os.environ, "OMP_NUM_THREADS":
+                     os.environ.get("OMP_NUM_THREADS", "1")}))
+        outs = []
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            so, se = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                raise RuntimeError(f"phase 8 worker failed "
+                                   f"({p.returncode}): {se[-4000:]}")
+            outs.append(json.loads(so.strip().splitlines()[-1]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        held.release()
+        if block is not None:
+            block.release()
+
+
+def check_procs(outs, what, tier, svc):
+    """Every worker: its tier and service TL, no JAX, every host run
+    bitwise; one team id per team across the workers; the runs' lines."""
+    for o in outs:
+        if o["jax"]:
+            raise AssertionError(f"{what}: worker {o['rank']} loaded JAX")
+        if (o["tier"], o["svc"]) != (tier, svc):
+            raise AssertionError(f"{what}: worker {o['rank']} on tier "
+                                 f"{o['tier']}, service TL {o['svc']}")
+        bad = [r for r in o["runs"] if not r["ok"]]
+        if bad:
+            raise AssertionError(f"{what}: worker {o['rank']}: {bad[0]} not "
+                                 "bitwise its expected result")
+    ids = {tuple(o["ids"]) for o in outs}
+    if len(ids) != 1:
+        raise AssertionError(f"{what}: the workers' team ids differ: {ids}")
+    if len({o["pid"] for o in outs}) != PROCS_N:
+        raise AssertionError(f"{what}: workers share a process")
+    return ids.pop()
+
+
+def log_procs_runs(outs, what, cpu, smi):
+    for i, run in enumerate(outs[0]["runs"]):
+        algs = {o["runs"][i]["alg"] for o in outs}
+        p50 = max(o["runs"][i]["p50"] for o in outs)
+        size = "no data" if run["coll"] == "BARRIER" else \
+            f"{run['count']} {'int32' if run['variant'] == 'int32' else 'f32'}" \
+            f"/rank{' (numpy arrays)' if run['variant'] == 'numpy' else ''}"
+        rooted = f" from root {run['root']}" if run["coll"] in (
+            "BCAST", "REDUCE") else ""
+        log(f"procs: {what} {run['coll']}{rooted} {size} via "
+            f"{outs[0]['tier']}/{'/'.join(sorted(algs))}: p50 "
+            f"{p50 * 1e3:.3f} ms (the slowest rank's) over {ITERS} rounds, "
+            f"bitwise | {PROCS_N} processes | host CPU {cpu} | card {smi}")
+
+
+def perftest_procs(args, env) -> list:
+    """python -m ucc_tpu_torch.tools.perftest --procs PROCS_N *args; its
+    JSON records (the command must exit 0)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    penv = {**os.environ, **env}
+    res = subprocess.run(
+        [sys.executable, "-m", "ucc_tpu_torch.tools.perftest", "--procs",
+         str(PROCS_N), "-m", "host", "--json", *args], cwd=here, env=penv,
+        capture_output=True, text=True, timeout=240)
+    if res.returncode != 0:
+        raise AssertionError(f"perftest --procs {args} exited "
+                             f"{res.returncode}: {res.stderr[-4000:]}")
+    return [json.loads(x) for x in res.stdout.splitlines()
+            if x.startswith("{")]
+
+
+def make_store_job(n, ports):
+    """n contexts in this process, one a thread, over a TcpStoreOob (its
+    server in rank 0's), and a team over a second store."""
+    import ucc_tpu_torch as ucc
+    oobs = [None] * n
+    ctxs = [None] * n
+    errs = []
+
+    def make(r):
+        try:
+            oobs[r] = ucc.TcpStoreOob(r, n, port=ports[0])
+            ctxs[r] = ucc.Context(ucc.init(), ucc.ContextParams(oob=oobs[r]))
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=make, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if errs:
+        raise errs[0]
+    team_oobs = [None] * n
+    threads = [threading.Thread(target=lambda r: team_oobs.__setitem__(
+        r, ucc.TcpStoreOob(r, n, port=ports[1])), args=(r,))
+        for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    return ctxs, oobs, team_oobs
+
+
+def store_teams(ctxs, team_oobs, what):
+    import ucc_tpu_torch as ucc
+    teams = [c.create_team_post(ucc.TeamParams(oob=o))
+             for c, o in zip(ctxs, team_oobs)]
+    create(ctxs, teams, what)
+    check_ids(teams, what)
+    return teams
+
+
+def main_path_procs(smi, counters, kernels, ring_p50) -> dict:
+    """Phase 8: host teams across processes. Returns every kernel's
+    launches over the phase's runs."""
+    import numpy as np
+    import torch
+    import ucc_tpu_torch as ucc
+    t0 = time.perf_counter()
+    cpu = host_cpu()
+    before = sorted(f for f in os.listdir("/dev/shm")
+                    if f.startswith(ARENA_GLOB))
+
+    # -- the ipc tier, default TLS: host runs, one-sided, CUDA memory ----
+    t1 = time.perf_counter()
+    outs = procs_job({}, cuda=True)
+    ids = check_procs(outs, "ipc", "ipc", "ipc")
+    log(f"procs: ipc tier, default TLS, {PROCS_N} processes over "
+        f"TcpStoreOob: service team tl/{outs[0]['svc']}, team ids {ids} on "
+        f"every worker, setup {max(o['setup_s'] for o in outs):.1f} s, the "
+        f"job {time.perf_counter() - t1:.1f} s")
+    log_procs_runs(outs, "ipc", cpu, smi)
+    for o in outs:
+        if o["cuda"] != "ERR_NOT_SUPPORTED" or o["cuda_launches"]:
+            raise AssertionError(f"CUDA allreduce across processes on worker "
+                                 f"{o['rank']}: {o['cuda']}, launches "
+                                 f"{o['cuda_launches']}")
+        for run in o["onesided"]:
+            # the arena serves one-sided ops between ranks of one process
+            # only, as in the JAX package
+            if run["status"] != "ERR_NOT_SUPPORTED":
+                raise AssertionError(f"ipc one-sided {run} on worker "
+                                     f"{o['rank']}")
+    log(f"procs: CUDA allreduce {MAIN_COUNT} f32 on the team across "
+        f"processes: collective_init ERR_NOT_SUPPORTED on all {PROCS_N} "
+        f"workers, no kernel launched, every worker exited 0")
+    log(f"procs: ipc one-sided ({', '.join(t for _, t in ONESIDED_RUNS)}; "
+        f"handles through the store and the bootstrap path): "
+        f"ERR_NOT_SUPPORTED on all {PROCS_N} workers, no hang (the arena "
+        f"serves one-sided ops within one process)")
+
+    # -- the socket tier: host runs, one-sided, a team over a tree OOB ---
+    t1 = time.perf_counter()
+    outs = procs_job({"UCC_TLS": "socket,self"}, tree=True)
+    ids = check_procs(outs, "socket", "socket", "socket")
+    log(f"procs: socket tier (UCC_TLS=socket,self), {PROCS_N} processes: "
+        f"service team tl/{outs[0]['svc']}, team ids {ids}, the job "
+        f"{time.perf_counter() - t1:.1f} s")
+    log_procs_runs(outs, "socket", cpu, smi)
+    for o in outs:
+        bad = [r for r in o["onesided"]
+               if r["status"] != "OK" or not r["ok"]]
+        if bad:
+            raise AssertionError(f"socket one-sided on worker {o['rank']}: "
+                                 f"{bad[0]}")
+        tr = o["tree"]
+        if not tr["ok"] or tr["max_fanin"] != TREE_PPN:
+            raise AssertionError(f"tree team on worker {o['rank']}: {tr}")
+    for run in outs[0]["onesided"]:
+        log(f"procs: socket one-sided {run['coll']} {ONESIDED_COUNT} "
+            f"f32/rank via {run['alg']} "
+            f"({'handles through the store' if run['memh'] else 'bootstrap'}"
+            f"): OK, bitwise on all {PROCS_N} workers")
+    tr = outs[0]["tree"]
+    log(f"procs: a team over TcpTreeOob (ppn {TREE_PPN}, radix "
+        f"{TREE_RADIX}): {tr['levels']} levels, fan-in {tr['max_fanin']}, "
+        f"id {tr['id']}, allreduce {PROCS_COUNTS[0]} f32/rank bitwise, p50 "
+        f"{tr['p50'] * 1e3:.3f} ms")
+
+    # -- one-sided on the ipc tier, within one process -------------------
+    os.environ["UCC_TL_IPC_ENABLE"] = "y"
+    try:
+        ipc_ctxs, first = make_job(PROCS_N, TLS="ipc,self")
+    finally:
+        os.environ.pop("UCC_TL_IPC_ENABLE")
+    for t in first:
+        t.destroy()
+    for i, (coll, tune) in enumerate(ONESIDED_RUNS):
+        os.environ["UCC_TL_IPC_TUNE"] = tune
+        try:
+            teams = make_team(ipc_ctxs)
+        finally:
+            os.environ.pop("UCC_TL_IPC_TUNE")
+        argses, dsts, want = host_case(coll, 0, "numpy" if coll ==
+                                       "ALLTOALLV" else "", PROCS_N,
+                                       ONESIDED_COUNT, 90 + i)
+        for a in argses:
+            a.flags = ucc.CollArgsFlags(0)
+        reqs = [t.collective_init(a) for t, a in zip(teams, argses)]
+        one_round(ipc_ctxs, reqs, f"ipc one-sided {coll}")
+        algs = {rq.task.alg_name for rq in reqs}
+        for rq in reqs:
+            rq.finalize()
+        for d, w in zip(dsts, want):
+            d = torch.from_numpy(d) if isinstance(d, np.ndarray) else d
+            if not bits_equal(d, w):
+                raise AssertionError(f"ipc one-sided {coll}: not bitwise")
+        log(f"procs: ipc one-sided {coll} {ONESIDED_COUNT} f32/rank via "
+            f"{'/'.join(algs)} ({PROCS_N} ranks of one process on the "
+            f"arena, UCC_TL_IPC_ENABLE=y, bootstrap path): bitwise")
+        for t in teams:
+            t.destroy()
+    for c in ipc_ctxs:
+        c.destroy()
+
+    # -- in one process over the TCP store: B2 and B9 ---------------------
+    from ucc_tpu_torch.tools.perftest import HeldPorts
+    t1 = time.perf_counter()
+    total = {}
+    held = HeldPorts(2)
+    try:
+        os.environ["UCC_TL_RING_CUDA_TUNE"] = RING_TUNE
+        ctxs, oobs, team_oobs = make_store_job(N_RANKS, held.ports)
+        teams = store_teams(ctxs, team_oobs, "the TCP-store team")
+        os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+        for coll, kname, seed in (("ALLREDUCE", "ring_allreduce_chunked", 93),
+                                  ("ALLTOALL", "ring_alltoall_chunked", 94)):
+            zero(counters)
+            samples, srcs, dsts, alg = run_main_path(
+                ctxs, teams, coll, MAIN_COUNT, MAIN_COUNT, 0, seed)
+            got = launched(counters)
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            if alg != "ring_cuda" or got != {kname: WARMUP + ITERS}:
+                raise AssertionError(f"TCP-store team {coll}: {alg}, "
+                                     f"launches {got}")
+            check_main_result(coll, srcs, dsts, kernels[kname][1](
+                srcs, ucc.ReductionOp.SUM, 0), 0)
+            threaded = ring_p50.get((coll, ""))
+            log(f"procs: {coll} {MAIN_COUNT} f32/rank on a team over "
+                f"TcpStoreOob ({N_RANKS} ranks of this process) via {alg}: "
+                f"{p50_line(samples)} | over ThreadOob (phase 3): p50 "
+                f"{threaded * 1e3 if threaded else float('nan'):.3f} ms | "
+                f"{kname} launches {got[kname]}, bitwise | card {smi}")
+            del srcs, dsts
+            torch.cuda.empty_cache()
+        for t in teams:
+            t.destroy()
+        samples = []
+        for _ in range(9):
+            s0 = time.perf_counter()
+            ts = store_teams(ctxs, team_oobs, "timed TCP-store team")
+            samples.append(time.perf_counter() - s0)
+            for t in ts:
+                t.destroy()
+        store_ms = median_ms(samples)
+        thread_ms = host_create_ms(ctxs)
+        log(f"procs: {N_RANKS}-rank team create median {store_ms:.3f} ms "
+            f"over TcpStoreOob, {thread_ms:.3f} ms over ThreadOob (same "
+            f"contexts); the in-process part {time.perf_counter() - t1:.1f}"
+            f" s | host CPU {cpu} | card {smi}")
+        for c in ctxs:
+            c.destroy()
+        for o in oobs + team_oobs:
+            o.close()
+    finally:
+        os.environ.pop("UCC_TL_RING_CUDA_TUNE", None)
+        held.release()
+
+    # -- perftest --procs ------------------------------------------------
+    for args, env, tier in (
+            (["-c", "allreduce", "-b", "4K", "-e", "1M"], {}, "ipc"),
+            (["-c", "allreduce", "-b", "4K", "-e", "1M"],
+             {"UCC_TLS": "socket,self"}, "socket"),
+            (["-c", "alltoall", "-O", "-b", "4K", "-e", "64K"],
+             {"UCC_TLS": "socket,self"}, "socket")):
+        t1 = time.perf_counter()
+        recs = perftest_procs(args, env)
+        tiers = {r["detail"]["transport"] for r in recs}
+        if not recs or tiers != {tier}:
+            raise AssertionError(f"perftest --procs {args} {env}: tiers "
+                                 f"{tiers}")
+        last = recs[-1]
+        log(f"procs: perftest --procs {PROCS_N} -m host {' '.join(args)} "
+            f"{' '.join(f'{k}={v}' for k, v in env.items())}: exit 0, "
+            f"{len(recs)} records, detail.transport {tier}, "
+            f"{last['size_bytes']} B p50 {last['p50_us']:.1f} us, "
+            f"{time.perf_counter() - t1:.1f} s | host CPU {cpu}")
+
+    # -- hygiene -----------------------------------------------------------
+    left = sorted(f for f in os.listdir("/dev/shm")
+                  if f.startswith(ARENA_GLOB) and f not in before)
+    if left:
+        raise AssertionError(f"phase 8 left arenas behind: {left}")
+    log(f"procs: no {ARENA_GLOB}* segment left in /dev/shm, every worker "
+        f"exited | procs phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -5165,6 +5690,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--core-child"]:
         return core_child(sys.argv[2])
+    if sys.argv[1:2] == ["--procs-child"]:
+        return procs_child(sys.argv[2])
 
     # -- 1. device -------------------------------------------------------
     smi = smi_line()
@@ -5305,6 +5832,10 @@ def main() -> int:
     # team behind team ids and the datatype check ---------------------------
     host = main_path_host(smi, counters, wrappers())
 
+    # -- 8. procs: host teams across processes, and a team over the TCP
+    # store -------------------------------------------------------------------
+    procs = main_path_procs(smi, counters, wrappers(), ring_p50)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -5315,6 +5846,7 @@ def main() -> int:
     for rec in kernel_records:
         rec["core_launches"] = core["launches"].get(rec["name"], 0)
         rec["host_launches"] = host["launches"].get(rec["name"], 0)
+        rec["procs_launches"] = procs["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

@@ -265,7 +265,9 @@ def test_port_imports_without_jax():
             "from ucc_tpu_torch.tl import shm; "
             "from ucc_tpu_torch.tl.host import (transport, task, team, "
             "config_fields, knomial, knomial2, ring, sra, dbt, allgather, "
-            "alltoall); "
+            "alltoall, onesided); "
+            "from ucc_tpu_torch.tl import sockets, ipc; "
+            "from ucc_tpu_torch.core import oob, context; "
             "base.create_executor(ucc_tpu_torch.MemoryType.CUDA); "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -274,10 +276,12 @@ def test_port_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
-HOST_MODULES = ["tl/shm.py", "native.py"] + [
+HOST_MODULES = ["tl/shm.py", "native.py", "tl/sockets.py", "tl/ipc.py",
+                "core/oob.py", "core/context.py", "tools/perftest.py"] + [
     f"tl/host/{m}.py" for m in ("transport", "task", "config_fields", "team",
                                 "knomial", "knomial2", "ring", "sra", "dbt",
-                                "allgather", "alltoall")]
+                                "allgather", "alltoall", "onesided")] + [
+    "../tests/torch_procs.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_MODULES)
@@ -290,6 +294,34 @@ def test_host_modules_stand_alone(rel):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "ucc_tpu"), mod
     text = path.read_text()
     assert "libucc_tpu_core" not in text and "ucc_tpu_core.cc" not in text
+    assert "ucc_tpu_ipc.cc" not in text
+
+
+def test_worker_helper_imports_only_the_port():
+    """The spawned workers of the multi-process tests import
+    tests/torch_procs.py: the standard library, numpy, torch and the
+    port, nothing else of the repo."""
+    mods = {m.split(".")[0] for m in _imports(REPO / "tests" /
+                                              "torch_procs.py")}
+    allowed = {"__future__", "multiprocessing", "os", "socket", "sys",
+               "threading", "time", "traceback", "numpy", "torch",
+               "ucc_tpu_torch"}
+    assert mods <= allowed, mods - allowed
+
+
+def test_the_arena_builds_into_the_core_library():
+    from ucc_tpu_torch import native
+    assert pathlib.Path(native._IPC_SRC_PATH) == \
+        PKG / "native_src" / "ucc_tpu_torch_ipc.cc"
+    assert native._sources() == [native._SRC_PATH, native._IPC_SRC_PATH]
+    assert "-lrt" in native.LDLIBS
+    assert native.ARENA_PREFIX == "ucc-torch-ipc-"
+    # the C surface and ABI are those of the JAX package's arena
+    mine = (PKG / "native_src" / "ucc_tpu_torch_ipc.cc").read_text()
+    theirs = (REPO / "native" / "ucc_tpu_ipc.cc").read_text()
+    body = mine[mine.index("#include <errno.h>"):].replace(
+        "ucc_tpu_torch/native.py", "ucc_tpu/native.py")
+    assert body == theirs[theirs.index("#include <errno.h>"):]
 
 
 def test_the_native_core_builds_from_the_port_only():
@@ -301,6 +333,7 @@ def test_the_native_core_builds_from_the_port_only():
 
 def test_the_native_source_ships_with_the_package():
     assert (PKG / "native_src" / "ucc_tpu_torch_core.cc").is_file()
+    assert (PKG / "native_src" / "ucc_tpu_torch_ipc.cc").is_file()
     assert "ucc_tpu_torch/native_src/*.cc" in \
         (REPO / "MANIFEST.in").read_text().replace("include ", "")
     assert "native_src/*.cc" in (REPO / "pyproject.toml").read_text()

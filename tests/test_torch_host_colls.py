@@ -553,12 +553,12 @@ def test_candidate_lists_and_print_info_match(jobs, n, tune):
 @pytest.mark.parametrize("coll,alg", sorted(_ONESIDED))
 def test_onesided_rows_refuse_at_init(jobs, coll, alg):
     """Registered at score 1 with the reference's ids, so default
-    selection never takes them in either package. Pinned, the port
-    refuses at init (ERR_NOT_SUPPORTED: one-sided algorithms and the
-    context memory map are not ported), where the reference runs them
-    in-process on descriptors it exchanges itself (ROADMAP C)."""
+    selection never takes them in either package: an unpinned request
+    runs another algorithm. (Pinned, they run: the next test. On CUDA
+    memory they refuse at init: ``test_torch_onesided.py``.)"""
     srcs, dsts, meta = layout(coll, 4, 64, "FLOAT32", 0)
     op = "SUM" if coll == "ALLREDUCE" else None
+    chosen = {}
     for name, conv in (("ref", lambda a: _ref_buf(a, "FLOAT32")),
                        ("native", lambda a: _port_buf(a, "FLOAT32",
                                                       "tensor"))):
@@ -567,12 +567,32 @@ def test_onesided_rows_refuse_at_init(jobs, coll, alg):
                           meta, "FLOAT32", op, 0, False) for r in range(4)]
         sts, names = job.run(job.team(4), args)
         assert alg not in names and set(s.name for s in sts) == {"OK"}
+        chosen[name] = names
+    assert chosen["native"] == chosen["ref"]
+
+
+@pytest.mark.parametrize("coll,alg", sorted(_ONESIDED))
+def test_onesided_rows_run_pinned_and_match(jobs, coll, alg):
+    """Pinned by TUNE, both packages run the one-sided rows in-process
+    (no memh: each rank maps its own buffers and the handles are
+    exchanged over the team), bitwise alike."""
+    srcs, dsts, meta = layout(coll, 4, 64, "FLOAT32", 0)
+    op = "SUM" if coll == "ALLREDUCE" else None
+    outs = {}
+    for name, conv in (("ref", lambda a: _ref_buf(a, "FLOAT32")),
+                       ("native", lambda a: _port_buf(a, "FLOAT32",
+                                                      "tensor"))):
+        job = jobs[name]
+        bufs = [conv(dsts[r]) for r in range(4)]
+        args = [make_args(job.mod, coll, r, 4, conv(srcs[r]), bufs[r],
+                          meta, "FLOAT32", op, 0, False) for r in range(4)]
         sts, names = job.run(job.team(4, f"{coll.lower()}:@{alg}:inf"),
                              args)
-        if name == "ref":
-            assert names == [alg] * 4
-        else:
-            assert sts == ["init ERR_NOT_SUPPORTED"] * 4
+        assert names == [alg] * 4
+        assert set(s.name for s in sts) == {"OK"}
+        outs[name] = [_bits(b) for b in bufs]
+    for a, b in zip(outs["ref"], outs["native"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_table_ids_names_and_selects_match_the_reference(jobs):

@@ -119,7 +119,8 @@ def test_bad_arguments_exit_as_ucc_tpu(bad):
 
 @pytest.mark.parametrize("flag", [
     ["--sweep"], ["--quant"], ["--gen"], ["--gen-device"], ["-O"], ["-T"],
-    ["--teams", "2", "--storm"], ["--store", "h:1"], ["--procs", "2"],
+    ["--teams", "2", "--storm"], ["--store", "h:1", "--procs", "2"],
+    ["--procs", "2", "-c", "memcpy"],
     ["--matrix", "moe"], ["-c", "alltoallv"], ["-c", "reduce"],
     ["-m", "cuda_managed"]])
 def test_unported_modes_are_refused(flag):
@@ -167,3 +168,31 @@ def test_module_entry_point():
                              text=True, timeout=120)
         assert out.returncode != 0 and not records(out.stdout)
         assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("given,want", [(None, "1"), ("3", "3")])
+def test_procs_workers_get_one_intra_op_thread(monkeypatch, given, want):
+    """``--procs`` starts its workers with OMP_NUM_THREADS=1 unless the
+    caller set it: N torch pools that spin after a parallel op would
+    oversubscribe the host's cores while the ranks poll."""
+    if given is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", given)
+    seen = []
+
+    class FakePopen:
+        def __init__(self, cmd, env=None, stdout=None):
+            seen.append((cmd, env))
+
+        def wait(self):
+            return 0
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(perf.subprocess, "Popen", FakePopen)
+    assert perf.main(["--procs", "3", "-m", "host", "-c", "allreduce",
+                      "-b", "8", "-e", "8"]) == 0
+    assert [c[c.index("--rank") + 1] for c, _ in seen] == ["0", "1", "2"]
+    assert all(env["OMP_NUM_THREADS"] == want for _, env in seen)

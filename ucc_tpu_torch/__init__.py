@@ -43,7 +43,14 @@ the native C++ core (``native.py``, built with g++ into
 ``ucc_tpu_torch/build/`` on first use), and is the service team of every
 multi-rank team of one process, over which the core agrees team ids and
 runs the datatype check of rooted collectives
-(``UCC_CHECK_ASYMMETRIC_DT=y``).
+(``UCC_CHECK_ASYMMETRIC_DT=y``); and the host transports across
+processes: ``TcpStoreOob`` and ``TcpTreeOob`` bootstrap a job whose
+ranks live in several processes, tl/ipc runs the same algorithms through
+one host's shared-memory arena (the port's copy of the native arena,
+built into the same library) and tl/sockets over TCP, each the service
+team of such teams; the one-sided host collectives (sliding-window
+allreduce, one-sided alltoall(v)) over ``Context.mem_map`` handles; and
+``ucc_perftest --procs``.
 
 Attention on the CPU (the kernel's plain version runs on CPU tensors)::
 
@@ -91,13 +98,15 @@ from .constants import (CollArgsFlags, CollSyncType, CollType,  # noqa: F401
                         ThreadMode, coll_type_str, dt_size, dt_torch)
 from .status import Status, UccError, check  # noqa: F401
 from .api.types import (ActiveSet, BufferInfo, BufferInfoV, CollArgs,  # noqa: F401
-                        ContextParams, ContextType, LibAttr, LibParams,
+                        ContextAttr, ContextParams, ContextType, LibAttr, LibParams,
                         OobColl, OobRequest, TeamAttr, TeamParams)
 from .core.lib import Lib, init  # noqa: F401
 from .core.context import Context  # noqa: F401
 from .core.team import Team, TeamState  # noqa: F401
 from .core.coll import CollRequest, collective_init  # noqa: F401
-from .core.oob import SubsetOob, ThreadOob, ThreadOobWorld  # noqa: F401
+from .core.oob import (SubsetOob, TcpStoreOob, TcpTreeOob,  # noqa: F401
+                       ThreadOob, ThreadOobWorld, ThreadTreeOobWorld,
+                       TreeOob, tree_layout)
 from .core.ee import Ee, UccEvent  # noqa: F401
 
 __version__ = "0.1.0"

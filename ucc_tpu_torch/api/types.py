@@ -108,6 +108,18 @@ class ContextParams:
 
 
 @dataclass
+class ContextAttr:
+    """ucc_context_attr_t: the context type, its packed address, and the
+    scratch size one-sided collectives ask of a user's
+    ``global_work_buffer``."""
+
+    type: ContextType = ContextType.EXCLUSIVE
+    ctx_addr: bytes = b""
+    ctx_addr_len: int = 0
+    global_work_buffer_size: int = 0
+
+
+@dataclass
 class TeamParams:
     """ucc_team_params_t: ep_map kinds FULL/STRIDED/ARRAY/CB, per-team
     OOB, ordering/sync requirements."""

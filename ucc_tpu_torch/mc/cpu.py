@@ -14,6 +14,10 @@ from .base import MemAttr, MemoryComponent
 def _as_u8(buf: Any) -> np.ndarray:
     """View a CPU tensor, ndarray or buffer-protocol object as flat uint8."""
     if isinstance(buf, torch.Tensor):
+        if buf.numel() == 0:
+            # an empty tensor may carry stride 0 (torch.from_numpy of an
+            # empty array), which a dtype view refuses
+            return np.zeros(0, dtype=np.uint8)
         return buf.reshape(-1).view(torch.uint8).numpy()
     if isinstance(buf, np.ndarray):
         return buf.reshape(-1).view(np.uint8)

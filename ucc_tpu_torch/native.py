@@ -1,11 +1,13 @@
-"""ctypes bindings for the port's native tag-matching core
-(``native_src/ucc_tpu_torch_core.cc``, the port's own copy of the JAX
-package's C++ core, v2, ABI 6).
+"""ctypes bindings for the port's native core: the tag matcher
+(``native_src/ucc_tpu_torch_core.cc``) and the cross-process arena
+(``native_src/ucc_tpu_torch_ipc.cc``), the port's own copies of the JAX
+package's C++ sources (v2, ABI 6).
 
-The core is built on first use with ``g++`` into
-``ucc_tpu_torch/build/native-<hash>/libucc_tpu_torch_core.so``, the hash
-covering the source and the compiler flags, so an edited source is rebuilt
-and an unchanged one is not. Several processes (test workers) may ask at
+Both sources are built on first use with ``g++`` into one library,
+``ucc_tpu_torch/build/native-<hash>/libucc_tpu_torch_core.so`` (linked
+with ``-lrt`` for POSIX shared memory), the hash covering both sources
+and the compiler flags, so an edited source is rebuilt and an unchanged
+one is not. Several processes (test workers) may ask at
 once: the build holds an ``fcntl`` lock on a file beside the library,
 compiles to a temporary name and ``os.replace``s it into place, so no
 reader ever sees a partial library. A loaded library must answer
@@ -29,8 +31,16 @@ key parts (team keys, tuple tags) are interned once per mailbox. The C
 side publishes completion state into a flat array that this module maps
 once, so polling a request is a memory load, not an ffi call.
 
+``IpcArena`` is one attached arena: a POSIX shared-memory segment
+(``/dev/shm/ucc-torch-ipc-<digest>``) holding the match structures, the
+completion slots, the payload blocks, a key intern table and a per-rank
+pid board, so ranks in different processes of one host match and deliver
+through it (tl/ipc). Segments whose processes are all dead are unlinked
+by ``reap_stale_arenas``, which only ever touches the port's own prefix.
+
 Not bound here (later slices): the execution plans (``ucc_plan_*``), the
-MPMC queue and the CPython fastcall extension, which is not built.
+MPMC queue, the arena's window heap (the pooled tier), its occupancy and
+per-rank purge, and the CPython fastcall extension, which is not built.
 """
 from __future__ import annotations
 
@@ -57,10 +67,12 @@ ABI_VERSION = 6
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_PATH = os.path.join(_PKG, "native_src", "ucc_tpu_torch_core.cc")
+_IPC_SRC_PATH = os.path.join(_PKG, "native_src", "ucc_tpu_torch_ipc.cc")
 _BUILD_DIR = os.path.join(_PKG, "build")
 LIB_NAME = "libucc_tpu_torch_core.so"
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror",
             "-pthread"]
+LDLIBS = ["-lrt"]
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -78,9 +90,11 @@ _MAX_SLOTS = 1 << _SLOT_BITS
 _IDX_MASK = _MAX_SLOTS - 1
 _NB_MAX = (1 << 29) - 1
 
+_ST_OK = 1
 _ST_TRUNCATED = 2
 _ST_FENCED = 3
 _ST_CANCELED = 4
+_ST_CORRUPT = 6
 
 _KIND_STR = ("direct", "eager", "rndv", "fenced")
 
@@ -116,10 +130,15 @@ def native_mode() -> str:
     return "y" if parse_bool(raw) else "n"
 
 
+def _sources():
+    return [_SRC_PATH, _IPC_SRC_PATH]
+
+
 def _build_key() -> str:
-    digest = hashlib.sha256(" ".join(CXXFLAGS).encode())
-    with open(_SRC_PATH, "rb") as fh:
-        digest.update(fh.read())
+    digest = hashlib.sha256(" ".join(CXXFLAGS + LDLIBS).encode())
+    for path in _sources():
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return digest.hexdigest()[:16]
 
 
@@ -150,7 +169,8 @@ def build() -> str:
                 return out
             t0 = time.perf_counter()
             tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-            cmd = [_compiler(), *CXXFLAGS, "-shared", "-o", tmp, _SRC_PATH]
+            cmd = [_compiler(), *CXXFLAGS, "-shared", "-o", tmp,
+                   *_sources(), *LDLIBS]
             try:
                 r = subprocess.run(cmd, capture_output=True, text=True,
                                    timeout=300)
@@ -205,6 +225,47 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ucc_req_free.argtypes = [vp, u64]
     lib.ucc_req_free_many.restype = None
     lib.ucc_req_free_many.argtypes = [vp, u64, ctypes.POINTER(u64)]
+    # the cross-process arena (ucc_tpu_torch_ipc.cc)
+    lib.ucc_mailbox_attach.restype = vp
+    lib.ucc_mailbox_attach.argtypes = [ctypes.c_char_p, u64, u64]
+    lib.ucc_arena_probe.restype = u64
+    lib.ucc_arena_probe.argtypes = [ctypes.c_char_p, ctypes.POINTER(u64),
+                                    u64]
+    lib.ucc_arena_detach.restype = None
+    lib.ucc_arena_detach.argtypes = [vp, ctypes.c_int]
+    for name in ("ucc_arena_created", "ucc_ipc_slot_cap",
+                 "ucc_arena_max_msg"):
+        getattr(lib, name).restype = u64
+        getattr(lib, name).argtypes = [vp]
+    lib.ucc_ipc_pub_base.restype = vp
+    lib.ucc_ipc_pub_base.argtypes = [vp]
+    lib.ucc_arena_base.restype = vp
+    lib.ucc_arena_base.argtypes = [vp]
+    lib.ucc_arena_register.restype = u64
+    lib.ucc_arena_register.argtypes = [vp, u64, u64]
+    lib.ucc_arena_beat.restype = None
+    lib.ucc_arena_beat.argtypes = [vp, u64]
+    for name in ("ucc_arena_peer_pid", "ucc_arena_beat_age_ms",
+                 "ucc_arena_alloc", "ucc_ipc_req_poll", "ucc_ipc_req_nbytes",
+                 "ucc_ipc_req_sent_nbytes"):
+        getattr(lib, name).restype = u64
+        getattr(lib, name).argtypes = [vp, u64]
+    lib.ucc_arena_intern.restype = u64
+    lib.ucc_arena_intern.argtypes = [vp, ctypes.c_char_p, u64]
+    lib.ucc_arena_free.restype = None
+    lib.ucc_arena_free.argtypes = [vp, u64]
+    lib.ucc_ipc_push.restype = u64
+    lib.ucc_ipc_push.argtypes = [vp, u64, u64, u64, u64, vp, u64, u64, u64]
+    lib.ucc_ipc_post_recv.restype = u64
+    lib.ucc_ipc_post_recv.argtypes = [vp, u64, u64, u64, u64, u64, u64]
+    lib.ucc_ipc_req_cancel.restype = ctypes.c_int
+    lib.ucc_ipc_req_cancel.argtypes = [vp, u64, u64, u64, u64, u64]
+    lib.ucc_ipc_req_free.restype = None
+    lib.ucc_ipc_req_free.argtypes = [vp, u64]
+    lib.ucc_ipc_fence.restype = u64
+    lib.ucc_ipc_fence.argtypes = [vp, u64, u64]
+    lib.ucc_arena_counters.restype = None
+    lib.ucc_arena_counters.argtypes = [vp, ctypes.POINTER(u64)]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -630,3 +691,422 @@ def poll_pending(reqs):
     for mb, group in groups.values():
         pending.extend(mb.test_many(group))
     return pending
+
+
+# ---------------------------------------------------------------------------
+# cross-process shared-memory arena (native_src/ucc_tpu_torch_ipc.cc)
+# ---------------------------------------------------------------------------
+
+#: /dev/shm segment name prefix of the port's arenas: the reaper only ever
+#: touches these (the JAX package's ``ucc-ipc-`` segments are not its own)
+ARENA_PREFIX = "ucc-torch-ipc-"
+
+#: ucc_arena_counters export order (the C_* enum of ucc_tpu_torch_ipc.cc)
+ARENA_COUNTER_NAMES = (
+    "n_direct", "n_eager", "n_rndv", "n_fenced", "bytes_moved",
+    "attaches", "alloc_fail", "unexp_parked", "posted_parked",
+    "slots_live", "purged", "corrupt", "truncated", "canceled",
+    "interned_keys", "windows", "window_bytes", "blocks_live")
+
+
+class IpcSendReq:
+    """Cross-process rendezvous send: the payload is STAGED into an arena
+    block (raw pointers cannot cross address spaces), but the request
+    keeps rndv semantics — it completes only when a matching recv on the
+    other side consumes the entry."""
+
+    __slots__ = ("arena", "rid", "_idx", "_gen", "_done", "cancelled")
+
+    def __init__(self, arena: "IpcArena", rid: int):
+        self.arena = arena
+        self.rid = rid
+        self._idx = rid & _IDX_MASK
+        self._gen = rid >> _SLOT_BITS
+        self._done = False
+        self.cancelled = False
+
+    @property
+    def done(self) -> bool:
+        return self.test()
+
+    def test(self) -> bool:
+        if self._done:
+            return True
+        ar = self.arena
+        pub = ar._pub
+        if pub is None:
+            self._done = True
+            return True
+        v = pub[self._idx]
+        if (v >> 32) != self._gen or (v & 7):
+            ptr = ar.ptr
+            if ptr is None or int(ar.lib.ucc_ipc_req_poll(ptr, self.rid)):
+                if ptr is not None:
+                    ar.lib.ucc_ipc_req_free(ptr, self.rid)
+                self._done = True
+        return self._done
+
+    def cancel(self) -> None:
+        """Stop waiting; the staged payload stays deliverable (arena-
+        owned — no keepalive to release)."""
+        self.cancelled = True
+        self._done = True
+
+
+class IpcRecvReq:
+    """Posted cross-process recv. The destination ndarray cannot be
+    handed to the other process, so delivery lands in an arena bounce
+    block and this request copies out exactly once at completion."""
+
+    __slots__ = ("arena", "rid", "_idx", "_gen", "_key4", "_blk",
+                 "dst_keepalive", "_done", "nbytes", "error", "cancelled",
+                 "corrupt_src")
+
+    def __init__(self, arena: "IpcArena", rid: int, key4, blk: int,
+                 dst: np.ndarray):
+        self.arena = arena
+        self.rid = rid
+        self._idx = rid & _IDX_MASK
+        self._gen = rid >> _SLOT_BITS
+        self._key4 = key4
+        self._blk = blk
+        self.dst_keepalive = dst
+        self._done = False
+        self.nbytes = 0
+        self.error = None
+        self.cancelled = False
+        self.corrupt_src = None
+
+    @property
+    def done(self) -> bool:
+        return self.test()
+
+    def test(self) -> bool:
+        if self._done:
+            return True
+        ar = self.arena
+        pub = ar._pub
+        if pub is None:
+            self._release(None)
+            self._done = True
+            return True
+        v = pub[self._idx]
+        if (v >> 32) != self._gen:
+            self._release(ar.ptr)
+            self._done = True         # freed under us (purge/teardown)
+            return True
+        if not (v & 7):
+            return False
+        # confirm with one acquire-ordered ffi load before copying the
+        # payload out of the arena (same visibility contract as
+        # NativeRecvReq.test — the delivering memcpy ran in ANOTHER
+        # PROCESS, so the barrier is the only ordering we own)
+        ptr = ar.ptr
+        if ptr is None:
+            self._release(None)
+            self._done = True
+            return True
+        v = int(ar.lib.ucc_ipc_req_poll(ptr, self.rid))
+        if v == 0:
+            return False
+        self._finish(v, ptr)
+        return True
+
+    def _finish(self, v: int, ptr) -> None:
+        ar = self.arena
+        st = v & 7
+        nb = (v >> 3) & _NB_MAX
+        if nb == _NB_MAX:
+            nb = int(ar.lib.ucc_ipc_req_nbytes(ptr, self.rid))
+        if st == _ST_CORRUPT:
+            self.corrupt_src = nb
+            self.nbytes = 0
+            self.error = (f"data corrupted: crc32 mismatch (from ctx "
+                          f"rank {nb})")
+        elif st in (_ST_OK, _ST_TRUNCATED):
+            self.nbytes = nb
+            if self._blk and nb:
+                ctypes.memmove(self.dst_keepalive.ctypes.data,
+                               ar.base + self._blk, nb)
+            if st == _ST_TRUNCATED:
+                sent = int(ar.lib.ucc_ipc_req_sent_nbytes(ptr, self.rid))
+                self.error = (f"message truncated: sent {sent} bytes "
+                              f"into a {self.dst_keepalive.nbytes}-byte "
+                              f"recv buffer")
+        elif st == _ST_FENCED:
+            self.error = "fenced: stale team epoch"
+            self.cancelled = True
+        elif st == _ST_CANCELED:
+            self.error = self.error or "canceled"
+            self.cancelled = True
+        ar.lib.ucc_ipc_req_free(ptr, self.rid)
+        self._release(ptr, keep_rid=True)
+        self._done = True
+
+    def _release(self, ptr, keep_rid: bool = False) -> None:
+        """Return the bounce block (and, unless already freed, the
+        request slot) to the arena."""
+        ar = self.arena
+        if self._blk and ptr is not None:
+            ar.lib.ucc_arena_free(ptr, self._blk)
+        self._blk = 0
+        if not keep_rid and ptr is not None:
+            ar.lib.ucc_ipc_req_free(ptr, self.rid)
+
+    def cancel(self) -> None:
+        """Withdraw: unlinked under the shard lock that matches, so a
+        delivered request stays delivered (RecvReq.cancel contract)."""
+        if self._done:
+            self.cancelled = True
+            return
+        ar = self.arena
+        ptr = ar.ptr
+        if ptr is None:
+            self.error = self.error or "canceled"
+            self.cancelled = True
+            self._done = True
+            return
+        a, b, c, d = self._key4
+        if ar.lib.ucc_ipc_req_cancel(ptr, a, b, c, d, self.rid):
+            self.error = self.error or "canceled"
+            self.cancelled = True
+            self._release(ptr)
+            self._done = True
+        else:
+            self.test()               # already delivered/fenced: harvest
+            self.cancelled = True
+
+
+class IpcArena:
+    """Python handle on one attached cross-process arena: key packing
+    (via the arena's shared intern table, so every process derives the
+    SAME ids), the push/post_recv data path, fences, the pid board and
+    the shared counters. Payload checksums (the arena's integrity word)
+    stay off until ``integrity/`` is ported."""
+
+    def __init__(self, shm_name: str, heap_bytes: int = 256 << 20,
+                 win_bytes: int = 16 << 20):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native core unavailable (the IPC arena "
+                               "has no Python fallback)")
+        self.lib = lib
+        self.name = shm_name if shm_name.startswith("/") \
+            else "/" + shm_name
+        self.ptr = lib.ucc_mailbox_attach(self.name.encode(), heap_bytes,
+                                          win_bytes)
+        if not self.ptr:
+            raise RuntimeError(f"arena attach failed: {self.name}")
+        self.created = bool(lib.ucc_arena_created(self.ptr))
+        self.base = int(lib.ucc_arena_base(self.ptr))
+        self.max_msg = int(lib.ucc_arena_max_msg(self.ptr))
+        self.slot_cap = int(lib.ucc_ipc_slot_cap(self.ptr))
+        pub_addr = lib.ucc_ipc_pub_base(self.ptr)
+        self._pub_buf = (ctypes.c_uint64 * self.slot_cap).from_address(
+            pub_addr)
+        self._pub = memoryview(self._pub_buf).cast("B").cast("Q")
+        self._intern_cache: dict = {}
+        self._intern_mu = threading.Lock()
+
+    # -- key packing (cross-process-stable) ----------------------------
+    def _intern(self, obj) -> int:
+        """Deterministic bytes -> shared id: every process interning the
+        same key gets the same id back from the arena table (the process-
+        global counter NativeMailbox uses cannot work across processes)."""
+        v = self._intern_cache.get(obj)
+        if v is not None:
+            return v
+        raw = repr(obj).encode()
+        if len(raw) > 120:
+            import hashlib
+            raw = hashlib.sha1(raw).hexdigest().encode()
+        with self._intern_mu:
+            v = self._intern_cache.get(obj)
+            if v is None:
+                v = int(self.lib.ucc_arena_intern(self.ptr, raw,
+                                                  len(raw)))
+                if v == 0:
+                    raise RuntimeError("arena intern table full")
+                self._intern_cache[obj] = v
+        return v
+
+    def pack(self, key):
+        """TagKey -> three u64 words, same canonical shape as
+        NativeMailbox._pack but with arena-interned ids."""
+        try:
+            team, epoch, tag, slot, src = key
+        except (TypeError, ValueError):
+            return (self._intern(("K", key)) << 32, 0, 0)
+        if type(epoch) is not int or type(slot) is not int \
+                or type(src) is not int:
+            return (self._intern(("K", key)) << 32, 0, 0)
+        if type(tag) is not int:
+            if isinstance(tag, tuple) and len(tag) == 2 \
+                    and tag[0] == "svc" and type(tag[1]) is int:
+                tag = _SVC_TAG_BASE | (tag[1] & 0xFFFFFFFFFFFF)
+            else:
+                tag = _TUPLE_TAG_BASE | self._intern(("T", tag))
+        team_id = self._intern(("team", team))
+        return ((team_id << 32) | (epoch & 0xFFFFFFFF), tag,
+                ((slot & 0xFFFFFFFF) << 32) | (src & 0xFFFFFFFF))
+
+    def team_id(self, team_key) -> int:
+        return self._intern(("team", team_key))
+
+    # -- data path -----------------------------------------------------
+    def push(self, key, dst_rank: int, data: np.ndarray,
+             eager_limit: Optional[int] = None):
+        """Send *data* to context rank *dst_rank*: ``(req, kind)`` with
+        the Mailbox.send kind vocabulary. Direct sends memcpy straight
+        into the receiver's bounce inside this call — across the process
+        boundary."""
+        ptr = self.ptr
+        if ptr is None:
+            return _DoneSend(), "eager"
+        if data.nbytes > self.max_msg:
+            raise ValueError(
+                f"message of {data.nbytes} bytes exceeds the arena "
+                f"payload class cap ({self.max_msg}); raise "
+                f"UCC_TL_IPC_HEAP or route this team over the socket TL")
+        if eager_limit is None:
+            from .tl.host.transport import eager_limit_from_env
+            eager_limit = eager_limit_from_env()
+        if not data.flags["C_CONTIGUOUS"]:
+            data = np.ascontiguousarray(data)
+        a, b, c = self.pack(key)
+        # the last word is the payload checksum, 0 (none) until integrity/
+        ret = int(self.lib.ucc_ipc_push(
+            ptr, a, b, c, dst_rank, data.ctypes.data, data.nbytes,
+            eager_limit, 0))
+        kind = ret & 7
+        if kind == 2:
+            return IpcSendReq(self, ret >> 3), "rndv"
+        if kind == 7:
+            raise RuntimeError(
+                "arena payload heap exhausted (alloc_fail): raise "
+                "UCC_TL_IPC_HEAP or drain posted traffic")
+        return _DoneSend(), _KIND_STR[kind]
+
+    def post_recv(self, key, dst_rank: int,
+                  dst: np.ndarray) -> IpcRecvReq:
+        ptr = self.ptr
+        if ptr is None:
+            raise RuntimeError("arena is detached")
+        if not dst.flags["C_CONTIGUOUS"] or not dst.flags["WRITEABLE"]:
+            raise ValueError("recv destination must be C-contiguous "
+                             "and writable")
+        if dst.nbytes > self.max_msg:
+            raise ValueError(
+                f"recv of {dst.nbytes} bytes exceeds the arena payload "
+                f"class cap ({self.max_msg}); raise UCC_TL_IPC_HEAP or "
+                f"route this team over the socket TL")
+        blk = int(self.lib.ucc_arena_alloc(ptr, max(dst.nbytes, 1)))
+        if blk == 0:
+            raise RuntimeError(
+                "arena payload heap exhausted (alloc_fail): raise "
+                "UCC_TL_IPC_HEAP or drain posted traffic")
+        a, b, c = self.pack(key)
+        rid = int(self.lib.ucc_ipc_post_recv(ptr, a, b, c, dst_rank, blk,
+                                             dst.nbytes))
+        if rid == 0:
+            self.lib.ucc_arena_free(ptr, blk)
+            raise RuntimeError("arena request slots exhausted")
+        return IpcRecvReq(self, rid, (a, b, c, dst_rank), blk, dst)
+
+    # -- control plane -------------------------------------------------
+    def fence(self, team_key, min_epoch: int) -> int:
+        ptr = self.ptr
+        if ptr is None:
+            return 0
+        return int(self.lib.ucc_ipc_fence(ptr, self.team_id(team_key),
+                                          min_epoch))
+
+    def register(self, ctx_rank: int, pid: Optional[int] = None) -> None:
+        if self.ptr:
+            self.lib.ucc_arena_register(self.ptr, ctx_rank,
+                                        pid if pid is not None
+                                        else os.getpid())
+
+    def beat(self, ctx_rank: int) -> None:
+        if self.ptr:
+            self.lib.ucc_arena_beat(self.ptr, ctx_rank)
+
+    def peer_pid(self, ctx_rank: int) -> int:
+        return int(self.lib.ucc_arena_peer_pid(self.ptr, ctx_rank)) \
+            if self.ptr else 0
+
+    def beat_age_ms(self, ctx_rank: int) -> Optional[float]:
+        """Milliseconds since *ctx_rank* last beat; None when it never
+        registered in this arena."""
+        if not self.ptr:
+            return None
+        v = int(self.lib.ucc_arena_beat_age_ms(self.ptr, ctx_rank))
+        return None if v == (1 << 64) - 1 else float(v)
+
+    def counters(self) -> dict:
+        out = (ctypes.c_uint64 * 24)()
+        if self.ptr:
+            self.lib.ucc_arena_counters(self.ptr, out)
+        return {name: int(out[i])
+                for i, name in enumerate(ARENA_COUNTER_NAMES)}
+
+    def detach(self, unlink: bool = False) -> None:
+        if self.ptr:
+            ptr, self.ptr = self.ptr, None
+            self._pub = None
+            self._pub_buf = None
+            self.lib.ucc_arena_detach(ptr, 1 if unlink else 0)
+
+
+def _pid_alive(pid: int) -> bool:
+    if pid <= 0:
+        return False
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True               # exists, owned by someone else
+    except OSError:
+        return True               # unknowable: never reap on doubt
+
+
+def reap_stale_arenas(prefix: str = ARENA_PREFIX) -> list:
+    """Unlink /dev/shm/ucc-torch-ipc-* segments whose creator AND every
+    registered rank pid are dead (a crashed run leaks its arena — the
+    kernel only reclaims at unlink). Called at context create; returns
+    the reaped names. A segment that probes as not-ready is left alone
+    unless its file is old enough that no live create can explain it."""
+    lib = get_lib()
+    if lib is None:
+        return []
+    try:
+        names = os.listdir("/dev/shm")
+    except OSError:
+        return []
+    reaped = []
+    for fn in names:
+        if not fn.startswith(prefix):
+            continue
+        path = "/dev/shm/" + fn
+        out = (ctypes.c_uint64 * 300)()
+        n = int(lib.ucc_arena_probe(("/" + fn).encode(), out, 300))
+        if n == 0:
+            # unreadable or mid-create: only a long-abandoned file
+            # (creator crashed between shm_open and ready=1) is reaped
+            try:
+                import time
+                if time.time() - os.path.getmtime(path) < 300:
+                    continue
+            except OSError:
+                continue
+        elif any(_pid_alive(int(out[i])) for i in range(n)):
+            continue
+        try:
+            os.unlink(path)
+            reaped.append(fn)
+            logger.info("reaped stale arena %s", fn)
+        except OSError:
+            pass
+    return reaped

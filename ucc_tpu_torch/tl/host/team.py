@@ -7,15 +7,15 @@ construction, active-set subsets, and the three service collectives
 (allreduce, allgather, bcast; the core runs the allreduce to agree team
 ids and for the datatype check).
 
-Left for later slices, with the candidate lists unchanged where they are
-off by default: the one-sided rows are registered (score 1, TUNE-only,
-as in the JAX package) but refuse at init until ``onesided.py`` and the
-context's memory map are ported; the ``q*`` quantized rows (UCC_QUANT),
-the generated candidates (UCC_GEN) and the native-plan ``+plan`` marks
-(UCC_GEN_NATIVE) come with the compiler's host half; the rank reorder of
-multi-node teams (``topo_ordered_subset``) comes with ``topo/``: every
-team of the port lives on one node, where the JAX package does not
-reorder either.
+The one-sided rows (allreduce ``sliding_window``, alltoall and
+alltoallv ``onesided``; ``onesided.py``) sit at score 1, TUNE-only, as in
+the JAX package. Left for later slices, with the candidate lists
+unchanged where they are off by default: the ``q*`` quantized rows
+(UCC_QUANT), the generated candidates (UCC_GEN) and the native-plan
+``+plan`` marks (UCC_GEN_NATIVE) come with the compiler's host half; the
+rank reorder of multi-node teams (``topo_ordered_subset``) comes with
+``topo/``: every team of the port lives on one node, where the JAX
+package does not reorder either.
 """
 from __future__ import annotations
 
@@ -27,7 +27,6 @@ from ...api.types import BufferInfo, CollArgs
 from ...constants import CollType, MemoryType, ReductionOp, dt_from_numpy
 from ...schedule.task import CollTask
 from ...score.score import CollScore
-from ...status import Status, UccError
 from ...utils.ep_map import EpMap, Subset
 from ..base import AlgSpec, TlTeamBase, build_scores
 from .allgather import (AllgatherBruck, AllgatherKnomial, AllgatherLinear,
@@ -41,6 +40,8 @@ from .knomial import (AllreduceKnomial, BarrierKnomial, BcastKnomial,
                       ReduceKnomial, ScatterLinear)
 from .knomial2 import (BcastSagKnomial, GatherKnomial, ReduceScatterKnomial,
                        ScatterKnomial)
+from .onesided import (AllreduceSlidingWindow, AlltoallOnesided,
+                       AlltoallvOnesided)
 from .ring import (AllgatherRing, AllgathervRing, ReduceScatterRing,
                    ReduceScatterRingBidirectional, ReduceScattervRing,
                    allreduce_ring_init)
@@ -52,14 +53,6 @@ from .task import HostCollTask
 #: its reduce_scatter/scatter/gather trees are binomial, radix fixed)
 _KN_RADIX_GLOBAL = frozenset((
     "barrier_kn_radix", "bcast_kn_radix", "reduce_kn_radix"))
-
-
-def _onesided_init(ia, team):
-    """Init of the one-sided rows (allreduce sliding_window, alltoall(v)
-    onesided): ERR_NOT_SUPPORTED, so selection falls back, until the
-    port has one-sided algorithms and the context memory map."""
-    raise UccError(Status.ERR_NOT_SUPPORTED,
-                   "one-sided host algorithms are not ported yet")
 
 
 class HostTlTeam(TlTeamBase):
@@ -172,7 +165,8 @@ class HostTlTeam(TlTeamBase):
                      sel=f"0-4k:{S - 6},4k-inf:{S + 4}"),
                 spec(3, "dbt", AllreduceDbt,
                      sel=f"0-4k:{S - 7},4k-inf:{S + 3}"),
-                spec(4, "sliding_window", _onesided_init, sel="0-inf:1"),
+                spec(4, "sliding_window", AllreduceSlidingWindow,
+                     sel="0-inf:1"),
             ],
             CollType.ALLGATHER: [
                 spec(0, "ring", AllgatherRing,
@@ -202,7 +196,7 @@ class HostTlTeam(TlTeamBase):
                      sel=f"0-{a2a_switch}:{S + 5},"
                          f"{a2a_switch}-inf:{S - 5}"),
                 spec(2, "linear", AlltoallLinear),
-                spec(3, "onesided", _onesided_init, sel="0-inf:1"),
+                spec(3, "onesided", AlltoallOnesided, sel="0-inf:1"),
             ],
             CollType.ALLTOALLV: [
                 # pairwise keeps a one-point edge: ties break on the alg
@@ -210,7 +204,7 @@ class HostTlTeam(TlTeamBase):
                 spec(0, "pairwise", AlltoallvPairwise,
                      sel=f"0-inf:{S + 1}"),
                 spec(1, "hybrid", AlltoallvHybrid),
-                spec(2, "onesided", _onesided_init, sel="0-inf:1"),
+                spec(2, "onesided", AlltoallvOnesided, sel="0-inf:1"),
             ],
             CollType.BARRIER: [
                 spec(0, "knomial", BarrierKnomial),

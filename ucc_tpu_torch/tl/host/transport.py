@@ -144,6 +144,21 @@ class Mailbox:
                 return cand
         return None
 
+    def push(self, key: TagKey, ps: _PendingSend) -> None:
+        """Deliver a message that already owns its bytes (a frame a
+        socket reader received): into a posted recv, else parked as
+        unexpected. Delivery runs under the lock that ``RecvReq.cancel``
+        takes."""
+        with self.lock:
+            if self.fences and self._is_fenced(key):
+                ps.req.done = True   # discarded: stale-epoch delivery
+                return
+            req = self._match_posted_locked(key)
+            if req is None:
+                self.unexpected.setdefault(key, deque()).append(ps)
+                return
+            _deliver(req, ps)
+
     def send(self, key: TagKey, data_u8: np.ndarray,
              eager_limit: int) -> Tuple[SendReq, str]:
         """Sender side: deliver straight from the sender's buffer into a

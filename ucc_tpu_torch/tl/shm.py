@@ -8,10 +8,12 @@ HOST memory: numpy arrays, CPU tensors and bytes-like objects. Score 40,
 HOST only, so selection on CUDA memory does not see it. It is
 service-capable: every multi-rank team of contexts in one process gets a
 tl/shm service team, over which the core agrees team ids and runs the
-datatype check of rooted collectives.
+datatype check of rooted collectives. A team with a rank in another
+process is declined (tl/ipc and tl/sockets serve those).
 
-The one-sided ``os_*`` methods of the JAX package's context come with
-the port's one-sided algorithms.
+One-sided puts and gets (``tl/host/onesided.py``) apply directly to the
+target segment under the registry lock, since every peer is in this
+process; a flush is a completed no-op.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from ..status import Status, UccError
 from ..utils.config import (SIZE_AUTO, ConfigField, ConfigTable, parse_bool,
                             parse_memunits, parse_string, register_table)
 from .host.config_fields import HOST_ALG_FIELDS
+from .host.onesided import local_os_get, local_os_put, sw_max_work_buffer
 from .host.team import HostTlTeam
-from .host.transport import InProcTransport
+from .host.transport import InProcTransport, SendReq
 
 TL_SHM_CONFIG = register_table(ConfigTable(
     prefix="TL_SHM_", name="tl/shm", fields=HOST_ALG_FIELDS + [
@@ -87,6 +90,23 @@ class TlShmContext(BaseContext):
 
     def send_to(self, peer_ctx_rank: int, key, data: np.ndarray):
         return self.transport.send_nb(self._peer(peer_ctx_rank), key, data)
+
+    # -- one-sided: in-order, synchronous application ------------------
+    def os_put(self, peer_ctx_rank: int, desc: dict, offset: int,
+               data: np.ndarray, notify=None) -> None:
+        local_os_put(desc, offset, data, notify)
+
+    def os_get(self, peer_ctx_rank: int, desc: dict, offset: int,
+               dst: np.ndarray):
+        return local_os_get(desc, offset, dst)
+
+    def os_flush(self, peer_ctx_rank: int) -> SendReq:
+        return SendReq(done=True)
+
+    def global_work_buffer_size(self) -> int:
+        """Scratch a one-sided collective may take from the user's
+        global_work_buffer: the sliding window's in-flight gets."""
+        return sw_max_work_buffer(self.config)
 
     def destroy(self) -> None:
         self.transport.close()

@@ -21,7 +21,17 @@ Two benchmark paths:
   buffers are CPU tensors and tl/shm serves every collective (its
   ``tl/host`` algorithms over the in-process transport, the native
   matcher when it builds); ``detail.transport`` is then ``shm-thread``,
-  the JAX perftest's name of that tier;
+  the JAX perftest's name of that tier. Across processes, ``--store
+  host:port --rank R --np N`` makes this process rank R of an N-rank job
+  (a TcpStoreOob at ``port`` for the contexts and at ``port + 1`` for the
+  team), and ``--procs N`` launches N such processes of itself (one rank
+  each) and prints rank 0's output: the team is then served by tl/ipc
+  (``detail.transport`` ``ipc``, one host's shared-memory arena), or by
+  tl/sockets (``socket``) under ``UCC_TLS=socket,self``; each process
+  gets ``OMP_NUM_THREADS=1`` unless the caller set it. ``-O`` runs the
+  one-sided algorithms (allreduce ``sliding_window``, alltoall
+  ``onesided``; pinned through the tl/shm and tl/sockets TUNE) on
+  buffers mem-mapped once per size, the handles exchanged over the team;
 - executor ops (``-c memcpy|reducedt|reducedt_strided``, UCC's
   ucc_pt_op_{memcpy,reduce,reduce_strided}): the execution component's
   copy/reduce tasks timed directly, no team; ``--nbufs`` sources (caps 7
@@ -33,11 +43,16 @@ Examples::
     python -m ucc_tpu_torch.tools.perftest -c allreduce -p 8 -b 4K -e 64M
     python -m ucc_tpu_torch.tools.perftest -c reducedt -d bfloat16 --nbufs 9 -F
     UCC_TL_RING_CUDA_DEVICE=cpu python -m ucc_tpu_torch.tools.perftest -c bcast -p 4
+    python -m ucc_tpu_torch.tools.perftest --procs 4 -m host -c allreduce --json
+    python -m ucc_tpu_torch.tools.perftest -m host -c alltoall -O -p 4
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
+import subprocess
 import sys
 import threading
 import time
@@ -49,8 +64,8 @@ import torch
 import ucc_tpu_torch
 from ucc_tpu_torch import (BufferInfo, CollArgs, CollArgsFlags, CollType,
                            Context, ContextParams, DataType, MemoryType,
-                           ReductionOp, Status, TeamParams, ThreadOobWorld,
-                           UccError)
+                           ReductionOp, Status, TcpStoreOob, TeamParams,
+                           ThreadOobWorld, UccError)
 from ucc_tpu_torch.constants import coll_type_str, dt_size, dt_torch
 from ucc_tpu_torch.utils.config import memunits_str, parse_memunits
 
@@ -275,18 +290,27 @@ TRANSPORT = "unknown"
 
 def transport_tier(team) -> str:
     """The host transport tier serving a team's host tag spaces, as the
-    JAX perftest names it: ``socket`` or ``shm-thread`` (in-process
-    mailboxes). The port's only host transport is the in-process one;
-    "unknown" when the team has no host tag space."""
+    JAX perftest names it: ``ipc`` (a cross-process arena) > ``socket`` >
+    ``shm-thread`` (in-process mailboxes); "unknown" when the team has no
+    host tag space."""
     try:
         spaces = team._tl_tag_spaces()
     except Exception:  # noqa: BLE001 - classification must not kill a run
         return "unknown"
     if not spaces:
         return "unknown"
-    if any("Socket" in type(tr).__name__ for _key, tr in spaces):
-        return "socket"
-    return "shm-thread"
+    tiers = set()
+    for _key, tr in spaces:
+        if getattr(tr, "arena", None) is not None:
+            tiers.add("ipc")
+        elif "Socket" in type(tr).__name__:
+            tiers.add("socket")
+        else:
+            tiers.add("shm-thread")
+    for t in ("ipc", "socket", "shm-thread"):
+        if t in tiers:
+            return t
+    return "unknown"
 
 
 class InProcJob:
@@ -296,6 +320,8 @@ class InProcJob:
 
     def __init__(self, n: int, create_timeout: float = 120.0):
         self.n = n
+        self.ranks = list(range(n))
+        self.lead = True
         world = ThreadOobWorld(n)
         self.libs = [ucc_tpu_torch.init() for _ in range(n)]
         self.contexts: List[Optional[Context]] = [None] * n
@@ -355,6 +381,189 @@ class InProcJob:
         self.post_and_wait(self.init_reqs(argses))
 
 
+class StoreJob:
+    """One rank of a multi-process run: a context over a TcpStoreOob at
+    *port* and a team over one at *port* + 1."""
+
+    def __init__(self, host: str, port: int, rank: int, n: int):
+        self.n = n
+        self.ranks = [rank]
+        self.lead = rank == 0
+        self._oobs = [TcpStoreOob(rank, n, host=host, port=port)]
+        self.lib = ucc_tpu_torch.init()
+        self.contexts = [Context(self.lib,
+                                 ContextParams(oob=self._oobs[0]))]
+        self._oobs.append(TcpStoreOob(rank, n, host=host, port=port + 1))
+        self.teams = [self.contexts[0].create_team(
+            TeamParams(oob=self._oobs[1]))]
+
+    def destroy(self) -> None:
+        for t in self.teams:
+            t.destroy()
+        for c in self.contexts:
+            c.destroy()
+        for o in self._oobs:
+            o.close()
+        self.teams, self.contexts, self._oobs = [], [], []
+
+    def init_reqs(self, argses):
+        return [self.teams[0].collective_init(argses[0])]
+
+    def post_and_wait(self, reqs) -> None:
+        reqs[0].post()
+        if reqs[0].wait(timeout=120).is_error:
+            raise SystemExit(f"collective failed: {reqs[0].test()}")
+
+    def run_round(self, argses) -> None:
+        self.post_and_wait(self.init_reqs(argses))
+
+
+class HeldPorts:
+    """``k`` free loopback ports for TCP stores, each held by a bound
+    socket (SO_REUSEADDR, not listening) until ``release()``: a store
+    server binds over a held port, and no other process is handed one
+    meanwhile (a probe that closes its socket before the server binds
+    races every other listener of the machine). ``contiguous``: one block
+    of k ports (a TcpTreeOob's, or a store and its team store)."""
+
+    def __init__(self, k: int, contiguous: bool = False,
+                 host: str = "127.0.0.1"):
+        self._socks: List[socket.socket] = []
+        while len(self._socks) < k:
+            port = self._socks[-1].getsockname()[1] + 1 \
+                if contiguous and self._socks else 0
+            s = socket.socket()
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind((host, port))
+            except OSError:
+                s.close()
+                self.release()           # the block broke: start over
+                continue
+            self._socks.append(s)
+        self.ports = [s.getsockname()[1] for s in self._socks]
+
+    def release(self) -> None:
+        for s in self._socks:
+            s.close()
+        self._socks = []
+
+    def __enter__(self) -> "HeldPorts":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+def run_procs_mode(args, argv) -> int:
+    """``--procs N``: run N worker processes of this tool, one rank each,
+    joined by a TCP store (``--store``); rank 0 keeps stdout, the others
+    are silenced. The transport follows the ambient UCC_TLS: tl/ipc
+    across processes of one host, tl/sockets under UCC_TLS=socket,self."""
+    # the context store at port, the team store at port + 1, both held
+    # until the workers exit
+    held = HeldPorts(2, contiguous=True)
+    port = held.ports[0]
+    base = list(argv) if argv is not None else sys.argv[1:]
+    child_argv = []
+    skip = False
+    for a in base:
+        if skip:
+            skip = False
+            continue
+        if a == "--procs":
+            skip = True
+            continue
+        if a.startswith("--procs="):
+            continue
+        child_argv.append(a)
+    # one intra-op thread a process unless the caller chose (torchrun's
+    # default for several processes a host): a process's pool spins for a
+    # while after a parallel op such as a buffer fill, and N pools
+    # oversubscribe the cores while the ranks poll
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS", "1")
+    procs = []
+    try:
+        for r in range(args.procs):
+            cmd = [sys.executable, "-m", "ucc_tpu_torch.tools.perftest",
+                   *child_argv, "--store", f"127.0.0.1:{port}",
+                   "--rank", str(r), "--np", str(args.procs)]
+            procs.append(subprocess.Popen(
+                cmd, env=env,
+                stdout=None if r == 0 else subprocess.DEVNULL))
+        rc = 0
+        for pr in procs:
+            rc = max(rc, pr.wait())
+        return rc
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        held.release()
+
+
+#: TUNE of the one-sided mode, set for tl/shm and tl/sockets
+ONESIDED_TUNE = {
+    CollType.ALLREDUCE: "allreduce:@sliding_window",
+    CollType.ALLTOALL: "alltoall:@onesided",
+}
+
+
+def _allgather_handles(team, handle: bytes, n: int, pad: int = 2048):
+    """Distribute exported memh handles over a multi-process team by a
+    fixed-size padded allgather."""
+    assert len(handle) <= pad - 8
+    blob = np.zeros(pad, np.uint8)
+    blob[:8] = np.frombuffer(np.int64(len(handle)).tobytes(), np.uint8)
+    blob[8:8 + len(handle)] = np.frombuffer(handle, np.uint8)
+    out = np.zeros(pad * n, np.uint8)
+    req = team.collective_init(CollArgs(
+        coll_type=CollType.ALLGATHER,
+        src=BufferInfo(blob, pad, DataType.UINT8),
+        dst=BufferInfo(out, pad * n, DataType.UINT8)))
+    req.post()
+    req.wait(timeout=120)
+    req.finalize()
+    hs = []
+    for p in range(n):
+        seg = out[p * pad:(p + 1) * pad]
+        ln = int(np.frombuffer(seg[:8].tobytes(), np.int64)[0])
+        hs.append(seg[8:8 + ln].tobytes())
+    return hs
+
+
+def attach_onesided(job, argses, coll: CollType, n: int):
+    """mem_map each local rank's buffers, exchange the handles, and fill
+    the global-memh args. Returns the (context, handle) pairs to unmap."""
+    to_unmap = []
+
+    def map_exchange(get_bi):
+        local = []
+        for i, ctx in enumerate(job.contexts):
+            h = ctx.mem_map(get_bi(argses[i]).buffer)
+            local.append(h)
+            to_unmap.append((ctx, h))
+        if len(job.contexts) == n:
+            return local                       # in-process: all of them
+        return _allgather_handles(job.teams[0], local[0], n)
+
+    dst_handles = map_exchange(lambda a: a.dst)
+    for a in argses:
+        a.dst_memh = list(dst_handles)
+        a.flags |= CollArgsFlags.MEM_MAP_DST_MEMH
+    if coll == CollType.ALLREDUCE:
+        if argses[0].src is argses[0].dst:     # in place: one mapping
+            src_handles = dst_handles
+        else:
+            src_handles = map_exchange(lambda a: a.src)
+        for a in argses:
+            a.src_memh = list(src_handles)
+            a.flags |= CollArgsFlags.MEM_MAP_SRC_MEMH
+    return to_unmap
+
+
 def wait_reqs(job, reqs) -> None:
     # listified on purpose: a short-circuiting any() would stop testing
     # the later ranks' requests while an earlier one is in progress
@@ -374,7 +583,7 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
     n = job.n
     transport = transport_tier(job.teams[0]) if mem == MemoryType.HOST \
         else TRANSPORT
-    if not args.json:
+    if job.lead and not args.json:
         hdr = f"{'count':>12} {'size':>10} {'time avg(us)':>14} " \
               f"{'min(us)':>10} {'max(us)':>10} {'p50(us)':>10} " \
               f"{'p99(us)':>10}"
@@ -387,7 +596,8 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
 
     def argses(persistent):
         return [make_args(coll, n, count, dt, op, mem, args.inplace,
-                          args.root, persistent, device) for _ in range(n)]
+                          args.root, persistent, device)
+                for _ in job.ranks]
 
     size = max(parse_memunits(args.begin), esz)
     bmax = parse_memunits(args.end)
@@ -395,7 +605,19 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
         count = max(1, size // esz)
         lats = []
         rounds = args.warmup + args.iters
-        if args.persistent:
+        if args.onesided:
+            # buffers mapped and handles exchanged once per size, outside
+            # the timed rounds
+            os_argses = argses(False)
+            os_unmap = attach_onesided(job, os_argses, coll, n)
+            for it in range(rounds):
+                t0 = time.perf_counter()
+                job.run_round(os_argses)
+                if it >= args.warmup:
+                    lats.append(time.perf_counter() - t0)
+            for ctx, h in os_unmap:
+                ctx.mem_unmap(h)
+        elif args.persistent:
             # init once, post many (ucc.h persistent semantics); measured
             # time then excludes collective_init
             reqs = job.init_reqs(argses(True))
@@ -430,6 +652,9 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
         lats = np.array(lats)
         st = lat_stats(lats)
         bw = busbw_factor(coll, n) * size / lats.mean() / 1e9
+        if not job.lead:
+            size *= 2
+            continue
         if args.json:
             rec = {"bench": "coll", "coll": args.coll,
                    "dtype": args.dtype, "op": args.op, "mem": args.mem,
@@ -486,8 +711,28 @@ def main(argv=None) -> int:
                         "(memcpy/reducedt/reducedt_strided; default 1 "
                         "copy / 2 reduce sources; caps 7 copy / 9 "
                         "reduce, ucc_ec_base.h)")
+    p.add_argument("-O", "--onesided", action="store_true",
+                   help="one-sided mode (-m host): allreduce -> "
+                        "sliding_window, alltoall -> onesided, over "
+                        "mem-mapped buffers")
+    p.add_argument("--store", default="",
+                   help="host:port of a multi-process job's TCP store "
+                        "(the team's store is port + 1)")
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--np", type=int, dest="world", default=1)
+    p.add_argument("--procs", type=int, default=0,
+                   help="launch N worker processes of this tool (one "
+                        "rank each) joined by a TCP store; rank 0's "
+                        "output is printed")
     args = p.parse_args(argv)
 
+    if args.procs:
+        if args.store:
+            raise SystemExit("perftest: --procs and --store are exclusive "
+                             "(--procs launches --store workers itself)")
+        if args.coll in OP_BENCHES:
+            raise SystemExit("perftest: --procs runs collectives only")
+        return run_procs_mode(args, argv)
     # shared across the collective and executor-op paths: negative
     # warmup skews the timed-round bookkeeping silently, zero iters
     # divides by zero
@@ -503,10 +748,29 @@ def main(argv=None) -> int:
         if args.coll in OP_BENCHES:
             return run_op_bench(args)
         mem = resolve_mem(args.mem)
+        coll = COLLS[args.coll]
+        if args.onesided:
+            if mem != MemoryType.HOST:
+                raise SystemExit("perftest: -O/--onesided requires -m host")
+            if coll not in ONESIDED_TUNE:
+                raise SystemExit("perftest: -O supports allreduce and "
+                                 "alltoall")
+            if args.inplace and coll != CollType.ALLREDUCE:
+                raise SystemExit("perftest: -O -i only for allreduce")
+            if args.streaming or args.persistent:
+                raise SystemExit("perftest: -O is incompatible with -S "
+                                 "and --persistent")
+            for tl in ("SHM", "SOCKET"):
+                os.environ.setdefault(f"UCC_TL_{tl}_TUNE",
+                                      ONESIDED_TUNE[coll])
         device = buffer_device(mem)
-        job = InProcJob(args.nprocs or 4)
+        if args.store:
+            host, port_s = args.store.rsplit(":", 1)
+            job = StoreJob(host, int(port_s), args.rank, args.world)
+        else:
+            job = InProcJob(args.nprocs or 4)
         try:
-            return run_coll_bench(args, job, COLLS[args.coll], mem, device)
+            return run_coll_bench(args, job, coll, mem, device)
         finally:
             job.destroy()
     except UccError as e:
