@@ -10,8 +10,9 @@ Phases, each printing its own lines (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build the nine kernel sources from
-   ucc_tpu_torch/csrc/ (one nvcc each, started together, beside one
-   nvcc -Xptxas -v each); the f32 and bf16 instances of the flag-free
+   ucc_tpu_torch/csrc/ and its CUDA IPC source (cuda_ipc.cu, host code
+   only), one nvcc each, started together, beside one nvcc -Xptxas -v
+   for each kernel source; the f32 and bf16 instances of the flag-free
    kernels (allreduce, reduce_scatter, the generated programs' fold,
    alltoall; the bcast's and the allgather's 4- and 2-byte ones) must
    hold 128-bit global loads and stores in their SASS (cuobjdump), and
@@ -66,6 +67,11 @@ Phases, each printing its own lines (any failure exits non-zero):
      f16 and int64 cases and n = 1 for both;
    and a bcast or alltoall launch on a faulted workspace neither raises
    nor touches it;
+   - every entry point of those five sources by part, as a team across
+     processes launches it (part p of P, P in {2, 3, 4}, n = 8, counts no
+     multiple of a vector and several chunks long): each part's launch
+     bitwise its plain version's part with every other element untouched,
+     every union bitwise the single launch;
    - every ring kernel again on int8, uint8, int16 and float64;
    - both entry points of the generated collectives (gen_device_ring,
      gen_device_gen), each launch asserted on its route: every device
@@ -298,7 +304,8 @@ Phases, each printing its own lines (any failure exits non-zero):
      exchanged through the team's store and without) end
      ERR_NOT_SUPPORTED on every worker (the arena serves one-sided ops
      within one process, as in the JAX package); a CUDA allreduce of 16
-     Mi f32 is refused at init on every worker, with no launch;
+     Mi f32 across the four processes runs on tl/torch_ops (xla) on every
+     worker, bitwise the integer sum, with no kernel launch;
    - the socket tier (UCC_TLS=socket,self): the same runs, bitwise, tier
      ``socket``; the one-sided runs OK and bitwise; a team over a
      TcpTreeOob (ppn 2, radix 2);
@@ -311,6 +318,32 @@ Phases, each printing its own lines (any failure exits non-zero):
    - perftest ``--procs 4 -m host``: allreduce (tier ``ipc``, and
      ``socket`` under UCC_TLS=socket,self) and ``-O -c alltoall``;
    - no ``ucc-torch-ipc-*`` segment is left in /dev/shm, no worker alive.
+9. span, device teams across processes (tl/device_sync: CUDA IPC peer
+   buffers, a sync area per team, interprocess CUDA events): 8 ranks on
+   the card, laid out as 2 processes x 4 ranks and as 4 processes x 2
+   ranks of this script (``--span-child``), contexts and teams over
+   TcpStoreOob; how the processes share the card (the compute mode from
+   nvidia-smi -q, and whether an MPS server runs):
+   - tl/ring_cuda pinned (UCC_TL_RING_CUDA_TUNE) for phase 3's ten runs
+     (the five collectives at 16 Mi f32 a rank, the allgather's 2 Mi in,
+     chunked, and at the one-pass sizes), integer-valued seeded inputs: a
+     first round, then 5 warm-up and 20 timed persistent rounds; every
+     rank's result bitwise what the kernel's single launch over the same
+     eight srcs gives (an in-process team's launch); each process launches
+     one part a round and, after the first round, opens no IPC handle and
+     sends no descriptor; the slowest process's p50, and each part's
+     kernel ms alone (CUDA events, in turns on process 0's copies of the
+     eight ranks' buffers) with their sum beside the single launch and
+     phase 3's;
+   - tl/torch_ops's default (xla) for tests/test_xla_multiprocess.py's
+     mode flat at full width: allreduce 16 Mi, gather root 1 and scatter
+     root 2 of 2 Mi blocks, allgatherv of uneven counts near 2 Mi, bcast
+     root 3 of 16 Mi, alltoallv of uneven pair counts near 2 Mi; every
+     result bitwise the library ops an in-process team runs on the same
+     srcs, no kernel launched, nothing opened or sent after the first
+     round; the slowest process's p50;
+   - no ``ucc-torch-dev-*`` or ``ucc-torch-ipc-*`` segment is left in
+     /dev/shm, no worker alive.
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
@@ -318,7 +351,8 @@ the int8/fp8 wire fold and the layer kernel on the same plans among
 them, with launches 0: the main path runs none of them; the f32 route's
 launches are the GQA train step's, and every record carries its launches
 over phase 5 as training_launches, over phase 6 as core_launches, over
-phase 7 as host_launches and over phase 8 as procs_launches) and
+phase 7 as host_launches, over phase 8 as procs_launches and over phase
+9's spanning rounds, summed over its processes, as span_launches) and
 {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -2299,17 +2333,27 @@ def ptxas_read(started) -> dict:
 #: the f32 and bf16 instances of a kernel templated on its element type,
 #: demangled and as mangled (when the toolkit has no cu++filt)
 BY_TYPE = (("<float>", "IfE"), ("<__nv_bfloat16>", "I13__nv_bfloat16E"))
+#: the same instances of a kernel templated on its element type and PART,
+#: its whole-walk ones (PART false, as cu++filt prints it: "(bool)0"; the
+#: part instances of a team across processes are checked for spills with
+#: the rest)
+BY_TYPE_WHOLE = (("<float, (bool)0>", "IfLb0E"),
+                 ("<__nv_bfloat16, (bool)0>", "I13__nv_bfloat16Lb0E"))
 #: the flag-free kernels that move 16-byte vectors: source -> (kernel, its
 #: f32 and bf16 instances); bcast.cu's and allgather.cu's are named by
-#: element width
-DIRECT_KERNELS = {"ring_allreduce.cu": ("ring_allreduce_kernel", BY_TYPE),
-                  "reduce_scatter.cu": ("reduce_scatter_kernel", BY_TYPE),
+#: element width; the five direct sources' whole-walk instances
+DIRECT_KERNELS = {"ring_allreduce.cu": ("ring_allreduce_kernel",
+                                        BY_TYPE_WHOLE),
+                  "reduce_scatter.cu": ("reduce_scatter_kernel",
+                                        BY_TYPE_WHOLE),
                   "gen_fold.cu": ("gen_fold_kernel", BY_TYPE),
-                  "alltoall.cu": ("alltoall_kernel", BY_TYPE),
-                  "bcast.cu": ("bcast_kernel", (("<4>", "ILi4E"),
-                                                ("<2>", "ILi2E"))),
-                  "allgather.cu": ("allgather_kernel", (("<4>", "ILi4E"),
-                                                        ("<2>", "ILi2E")))}
+                  "alltoall.cu": ("alltoall_kernel", BY_TYPE_WHOLE),
+                  "bcast.cu": ("bcast_kernel", (
+                      ("<4, (bool)0>", "ILi4ELb0E"),
+                      ("<2, (bool)0>", "ILi2ELb0E"))),
+                  "allgather.cu": ("allgather_kernel", (
+                      ("<4, (bool)0>", "ILi4ELb0E"),
+                      ("<2, (bool)0>", "ILi2ELb0E")))}
 
 
 def check_direct_sass(source, info) -> None:
@@ -5239,7 +5283,7 @@ def procs_child(spec_json: str) -> int:
     rounds each, every result bitwise its expected one), the one-sided
     runs pinned through the spec's TUNE variable, with handles exchanged
     through the team's store and without; optionally a CUDA allreduce
-    (refused at init: no device TL takes a team across processes) and a
+    across the processes (tl/torch_ops, bitwise the integer sum) and a
     team over a TcpTreeOob. Its last line is one JSON object."""
     import torch
     spec = json.loads(spec_json)
@@ -5295,21 +5339,25 @@ def procs_child(spec_json: str) -> int:
                                     "status": st, "alg": alg, "ok": ok})
             t.destroy()
     if spec.get("cuda"):
+        # a device team across the processes: tl/torch_ops by the default
+        # selection, each process computing its rank's sum over the four
+        # srcs, three of them mapped through CUDA IPC
         kernels = wrappers()
-        x = torch.ones(MAIN_COUNT, device="cuda")
+        x = torch.full((MAIN_COUNT,), rank + 1.0, device="cuda")
         y = torch.empty_like(x)
         f32 = ucc.DataType.FLOAT32
-        try:
-            team.collective_init(ucc.CollArgs(
-                coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
-                src=ucc.BufferInfo(x, MAIN_COUNT, f32,
-                                   mem_type=ucc.MemoryType.CUDA),
-                dst=ucc.BufferInfo(y, MAIN_COUNT, f32,
-                                   mem_type=ucc.MemoryType.CUDA)))
-            out["cuda"] = "OK"
-        except ucc.UccError as e:
-            out["cuda"] = e.status.name
+        req = team.collective_init(ucc.CollArgs(
+            coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+            src=ucc.BufferInfo(x, MAIN_COUNT, f32,
+                               mem_type=ucc.MemoryType.CUDA),
+            dst=ucc.BufferInfo(y, MAIN_COUNT, f32,
+                               mem_type=ucc.MemoryType.CUDA)))
+        req.post()
+        out["cuda"] = req.wait(timeout=120).name
+        out["cuda_alg"] = req.task.alg_name
+        req.finalize()
         torch.cuda.synchronize()
+        out["cuda_ok"] = bits_equal(y, torch.full_like(y, n * (n + 1) / 2))
         out["cuda_launches"] = sum(w.launches for w, _ in kernels.values())
         del x, y
     if spec.get("tree"):
@@ -5497,10 +5545,12 @@ def main_path_procs(smi, counters, kernels, ring_p50) -> dict:
         f"job {time.perf_counter() - t1:.1f} s")
     log_procs_runs(outs, "ipc", cpu, smi)
     for o in outs:
-        if o["cuda"] != "ERR_NOT_SUPPORTED" or o["cuda_launches"]:
+        if (o["cuda"], o["cuda_alg"], o["cuda_ok"], o["cuda_launches"]) != \
+                ("OK", "xla", True, 0):
             raise AssertionError(f"CUDA allreduce across processes on worker "
-                                 f"{o['rank']}: {o['cuda']}, launches "
-                                 f"{o['cuda_launches']}")
+                                 f"{o['rank']}: {o['cuda']} via "
+                                 f"{o['cuda_alg']}, bitwise {o['cuda_ok']}, "
+                                 f"launches {o['cuda_launches']}")
         for run in o["onesided"]:
             # the arena serves one-sided ops between ranks of one process
             # only, as in the JAX package
@@ -5508,8 +5558,8 @@ def main_path_procs(smi, counters, kernels, ring_p50) -> dict:
                 raise AssertionError(f"ipc one-sided {run} on worker "
                                      f"{o['rank']}")
     log(f"procs: CUDA allreduce {MAIN_COUNT} f32 on the team across "
-        f"processes: collective_init ERR_NOT_SUPPORTED on all {PROCS_N} "
-        f"workers, no kernel launched, every worker exited 0")
+        f"processes: OK via torch_ops/xla on all {PROCS_N} workers, bitwise "
+        f"the integer sum, no kernel launched, every worker exited 0")
     log(f"procs: ipc one-sided ({', '.join(t for _, t in ONESIDED_RUNS)}; "
         f"handles through the store and the bootstrap path): "
         f"ERR_NOT_SUPPORTED on all {PROCS_N} workers, no hang (the arena "
@@ -5663,6 +5713,563 @@ def main_path_procs(smi, counters, kernels, ring_p50) -> dict:
     return {"launches": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 2: each kernel's parts (a team across processes launches one each)
+# ---------------------------------------------------------------------------
+
+#: (kernel, n, per-rank src count, root) of the part checks: counts that
+#: are no multiple of a vector and span several chunks of the chunked
+#: entry points, then the main path's runs (MAIN_RUNS), whose counts
+#: phase 9 launches by part
+PART_CASES = (
+    ("ring_allreduce_pass", 8, 65536 + 37, 0),
+    ("ring_allreduce_chunked", 8, (1 << 21) + 37, 0),
+    ("ring_reduce_scatter_pass", 8, 8 * 8197, 0),
+    ("ring_reduce_scatter_chunked", 8, 8 * ((1 << 18) + 5), 0),
+    ("ring_allgather_pass", 8, 8197, 0),
+    ("ring_allgather_chunked", 8, (1 << 18) + 5, 0),
+    ("ring_bcast_pass", 8, 65536 + 37, 3),
+    ("ring_bcast_chunked", 8, (1 << 21) + 37, 5),
+    ("ring_alltoall_pass", 8, 8 * 8197, 0),
+    ("ring_alltoall_chunked", 8, 8 * ((1 << 18) + 5), 0),
+) + tuple((kname, N_RANKS, count, root)
+          for _c, kname, count, _d, root, _s in MAIN_RUNS)
+PARTS = (2, 3, 4)
+
+
+def part_walks():
+    """kernel -> (walk, pieces) of kernels/ring_common.py's parts."""
+    from ucc_tpu_torch.kernels import ring_allreduce as kr
+    from ucc_tpu_torch.kernels import ring_bcast_a2a as kba
+    from ucc_tpu_torch.kernels import ring_rs_ag as krs
+    by = {"allreduce": (kr.allreduce_walk, kr.allreduce_pieces),
+          "reduce_scatter": (krs.reduce_scatter_walk,
+                             krs.reduce_scatter_pieces),
+          "allgather": (krs.allgather_walk, krs.allgather_pieces),
+          "bcast": (kba.bcast_walk, kba.bcast_pieces),
+          "alltoall": (kba.alltoall_walk, kba.alltoall_pieces)}
+    return {k: by[k[5:].rsplit("_", 1)[0]] for k in KERNELS}
+
+
+def phase_kernels_parts() -> None:
+    """Every entry point of the five direct sources launched part by part
+    (part p of P for P in PARTS, as process p of a team across P
+    processes launches it): each part's launch writes exactly its plain
+    version's part (every other element keeps its NaN sentinel), and the
+    parts' union is bitwise the single launch."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import ring_common as kc
+    kernels = wrappers()
+    walks = part_walks()
+    t0 = time.perf_counter()
+    checked = 0
+    for name, n, count, root in PART_CASES:
+        wrapper, ref = kernels[name]
+        walk, pieces = walks[name]
+        g = torch.Generator(device="cuda").manual_seed(count)
+        srcs = [torch.randn(count, generator=g, device="cuda")
+                for _ in range(n)]
+        dst_count = n * count if "allgather" in name else (
+            count // n if "reduce_scatter" in name else count)
+        op = ReductionOp.SUM
+        kw = {"root": root}
+        plain = ref(srcs, op, root)
+        whole = [torch.full((dst_count,), float("nan"), device="cuda")
+                 for _ in range(n)]
+        wrapper(srcs, whole, op, **kw).wait()
+        compare(f"{name} single launch", whole, plain)
+        for nparts in PARTS:
+            union = [torch.full((dst_count,), float("nan"), device="cuda")
+                     for _ in range(n)]
+            for p in range(nparts):
+                one = [torch.full((dst_count,), float("nan"), device="cuda")
+                       for _ in range(n)]
+                wrapper(srcs, one, op, part=(p, nparts), **kw).wait()
+                want = [torch.full((dst_count,), float("nan"),
+                                   device="cuda") for _ in range(n)]
+                lo, hi = kc.part_bounds(walk(count, n), (p, nparts), 4)
+                if lo < hi:
+                    kc.write_part(want, plain, pieces(count, n, lo, hi))
+                compare(f"{name} part {p} of {nparts}", one, want)
+                wrapper(srcs, union, op, part=(p, nparts), **kw).wait()
+                checked += 1
+            compare(f"{name} union of {nparts} parts", union, whole)
+        del srcs, plain, whole
+        torch.cuda.empty_cache()
+    log(f"kernels by part: {len(PART_CASES)} cases of the "
+        f"{len({c[0] for c in PART_CASES})} entry points x P in {PARTS}: "
+        f"{checked} part launches, each bitwise its plain version's part "
+        f"(the rest untouched), every union bitwise the single launch, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: device teams across processes
+# ---------------------------------------------------------------------------
+
+#: (processes, ranks each) of phase 9's layouts of its 8 ranks
+SPAN_LAYOUTS = ((2, 4), (4, 2))
+#: phase 9's tl/torch_ops runs: tests/test_xla_multiprocess.py's mode flat
+#: at full width (collective, root, f32 elements per rank or block)
+SPAN_FLAT = (("ALLREDUCE", 0, MAIN_COUNT), ("GATHER", 1, AG_MAIN_COUNT),
+             ("SCATTER", 2, AG_MAIN_COUNT), ("ALLGATHERV", 0, AG_MAIN_COUNT),
+             ("BCAST", 3, MAIN_COUNT), ("ALLTOALLV", 0, AG_MAIN_COUNT))
+#: where the workers' sync areas and arenas would be left
+SPAN_GLOBS = ("ucc-torch-dev-", "ucc-torch-ipc-")
+
+
+def span_inputs(n, count, seed):
+    """The ranks' integer-valued f32 inputs of a run: the same in every
+    process, so a worker can rebuild the ranks it does not hold."""
+    import torch
+    out = []
+    for r in range(n):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + r)
+        out.append(torch.randint(-64, 64, (count,), generator=g,
+                                 device="cuda").float())
+    return out
+
+
+def flat_counts(coll, n, c, seed):
+    """A v-collective's uneven counts: per rank (allgatherv) or per (src,
+    dst) pair (alltoallv), around c."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if coll == "ALLGATHERV":
+        return [int(c + x) for x in rng.integers(-c // 4, c // 4, n)]
+    return [[int(c + x) for x in rng.integers(-c // 4, c // 4, n)]
+            for _ in range(n)]
+
+
+def flat_args(ucc, coll, root, c, r, n, srcs, seed):
+    """Rank r's args of a flat run and its result buffer."""
+    import torch
+    f32 = ucc.DataType.FLOAT32
+    flags = ucc.CollArgsFlags.PERSISTENT
+    BI, BV = ucc.BufferInfo, ucc.BufferInfoV
+    if coll == "ALLREDUCE":
+        dst = torch.empty(c, device="cuda")
+        return ucc.CollArgs(coll_type=ucc.CollType.ALLREDUCE,
+                            op=ucc.ReductionOp.SUM, src=BI(srcs[r], c, f32),
+                            dst=BI(dst, c, f32), flags=flags), dst
+    if coll == "GATHER":
+        dst = torch.empty(n * c, device="cuda") if r == root else None
+        return ucc.CollArgs(coll_type=ucc.CollType.GATHER, root=root,
+                            src=BI(srcs[r], c, f32),
+                            dst=BI(dst, n * c, f32) if dst is not None
+                            else None, flags=flags), dst
+    if coll == "SCATTER":
+        dst = torch.empty(c, device="cuda")
+        return ucc.CollArgs(coll_type=ucc.CollType.SCATTER, root=root,
+                            src=BI(srcs[r], n * c, f32) if r == root
+                            else None, dst=BI(dst, c, f32),
+                            flags=flags), dst
+    if coll == "ALLGATHERV":
+        counts = flat_counts(coll, n, c, seed)
+        dst = torch.empty(sum(counts), device="cuda")
+        return ucc.CollArgs(coll_type=ucc.CollType.ALLGATHERV,
+                            src=BI(srcs[r][:counts[r]], counts[r], f32),
+                            dst=BV(dst, counts, None, f32),
+                            flags=flags), dst
+    if coll == "BCAST":
+        buf = srcs[r].clone() if r == root else torch.zeros(c,
+                                                            device="cuda")
+        return ucc.CollArgs(coll_type=ucc.CollType.BCAST, root=root,
+                            src=BI(buf, c, f32), flags=flags), buf
+    m = flat_counts(coll, n, c, seed)
+    rc = [m[q][r] for q in range(n)]
+    dst = torch.empty(sum(rc), device="cuda")
+    return ucc.CollArgs(coll_type=ucc.CollType.ALLTOALLV,
+                        src=BV(srcs[r][:sum(m[r])], m[r], None, f32),
+                        dst=BV(dst, rc, None, f32), flags=flags), dst
+
+
+def flat_expected(coll, root, c, r, n, srcs, seed):
+    """What an in-process team's tl/torch_ops xla leaves on rank r: the
+    same library ops over the same srcs (None where rank r receives
+    nothing)."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.tl.torch_ops import allreduce_ops, bcast_ops
+    if coll == "ALLREDUCE":
+        return allreduce_ops(srcs, ReductionOp.SUM)
+    if coll == "GATHER":
+        return torch.cat(srcs) if r == root else None
+    if coll == "SCATTER":
+        return srcs[root][r * c:(r + 1) * c]
+    if coll == "ALLGATHERV":
+        counts = flat_counts(coll, n, c, seed)
+        return torch.cat([s[:k] for s, k in zip(srcs, counts)])
+    if coll == "BCAST":
+        return bcast_ops(srcs, root)
+    m = flat_counts(coll, n, c, seed)
+    parts = []
+    for q in range(n):
+        off = sum(m[q][:r])
+        parts.append(srcs[q][off:off + m[q][r]])
+    return torch.cat(parts)
+
+
+def make_store_ranks(ranks, n, ports):
+    """Contexts of *ranks* (threads of this process) over a TcpStoreOob at
+    ports[0]; their OOBs."""
+    import ucc_tpu_torch as ucc
+    oobs, ctxs, errs = {}, {}, []
+    # the libs first, one after another: init loads the components
+    libs = {r: ucc.init() for r in ranks}
+
+    def make(r):
+        try:
+            oobs[r] = ucc.TcpStoreOob(r, n, port=ports[0])
+            ctxs[r] = ucc.Context(libs[r], ucc.ContextParams(oob=oobs[r]))
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    # daemon threads: a worker that fails does not wait on them to exit
+    threads = [threading.Thread(target=make, args=(r,), daemon=True)
+               for r in ranks]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if errs:
+        raise errs[0]
+    return [ctxs[r] for r in ranks], [oobs[r] for r in ranks]
+
+
+def span_teams(ctxs, ranks, n, port, what):
+    """A team of the n ranks over a TcpStoreOob at *port* (the TUNE
+    variables are read here); this process's ranks' teams."""
+    import ucc_tpu_torch as ucc
+    oobs = [ucc.TcpStoreOob(r, n, port=port) for r in ranks]
+    teams = [c.create_team_post(ucc.TeamParams(oob=o))
+             for c, o in zip(ctxs, oobs)]
+    create(ctxs, teams, what)
+    return teams, oobs
+
+
+def span_rounds(ctxs, reqs, kernels, what):
+    """One round, then the counters, then time_rounds' WARMUP + ITERS:
+    (the timed rounds' seconds, launches per kernel and the span counters
+    gained after the first round)."""
+    from ucc_tpu_torch.obs import metrics
+    one_round(ctxs, reqs, what)
+    counts = dict(metrics.span_counts)
+    before = {k: w.launches for k, (w, _) in kernels.items()}
+    samples = time_rounds(ctxs, reqs, what)
+    launches = {k: w.launches - before[k] for k, (w, _) in kernels.items()
+                if w.launches != before[k]}
+    after = {k: v - counts[k] for k, v in metrics.span_counts.items()}
+    return samples, launches, after
+
+
+def span_child(spec_json: str) -> int:
+    """One process of a phase-9 job: its ranks' contexts and two teams
+    over TcpStoreOob (tl/ring_cuda pinned for its five collectives, and
+    the default selection), the ring and flat runs (WARMUP + ITERS
+    persistent rounds after a first one, every local result bitwise what
+    an in-process team leaves on the same inputs), and, in process 0,
+    every kernel's parts timed in turns on its own copies of the eight
+    ranks' buffers. Its last line is one JSON object."""
+    import faulthandler
+    import torch
+    spec = json.loads(spec_json)
+    # every thread's stack on stderr before the parent gives up on us
+    faulthandler.dump_traceback_later(spec["dump_s"], exit=False)
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.kernels import ring_common as kc
+    ranks, n, ports, me, nprocs = (spec["ranks"], spec["n"], spec["ports"],
+                                   spec["proc"], spec["procs"])
+
+    def step(msg):
+        print(f"[{time.perf_counter() - t0:.1f} s] {msg}", file=sys.stderr,
+              flush=True)
+
+    t0 = time.perf_counter()
+    ctxs, oobs = make_store_ranks(ranks, n, ports)
+    step("contexts")
+    os.environ["UCC_TL_RING_CUDA_TUNE"] = RING_TUNE
+    ring, ring_oobs = span_teams(ctxs, ranks, n, ports[1], "ring team")
+    os.environ.pop("UCC_TL_RING_CUDA_TUNE")
+    step("ring team")
+    flat, flat_oobs = span_teams(ctxs, ranks, n, ports[2], "flat team")
+    step("flat team")
+    out = {"proc": me, "pid": os.getpid(), "ranks": ranks,
+           "setup_s": time.perf_counter() - t0, "ring": [], "flat": []}
+    kernels = wrappers()
+    f32 = ucc.DataType.FLOAT32
+    walks = part_walks()
+    for coll, kname, count, dst_count, root, seed in MAIN_RUNS:
+        srcs = span_inputs(n, count, 90 + seed)
+        bufs, argses = [], []
+        for r in ranks:
+            if coll == "BCAST":
+                buf = srcs[r].clone() if r == root else \
+                    torch.zeros(count, device="cuda")
+                bufs.append(buf)
+                argses.append(ucc.CollArgs(
+                    coll_type=ucc.CollType.BCAST, root=root,
+                    src=ucc.BufferInfo(buf, count, f32),
+                    flags=ucc.CollArgsFlags.PERSISTENT))
+            else:
+                dst = torch.empty(dst_count, device="cuda")
+                bufs.append(dst)
+                argses.append(ucc.CollArgs(
+                    coll_type=ucc.CollType[coll], op=ucc.ReductionOp.SUM,
+                    src=ucc.BufferInfo(srcs[r], count, f32),
+                    dst=ucc.BufferInfo(dst, dst_count, f32),
+                    flags=ucc.CollArgsFlags.PERSISTENT))
+        reqs = [t.collective_init(a) for t, a in zip(ring, argses)]
+        alg = reqs[0].task.alg_name
+        step(f"{coll} {count} via {alg}")
+        samples, launches, after = span_rounds(ctxs, reqs, kernels,
+                                               f"span {coll}")
+        wrapper, _ = kernels[kname]
+        # the in-process launch over the same eight srcs
+        whole = [torch.empty(dst_count, device="cuda") for _ in range(n)]
+        if coll == "BCAST":
+            whole = [srcs[root].clone() if r == root else
+                     torch.zeros(count, device="cuda") for r in range(n)]
+            wrapper(whole, whole, None, root=root).wait()
+        else:
+            wrapper(srcs, whole, ucc.ReductionOp.SUM, root=root).wait()
+        before = wrapper.launches
+        ok = all(bits_equal(b, whole[r]) for b, r in zip(bufs, ranks))
+        rec = {"coll": coll, "kname": kname, "count": count, "alg": alg,
+               "ok": ok, "p50": sorted(samples)[len(samples) // 2],
+               "launches": launches, "after_first": after,
+               "rounds": WARMUP + ITERS}
+        if me == 0:
+            # every part alone, then the single launch, in turns, on this
+            # process's copies of the eight ranks' buffers
+            ins = whole if coll == "BCAST" else srcs
+            dsts = whole if coll == "BCAST" else \
+                [torch.empty(dst_count, device="cuda") for _ in range(n)]
+            table = kc.make_ptr_table(ins, dsts)
+            op = None if coll == "BCAST" else ucc.ReductionOp.SUM
+            rec["part_ms"] = [cuda_ms(lambda p=p: wrapper(
+                ins, dsts, op, root=root, ptr_table=table,
+                part=(p, nprocs)), 10) for p in range(nprocs)]
+            rec["single_ms"] = cuda_ms(lambda: wrapper(
+                ins, dsts, op, root=root, ptr_table=table), 10)
+            walk = walks[kname][0](count, n)
+            rec["bounds"] = [kc.part_bounds(walk, (p, nprocs), 4)
+                             for p in range(nprocs)]
+            del ins, dsts, table
+        wrapper.launches = before
+        out["ring"].append(rec)
+        del srcs, bufs, argses, reqs, whole
+        torch.cuda.empty_cache()
+    for i, (coll, root, c) in enumerate(SPAN_FLAT):
+        seed = 300 + i
+        # elements a rank's src holds: the root's n blocks of a scatter,
+        # the largest uneven count (below 1.25 c) of the v-collectives
+        total = {"SCATTER": n * c, "ALLGATHERV": c + c // 4 + 8,
+                 "ALLTOALLV": n * (c + c // 4 + 8)}.get(coll, c)
+        srcs = span_inputs(n, total, seed)
+        pairs = [flat_args(ucc, coll, root, c, r, n, srcs, seed)
+                 for r in ranks]
+        reqs = [t.collective_init(a) for t, (a, _) in zip(flat, pairs)]
+        alg = reqs[0].task.alg_name
+        step(f"flat {coll} {c} via {alg}")
+        samples, launches, after = span_rounds(ctxs, reqs, kernels,
+                                               f"span flat {coll}")
+        ok = True
+        for r, (_, got) in zip(ranks, pairs):
+            want = flat_expected(coll, root, c, r, n, srcs, seed)
+            if want is not None and not bits_equal(got, want):
+                ok = False
+        out["flat"].append({"coll": coll, "root": root, "count": c,
+                            "alg": alg, "ok": ok, "launches": launches,
+                            "after_first": after,
+                            "p50": sorted(samples)[len(samples) // 2]})
+        del srcs, pairs, reqs
+        torch.cuda.empty_cache()
+    for t in ring + flat:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+    for o in oobs + ring_oobs + flat_oobs:
+        o.close()
+    faulthandler.cancel_dump_traceback_later()
+    step("done")
+    out["jax"] = sys.modules.get("jax") is not None
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def span_job(nprocs, per, timeout=240):
+    """nprocs processes of span_child (this script with --span-child),
+    *per* ranks each, joined by TCP stores on held ports; every process's
+    result. Each worker writes into files of its own (a pipe that nobody
+    drains would stop a chatty worker, and its peers with it); a worker
+    that fails stops the job, and every worker's last output is shown.
+    No worker outlives the call."""
+    import tempfile
+    from ucc_tpu_torch.tools.perftest import HeldPorts
+    held = HeldPorts(3)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_span_")
+    procs, files = [], []
+    try:
+        for p in range(nprocs):
+            spec = {"ranks": list(range(p * per, (p + 1) * per)),
+                    "n": nprocs * per, "ports": held.ports, "proc": p,
+                    "procs": nprocs, "dump_s": timeout - 20}
+            so = open(os.path.join(tmp, f"{p}.out"), "w+")
+            se = open(os.path.join(tmp, f"{p}.err"), "w+")
+            files.append((so, se))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--span-child",
+                 json.dumps(spec)], stdout=so, stderr=se, text=True,
+                env={**os.environ, "OMP_NUM_THREADS":
+                     os.environ.get("OMP_NUM_THREADS", "1")}))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                for q in procs:
+                    if q.poll() is None:
+                        q.kill()
+                        q.wait()
+                tails = []
+                for i, (_, se) in enumerate(files):
+                    se.seek(0)
+                    tails.append(f"-- worker {i} (rc {procs[i].returncode})"
+                                 f":\n{se.read()[-3000:]}")
+                what = "phase 9 worker failed" if failed else \
+                    f"phase 9 workers did not end in {timeout} s"
+                raise RuntimeError("\n".join([what, *tails]))
+            time.sleep(0.2)
+        outs = []
+        for i, (so, se) in enumerate(files):
+            so.seek(0)
+            lines = so.read().strip().splitlines()
+            if procs[i].returncode != 0 or not lines:
+                se.seek(0)
+                raise RuntimeError(f"phase 9 worker {i} failed "
+                                   f"({procs[i].returncode}): "
+                                   f"{se.read()[-4000:]}")
+            outs.append(json.loads(lines[-1]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for so, se in files:
+            so.close()
+            se.close()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+        held.release()
+
+
+def sharing_mode() -> str:
+    """How processes share the card: its compute mode (nvidia-smi -q) and
+    whether an MPS server runs on this machine."""
+    out = subprocess.run(["nvidia-smi", "-q", "-d", "COMPUTE"],
+                         capture_output=True, text=True, timeout=60)
+    mode = "?"
+    for line in out.stdout.splitlines():
+        if "Compute Mode" in line:
+            mode = line.split(":", 1)[1].strip()
+    mps = False
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/comm") as fh:
+                mps |= fh.read().strip().startswith("nvidia-cuda-mps")
+        except OSError:
+            continue
+    return f"compute mode {mode}, MPS {'active' if mps else 'not active'}"
+
+
+def main_path_span(smi, records) -> dict:
+    """Phase 9: device teams across processes. Returns every kernel's
+    launches over the phase's spanning rounds."""
+    t0 = time.perf_counter()
+    shm = "/dev/shm"
+    before = sorted(f for f in os.listdir(shm)
+                    if f.startswith(SPAN_GLOBS))
+    log(f"span: how processes share the card: {sharing_mode()} | card {smi}")
+    total = {}
+    for nprocs, per in SPAN_LAYOUTS:
+        t1 = time.perf_counter()
+        outs = span_job(nprocs, per)
+        lay = f"{nprocs} processes x {per} ranks"
+        for o in outs:
+            if o["jax"]:
+                raise AssertionError(f"span {lay}: worker {o['proc']} "
+                                     "loaded JAX")
+        if len({o["pid"] for o in outs}) != nprocs:
+            raise AssertionError(f"span {lay}: workers share a process")
+        for i, rec in enumerate(outs[0]["ring"]):
+            runs = [o["ring"][i] for o in outs]
+            k = rec["kname"]
+            for run in runs:
+                if run["alg"] != "ring_cuda" or not run["ok"]:
+                    raise AssertionError(f"span {lay} {k}: {run['alg']}, "
+                                         f"bitwise {run['ok']}")
+                if run["launches"] != {k: run["rounds"]}:
+                    raise AssertionError(f"span {lay} {k}: launches "
+                                         f"{run['launches']} over "
+                                         f"{run['rounds']} rounds, want one "
+                                         "a process a round")
+                if run["after_first"]["dev_ipc_opens"] or \
+                        run["after_first"]["dev_desc_sends"]:
+                    raise AssertionError(f"span {lay} {k}: after the first "
+                                         f"round {run['after_first']}")
+                total[k] = total.get(k, 0) + run["launches"][k]
+            p50 = max(run["p50"] for run in runs)
+            parts = rec["part_ms"]
+            log(f"span: {lay}, {rec['coll']} {rec['count']} f32/rank via "
+                f"ring_cuda: p50 {p50 * 1e3:.3f} ms (the slowest "
+                f"process's) over {ITERS} persistent rounds, bitwise the "
+                f"in-process launch on every rank | {k}: parts "
+                f"{' + '.join(f'{m:.4f}' for m in parts)} = "
+                f"{sum(parts):.4f} ms (alone, in turns; walk bounds "
+                f"{rec['bounds']}), single launch {rec['single_ms']:.4f} ms "
+                f"here, {records[k]['ms']:.4f} ms in phase 3 | launches "
+                f"{rec['rounds']} a process over {rec['rounds']} rounds | "
+                f"after the first round: IPC opens "
+                f"{max(r['after_first']['dev_ipc_opens'] for r in runs)}, "
+                f"descriptor sends "
+                f"{max(r['after_first']['dev_desc_sends'] for r in runs)}"
+                f" | card {smi}")
+            records[k].setdefault("span", {})[f"{nprocs}x{per}"] = {
+                "p50_ms": p50 * 1e3, "part_ms": parts,
+                "single_ms": rec["single_ms"]}
+        for i, rec in enumerate(outs[0]["flat"]):
+            runs = [o["flat"][i] for o in outs]
+            for run in runs:
+                if run["alg"] != "xla" or not run["ok"] or run["launches"]:
+                    raise AssertionError(f"span {lay} flat {run}")
+                if run["after_first"]["dev_ipc_opens"] or \
+                        run["after_first"]["dev_desc_sends"]:
+                    raise AssertionError(f"span {lay} flat {rec['coll']}: "
+                                         f"after the first round "
+                                         f"{run['after_first']}")
+            rooted = f" root {rec['root']}" if rec["coll"] in (
+                "GATHER", "SCATTER", "BCAST") else ""
+            log(f"span: {lay}, {rec['coll']}{rooted} {rec['count']} "
+                f"f32/rank via torch_ops/xla: p50 "
+                f"{max(r['p50'] for r in runs) * 1e3:.3f} ms (the slowest "
+                f"process's), bitwise the in-process team's ops on every "
+                f"rank, no kernel | card {smi}")
+        log(f"span: {lay}: setup {max(o['setup_s'] for o in outs):.1f} s, "
+            f"the job {time.perf_counter() - t1:.1f} s")
+    left = sorted(f for f in os.listdir(shm)
+                  if f.startswith(SPAN_GLOBS) and f not in before)
+    if left:
+        raise AssertionError(f"phase 9 left segments behind: {left}")
+    log(f"span: no {'*, '.join(SPAN_GLOBS)}* segment left in /dev/shm, "
+        f"every worker exited | span phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -5692,6 +6299,14 @@ def main() -> int:
         return core_child(sys.argv[2])
     if sys.argv[1:2] == ["--procs-child"]:
         return procs_child(sys.argv[2])
+    if sys.argv[1:2] == ["--span-child"]:
+        try:
+            return span_child(sys.argv[2])
+        except BaseException:  # noqa: BLE001 - the job must see it at once
+            import traceback
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(1)
 
     # -- 1. device -------------------------------------------------------
     smi = smi_line()
@@ -5703,9 +6318,10 @@ def main() -> int:
                kba.A2A_SOURCE, ker.SOURCE, ka.SOURCE, kgd.SOURCE,
                kgd.FOLD_SOURCE]
     started = {src: ptxas_start(src) for src in sources}
-    build_s = build.build_all(sources)
-    log(f"build: {', '.join(sources)} -> {build.BUILD_DIR} in "
-        f"{build_s:.1f} s")
+    from ucc_tpu_torch.kernels import cuda_ipc
+    build_s = build.build_all(sources + [cuda_ipc.SOURCE])
+    log(f"build: {', '.join(sources + [cuda_ipc.SOURCE])} -> "
+        f"{build.BUILD_DIR} in {build_s:.1f} s")
     infos = {src: ptxas_read(p) for src, p in started.items()}
     log(f"ptxas and SASS of every source: "
         f"{time.perf_counter() - t_build:.1f} s from the start of the build")
@@ -5720,6 +6336,7 @@ def main() -> int:
     phase_kernels()
     phase_kernels_rs_ag()
     phase_kernels_bcast_a2a()
+    phase_kernels_parts()
     phase_kernels_wide_types()
     phase_kernels_gen_device()
     phase_kernels_ec()
@@ -5836,6 +6453,9 @@ def main() -> int:
     # store -------------------------------------------------------------------
     procs = main_path_procs(smi, counters, wrappers(), ring_p50)
 
+    # -- 9. span: device teams across processes ---------------------------
+    span = main_path_span(smi, records)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -5847,6 +6467,7 @@ def main() -> int:
         rec["core_launches"] = core["launches"].get(rec["name"], 0)
         rec["host_launches"] = host["launches"].get(rec["name"], 0)
         rec["procs_launches"] = procs["launches"].get(rec["name"], 0)
+        rec["span_launches"] = span["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

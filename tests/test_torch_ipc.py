@@ -7,8 +7,9 @@ processes, held against the JAX package.
 - A 2-process x 2-rank job over ``TcpStoreOob`` under ``UCC_TLS=ipc,self``
   runs a matrix of collectives, bitwise the JAX package's tl/shm on the
   same inputs; the arena's shared counters show the traffic went through
-  it. A CUDA-memory collective on that team ends ERR_NOT_SUPPORTED at
-  init on every rank (device TLs decline teams that span processes).
+  it. A CUDA-memory allreduce on that team (the device TLs on the
+  ``cpu`` device) runs on tl/torch_ops across the two processes and is
+  bitwise the library reduction of the four ranks' inputs.
 - ``UCC_TL_IPC_ENABLE=y`` attaches the arena within one process, against
   the JAX package doing the same.
 - A message above the arena's largest block class raises, as in the JAX
@@ -144,9 +145,14 @@ def test_ipc_two_process_matrix(ref4):
         ctr = x["arena"]
         assert ctr["n_direct"] > 0 and ctr["attaches"] >= 4
         assert ctr["bytes_moved"] > 0
-    # CUDA memory on a team across processes: refused at init, every rank
-    assert [ph[1][r]["cases"][0][0] for r in range(n)] == \
-        ["init ERR_NOT_SUPPORTED"] * n
+    # CUDA memory on a team across processes: tl/torch_ops's xla on every
+    # rank, bitwise the library reduction of the four ranks' inputs
+    assert [ph[1][r]["cases"][0][:2] for r in range(n)] == \
+        [("OK", "xla")] * n
+    from ucc_tpu_torch.tl.torch_ops import allreduce_ops
+    srcs, _, _ = tp.case_buffers(cuda, n, tp.port_buf)
+    want = tp.bits(allreduce_ops(srcs, ut.ReductionOp.SUM))
+    assert [ph[1][r]["cases"][0][2] for r in range(n)] == [want] * n
     # the creator unlinked the segment (the workers' reaper may also
     # have unlinked a dead run's)
     assert set(_shm_names(ut.native.ARENA_PREFIX)) <= set(before)

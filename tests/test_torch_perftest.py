@@ -118,15 +118,52 @@ def test_bad_arguments_exit_as_ucc_tpu(bad):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sweep"], ["--quant"], ["--gen"], ["--gen-device"], ["-O"], ["-T"],
+    ["--sweep"], ["--quant"], ["--gen"], ["--gen-device"],
     ["--teams", "2", "--storm"], ["--store", "h:1", "--procs", "2"],
-    ["--procs", "2", "-c", "memcpy"],
-    ["--matrix", "moe"], ["-c", "alltoallv"], ["-c", "reduce"],
-    ["-m", "cuda_managed"]])
+    ["--procs", "2", "-c", "memcpy"], ["-m", "cuda_managed"]])
 def test_unported_modes_are_refused(flag):
     with pytest.raises(SystemExit) as ei:
         perf.main(["-b", "8", "-e", "8", *flag])
     assert ei.value.code not in (0, None)
+
+
+@pytest.mark.parametrize("flag", [
+    ["-O", "-m", "host"], ["-O", "-m", "host", "-c", "alltoallv"],
+    ["-T", "-m", "host"], ["--matrix", "moe", "-c", "alltoallv"],
+    ["-c", "alltoallv"], ["-c", "reduce"]])
+def test_ported_modes_match_ucc_tpus_records(capsys, monkeypatch, flag):
+    """-O (allreduce and the alltoallv row), -T, --matrix moe, and the
+    collective types beyond the five: they run, and each record has
+    ucc_tpu's perftest's fields for the same arguments (-m host; the
+    others on the port's -m cuda, the CPU device here). Both perftests'
+    -O set the host TLs' TUNE in the environment, which is put back
+    after; ucc_tpu's -T leaves its execution engines' progress threads
+    running, so that one runs in a process of its own."""
+    for tl in ("SHM", "SOCKET"):
+        # recorded as unset, so that the undo removes what -O sets
+        monkeypatch.setenv(f"UCC_TL_{tl}_TUNE", "")
+        monkeypatch.delenv(f"UCC_TL_{tl}_TUNE")
+    args = ["-b", "64", "-e", "128", "-n", "2", "-w", "1", "-p", "2",
+            "--json", "-F", *flag]
+    host = "-m" in flag
+    jargs = args if host else [*args, "-m", "host"]
+    if "-T" in flag:
+        out = subprocess.run(
+            [sys.executable, "-m", "ucc_tpu.tools.perftest", *jargs],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        want = records(out.stdout)
+    else:
+        assert jperf.main(jargs) == 0
+        want = records(capsys.readouterr().out)
+    assert perf.main(args if host else [*args, "-m", "cuda"]) == 0
+    got = records(capsys.readouterr().out)
+    assert [r["size_bytes"] for r in got] == [64, 128]
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    assert [sorted(r["detail"]) for r in got] == \
+        [sorted(r["detail"]) for r in want]
+    assert [(r["coll"], r["ranks"], r["count"]) for r in got] == \
+        [(r["coll"], r["ranks"], r["count"]) for r in want]
 
 
 def test_host_collective_exits_with_the_init_status(capsys, monkeypatch):

@@ -1,4 +1,5 @@
-"""A CPU model of the allgather kernel's walk (``csrc/allgather.cu``), and
+"""A CPU model of the allgather kernel's walk (``csrc/allgather.cu``),
+whole and by part (the launches of a team across processes), and
 the launch that both allgather wrappers make.
 
 ``decide`` and ``walk`` repeat the kernel's index arithmetic as the source
@@ -31,6 +32,7 @@ import torch
 
 from ucc_tpu_torch.kernels import ring_common as kc
 from ucc_tpu_torch.kernels import ring_rs_ag as krs
+from ucc_tpu_torch.kernels.ring_common import part_bounds
 
 #: csrc/allgather.cu's AG_UNROLL and its warp width
 UNROLL = 8
@@ -53,15 +55,21 @@ def decide(n, count, elem, addr):
     return units
 
 
-def walk(n, count, elem, addr, ctas, threads):
+def walk(n, count, elem, addr, ctas, threads, part=None):
     """Each thread's steps in program order: ("vec", b, [lo, ...]) is one
     tile's vectors of unit b (their first elements), loaded together and
-    then stored dst by dst; ("elem", b, i) one element of unit b."""
+    then stored dst by dst; ("elem", b, i) one element of unit b. *part*
+    [lo, hi) of the n·count elements (a launch of a team across
+    processes) walks units lo // count .. (hi - 1) // count, each clipped
+    to the part."""
     w = 16 // elem
     units = decide(n, count, elem, addr)
+    p_lo, p_hi = (0, n * count) if part is None else part
+    u0 = p_lo // count
+    n_units = (p_hi - 1) // count - u0 + 1
     slots = 1 + -(-count // w)
     warps = ctas * (threads // WARP)
-    depth = max(1, min(UNROLL, n * slots // (WARP * warps)))
+    depth = max(1, min(UNROLL, n_units * slots // (WARP * warps)))
     tile_slots = WARP * depth
     tiles = -(-slots // tile_slots)
     step_u, step_t = divmod(warps, tiles)
@@ -70,22 +78,26 @@ def walk(n, count, elem, addr, ctas, threads):
         warp, lane = divmod(tid, WARP)
         u, tile = divmod(warp, tiles)
         steps = []
-        while u < n:
-            aligned, head, skip = units[u]
+        while u < n_units:
+            b = u0 + u
+            aligned, head, skip = units[b]
+            elo = max(p_lo - b * count, 0)
+            ehi = min(p_hi - b * count, count)
             if n > 1 or skip < 0:
                 vecs, elems = [], []
                 for k in range(UNROLL):
                     j = tile * tile_slots + k * WARP + lane
-                    lo = 0 if j == 0 else head + (j - 1) * w
-                    hi = head if j == 0 else min(count, head + j * w)
+                    lo = max(elo, 0 if j == 0 else head + (j - 1) * w)
+                    hi = min(ehi, head if j == 0 else
+                             min(count, head + j * w))
                     length = hi - lo if k < depth and hi > lo else 0
                     if aligned and j > 0 and length == w:
                         vecs.append(lo)
                     elif length:
                         elems += range(lo, lo + length)
                 if vecs:
-                    steps.append(("vec", u, vecs))
-                steps += [("elem", u, i) for i in elems]
+                    steps.append(("vec", b, vecs))
+                steps += [("elem", b, i) for i in elems]
             tile += step_t
             if tile >= tiles:
                 tile -= tiles
@@ -101,10 +113,12 @@ def raw(t):
                    8: torch.int64}[t.element_size()])
 
 
-def run(srcs, dsts, ctas=2, threads=64):
+def run(srcs, dsts, ctas=2, threads=64, parts=1):
     """Play the kernel's walk on *srcs* and *dsts* (in place, src_b a view
     of dst_b's block b), checking the walk's claims on the way; returns
-    the vectors each unit moved."""
+    the vectors each unit moved. *parts* P plays the P launches of a team
+    across P processes (kernels/ring_common.part_bounds), one after
+    another: together they must move every element once."""
     n = len(srcs)
     count = srcs[0].numel()
     elem = srcs[0].element_size()
@@ -123,7 +137,11 @@ def run(srcs, dsts, ctas=2, threads=64):
     reads = [np.zeros(len(a), np.int64) for a in arrays]
     writes = [np.zeros(len(a), np.int64) for a in arrays]
     vectors = [0] * n
-    for steps in walk(n, count, elem, addr, ctas, threads):
+    bounds = [part_bounds(n * count, (p, parts), elem)
+              for p in range(parts)]
+    plays = [walk(n, count, elem, addr, ctas, threads, b)
+             for b in bounds if b[0] < b[1]]
+    for steps in (s for play in plays for s in play):
         for kind, b, at in steps:
             los = at if kind == "vec" else [at]
             width = w if kind == "vec" else 1
@@ -187,10 +205,10 @@ def same_raw(a, b):
     return torch.equal(raw(a), raw(b))
 
 
-def gather(srcs, inplace, ranks=None, ctas=2, threads=64):
-    """Run the walk on fresh dsts: not in place, or in place on *ranks*
-    (default all), whose srcs become block r of their dst. Returns the
-    dsts and the vectors each unit moved."""
+def gather(srcs, inplace, ranks=None, ctas=2, threads=64, parts=1):
+    """Run the walk (in *parts* launches) on fresh dsts: not in place, or
+    in place on *ranks* (default all), whose srcs become block r of their
+    dst. Returns the dsts and the vectors each unit moved."""
     n = len(srcs)
     count = srcs[0].numel()
     dsts = [torch.full((n * count,), 7, dtype=srcs[0].dtype)
@@ -200,7 +218,7 @@ def gather(srcs, inplace, ranks=None, ctas=2, threads=64):
         for r in range(n) if ranks is None else ranks:
             dsts[r][r * count:(r + 1) * count] = srcs[r]
             ins[r] = dsts[r][r * count:(r + 1) * count]
-    vectors = run(ins, dsts, ctas, threads)
+    vectors = run(ins, dsts, ctas, threads, parts)
     return dsts, vectors
 
 
@@ -232,6 +250,25 @@ def test_kernel_walk_copies_every_element_once(n, dtype, inplace):
         elif inplace == "no" and n >= 4 and count >= 4 * w:
             # block b at b·count·B mod 16: some units vector, some scalar
             assert 0 in vectors and any(vectors)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+@pytest.mark.parametrize("dtype", list(COUNTS))
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_kernel_walk_by_parts(n, dtype, parts):
+    """The launches of a team across processes, part p of P each: every
+    element moved once over all parts, bitwise the single launch, and,
+    where every unit starts on a vector (the parts cut at vectors), as
+    many vectors as the single launch."""
+    for count in COUNTS[dtype]:
+        srcs = seeded(n, count, dtype, seed=7 * n + count)
+        for inplace in (False, True):
+            whole, vectors = gather(srcs, inplace)
+            split, split_vectors = gather(srcs, inplace, parts=parts)
+            for a, b in zip(whole, split):
+                assert same_raw(a, b)
+            if count * srcs[0].element_size() % 16 == 0:
+                assert split_vectors == vectors
 
 
 @pytest.mark.parametrize("dtype", list(COUNTS))
@@ -376,9 +413,11 @@ def test_wrappers_launch_the_one_kernel(wrapper, kernel, monkeypatch):
         [int(kernel == krs.K_AG_PASS), int(kernel == krs.K_AG_CHUNKED)]
     assert ws.err is None                     # the workspace was not asked
     (k, code, ptrs, comm, flags, err, a, b, n_chunks, n_, op, root, ctas,
-     threads, stream), = calls
+     threads, lo, hi, stream), = calls
     assert (k, code, ptrs) == (kernel, kc.DTYPE_CODES[torch.float32],
                                table.data_ptr())
     assert (comm, flags, err, op, root) == (None, None, None, 0, 0)
     assert (a, n_, threads) == (count, n, kc.DIRECT_THREADS)
     assert ctas == kc.launch_ctas(n * count, 4, 264)
+    # a team in one process launches the whole walk
+    assert (lo, hi) == (0, n * count)

@@ -25,6 +25,7 @@ import torch
 
 from ucc_tpu_torch.constants import ReductionOp
 from ucc_tpu_torch.kernels import ring_allreduce as kr
+from ucc_tpu_torch.kernels import ring_common as kc
 from ucc_tpu_torch.kernels.ring_common import DTYPE_CODES
 
 DTYPES = list(DTYPE_CODES)
@@ -63,24 +64,28 @@ def same_bits(a, b) -> bool:
         torch.equal(a.view(view)[~na], b.view(view)[~nb]))
 
 
-def walk(count, elem, offsets, blk, n, ctas, threads):
+def walk(count, elem, offsets, blk, n, ctas, threads, part=None):
     """The kernel's units in the order one launch takes them: a list of
     (first element, elements, block) per fold, one entry per element of
     a vector that straddles a block boundary. *offsets* are the 2n
-    pointers' byte offsets mod 16."""
+    pointers' byte offsets mod 16; *part* [lo, hi) the elements of a
+    launch of a team across processes (direct_fold.cuh: vector_part)."""
     mis = offsets[0] % 16
     aligned = all(o % 16 == mis for o in offsets) and mis % elem == 0
     w = 16 // elem
     head = min(count, ((16 - mis) % 16) // elem)
+    p_lo, p_hi = (0, count) if part is None else part
     # (elements per unit, first element, units, units a thread takes at
     # once): the vector sweep, then single elements (sweep_elements)
     if aligned:
-        vecs = (count - head) // w
-        tail = head + vecs * w
-        sweeps = [(w, head, vecs, UNROLL), (1, 0, head, 1),
-                  (1, tail, count - tail, 1)]
+        v0 = head if p_lo <= head else head + -(-(p_lo - head) // w) * w
+        v0 = min(v0, p_hi)
+        vecs = (p_hi - v0) // w
+        tail = v0 + vecs * w
+        sweeps = [(w, v0, vecs, UNROLL), (1, p_lo, v0 - p_lo, 1),
+                  (1, tail, p_hi - tail, 1)]
     else:
-        sweeps = [(1, 0, count, 1)]
+        sweeps = [(1, p_lo, p_hi - p_lo, 1)]
     stride = ctas * threads
     units = []
     for width, lo, n_units, unroll in sweeps:
@@ -116,18 +121,24 @@ def walk(count, elem, offsets, blk, n, ctas, threads):
     return units
 
 
-def model(srcs, dsts, op, blk, offsets=None, ctas=2, threads=4):
+def model(srcs, dsts, op, blk, offsets=None, ctas=2, threads=4, parts=1):
     """The kernel on CPU tensors: each unit of ``walk`` reads its elements
     from the n srcs in ring order from its block (a vector in groups of
     GROUP loads, a single element rank by rank), divides for AVG and
     writes all n dsts before the next unit (so dsts may be the srcs).
-    Asserts every element once, in its block."""
+    *parts* P: the P launches of a team across processes, one after
+    another. Asserts every element once, in its block; returns the
+    vector units."""
     n, count = len(srcs), srcs[0].numel()
     offsets = offsets or [0] * (2 * n)
     acc = kr._accum(op)
     seen = torch.zeros(count, dtype=torch.int64)
-    for e, width, b in walk(count, srcs[0].element_size(), offsets, blk, n,
-                            ctas, threads):
+    elem = srcs[0].element_size()
+    units = [u for p in range(parts) for u in walk(
+        count, elem, offsets, blk, n, ctas, threads,
+        kc.part_bounds(count, (p, parts), elem))]
+    vectors = sum(1 for _, width, _ in units if width > 1)
+    for e, width, b in units:
         idx = slice(e, e + width)
         seen[idx] += 1
         want_b = torch.arange(e, e + width) % (n * blk) // blk
@@ -144,6 +155,7 @@ def model(srcs, dsts, op, blk, offsets=None, ctas=2, threads=4):
         for d in dsts:
             d[idx] = v
     assert torch.equal(seen, torch.ones(count, dtype=torch.int64))
+    return vectors
 
 
 def check(srcs, op, blk, n_chunks, inplace=False, **kw):
@@ -232,6 +244,36 @@ def test_in_place(n, dtype, geometry):
     blk, n_chunks = kr.pass_geometry(count, n) if geometry == "pass" \
         else kr.chunked_geometry(count, n, 4 * n)
     check(srcs, op, blk, n_chunks, inplace=True)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_walk_by_parts(n, dtype, parts):
+    """The launches of a team across processes, part p of P each
+    (kernels/ring_common.part_bounds): every element folded once in its
+    block, bitwise the plain version, in place too; the parts cut at
+    vectors, so they take as many vectors as one launch."""
+    op = ReductionOp.SUM
+    for count in (1, 7, 150, 1003):
+        srcs = make_inputs(n, count, dtype, op, seed=500 + n + count)
+        for geometry in ("pass", "chunked"):
+            blk, n_chunks = kr.pass_geometry(count, n) \
+                if geometry == "pass" else kr.chunked_geometry(count, n,
+                                                               4 * n)
+            want = kr.ring_allreduce_ref(srcs, op, blk, n_chunks)
+            for inplace in (False, True):
+                ins = [s.clone() for s in srcs]
+                dsts = ins if inplace else [torch.full_like(s, 7)
+                                            for s in srcs]
+                v1 = model([s.clone() for s in srcs],
+                           [torch.full_like(s, 7) for s in srcs], op, blk)
+                vp = model(ins, dsts, op, blk, parts=parts)
+                for d, w in zip(dsts, want):
+                    assert same_bits(d, w)
+                if blk * srcs[0].element_size() % 16 == 0:
+                    assert vp == v1
 
 
 def test_more_ranks_than_two_load_groups():

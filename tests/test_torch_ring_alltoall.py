@@ -25,6 +25,7 @@ pytest.importorskip("jax")
 from torch_ring_cases import (COVER_DTYPES, NS, bitwise_equal,  # noqa: E402
                               jax_alltoall, make_inputs, torch_alltoall)
 from ucc_tpu_torch.kernels import ring_bcast_a2a as kba  # noqa: E402
+from ucc_tpu_torch.kernels.ring_common import part_bounds  # noqa: E402
 from ucc_tpu_torch.status import Status, UccError  # noqa: E402
 
 
@@ -190,14 +191,20 @@ def locate(n, blk, elem, addr, u):
     return r, q, head, aligned, pair or a != c
 
 
-def walk(n, blk, elem, addr, ctas, threads):
+def walk(n, blk, elem, addr, ctas, threads, part=None):
     """Each thread's groups of UNROLL slots, as (r, q, lo, len, vec), in
     the order the kernel takes them; *addr* are the 2n buffers' addresses
-    (n srcs, then n dsts)."""
+    (n srcs, then n dsts). *part* [lo, hi) of the units' elements (a
+    launch of a team across processes; unit u's element e is u·blk + e)
+    walks its units, each clipped to the part."""
     assert threads % WARP == 0
     w = 16 // elem
-    first = 0 if any(addr[i] != addr[n + i] for i in range(n)) else n
-    units = n * (n + 1) // 2 - first
+    p_lo, p_hi = (0, n * (n + 1) // 2 * blk) if part is None else part
+    lead = 0 if any(addr[i] != addr[n + i] for i in range(n)) else n
+    first = max(lead, p_lo // blk)
+    units = (p_hi - 1) // blk + 1 - first
+    if units <= 0:
+        return []
     slots = 1 + -(-blk // w)
     warps = ctas * threads // WARP
     depth = max(1, min(UNROLL, units * slots // (WARP * warps)))
@@ -210,12 +217,15 @@ def walk(n, blk, elem, addr, ctas, threads):
         groups = []
         while u < units:
             r, q, head, aligned, live = locate(n, blk, elem, addr, first + u)
+            at = (first + u) * blk
+            elo, ehi = max(p_lo - at, 0), min(p_hi - at, blk)
             if live:
                 group = []
                 for k in range(UNROLL):
                     j = tile * WARP * depth + k * WARP + lane
-                    lo = 0 if j == 0 else head + (j - 1) * w
-                    hi = head if j == 0 else min(blk, head + j * w)
+                    lo = max(elo, 0 if j == 0 else head + (j - 1) * w)
+                    hi = min(ehi, head if j == 0 else
+                             min(blk, head + j * w))
                     length = max(0, hi - lo) if k < depth else 0
                     group.append((r, q, lo, length,
                                   aligned and j > 0 and length == w))
@@ -235,10 +245,12 @@ def raw(t):
                    8: torch.int64}[t.element_size()])
 
 
-def run(srcs, dsts, ctas=2, threads=64):
+def run(srcs, dsts, ctas=2, threads=64, parts=1):
     """Play the kernel's walk on *srcs* and *dsts* (the same tensors in
     place), checking the walk's claims on the way; returns the number of
-    vector slots."""
+    vector slots. *parts* P plays the P launches of a team across P
+    processes (kernels/ring_common.part_bounds), one after another, their
+    threads told apart."""
     n = len(srcs)
     blk = srcs[0].numel() // n
     elem = srcs[0].element_size()
@@ -287,7 +299,10 @@ def run(srcs, dsts, ctas=2, threads=64):
             clock += 1
             bufs[dst[0]][dst[1]] = v
 
-    for tid, groups in enumerate(walk(n, blk, elem, addr, ctas, threads)):
+    plays = [walk(n, blk, elem, addr, ctas, threads,
+                  part_bounds(n * (n + 1) // 2 * blk, (p, parts), elem))
+             for p in range(parts)]
+    for tid, groups in enumerate(g for play in plays for g in play):
         for group in groups:
             live = [it for it in group if it[3]]
             for r, q, lo, length, vec in live:
@@ -367,6 +382,30 @@ def test_kernel_walk_moves_every_element_once(n, dtype, inplace):
             assert got.tobytes() == w.tobytes()
         for d, ref in zip(dsts, kba.ring_alltoall_ref(srcs)):
             assert same_raw(d, ref)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+@pytest.mark.parametrize("dtype", list(BLOCKS))
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_kernel_walk_by_parts(n, dtype, parts):
+    """The launches of a team across processes, part p of P each: every
+    element moved once by its owner over all parts, bitwise the single
+    launch, in place too; where every block starts on a vector, as many
+    vectors as the single launch."""
+    for blk in BLOCKS[dtype]:
+        srcs = seeded(n, n * blk, dtype, seed=3 * n + blk)
+        for inplace in (False, True):
+            outs = []
+            for p in (1, parts):
+                dsts = [s.clone() for s in srcs] if inplace else \
+                    [torch.full_like(s, 7) for s in srcs]
+                vectors = run(dsts if inplace else srcs, dsts, parts=p)
+                outs.append((dsts, vectors))
+            (whole, v1), (split, vp) = outs
+            for a, b in zip(whole, split):
+                assert same_raw(a, b)
+            if blk * srcs[0].element_size() % 16 == 0:
+                assert vp == v1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -491,9 +530,11 @@ def test_wrappers_launch_without_an_op(wrapper, kernel, monkeypatch):
     assert wrapper.launches == before + 1
     assert ws.err is None                     # the workspace was not asked
     (k, code, ptrs, comm, flags, err, a, b, n_chunks, n_, op, root, ctas,
-     threads, stream), = calls
+     threads, lo, hi, stream), = calls
     assert (k, code, ptrs) == (kernel, kc.DTYPE_CODES[torch.float32],
                                table.data_ptr())
     assert (comm, flags, err, op, root) == (None, None, None, 0, 0)
     assert (a, n_, threads) == (blk, n, kc.DIRECT_THREADS)
     assert ctas == kc.launch_ctas(n * (n + 1) // 2 * blk, 4, 264)
+    # a team in one process launches the whole walk
+    assert (lo, hi) == (0, n * (n + 1) // 2 * blk)

@@ -44,27 +44,33 @@ def decide(n, root, count, elem, addr):
     return not odd, head, skip
 
 
-def walk(n, root, count, elem, addr, ctas, threads):
+def walk(n, root, count, elem, addr, ctas, threads, part=None):
     """Each thread's steps in program order: ("vec", [lo, ...]) is one
     iteration's group of vectors (their first elements), loaded together
-    and then stored dst by dst; ("elem", i) one element."""
+    and then stored dst by dst; ("elem", i) one element. *part* [lo, hi)
+    of the elements: a launch of a team across processes
+    (direct_fold.cuh: vector_part)."""
     w = 16 // elem
     aligned, head, _ = decide(n, root, count, elem, addr)
+    p_lo, p_hi = (0, count) if part is None else part
     stride = ctas * threads
     out = []
     for tid in range(stride):
         steps = []
         if not aligned:
-            steps += [("elem", i) for i in range(tid, count, stride)]
+            steps += [("elem", i) for i in range(p_lo + tid, p_hi, stride)]
         else:
-            vecs = (count - head) // w
-            tail = head + vecs * w
+            v0 = head if p_lo <= head else \
+                head + -(-(p_lo - head) // w) * w
+            v0 = min(v0, p_hi)
+            vecs = (p_hi - v0) // w
+            tail = v0 + vecs * w
             for v in range(tid, vecs, UNROLL * stride):
-                steps.append(("vec", [head + (v + k * stride) * w
+                steps.append(("vec", [v0 + (v + k * stride) * w
                                       for k in range(UNROLL)
                                       if v + k * stride < vecs]))
-            steps += [("elem", i) for i in range(tid, head, stride)]
-            steps += [("elem", i) for i in range(tail + tid, count, stride)]
+            steps += [("elem", i) for i in range(p_lo + tid, v0, stride)]
+            steps += [("elem", i) for i in range(tail + tid, p_hi, stride)]
         out.append(steps)
     return out
 
@@ -75,10 +81,11 @@ def raw(t):
                    8: torch.int64}[t.element_size()])
 
 
-def run(srcs, dsts, root, ctas=2, threads=64):
+def run(srcs, dsts, root, ctas=2, threads=64, parts=1):
     """Play the kernel's walk on *srcs* and *dsts* (the same tensors in
     place), checking the walk's claims on the way; returns the number of
-    vectors moved."""
+    vectors moved. *parts* P plays the P launches of a team across
+    processes (kernels/ring_common.part_bounds), one after another."""
     n = len(srcs)
     count = srcs[0].numel()
     elem = srcs[0].element_size()
@@ -96,7 +103,10 @@ def run(srcs, dsts, root, ctas=2, threads=64):
     reads = [np.zeros(len(b), np.int64) for b in bufs]
     writes = [np.zeros(len(b), np.int64) for b in bufs]
     vectors = 0
-    for steps in walk(n, root, count, elem, addr, ctas, threads):
+    plays = [walk(n, root, count, elem, addr, ctas, threads,
+                  kc.part_bounds(count, (p, parts), elem))
+             for p in range(parts)]
+    for steps in (st for play in plays for st in play):
         for kind, at in steps:
             los, width = (at, w) if kind == "vec" else ([at], 1)
             vals = []
@@ -174,6 +184,30 @@ def test_kernel_walk_copies_every_element_once(n, root, dtype, inplace):
             assert same_raw(srcs[root], data)
         for d, ref in zip(dsts, want):
             assert same_raw(d, data) and same_raw(d, ref)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+@pytest.mark.parametrize("dtype", list(COUNTS))
+@pytest.mark.parametrize("n,root", [(2, 1), (3, 0), (8, 3)])
+def test_kernel_walk_by_parts(n, root, dtype, parts):
+    """The launches of a team across processes, part p of P each: every
+    element copied once over all parts, bitwise the single launch, in
+    place too; the parts cut at vectors, so as many vectors as one
+    launch."""
+    for count in COUNTS[dtype]:
+        srcs = seeded(n, count, dtype, seed=n * count + root + 11)
+        data = srcs[root].clone()
+        for inplace in (False, True):
+            got = []
+            for p in (1, parts):
+                dsts = [s.clone() for s in srcs] if inplace else \
+                    [torch.full_like(s, 7) for s in srcs]
+                vectors = run(dsts if inplace else srcs, dsts, root,
+                              parts=p)
+                got.append(vectors)
+                for d in dsts:
+                    assert same_raw(d, data)
+            assert got[0] == got[1]
 
 
 @pytest.mark.parametrize("dtype", list(COUNTS))
@@ -279,9 +313,11 @@ def test_wrappers_launch_the_one_kernel(wrapper, kernel, root, monkeypatch):
         [int(kernel == kba.K_BCAST_PASS), int(kernel == kba.K_BCAST_CHUNKED)]
     assert ws.err is None                     # the workspace was not asked
     (k, code, ptrs, comm, flags, err, a, b, n_chunks, n_, op, root_, ctas,
-     threads, stream), = calls
+     threads, lo, hi, stream), = calls
     assert (k, code, ptrs) == (kernel, kc.DTYPE_CODES[torch.float32],
                                table.data_ptr())
     assert (comm, flags, err, op, root_) == (None, None, None, 0, root)
     assert (a, n_, threads) == (count, n, kc.DIRECT_THREADS)
     assert ctas == kc.launch_ctas(count, 4, 264)
+    # a team in one process launches the whole walk
+    assert (lo, hi) == (0, count)

@@ -47,28 +47,34 @@ GROUP = 4
 SMOKE_PASS_BLK = 43695 % 256 + 256
 
 
-def walk(n, blk, elem, offsets, ctas, threads):
+def walk(n, blk, elem, offsets, ctas, threads, part=None):
     """The kernel's units in the order one launch takes them, row by row:
     a list of (row r, first element of the block, elements) per fold.
     *offsets* are the 2n pointers' byte offsets mod 16 (n srcs, then n
-    dsts); a row of *ctas* CTAs of *threads* threads walks its block."""
+    dsts); a row of *ctas* CTAs of *threads* threads walks its block.
+    *part* [lo, hi) of the n·blk output elements (a launch of a team
+    across processes) takes the rows it falls in, each clipped to it."""
     w = 16 // elem
     stride = ctas * threads
     units = []
-    for r in range(n):
+    p_lo, p_hi = (0, n * blk) if part is None else part
+    for r in range(p_lo // blk, (p_hi - 1) // blk + 1):
         mis = offsets[n + r] % 16
         aligned = mis % elem == 0 and all(
             (offsets[q] + r * blk * elem) % 16 == mis for q in range(n))
         head = min(blk, ((16 - mis) % 16) // elem)
+        lo, hi = max(p_lo - r * blk, 0), min(p_hi - r * blk, blk)
         # (elements per unit, first element, units, units a thread takes
         # at once): the vector sweep, then single elements (sweep_elements)
         if aligned:
-            vecs = (blk - head) // w
-            tail = head + vecs * w
-            sweeps = [(w, head, vecs, UNROLL), (1, 0, head, 1),
-                      (1, tail, blk - tail, 1)]
+            v0 = head if lo <= head else head + -(-(lo - head) // w) * w
+            v0 = min(v0, hi)
+            vecs = (hi - v0) // w
+            tail = v0 + vecs * w
+            sweeps = [(w, v0, vecs, UNROLL), (1, lo, v0 - lo, 1),
+                      (1, tail, hi - tail, 1)]
         else:
-            sweeps = [(1, 0, blk, 1)]
+            sweeps = [(1, lo, hi - lo, 1)]
         for width, lo, n_units, unroll in sweeps:
             for first in range(min(stride, n_units)):
                 for u in range(first, n_units, unroll * stride):
@@ -79,7 +85,7 @@ def walk(n, blk, elem, offsets, ctas, threads):
     return units
 
 
-def model(srcs, dsts, op, ctas=2, threads=4, offsets=None):
+def model(srcs, dsts, op, ctas=2, threads=4, offsets=None, parts=1):
     """The kernel on CPU tensors: each unit of ``walk`` reads its elements
     of block r from the n srcs in ring order from rank r+1 (a vector in
     groups of GROUP loads, a single element rank by rank), divides for
@@ -87,7 +93,8 @@ def model(srcs, dsts, op, ctas=2, threads=4, offsets=None):
     src r). *offsets* default to the tensors' own addresses mod 16.
     Asserts every element once, inside its block, every vector aligned in
     all n + 1 buffers, and no unit reading an address another one
-    writes."""
+    writes. *parts* P plays the P launches of a team across processes,
+    one after another; returns the vector units."""
     n = len(srcs)
     blk = dsts[0].numel()
     elem = srcs[0].element_size()
@@ -96,7 +103,11 @@ def model(srcs, dsts, op, ctas=2, threads=4, offsets=None):
     acc = krs.accumulate(op)
     seen = torch.zeros((n, blk), dtype=torch.int64)
     reads, writes = {}, {}   # address -> units
-    for unit in walk(n, blk, elem, offsets, ctas, threads):
+    units = [u for p in range(parts)
+             for b in [kc.part_bounds(n * blk, (p, parts), elem)]
+             if b[0] < b[1]
+             for u in walk(n, blk, elem, offsets, ctas, threads, b)]
+    for unit in units:
         r, e, width = unit
         assert 0 <= e and e + width <= blk, unit      # inside block r
         if width > 1:
@@ -125,6 +136,7 @@ def model(srcs, dsts, op, ctas=2, threads=4, offsets=None):
     assert torch.equal(seen, torch.ones_like(seen))
     for a, who in writes.items():
         assert len(who) == 1 and reads.get(a, who) <= who, hex(a)
+    return sum(1 for _, _, width in units if width > 1)
 
 
 def check(srcs, op, inplace=False, **kw):
@@ -255,6 +267,33 @@ def test_in_place(n, dtype, blk):
     op = ReductionOp.AVG if dtype.is_floating_point else ReductionOp.SUM
     srcs = make_inputs(n, n * blk, dtype, op, seed=400 + n)
     check(srcs, op, inplace=True)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_walk_by_parts(n, dtype, parts):
+    """The launches of a team across processes, part p of P each: every
+    output element folded once, bitwise the plain version, in place too;
+    where every block starts on a vector, as many vectors as one
+    launch."""
+    op = ReductionOp.MAX if dtype.is_floating_point else ReductionOp.SUM
+    for blk in (1, 5, 40, 301):
+        srcs = make_inputs(n, n * blk, dtype, op, seed=600 + n + blk)
+        want = krs.ring_reduce_scatter_ref(srcs, op)
+        dsts = [torch.full((blk,), 7, dtype=dtype) for _ in range(n)]
+        v1 = model(srcs, dsts, op)
+        for inplace in (False, True):
+            ins = [s.clone() for s in srcs]
+            out = [ins[r][r * blk:(r + 1) * blk] for r in range(n)] \
+                if inplace else [torch.full((blk,), 7, dtype=dtype)
+                                 for _ in range(n)]
+            vp = model(ins, out, op, parts=parts)
+            for d, w in zip(out, want):
+                assert same_bits(d, w)
+            if blk * srcs[0].element_size() % 16 == 0 and not inplace:
+                assert vp == v1
 
 
 def test_more_ranks_than_two_load_groups():

@@ -114,6 +114,51 @@ def layout(coll, n, c, dt, seed, root=0, inplace=False):
     return srcs, dsts, meta
 
 
+#: the per-rank counts of tests/test_xla_multiprocess.py's allgatherv
+XLA_MP_VCOUNTS = (8, 16, 24, 32)
+
+
+def xla_mp_layout(coll, n, c, root):
+    """The inputs of tests/test_xla_multiprocess.py's mode ``flat`` (float32,
+    count c): allreduce of r + 1, gather of r + 1, scatter of arange from
+    the root, allgatherv of r in ``XLA_MP_VCOUNTS[r]`` elements, bcast of
+    3·arange from the root, alltoallv of 100·q + p in (q + p) % 3 + 1
+    elements from q to p. (srcs, dsts, meta) as ``layout`` gives them."""
+    f32 = np.float32
+    srcs, dsts, meta = [None] * n, [None] * n, {}
+    if coll in ("ALLREDUCE", "GATHER"):
+        for r in range(n):
+            srcs[r] = np.full(c, r + 1.0, f32)
+        if coll == "ALLREDUCE":
+            dsts = [np.zeros(c, f32) for _ in range(n)]
+        else:
+            dsts[root] = np.zeros(n * c, f32)
+    elif coll == "SCATTER":
+        srcs[root] = np.arange(n * c, dtype=f32)
+        dsts = [np.zeros(c, f32) for _ in range(n)]
+    elif coll == "ALLGATHERV":
+        counts = list(XLA_MP_VCOUNTS[:n])
+        meta = {"counts": counts,
+                "displs": [int(x) for x in np.cumsum([0] + counts[:-1])]}
+        for r in range(n):
+            srcs[r] = np.full(counts[r], float(r), f32)
+            dsts[r] = np.zeros(sum(counts), f32)
+    elif coll == "BCAST":
+        for r in range(n):
+            srcs[r] = np.arange(c, dtype=f32) * 3 if r == root \
+                else np.zeros(c, f32)
+    elif coll == "ALLTOALLV":
+        m = np.array([[(q + p) % 3 + 1 for p in range(n)] for q in range(n)])
+        meta = {"matrix": m}
+        for q in range(n):
+            srcs[q] = np.concatenate([np.full(m[q][p], 100.0 * q + p, f32)
+                                      for p in range(n)])
+            dsts[q] = np.zeros(int(m[:, q].sum()), f32)
+    else:
+        raise ValueError(coll)
+    return srcs, dsts, meta
+
+
 def port_buf(arr, dt, kind="tensor"):
     """A numpy case buffer as the port takes it: a CPU tensor
     (bfloat16 as torch.bfloat16) or a numpy copy."""
@@ -188,10 +233,14 @@ def case_buffers(case, n, conv):
     """(srcs, dsts, meta) of a case dict, converted by ``conv``."""
     coll = case["coll"]
     dt = case.get("dt")
-    srcs, dsts, meta = ([None] * n, [None] * n, {}) \
-        if coll in ("BARRIER", "FANIN", "FANOUT") else \
-        layout(coll, n, case.get("c", 0), dt, case.get("seed", 0),
-               case.get("root", 0), case.get("inplace", False))
+    if case.get("values") == "xla_mp":
+        srcs, dsts, meta = xla_mp_layout(coll, n, case.get("c", 0),
+                                         case.get("root", 0))
+    else:
+        srcs, dsts, meta = ([None] * n, [None] * n, {}) \
+            if coll in ("BARRIER", "FANIN", "FANOUT") else \
+            layout(coll, n, case.get("c", 0), dt, case.get("seed", 0),
+                   case.get("root", 0), case.get("inplace", False))
     return ([conv(a, dt) for a in srcs], [conv(a, dt) for a in dsts], meta)
 
 
@@ -315,7 +364,10 @@ def _exchange_handles(ut, team, handle, n):
 
 def run_case_rank(ut, team, case, r, n):
     """Run one case on rank r of ``team``; returns (status name, algorithm
-    name, result bytes)."""
+    name, result bytes). ``swap_at`` k: before round k (from 1) the rank's
+    buffers are replaced by fresh copies (a persistent request's buffers
+    changed between rounds); ``counters``: a fourth element, the device
+    span counters (obs/metrics) gained after the first round."""
     coll = case["coll"]
     dt = case.get("dt")
     srcs, dsts, meta = case_buffers(
@@ -344,15 +396,37 @@ def run_case_rank(ut, team, case, r, n):
     except ut.UccError as e:
         return f"init {e.status.name}", None, None
     st = None
-    for _ in range(case.get("rounds", 1)):
+    from ucc_tpu_torch.obs import metrics
+    after_first = None
+    for k in range(case.get("rounds", 1)):
+        if k + 1 == case.get("swap_at"):
+            for side, bufs in (("src", srcs), ("dst", dsts)):
+                bi = getattr(args, side)
+                if bi is not None:
+                    bufs[r] = bi.buffer = bi.buffer.clone()
         req.post()
         st = wait_req(ut, req, case.get("timeout", 120))
+        if k == 0:
+            after_first = dict(metrics.span_counts)
     alg = req.task.alg_name
     req.finalize()
     for h in handles:
         team.context.mem_unmap(h)
-    return st.name, alg, \
-        result_of(case, r, srcs, dsts) if st.name == "OK" else None
+    out = (st.name, alg,
+           result_of(case, r, srcs, dsts) if st.name == "OK" else None)
+    if case.get("counters"):
+        out += ({k: v - after_first[k]
+                 for k, v in metrics.span_counts.items()},)
+    return out
+
+
+def span_names():
+    """The sync-area names of this process's spanning device teams: each
+    team's area and its staging files in /dev/shm start with it."""
+    from ucc_tpu_torch.tl import device
+    with device._SHARED_LOCK:
+        return sorted(s.span.name for s in device._SHARED.values()
+                      if s.span is not None)
 
 
 def _rank_phase(ut, ctx, r, n, phase, oob_for, out, errs):
@@ -364,6 +438,7 @@ def _rank_phase(ut, ctx, r, n, phase, oob_for, out, errs):
             team = create_team(ut, ctx, oob_for(r, k))
             teams.append(team)
             res["ids"].append(int(team.id))
+        res["span_names"] = span_names()
         team = teams[0]
         res["tier"] = transport_tier(team)
         svc = team.service_team
@@ -505,6 +580,53 @@ def death_worker(idx, spec, q):
         except Exception as e:  # noqa: BLE001 - wait's own deadline
             out = f"WAIT_RAISED:{e}"
         q.put((idx, {"out": out, "jax": "jax" in sys.modules}))
+    except Exception:  # noqa: BLE001
+        import traceback
+        q.put((idx, {"error": traceback.format_exc()}))
+
+
+def span_death_worker(idx, spec, q):
+    """Two processes of one rank each, a device team across them (device
+    ``cpu``): process 0 exits abruptly after team create; process 1 then
+    posts an allreduce and reports how it ended and how long it took."""
+    try:
+        os.environ.update({"UCC_TL_RING_CUDA_DEVICE": "cpu"})
+        import ucc_tpu_torch as ut_
+        n, port = spec["n"], spec["ports"]
+        oobs = [ut_.TcpStoreOob(idx, n, port=port[0])]
+        ctx = ut_.Context(ut_.init(), ut_.ContextParams(oob=oobs[0]))
+        oobs.append(ut_.TcpStoreOob(idx, n, port=port[1]))
+        team = create_team(ut_, ctx, oobs[1])
+        names = span_names()
+        if idx == 0:
+            q.put((idx, {"out": "died", "pid": os.getpid(),
+                         "jax": "jax" in sys.modules}))
+            q.close()
+            q.join_thread()
+            os._exit(1)       # abrupt death: the sync area's creator
+        src = torch.ones(16)
+        dst = torch.zeros(16)
+        cuda = ut_.MemoryType.CUDA
+        req = team.collective_init(ut_.CollArgs(
+            coll_type=ut_.CollType.ALLREDUCE,
+            src=ut_.BufferInfo(src, 16, ut_.DataType.FLOAT32, mem_type=cuda),
+            dst=ut_.BufferInfo(dst, 16, ut_.DataType.FLOAT32, mem_type=cuda),
+            op=ut_.ReductionOp.SUM))
+        t0 = time.monotonic()
+        req.post()
+        try:
+            out = wait_req(ut_, req, 60).name
+        except Exception as e:  # noqa: BLE001 - wait's own deadline
+            out = f"WAIT_RAISED:{e}"
+        took = time.monotonic() - t0
+        alg = req.task.alg_name
+        team.destroy()
+        ctx.destroy()
+        for o in oobs:
+            o.close()
+        q.put((idx, {"out": out, "took": took, "alg": alg,
+                     "span_names": names, "pid": os.getpid(),
+                     "jax": "jax" in sys.modules}))
     except Exception:  # noqa: BLE001
         import traceback
         q.put((idx, {"error": traceback.format_exc()}))

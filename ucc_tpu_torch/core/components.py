@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import importlib
 import pkgutil
+import threading
 from typing import Dict, List, Optional, Type
 
 from ..constants import CollType, MemoryType
@@ -133,27 +134,33 @@ def register_cl(cls: Type[CollectiveLayer]) -> Type[CollectiveLayer]:
 
 
 _discovered = False
+_discover_lock = threading.Lock()
 
 
 def discover_components() -> None:
     """Import every module under ucc_tpu_torch.tl / ucc_tpu_torch.cl (the
     dlopen-glob analog). Failures are logged and skipped, as UCC tolerates
-    missing optional .so deps."""
+    missing optional .so deps. Threads that call it at once (libs made in
+    a thread per rank) all return after the imports are done."""
     global _discovered
     if _discovered:
         return
-    _discovered = True
-    import ucc_tpu_torch.cl as cl_pkg
-    import ucc_tpu_torch.tl as tl_pkg
-    for pkg in (tl_pkg, cl_pkg):
-        for info in pkgutil.iter_modules(pkg.__path__):
-            if info.name.startswith("_") or info.name == "base":
-                continue
-            modname = f"{pkg.__name__}.{info.name}"
-            try:
-                importlib.import_module(modname)
-            except Exception as e:  # noqa: BLE001 - optional component
-                logger.warning("failed to load component %s: %s", modname, e)
+    with _discover_lock:
+        if _discovered:
+            return
+        import ucc_tpu_torch.cl as cl_pkg
+        import ucc_tpu_torch.tl as tl_pkg
+        for pkg in (tl_pkg, cl_pkg):
+            for info in pkgutil.iter_modules(pkg.__path__):
+                if info.name.startswith("_") or info.name == "base":
+                    continue
+                modname = f"{pkg.__name__}.{info.name}"
+                try:
+                    importlib.import_module(modname)
+                except Exception as e:  # noqa: BLE001 - optional component
+                    logger.warning("failed to load component %s: %s",
+                                   modname, e)
+        _discovered = True
 
 
 def get_tl(name: str) -> Type[TransportLayer]:

@@ -61,11 +61,13 @@
 // waits on another CTA. The workspace (comm slots, flags, error word) is
 // not used.
 //
-// Across processes (ROADMAP A5) the same pointer table of CUDA IPC peer
-// pointers is a direct push from every src, with two all-rank barriers
-// around the pass, which inside one process the stream provides: one on
-// entry (every rank's src is ready) and one on exit (no peer still reads
-// my src or writes my dst when my launch ends).
+// Across processes of one host (tl/device_sync.py) the pointer table
+// mixes this process's pointers with CUDA IPC mappings of its peers'
+// buffers, and each process moves one part [lo, hi) of the n * count
+// elements (unit b's element e being b * count + e) into every dst;
+// interprocess CUDA events on the streams, not barriers inside the kernel,
+// order the parts after every rank's inputs and before any rank's request
+// completes.
 
 #include "direct_fold.cuh"
 
@@ -79,7 +81,10 @@ constexpr int WARP = 32;
 struct Args {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
   long long count;     // elements per rank: a src holds count, a dst n
+  long long lo, hi;    // the part of the n * count copied elements (unit
+                       // b's element e is b * count + e) this launch moves
   int n;
+  int u0, units;       // the part's units, b = u0 .. u0 + units - 1
 };
 
 // Unit b: src_b, the block's first element in every dst, and how its
@@ -125,8 +130,10 @@ __device__ __noinline__ void copy_elements(void* const* dst, int n,
   }
 }
 
-// The allgather of elements of B bytes.
-template <int B>
+// The allgather of elements of B bytes; PART: a launch of one part of the
+// walk (a team across processes), whose units are clipped to it. The
+// whole walk (PART false) keeps the code of a launch without parts.
+template <int B, bool PART>
 __global__ void __launch_bounds__(THREADS) allgather_kernel(Args a) {
   using U = typename Raw<B>::U;
   constexpr int W = 16 / B;
@@ -143,11 +150,13 @@ __global__ void __launch_bounds__(THREADS) allgather_kernel(Args a) {
   void* const* ptrs = n <= SMEM_RANKS ? staged : a.ptrs;
   void* const* dst = ptrs + n;
   const long long count = a.count;
+  const int u0 = PART ? a.u0 : 0;
+  const int units = PART ? a.units : n;
   const long long slots = 1 + (count + W - 1) / W;
   const long long warps = (long long)gridDim.x * (blockDim.x / WARP);
   // slots a lane takes per tile, so that the tiles outnumber the warps
   const int depth = (int)max(
-      1ll, min((long long)AG_UNROLL, n * slots / (WARP * warps)));
+      1ll, min((long long)AG_UNROLL, units * slots / (WARP * warps)));
   const long long tile_slots = (long long)WARP * depth;
   const long long tiles = (slots + tile_slots - 1) / tile_slots;  // a unit's
   const int step_u = (int)(warps / tiles);
@@ -157,8 +166,13 @@ __global__ void __launch_bounds__(THREADS) allgather_kernel(Args a) {
   const int lane = threadIdx.x % WARP;
   int u = (int)(w / tiles);
   long long tile = w % tiles;
-  for (; u < n; u += step_u) {
-    const Unit<U> un = locate<U>(ptrs, n, count, dsts_even, u);
+  for (; u < units; u += step_u) {
+    const Unit<U> un = locate<U>(ptrs, n, count, dsts_even, u0 + u);
+    // the unit's elements in the part; a slot cut by the part's edge goes
+    // element by element
+    const long long elo = PART && a.lo > un.at ? a.lo - un.at : 0;
+    const long long ehi =
+        PART && a.hi - un.at < count ? a.hi - un.at : count;
     if (n > 1 || un.skip < 0) {  // else one rank in place: nothing to move
       long long lo[AG_UNROLL];
       int len[AG_UNROLL];
@@ -168,7 +182,11 @@ __global__ void __launch_bounds__(THREADS) allgather_kernel(Args a) {
       for (int k = 0; k < AG_UNROLL; ++k) {
         const long long j = tile * tile_slots + k * WARP + lane;
         lo[k] = j == 0 ? 0 : un.head + (j - 1) * W;
-        const long long hi = j == 0 ? un.head : min(count, un.head + j * W);
+        long long hi = j == 0 ? un.head : min(count, un.head + j * W);
+        if (PART) {
+          lo[k] = max(elo, lo[k]);
+          hi = min(ehi, hi);
+        }
         len[k] = k < depth && hi > lo[k] ? (int)(hi - lo[k]) : 0;
         vec[k] = un.aligned && j > 0 && len[k] == W;
         if (vec[k]) x[k] = load<U, W>(un.src + lo[k]);
@@ -192,19 +210,24 @@ __global__ void __launch_bounds__(THREADS) allgather_kernel(Args a) {
   }
 }
 
-const void* select_kernel(int dtype) {
+template <bool PART>
+const void* select_instance(int dtype) {
   switch (dtype) {
     case DT_I8:
-    case DT_U8: return (const void*)allgather_kernel<1>;
+    case DT_U8: return (const void*)allgather_kernel<1, PART>;
     case DT_F16:
     case DT_BF16:
-    case DT_I16: return (const void*)allgather_kernel<2>;
+    case DT_I16: return (const void*)allgather_kernel<2, PART>;
     case DT_F32:
-    case DT_I32: return (const void*)allgather_kernel<4>;
+    case DT_I32: return (const void*)allgather_kernel<4, PART>;
     case DT_I64:
-    case DT_F64: return (const void*)allgather_kernel<8>;
+    case DT_F64: return (const void*)allgather_kernel<8, PART>;
     default: return nullptr;
   }
+}
+
+const void* select_kernel(int dtype, bool part) {
+  return part ? select_instance<true>(dtype) : select_instance<false>(dtype);
 }
 
 }  // namespace
@@ -217,7 +240,7 @@ extern "C" {
 // kernel.
 int ucc_allgather_max_ctas(int kernel, int dtype, int threads, int* out) {
   (void)kernel;
-  const void* kern = select_kernel(dtype);
+  const void* kern = select_kernel(dtype, false);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -231,20 +254,26 @@ int ucc_allgather_max_ctas(int kernel, int dtype, int threads, int* out) {
 }
 
 // Launch one allgather of `count` elements per rank on `stream`, on a grid
-// of `ctas` CTAs of `threads` threads; returns cudaGetLastError() after the
-// launch (0 on success). The signature is the common one of the ring
-// sources: the kernel uses no comm slots, flag words, error word or op,
-// and `cblk`, `n_chunks` and `root` do not apply.
+// of `ctas` CTAs of `threads` threads, moving elements [lo, hi) of the
+// n * count (a team across processes launches one part in each process);
+// returns cudaGetLastError() after the launch (0 on success). The
+// signature is the common one of the ring sources: the kernel uses no comm
+// slots, flag words, error word or op, and `cblk`, `n_chunks` and `root`
+// do not apply.
 int ucc_allgather(int kernel, int dtype, void* const* ptrs, void* comm,
                   unsigned* flags, int* err, long long count, long long cblk,
                   int n_chunks, int n, int op, int root, int ctas,
-                  int threads, cudaStream_t stream) {
+                  int threads, long long lo, long long hi,
+                  cudaStream_t stream) {
   (void)kernel, (void)comm, (void)flags, (void)err, (void)cblk,
       (void)n_chunks, (void)op, (void)root;
-  const void* kern = select_kernel(dtype);
-  if (kern == nullptr || n < 1 || count < 1 || ctas < 1)
+  const void* kern = select_kernel(dtype, lo > 0 || hi < n * count);
+  if (kern == nullptr || n < 1 || count < 1 || ctas < 1 || lo < 0 ||
+      lo >= hi || hi > n * count)
     return (int)cudaErrorInvalidValue;
-  Args a{ptrs, count, n};
+  // the part's units, divided out here rather than in every thread
+  Args a{ptrs, count, lo, hi, n, (int)(lo / count),
+         (int)((hi - 1) / count - lo / count + 1)};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchKernel(kern, dim3(ctas), dim3(threads), params,
                                    0, stream);

@@ -60,11 +60,14 @@
 // 3.35 TB/s for 8 ranks of 64 MiB); the pair exchange moves exactly that.
 // The workspace (comm slots, flags, error word) is not used.
 //
-// Across processes (ROADMAP A5) the same pointer table of CUDA IPC peer
-// pointers is the direct pairwise alltoall, with two all-rank barriers
-// around the pass, which inside one process the stream provides: one on
-// entry (every rank's src is ready before any pair reads it) and one on
-// exit (no peer still reads my src or writes my dst when my launch ends).
+// Across processes of one host (tl/device_sync.py) the pointer table
+// mixes this process's pointers with CUDA IPC mappings of its peers'
+// buffers, and each process moves one part [lo, hi) of the units'
+// elements (unit u's element e being u * blk + e, units in the order
+// above); a location still has one owner thread, in one process, so in
+// place stays safe. Interprocess CUDA events on the streams, not barriers
+// inside the kernel, order the parts after every rank's inputs and before
+// any rank's request completes.
 
 #include "direct_fold.cuh"
 
@@ -84,7 +87,10 @@ constexpr int WARP = 32;
 struct Args {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
   long long blk;       // elements of one block; a src or dst holds n
+  long long lo, hi;    // the part of the n(n+1)/2 * blk unit elements
+                       // (unit u's element e is u * blk + e) it moves
   int n;
+  int u0, u1;          // the part's first and last unit
 };
 
 // The ranks of unit u, in the order of ring_bcast_a2a.py's alltoall_units:
@@ -164,7 +170,10 @@ __device__ __noinline__ void move_elements(Unit<U> un, long long lo,
   }
 }
 
-template <typename T>
+// PART: a launch of one part of the walk (a team across processes), whose
+// units are clipped to it; the whole walk (PART false) keeps the code of a
+// launch without parts.
+template <typename T, bool PART>
 __global__ void __launch_bounds__(THREADS) alltoall_kernel(Args a) {
   using U = typename Raw<sizeof(T)>::U;
   constexpr int W = 16 / sizeof(U);
@@ -176,12 +185,15 @@ __global__ void __launch_bounds__(THREADS) alltoall_kernel(Args a) {
     if (n <= SMEM_RANKS) staged[i] = p;
     if (i < n) moved |= p != a.ptrs[n + i];
   }
-  // in place on every rank, no diagonal has anything to move
-  const int first = __syncthreads_or(moved) ? 0 : n;  // publishes `staged`
+  // in place on every rank, no diagonal has anything to move; and a part
+  // starts at its first unit
+  const int lead = __syncthreads_or(moved) ? 0 : n;  // publishes `staged`
   const Table t{n <= SMEM_RANKS ? staged : a.ptrs, n};
   const int m = (n - 1) / 2;
-  const int units = n * (n + 1) / 2 - first;
   const long long blk = a.blk;
+  const int first = PART ? max(lead, a.u0) : lead;
+  const int units = PART ? a.u1 + 1 - first : n * (n + 1) / 2 - first;
+  if (PART && units <= 0) return;
   const long long slots = 1 + (blk + W - 1) / W;
   const long long warps = (long long)gridDim.x * (blockDim.x / WARP);
   // slots a lane takes per tile, so that the tiles outnumber the warps
@@ -198,6 +210,11 @@ __global__ void __launch_bounds__(THREADS) alltoall_kernel(Args a) {
   long long tile = w % tiles;
   for (; u < units; u += step_u) {
     const Unit<U> un = locate<U>(t, blk, n, m, first + u);
+    // the unit's elements in the part; a slot cut by the part's edge goes
+    // element by element
+    const long long at = (long long)(first + u) * blk;
+    const long long elo = PART && a.lo > at ? a.lo - at : 0;
+    const long long ehi = PART && a.hi - at < blk ? a.hi - at : blk;
     if (un.live) {
       long long lo[A2A_UNROLL];
       int len[A2A_UNROLL];
@@ -207,7 +224,11 @@ __global__ void __launch_bounds__(THREADS) alltoall_kernel(Args a) {
       for (int k = 0; k < A2A_UNROLL; ++k) {
         const long long j = tile * tile_slots + k * WARP + lane;
         lo[k] = j == 0 ? 0 : un.head + (j - 1) * W;
-        const long long hi = j == 0 ? un.head : min(blk, un.head + j * W);
+        long long hi = j == 0 ? un.head : min(blk, un.head + j * W);
+        if (PART) {
+          lo[k] = max(elo, lo[k]);
+          hi = min(ehi, hi);
+        }
         len[k] = k < depth && hi > lo[k] ? (int)(hi - lo[k]) : 0;
         vec[k] = un.aligned && j > 0 && len[k] == W;
         if (vec[k]) {
@@ -233,19 +254,24 @@ __global__ void __launch_bounds__(THREADS) alltoall_kernel(Args a) {
   }
 }
 
-const void* select_kernel(int dtype) {
+template <bool PART>
+const void* select_instance(int dtype) {
   switch (dtype) {
-    case DT_F32: return (const void*)alltoall_kernel<float>;
-    case DT_F16: return (const void*)alltoall_kernel<__half>;
-    case DT_BF16: return (const void*)alltoall_kernel<__nv_bfloat16>;
-    case DT_I32: return (const void*)alltoall_kernel<int>;
-    case DT_I64: return (const void*)alltoall_kernel<long long>;
-    case DT_I8: return (const void*)alltoall_kernel<signed char>;
-    case DT_U8: return (const void*)alltoall_kernel<unsigned char>;
-    case DT_I16: return (const void*)alltoall_kernel<short>;
-    case DT_F64: return (const void*)alltoall_kernel<double>;
+    case DT_F32: return (const void*)alltoall_kernel<float, PART>;
+    case DT_F16: return (const void*)alltoall_kernel<__half, PART>;
+    case DT_BF16: return (const void*)alltoall_kernel<__nv_bfloat16, PART>;
+    case DT_I32: return (const void*)alltoall_kernel<int, PART>;
+    case DT_I64: return (const void*)alltoall_kernel<long long, PART>;
+    case DT_I8: return (const void*)alltoall_kernel<signed char, PART>;
+    case DT_U8: return (const void*)alltoall_kernel<unsigned char, PART>;
+    case DT_I16: return (const void*)alltoall_kernel<short, PART>;
+    case DT_F64: return (const void*)alltoall_kernel<double, PART>;
     default: return nullptr;
   }
+}
+
+const void* select_kernel(int dtype, bool part) {
+  return part ? select_instance<true>(dtype) : select_instance<false>(dtype);
 }
 
 }  // namespace
@@ -257,7 +283,7 @@ extern "C" {
 // part of the common interface; both entry points share one kernel.
 int ucc_alltoall_max_ctas(int kernel, int dtype, int threads, int* out) {
   (void)kernel;
-  const void* kern = select_kernel(dtype);
+  const void* kern = select_kernel(dtype, false);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -271,20 +297,25 @@ int ucc_alltoall_max_ctas(int kernel, int dtype, int threads, int* out) {
 }
 
 // Launch one alltoall of n blocks of `blk` elements per rank on `stream`,
-// on a grid of `ctas` CTAs of `threads` threads; returns
-// cudaGetLastError() after the launch (0 on success). The signature is the
-// common one of the ring sources: the kernel uses no comm slots, flag
-// words, error word or op, and `cblk`, `n_chunks` and `root` do not apply.
+// on a grid of `ctas` CTAs of `threads` threads, moving elements [lo, hi)
+// of its n(n+1)/2 units of blk (a team across processes launches one part
+// in each process); returns cudaGetLastError() after the launch (0 on
+// success). The signature is the common one of the ring sources: the
+// kernel uses no comm slots, flag words, error word or op, and `cblk`,
+// `n_chunks` and `root` do not apply.
 int ucc_alltoall(int kernel, int dtype, void* const* ptrs, void* comm,
                  unsigned* flags, int* err, long long blk, long long cblk,
                  int n_chunks, int n, int op, int root, int ctas, int threads,
-                 cudaStream_t stream) {
+                 long long lo, long long hi, cudaStream_t stream) {
   (void)kernel, (void)comm, (void)flags, (void)err, (void)cblk,
       (void)n_chunks, (void)op, (void)root;
-  const void* kern = select_kernel(dtype);
-  if (kern == nullptr || n < 1 || n > MAX_RANKS || blk < 1 || ctas < 1)
+  const void* kern =
+      select_kernel(dtype, lo > 0 || hi < (long long)n * (n + 1) / 2 * blk);
+  if (kern == nullptr || n < 1 || n > MAX_RANKS || blk < 1 || ctas < 1 ||
+      lo < 0 || lo >= hi || hi > (long long)n * (n + 1) / 2 * blk)
     return (int)cudaErrorInvalidValue;
-  Args a{ptrs, blk, n};
+  // the part's units, divided out here rather than in every thread
+  Args a{ptrs, blk, lo, hi, n, (int)(lo / blk), (int)((hi - 1) / blk)};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchKernel(kern, dim3(ctas), dim3(threads), params,
                                    0, stream);

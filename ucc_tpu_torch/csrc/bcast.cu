@@ -48,11 +48,12 @@
 // counter per sub-block. The workspace (comm slots, flags, error word) is
 // not used.
 //
-// Across processes (ROADMAP A5) the same pointer table of CUDA IPC peer
-// pointers is a direct push from the root's src, with two all-rank
-// barriers around the pass, which inside one process the stream provides:
-// one on entry (the root's src is ready) and one on exit (no peer still
-// reads the root's src or writes my dst when my launch ends).
+// Across processes of one host (tl/device_sync.py) the pointer table
+// mixes this process's pointers with CUDA IPC mappings of its peers'
+// buffers, and each process copies one part [lo, hi) of the elements from
+// the root's src into every dst; interprocess CUDA events on the streams,
+// not barriers inside the kernel, order the parts after every rank's
+// inputs and before any rank's request completes.
 
 #include "direct_fold.cuh"
 
@@ -65,6 +66,7 @@ constexpr int BCAST_UNROLL = 8;
 struct Args {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
   long long count;     // elements per rank
+  long long lo, hi;    // the part of the elements this launch copies
   int n;
   int root;
 };
@@ -145,7 +147,10 @@ __device__ void copy_vectors(const Dsts& t, long long lo, long long vecs) {
 }
 
 // The bcast of elements of B bytes.
-template <int B>
+// The bcast of elements of B bytes; PART: a launch of one part of the
+// elements (a team across processes). The whole walk (PART false) keeps
+// the code of a launch without parts.
+template <int B, bool PART>
 __global__ void __launch_bounds__(THREADS) bcast_kernel(Args a) {
   using U = typename Raw<B>::U;
   constexpr int W = 16 / B;
@@ -154,29 +159,45 @@ __global__ void __launch_bounds__(THREADS) bcast_kernel(Args a) {
   long long head;
   const Dsts t = stage_bcast_table<U>(a, staged, aligned, head);
   if (!aligned) {
-    copy_elements<U>(t, 0, a.count);
+    copy_elements<U>(t, a.lo, a.hi);
     return;
   }
-  const long long vecs = (a.count - head) / W;
-  const long long tail = head + vecs * W;
-  copy_vectors<U, W>(t, head, vecs);
-  copy_elements<U>(t, 0, head);
-  copy_elements<U>(t, tail, a.count);
+  if (!PART) {
+    const long long vecs = (a.count - head) / W;
+    const long long tail = head + vecs * W;
+    copy_vectors<U, W>(t, head, vecs);
+    copy_elements<U>(t, 0, head);
+    copy_elements<U>(t, tail, a.count);
+    return;
+  }
+  // a part's single elements first: nothing of them stays live through
+  // the vector loop, which its bounds would otherwise push past the
+  // registers ptxas gives it (nvcc -Xptxas -v then reports a stack frame
+  // and spills)
+  const Part p = vector_part(a.lo, a.hi, head, W);
+  copy_elements<U>(t, a.lo, p.v0);
+  copy_elements<U>(t, p.v0 + p.vecs * W, a.hi);
+  copy_vectors<U, W>(t, p.v0, p.vecs);
 }
 
-const void* select_kernel(int dtype) {
+template <bool PART>
+const void* select_instance(int dtype) {
   switch (dtype) {
     case DT_I8:
-    case DT_U8: return (const void*)bcast_kernel<1>;
+    case DT_U8: return (const void*)bcast_kernel<1, PART>;
     case DT_F16:
     case DT_BF16:
-    case DT_I16: return (const void*)bcast_kernel<2>;
+    case DT_I16: return (const void*)bcast_kernel<2, PART>;
     case DT_F32:
-    case DT_I32: return (const void*)bcast_kernel<4>;
+    case DT_I32: return (const void*)bcast_kernel<4, PART>;
     case DT_I64:
-    case DT_F64: return (const void*)bcast_kernel<8>;
+    case DT_F64: return (const void*)bcast_kernel<8, PART>;
     default: return nullptr;
   }
+}
+
+const void* select_kernel(int dtype, bool part) {
+  return part ? select_instance<true>(dtype) : select_instance<false>(dtype);
 }
 
 }  // namespace
@@ -189,7 +210,7 @@ extern "C" {
 // kernel.
 int ucc_bcast_max_ctas(int kernel, int dtype, int threads, int* out) {
   (void)kernel;
-  const void* kern = select_kernel(dtype);
+  const void* kern = select_kernel(dtype, false);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -203,21 +224,22 @@ int ucc_bcast_max_ctas(int kernel, int dtype, int threads, int* out) {
 }
 
 // Launch one bcast of `count` elements per rank from `root` on `stream`, on
-// a grid of `ctas` CTAs of `threads` threads; returns cudaGetLastError()
-// after the launch (0 on success). The signature is the common one of the
-// ring sources: the kernel uses no comm slots, flag words, error word or
-// op, and `cblk` and `n_chunks` do not apply.
+// a grid of `ctas` CTAs of `threads` threads, copying elements [lo, hi) (a
+// team across processes launches one part in each process); returns
+// cudaGetLastError() after the launch (0 on success). The signature is the
+// common one of the ring sources: the kernel uses no comm slots, flag
+// words, error word or op, and `cblk` and `n_chunks` do not apply.
 int ucc_bcast(int kernel, int dtype, void* const* ptrs, void* comm,
               unsigned* flags, int* err, long long count, long long cblk,
               int n_chunks, int n, int op, int root, int ctas, int threads,
-              cudaStream_t stream) {
+              long long lo, long long hi, cudaStream_t stream) {
   (void)kernel, (void)comm, (void)flags, (void)err, (void)cblk,
       (void)n_chunks, (void)op;
-  const void* kern = select_kernel(dtype);
+  const void* kern = select_kernel(dtype, lo > 0 || hi < count);
   if (kern == nullptr || n < 1 || root < 0 || root >= n || count < 1 ||
-      ctas < 1)
+      ctas < 1 || lo < 0 || lo >= hi || hi > count)
     return (int)cudaErrorInvalidValue;
-  Args a{ptrs, count, n, root};
+  Args a{ptrs, count, lo, hi, n, root};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchKernel(kern, dim3(ctas), dim3(threads), params,
                                    0, stream);

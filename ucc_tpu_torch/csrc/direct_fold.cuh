@@ -104,4 +104,23 @@ __device__ __forceinline__ Table stage_table(void* const* ptrs, int n,
   return Table{n <= SMEM_RANKS ? staged : ptrs, n};
 }
 
+// The part [lo, hi) of a walk whose 16-byte vectors start at element
+// `head` and every W elements after it: the whole vectors inside it,
+// [v0, v0 + vecs * W), and so the elements before and after them,
+// [lo, v0) and [v0 + vecs * W, hi), which go one at a time. A launch of
+// a team that spans processes walks one part (kernels/ring_common.py:
+// part_bounds cuts the parts at multiples of W); [0, count) is the whole
+// walk of an in-process team: v0 = head, as before parts existed.
+struct Part {
+  long long v0;
+  long long vecs;
+};
+
+__device__ __forceinline__ Part vector_part(long long lo, long long hi,
+                                            long long head, int W) {
+  long long v0 = lo <= head ? head : head + (lo - head + W - 1) / W * W;
+  if (v0 > hi) v0 = hi;
+  return Part{v0, (hi - v0) / W};
+}
+
 }  // namespace

@@ -59,12 +59,15 @@
 // those n elements that any thread writes is src_r's, dst_r[i], and the
 // thread that writes it is this one, after it has read all n.
 //
-// Across GPUs (ROADMAP A5) the same table of peer pointers is the direct
-// reduce_scatter: rank r reads its block from the n peers' srcs, which moves
-// (n-1)/n * n * S over the links per rank, as the ring does. Across
-// processes it needs an all-rank barrier on entry (every src is ready) and
-// one before a src is reused (every peer has read it); inside one process
-// the stream orders both.
+// Across processes of one host (tl/device_sync.py) the table mixes this
+// process's pointers with CUDA IPC mappings of its peers' buffers, and
+// each process computes one part [lo, hi) of the n * blk output elements:
+// the parts' union is bitwise the single launch, and each src is still
+// read once and each dst written once. The rounds are ordered on the
+// streams by interprocess CUDA events, not inside the kernel. Across GPUs
+// (ROADMAP A5) the same table of peer pointers is the direct
+// reduce_scatter: rank r reads its block from the n peers' srcs, which
+// moves (n-1)/n * n * S over the links per rank, as the ring does.
 
 #include "direct_fold.cuh"
 
@@ -73,8 +76,11 @@ namespace {
 struct Args {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
   long long blk;       // elements of one dst; a src holds n blocks of blk
+  long long lo, hi;    // the part of the n * blk output elements (rank r's
+                       // element i is r * blk + i) this launch computes
   int n;
   int op;
+  int r0;              // the part's first rank: row blockIdx.x is r0 + x
 };
 
 // Element i of block r (at = r * blk in every src), rank by rank from rank
@@ -156,35 +162,51 @@ __device__ void sweep(const Table& t, int r, long long at, long long lo,
   }
 }
 
-// Every element of the row's block r: 16-byte vectors where its pointers
-// allow, single elements at the head, at the tail and everywhere when they
-// do not.
-template <typename T, int OP>
-__device__ void reduce_block(const Table& t, const Args& a, bool aligned,
-                             long long head) {
+// The row's elements of block r in the launch's part: 16-byte vectors
+// where its pointers allow, single elements at the head, at the tail and
+// everywhere when they do not. PART: a launch of one part of the output
+// elements (a team across processes); the whole walk (PART false) keeps
+// the code of a launch without parts, every element of the block.
+template <typename T, int OP, bool PART>
+__device__ void reduce_block(const Table& t, const Args& a, int r,
+                             bool aligned, long long head) {
   constexpr int W = 16 / sizeof(T);
-  const int r = blockIdx.x;
   const long long at = (long long)r * a.blk;  // block r of every src
-  if (!aligned) {
-    sweep_elements<T, OP>(t, r, at, 0, a.blk);
+  if (!PART) {
+    if (!aligned) {
+      sweep_elements<T, OP>(t, r, at, 0, a.blk);
+      return;
+    }
+    const long long vecs = (a.blk - head) / W;
+    const long long tail = head + vecs * W;
+    sweep<T, OP, W>(t, r, at, head, vecs);
+    sweep_elements<T, OP>(t, r, at, 0, head);
+    sweep_elements<T, OP>(t, r, at, tail, a.blk - tail);
     return;
   }
-  const long long vecs = (a.blk - head) / W;
-  const long long tail = head + vecs * W;
-  sweep<T, OP, W>(t, r, at, head, vecs);
-  sweep_elements<T, OP>(t, r, at, 0, head);
-  sweep_elements<T, OP>(t, r, at, tail, a.blk - tail);
+  const long long lo = a.lo > at ? a.lo - at : 0;
+  const long long hi = a.hi - at < a.blk ? a.hi - at : a.blk;
+  if (!aligned) {
+    sweep_elements<T, OP>(t, r, at, lo, hi - lo);
+    return;
+  }
+  const Part p = vector_part(lo, hi, head, W);
+  const long long tail = p.v0 + p.vecs * W;
+  sweep<T, OP, W>(t, r, at, p.v0, p.vecs);
+  sweep_elements<T, OP>(t, r, at, lo, p.v0 - lo);
+  sweep_elements<T, OP>(t, r, at, tail, hi - tail);
 }
 
-template <typename T>
+template <typename T, bool PART>
 __global__ void __launch_bounds__(THREADS) reduce_scatter_kernel(Args a) {
   __shared__ void* staged[2 * SMEM_RANKS];
   const int n = a.n;
-  const long long at = (long long)blockIdx.x * a.blk;
+  // row blockIdx.x computes rank r's dst, from the first rank of the part
+  const int r = PART ? a.r0 + (int)blockIdx.x : (int)blockIdx.x;
+  const long long at = (long long)r * a.blk;
   // the vector path needs block r of every src and dst r at one offset
-  // mod 16 (r = blockIdx.x)
-  const uintptr_t mis =
-      reinterpret_cast<uintptr_t>(a.ptrs[n + blockIdx.x]) & 15;
+  // mod 16
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(a.ptrs[n + r]) & 15;
   int odd = mis % sizeof(T) != 0;
   for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
     void* p = a.ptrs[i];
@@ -198,27 +220,34 @@ __global__ void __launch_bounds__(THREADS) reduce_scatter_kernel(Args a) {
       min(a.blk, (long long)((16 - mis) & 15) / (long long)sizeof(T));
   const Table t{n <= SMEM_RANKS ? staged : a.ptrs, n};
   switch (a.op) {
-    case OP_SUM: reduce_block<T, OP_SUM>(t, a, aligned, head); break;
-    case OP_PROD: reduce_block<T, OP_PROD>(t, a, aligned, head); break;
-    case OP_MAX: reduce_block<T, OP_MAX>(t, a, aligned, head); break;
-    case OP_MIN: reduce_block<T, OP_MIN>(t, a, aligned, head); break;
-    case OP_AVG: reduce_block<T, OP_AVG>(t, a, aligned, head); break;
+    case OP_SUM: reduce_block<T, OP_SUM, PART>(t, a, r, aligned, head); break;
+    case OP_PROD: reduce_block<T, OP_PROD, PART>(t, a, r, aligned, head); break;
+    case OP_MAX: reduce_block<T, OP_MAX, PART>(t, a, r, aligned, head); break;
+    case OP_MIN: reduce_block<T, OP_MIN, PART>(t, a, r, aligned, head); break;
+    case OP_AVG: reduce_block<T, OP_AVG, PART>(t, a, r, aligned, head); break;
   }
 }
 
-const void* select_kernel(int dtype) {
+template <bool PART>
+const void* select_instance(int dtype) {
   switch (dtype) {
-    case DT_F32: return (const void*)reduce_scatter_kernel<float>;
-    case DT_F16: return (const void*)reduce_scatter_kernel<__half>;
-    case DT_BF16: return (const void*)reduce_scatter_kernel<__nv_bfloat16>;
-    case DT_I32: return (const void*)reduce_scatter_kernel<int>;
-    case DT_I64: return (const void*)reduce_scatter_kernel<long long>;
-    case DT_I8: return (const void*)reduce_scatter_kernel<signed char>;
-    case DT_U8: return (const void*)reduce_scatter_kernel<unsigned char>;
-    case DT_I16: return (const void*)reduce_scatter_kernel<short>;
-    case DT_F64: return (const void*)reduce_scatter_kernel<double>;
+    case DT_F32: return (const void*)reduce_scatter_kernel<float, PART>;
+    case DT_F16: return (const void*)reduce_scatter_kernel<__half, PART>;
+    case DT_BF16:
+      return (const void*)reduce_scatter_kernel<__nv_bfloat16, PART>;
+    case DT_I32: return (const void*)reduce_scatter_kernel<int, PART>;
+    case DT_I64: return (const void*)reduce_scatter_kernel<long long, PART>;
+    case DT_I8: return (const void*)reduce_scatter_kernel<signed char, PART>;
+    case DT_U8:
+      return (const void*)reduce_scatter_kernel<unsigned char, PART>;
+    case DT_I16: return (const void*)reduce_scatter_kernel<short, PART>;
+    case DT_F64: return (const void*)reduce_scatter_kernel<double, PART>;
     default: return nullptr;
   }
+}
+
+const void* select_kernel(int dtype, bool part) {
+  return part ? select_instance<true>(dtype) : select_instance<false>(dtype);
 }
 
 bool known_op(int op) {
@@ -237,7 +266,7 @@ extern "C" {
 int ucc_reduce_scatter_max_ctas(int chunked, int dtype, int threads,
                                 int* out) {
   (void)chunked;
-  const void* kern = select_kernel(dtype);
+  const void* kern = select_kernel(dtype, false);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -251,7 +280,9 @@ int ucc_reduce_scatter_max_ctas(int chunked, int dtype, int threads,
 }
 
 // Launch one reduce_scatter of n blocks of `blk` elements per src on
-// `stream`, on a grid of n rows of `ctas` CTAs of `threads` threads;
+// `stream`, computing output elements [lo, hi) of the n * blk (a team
+// across processes launches one part in each process), on a grid of one
+// row of `ctas` CTAs of `threads` threads per rank those elements fall in;
 // returns cudaGetLastError() after the launch (0 on success). The
 // signature is the common one of the ring sources: the kernel uses no comm
 // slots, flag words or error word, and `cblk`, `n_chunks` and `root` do
@@ -259,17 +290,19 @@ int ucc_reduce_scatter_max_ctas(int chunked, int dtype, int threads,
 int ucc_reduce_scatter(int chunked, int dtype, void* const* ptrs, void* comm,
                        unsigned* flags, int* err, long long blk,
                        long long cblk, int n_chunks, int n, int op, int root,
-                       int ctas, int threads, cudaStream_t stream) {
+                       int ctas, int threads, long long lo, long long hi,
+                       cudaStream_t stream) {
   (void)chunked, (void)comm, (void)flags, (void)err, (void)cblk,
       (void)n_chunks, (void)root;
-  const void* kern = select_kernel(dtype);
+  const void* kern = select_kernel(dtype, lo > 0 || hi < n * blk);
   if (kern == nullptr || !known_op(op) || n < 1 || blk < 1 || ctas < 1 ||
-      ctas > 65535)
+      ctas > 65535 || lo < 0 || lo >= hi || hi > n * blk)
     return (int)cudaErrorInvalidValue;
-  Args a{ptrs, blk, n, op};
+  Args a{ptrs, blk, lo, hi, n, op, (int)(lo / blk)};
+  const long long rows = (hi - 1) / blk - lo / blk + 1;
   void* params[] = {&a};
-  cudaError_t e = cudaLaunchKernel(kern, dim3(n, ctas), dim3(threads),
-                                   params, 0, stream);
+  cudaError_t e = cudaLaunchKernel(kern, dim3((unsigned)rows, ctas),
+                                   dim3(threads), params, 0, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -57,12 +57,17 @@
 //   - when the 2n pointers do not share one offset mod 16 (tensor views
 //     with a storage offset), every element takes it.
 //
-// Across GPUs (ROADMAP A5) the same table of 2n peer pointers serves as
-// the two-shot allreduce: rank r reduces the blocks it owns from the
-// peers' srcs and pushes the result into the peers' dsts, which moves
-// 2(n-1)/n * S over the links per rank, as the ring does. Across processes
-// that needs an all-rank barrier on entry (every src is ready) and on exit
-// (every dst is written); inside one process the stream orders both.
+// Across processes of one host (tl/device_sync.py) the table mixes this
+// process's pointers with CUDA IPC mappings of its peers' buffers, and
+// each process folds one part [lo, hi) of the elements into all n dsts:
+// an element's fold order depends on its index alone, so the union of the
+// parts is bitwise the single launch, and each src is still read once and
+// each dst written once, by one process. The rounds are ordered on the
+// streams by interprocess CUDA events, not inside the kernel. Across GPUs
+// (ROADMAP A5) the same table of 2n peer pointers serves as the two-shot
+// allreduce: rank r reduces the blocks it owns from the peers' srcs and
+// pushes the result into the peers' dsts, which moves 2(n-1)/n * S over
+// the links per rank, as the ring does.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W
 // power limit, 8 ranks: 16 Mi f32 per rank 0.379 ms, 0.85 of the bound
@@ -80,6 +85,7 @@ struct Args {
   void* const* ptrs;   // device array: n src pointers, then n dst pointers
   long long count;     // elements per rank
   long long blk;       // elements per block; a chunk is n blocks
+  long long lo, hi;    // the part of the elements this launch folds
   int n;
   int op;
 };
@@ -214,51 +220,69 @@ __device__ void sweep(const Table& t, long long blk, long long lo,
   }
 }
 
-// Every element of every rank: 16-byte vectors where the pointers allow,
-// single elements at the head, at the tail and everywhere when they do not.
-template <typename T, int OP>
+// Elements [lo, hi) of every rank: 16-byte vectors where the pointers
+// allow, single elements at the head, at the tail and everywhere when they
+// do not. PART: a launch of one part of the elements (a team across
+// processes); the whole walk, [0, count) (PART false), keeps the code of a
+// launch without parts.
+template <typename T, int OP, bool PART>
 __device__ void allreduce(const Table& t, const Args& a, bool aligned,
                           long long head) {
   constexpr int W = 16 / sizeof(T);
   if (!aligned) {
-    sweep_elements<T, OP>(t, a.blk, 0, a.count);
+    sweep_elements<T, OP>(t, a.blk, a.lo, a.hi - a.lo);
     return;
   }
-  const long long vecs = (a.count - head) / W;
-  const long long tail = head + vecs * W;
-  sweep<T, OP, W>(t, a.blk, head, vecs);
-  sweep_elements<T, OP>(t, a.blk, 0, head);
-  sweep_elements<T, OP>(t, a.blk, tail, a.count - tail);
+  if (!PART) {
+    const long long vecs = (a.count - head) / W;
+    const long long tail = head + vecs * W;
+    sweep<T, OP, W>(t, a.blk, head, vecs);
+    sweep_elements<T, OP>(t, a.blk, 0, head);
+    sweep_elements<T, OP>(t, a.blk, tail, a.count - tail);
+    return;
+  }
+  const Part p = vector_part(a.lo, a.hi, head, W);
+  const long long tail = p.v0 + p.vecs * W;
+  sweep<T, OP, W>(t, a.blk, p.v0, p.vecs);
+  sweep_elements<T, OP>(t, a.blk, a.lo, p.v0 - a.lo);
+  sweep_elements<T, OP>(t, a.blk, tail, a.hi - tail);
 }
 
-template <typename T>
+template <typename T, bool PART>
 __global__ void __launch_bounds__(THREADS) ring_allreduce_kernel(Args a) {
   __shared__ void* staged[2 * SMEM_RANKS];
   bool aligned;
   long long head;
   const Table t = stage_table<T>(a.ptrs, a.n, staged, a.count, aligned, head);
   switch (a.op) {
-    case OP_SUM: allreduce<T, OP_SUM>(t, a, aligned, head); break;
-    case OP_PROD: allreduce<T, OP_PROD>(t, a, aligned, head); break;
-    case OP_MAX: allreduce<T, OP_MAX>(t, a, aligned, head); break;
-    case OP_MIN: allreduce<T, OP_MIN>(t, a, aligned, head); break;
-    case OP_AVG: allreduce<T, OP_AVG>(t, a, aligned, head); break;
+    case OP_SUM: allreduce<T, OP_SUM, PART>(t, a, aligned, head); break;
+    case OP_PROD: allreduce<T, OP_PROD, PART>(t, a, aligned, head); break;
+    case OP_MAX: allreduce<T, OP_MAX, PART>(t, a, aligned, head); break;
+    case OP_MIN: allreduce<T, OP_MIN, PART>(t, a, aligned, head); break;
+    case OP_AVG: allreduce<T, OP_AVG, PART>(t, a, aligned, head); break;
   }
 }
 
-const void* select_kernel(int dtype) {
+template <bool PART>
+const void* select_instance(int dtype) {
   switch (dtype) {
-    case DT_F32: return (const void*)ring_allreduce_kernel<float>;
-    case DT_F16: return (const void*)ring_allreduce_kernel<__half>;
-    case DT_BF16: return (const void*)ring_allreduce_kernel<__nv_bfloat16>;
-    case DT_I32: return (const void*)ring_allreduce_kernel<int>;
-    case DT_I64: return (const void*)ring_allreduce_kernel<long long>;
-    case DT_I8: return (const void*)ring_allreduce_kernel<signed char>;
-    case DT_U8: return (const void*)ring_allreduce_kernel<unsigned char>;
-    case DT_I16: return (const void*)ring_allreduce_kernel<short>;
-    case DT_F64: return (const void*)ring_allreduce_kernel<double>;
+    case DT_F32: return (const void*)ring_allreduce_kernel<float, PART>;
+    case DT_F16: return (const void*)ring_allreduce_kernel<__half, PART>;
+    case DT_BF16:
+      return (const void*)ring_allreduce_kernel<__nv_bfloat16, PART>;
+    case DT_I32: return (const void*)ring_allreduce_kernel<int, PART>;
+    case DT_I64: return (const void*)ring_allreduce_kernel<long long, PART>;
+    case DT_I8: return (const void*)ring_allreduce_kernel<signed char, PART>;
+    case DT_U8:
+      return (const void*)ring_allreduce_kernel<unsigned char, PART>;
+    case DT_I16: return (const void*)ring_allreduce_kernel<short, PART>;
+    case DT_F64: return (const void*)ring_allreduce_kernel<double, PART>;
     default: return nullptr;
   }
+}
+
+const void* select_kernel(int dtype, bool part) {
+  return part ? select_instance<true>(dtype) : select_instance<false>(dtype);
 }
 
 bool known_op(int op) {
@@ -276,7 +300,7 @@ extern "C" {
 int ucc_ring_allreduce_max_ctas(int chunked, int dtype, int threads,
                                 int* out) {
   (void)chunked;
-  const void* kern = select_kernel(dtype);
+  const void* kern = select_kernel(dtype, false);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -290,21 +314,24 @@ int ucc_ring_allreduce_max_ctas(int chunked, int dtype, int threads,
 }
 
 // Launch one allreduce of `count` elements per rank on `stream`, on a grid
-// of `ctas` CTAs of `threads` threads; returns cudaGetLastError() after
-// the launch (0 on success). The signature is the common one of the ring
-// sources: the kernel uses no comm slots, flag words or error word, and
-// `n_chunks` and `root` follow from the rest or do not apply.
+// of `ctas` CTAs of `threads` threads, folding elements [lo, hi) of every
+// rank (a team across processes launches one part in each process);
+// returns cudaGetLastError() after the launch (0 on success). The
+// signature is the common one of the ring sources: the kernel uses no comm
+// slots, flag words or error word, and `n_chunks` and `root` follow from
+// the rest or do not apply.
 int ucc_ring_allreduce(int chunked, int dtype, void* const* ptrs,
                        void* comm, unsigned* flags, int* err,
                        long long count, long long blk, int n_chunks, int n,
-                       int op, int root, int ctas, int threads,
-                       cudaStream_t stream) {
+                       int op, int root, int ctas, int threads, long long lo,
+                       long long hi, cudaStream_t stream) {
   (void)chunked, (void)comm, (void)flags, (void)err, (void)n_chunks,
       (void)root;
-  const void* kern = select_kernel(dtype);
-  if (kern == nullptr || !known_op(op) || n < 1 || blk < 1)
+  const void* kern = select_kernel(dtype, lo > 0 || hi < count);
+  if (kern == nullptr || !known_op(op) || n < 1 || blk < 1 || lo < 0 ||
+      lo > hi || hi > count)
     return (int)cudaErrorInvalidValue;
-  Args a{ptrs, count, blk, n, op};
+  Args a{ptrs, count, blk, lo, hi, n, op};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchKernel(kern, dim3(ctas), dim3(threads), params,
                                    0, stream);

@@ -229,10 +229,16 @@ __device__ void spin_geq(const unsigned* p, unsigned target, int* err,
 // earlier stores) and read by its receiver alone (an acquire spin, bounded
 // by spin_geq). Epochs grow within a launch; the launch zeroes the words.
 // Every thread returns false when a spin ran out.
-//   No kernel calls it now: the alltoall, its last caller, is one flag-free
-// pass (alltoall.cu) on one GPU, where the stream orders it. It stays for
-// the slice that spans processes (ROADMAP A5), whose flag-free kernels need
-// an all-rank barrier on entry and on exit.
+//   No kernel calls it, and teams that span processes do not either: their
+// rounds are ordered by interprocess CUDA events on the streams and by the
+// team's sync area on the host (tl/device_sync.py). A barrier spinning
+// inside a kernel would wait on another process's kernel: processes that
+// share the card without MPS are time-sliced, so the spin waits out whole
+// slices; under MPS two full-occupancy grids cannot be resident at once, so
+// the spinning grid starves the other and ends on SPIN_LIMIT; and either
+// way a kernel would depend on another process's host launching in time.
+// It stays for the cooperative layer kernel's kind of launch (one grid over
+// all ranks, every CTA resident), where it holds.
 __device__ bool all_rank_barrier(unsigned* words, int n, unsigned epoch,
                                  int* err, volatile int* abort_flag) {
   const int r = blockIdx.y;

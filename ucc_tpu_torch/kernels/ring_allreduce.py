@@ -133,26 +133,41 @@ def ring_allreduce_chunked_ref(srcs: Sequence[torch.Tensor],
 # wrappers
 # ---------------------------------------------------------------------------
 
+def allreduce_walk(count: int, n: int) -> int:
+    """Elements of the kernel's walk: every element of a rank."""
+    return count
+
+
+def allreduce_pieces(count: int, n: int, lo: int, hi: int):
+    """(rank, start, stop) of every dst range that elements [lo, hi) of
+    the walk write: the same range of every rank."""
+    return [(r, lo, hi) for r in range(n)]
+
+
 def _dispatch(chunked: int, srcs, dsts, op, geometry, ref, stream,
-              workspace, ptr_table) -> Optional[RingLaunch]:
+              workspace, ptr_table, part) -> Optional[RingLaunch]:
     def plan(count, n):
         blk, n_chunks = geometry(count, n)
         return count, blk, n_chunks, count, 0, 0
     return dispatch(_SOURCE, chunked, "ring allreduce", srcs, dsts, op,
                     ops=OPS, dst_count=lambda count, n: count,
                     ref=lambda: ref(srcs, op), plan=plan, stream=stream,
-                    workspace=workspace, ptr_table=ptr_table)
+                    workspace=workspace, ptr_table=ptr_table, part=part,
+                    walk=allreduce_walk, pieces=allreduce_pieces)
 
 
 def ring_allreduce_pass(srcs: Sequence[torch.Tensor],
                         dsts: Sequence[torch.Tensor], op: ReductionOp, *,
                         stream=None, workspace: Optional[RingWorkspace] = None,
                         ptr_table: Optional[torch.Tensor] = None,
-                        root: int = 0) -> RingLaunch:
+                        root: int = 0,
+                        part: Optional[Tuple[int, int]] = None
+                        ) -> RingLaunch:
     """One-pass ring allreduce of ``srcs`` into ``dsts`` (one per rank);
-    ``root`` is ignored."""
+    ``root`` is ignored; ``part=(p, P)`` folds part p of P of the
+    elements (kernels/ring_common.py)."""
     h = _dispatch(0, srcs, dsts, op, pass_geometry, ring_allreduce_pass_ref,
-                  stream, workspace, ptr_table)
+                  stream, workspace, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_allreduce_pass.launches += 1
@@ -164,11 +179,15 @@ def ring_allreduce_chunked(srcs: Sequence[torch.Tensor],
                            stream=None,
                            workspace: Optional[RingWorkspace] = None,
                            ptr_table: Optional[torch.Tensor] = None,
-                           root: int = 0) -> RingLaunch:
+                           root: int = 0,
+                           part: Optional[Tuple[int, int]] = None
+                           ) -> RingLaunch:
     """Chunked ring allreduce of ``srcs`` into ``dsts`` (one per rank);
-    ``root`` is ignored."""
+    ``root`` is ignored; ``part=(p, P)`` folds part p of P of the
+    elements."""
     h = _dispatch(1, srcs, dsts, op, chunked_geometry,
-                  ring_allreduce_chunked_ref, stream, workspace, ptr_table)
+                  ring_allreduce_chunked_ref, stream, workspace, ptr_table,
+                  part)
     if h is None:
         return RingLaunch()
     ring_allreduce_chunked.launches += 1

@@ -178,8 +178,19 @@ def bcast_plan(count: int, n: int):
     return count, count, 1, count, 0, 0
 
 
+def bcast_walk(count: int, n: int) -> int:
+    """Elements of the kernel's walk: every element of the root's src."""
+    return count
+
+
+def bcast_pieces(count: int, n: int, lo: int, hi: int):
+    """(rank, start, stop) of every dst range that elements [lo, hi) of
+    the walk write: the same range of every rank."""
+    return [(r, lo, hi) for r in range(n)]
+
+
 def _bcast(kernel: int, srcs, dsts, root, stream,
-           ptr_table) -> Optional[RingLaunch]:
+           ptr_table, part) -> Optional[RingLaunch]:
     n = len(srcs)
     if not 0 <= root < max(n, 1):
         raise UccError(Status.ERR_INVALID_PARAM,
@@ -188,7 +199,8 @@ def _bcast(kernel: int, srcs, dsts, root, stream,
                     ops=None, dst_count=lambda count, n: count,
                     ref=lambda: ring_bcast_ref(srcs, root), plan=bcast_plan,
                     stream=stream, workspace=None, ptr_table=ptr_table,
-                    root=root)
+                    root=root, part=part, walk=bcast_walk,
+                    pieces=bcast_pieces)
 
 
 def _alltoall_count(count: int, n: int) -> int:
@@ -210,23 +222,48 @@ def alltoall_plan(count: int, n: int):
     return blk, blk, 1, n * (n + 1) // 2 * blk, 0, 0
 
 
+def alltoall_walk(count: int, n: int) -> int:
+    """Elements of the kernel's walk: unit u's element e at u·blk + e, the
+    units in ``alltoall_units``' order."""
+    return n * (n + 1) // 2 * (count // n)
+
+
+def alltoall_pieces(count: int, n: int, lo: int, hi: int):
+    """(rank, start, stop) of every dst range that elements [lo, hi) of
+    the walk write: of each unit (r, q) in it, dst_q's block r and dst_r's
+    block q."""
+    blk = count // n
+    units = alltoall_units(n)
+    out = []
+    for u in range(lo // blk, (hi - 1) // blk + 1):
+        r, q = units[u]
+        a, z = max(lo - u * blk, 0), min(hi - u * blk, blk)
+        out.append((q, r * blk + a, r * blk + z))
+        if q != r:
+            out.append((r, q * blk + a, q * blk + z))
+    return out
+
+
 def _alltoall(kernel: int, srcs, dsts, stream,
-              ptr_table) -> Optional[RingLaunch]:
+              ptr_table, part) -> Optional[RingLaunch]:
     return dispatch(_A2A_SOURCE, kernel, "ring alltoall", srcs, dsts, None,
                     ops=None, dst_count=_alltoall_count,
                     ref=lambda: ring_alltoall_ref(srcs), plan=alltoall_plan,
-                    stream=stream, workspace=None, ptr_table=ptr_table)
+                    stream=stream, workspace=None, ptr_table=ptr_table,
+                    part=part, walk=alltoall_walk, pieces=alltoall_pieces)
 
 
 def ring_bcast_pass(srcs: Sequence[torch.Tensor],
                     dsts: Sequence[torch.Tensor],
                     op: Optional[ReductionOp] = None, *, root: int = 0,
                     stream=None, workspace: Optional[RingWorkspace] = None,
-                    ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
+                    ptr_table: Optional[torch.Tensor] = None,
+                    part: Optional[Tuple[int, int]] = None) -> RingLaunch:
     """Bcast of ``srcs[root]`` into ``dsts`` (c each), for the counts that
     the TPU's one-pass kernel takes; ``op`` and ``workspace`` are
-    ignored."""
-    h = _bcast(K_BCAST_PASS, srcs, dsts, root, stream, ptr_table)
+    ignored; ``part=(p, P)`` copies part p of P of the elements
+    (kernels/ring_common.py)."""
+    h = _bcast(K_BCAST_PASS, srcs, dsts, root, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_bcast_pass.launches += 1
@@ -237,12 +274,13 @@ def ring_bcast_chunked(srcs: Sequence[torch.Tensor],
                        dsts: Sequence[torch.Tensor],
                        op: Optional[ReductionOp] = None, *, root: int = 0,
                        stream=None, workspace: Optional[RingWorkspace] = None,
-                       ptr_table: Optional[torch.Tensor] = None
+                       ptr_table: Optional[torch.Tensor] = None,
+                       part: Optional[Tuple[int, int]] = None
                        ) -> RingLaunch:
     """Bcast of ``srcs[root]`` into ``dsts`` (c each), for the counts that
     the TPU's chunked kernel takes; ``op`` and ``workspace`` are
-    ignored."""
-    h = _bcast(K_BCAST_CHUNKED, srcs, dsts, root, stream, ptr_table)
+    ignored; ``part=(p, P)`` copies part p of P of the elements."""
+    h = _bcast(K_BCAST_CHUNKED, srcs, dsts, root, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_bcast_chunked.launches += 1
@@ -253,12 +291,14 @@ def ring_alltoall_pass(srcs: Sequence[torch.Tensor],
                        dsts: Sequence[torch.Tensor],
                        op: Optional[ReductionOp] = None, *, root: int = 0,
                        stream=None, workspace: Optional[RingWorkspace] = None,
-                       ptr_table: Optional[torch.Tensor] = None
+                       ptr_table: Optional[torch.Tensor] = None,
+                       part: Optional[Tuple[int, int]] = None
                        ) -> RingLaunch:
     """Pairwise alltoall of ``srcs`` (n·b each) into ``dsts`` (n·b each),
     for the counts that the TPU's one-pass kernel takes; ``op``, ``root``
-    and ``workspace`` are ignored."""
-    h = _alltoall(K_A2A_PASS, srcs, dsts, stream, ptr_table)
+    and ``workspace`` are ignored; ``part=(p, P)`` moves part p of P of
+    the units' elements (kernels/ring_common.py)."""
+    h = _alltoall(K_A2A_PASS, srcs, dsts, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_alltoall_pass.launches += 1
@@ -270,12 +310,14 @@ def ring_alltoall_chunked(srcs: Sequence[torch.Tensor],
                           op: Optional[ReductionOp] = None, *, root: int = 0,
                           stream=None,
                           workspace: Optional[RingWorkspace] = None,
-                          ptr_table: Optional[torch.Tensor] = None
+                          ptr_table: Optional[torch.Tensor] = None,
+                          part: Optional[Tuple[int, int]] = None
                           ) -> RingLaunch:
     """Pairwise alltoall of ``srcs`` (n·b each) into ``dsts`` (n·b each),
     for the counts that the TPU's chunked kernel takes; ``op``, ``root``
-    and ``workspace`` are ignored."""
-    h = _alltoall(K_A2A_CHUNKED, srcs, dsts, stream, ptr_table)
+    and ``workspace`` are ignored; ``part=(p, P)`` moves part p of P of
+    the units' elements."""
+    h = _alltoall(K_A2A_CHUNKED, srcs, dsts, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_alltoall_chunked.launches += 1

@@ -6,11 +6,27 @@ the device pointer table, the buffer checks and the launch itself.
 
 Every ring source under ``csrc/`` exports the same plain C interface, named
 by its prefix P: ``P(kernel, dtype, ptrs, comm, flags, err, a, b, n_chunks,
-n, op, root, lanes, threads, stream)`` launches kernel number *kernel* of
-the source, where ``a``, ``b`` and ``n_chunks`` are the kernel's geometry
-and ``root`` the rank a rooted collective starts from (0 for the others);
+n, op, root, lanes, threads, lo, hi, stream)`` launches kernel number
+*kernel* of the source, where ``a``, ``b`` and ``n_chunks`` are the
+kernel's geometry, ``root`` the rank a rooted collective starts from (0 for
+the others) and ``[lo, hi)`` the part of the kernel's walk the launch does;
 ``P_max_ctas`` is the occupancy query and ``P_error_string`` names a CUDA
-error. Two kinds of source stand behind it:
+error.
+
+The walk of a direct source is a line of elements that its kernel already
+cuts into 16-byte vectors: the allreduce's and the bcast's ``count``
+elements, the reduce_scatter's ``n·blk`` output elements (rank r's element
+i at ``r·blk + i``), the allgather's ``n·count`` copied elements (src b's
+element e at ``b·count + e``) and the alltoall's ``n(n+1)/2·blk`` unit
+elements (unit u's element e at ``u·blk + e``). A team in one process
+launches the whole walk; a team that spans P processes (tl/device_sync)
+launches part p of P in process p (``part=(p, P)``, cut by
+``part_bounds`` at multiples of the vector width), over the pointer table
+of all n ranks. Every element's result depends on its index alone, so the
+union of the parts is bitwise the whole launch. The plain versions take
+the same part: they write only its elements (``write_part``).
+
+Two kinds of source stand behind the interface:
 
 - a direct source (``ring_allreduce.cu``, ``reduce_scatter.cu``,
   ``allgather.cu``, ``alltoall.cu``, ``bcast.cu``) runs no ring: one pass
@@ -211,7 +227,8 @@ class RingSource:
     ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_void_p]
 
     def __init__(self, source: str, prefix: str):
         self.source = source
@@ -312,9 +329,19 @@ class DirectSource(RingSource):
 
     def launch(self, what: str, kernel: int, srcs, dsts, op, root: int,
                plan: Plan, stream, workspace: Optional[RingWorkspace],
-               ptr_table: Optional[torch.Tensor]) -> RingLaunch:
+               ptr_table: Optional[torch.Tensor],
+               bounds: Optional[Tuple[int, int]] = None) -> RingLaunch:
+        """*bounds*: the part [lo, hi) of the walk to launch (None: all of
+        it, ``plan``'s span times n rows for a per-rank source)."""
         a, b, n_chunks, span = plan[:4]
         n = len(srcs)
+        rows = n if self.per_rank else 1
+        lo, hi = (0, span * rows) if bounds is None else bounds
+        if self.per_rank:
+            rows = (hi - 1) // span - lo // span + 1
+            span = min(span, hi - lo)
+        else:
+            span = hi - lo
         device = srcs[0].device
         code = DTYPE_CODES[srcs[0].dtype]
         if stream is None:
@@ -322,38 +349,76 @@ class DirectSource(RingSource):
         with torch.cuda.device(device), torch.cuda.stream(stream):
             ctas = self.row_ctas(
                 span, srcs[0].element_size(),
-                self.max_ctas(kernel, code, device, DIRECT_THREADS), n)
+                self.max_ctas(kernel, code, device, DIRECT_THREADS), rows)
             if ptr_table is None:
                 ptr_table = make_ptr_table(srcs, dsts)
             self.check(getattr(self.lib(), self.prefix)(
                 kernel, code, ptr_table.data_ptr(), None, None, None, a, b,
                 n_chunks, n, 0 if op is None else int(op), root, ctas,
-                DIRECT_THREADS,
+                DIRECT_THREADS, lo, hi,
                 stream.cuda_stream),
                 f"{what} launch")
         return RingLaunch(stream, keep=(ptr_table,), what=what)
+
+
+def part_bounds(walk: int, part: Tuple[int, int],
+                elem_size: int) -> Tuple[int, int]:
+    """[lo, hi) of part p of P (``part = (p, P)``) of a walk of *walk*
+    elements: near-equal parts, cut at multiples of the 16-byte vector's
+    elements so that every part keeps the vector path; a walk too short
+    for P parts leaves the last ones empty."""
+    p, nparts = part
+    if not 0 <= p < nparts:
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       f"part {p} of {nparts} does not exist")
+    w = max(1, VECTOR_BYTES // elem_size)
+
+    def cut(i):
+        return min(walk, -(-walk * i // (nparts * w)) * w)
+    return cut(p), cut(p + 1)
+
+
+def write_part(dsts, outs, pieces) -> None:
+    """Copy the part's elements of the plain version's results *outs* into
+    *dsts*: ``pieces`` lists (rank, dst start, dst stop) of the part."""
+    for r, a, b in pieces:
+        dsts[r][a:b].copy_(outs[r][a:b])
 
 
 def dispatch(source: DirectSource, kernel: int, what: str, srcs, dsts, op, *,
              ops, dst_count: Callable[[int, int], int],
              ref: Callable[[], List[torch.Tensor]],
              plan: Callable[[int, int], Plan], stream, workspace,
-             ptr_table, root: int = 0) -> Optional[RingLaunch]:
+             ptr_table, root: int = 0,
+             part: Optional[Tuple[int, int]] = None,
+             walk: Optional[Callable[[int, int], int]] = None,
+             pieces: Optional[Callable] = None) -> Optional[RingLaunch]:
     """One wrapper call: None when the buffers lie on the CPU and the plain
     version ``ref()`` already wrote them (its whole result is computed
     before any dst is written, so in place is safe), or when there is
-    nothing to move; otherwise the kernel's launch handle."""
+    nothing to move; otherwise the kernel's launch handle.
+
+    *part* ``(p, P)`` launches part p of P of the walk (``walk(count, n)``
+    elements), and on the CPU writes only the part's elements of the plain
+    version's result (``pieces(count, n, lo, hi)``); an empty part moves
+    nothing."""
     n, count = check_buffers(what, srcs, dsts, op, ops, dst_count)
     device = srcs[0].device
+    bounds = None
+    if part is not None and part[1] > 1:
+        bounds = part_bounds(walk(count, n), part, srcs[0].element_size())
     if device.type == "cpu":
-        for d, out in zip(dsts, ref()):
-            d.copy_(out)
+        if bounds is None:
+            for d, out in zip(dsts, ref()):
+                d.copy_(out)
+        elif bounds[0] < bounds[1]:
+            write_part(dsts, ref(), pieces(count, n, *bounds))
         return None
     if device.type != "cuda":
         raise UccError(Status.ERR_NOT_SUPPORTED,
                        f"{what} runs on cuda or cpu tensors, not "
                        f"{device.type}")
-    if count == 0:
+    if count == 0 or (bounds is not None and bounds[0] >= bounds[1]):
         return None
     return source.launch(what, kernel, srcs, dsts, op, root, plan(count, n),
-                         stream, workspace, ptr_table)
+                         stream, workspace, ptr_table, bounds)

@@ -169,8 +169,22 @@ def _scatter_count(count: int, n: int) -> int:
     return count // n
 
 
+def reduce_scatter_walk(count: int, n: int) -> int:
+    """Elements of the kernel's walk: the n·blk output elements (src count
+    n·blk), rank r's element i at r·blk + i."""
+    return count
+
+
+def reduce_scatter_pieces(count: int, n: int, lo: int, hi: int):
+    """(rank, start, stop) of every dst range that output elements [lo,
+    hi) write."""
+    blk = count // n
+    return [(r, max(lo - r * blk, 0), min(hi - r * blk, blk))
+            for r in range(lo // blk, (hi - 1) // blk + 1)]
+
+
 def _reduce_scatter(chunked: int, srcs, dsts, op, stream,
-                    ptr_table) -> Optional[RingLaunch]:
+                    ptr_table, part) -> Optional[RingLaunch]:
     def plan(count, n):
         # one row of CTAs per rank walks its blk elements; no chunks, comm
         # slots or flag words
@@ -179,7 +193,9 @@ def _reduce_scatter(chunked: int, srcs, dsts, op, stream,
     return dispatch(_RS_SOURCE, chunked, "ring reduce_scatter", srcs, dsts,
                     op, ops=OPS, dst_count=_scatter_count,
                     ref=lambda: ring_reduce_scatter_ref(srcs, op), plan=plan,
-                    stream=stream, workspace=None, ptr_table=ptr_table)
+                    stream=stream, workspace=None, ptr_table=ptr_table,
+                    part=part, walk=reduce_scatter_walk,
+                    pieces=reduce_scatter_pieces)
 
 
 def allgather_plan(count: int, n: int):
@@ -188,13 +204,29 @@ def allgather_plan(count: int, n: int):
     return count, count, 1, n * count, 0, 0
 
 
+def allgather_walk(count: int, n: int) -> int:
+    """Elements of the kernel's walk: src b's element e at b·count + e."""
+    return n * count
+
+
+def allgather_pieces(count: int, n: int, lo: int, hi: int):
+    """(rank, start, stop) of every dst range that elements [lo, hi) of
+    the walk write: block b's part in every dst."""
+    out = []
+    for b in range(lo // count, (hi - 1) // count + 1):
+        a, z = max(lo, b * count), min(hi, (b + 1) * count)
+        out += [(r, a, z) for r in range(n)]
+    return out
+
+
 def _allgather(kernel: int, srcs, dsts, stream,
-               ptr_table) -> Optional[RingLaunch]:
+               ptr_table, part) -> Optional[RingLaunch]:
     return dispatch(_SOURCE, kernel, "ring allgather", srcs, dsts, None,
                     ops=None, dst_count=lambda count, n: n * count,
                     ref=lambda: ring_allgather_ref(srcs),
                     plan=allgather_plan, stream=stream, workspace=None,
-                    ptr_table=ptr_table)
+                    ptr_table=ptr_table, part=part, walk=allgather_walk,
+                    pieces=allgather_pieces)
 
 
 def ring_reduce_scatter_pass(srcs: Sequence[torch.Tensor],
@@ -202,11 +234,14 @@ def ring_reduce_scatter_pass(srcs: Sequence[torch.Tensor],
                              *, stream=None,
                              workspace: Optional[RingWorkspace] = None,
                              ptr_table: Optional[torch.Tensor] = None,
-                             root: int = 0) -> RingLaunch:
+                             root: int = 0,
+                             part: Optional[Tuple[int, int]] = None
+                             ) -> RingLaunch:
     """Reduce_scatter of ``srcs`` (n·c each) into ``dsts`` (c each), for
     the counts that the TPU's one-pass ring takes; ``workspace`` and
-    ``root`` are ignored."""
-    h = _reduce_scatter(0, srcs, dsts, op, stream, ptr_table)
+    ``root`` are ignored; ``part=(p, P)`` computes part p of P of the
+    output elements (kernels/ring_common.py)."""
+    h = _reduce_scatter(0, srcs, dsts, op, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_reduce_scatter_pass.launches += 1
@@ -218,11 +253,14 @@ def ring_reduce_scatter_chunked(srcs: Sequence[torch.Tensor],
                                 op: ReductionOp, *, stream=None,
                                 workspace: Optional[RingWorkspace] = None,
                                 ptr_table: Optional[torch.Tensor] = None,
-                                root: int = 0) -> RingLaunch:
+                                root: int = 0,
+                                part: Optional[Tuple[int, int]] = None
+                                ) -> RingLaunch:
     """Reduce_scatter of ``srcs`` (n·c each) into ``dsts`` (c each), for
     the counts that the TPU's chunked ring takes; ``workspace`` and
-    ``root`` are ignored."""
-    h = _reduce_scatter(1, srcs, dsts, op, stream, ptr_table)
+    ``root`` are ignored; ``part=(p, P)`` computes part p of P of the
+    output elements."""
+    h = _reduce_scatter(1, srcs, dsts, op, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_reduce_scatter_chunked.launches += 1
@@ -234,11 +272,14 @@ def ring_allgather_pass(srcs: Sequence[torch.Tensor],
                         op: Optional[ReductionOp] = None, *, stream=None,
                         workspace: Optional[RingWorkspace] = None,
                         ptr_table: Optional[torch.Tensor] = None,
-                        root: int = 0) -> RingLaunch:
+                        root: int = 0,
+                        part: Optional[Tuple[int, int]] = None
+                        ) -> RingLaunch:
     """Allgather of ``srcs`` (c each) into ``dsts`` (n·c each), for the
     counts that the TPU's one-pass ring takes; ``op``, ``root`` and
-    ``workspace`` are ignored."""
-    h = _allgather(K_AG_PASS, srcs, dsts, stream, ptr_table)
+    ``workspace`` are ignored; ``part=(p, P)`` moves part p of P of the
+    n·c elements."""
+    h = _allgather(K_AG_PASS, srcs, dsts, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_allgather_pass.launches += 1
@@ -250,11 +291,14 @@ def ring_allgather_chunked(srcs: Sequence[torch.Tensor],
                            op: Optional[ReductionOp] = None, *, stream=None,
                            workspace: Optional[RingWorkspace] = None,
                            ptr_table: Optional[torch.Tensor] = None,
-                           root: int = 0) -> RingLaunch:
+                           root: int = 0,
+                           part: Optional[Tuple[int, int]] = None
+                           ) -> RingLaunch:
     """Allgather of ``srcs`` (c each) into ``dsts`` (n·c each), for the
     counts that the TPU's chunked ring takes; ``op``, ``root`` and
-    ``workspace`` are ignored."""
-    h = _allgather(K_AG_CHUNKED, srcs, dsts, stream, ptr_table)
+    ``workspace`` are ignored; ``part=(p, P)`` moves part p of P of the
+    n·c elements."""
+    h = _allgather(K_AG_CHUNKED, srcs, dsts, stream, ptr_table, part)
     if h is None:
         return RingLaunch()
     ring_allgather_chunked.launches += 1

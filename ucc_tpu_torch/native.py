@@ -266,6 +266,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ucc_ipc_fence.argtypes = [vp, u64, u64]
     lib.ucc_arena_counters.restype = None
     lib.ucc_arena_counters.argtypes = [vp, ctypes.POINTER(u64)]
+    lib.ucc_store_release_u64.restype = None
+    lib.ucc_store_release_u64.argtypes = [vp, u64]
+    lib.ucc_load_acquire_u64.restype = u64
+    lib.ucc_load_acquire_u64.argtypes = [vp]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

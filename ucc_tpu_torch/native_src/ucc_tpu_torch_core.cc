@@ -787,6 +787,21 @@ uint64_t plan_cancel_locked(Plan* p) {
 
 }  // namespace
 
+// release-ordered u64 store / acquire-ordered load at an address of any
+// shared mapping (8-byte aligned): the device TLs' per-team sync area
+// (tl/device_sync.py) publishes its sequence and done words through these.
+// Declared one by one, ahead of the C API block, which stays the
+// reference's line for line.
+extern "C" void ucc_store_release_u64(void* addr, uint64_t val) {
+    reinterpret_cast<std::atomic<uint64_t>*>(addr)->store(
+        val, std::memory_order_release);
+}
+
+extern "C" uint64_t ucc_load_acquire_u64(void* addr) {
+    return reinterpret_cast<std::atomic<uint64_t>*>(addr)->load(
+        std::memory_order_acquire);
+}
+
 extern "C" {
 
 uint64_t ucc_abi_version() { return kAbiVersion; }

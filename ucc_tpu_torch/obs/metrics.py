@@ -93,6 +93,23 @@ def observe(name: str, value: float, component: str = "", coll: str = "",
         slot["max"] = max(slot["max"], value)
 
 
+#: the counters of device teams that span processes (tl/device_sync.py):
+#: rounds launched, peer buffers opened (CUDA IPC mappings, or the CPU
+#: stand-in's staging files) and descriptors sent through the sync area.
+#: A persistent round after the first opens nothing and sends nothing.
+#: They are kept in ``span_counts`` whether or not UCC_STATS is on (tests
+#: and chip_smoke.py read them), and recorded as counters when it is.
+DEVICE_SPAN_COUNTERS = ("dev_span_rounds", "dev_ipc_opens", "dev_desc_sends")
+span_counts: Dict[str, int] = dict.fromkeys(DEVICE_SPAN_COUNTERS, 0)
+
+
+def count_span(name: str, value: int = 1) -> None:
+    """Add to one of DEVICE_SPAN_COUNTERS."""
+    span_counts[name] += value
+    if ENABLED:
+        inc(name, value, component="tl_device")
+
+
 # ---------------------------------------------------------------------------
 # snapshot / dump
 # ---------------------------------------------------------------------------

@@ -1,27 +1,42 @@
-"""Device TL plumbing: the rendezvous that turns the per-rank posts of an
-in-process team into one kernel launch over all of them.
+"""Device TL plumbing: the rendezvous that turns the per-rank posts of a
+team into kernel launches over all of its ranks' buffers.
 
 This is the rendezvous half of the JAX package's ``tl/xla.py``. Every team
 rank is a UCC context; the ranks of one process share a
 ``DeviceTeamShared``. ``post()`` deposits the rank's buffers; the last
-rank to deposit launches one program over every rank's buffers, on the
-team's own CUDA stream, so launches are ordered by the rendezvous and not
-by which thread happened to deposit last.
+local rank to deposit launches the round's program on the team's own CUDA
+stream, so launches are ordered by the rendezvous and not by which thread
+happened to deposit last.
 
-Ranks of a team live on ONE device: ``DeviceTeamShared.devices`` names the
-same device n times, and each rank has its own buffers there. The device
-is ``DEVICE_CONFIG``'s ``DEVICE`` (``UCC_TL_RING_CUDA_DEVICE``, default
-``cuda``, meaning cuda:0), one setting that every device TL's context
-reads, since the ranks of a team hand every TL the same tensors; a
-context that asks for CUDA on a machine without one raises. On ``cpu``
-the programs run the kernels' plain versions.
+Ranks of a team live on ONE device, each with its own buffers there. The
+device is ``DEVICE_CONFIG``'s ``DEVICE`` (``UCC_TL_RING_CUDA_DEVICE``,
+default ``cuda``, meaning cuda:0), one setting that every device TL's
+context reads, since the ranks of a team hand every TL the same tensors; a
+context that asks for CUDA on a machine without one raises. On ``cpu`` the
+programs run the kernels' plain versions. Contexts compare their devices
+by the card's UUID (``cuda:0`` names different cards under different
+``CUDA_VISIBLE_DEVICES``) and their processes by the context address
+table's ``(hostname, pid)``.
+
+The ranks may live in several processes of one host (``team_layout``,
+the counterpart of the JAX package's ``n_local`` gates): processes are
+numbered in the order of their lowest team rank, and a team of one process
+launches one program over every rank's buffers, as before. A team that
+spans P processes runs its rounds through ``tl/device_sync.py``: each
+process launches part p of P of the round over all n ranks' buffers (its
+own and its peers', reached through CUDA IPC), ordered by interprocess
+CUDA events and a per-team sync area. Teams whose ranks are on several
+hosts, or on several cards, are ERR_NOT_SUPPORTED (their host TLs serve
+them), and so are spanning teams under
+``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``.
 
 Buffer convention: tensors are mutable, so a device collective writes its
 result INTO the caller's ``dst`` tensor, as UCC does in C. (The JAX
 package rebinds ``dst.buffer`` instead, because jax arrays are
 immutable.) A collective completes when its launch has finished on the
-device: ``test()`` polls the launch's CUDA event, so a caller may read
-``dst`` on any stream once it returns OK.
+device (on a spanning team: every process's part): ``test()`` polls the
+launch's CUDA event, so a caller may read ``dst`` on any stream once it
+returns OK.
 
 No TL is registered from this module; tl/ring_cuda and tl/torch_ops build
 on it. A rank's src or dst may be None (a rooted collective's non-root
@@ -31,7 +46,7 @@ from __future__ import annotations
 
 import pickle
 import threading
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -90,21 +105,73 @@ def resolve_device(spec: str) -> torch.device:
 # context: device claim
 # ---------------------------------------------------------------------------
 
+def device_uuid(dev: torch.device) -> str:
+    """The card's UUID (``cpu`` for the CPU): what two contexts compare to
+    know they share a device."""
+    if dev.type != "cuda":
+        return "cpu"
+    return str(torch.cuda.get_device_properties(dev.index).uuid)
+
+
 class TlDeviceContext(BaseContext):
     def __init__(self, comp_lib, core_context, config):
         super().__init__(comp_lib, core_context, config)
         self.device = resolve_device(config.device if config else "cuda")
-        #: ctx rank -> device string of the peer context
-        self.peer_devices: Dict[int, str] = {
-            core_context.rank: str(self.device)}
+        #: ctx rank -> (device string, card UUID, context uid) of the peer
+        self.peer_devices: Dict[int, tuple] = {
+            core_context.rank: self.address()}
+
+    def address(self) -> tuple:
+        return (str(self.device), device_uuid(self.device),
+                self.core_context._ctx_uid)
 
     def pack_address(self) -> bytes:
-        return pickle.dumps(str(self.device))
+        return pickle.dumps(self.address())
 
     def unpack_addresses(self, addrs: Dict[int, bytes]) -> None:
         for rank, blob in addrs.items():
             if blob:
-                self.peer_devices[rank] = pickle.loads(blob)
+                self.peer_devices[rank] = tuple(pickle.loads(blob))
+
+
+class Layout(NamedTuple):
+    """Where a team's ranks live: ``procs[p]`` lists the team ranks of
+    process p (processes in the order of their lowest team rank), ``me``
+    is this process's index."""
+    procs: List[List[int]]
+    me: int
+
+
+def team_layout(size: int, ctx_of, proc_of, device_of, my_proc,
+                my_device, what: str = "device") -> Layout:
+    """The layout of a team of *size* ranks: ``ctx_of(gr)`` is team rank
+    gr's context rank, ``proc_of(cr)`` that context's ``(hostname, pid)``
+    and ``device_of(cr)`` its ``(device string, card UUID, ...)``. Raises
+    ERR_NOT_SUPPORTED for a rank on another host or another card."""
+    procs: Dict[tuple, List[int]] = {}
+    for gr in range(size):
+        cr = ctx_of(gr)
+        proc = tuple(proc_of(cr))
+        if proc[0] != my_proc[0]:
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           f"tl/{what}: team rank {gr} is on host "
+                           f"{proc[0]}, not {my_proc[0]} (device teams "
+                           "across hosts are not ported)")
+        dev = device_of(cr)
+        if dev is None or dev[1] != my_device[1]:
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           f"tl/{what}: team rank {gr} is on "
+                           f"{dev[0] if dev else None} (card "
+                           f"{dev[1] if dev else None}), not {my_device[0]} "
+                           f"(card {my_device[1]})")
+        procs.setdefault(proc, []).append(gr)
+    order = sorted(procs.values(), key=min)
+    me = [i for i, ranks in enumerate(order)
+          if tuple(proc_of(ctx_of(ranks[0]))) == tuple(my_proc)]
+    if not me:
+        raise UccError(Status.ERR_INVALID_PARAM,
+                       f"tl/{what}: this process holds no rank of the team")
+    return Layout(order, me[0])
 
 
 # ---------------------------------------------------------------------------
@@ -120,12 +187,19 @@ LAUNCH_CACHE_MAX = 64
 
 
 class DeviceTeamShared:
-    def __init__(self, key, device: torch.device, n: int):
+    def __init__(self, key, device: torch.device, n: int,
+                 layout: "Layout" = None, span_name: str = ""):
         self.key = key
         self.device = device
         self.devices = [device] * n     # team rank -> device
-        self.n_local = n
+        self.layout = layout or Layout([list(range(n))], 0)
+        self.n_local = len(self.layout.procs[self.layout.me])
         self.lock = threading.Lock()
+        #: the rounds of a team that spans processes (tl/device_sync)
+        self.span = None
+        #: local ranks that finalized each tag (a spanning team retires a
+        #: tag when all of them have)
+        self.finalized: Dict[int, int] = {}
         #: tag -> {team_rank: (src, dst, ready_event, task)}
         self.pending: Dict[int, Dict[int, Tuple]] = {}
         #: persistent-collective launch cache: tag -> (pointers, table),
@@ -143,6 +217,9 @@ class DeviceTeamShared:
         if device.type == "cuda":
             self.stream = torch.cuda.Stream(device)
             self.workspace = RingWorkspace(device)
+        if len(self.layout.procs) > 1:
+            from .device_sync import SpanTeam
+            self.span = SpanTeam(self, self.layout, span_name)
 
     @classmethod
     def get_or_create(cls, key, make) -> "DeviceTeamShared":
@@ -162,6 +239,23 @@ class DeviceTeamShared:
                 self.programs.clear()
                 self.pending.clear()
                 self.workspace = None
+                if self.span is not None:
+                    with self.lock:
+                        self.span.destroy()
+
+    def retire(self, tag) -> None:
+        """A local rank finalized *tag*'s request; a spanning team lets
+        the tag's descriptor and staging go once every local rank has."""
+        with self.lock:
+            self.launch_cache.pop(tag, None)
+            if self.span is None:
+                return
+            done = self.finalized.get(tag, 0) + 1
+            if done < self.n_local:
+                self.finalized[tag] = done
+                return
+            self.finalized.pop(tag, None)
+            self.span.retire(tag)
 
     def _cache_insert(self, key, value) -> None:
         """Bounded insert: evict the oldest entries beyond
@@ -184,8 +278,12 @@ class DeviceTeamShared:
                 # launched under the lock: every rank posts in program
                 # order, so slots fill in program order, and launches reach
                 # the stream (and the shared workspace) in that order
-                # whichever thread deposits last
-                self._launch(slot)
+                # whichever thread deposits last; a spanning team's rounds
+                # are numbered in that order in every process
+                if self.span is not None:
+                    self.span.start(tag, slot)
+                else:
+                    self._launch(slot)
 
     def _launch(self, slot) -> None:
         items = sorted(slot.items())
@@ -216,8 +314,24 @@ class DeviceCollTask(CollTask):
     """One rank's view of a device collective. Subclasses provide
     ``validate()`` and ``build_program(shared)``, which returns the kernel
     wrapper to launch: ``kernel(srcs, dsts, op, *, root, stream,
-    workspace, ptr_table)`` returning a launch handle with ``done()``; or
-    they replace ``launch`` and the buffer conventions as a whole."""
+    workspace, ptr_table, part)`` returning a launch handle with
+    ``done()``; or they replace ``launch`` and the buffer conventions as a
+    whole. ``PEERS_WRITE``: on a team that spans processes, a process's
+    launch writes other processes' dsts (the kernels' parts), so the
+    round's descriptors carry the dsts too; a program that writes only its
+    own process's dsts sets it False. ``peers_read_src`` says which srcs
+    another process reads after this one may have begun to write its
+    dsts: an src inside a local dst is then read from a copy."""
+
+    PEERS_WRITE = True
+
+    def peers_read_src(self, tr: int, local) -> bool:
+        """Whether, on a spanning team, another process than the one of
+        ``local`` (its team ranks) reads team rank tr's src while this one
+        writes its dsts. The kernels' parts write an element only in the
+        thread that reads everything it depends on (a fold, a copy, a
+        swap of two blocks), as one launch over all ranks does: none."""
+        return False
 
     def __init__(self, init_args, team: "TlDeviceTeam"):
         super().__init__(team=team, args=init_args.args)
@@ -365,10 +479,13 @@ class DeviceCollTask(CollTask):
         self.tl_team.shared.deposit(self.tag, self.tl_team.rank, src, dst,
                                     ready, self)
 
-    def launch(self, shared: DeviceTeamShared, srcs, dsts, tasks):
+    def launch(self, shared: DeviceTeamShared, srcs, dsts, tasks,
+               part=None):
         """The one launch over every rank's buffers (*tasks*: every rank's
-        task, in rank order), on the launching thread under the
-        rendezvous lock; returns the launch handle."""
+        task, in rank order; on a spanning team a peer rank's is its
+        block and layout alone), on the launching thread under the
+        rendezvous lock; returns the launch handle. *part* ``(p, P)``:
+        this process's part of a spanning team's round."""
         table = None
         if self.args.is_persistent and shared.stream is not None:
             ptrs = tuple(t.data_ptr() for t in srcs + dsts)
@@ -384,9 +501,10 @@ class DeviceCollTask(CollTask):
                 table = make_ptr_table(srcs, dsts)
                 shared._cache_insert(self.tag, (ptrs, table))
         kernel = self.build_program(shared)
+        kw = {} if part is None else {"part": part}
         return kernel(srcs, dsts, self.op, root=self.root,
                       stream=shared.stream, workspace=shared.workspace,
-                      ptr_table=table)
+                      ptr_table=table, **kw)
 
     # -- lifecycle --------------------------------------------------------
     def post_fn(self) -> Status:
@@ -445,7 +563,7 @@ class DeviceCollTask(CollTask):
         self._launch = None
 
     def finalize_fn(self) -> Status:
-        self.tl_team.shared.launch_cache.pop(self.tag, None)
+        self.tl_team.shared.retire(self.tag)
         return Status.OK
 
 
@@ -454,7 +572,8 @@ class DeviceCollTask(CollTask):
 # ---------------------------------------------------------------------------
 
 class TlDeviceTeam(TlTeamBase):
-    """Team of a device TL: every rank in this process, on one device."""
+    """Team of a device TL: its ranks on one device, in one process or in
+    several of one host (``team_layout``)."""
 
     NAME = "device"
 
@@ -463,23 +582,46 @@ class TlDeviceTeam(TlTeamBase):
         super().__init__(comp_context, core_team, scope)
         ctx = comp_context
         ctx_map = core_team.ctx_map or EpMap.full(core_team.size)
-        local = core_team.context.local_ranks()
-        mine = str(ctx.device)
-        for gr in range(self.size):
-            cr = ctx_map.eval(gr)
-            if cr not in local:
-                raise UccError(Status.ERR_NOT_SUPPORTED,
-                               f"tl/{self.NAME}: team rank {gr} lives in "
-                               "another process (teams spanning processes "
-                               "are not ported yet)")
-            if ctx.peer_devices.get(cr) != mine:
-                raise UccError(Status.ERR_NOT_SUPPORTED,
-                               f"tl/{self.NAME}: team rank {gr} is on "
-                               f"{ctx.peer_devices.get(cr)}, not {mine}")
+        core = core_team.context
+        mine = ctx.address()
+        layout = team_layout(
+            self.size, ctx_map.eval,
+            lambda cr: core.addr_storage[cr]["proc"]
+            if cr < len(core.addr_storage) else core.proc,
+            ctx.peer_devices.get, core.proc, mine, self.NAME)
+        name = ""
+        if len(layout.procs) > 1:
+            self.check_spanning(ctx)
+            first = ctx.peer_devices.get(ctx_map.eval(0)) or mine
+            from .device_sync import sync_name
+            name = sync_name(core_team.team_key, scope, self.NAME, first[2])
         self._coll_tag = 0
         key = (core_team.team_key, scope, self.NAME)
         self.shared = DeviceTeamShared.get_or_create(
-            key, lambda: DeviceTeamShared(key, ctx.device, self.size))
+            key, lambda: DeviceTeamShared(key, ctx.device, self.size,
+                                          layout, name))
+
+    @property
+    def spanning(self) -> bool:
+        """Whether the team's ranks live in more than one process."""
+        return self.shared.span is not None
+
+    def check_spanning(self, ctx: TlDeviceContext) -> None:
+        """The refusals of a team that spans processes: a CUDA allocator
+        whose allocations IPC cannot export, and no native core (the sync
+        area's words)."""
+        if ctx.device.type == "cuda":
+            from ..kernels import cuda_ipc
+            cuda_ipc.check_allocator()
+        from .device_sync import _atomics
+        _atomics()
+
+    def create_test(self) -> Status:
+        span = self.shared.span
+        if span is None:
+            return Status.OK
+        with self.shared.lock:
+            return span.create_step()
 
     def next_coll_tag(self) -> int:
         self._coll_tag += 1
@@ -487,4 +629,3 @@ class TlDeviceTeam(TlTeamBase):
 
     def destroy(self) -> None:
         self.shared.put()
-

@@ -2,14 +2,21 @@
 ranks of one device (the counterpart of the JAX package's tl/ring_dma).
 
 Where tl/ring_dma drives inter-chip remote DMAs from Pallas kernels, this
-TL runs every rank of an in-process team on one GPU and launches ONE
-kernel over all of their buffers, in one pass with no flags: allreduce
+TL runs the ranks of a team on one GPU and launches ONE kernel over all of
+their buffers per process and round, in one pass with no flags: allreduce
 and reduce_scatter fold every element from the n srcs in the ring's order
 (kernels/ring_allreduce.py, kernels/ring_rs_ag.py); allgather copies each
 rank's src into its block of every dst (kernels/ring_rs_ag.py); alltoall
 exchanges each pair of ranks' blocks and bcast copies the root's src into
 every other dst (kernels/ring_bcast_a2a.py). The sources are under csrc/;
-the rendezvous and launch plumbing is tl/device.
+the rendezvous and launch plumbing is tl/device. On a team whose ranks
+live in one process the launch covers the whole collective; on a team
+that spans P processes of one host (tl/device_sync) process p launches
+part p of P of the kernel's walk over the pointers of all n ranks, its
+peers' mapped through CUDA IPC, and the parts' union is bitwise the single
+launch. ``UCC_TL_RING_CUDA_TUNE=allreduce:@ring_cuda:inf`` then runs the
+reference's TUNE-pinned ring allreduce across processes
+(``UCC_TL_RING_DMA_TUNE`` in the JAX package).
 
 Collectives and routing, as ``RingDmaCollTask`` has them: ALLREDUCE,
 REDUCE_SCATTER and ALLTOALL take SUM/AVG/MAX/MIN/PROD (an alltoall folds

@@ -68,6 +68,16 @@ refused here at init. The v-collectives' counts (ALLTOALLV: both sides;
 SCATTERV: the root's src; ALLGATHERV, GATHERV: dst's, on every rank) are
 required, and ALLTOALLV and REDUCE_SCATTERV are not taken in place.
 
+A team whose ranks span processes of one host (tl/device,
+tl/device_sync) runs the reference's replicated program: each process
+computes its own ranks' dsts with the same library ops over all n srcs (its
+own and its peers', mapped through CUDA IPC; an src that lies in one of the
+process's dsts is read from a copy, since peers read it while the process
+writes), and the candidate lists are the reference's for a team that is
+not all local: no ``short``, no SCATTERV, ALLTOALLV served (the counts
+travel in the round's descriptors), ``ring`` one point below ``xla``;
+``gen_dev_*`` refuse it at init (not ported to such teams yet).
+
 Score 40, as tl/xla's, above tl/ring_cuda's 20: collectives on CUDA
 memory select this TL unless a TUNE string says otherwise, e.g.
 ``UCC_TL_TORCH_OPS_TUNE=allreduce:@ring:inf`` or
@@ -268,6 +278,8 @@ def alltoall_ops(srcs, dsts) -> torch.Tensor:
     cube = stack.view(n, n, blk)
     whole, rest = divmod(count, blk) if blk else (0, 0)
     for p, d in enumerate(dsts):
+        if d is None:
+            continue
         d[:whole * blk].view(whole, blk).copy_(cube[:whole, p])
         if rest:
             d[whole * blk:].copy_(cube[whole, p, :rest])
@@ -287,7 +299,7 @@ def gatherv_ops(srcs, dsts, layouts) -> tuple:
             packed[tuple(lay[0])] = torch.cat(
                 [s[:c] for s, c in zip(srcs, lay[0])])
     for p, (d, lay) in enumerate(zip(dsts, layouts)):
-        if lay is None:
+        if lay is None or d is None:
             continue
         counts, displs = lay
         if tuple(counts) in packed and list(displs) == \
@@ -306,6 +318,8 @@ def alltoallv_ops(srcs, dsts, layouts) -> None:
     from r (``dcounts[r]`` at ``ddispls[r]`` of its dst); the part of a
     receive block beyond the block sent is zero."""
     for p, d in enumerate(dsts):
+        if d is None:
+            continue
         _, _, dc, dd = layouts[p]
         for r, s in enumerate(srcs):
             sc, sd, _, _ = layouts[r]
@@ -337,8 +351,9 @@ def _xla_allreduce(t, srcs, dsts, tasks):
 def _xla_reduce_scatter(t, srcs, dsts, tasks):
     full = allreduce_ops(srcs, t.op)
     for d, task in zip(dsts, tasks):
-        off, cnt = task.block
-        d.copy_(full[off:off + cnt])
+        if d is not None:
+            off, cnt = task.block
+            d.copy_(full[off:off + cnt])
     return (full,)
 
 
@@ -439,10 +454,26 @@ class TorchOpsCollTask(DeviceCollTask):
     ``block`` (the reduce_scatters) or ``layout`` (the v-collectives and,
     at the root, scatter) say where the parts of the result lie."""
 
+    #: a process computes its own ranks' dsts only (the replicated
+    #: program of the reference), reading its peers' srcs
+    PEERS_WRITE = False
+
     def __init__(self, init_args, team, alg: str = "xla"):
         self.alg = alg
         self.block = self.layout = None
         super().__init__(init_args, team)
+
+    def peers_read_src(self, tr: int, local) -> bool:
+        """Every process computes its own ranks' dsts from the srcs that
+        feed them: the root's src alone for the bcast and scatters, every
+        src in the root's process alone for the reduce and gathers."""
+        if self.coll in (CollType.BCAST, CollType.SCATTER,
+                         CollType.SCATTERV):
+            return tr == self.root
+        if self.coll in (CollType.REDUCE, CollType.GATHER,
+                         CollType.GATHERV):
+            return self.root not in local
+        return True
 
     def check_buffer_infos(self) -> None:
         args = self.args
@@ -642,7 +673,10 @@ class TorchOpsCollTask(DeviceCollTask):
         return self._view(self._src_view), self._view(self._dst_view)
 
     # -- launch ------------------------------------------------------------
-    def launch(self, shared, srcs, dsts, tasks):
+    def launch(self, shared, srcs, dsts, tasks, part=None):
+        """The program over every rank's buffers; on a spanning team
+        (*part* given) over every rank's srcs and this process's dsts, the
+        others None."""
         programs = _PROGRAMS[self.alg]
         xla = _XLA[self.coll]
         program = programs.get(self.coll, xla)
@@ -674,6 +708,11 @@ class GenDeviceCollTask(TorchOpsCollTask):
         super().__init__(init_args, team, alg=ld.dev_alg_name(program))
 
     def validate(self) -> None:
+        if self.tl_team.spanning:
+            # not ported to teams across processes yet (ROADMAP 5f)
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           f"tl/torch_ops {self.alg} does not run on a team "
+                           "whose ranks span processes")
         bi = self.args.src if self.args.src is not None else self.args.dst
         self.qp = ld.device_eligibility(self.prog, self.tl_team, self.coll,
                                         self.op, self.dtype, int(bi.count))
@@ -702,7 +741,13 @@ class TlTorchOpsTeam(TlDeviceTeam):
             return AlgSpec(i, name, init, default_select=select)
 
         score = TlTorchOps.DEFAULT_SCORE
-        table = {coll: [spec(0, "xla")] for coll in _COLLS}
+        # a team that spans processes has the reference's lists for a team
+        # that is not all local: no short, no scatterv (its explicit
+        # placement needs every rank's device in the process); alltoallv
+        # stays, its counts travel with the round's descriptors
+        local = not self.spanning
+        table = {coll: [spec(0, "xla")] for coll in _COLLS
+                 if local or coll != CollType.SCATTERV}
         # one point below xla, so that the tie-break by name cannot make
         # it the default
         table[CollType.ALLREDUCE].append(
@@ -722,7 +767,7 @@ class TlTorchOpsTeam(TlDeviceTeam):
                 precision=p.wire or p.edge_wire_mode,
                 origin="generated-device", gen=p.param_str))
         thr = self.short_msg_max()
-        if thr > 0:
+        if thr > 0 and local:
             for coll in _SHORT_COLLS:
                 table[coll].append(spec(2, "short",
                                         select=f"0-{thr}:{score + 5}"))

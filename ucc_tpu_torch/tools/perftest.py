@@ -6,15 +6,20 @@ avg/min/max/p50/p99 latency and, with ``-F``, bus bandwidth; ``--json``
 prints one record per size in the JAX perftest's shape.
 
 Two benchmark paths:
-- collectives (``-c allreduce|reduce_scatter|allgather|bcast|alltoall``):
-  ``-p N`` in-process ranks (default 4), each a context over a thread OOB,
-  one team, collective_init/post/test per round (``--persistent``: init
-  once, post many; ``-S``: post every round before waiting). The score map
-  selects tl/torch_ops for all five, as the JAX perftest selects tl/xla on
-  device memory: ``short`` below its threshold (4 KiB on a GPU, 128 KiB on
-  ``cpu``; reduce_scatter has none), ``xla`` above
-  (``UCC_TL_RING_CUDA_TUNE=allreduce:@ring_cuda:inf`` pins the ring for
-  one). On ``-m cuda``, the default, every rank's buffers go on the
+- collectives (``-c`` every collective type of UCC, as the JAX perftest
+  has them: allreduce, reduce, bcast, barrier, fanin, fanout, allgather(v),
+  gather(v), alltoall(v), reduce_scatter(v), scatter(v)): ``-p N``
+  in-process ranks (default 4), each a context over a thread OOB, one
+  team, collective_init/post/test per round (``--persistent``: init once,
+  post many; ``-S``: post every round before waiting; ``-T``: post
+  through an execution engine on an event, a fresh request a round,
+  in-process only). The v-collectives take equal blocks of the count;
+  alltoallv takes a traffic matrix (``--matrix uniform|moe``, ``--seed``:
+  the JAX perftest's ``gen_traffic_matrix``). The score map selects
+  tl/torch_ops for every type on device memory, as the JAX perftest
+  selects tl/xla: ``short`` below its threshold (4 KiB on a GPU, 128 KiB
+  on ``cpu``), ``xla`` above (``UCC_TL_RING_CUDA_TUNE=allreduce:@ring_cuda
+  :inf`` pins the ring for one). On ``-m cuda``, the default, every rank's buffers go on the
   device that ``UCC_TL_RING_CUDA_DEVICE`` names for every device TL
   (default ``cuda``, which raises without a GPU; ``cpu`` runs on the CPU),
   and the ranks of a team share that one card. On ``-m host`` the
@@ -28,10 +33,12 @@ Two benchmark paths:
   each) and prints rank 0's output: the team is then served by tl/ipc
   (``detail.transport`` ``ipc``, one host's shared-memory arena), or by
   tl/sockets (``socket``) under ``UCC_TLS=socket,self``; each process
-  gets ``OMP_NUM_THREADS=1`` unless the caller set it. ``-O`` runs the
-  one-sided algorithms (allreduce ``sliding_window``, alltoall
-  ``onesided``; pinned through the tl/shm and tl/sockets TUNE) on
-  buffers mem-mapped once per size, the handles exchanged over the team;
+  gets ``OMP_NUM_THREADS=1`` unless the caller set it; with ``-m cuda``
+  the device TLs serve such a team across the processes. ``-O`` runs the
+  one-sided algorithms (allreduce ``sliding_window``, alltoall and
+  alltoallv ``onesided``; pinned through the tl/shm and tl/sockets TUNE)
+  on buffers mem-mapped once per size, the handles exchanged over the
+  team;
 - executor ops (``-c memcpy|reducedt|reducedt_strided``, UCC's
   ucc_pt_op_{memcpy,reduce,reduce_strided}): the execution component's
   copy/reduce tasks timed directly, no team; ``--nbufs`` sources (caps 7
@@ -45,6 +52,8 @@ Examples::
     UCC_TL_RING_CUDA_DEVICE=cpu python -m ucc_tpu_torch.tools.perftest -c bcast -p 4
     python -m ucc_tpu_torch.tools.perftest --procs 4 -m host -c allreduce --json
     python -m ucc_tpu_torch.tools.perftest -m host -c alltoall -O -p 4
+    python -m ucc_tpu_torch.tools.perftest -m host -c alltoallv --matrix moe
+    python -m ucc_tpu_torch.tools.perftest -m host -c allreduce -T -p 4
 """
 from __future__ import annotations
 
@@ -62,22 +71,39 @@ import numpy as np
 import torch
 
 import ucc_tpu_torch
-from ucc_tpu_torch import (BufferInfo, CollArgs, CollArgsFlags, CollType,
-                           Context, ContextParams, DataType, MemoryType,
-                           ReductionOp, Status, TcpStoreOob, TeamParams,
-                           ThreadOobWorld, UccError)
+from ucc_tpu_torch import (BufferInfo, BufferInfoV, CollArgs,
+                           CollArgsFlags, CollType, Context, ContextParams,
+                           DataType, MemoryType, ReductionOp, Status,
+                           TcpStoreOob, TeamParams, ThreadOobWorld, UccError)
 from ucc_tpu_torch.constants import coll_type_str, dt_size, dt_torch
 from ucc_tpu_torch.utils.config import memunits_str, parse_memunits
 
-#: the collectives the port's device TLs serve
-COLLS = {coll_type_str(c): c for c in (
-    CollType.ALLREDUCE, CollType.REDUCE_SCATTER, CollType.ALLGATHER,
-    CollType.BCAST, CollType.ALLTOALL)}
+#: every collective type (the JAX perftest's list)
+COLLS = {coll_type_str(c): c for c in CollType}
+#: the alltoallv traffic matrix of the size being run (make_args reads it)
+_TRAFFIC_MATRIX = None
 #: executor-op benchmarks (ucc_pt_config.h MEMCPY/REDUCEDT/
 #: REDUCEDT_STRIDED): time the EC component directly, no team involved
 OP_BENCHES = ("memcpy", "reducedt", "reducedt_strided")
 OPS = {o.name.lower(): o for o in ReductionOp}
 DTS = {d.name.lower(): d for d in DataType}
+
+
+def gen_traffic_matrix(kind: str, n: int, count: int, seed: int):
+    """Per-(src, dst) element counts of alltoallv: 'moe' draws a skewed
+    expert-routing distribution (few hot destinations per source),
+    'uniform' splits evenly (the JAX perftest's generator, after
+    ucc_pt_config.h's)."""
+    rng = np.random.default_rng(seed)
+    if kind == "moe":
+        m = np.zeros((n, n), dtype=np.int64)
+        for src in range(n):
+            hot = rng.choice(n, size=max(1, n // 4), replace=False)
+            weights = rng.dirichlet(np.ones(len(hot)) * 0.5)
+            for h, w in zip(hot, weights):
+                m[src][h] = int(round(w * count * n))
+        return m
+    return np.full((n, n), count, dtype=np.int64)
 
 
 def lat_stats(lats) -> dict:
@@ -97,17 +123,23 @@ def busbw_factor(coll: CollType, n: int) -> float:
         return 1.0
     if coll == CollType.ALLREDUCE:
         return 2.0 * (n - 1) / n
-    if coll in (CollType.ALLGATHER, CollType.REDUCE_SCATTER,
-                CollType.ALLTOALL):
+    if coll in (CollType.ALLGATHER, CollType.ALLGATHERV,
+                CollType.REDUCE_SCATTER, CollType.REDUCE_SCATTERV,
+                CollType.ALLTOALL, CollType.ALLTOALLV):
         return float(n - 1) / n
     return 1.0
 
 
 def make_args(coll: CollType, n: int, count: int, dt: DataType,
               op: ReductionOp, mem: MemoryType, inplace: bool, root: int,
-              persistent: bool, device: torch.device) -> CollArgs:
-    """One rank's args: src buffers of ones, dst buffers of zeros, all on
-    *device*. bcast passes src alone, as UCC's bcast does."""
+              persistent: bool, device: torch.device,
+              rank: int = 0) -> CollArgs:
+    """Rank *rank*'s args, as the JAX perftest makes them: src buffers of
+    ones, dst buffers of zeros, all on *device*. bcast passes src alone,
+    as UCC's bcast does; rooted collectives give the root's side to the
+    root alone; the v-collectives take blocks of *count* (alltoallv: the
+    traffic matrix's row and column); barrier, fanin and fanout take no
+    data (on device memory an empty buffer names the memory type)."""
     td = dt_torch(dt)
     flags = CollArgsFlags(0)
     if inplace:
@@ -123,6 +155,36 @@ def make_args(coll: CollType, n: int, count: int, dt: DataType,
         return BufferInfo(torch.zeros(c, dtype=td, device=device), c, dt,
                           mem_type=mem)
 
+    def bufv(counts, displs=None):
+        total = sum(counts) or 1
+        return BufferInfoV(torch.ones(total, dtype=td, device=device),
+                           list(counts), displs, dt, mem_type=mem)
+
+    def outv(counts, displs=None):
+        total = sum(counts) or 1
+        return BufferInfoV(torch.zeros(total, dtype=td, device=device),
+                           list(counts), displs, dt, mem_type=mem)
+
+    if coll == CollType.ALLTOALLV:
+        if inplace:
+            raise SystemExit("perftest: -i is not supported for alltoallv")
+        m = _TRAFFIC_MATRIX
+        scounts = [int(c) for c in m[rank]]
+        rcounts = [int(m[p][rank]) for p in range(n)]
+        return CollArgs(
+            coll_type=coll, flags=flags,
+            src=bufv(scounts, [int(x) for x in np.cumsum([0] +
+                                                         scounts[:-1])]),
+            dst=outv(rcounts, [int(x) for x in np.cumsum([0] +
+                                                         rcounts[:-1])]))
+    if coll in (CollType.BARRIER, CollType.FANIN, CollType.FANOUT):
+        a = CollArgs(coll_type=coll, root=root, flags=flags)
+        if mem != MemoryType.HOST:
+            # no data: an empty buffer names the memory type, so that a
+            # device TL serves it
+            a.src = BufferInfo(None, 0, DataType.UINT8, mem_type=mem)
+        return a
+    is_root = rank == root
     if coll == CollType.ALLREDUCE:
         a = CollArgs(coll_type=coll, op=op, flags=flags)
         if inplace:
@@ -141,9 +203,39 @@ def make_args(coll: CollType, n: int, count: int, dt: DataType,
     if coll == CollType.BCAST:
         return CollArgs(coll_type=coll, root=root, src=buf(count),
                         flags=flags)
+    if coll == CollType.REDUCE:
+        return CollArgs(coll_type=coll, root=root, op=op, src=buf(count),
+                        dst=out(count) if is_root else None, flags=flags)
     if coll == CollType.REDUCE_SCATTER:
         return CollArgs(coll_type=coll, op=op, src=buf(count * n),
                         dst=out(count), flags=flags)
+    if coll == CollType.GATHER:
+        return CollArgs(coll_type=coll, root=root, src=buf(count),
+                        dst=out(count * n) if is_root else None,
+                        flags=flags)
+    if coll == CollType.SCATTER:
+        return CollArgs(coll_type=coll, root=root,
+                        src=buf(count * n) if is_root else None,
+                        dst=out(count), flags=flags)
+    # v-collectives: equal per-rank blocks of `count` (the counts vector
+    # is what exercises the v machinery, as in ucc_perftest)
+    if coll == CollType.ALLGATHERV:
+        return CollArgs(coll_type=coll, src=buf(count),
+                        dst=outv([count] * n), flags=flags)
+    if coll == CollType.GATHERV:
+        # the counts on every rank, the buffer at the root alone
+        dst = outv([count] * n)
+        if not is_root:
+            dst.buffer = None
+        return CollArgs(coll_type=coll, root=root, src=buf(count), dst=dst,
+                        flags=flags)
+    if coll == CollType.SCATTERV:
+        return CollArgs(coll_type=coll, root=root,
+                        src=bufv([count] * n) if is_root else None,
+                        dst=out(count), flags=flags)
+    if coll == CollType.REDUCE_SCATTERV:
+        return CollArgs(coll_type=coll, op=op, src=buf(count * n),
+                        dst=outv([count] * n), flags=flags)
     raise SystemExit(f"perftest: coll {coll_type_str(coll)} not wired")
 
 
@@ -361,6 +453,7 @@ class InProcJob:
                 c.progress()
 
     def destroy(self) -> None:
+        self.destroy_ees()
         for t in self.teams:
             t.destroy()
         for c in self.contexts:
@@ -379,6 +472,32 @@ class InProcJob:
 
     def run_round(self, argses) -> None:
         self.post_and_wait(self.init_reqs(argses))
+
+    def post_and_wait_triggered(self, reqs) -> None:
+        """Post through execution engines: each rank's request is
+        dispatched by its team's EE on a compute_complete event
+        (ucc_collective_triggered_post); the timed region covers the
+        event's signal, the EE's dispatch and completion."""
+        from ucc_tpu_torch.core.ee import Ee, UccEvent
+        if getattr(self, "_ees", None) is None:
+            self._ees = [Ee(t) for t in self.teams]
+        for ee, rq in zip(self._ees, reqs):
+            ev = UccEvent("compute_complete")
+            ee.triggered_post(ev, rq)
+            ee.set_event(ev)
+        while any([rq.test() in (Status.IN_PROGRESS,
+                                 Status.OPERATION_INITIALIZED)
+                   for rq in reqs]):
+            for c in self.contexts:
+                c.progress()
+        for rq in reqs:
+            if rq.test().is_error:
+                raise SystemExit(f"collective failed: {rq.test()}")
+
+    def destroy_ees(self) -> None:
+        for ee in getattr(self, "_ees", None) or ():
+            ee.destroy()
+        self._ees = None
 
 
 class StoreJob:
@@ -508,6 +627,7 @@ def run_procs_mode(args, argv) -> int:
 ONESIDED_TUNE = {
     CollType.ALLREDUCE: "allreduce:@sliding_window",
     CollType.ALLTOALL: "alltoall:@onesided",
+    CollType.ALLTOALLV: "alltoallv:@onesided",
 }
 
 
@@ -561,6 +681,13 @@ def attach_onesided(job, argses, coll: CollType, n: int):
         for a in argses:
             a.src_memh = list(src_handles)
             a.flags |= CollArgsFlags.MEM_MAP_SRC_MEMH
+    if coll == CollType.ALLTOALLV:
+        # one-sided alltoallv's dst displacements name where this rank's
+        # block lands in each peer's dst (tl/host/onesided.py)
+        m = _TRAFFIC_MATRIX
+        for a, r in zip(argses, job.ranks):
+            a.dst.displacements = [int(sum(m[q][p] for q in range(r)))
+                                   for p in range(n)]
     return to_unmap
 
 
@@ -596,16 +723,29 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
 
     def argses(persistent):
         return [make_args(coll, n, count, dt, op, mem, args.inplace,
-                          args.root, persistent, device)
-                for _ in job.ranks]
+                          args.root, persistent, device, rank=r)
+                for r in job.ranks]
 
+    global _TRAFFIC_MATRIX
     size = max(parse_memunits(args.begin), esz)
     bmax = parse_memunits(args.end)
     while size <= bmax:
         count = max(1, size // esz)
+        if coll == CollType.ALLTOALLV:
+            _TRAFFIC_MATRIX = gen_traffic_matrix(args.matrix or "uniform",
+                                                 n, count, args.seed)
         lats = []
         rounds = args.warmup + args.iters
-        if args.onesided:
+        if args.triggered:
+            # a fresh request a round, dispatched by an execution engine
+            # on an event (ucc_pt_benchmark.cc's triggered post)
+            for it in range(rounds):
+                reqs = job.init_reqs(argses(False))
+                t0 = time.perf_counter()
+                job.post_and_wait_triggered(reqs)
+                if it >= args.warmup:
+                    lats.append(time.perf_counter() - t0)
+        elif args.onesided:
             # buffers mapped and handles exchanged once per size, outside
             # the timed rounds
             os_argses = argses(False)
@@ -713,8 +853,16 @@ def main(argv=None) -> int:
                         "reduce, ucc_ec_base.h)")
     p.add_argument("-O", "--onesided", action="store_true",
                    help="one-sided mode (-m host): allreduce -> "
-                        "sliding_window, alltoall -> onesided, over "
+                        "sliding_window, alltoall(v) -> onesided, over "
                         "mem-mapped buffers")
+    p.add_argument("-T", "--triggered", action="store_true",
+                   help="post through execution engines (triggered post, "
+                        "a fresh request a round; in-process only)")
+    p.add_argument("--matrix", default="", choices=["", "uniform", "moe"],
+                   help="alltoallv traffic matrix (uniform, or moe: a "
+                        "skewed expert-routing distribution)")
+    p.add_argument("--seed", type=int, default=7,
+                   help="seed of the --matrix moe generator")
     p.add_argument("--store", default="",
                    help="host:port of a multi-process job's TCP store "
                         "(the team's store is port + 1)")
@@ -749,17 +897,21 @@ def main(argv=None) -> int:
             return run_op_bench(args)
         mem = resolve_mem(args.mem)
         coll = COLLS[args.coll]
+        if args.triggered and (args.store or args.streaming or
+                               args.persistent):
+            raise SystemExit("perftest: -T runs in-process, without -S "
+                             "and --persistent")
         if args.onesided:
             if mem != MemoryType.HOST:
                 raise SystemExit("perftest: -O/--onesided requires -m host")
             if coll not in ONESIDED_TUNE:
-                raise SystemExit("perftest: -O supports allreduce and "
-                                 "alltoall")
+                raise SystemExit("perftest: -O supports " + "/".join(
+                    coll_type_str(c) for c in ONESIDED_TUNE))
             if args.inplace and coll != CollType.ALLREDUCE:
                 raise SystemExit("perftest: -O -i only for allreduce")
-            if args.streaming or args.persistent:
-                raise SystemExit("perftest: -O is incompatible with -S "
-                                 "and --persistent")
+            if args.streaming or args.persistent or args.triggered:
+                raise SystemExit("perftest: -O is incompatible with -S, "
+                                 "-T and --persistent")
             for tl in ("SHM", "SOCKET"):
                 os.environ.setdefault(f"UCC_TL_{tl}_TUNE",
                                       ONESIDED_TUNE[coll])
