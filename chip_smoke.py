@@ -344,6 +344,35 @@ Phases, each printing its own lines (any failure exits non-zero):
      round; the slowest process's p50;
    - no ``ucc-torch-dev-*`` or ``ucc-torch-ipc-*`` segment is left in
      /dev/shm, no worker alive.
+10. hier, topology and the hierarchical CL (cl/hier), integer-valued f32
+   inputs throughout, every result bitwise its expected value:
+   - (a) 8 ranks in this process in 2 fake nodes of 4
+     (UCC_TOPO_FAKE_PPN=4): the team's describe_topology(); a CUDA
+     allreduce of 16 Mi a rank must select rab_tpu with a torch_ops team
+     on the NODE unit and its node stages on the device (not the staged
+     path): p50 of 20 persistent rounds after 5; AVG in place and the
+     pipelined rab_tpu (UCC_CL_HIER_ALLREDUCE_RAB_PIPELINE, 4 fragments,
+     bitwise the unpipelined result), 5 rounds after 1 each; rab_tpu's
+     stages one at a time (the NODE units' reduce and bcast, rank 0's
+     copies to and from pinned host memory, the leaders' host
+     allreduce), p50 of each; beside the same allreduce on a flat 8-rank
+     team, torch_ops's xla and ring_cuda, in the same call;
+   - (b) the same layout with ring_cuda on the node units
+     (UCC_CL_HIER_NODE_TLS=shm,torch_ops,ring_cuda,self and ring_cuda's
+     TUNE for bcast, reduce_scatter and allgather): rab_tpu launches
+     ring_bcast_chunked once a node a round, split_rail_tpu
+     ring_reduce_scatter_chunked and ring_allgather_chunked;
+   - (c) the staged rows on the team of (a): bcast root 3 and reduce root
+     5 of 16 Mi, allgather, allgatherv, alltoall and alltoallv of 2 Mi
+     blocks, barrier; once, then 3 timed rounds;
+   - (d) worker processes of this script (``--hier-child``) bootstrap
+     through ucc_tpu_torch.bootstrap.World.from_env on held loopback
+     ports in fake nodes of 4, 2 processes x 4 ranks (a node a process)
+     and 4 x 2 (each NODE unit a team spanning two processes): a rab_tpu
+     allreduce of 16 Mi, its leaders over tl/socket, 3 warm-up and 10
+     timed rounds, the slowest process's p50; no ``ucc-torch-dev-*`` or
+     ``ucc-torch-ipc-*`` segment is left, no worker alive, and the
+     phase's time.
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
@@ -351,8 +380,9 @@ the int8/fp8 wire fold and the layer kernel on the same plans among
 them, with launches 0: the main path runs none of them; the f32 route's
 launches are the GQA train step's, and every record carries its launches
 over phase 5 as training_launches, over phase 6 as core_launches, over
-phase 7 as host_launches, over phase 8 as procs_launches and over phase
-9's spanning rounds, summed over its processes, as span_launches) and
+phase 7 as host_launches, over phase 8 as procs_launches, over phase
+9's spanning rounds, summed over its processes, as span_launches, and
+over phase 10's in-process runs as hier_launches) and
 {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -6102,28 +6132,40 @@ def span_child(spec_json: str) -> int:
 def span_job(nprocs, per, timeout=240):
     """nprocs processes of span_child (this script with --span-child),
     *per* ranks each, joined by TCP stores on held ports; every process's
-    result. Each worker writes into files of its own (a pipe that nobody
-    drains would stop a chatty worker, and its peers with it); a worker
-    that fails stops the job, and every worker's last output is shown.
-    No worker outlives the call."""
-    import tempfile
+    result."""
     from ucc_tpu_torch.tools.perftest import HeldPorts
     held = HeldPorts(3)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_span_")
+    try:
+        specs = [{"ranks": list(range(p * per, (p + 1) * per)),
+                  "n": nprocs * per, "ports": held.ports, "proc": p,
+                  "procs": nprocs, "dump_s": timeout - 20}
+                 for p in range(nprocs)]
+        return run_children("--span-child", specs, [{}] * nprocs, timeout,
+                            "phase 9")
+    finally:
+        held.release()
+
+
+def run_children(flag, specs, envs, timeout, what):
+    """One process of this script with *flag* per spec (its JSON the
+    argument, *envs* added to its environment); every process's last
+    output line as JSON. Each worker writes into files of its own (a
+    pipe that nobody drains would stop a chatty worker, and its peers
+    with it); a worker that fails stops the job, and every worker's last
+    output is shown. No worker outlives the call."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_children_")
     procs, files = [], []
     try:
-        for p in range(nprocs):
-            spec = {"ranks": list(range(p * per, (p + 1) * per)),
-                    "n": nprocs * per, "ports": held.ports, "proc": p,
-                    "procs": nprocs, "dump_s": timeout - 20}
+        for p, (spec, extra) in enumerate(zip(specs, envs)):
             so = open(os.path.join(tmp, f"{p}.out"), "w+")
             se = open(os.path.join(tmp, f"{p}.err"), "w+")
             files.append((so, se))
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--span-child",
+                [sys.executable, os.path.abspath(__file__), flag,
                  json.dumps(spec)], stdout=so, stderr=se, text=True,
                 env={**os.environ, "OMP_NUM_THREADS":
-                     os.environ.get("OMP_NUM_THREADS", "1")}))
+                     os.environ.get("OMP_NUM_THREADS", "1"), **extra}))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
             failed = [p for p in procs if p.poll() not in (None, 0)]
@@ -6137,9 +6179,9 @@ def span_job(nprocs, per, timeout=240):
                     se.seek(0)
                     tails.append(f"-- worker {i} (rc {procs[i].returncode})"
                                  f":\n{se.read()[-3000:]}")
-                what = "phase 9 worker failed" if failed else \
-                    f"phase 9 workers did not end in {timeout} s"
-                raise RuntimeError("\n".join([what, *tails]))
+                msg = f"{what} worker failed" if failed else \
+                    f"{what} workers did not end in {timeout} s"
+                raise RuntimeError("\n".join([msg, *tails]))
             time.sleep(0.2)
         outs = []
         for i, (so, se) in enumerate(files):
@@ -6147,7 +6189,7 @@ def span_job(nprocs, per, timeout=240):
             lines = so.read().strip().splitlines()
             if procs[i].returncode != 0 or not lines:
                 se.seek(0)
-                raise RuntimeError(f"phase 9 worker {i} failed "
+                raise RuntimeError(f"{what} worker {i} failed "
                                    f"({procs[i].returncode}): "
                                    f"{se.read()[-4000:]}")
             outs.append(json.loads(lines[-1]))
@@ -6162,7 +6204,6 @@ def span_job(nprocs, per, timeout=240):
             se.close()
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
-        held.release()
 
 
 def sharing_mode() -> str:
@@ -6270,6 +6311,600 @@ def main_path_span(smi, records) -> dict:
     return {"launches": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: hier, topology and the hierarchical CL on the card
+# ---------------------------------------------------------------------------
+
+#: phase 10's fake topology: 8 ranks in 2 fake nodes of 4
+HIER_PPN = "4"
+HIER_PIPELINE = "thresh=64K:fragsize=16M:nfrags=4:pdepth=2"
+HIER_NODE_TLS = "shm,torch_ops,ring_cuda,self"
+HIER_RING_TUNE = "bcast,reduce_scatter,allgather:@ring_cuda:inf"
+#: the staged rows' blocks (f32 elements a rank a block)
+HIER_BLOCK = 2 << 20
+HIER_STAGED_ROUNDS = 3
+#: (processes, ranks a process) of (d): a node a process, a node over two
+HIER_LAYOUTS = ((2, 4), (4, 2))
+HIER_PROC_WARMUP, HIER_PROC_ITERS = 3, 10
+#: timed rounds (after one) of the AVG and pipelined rab_tpu runs
+HIER_SHORT_ITERS = 5
+
+
+class env_set:
+    """Environment variables set for a block (None unsets), restored
+    after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def hier_of(team):
+    for cl in team.cl_teams:
+        if cl.name == "hier":
+            return cl
+    raise AssertionError("the team has no cl/hier team")
+
+
+def hier_stages(req):
+    """(stage, task class) of a hier schedule's tasks (a pipelined
+    schedule's first fragment's)."""
+    task = req.task
+    tasks = task.frags[0].tasks if hasattr(task, "frags") else task.tasks
+    return [(getattr(t, "obs_stage", ""), type(t).__name__) for t in tasks]
+
+
+def check_on_device(req, alg, what) -> None:
+    """The request selected *alg* and its node stages are device TL
+    tasks, not the staged path's copies."""
+    if req.task.alg_name != alg:
+        raise AssertionError(f"{what}: selected {req.task.alg_name}, not "
+                             f"{alg}")
+    stages = dict(hier_stages(req))
+    if "staged.d2h" in stages:
+        raise AssertionError(f"{what}: took the staged path {stages}")
+    node = [k for k in stages if ".node_" in k]
+    if len(node) != 2 or any(stages[k] not in (
+            "TorchOpsCollTask", "RingCudaCollTask") for k in node):
+        raise AssertionError(f"{what}: node stages {stages}")
+
+
+def hier_rounds(ctxs, reqs, what, warmup, iters):
+    """warmup + iters rounds of persistent requests; the iters rounds'
+    host seconds (sorted)."""
+    for _ in range(warmup):
+        one_round(ctxs, reqs, what)
+    samples = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        one_round(ctxs, reqs, what)
+        samples.append(time.perf_counter() - t0)
+    return sorted(samples)
+
+
+def p50_of(samples) -> float:
+    return samples[len(samples) // 2] * 1e3
+
+
+def hier_allreduce(ctxs, teams, srcs, dsts, op, inplace, alg, what,
+                   warmup=WARMUP, iters=ITERS):
+    """A persistent allreduce on every rank (in place: dsts hold the
+    inputs, restored from srcs before every round); checks the selection
+    and the on-device node stages; returns (the sorted round seconds,
+    rank 0's stages, its fragments: 1 unpipelined)."""
+    import ucc_tpu_torch as ucc
+    f32 = ucc.DataType.FLOAT32
+    flags = ucc.CollArgsFlags.PERSISTENT
+    if inplace:
+        flags |= ucc.CollArgsFlags.IN_PLACE
+    reqs = [t.collective_init(ucc.CollArgs(
+        coll_type=ucc.CollType.ALLREDUCE, op=op,
+        src=None if inplace else ucc.BufferInfo(s, s.numel(), f32),
+        dst=ucc.BufferInfo(d, d.numel(), f32), flags=flags))
+        for t, s, d in zip(teams, srcs, dsts)]
+    check_on_device(reqs[0], alg, what)
+    stages = hier_stages(reqs[0])
+    frags = getattr(reqs[0].task, "n_frags_total", 1)
+    samples = []
+    for i in range(warmup + iters):
+        if inplace:
+            for s, d in zip(srcs, dsts):
+                d.copy_(s)
+        t0 = time.perf_counter()
+        one_round(ctxs, reqs, what)
+        if i >= warmup:
+            samples.append(time.perf_counter() - t0)
+    for rq in reqs:
+        rq.finalize()
+    return sorted(samples), stages, frags
+
+
+def check_all(what, dsts, want, ranks=None) -> None:
+    for r, d in enumerate(dsts):
+        if ranks is not None and r not in ranks:
+            continue
+        w = want[r] if isinstance(want, list) else want
+        if not bits_equal(d, w):
+            raise AssertionError(f"{what}: rank {r} is not bitwise the "
+                                 "expected result")
+
+
+def unit_rounds(ctxs, tasks_of, what):
+    """WARMUP + ITERS rounds of a unit's sub-collective: ``tasks_of()``
+    inits one task on every member (its context's queue set), each is
+    posted and the contexts progressed until all complete; the ITERS
+    rounds' sorted host seconds."""
+    samples = []
+    for i in range(WARMUP + ITERS):
+        tasks = tasks_of()
+        t0 = time.perf_counter()
+        for t in tasks:
+            t.post()
+        until(ctxs, lambda: all(t.is_completed() for t in tasks), what)
+        if i >= WARMUP:
+            samples.append(time.perf_counter() - t0)
+        for t in tasks:
+            if t.super_status.is_error:
+                raise AssertionError(f"{what}: {t.super_status}")
+            t.finalize()
+    return sorted(samples)
+
+
+def hier_breakdown(ctxs, teams, smi) -> dict:
+    """rab_tpu's stages one at a time on the team of (a), each over
+    ITERS rounds after WARMUP: the NODE units' reduce and bcast of MAIN_COUNT
+    f32 (torch_ops, both nodes at once), rank 0's copies of the vector to
+    and from pinned host memory, and the leaders' host allreduce (ranks 0
+    and 4, in place on host memory). Returns each stage's p50 ms."""
+    import numpy as np
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.cl.hier import cuda as hcuda
+    from ucc_tpu_torch.topo.sbgp import SbgpType
+    f32, c = ucc.DataType.FLOAT32, MAIN_COUNT
+    CUDA, HOST = ucc.MemoryType.CUDA, ucc.MemoryType.HOST
+    nodes = [hier_of(t).sbgp(SbgpType.NODE) for t in teams]
+    bufs = span_inputs(len(teams), c, 430)
+    reds = [torch.empty(c, device="cuda") if u.sbgp.group_rank == 0
+            else None for u in nodes]
+
+    def unit_tasks(units, make, mem, nbytes):
+        def tasks_of():
+            out = []
+            for r, u in units:
+                t = u.coll_init(make(r), mem, nbytes)
+                t.progress_queue = ctxs[r].progress_queue
+                out.append(t)
+            return out
+        return tasks_of
+
+    def cuda_bi(t):
+        return None if t is None else ucc.BufferInfo(t, c, f32, mem_type=CUDA)
+
+    every = list(enumerate(nodes))
+    out = {}
+    out["node_reduce"] = unit_rounds(ctxs, unit_tasks(
+        every, lambda r: ucc.CollArgs(
+            coll_type=ucc.CollType.REDUCE, root=0, op=ucc.ReductionOp.SUM,
+            src=cuda_bi(bufs[r]), dst=cuda_bi(reds[r])), CUDA, c * 4),
+        "hier node reduce")
+    out["node_bcast"] = unit_rounds(ctxs, unit_tasks(
+        every, lambda r: ucc.CollArgs(
+            coll_type=ucc.CollType.BCAST, root=0,
+            src=cuda_bi(reds[r] if reds[r] is not None else bufs[r]),
+            dst=cuda_bi(bufs[r]) if reds[r] is not None else None),
+        CUDA, c * 4), "hier node bcast")
+    scratch = hcuda._scratch(c, f32, reds[0].device)
+    for name, step in (("d2h", lambda: hcuda._d2h(reds[0], scratch, f32)),
+                       ("h2d", lambda: hcuda._h2d(scratch, reds[0], f32))):
+        samples = []
+        for i in range(WARMUP + ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                samples.append(time.perf_counter() - t0)
+        out[name] = sorted(samples)
+    leaders = [(r, hier_of(t).sbgp(SbgpType.NODE_LEADERS))
+               for r, t in enumerate(teams)]
+    leaders = [(r, u) for r, u in leaders if u is not None]
+    hosts = {r: np.ones(c, np.float32) for r, _ in leaders}
+
+    def leaders_ar(r):
+        a = ucc.CollArgs(coll_type=ucc.CollType.ALLREDUCE,
+                         op=ucc.ReductionOp.SUM,
+                         dst=ucc.BufferInfo(hosts[r], c, f32, mem_type=HOST),
+                         flags=ucc.CollArgsFlags.IN_PLACE)
+        a.src = a.dst
+        return a
+
+    out["leaders_allreduce"] = unit_rounds(ctxs, unit_tasks(
+        leaders, leaders_ar, HOST, c * 4), "hier leaders allreduce")
+    alg = leaders[0][1].score_map.lookup(ucc.CollType.ALLREDUCE, HOST,
+                                         c * 4)[0]
+    p50 = {k: p50_of(v) for k, v in out.items()}
+    log(f"hier: (a) rab_tpu's stages one at a time, {c} f32 a rank, p50 "
+        f"ms: node reduce (torch_ops, both nodes) "
+        f"{p50['node_reduce']:.3f}, node bcast {p50['node_bcast']:.3f}; "
+        f"rank 0's copy to pinned host memory {p50['d2h']:.3f}, back "
+        f"{p50['h2d']:.3f}; the leaders' host allreduce (ranks "
+        f"{[r for r, _ in leaders]}, "
+        f"{getattr(alg.team, 'NAME', '?')}/{alg.alg_name}) "
+        f"{p50['leaders_allreduce']:.3f} | card {smi}")
+    del bufs, reds
+    return p50
+
+
+def hier_staged_case(coll, n, seed):
+    """(args per rank, result buffers, expected results, the ranks that
+    receive or None for all) of a staged row's run: integer-valued f32 on
+    the card."""
+    import torch
+    import ucc_tpu_torch as ucc
+    f32 = ucc.DataType.FLOAT32
+    BI, BV = ucc.BufferInfo, ucc.BufferInfoV
+    blk = HIER_BLOCK
+    if coll == "BCAST":
+        root = 3
+        data = span_inputs(1, MAIN_COUNT, seed)[0]
+        bufs = [data.clone() if r == root else
+                torch.zeros(MAIN_COUNT, device="cuda") for r in range(n)]
+        args = [ucc.CollArgs(coll_type=ucc.CollType.BCAST, root=root,
+                             src=BI(b, MAIN_COUNT, f32)) for b in bufs]
+        return args, bufs, [data] * n, None
+    if coll == "REDUCE":
+        root = 5
+        srcs = span_inputs(n, MAIN_COUNT, seed)
+        dst = torch.zeros(MAIN_COUNT, device="cuda")
+        args = [ucc.CollArgs(coll_type=ucc.CollType.REDUCE, root=root,
+                             op=ucc.ReductionOp.SUM,
+                             src=BI(srcs[r], MAIN_COUNT, f32),
+                             dst=BI(dst, MAIN_COUNT, f32) if r == root
+                             else None) for r in range(n)]
+        outs = [dst if r == root else None for r in range(n)]
+        return args, outs, [torch.stack(srcs).sum(0)] * n, [root]
+    if coll in ("ALLGATHER", "ALLGATHERV"):
+        srcs = span_inputs(n, blk, seed)
+        dsts = [torch.zeros(n * blk, device="cuda") for _ in range(n)]
+        dst_bi = (lambda d: BI(d, n * blk, f32)) if coll == "ALLGATHER" \
+            else (lambda d: BV(d, [blk] * n, None, f32))
+        args = [ucc.CollArgs(coll_type=ucc.CollType[coll],
+                             src=BI(srcs[r], blk, f32), dst=dst_bi(dsts[r]))
+                for r in range(n)]
+        return args, dsts, [torch.cat(srcs)] * n, None
+    if coll in ("ALLTOALL", "ALLTOALLV"):
+        srcs = span_inputs(n, n * blk, seed)
+        dsts = [torch.zeros(n * blk, device="cuda") for _ in range(n)]
+        if coll == "ALLTOALL":
+            args = [ucc.CollArgs(coll_type=ucc.CollType.ALLTOALL,
+                                 src=BI(srcs[r], n * blk, f32),
+                                 dst=BI(dsts[r], n * blk, f32))
+                    for r in range(n)]
+        else:
+            args = [ucc.CollArgs(coll_type=ucc.CollType.ALLTOALLV,
+                                 src=BV(srcs[r], [blk] * n, None, f32),
+                                 dst=BV(dsts[r], [blk] * n, None, f32))
+                    for r in range(n)]
+        want = [torch.cat([srcs[q][r * blk:(r + 1) * blk]
+                           for q in range(n)]) for r in range(n)]
+        return args, dsts, want, None
+    # barrier: one empty CUDA buffer selects the CUDA-memory row
+    args = [ucc.CollArgs(coll_type=ucc.CollType.BARRIER,
+                         src=BI(None, 0, ucc.DataType.UINT8,
+                                mem_type=ucc.MemoryType.CUDA))
+            for _ in range(n)]
+    return args, None, None, None
+
+
+HIER_STAGED = (("BCAST", "2step_staged"), ("REDUCE", "2step_staged"),
+               ("ALLGATHER", "unpack_staged"),
+               ("ALLGATHERV", "unpack_staged"),
+               ("ALLTOALL", "node_agg_staged"),
+               ("ALLTOALLV", "node_agg_staged"),
+               ("BARRIER", "knomial_hier"))
+
+
+def hier_in_process(smi, kernels) -> dict:
+    """Phase 10 (a)-(c): 8 ranks in this process in 2 fake nodes of 4.
+    Returns the kernels' launches over (b)."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.topo.sbgp import SbgpType
+    n = N_RANKS
+    SUM, AVG = ucc.ReductionOp.SUM, ucc.ReductionOp.AVG
+    srcs = span_inputs(n, MAIN_COUNT, 400)
+    want = torch.stack(srcs).sum(0)
+    dsts = [torch.zeros(MAIN_COUNT, device="cuda") for _ in range(n)]
+
+    # (a) rab_tpu on the default NODE_TLS, beside the flat team's p50s
+    t0 = time.perf_counter()
+    with env_set(UCC_TOPO_FAKE_PPN=HIER_PPN):
+        ctxs, teams = make_job(n)
+    log(f"hier: 8 contexts + team in 2 fake nodes of {HIER_PPN} in "
+        f"{time.perf_counter() - t0:.1f} s; the team's topology (rank 0):\n"
+        f"{hier_of(teams[0]).describe_topology()}")
+    ht = hier_of(teams[0])
+    node_tls = [t.NAME for t in ht.sbgp(SbgpType.NODE).tl_teams]
+    if "torch_ops" not in node_tls:
+        raise AssertionError(f"hier: the NODE unit's TLs {node_tls}")
+    out = {}
+    samples, stages, _ = hier_allreduce(ctxs, teams, srcs, dsts, SUM,
+                                        False, "rab_tpu", "hier rab_tpu")
+    check_all("hier rab_tpu SUM", dsts, want)
+    out["rab_tpu"] = p50_of(samples)
+    avg = [torch.zeros(MAIN_COUNT, device="cuda") for _ in range(n)]
+    s_avg, _, _ = hier_allreduce(ctxs, teams, srcs, avg, AVG, True,
+                                 "rab_tpu", "hier rab_tpu AVG in place",
+                                 1, HIER_SHORT_ITERS)
+    check_all("hier rab_tpu AVG in place", avg, want / n)
+    del avg
+    stages = " -> ".join(f"{st} ({k})" for st, k in stages)
+    log(f"hier: (a) allreduce {MAIN_COUNT} f32/rank via rab_tpu, NODE unit "
+        f"TLs [{','.join(node_tls)}], rank 0's stages {stages}: p50 "
+        f"{out['rab_tpu']:.3f} ms over {ITERS} persistent rounds after "
+        f"{WARMUP}, bitwise the sum on every rank; AVG in place p50 "
+        f"{p50_of(s_avg):.3f} ms over {HIER_SHORT_ITERS} after 1, bitwise "
+        f"sum / 8 | {time.perf_counter() - t0:.1f} s | card {smi}")
+    out["breakdown"] = hier_breakdown(ctxs, teams, smi)
+    # (c) the staged rows on the same team
+    for coll, alg in HIER_STAGED:
+        t1 = time.perf_counter()
+        args, outs, wants, ranks = hier_staged_case(coll, n, 410)
+        for a in args:
+            a.flags |= ucc.CollArgsFlags.PERSISTENT
+        reqs = [t.collective_init(a) for t, a in zip(teams, args)]
+        if reqs[0].task.alg_name != alg:
+            raise AssertionError(f"hier staged {coll}: selected "
+                                 f"{reqs[0].task.alg_name}, not {alg}")
+        s = hier_rounds(ctxs, reqs, f"hier staged {coll}", 1,
+                        HIER_STAGED_ROUNDS)
+        for rq in reqs:
+            rq.finalize()
+        if outs is not None:
+            check_all(f"hier staged {coll}", outs, wants, ranks)
+        size = "" if coll == "BARRIER" else (
+            f" {MAIN_COUNT} f32" if coll in ("BCAST", "REDUCE") else
+            f" blocks of {HIER_BLOCK} f32")
+        rooted = {"BCAST": " root 3", "REDUCE": " root 5"}.get(coll, "")
+        log(f"hier: (c) {coll}{rooted}{size} via {alg}: p50 "
+            f"{p50_of(s):.3f} ms over {HIER_STAGED_ROUNDS} rounds after 1"
+            f"{', bitwise' if outs is not None else ''} | the case "
+            f"{time.perf_counter() - t1:.1f} s | card {smi}")
+        out[coll] = p50_of(s)
+        del args, outs, wants, reqs
+        torch.cuda.empty_cache()
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+
+    # the pipelined rab: its bits are the unpipelined one's
+    t1 = time.perf_counter()
+    with env_set(UCC_TOPO_FAKE_PPN=HIER_PPN):
+        ctxs, teams = make_job(
+            n, CL_HIER_ALLREDUCE_RAB_PIPELINE=HIER_PIPELINE)
+    piped = [torch.zeros(MAIN_COUNT, device="cuda") for _ in range(n)]
+    s_pipe, _, frags = hier_allreduce(ctxs, teams, srcs, piped, SUM, False,
+                                      "rab_tpu", "hier rab_tpu pipelined",
+                                      1, HIER_SHORT_ITERS)
+    check_all("hier rab_tpu pipelined", piped, dsts)
+    log(f"hier: (a) pipelined rab_tpu ({HIER_PIPELINE}): p50 "
+        f"{p50_of(s_pipe):.3f} ms in {frags} fragments over "
+        f"{HIER_SHORT_ITERS} rounds after 1, bitwise the unpipelined result"
+        f" | {time.perf_counter() - t1:.1f} s | card {smi}")
+    del piped
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+
+    # the flat 8-rank team: its default (xla) and ring_cuda
+    t1 = time.perf_counter()
+    ctxs, teams = make_job(n)
+    flat = {}
+    for alg, tune in (("xla", None), ("ring_cuda",
+                                      "allreduce:@ring_cuda:inf")):
+        with env_set(UCC_TL_RING_CUDA_TUNE=tune):
+            fteams = make_team(ctxs)
+        reqs = allreduce_reqs(fteams, srcs, dsts)
+        if reqs[0].task.alg_name != alg:
+            raise AssertionError(f"hier flat: {reqs[0].task.alg_name}")
+        flat[alg] = p50_of(hier_rounds(ctxs, reqs, f"hier flat {alg}",
+                                       WARMUP, ITERS))
+        for rq in reqs:
+            rq.finalize()
+        check_all(f"hier flat {alg}", dsts, want)
+        for t in fteams:
+            t.destroy()
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+    log(f"hier: (a) the same allreduce on a flat 8-rank team in the same "
+        f"call: torch_ops/xla p50 {flat['xla']:.3f} ms, ring_cuda p50 "
+        f"{flat['ring_cuda']:.3f} ms; rab_tpu {out['rab_tpu']:.3f} ms | "
+        f"{time.perf_counter() - t1:.1f} s | card {smi}")
+
+    # (b) ring_cuda on the node units
+    t1 = time.perf_counter()
+    with env_set(UCC_TOPO_FAKE_PPN=HIER_PPN):
+        ctxs, _teams = make_job(n, CL_HIER_NODE_TLS=HIER_NODE_TLS)
+    for t in _teams:
+        t.destroy()
+    launches = {}
+    for alg, kinds in (("rab_tpu", ("ring_bcast_chunked",)),
+                       ("split_rail_tpu", ("ring_reduce_scatter_chunked",
+                                           "ring_allgather_chunked"))):
+        with env_set(UCC_TL_RING_CUDA_TUNE=HIER_RING_TUNE,
+                     UCC_CL_HIER_TUNE=f"allreduce:@{alg}:inf"):
+            teams = make_team(ctxs)
+        for w, _ in kernels.values():
+            w.launches = 0
+        s, _, _ = hier_allreduce(ctxs, teams, srcs, dsts, SUM, False, alg,
+                                 f"hier {alg} ring_cuda")
+        got = {k: w.launches for k, (w, _) in kernels.items() if w.launches}
+        rounds = WARMUP + ITERS
+        nodes = n // int(HIER_PPN)
+        if got != {k: nodes * rounds for k in kinds}:
+            raise AssertionError(f"hier {alg} with ring_cuda on the node "
+                                 f"units: launches {got}, want "
+                                 f"{nodes} a round of {kinds}")
+        check_all(f"hier {alg} ring_cuda", dsts, want)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"hier: (b) NODE_TLS {HIER_NODE_TLS}, ring_cuda TUNE "
+            f"{HIER_RING_TUNE}: {alg} p50 {p50_of(s):.3f} ms over {ITERS} "
+            f"rounds after {WARMUP}, launches {got} ({nodes} a round, one "
+            f"a node), bitwise the sum | {time.perf_counter() - t1:.1f} s "
+            f"since (b) began | card {smi}")
+        out[f"{alg}_ring_cuda"] = p50_of(s)
+        for t in teams:
+            t.destroy()
+    for c in ctxs:
+        c.destroy()
+    del srcs, dsts, want
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def hier_child(spec_json: str) -> int:
+    """One process of a phase-10 (d) job: its ranks bootstrap through
+    ucc_tpu_torch.bootstrap.World.from_env (UCC_BOOTSTRAP and the rest
+    are set by the parent, with UCC_TOPO_FAKE_PPN), run a rab_tpu
+    allreduce of MAIN_COUNT f32 a rank, HIER_PROC_WARMUP + HIER_PROC_ITERS
+    persistent rounds, and check every local result bitwise. Its last
+    line is one JSON object."""
+    import faulthandler
+    import torch
+    spec = json.loads(spec_json)
+    faulthandler.dump_traceback_later(spec["dump_s"], exit=False)
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.bootstrap import World
+    from ucc_tpu_torch.topo.sbgp import SbgpType
+    t0 = time.perf_counter()
+    world = World.from_env()
+    setup = time.perf_counter() - t0
+    n = world.world_size
+    srcs = span_inputs(n, MAIN_COUNT, 420)
+    want = torch.stack(srcs).sum(0)
+    ranks = [t.rank for t in world.teams]
+    dsts = [torch.zeros(MAIN_COUNT, device="cuda") for _ in ranks]
+    ctxs = world.contexts
+    ht = hier_of(world.teams[0])
+    node = ht.sbgp(SbgpType.NODE)
+    ops = [t for t in node.tl_teams if t.NAME == "torch_ops"]
+    leaders = ht.sbgp(SbgpType.NODE_LEADERS)
+    lead_tl = None
+    if leaders is not None:
+        cand = leaders.score_map.lookup(ucc.CollType.ALLREDUCE,
+                                        ucc.MemoryType.HOST, MAIN_COUNT * 4)
+        lead_tl = getattr(cand[0].team, "NAME", "?")
+    samples, stages, _ = hier_allreduce(
+        ctxs, world.teams, [srcs[r] for r in ranks], dsts,
+        ucc.ReductionOp.SUM, False, "rab_tpu", "hier procs",
+        HIER_PROC_WARMUP, HIER_PROC_ITERS)
+    ok = all(bits_equal(d, want) for d in dsts)
+    from ucc_tpu_torch.tl import device
+    with device._SHARED_LOCK:
+        names = sorted(s.span.name for s in device._SHARED.values()
+                       if s.span is not None)
+    out = {"pid": os.getpid(), "ranks": ranks, "setup_s": setup,
+           "ok": ok, "p50": samples[len(samples) // 2],
+           "node_size": node.sbgp.size, "node_torch_ops": bool(ops),
+           "node_spanning": bool(ops) and ops[0].spanning,
+           "leaders_tl": lead_tl, "span_names": names, "stages": stages,
+           "topology": ht.describe_topology()}
+    world.finalize()
+    faulthandler.cancel_dump_traceback_later()
+    out["jax"] = sys.modules.get("jax") is not None
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def hier_job(nprocs, per, timeout=240):
+    """nprocs processes of hier_child (this script with --hier-child),
+    *per* ranks each, bootstrapped by World.from_env over a held loopback
+    port pair, in 2 fake nodes of HIER_PPN; every process's result."""
+    from ucc_tpu_torch.tools.perftest import HeldPorts
+    held = HeldPorts(2, contiguous=True)
+    try:
+        spec = {"dump_s": timeout - 20}
+        envs = [{"UCC_BOOTSTRAP": f"127.0.0.1:{held.ports[0]}",
+                 "UCC_RANK": str(p), "UCC_NPROCS": str(nprocs),
+                 "UCC_RANKS_PER_PROC": str(per),
+                 "UCC_TOPO_FAKE_PPN": HIER_PPN} for p in range(nprocs)]
+        return run_children("--hier-child", [spec] * nprocs, envs,
+                            timeout, "phase 10")
+    finally:
+        held.release()
+
+
+def main_path_hier(smi) -> dict:
+    """Phase 10: topology and cl/hier. Returns every kernel's launches
+    over the phase's hier runs."""
+    t0 = time.perf_counter()
+    shm = "/dev/shm"
+    before = sorted(f for f in os.listdir(shm) if f.startswith(SPAN_GLOBS))
+    res = hier_in_process(smi, wrappers())
+    log(f"hier: (a)-(c) in {time.perf_counter() - t0:.1f} s")
+    for nprocs, per in HIER_LAYOUTS:
+        t1 = time.perf_counter()
+        outs = hier_job(nprocs, per)
+        lay = f"{nprocs} processes x {per} ranks"
+        spanning = per < int(HIER_PPN)
+        for o in outs:
+            if o["jax"]:
+                raise AssertionError(f"hier {lay}: a worker loaded JAX")
+            if not o["ok"]:
+                raise AssertionError(f"hier {lay}: ranks {o['ranks']} are "
+                                     "not bitwise the sum")
+            if not o["node_torch_ops"] or o["node_spanning"] != spanning:
+                raise AssertionError(f"hier {lay}: NODE unit torch_ops "
+                                     f"{o['node_torch_ops']}, spanning "
+                                     f"{o['node_spanning']}")
+            if o["leaders_tl"] not in (None, "socket"):
+                raise AssertionError(f"hier {lay}: the leaders' allreduce "
+                                     f"goes over {o['leaders_tl']}")
+        if len({o["pid"] for o in outs}) != nprocs:
+            raise AssertionError(f"hier {lay}: workers share a process")
+        p50 = max(o["p50"] for o in outs) * 1e3
+        stages = " -> ".join(f"{s} ({k})" for s, k in outs[0]["stages"])
+        log(f"hier: (d) {lay} through World.from_env, fake nodes of "
+            f"{HIER_PPN} ({'each node spans two processes: a spanning '
+                           'NODE unit' if spanning else 'a node a process'}"
+            f"), allreduce {MAIN_COUNT} f32/rank via rab_tpu, leaders over "
+            f"tl/socket, rank 0's stages {stages}: p50 {p50:.3f} ms (the "
+            f"slowest process's) over {HIER_PROC_ITERS} persistent rounds "
+            f"after {HIER_PROC_WARMUP}, bitwise the sum on every rank | "
+            f"setup {max(o['setup_s'] for o in outs):.1f} s, the job "
+            f"{time.perf_counter() - t1:.1f} s | card {smi}")
+        res[f"procs_{nprocs}x{per}"] = p50
+    left = sorted(f for f in os.listdir(shm)
+                  if f.startswith(SPAN_GLOBS) and f not in before)
+    if left:
+        raise AssertionError(f"phase 10 left segments behind: {left}")
+    log(f"hier: no {'*, '.join(SPAN_GLOBS)}* segment left in /dev/shm, "
+        f"every worker exited | hier phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -6299,14 +6934,16 @@ def main() -> int:
         return core_child(sys.argv[2])
     if sys.argv[1:2] == ["--procs-child"]:
         return procs_child(sys.argv[2])
-    if sys.argv[1:2] == ["--span-child"]:
-        try:
-            return span_child(sys.argv[2])
-        except BaseException:  # noqa: BLE001 - the job must see it at once
-            import traceback
-            traceback.print_exc()
-            sys.stderr.flush()
-            os._exit(1)
+    for flag, child in (("--span-child", span_child),
+                        ("--hier-child", hier_child)):
+        if sys.argv[1:2] == [flag]:
+            try:
+                return child(sys.argv[2])
+            except BaseException:  # noqa: BLE001 - the job must see it
+                import traceback
+                traceback.print_exc()
+                sys.stderr.flush()
+                os._exit(1)
 
     # -- 1. device -------------------------------------------------------
     smi = smi_line()
@@ -6456,6 +7093,9 @@ def main() -> int:
     # -- 9. span: device teams across processes ---------------------------
     span = main_path_span(smi, records)
 
+    # -- 10. hier: topology and the hierarchical CL ------------------------
+    hier = main_path_hier(smi)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -6468,6 +7108,7 @@ def main() -> int:
         rec["host_launches"] = host["launches"].get(rec["name"], 0)
         rec["procs_launches"] = procs["launches"].get(rec["name"], 0)
         rec["span_launches"] = span["launches"].get(rec["name"], 0)
+        rec["hier_launches"] = hier["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

@@ -141,7 +141,8 @@ def test_libs_made_in_threads_of_a_fresh_process():
         "errs = []\n"
         "def make():\n"
         "    try:\n"
-        "        assert [c.name for c in ut.init().cl_libs] == ['basic']\n"
+        "        assert [c.name for c in ut.init().cl_libs] == ['basic', "
+        "'hier']\n"
         "    except Exception as e:\n"
         "        errs.append(repr(e))\n"
         "ths = [threading.Thread(target=make) for _ in range(8)]\n"

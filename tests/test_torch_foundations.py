@@ -90,10 +90,6 @@ def test_config_defaults_match(port, ref):
     shared = [f for f in port.fields if alias.get(f.name, f.name) in ref_fields]
     assert shared
     for f in shared:
-        if port is GLOBAL_CONFIG and f.name == "CLS":
-            # cl/hier is not ported yet: the port's default names basic only
-            assert f.default == "basic" and ref_fields["CLS"] == "basic,hier"
-            continue
         if port is TL_RING_CUDA_CONFIG and f.name == "DEVICE":
             # ucc_tpu's empty kind takes JAX's default backend; the port
             # names CUDA, so that it never runs on the CPU unasked

@@ -800,3 +800,101 @@ def collect(results, n):
         assert sorted(merged) == list(range(n))
         phases.append(merged)
     return phases
+
+
+# ---------------------------------------------------------------------------
+# hierarchical teams through the bootstrap World
+# ---------------------------------------------------------------------------
+
+def hier_values(n, count, seed):
+    """Rank r's integer-valued float32 input of the hier process cases
+    (every summation order is exact)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-64, 64, size=count).astype(np.float32)
+            for _ in range(n)]
+
+
+def _hier_rank(ut, world, i, spec, out, errs):
+    """Local rank i of a World: a HOST and a CUDA-memory allreduce on the
+    world team; reports the selected algorithms, the results and where
+    the NODE unit's torch_ops team lives."""
+    try:
+        team = world.teams[i]
+        r = team.rank
+        n, count = team.size, spec["count"]
+        vals = hier_values(n, count, spec["seed"])
+        hier = [cl for cl in team.cl_teams if cl.name == "hier"]
+        res = {"rank": r, "cls": sorted(cl.name for cl in team.cl_teams)}
+        if hier:
+            from ucc_tpu_torch.topo.sbgp import SbgpType
+            node = hier[0].sbgp(SbgpType.NODE)
+            ops = [t for t in node.tl_teams if t.NAME == "torch_ops"]
+            res["node_size"] = node.sbgp.size
+            res["node_torch_ops"] = bool(ops)
+            res["node_spanning"] = bool(ops) and ops[0].spanning
+            res["topology"] = hier[0].describe_topology()
+        dt = ut.DataType.FLOAT32
+        if spec.get("host", True):
+            # HOST memory needs a host TL on the NODE unit (tl/shm): nodes
+            # of one process each
+            dst = np.zeros(count, np.float32)
+            req = team.collective_init(ut.CollArgs(
+                coll_type=ut.CollType.ALLREDUCE, op=ut.ReductionOp.SUM,
+                src=ut.BufferInfo(vals[r].copy(), count, dt),
+                dst=ut.BufferInfo(dst, count, dt)))
+            req.post()
+            st = wait_req(ut, req)
+            res["host"] = (req.task.alg_name, st.name, dst.tobytes())
+            req.finalize()
+        mt = ut.MemoryType.CUDA
+        tsrc = torch.from_numpy(vals[r].copy())
+        tdst = torch.zeros(count)
+        req = team.collective_init(ut.CollArgs(
+            coll_type=ut.CollType.ALLREDUCE, op=ut.ReductionOp.SUM,
+            src=ut.BufferInfo(tsrc, count, dt, mem_type=mt),
+            dst=ut.BufferInfo(tdst, count, dt, mem_type=mt),
+            flags=ut.CollArgsFlags.PERSISTENT))
+        rounds = []
+        for _ in range(spec.get("rounds", 2)):
+            tdst.fill_(7)
+            req.post()
+            st = wait_req(ut, req)
+            rounds.append((st.name, tdst.numpy().tobytes()))
+        res["cuda"] = (req.task.alg_name, rounds)
+        req.finalize()
+        res["span_names"] = span_names()
+        out[i] = res
+    except Exception:  # noqa: BLE001
+        errs.append((i, traceback.format_exc()))
+
+
+def hier_world_worker(idx, spec, q):
+    """One process of a hier job bootstrapped by
+    ``ucc_tpu_torch.bootstrap.World.from_env`` (``spec["env"]`` carries
+    UCC_BOOTSTRAP, UCC_RANK, UCC_NPROCS, UCC_RANKS_PER_PROC and the fake
+    topology), device "cpu"; each local rank runs ``_hier_rank`` in a
+    thread."""
+    try:
+        env = dict(spec.get("env", {}))
+        env["UCC_RANK"] = str(idx)
+        _set_env(env)
+        import ucc_tpu_torch as ut
+        from ucc_tpu_torch.bootstrap import World
+        world = World.from_env(device="cpu", timeout=120.0)
+        out, errs = {}, []
+        ths = [threading.Thread(target=_hier_rank,
+                                args=(ut, world, i, spec, out, errs))
+               for i in range(len(world.teams))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=spec.get("phase_timeout", 150))
+        if errs or len(out) != len(world.teams):
+            raise RuntimeError(f"ranks failed: {errs}")
+        world.finalize()
+        q.put((idx, {"ranks": [out[i] for i in sorted(out)],
+                     "world_size": world.world_size, "pid": os.getpid(),
+                     "jax": "jax" in sys.modules}))
+    except Exception:  # noqa: BLE001
+        q.put((idx, {"error": traceback.format_exc(),
+                     "jax": "jax" in sys.modules}))

@@ -6,6 +6,13 @@ blocking OOB address exchange, then give TLs a ``create_epilog`` pass.
 ``progress()`` drives the progress queue plus registered component
 progress callbacks.
 
+The address exchange also gathers every rank's ``ProcInfo``
+(``topo/proc_info.py``) into ``self.topo``, a ``ContextTopo``: the
+topology identity that cl/hier and the host TLs' rank reorder read, which
+``UCC_TOPO_FAKE_PPN`` may rewrite. ``self.proc``, the physical
+``(hostname, pid)``, stays what the device rendezvous and the same-process
+checks compare.
+
 ``mem_map`` exports a buffer for one-sided access: a HOST buffer is
 registered in the process's segment registry (``tl/host/onesided.py``)
 under (context uid, segment id), which the host TLs' puts and gets
@@ -28,6 +35,8 @@ from ..api.types import ContextAttr, ContextParams
 from ..constants import ThreadMode
 from ..schedule.progress import ProgressQueue, ProgressQueueMT
 from ..status import Status, UccError
+from ..topo.proc_info import context_proc_info
+from ..topo.topo import ContextTopo
 from ..utils.log import get_logger
 from .lib import Lib
 
@@ -65,9 +74,14 @@ class Context:
         oob = self.params.oob
         self.rank = oob.oob_ep if oob else 0
         self.size = oob.n_oob_eps if oob else 1
-        #: process identity: device TLs rendezvous only ranks that share
-        #: a process
+        #: physical process identity: device TLs rendezvous only ranks
+        #: that share a process, whatever the fake topology says
         self.proc = (socket.gethostname(), os.getpid())
+        #: topology identity: UCC_TOPO_FAKE_PPN groups context ranks into
+        #: virtual nodes (an int N, or a cyclic comma list of node sizes)
+        #: and UCC_TOPO_FAKE_NODES_PER_POD groups those into virtual pods,
+        #: so hierarchies are exercisable on one host
+        self.proc_info = context_proc_info(self.rank)
         #: process-unique context identity: mem-map segments are
         #: addressed by (uid, segment id)
         self._ctx_uid = uuid.uuid4().hex
@@ -92,7 +106,7 @@ class Context:
 
         # blocking OOB address exchange
         self.addr_storage: List[Dict[str, Any]] = []
-        payload = {"proc": self.proc,
+        payload = {"proc": self.proc, "proc_info": self.proc_info,
                    "tl": {name: h.obj.pack_address()
                           for name, h in self.tl_contexts.items()}}
         self._packed_addr = pickle.dumps(payload)
@@ -103,6 +117,7 @@ class Context:
             self.addr_storage = [pickle.loads(p) for p in peers]
         else:
             self.addr_storage = [payload]
+        self.topo = ContextTopo([a["proc_info"] for a in self.addr_storage])
         for name, h in self.tl_contexts.items():
             h.obj.unpack_addresses(
                 {r: a["tl"].get(name, b"")

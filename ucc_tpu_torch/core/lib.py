@@ -21,15 +21,25 @@ from .components import (available_cls, available_tls, discover_components,
 logger = get_logger("core")
 
 #: global config table: the fields of the JAX package's table that the
-#: port reads, with its defaults, except CLS, whose "hier" member is not
-#: ported yet.
+#: port reads, with its defaults
 GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
-    ConfigField("CLS", "basic", "comma-separated CL list ('all' for every "
+    ConfigField("CLS", "basic,hier", "comma-separated CL list ('all' for every "
                 "available CL)", parse_list),
     ConfigField("TLS", "all", "comma-separated TL allow-list", parse_list),
     ConfigField("LOG_LEVEL", "warn", "ucc log level", parse_string),
     ConfigField("COLL_TRACE", "n", "log every collective init/post with the "
                 "selected CL/TL", parse_bool),
+    # read from the environment by topo/proc_info.py at context create;
+    # listed here so config dumps document them
+    ConfigField("TOPO_FAKE_PPN", "", "simulated topology: group context "
+                "ranks into virtual nodes — an int N (nodes of N) or a "
+                "cyclic comma list of node sizes (\"2,1,3\") for "
+                "asymmetric layouts; empty = real host detection",
+                parse_string),
+    ConfigField("TOPO_FAKE_NODES_PER_POD", "", "simulated topology: "
+                "group every M consecutive virtual nodes into a DCN pod "
+                "(activates the 3-level chip->node->pod hierarchy tree "
+                "in CL/HIER); empty = no pod grouping", parse_string),
     ConfigField("TEAM_IDS_POOL_SIZE", "32", "team id pool size per context",
                 parse_uint),
     ConfigField("CHECK_ASYMMETRIC_DT", "n", "validate datatype and memory "

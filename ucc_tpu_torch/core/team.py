@@ -15,8 +15,11 @@ Creation is UCC's nonblocking state machine (ucc_team_create_test):
   and move their counters past it. A 1-rank team, and a team with no
   service team, takes its context's counter.
 - CL_CREATE: create each CL's team; failures fall back to remaining CLs.
-- CL_AGREE: one OOB round keeps only the CLs that exist on every member.
-- TUNER_SYNC: no tuner in this package; the state passes straight through.
+- CL_AGREE: one OOB round keeps only the CLs that exist on every member;
+  then the team's topology (``TeamTopo`` over its ``ctx_map``) is built.
+- TUNER_SYNC: no tuner in this package; the state passes straight through
+  (under UCC_COLL_TRACE it logs the score map and each CL's resolved
+  topology).
 - ACTIVE: merge all CL scores into the team score map.
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..constants import ReductionOp
 from ..score.score import CollScore
 from ..score.score_map import ScoreMap
 from ..status import Status, UccError
+from ..topo.topo import TeamTopo
 from ..utils.ep_map import EpMap
 from ..utils.log import get_logger
 from .context import Context
@@ -80,6 +84,9 @@ class Team:
             self.rank = 0
             self.size = 1
         self.ctx_map: Optional[EpMap] = None
+        #: the team's topology, built at CL_AGREE (cl/hier builds its own
+        #: from ctx_map before that)
+        self.topo: Optional[TeamTopo] = None
         self.team_key: Any = None
         self.id: Optional[int] = p.id
         self.state = TeamState.ADDR_EXCHANGE
@@ -182,6 +189,7 @@ class Team:
             st = self._cl_agree_step()
             if st == Status.IN_PROGRESS:
                 return st
+            self.topo = TeamTopo(self.context.topo, self.ctx_map, self.rank)
             self._build_score_map()
             self.state = TeamState.TUNER_SYNC
 
@@ -189,6 +197,13 @@ class Team:
             if self.context.lib.config.coll_trace:
                 logger.info("%s", self.score_map.print_info(
                     f"team {self.id} size {self.size}"))
+                # the resolved hierarchy beside the score rows: a
+                # mis-detected topology shows at activation
+                for cl in self.cl_teams:
+                    describe = getattr(cl, "describe_topology", None)
+                    if describe is not None:
+                        logger.info("team %s %s topology:\n%s",
+                                    self.id, cl.name, describe())
             self.state = TeamState.ACTIVE
 
         if self.state == TeamState.ACTIVE:

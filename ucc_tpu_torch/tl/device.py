@@ -370,6 +370,13 @@ class DeviceCollTask(CollTask):
         # team tag, or this rank's tag sequence desyncs from its peers
         self.tag = team.next_coll_tag()
 
+    def retarget(self) -> None:
+        """Re-read the buffer counts after the caller pointed its
+        BufferInfos at other buffers (a pipeline moving this task to its
+        next fragment); the tag stays."""
+        self.src_count, self.dst_count = self._buffer_counts()
+        self.local_buffers()
+
     def check_buffer_infos(self) -> None:
         """A contiguous BufferInfo as src or dst (the kernels' rule)."""
         args = self.args

@@ -9,13 +9,13 @@ ids and for the datatype check).
 
 The one-sided rows (allreduce ``sliding_window``, alltoall and
 alltoallv ``onesided``; ``onesided.py``) sit at score 1, TUNE-only, as in
-the JAX package. Left for later slices, with the candidate lists
-unchanged where they are off by default: the ``q*`` quantized rows
-(UCC_QUANT), the generated candidates (UCC_GEN) and the native-plan
-``+plan`` marks (UCC_GEN_NATIVE) come with the compiler's host half; the
-rank reorder of multi-node teams (``topo_ordered_subset``) comes with
-``topo/``: every team of the port lives on one node, where the JAX
-package does not reorder either.
+the JAX package. On a team that spans nodes the ring algorithms run
+over the host-ordered rank subset (``topo_ordered_subset``), and the
+large-message allgather default is ring. Left for later slices, with
+the candidate lists unchanged where they are off by default: the ``q*``
+quantized rows (UCC_QUANT), the generated candidates (UCC_GEN) and the
+native-plan ``+plan`` marks (UCC_GEN_NATIVE) come with the compiler's
+host half.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from ...api.types import BufferInfo, CollArgs
 from ...constants import CollType, MemoryType, ReductionOp, dt_from_numpy
 from ...schedule.task import CollTask
 from ...score.score import CollScore
-from ...utils.ep_map import EpMap, Subset
+from ...utils.ep_map import EpMap, EpMapType, Subset
 from ..base import AlgSpec, TlTeamBase, build_scores
 from .allgather import (AllgatherBruck, AllgatherKnomial, AllgatherLinear,
                         AllgatherLinearBatched, AllgatherNeighbor,
@@ -76,10 +76,37 @@ class HostTlTeam(TlTeamBase):
         return Subset(EpMap.full(self.size), self.rank)
 
     def topo_ordered_subset(self):
-        """The host-ordered rank subset of a multi-node team; None (no
-        reorder) until the port has ``topo/``: every team of the port is
-        on one node."""
-        return None
+        """The FULL_HOST_ORDERED subset when the team spans nodes: ring
+        neighbours become host-local, so n-1 of n hops stay inside a node
+        (UCC's rank reorder). None when reordering would change nothing.
+        Cached: the result is a function of the team alone."""
+        if not hasattr(self, "_topo_subset"):
+            self._topo_subset = self._compute_topo_subset()
+        return self._topo_subset
+
+    def _compute_topo_subset(self):
+        cfg = self.comp_context.config
+        if cfg is not None:
+            try:
+                if not cfg.get("ranks_reordering"):
+                    return None       # knob off: natural rank order
+            except KeyError:
+                pass
+        core = self.core_team
+        topo = getattr(core, "topo", None)
+        if topo is None:
+            ctx_topo = getattr(getattr(core, "context", None), "topo", None)
+            if ctx_topo is None or ctx_topo.nnodes < 2:
+                return None
+            from ...topo.topo import TeamTopo
+            topo = TeamTopo(ctx_topo, self.ctx_map, self.rank)
+        if topo.n_nodes < 2:
+            return None
+        from ...topo.sbgp import SbgpType
+        sbgp = topo.get_sbgp(SbgpType.FULL_HOST_ORDERED)
+        if sbgp.map is None or sbgp.map.type == EpMapType.FULL:
+            return None   # identity: reordering changes nothing
+        return Subset(sbgp.map, sbgp.group_rank)
 
     def next_coll_tag(self) -> int:
         self._coll_tag += 1
@@ -129,7 +156,8 @@ class HostTlTeam(TlTeamBase):
     def _ag_large_alg(self) -> str:
         """Large-message allgather default: neighbor on even team sizes
         (half the rounds of ring), ring on odd ones (neighbor cannot run)
-        and on reordered multi-node teams."""
+        and on multi-node teams whose host-ordered map is not the
+        identity (ring's locality wins there)."""
         if getattr(self, "size", 0) % 2 != 0:
             return "ring"
         if getattr(self, "core_team", None) is not None and \
