@@ -6905,6 +6905,510 @@ def main_path_hier(smi) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: quantized collectives and measured selection
+# ---------------------------------------------------------------------------
+
+#: (allreduce f32 elements per rank, allgather f32 elements per rank): the
+#: one-pass and the chunked sizes of the ring runs
+QUANT_SIZES = ((SMALL_COUNT, AG_SMALL_COUNT), (MAIN_COUNT, AG_MAIN_COUNT))
+QUANT_MODES = ("int8", "fp8")
+QUANT_HOST_N = 4
+QUANT_HOST_COUNT = 1 << 20
+QUANT_HOST_ALGS = (("ALLREDUCE", "SUM", "sra", "direct"),
+                   ("ALLREDUCE", "AVG", "ring", "ring"),
+                   ("ALLGATHER", None, "linear", "direct"))
+#: ucc_tune's sweep (the user's command; --quant int8 adds the quantized
+#: candidates to it)
+TUNE_ARGS = ["-m", "cuda", "-p", str(N_RANKS), "-c", "allreduce,allgather",
+             "-b", "4K", "-e", "16M", "--quant", "int8"]
+TUNER_SAMPLES = 8
+#: online posts per key: the samples, the decision post, the hold window
+#: (service-bcast tree depth 2 + 2 at 8 ranks) and the switch post, then
+#: frozen rounds
+ONLINE_ROUNDS = TUNER_SAMPLES + 1 + 4 + 1 + 4
+
+
+def sorted_p50(samples) -> float:
+    """p50 in ms."""
+    s = sorted(samples)
+    return s[len(s) // 2] * 1e3
+
+
+def destroy_job(ctxs, teams) -> None:
+    import torch
+    for t in teams:
+        t.destroy()
+    for c in ctxs:
+        c.destroy()
+    torch.cuda.empty_cache()
+
+
+def quant_srcs(n, count, td, seed, device="cuda"):
+    """n random vectors in [-2, 2) of dtype td (ones would encode exactly
+    and hide every error)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [((torch.rand(count, generator=g, device=device) - 0.5) * 4)
+            .to(td) for _ in range(n)]
+
+
+def quant_exact(coll, srcs, op):
+    """The exact result in float64, where the srcs lie: the allreduce's
+    sum (or mean), the allgather's concatenation."""
+    import torch
+    if coll == "ALLGATHER":
+        return torch.cat([s.double() for s in srcs])
+    tot = torch.zeros_like(srcs[0], dtype=torch.float64)
+    for s in srcs:
+        tot += s.double()
+    return tot / len(srcs) if op == "AVG" else tot
+
+
+def quant_requests(teams, coll, srcs, op, host=False):
+    """Persistent requests of `coll` on every rank (CUDA memory, or host
+    memory with `host`), dst zeroed."""
+    import torch
+    import ucc_tpu_torch as ucc
+    n = len(teams)
+    from ucc_tpu_torch.constants import dt_from_torch
+    dt = dt_from_torch(srcs[0].dtype)
+    count = srcs[0].numel()
+    dst_count = count * n if coll == "ALLGATHER" else count
+    mem = ucc.MemoryType.HOST if host else ucc.MemoryType.CUDA
+    dsts = [torch.zeros(dst_count, dtype=srcs[0].dtype,
+                        device=srcs[0].device) for _ in range(n)]
+    argses = [ucc.CollArgs(
+        coll_type=ucc.CollType[coll],
+        op=None if op is None else ucc.ReductionOp[op],
+        src=ucc.BufferInfo(srcs[r], count, dt, mem_type=mem),
+        dst=ucc.BufferInfo(dsts[r], dst_count, dt, mem_type=mem),
+        flags=ucc.CollArgsFlags.PERSISTENT) for r in range(n)]
+    return [teams[r].collective_init(argses[r]) for r in range(n)], dsts
+
+
+def quant_timed(ctxs, teams, coll, srcs, op, want_alg, what,
+                host=False):
+    """WARMUP + ITERS persistent rounds of `coll`, which must select
+    `want_alg` on every rank (None: any, the same); (host seconds a round,
+    every rank's dst, the algorithm)."""
+    reqs, dsts = quant_requests(teams, coll, srcs, op, host)
+    algs = {rq.task.alg_name for rq in reqs}
+    if len(algs) != 1 or (want_alg is not None and algs != {want_alg}):
+        raise AssertionError(f"{what} selected {algs}, not {want_alg}")
+    return time_rounds(ctxs, reqs, what), dsts, algs.pop()
+
+
+def quant_bound(mode, coll, variant, srcs, res):
+    """(the predicted fraction, the largest error it allows):
+    quant.predicted_error is a fraction of the per-block absmax, taken
+    here at the largest magnitude of any input or of the result (no
+    block's absmax exceeds it), with the JAX package's tests' 2% for the
+    float32 roundings of scale and product, plus the rounding of a
+    bfloat16 result."""
+    import torch
+    from ucc_tpu_torch import quant
+    from ucc_tpu_torch.constants import CollType
+    pred = quant.predicted_error(quant.get_codec(mode), CollType[coll],
+                                 len(srcs), variant)
+    res_max = float(res.float().abs().max())
+    peak = max(max(float(s.float().abs().max()) for s in srcs), res_max)
+    bf16 = 2.0 ** -8 * res_max if res.dtype == torch.bfloat16 else 0.0
+    return pred, 1.02 * pred * peak + bf16
+
+
+def check_ranks_agree(what, dsts, srcs, own_exact) -> None:
+    """Every rank's result bitwise rank 0's; with `own_exact` (tl/shm's
+    quantized allgather, where a rank keeps its own block as it is),
+    every rank's own block bitwise its src and every other block bitwise
+    the same on every rank that decoded it."""
+    n = len(dsts)
+    if not own_exact:
+        for r, d in enumerate(dsts[1:], 1):
+            if not bits_equal(d, dsts[0]):
+                raise AssertionError(f"{what}: rank {r}'s result is not "
+                                     "rank 0's bit for bit")
+        return
+    c = srcs[0].numel()
+    for p in range(n):
+        blocks = [d[p * c:(p + 1) * c] for d in dsts]
+        if not bits_equal(blocks[p], srcs[p]):
+            raise AssertionError(f"{what}: rank {p}'s own block changed")
+        others = [b for r, b in enumerate(blocks) if r != p]
+        if not all(bits_equal(b, others[0]) for b in others[1:]):
+            raise AssertionError(f"{what}: ranks decode block {p} "
+                                 "differently")
+
+
+def check_quant_result(what, mode, coll, op, variant, srcs, dsts,
+                       cpu=None, own_exact=False):
+    """The ranks agree (check_ranks_agree); the result's error against
+    float64 is within the predicted bound; with `cpu`, it is within one
+    quantization step of the same program's result on the CPU. Returns
+    (largest error, its bound, the predicted fraction, the largest
+    difference to the CPU)."""
+    from ucc_tpu_torch import quant
+    check_ranks_agree(what, dsts, srcs, own_exact)
+    exact = quant_exact(coll, srcs, op)
+    err = max(float((d.double() - exact).abs().max()) for d in dsts)
+    del exact
+    res = dsts[0].double()
+    pred, bound = quant_bound(mode, coll, variant, srcs, dsts[0])
+    if not err <= bound:
+        raise AssertionError(f"{what}: error {err:.3e} against float64 "
+                             f"exceeds the predicted bound {bound:.3e}")
+    diff = None
+    if cpu is not None:
+        diff = float((res - cpu.to(res.device).double()).abs().max())
+        step = 2 * quant.get_codec(mode).half_step * \
+            float(res.abs().max())
+        if not diff <= step:
+            raise AssertionError(f"{what}: differs from the CPU run of the "
+                                 f"same program by {diff:.3e}, more than "
+                                 f"one quantization step {step:.3e}")
+    return err, bound, pred, diff
+
+
+def quant_exact_rows(smi) -> dict:
+    """p50 (ms) of the exact tl/torch_ops `xla` and of tl/ring_cuda at
+    every size of the quantized rows, float32."""
+    import torch
+    out = {}
+    for alg, env in (("xla", {}), ("ring_cuda", {
+            "UCC_TL_RING_CUDA_TUNE": "allreduce,allgather:@ring_cuda:inf"})):
+        with env_set(**env):
+            ctxs, teams = make_job(N_RANKS)
+        for sizes in QUANT_SIZES:
+            for coll, count in zip(("ALLREDUCE", "ALLGATHER"), sizes):
+                srcs = quant_srcs(N_RANKS, count, torch.float32, 61)
+                samples, dsts, _ = quant_timed(
+                    ctxs, teams, coll, srcs,
+                    "SUM" if coll == "ALLREDUCE" else None, alg,
+                    f"exact {alg} {coll}")
+                want = quant_exact(coll, srcs, "SUM")
+                if not torch.allclose(dsts[0].double(), want,
+                                      rtol=MAIN_RTOL, atol=MAIN_ATOL):
+                    raise AssertionError(f"exact {alg} {coll} {count}: "
+                                         "wrong result")
+                out[(alg, coll, count)] = sorted_p50(samples)
+                del srcs, dsts
+        destroy_job(ctxs, teams)
+    log(f"quant: exact rows (f32, {N_RANKS} ranks): " + ", ".join(
+        f"{coll.lower()} {count} {alg} p50 {p:.3f} ms"
+        for (alg, coll, count), p in sorted(out.items())) + f" | card {smi}")
+    return out
+
+
+def quant_device_rows(smi) -> dict:
+    """(a) tl/torch_ops' qint8 and qfp8 on 8 ranks of the card: allreduce
+    SUM and AVG and allgather at the one-pass and chunked sizes, float32
+    and bfloat16, each pinned by UCC_TL_TORCH_OPS_TUNE. Returns the p50s
+    by (mode, coll, op, count, dtype)."""
+    import torch
+    from ucc_tpu_torch import quant
+    from ucc_tpu_torch.constants import ReductionOp
+    from ucc_tpu_torch.quant import torch_ops as qo
+    exact = quant_exact_rows(smi)
+    out = {}
+    for mode in QUANT_MODES:
+        tune = f"allreduce:@q{mode}:inf#allgather:@q{mode}:inf"
+        with env_set(UCC_TL_TORCH_OPS_TUNE=tune):
+            ctxs, teams = make_job(N_RANKS, QUANT=mode)
+        block = int(ctxs[0].lib.config.quant_block)
+        seed = 70
+        for sizes in QUANT_SIZES:
+            for td in (torch.float32, torch.bfloat16):
+                for coll, op, count in (("ALLREDUCE", "SUM", sizes[0]),
+                                        ("ALLREDUCE", "AVG", sizes[0]),
+                                        ("ALLGATHER", None, sizes[1])):
+                    seed += 1
+                    tname = str(td).replace("torch.", "")
+                    what = (f"q{mode} {coll.lower()}"
+                            f"{'' if op is None else ' ' + op} {count} "
+                            f"{tname}/rank")
+                    srcs = quant_srcs(N_RANKS, count, td, seed)
+                    samples, dsts, alg = quant_timed(
+                        ctxs, teams, coll, srcs, op, f"q{mode}", what)
+                    cpus = [s.cpu() for s in srcs]
+                    if coll == "ALLGATHER":
+                        cpu = qo.quant_allgather(cpus, mode, block, count)
+                    else:
+                        cpu = qo.quant_allreduce(cpus, ReductionOp[op],
+                                                 mode, block)
+                    err, bound, pred, diff = check_quant_result(
+                        what, mode, coll, op, "direct", srcs, dsts, cpu)
+                    logical = count * srcs[0].element_size()
+                    wire = quant.wire_count(count, block)
+                    p50 = sorted_p50(samples)
+                    out[(mode, coll, op, count, tname)] = p50
+                    beside = "exact rows at float32 only"
+                    if td == torch.float32:
+                        beside = (
+                            f"exact xla p50 "
+                            f"{exact[('xla', coll, count)]:.3f} ms, "
+                            f"ring_cuda p50 "
+                            f"{exact[('ring_cuda', coll, count)]:.3f} ms")
+                    log(f"quant: {what} via {alg} on {N_RANKS} ranks of "
+                        f"the card: {p50_line(samples)} | {beside} | wire "
+                        f"{wire} B/rank of {logical} B logical (ratio "
+                        f"{wire / logical:.4f}) | error {err:.4e} <= "
+                        f"{bound:.4e} (predicted {pred:.4f} of the block "
+                        f"absmax), every rank bitwise rank 0, largest "
+                        f"difference to the CPU run {diff:.3e} | card {smi}")
+                    del srcs, dsts, cpus, cpu
+                    torch.cuda.empty_cache()
+        destroy_job(ctxs, teams)
+    return out
+
+
+def quant_host_rows(smi) -> dict:
+    """(b) tl/shm's q*_sra, q*_ring and q*_linear on 4 ranks of the host
+    at 1 Mi f32, each pinned by UCC_TL_SHM_TUNE, beside the exact default
+    at the same size."""
+    import torch
+    out = {}
+    cpu = host_cpu()
+    for mode in (None,) + QUANT_MODES:
+        for coll, op, alg, variant in QUANT_HOST_ALGS:
+            if mode is None and alg == "ring":
+                continue
+            want = None if mode is None else f"q{mode}_{alg}"
+            tune = None if mode is None else \
+                f"{coll.lower()}:@{want}:inf"
+            overrides = {} if mode is None else {"QUANT": mode}
+            with env_set(UCC_TL_SHM_TUNE=tune):
+                ctxs, teams = make_job(QUANT_HOST_N, **overrides)
+            srcs = quant_srcs(QUANT_HOST_N, QUANT_HOST_COUNT, torch.float32,
+                              90 + len(out), device="cpu")
+            what = (f"{want or 'exact default'} {coll.lower()}"
+                    f"{'' if op is None else ' ' + op} {QUANT_HOST_COUNT} "
+                    f"f32/rank")
+            samples, dsts, got = quant_timed(ctxs, teams, coll, srcs, op,
+                                             want, what, host=True)
+            if mode is None:
+                exact = quant_exact(coll, srcs, op)
+                if not torch.allclose(dsts[0].double(), exact,
+                                      rtol=MAIN_RTOL, atol=MAIN_ATOL):
+                    raise AssertionError(f"{what}: wrong result")
+                tail = "exact"
+            else:
+                own = coll == "ALLGATHER"
+                err, bound, pred, _ = check_quant_result(
+                    what, mode, coll, op, variant, srcs, dsts,
+                    own_exact=own)
+                tail = (f"error {err:.4e} <= {bound:.4e} (predicted "
+                        f"{pred:.4f}), " + (
+                            "own blocks exact, every other block bitwise "
+                            "the same on every rank" if own else
+                            "every rank bitwise rank 0"))
+            p50 = sorted_p50(samples)
+            out[(mode, coll, op, got)] = p50
+            nbytes = QUANT_HOST_COUNT * 4
+            log(f"quant: host {what} via shm/{got} on {QUANT_HOST_N} ranks: "
+                f"{p50_line(samples)}, {nbytes / p50 / 1e6:.3f} GB/s of "
+                f"logical bytes a rank | {tail} | host {cpu} | card {smi}")
+            destroy_job(ctxs, teams)
+    return out
+
+
+def tuned_rows(ctxs, teams, tag, smi) -> dict:
+    """p50 of the allreduce and allgather that the team selects at the
+    one-pass and chunked sizes, each result checked against float64 (to
+    the predicted bound when a quantized candidate serves it)."""
+    import torch
+    out = {}
+    for sizes in QUANT_SIZES:
+        for coll, op, count in (("ALLREDUCE", "SUM", sizes[0]),
+                                ("ALLGATHER", None, sizes[1])):
+            srcs = quant_srcs(N_RANKS, count, torch.float32, 51)
+            what = f"{tag} {coll.lower()} {count} f32/rank"
+            samples, dsts, alg = quant_timed(ctxs, teams, coll, srcs, op,
+                                             None, what)
+            for r, d in enumerate(dsts[1:], 1):
+                if not bits_equal(d, dsts[0]):
+                    raise AssertionError(f"{what}: rank {r} differs")
+            if alg.startswith("q"):
+                check_quant_result(what, alg[1:], coll, op, "direct", srcs,
+                                   dsts)
+            elif not torch.allclose(dsts[0].double(),
+                                    quant_exact(coll, srcs, op),
+                                    rtol=MAIN_RTOL, atol=MAIN_ATOL):
+                raise AssertionError(f"{what} via {alg}: wrong result")
+            out[(coll, count)] = (alg, sorted_p50(samples))
+            del srcs, dsts
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_offline(smi, tmp) -> dict:
+    """(c) ucc_tune's sweep into a cache in `tmp`, then a fresh 8-rank
+    team with UCC_TUNER=offline loading it: the learned winners, the
+    score map's learned rows, tuned against default p50."""
+    import io
+    from contextlib import redirect_stdout
+    from ucc_tpu_torch.score import tuner
+    from ucc_tpu_torch.tools import tune
+    cache = os.path.join(tmp, "tune.json")
+    meas = os.path.join(tmp, "sweep.jsonl")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with env_set(UCC_QUANT=None), redirect_stdout(buf):
+        rc = tune.main([*TUNE_ARGS, "-o", cache, "--measurements", meas])
+    if rc != 0:
+        raise AssertionError(f"ucc_tune exited {rc}")
+    records = [json.loads(ln) for ln in open(meas)]
+    sweep_s = time.perf_counter() - t0
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith("#   "):
+            log(f"quant: ucc_tune {ln[1:].strip()}")
+    log(f"quant: ucc_tune {' '.join(TUNE_ARGS)}: {len(records)} "
+        f"measurement records in {sweep_s:.1f} s | card {smi}")
+    data = tuner.load_cache(cache)
+    sigs = list(data.get("signatures") or {})
+    if len(sigs) != 1:
+        raise AssertionError(f"ucc_tune wrote signatures {sigs}")
+    entries = tuner.cache_entries(data, sigs[0])
+    for e in entries:
+        log(f"quant: learned {e['coll']}/{e['mem']} "
+            f"[{e['start']}..{e['end']}) -> {e.get('comp')}/{e['alg']}"
+            f"{' (' + e['precision'] + ')' if e.get('precision') else ''}")
+    ctxs, teams = make_job(N_RANKS, TUNER="off")
+    default = tuned_rows(ctxs, teams, "default", smi)
+    destroy_job(ctxs, teams)
+    ctxs, teams = make_job(N_RANKS, TUNER="offline", TUNER_CACHE=cache,
+                           QUANT="int8")
+    if tuner.topo_signature(teams[0]) != sigs[0]:
+        raise AssertionError("the offline team's signature is not the "
+                             "sweep's")
+    learned = [ln.strip() for ln in
+               teams[0].score_map.print_info("offline").splitlines()
+               if "learned" in ln]
+    if not learned:
+        raise AssertionError("no learned row in the offline team's map")
+    for ln in learned:
+        log(f"quant: print_info {ln}")
+    tuned = tuned_rows(ctxs, teams, "tuned", smi)
+    destroy_job(ctxs, teams)
+    for key in sorted(tuned):
+        (dalg, dp50), (talg, tp50) = default[key], tuned[key]
+        log(f"quant: offline {key[0].lower()} {key[1]} f32/rank: tuned "
+            f"{talg} p50 {tp50:.3f} ms against default {dalg} p50 "
+            f"{dp50:.3f} ms (ratio {tp50 / dp50:.3f}) | card {smi}")
+    return {"records": len(records), "entries": len(entries),
+            "sweep_s": sweep_s,
+            "tuned": {f"{c} {n}": v for (c, n), v in tuned.items()},
+            "default": {f"{c} {n}": v for (c, n), v in default.items()}}
+
+
+def quant_online(smi, tmp) -> dict:
+    """(d) UCC_TUNER=online with UCC_TUNER_SAMPLES=8 on CUDA memory:
+    allreduce at the one-pass and chunked sizes through exploration and
+    the hold window; every round correct, every rank frozen on the same
+    winner; the next team loads rank 0's cache entry and explores
+    nothing."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.score import tuner
+    cache = os.path.join(tmp, "online.json")
+    over = dict(TUNER="online", TUNER_SAMPLES=str(TUNER_SAMPLES),
+                TUNER_CACHE=cache)
+    tuner.session_reset()
+    ctxs, teams = make_job(N_RANKS, **over)
+    winners = {}
+    for count in (SMALL_COUNT, MAIN_COUNT):
+        srcs = quant_srcs(N_RANKS, count, torch.float32, 41)
+        want = quant_exact("ALLREDUCE", srcs, "SUM")
+        reqs, dsts = quant_requests(teams, "ALLREDUCE", srcs, "SUM")
+        if not all("post" in rq.__dict__ for rq in reqs):
+            raise AssertionError("online: the probe lane is not bound")
+        algs = []
+        for i in range(ONLINE_ROUNDS):
+            for d in dsts:
+                d.zero_()
+            for rq in reqs:
+                rq.post()
+            until(ctxs, lambda: settled(reqs), f"online round {i}")
+            all_ok(reqs, f"online round {i}")
+            for d in dsts:
+                if not torch.allclose(d.double(), want,
+                                      rtol=MAIN_RTOL, atol=MAIN_ATOL):
+                    raise AssertionError(f"online round {i} via "
+                                         f"{reqs[0].task.alg_name}: wrong")
+            algs.append(reqs[0].task.alg_name)
+        if any("post" in rq.__dict__ for rq in reqs):
+            raise AssertionError("online: the probe lane is still bound")
+        final = {rq.task.alg_name for rq in reqs}
+        if len(final) != 1:
+            raise AssertionError(f"online: ranks froze {final}")
+        key = teams[0].tuner.key_for(ucc.CollType.ALLREDUCE,
+                                     ucc.MemoryType.CUDA, count * 4)
+        st = teams[0].tuner._keys[key]
+        meds = {f"{c}/{a}": sorted(v)[len(v) // 2] * 1e3
+                for (c, a), v in st.samples.items()}
+        winners[count] = (final.pop(), st.winner)
+        for rq in reqs:
+            rq.finalize()
+        log(f"quant: online allreduce {count} f32/rank, {TUNER_SAMPLES} "
+            f"samples: rounds ran {' '.join(algs)}; rank 0's medians "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(meds.items()))
+            + f"; every rank frozen on {winners[count][0]} | card {smi}")
+        del srcs, dsts
+    sig = tuner.topo_signature(teams[0])
+    destroy_job(ctxs, teams)
+    entries = tuner.cache_entries(tuner.load_cache(cache), sig)
+    tuner.session_reset()
+    ctxs, teams = make_job(N_RANKS, **over)
+    for count, (alg, _) in winners.items():
+        top = teams[0].score_map.lookup(ucc.CollType.ALLREDUCE,
+                                        ucc.MemoryType.CUDA, count * 4)[0]
+        if (top.alg_name, top.origin) != (alg, "learned"):
+            raise AssertionError(f"online: the next team's top at {count} "
+                                 f"is {top.alg_name} ({top.origin}), not "
+                                 f"the learned {alg}")
+        srcs = quant_srcs(N_RANKS, count, torch.float32, 42)
+        reqs, dsts = quant_requests(teams, "ALLREDUCE", srcs, "SUM")
+        if any("post" in rq.__dict__ for rq in reqs) or \
+                {rq.task.alg_name for rq in reqs} != {alg}:
+            raise AssertionError("online: the next team explores again")
+        time_rounds(ctxs, reqs, "online reload")
+        if not torch.allclose(dsts[0].double(),
+                              quant_exact("ALLREDUCE", srcs, "SUM"),
+                              rtol=MAIN_RTOL, atol=MAIN_ATOL):
+            raise AssertionError("online reload: wrong result")
+        del srcs, dsts
+    if teams[0].tuner._keys:
+        raise AssertionError("online: the next team explored a key")
+    destroy_job(ctxs, teams)
+    log(f"quant: online cache of rank 0: {len(entries)} entries, loaded "
+        f"by the next team (learned rows on top, no exploration) | card "
+        f"{smi}")
+    return {str(k): v for k, v in winners.items()}
+
+
+def main_path_quant(smi, counters) -> dict:
+    """Phase 11: quantized collectives and measured selection. Returns
+    every kernel's launches over the phase."""
+    import tempfile
+    t0 = time.perf_counter()
+    base = {k: w.launches for k, w in counters.items()}
+    res = {"device": quant_device_rows(smi)}
+    log(f"quant: (a) device rows in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    res["host"] = quant_host_rows(smi)
+    log(f"quant: (b) host rows in {time.perf_counter() - t1:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="ucc_tune_") as tmp:
+        t1 = time.perf_counter()
+        res["offline"] = quant_offline(smi, tmp)
+        log(f"quant: (c) offline tuning in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        res["online"] = quant_online(smi, tmp)
+        log(f"quant: (d) online tuning in {time.perf_counter() - t1:.1f} s")
+    res["launches"] = {k: w.launches - base[k] for k, w in counters.items()}
+    log(f"quant: launches over the phase {res['launches']} | quant phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -7096,6 +7600,9 @@ def main() -> int:
     # -- 10. hier: topology and the hierarchical CL ------------------------
     hier = main_path_hier(smi)
 
+    # -- 11. quant: quantized collectives and measured selection -----------
+    quant = main_path_quant(smi, counters)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -7109,6 +7616,7 @@ def main() -> int:
         rec["procs_launches"] = procs["launches"].get(rec["name"], 0)
         rec["span_launches"] = span["launches"].get(rec["name"], 0)
         rec["hier_launches"] = hier["launches"].get(rec["name"], 0)
+        rec["quant_launches"] = quant["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

@@ -118,7 +118,7 @@ def test_bad_arguments_exit_as_ucc_tpu(bad):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sweep"], ["--quant"], ["--gen"], ["--gen-device"],
+    ["--gen"], ["--gen-device"],
     ["--teams", "2", "--storm"], ["--store", "h:1", "--procs", "2"],
     ["--procs", "2", "-c", "memcpy"], ["-m", "cuda_managed"]])
 def test_unported_modes_are_refused(flag):
@@ -130,19 +130,22 @@ def test_unported_modes_are_refused(flag):
 @pytest.mark.parametrize("flag", [
     ["-O", "-m", "host"], ["-O", "-m", "host", "-c", "alltoallv"],
     ["-T", "-m", "host"], ["--matrix", "moe", "-c", "alltoallv"],
-    ["-c", "alltoallv"], ["-c", "reduce"]])
+    ["-c", "alltoallv"], ["-c", "reduce"], ["--sweep"], ["--quant"]])
 def test_ported_modes_match_ucc_tpus_records(capsys, monkeypatch, flag):
-    """-O (allreduce and the alltoallv row), -T, --matrix moe, and the
-    collective types beyond the five: they run, and each record has
-    ucc_tpu's perftest's fields for the same arguments (-m host; the
-    others on the port's -m cuda, the CPU device here). Both perftests'
-    -O set the host TLs' TUNE in the environment, which is put back
-    after; ucc_tpu's -T leaves its execution engines' progress threads
-    running, so that one runs in a process of its own."""
-    for tl in ("SHM", "SOCKET"):
+    """-O (allreduce and the alltoallv row), -T, --matrix moe, --sweep,
+    --quant, and the collective types beyond the five: they run, and each
+    record has ucc_tpu's perftest's fields for the same arguments (-m
+    host; the others on the port's -m cuda, the CPU device here). Both
+    perftests' -O set the host TLs' TUNE in the environment and --quant
+    sets UCC_QUANT, which are put back after; ucc_tpu's -T leaves its
+    execution engines' progress threads running, so that one runs in a
+    process of its own. --sweep prints a record per (size, algorithm),
+    each package over its own score map's candidates, so its records are
+    compared as sets of field lists."""
+    for var in ("UCC_TL_SHM_TUNE", "UCC_TL_SOCKET_TUNE", "UCC_QUANT"):
         # recorded as unset, so that the undo removes what -O sets
-        monkeypatch.setenv(f"UCC_TL_{tl}_TUNE", "")
-        monkeypatch.delenv(f"UCC_TL_{tl}_TUNE")
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
     args = ["-b", "64", "-e", "128", "-n", "2", "-w", "1", "-p", "2",
             "--json", "-F", *flag]
     host = "-m" in flag
@@ -158,6 +161,18 @@ def test_ported_modes_match_ucc_tpus_records(capsys, monkeypatch, flag):
         want = records(capsys.readouterr().out)
     assert perf.main(args if host else [*args, "-m", "cuda"]) == 0
     got = records(capsys.readouterr().out)
+    if "--sweep" in flag:
+        assert sorted({r["size_bytes"] for r in got}) == [64, 128]
+        assert {r["bench"] for r in got} == {"sweep"}
+        for key in (sorted, lambda r: sorted(r["detail"]),
+                    lambda r: (r["coll"], r["ranks"], r["count"])):
+            assert {repr(key(r)) for r in got} == \
+                {repr(key(r)) for r in want}
+        return
+    if "--quant" in flag:
+        for g, w in zip(got, want):
+            assert g["detail"]["quant"]["mode"] == \
+                w["detail"]["quant"]["mode"] == "int8"
     assert [r["size_bytes"] for r in got] == [64, 128]
     assert [sorted(r) for r in got] == [sorted(r) for r in want]
     assert [sorted(r["detail"]) for r in got] == \

@@ -18,8 +18,9 @@ for every collective type of the JAX package's tl/xla, with its
 buffers, and, under
 ``UCC_GEN_DEVICE=y``, the generated device collectives: verified programs
 of the collective DSL ``dsl/`` lowered by ``dsl/lower_device.py`` and run
-by the kernels of ``kernels/gen_device.py``; ``quant/`` holds the wire
-precisions' policy); the execution components ``ec/`` (numpy on
+by the kernels of ``kernels/gen_device.py``; under ``UCC_QUANT`` the
+block-quantized ``qint8``/``qfp8`` of ``quant/torch_ops.py``); the
+execution components ``ec/`` (numpy on
 the host, the reduce kernel of ``kernels/ec_reduce.py`` on GPU tensors);
 ucc_perftest as ``python -m ucc_tpu_torch.tools.perftest``; and
 context-parallel attention: ``fused_attention`` (ring flash-attention over
@@ -50,7 +51,11 @@ one host's shared-memory arena (the port's copy of the native arena,
 built into the same library) and tl/sockets over TCP, each the service
 team of such teams; the one-sided host collectives (sliding-window
 allreduce, one-sided alltoall(v)) over ``Context.mem_map`` handles; and
-``ucc_perftest --procs``.
+``ucc_perftest --procs``; quantized host collectives
+(``tl/host/quantized.py`` and the codecs of ``quant/``) and measured
+selection: the tuning cache and online exploration of
+``score/tuner.py`` (``UCC_TUNER``), its sweep CLI ``tools/tune.py`` and
+the cost model of ``score/cost.py``.
 
 Attention on the CPU (the kernel's plain version runs on CPU tensors)::
 

@@ -5,7 +5,8 @@ Memtype auto-detect via MC, the zero-size fast path with a stub task
 one-sided args, the score-map lookup with fallback at init and, once, at
 run time, the datatype check of rooted collectives
 (``UCC_CHECK_ASYMMETRIC_DT``), timeout stamping, persistent re-post, the
-user callback, and the request's metrics and profiling spans.
+user callback, the request's metrics and profiling spans, and the tuner's
+probe lane (``UCC_TUNER=online``, score/tuner.py).
 """
 from __future__ import annotations
 
@@ -99,11 +100,18 @@ _FALLBACK_ELIGIBLE = frozenset((Status.ERR_NOT_SUPPORTED,
 class CollRequest:
     """ucc_coll_req_h: post/test/finalize + persistent re-post."""
 
+    #: tuner probe lane (score/tuner.py): while a (coll, mem, size-bucket)
+    #: key is still exploring, ``_bind_tuner`` shadows the class ``post``
+    #: with ``_tuner_post`` as an INSTANCE attribute, so UCC_TUNER=off adds
+    #: no per-post branch
+    _tuner = None
+
     def __init__(self, task: CollTask, team: Team, args: CollArgs):
         self.task = task
         self.team = team
         self.args = args
         self._posted = False
+        self._finalized = False
         #: runtime fallback chain: (init_args, [remaining MsgRange]), set
         #: by collective_init for plain non-persistent requests
         self._fallback = None
@@ -167,6 +175,152 @@ class CollRequest:
         except Exception:  # noqa: BLE001 - opt-in probe must never break post
             self._fast = False
         return self._fast
+
+    # ------------------------------------------------------------------
+    # tuner probe lane (UCC_TUNER=online; score/tuner.py). While bound the
+    # request never takes the persistent fast re-post lane: every post
+    # goes through the task's own post and completes through the progress
+    # queue, where the timing callback runs. A swapped-in task takes a new
+    # tag of its TL, so a device TL's launch cache (keyed by tag) never
+    # serves it another task's pointer table.
+    def _bind_tuner(self, tuner, key, init_args, candidates,
+                    chosen) -> None:
+        self._tuner = tuner
+        self._tuner_key = key
+        self._tuner_ia = init_args
+        self._tuner_cands = candidates
+        self._tuner_cur = chosen
+        self._tuner_user_cb = self.task.cb   # restore target on unbind
+        self._tuner_wrapped_cb = None
+        self.post = self._tuner_post         # shadow the class method
+
+    def _tuner_unbind(self) -> None:
+        if self._tuner_wrapped_cb is not None and \
+                self.task.cb is self._tuner_wrapped_cb:
+            self.task.cb = self._tuner_user_cb
+        self._tuner_wrapped_cb = None
+        self._tuner = None
+        self.__dict__.pop("post", None)      # back to the class post
+        # the fast lane is probed afresh on the task the lane leaves
+        self._fast = None if (self._persistent and not self._trace and
+                              hasattr(self.task, "fast_repost")) else False
+
+    def _tuner_swap_task(self, cand, new_task) -> None:
+        old = self.task
+        try:
+            old.finalize()
+        except Exception:  # noqa: BLE001 - probe teardown is best-effort
+            logger.debug("finalize of the replaced task raised",
+                         exc_info=True)
+        new_task.coll_name = old.coll_name
+        new_task.alg_name = str(cand.alg_name or cand.team)
+        new_task.timeout = old.timeout
+        _attach_user_opts(new_task, self.args)
+        if profiling.ENABLED:
+            _attach_profiling(new_task, self.args.coll_type)
+        self.task = new_task
+        self._tuner_cur = cand
+        self._tuner_user_cb = new_task.cb
+        self._tuner_wrapped_cb = None
+
+    def _tuner_swap_to_winner(self, winner) -> None:
+        """Re-init the frozen winner under this request, so later posts
+        run it without another collective_init. An init failure
+        propagates: every peer switches to the team's winner at this same
+        post, so a rank that cannot run it must fail loudly — keeping
+        another algorithm would deadlock the team."""
+        from ..score.tuner import cand_label
+        if cand_label(self._tuner_cur) == winner:
+            return
+        for cand in self._tuner_cands:
+            if cand.init is None or cand_label(cand) != winner:
+                continue
+            new_task = cand.init(self._tuner_ia, cand.team)
+            self._tuner_swap_task(cand, new_task)
+            return
+
+    def _tuner_post(self) -> Status:
+        """Exploration-round post: deterministic candidate rotation with
+        post -> completion timing, until the rank-0 decision freezes the
+        key and the request drops back to the plain post."""
+        from ..score.tuner import cand_label
+        task = self.task
+        st = task.super_status
+        if self._posted and st == Status.IN_PROGRESS:
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           "collective re-posted while in progress")
+        if self._posted and not self._persistent:
+            # the class post's user-error contract; re-running would also
+            # take an exploration slot on this rank only and desync the
+            # per-key counters
+            raise UccError(Status.ERR_INVALID_PARAM,
+                           "re-post of non-persistent collective")
+        if task.triggered_task is not None:
+            # an EE dispatches this request and observes THIS task: keep
+            # the plain lifecycle (EE use is the same on every rank, so
+            # leaving without a rotation slot keeps the counters aligned)
+            self._tuner_unbind()
+            return self.post()
+        tuner = self._tuner
+        key = self._tuner_key
+        frozen, winner = tuner.poll(key)
+        if frozen:
+            if winner is not None:
+                self._tuner_swap_to_winner(winner)
+            self._tuner_unbind()
+            return self.post()
+        if not tuner.claim(key, self):
+            # another un-finalized request drives this key (overlapped
+            # posts): the key froze to the static defaults
+            self._tuner_unbind()
+            return self.post()
+        new_task = None
+        chosen = None
+        for cand in tuner.explore_order(key, self._tuner_cands):
+            if cand is self._tuner_cur:
+                new_task, chosen = task, cand
+                break
+            try:
+                new_task = cand.init(self._tuner_ia, cand.team)
+            except UccError as e:
+                if e.status != Status.ERR_NOT_SUPPORTED:
+                    # only NOT_SUPPORTED is the same on every rank (a
+                    # function of the args); a rank-local failure must
+                    # surface, not shift this rank's rotation
+                    raise
+                tuner.record_unsupported(key, cand)
+                continue
+            chosen = cand
+            break
+        if new_task is None:
+            # nothing explorable survived init: leave the probe lane
+            self._tuner_unbind()
+            return self.post()
+        if new_task is not task:
+            self._tuner_swap_task(chosen, new_task)
+        elif self._posted:
+            new_task.reset()
+        self._posted = True
+        new_task.progress_queue = self.team.context.progress_queue
+        if metrics.ENABLED:
+            metrics.inc("coll_posted", component="core",
+                        coll=new_task.coll_name or "",
+                        alg=new_task.alg_name or "")
+        if self._trace:
+            logger.info("coll post (tuner explore): %s alg %s team %s "
+                        "seq %d", new_task.coll_name, new_task.alg_name,
+                        self.team.id, new_task.seq_num)
+        label = cand_label(chosen)
+        t0 = time.perf_counter()
+        user_cb = self._tuner_user_cb
+
+        def cb(t, s, _t0=t0):
+            tuner.record(key, label, time.perf_counter() - _t0, s)
+            if user_cb is not None:
+                user_cb(t, s)
+        new_task.cb = cb
+        self._tuner_wrapped_cb = cb
+        return new_task.post()
 
     def test(self) -> Status:
         st = self.task.super_status
@@ -247,6 +401,10 @@ class CollRequest:
         if self.task.super_status == Status.IN_PROGRESS:
             raise UccError(Status.ERR_INVALID_PARAM,
                            "finalize of in-progress collective")
+        # program-order marker of the tuner's per-key claim(): a finalized
+        # request posts no more, so a later request on its key is
+        # sequential, not overlapped
+        self._finalized = True
         return self.task.finalize()
 
 
@@ -335,7 +493,17 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
     if profiling.ENABLED:
         _attach_profiling(task, ct)
     req = CollRequest(task, team, args)
-    if task is inner and not args.is_persistent:
+    tuner = team.tuner
+    if tuner is not None and task is inner and args.active_set is None \
+            and tuner.wants(ct, mem_type, msgsize, candidates):
+        # tuner probe lane (UCC_TUNER=online): the first UCC_TUNER_SAMPLES
+        # posts of this (coll, mem, size-bucket) rotate through the
+        # candidates, then the rank-0 winner freezes. Plain tasks only (a
+        # dt-checked schedule's identity is not the algorithm's), and not
+        # with the runtime fallback: the lane owns the task's identity
+        req._bind_tuner(tuner, tuner.key_for(ct, mem_type, msgsize),
+                        init_args, candidates, chosen)
+    elif task is inner and not args.is_persistent:
         # keep the chain's tail for the runtime fallback; a persistent
         # request's re-post lanes cache the task's identity, and a
         # dt-checked schedule's failure status is the schedule's

@@ -61,12 +61,33 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
     ConfigField("QOS_AGE_MS", "10", "anti-starvation bound in milliseconds: "
                 "a queued task older than this is serviced regardless of "
                 "its lane's WRR cap", parse_string),
-    # the lib fields the generated device collectives read (dsl/, quant/),
+    ConfigField("TUNER", "off", "measurement-driven algorithm selection "
+                "(score/tuner.py): off = static score map only (no "
+                "dispatch branches); offline = load the topology-keyed "
+                "tuning cache (written by ucc_tune, perftest --sweep "
+                "compilations or earlier online runs) at team activation; "
+                "online = also explore live candidates during the first "
+                "TUNER_SAMPLES posts per (coll, mem, size-bucket), freeze "
+                "the rank-0 winner team-wide over the service team, and "
+                "persist it to the cache",
+                parse_enum(("off", "offline", "online"))),
+    ConfigField("TUNER_SAMPLES", "8", "online exploration budget: tuned "
+                "posts per (coll, mem, size-bucket) before every rank "
+                "posts the decision bcast and freezes rank 0's measured "
+                "winner", parse_uint),
+    ConfigField("TUNER_CACHE", "", "tuning-cache file (JSON keyed by the "
+                "topology signature: team size, node layout, TL set, "
+                "thread mode); empty = ~/.cache/ucc_tpu_torch/tune.json",
+                parse_string),
+    # the lib fields the quantized and generated device collectives read
+    # (quant/, dsl/),
     # with the JAX package's defaults
     ConfigField("QUANT", "off", "block-scaled wire precision for eligible "
-                "collectives: off = exact only (candidate lists "
-                "unchanged); int8/fp8 = register quantized variants",
-                parse_enum(("off", "int8", "fp8"))),
+                "collectives (allreduce/allgather, float32/bfloat16 "
+                "payloads): off = exact only (candidate lists "
+                "unchanged); int8/fp8 = register the quantized variants "
+                "of tl/shm and tl/torch_ops", parse_enum(("off", "int8",
+                                                          "fp8"))),
     ConfigField("QUANT_ALLREDUCE", "", "per-collective precision override "
                 "for allreduce (off|int8|fp8; empty = inherit UCC_QUANT)",
                 parse_string),
@@ -81,7 +102,7 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
                 "0.1, fp8: 1.0); an explicit float gates strictly",
                 parse_string),
     ConfigField("QUANT_STOCHASTIC", "n", "stochastic rounding in the int8 "
-                "encoder (no device codec: device programs refuse it)",
+                "host encoder (the generated device programs refuse it)",
                 parse_bool),
     ConfigField("GEN_DEVICE", "n", "generated device collectives "
                 "(dsl/lower_device): y = lower verified DSL programs "

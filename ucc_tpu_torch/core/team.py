@@ -17,9 +17,15 @@ Creation is UCC's nonblocking state machine (ucc_team_create_test):
 - CL_CREATE: create each CL's team; failures fall back to remaining CLs.
 - CL_AGREE: one OOB round keeps only the CLs that exist on every member;
   then the team's topology (``TeamTopo`` over its ``ctx_map``) is built.
-- TUNER_SYNC: no tuner in this package; the state passes straight through
-  (under UCC_COLL_TRACE it logs the score map and each CL's resolved
-  topology).
+- TUNER_SYNC: under UCC_TUNER=offline|online, a multi-rank team syncs the
+  tuning cache: rank 0 loads its cache file and bcasts the entries that
+  match the team's topology signature over the service team, and every
+  rank compiles exactly that payload into its score map (per-rank reads
+  of a per-node file could diverge); ``online`` also attaches the
+  explorer as ``team.tuner``. With the tuner off no round is posted and
+  the state passes straight through. Under UCC_COLL_TRACE it then logs
+  the score map (learned rows with their provenance) and each CL's
+  resolved topology.
 - ACTIVE: merge all CL scores into the team score map.
 """
 from __future__ import annotations
@@ -52,6 +58,9 @@ class TeamState(enum.IntEnum):
     CL_AGREE = 4
     ACTIVE = 5
     FAILED = 6
+    #: tuning-cache sync (UCC_TUNER=offline|online, multi-rank teams):
+    #: rank 0 bcasts its view of the cache so every rank compiles the
+    #: same learned entries; no round when the tuner is off
     TUNER_SYNC = 7
 
 
@@ -59,6 +68,10 @@ class Team:
     """ucc_team_h. Construct via Context.create_team_post()."""
 
     _destroyed = False
+    #: online tuner (score/tuner.OnlineTuner), attached at activation when
+    #: UCC_TUNER=online; None (class attr, no cost) otherwise — dispatch
+    #: reads it once per collective INIT
+    tuner = None
 
     def __init__(self, context: Context, params: Optional[TeamParams] = None):
         self.context = context
@@ -191,9 +204,30 @@ class Team:
                 return st
             self.topo = TeamTopo(self.context.topo, self.ctx_map, self.rank)
             self._build_score_map()
+            # tuning-cache sync (rank 0 authoritative); activation_begin
+            # posts nothing when the tuner is off. Tuning never fails a
+            # team's creation
+            from ..score.tuner import activation_begin
+            try:
+                self._pending_task = activation_begin(self)
+            except Exception:  # noqa: BLE001
+                logger.exception("tuner cache-sync post failed; team %s "
+                                 "continues untuned", self.id)
+                self._pending_task = None
             self.state = TeamState.TUNER_SYNC
 
         if self.state == TeamState.TUNER_SYNC:
+            task = self._pending_task
+            if task is not None and not task.is_completed():
+                return Status.IN_PROGRESS
+            self._pending_task = None
+            from ..score.tuner import activation_end
+            try:
+                activation_end(self, task)
+            except Exception:  # noqa: BLE001 - tuned is better, untuned ok
+                logger.exception("tuner activation failed; team %s "
+                                 "continues with the static score map",
+                                 self.id)
             if self.context.lib.config.coll_trace:
                 logger.info("%s", self.score_map.print_info(
                     f"team {self.id} size {self.size}"))

@@ -88,6 +88,12 @@ def reduce_arrays(srcs: Sequence[np.ndarray], op: ReductionOp,
     """
     bf16 = dt == DataType.BFLOAT16
     nd = storage_dtype(dt)
+    if bf16 and len(srcs) and srcs[0].dtype != nd:
+        # a bfloat16 payload already widened into float32 scratch (the
+        # quantized collectives' dequantize-and-accumulate): reduce in
+        # that dtype and keep its precision, never rounding partial sums
+        # through bfloat16
+        bf16, nd = False, srcs[0].dtype
     is_float_like = bf16 or np.issubdtype(nd, np.floating) or \
         np.issubdtype(nd, np.complexfloating)
 

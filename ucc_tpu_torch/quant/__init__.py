@@ -1,7 +1,14 @@
 """Quantized (block-scaled low-precision) collectives — the policy layer
 (the port's copy of ``ucc_tpu/quant/__init__.py``).
 
-With ``UCC_QUANT=off`` (the default) nothing quantized registers. Knobs of
+When ``UCC_QUANT`` selects a precision, tl/shm (``tl/host/quantized.py``:
+``q<mode>_sra``, ``q<mode>_ring``, ``q<mode>_linear``) and tl/torch_ops
+(``q<mode>``, the torch ops of ``quant/torch_ops.py``) register quantized
+variants with a precision tag; the tuner explores them like any other
+candidate, and the error budget gates them per collective at init (a
+refused candidate is ERR_NOT_SUPPORTED, and the fallback walk lands on an
+exact algorithm). With ``UCC_QUANT=off`` (the default) nothing quantized
+registers: candidate lists and dispatch stay as they were. Knobs of
 the lib's global table: ``UCC_QUANT=off|int8|fp8``, the per-collective
 overrides ``UCC_QUANT_ALLREDUCE`` / ``UCC_QUANT_ALLGATHER`` (empty
 inherits), ``UCC_QUANT_BLOCK`` (256 elements per scale), the error budget
@@ -14,14 +21,20 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
-from ..constants import CollType
+from ..constants import CollType, DataType
 from .codec import CODECS, BlockCodec, get_codec, n_blocks, wire_count
 
 __all__ = ["QuantParams", "coll_mode", "params_for", "admits",
-           "predicted_error", "default_budget", "CODECS", "BlockCodec",
-           "get_codec", "wire_count", "n_blocks"]
+           "predicted_error", "default_budget", "wire_ratio", "CODECS",
+           "BlockCodec", "get_codec", "wire_count", "n_blocks",
+           "QUANT_COLLS", "QUANT_DTS"]
 
 _MODES = ("int8", "fp8")
+
+#: collectives served by quantized variants, and the payload dtypes the
+#: codecs accept (block-absmax scaling needs a float payload)
+QUANT_COLLS = (CollType.ALLREDUCE, CollType.ALLGATHER)
+QUANT_DTS = (DataType.FLOAT32, DataType.BFLOAT16)
 
 _COLL_FIELD = {CollType.ALLREDUCE: "quant_allreduce",
                CollType.ALLGATHER: "quant_allgather"}
@@ -136,3 +149,9 @@ def admits(params: QuantParams, coll: CollType, team_size: int,
     """Does the caller's error budget admit this quantized candidate?"""
     return predicted_error(params.codec, coll, team_size,
                            variant) <= params.budget
+
+
+def wire_ratio(count: int, elem_size: int, block: int) -> float:
+    """wire bytes / logical bytes for a count-element payload."""
+    logical = count * elem_size
+    return wire_count(count, block) / logical if logical else 1.0

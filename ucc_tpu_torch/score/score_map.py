@@ -5,10 +5,11 @@ structure; ``lookup(coll, mem, msgsize)`` returns candidates sorted
 best-first, and ``init_coll`` walks the fallback chain when a candidate's
 init returns ERR_NOT_SUPPORTED. The team-creation score dump
 (``ucc_coll_score_map_print_info``, shown via UCC_COLL_TRACE) is
-``print_info()``.
+``print_info()``; ``apply_learned`` is the tuner's recompile in place.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, List, Optional, Tuple
 
 from ..constants import CollType, MemoryType, coll_type_str
@@ -17,6 +18,11 @@ from ..utils.log import get_logger
 from .score import CollScore, MsgRange, SCORE_MAX
 
 logger = get_logger("score")
+
+#: score the tuner promotes a measured winner to: above every default and
+#: every finite tune-str score, below SCORE_MAX so that an explicit
+#: ``...:inf`` in a TUNE string still outranks a learned decision
+LEARNED_SCORE = SCORE_MAX - 1
 
 
 def comp_name(r: MsgRange) -> str:
@@ -86,6 +92,48 @@ class ScoreMap:
         raise last_err or UccError(Status.ERR_NOT_SUPPORTED,
                                    f"all candidates failed for "
                                    f"{coll_type_str(coll)}")
+
+    # ------------------------------------------------------------------
+    # the tuner's recompile in place (score/tuner.py)
+    def apply_learned(self, coll: CollType, mem: MemoryType, start: int,
+                      end: int, alg: str, comp: Optional[str] = None,
+                      score: int = LEARNED_SCORE,
+                      origin: str = "learned") -> bool:
+        """Promote the measured winner *alg* (of the component *comp*,
+        when given) to *score* over [start, end), splitting its ranges at
+        the window's bounds. Other candidates keep their scores and stay
+        the fallback chain. False when no range of that algorithm overlaps
+        the window (an entry learned on a build with other algorithms).
+        ``origin`` is the promoted range's provenance in the score dump."""
+        if start >= end:
+            return False
+        key = (coll, mem)
+        lst = self._score.ranges.get(key)
+        if not lst:
+            return False
+        out: List[MsgRange] = []
+        hit = False
+        for r in lst:
+            if r.alg_name != alg or r.init is None or \
+                    (comp is not None and comp_name(r) != comp) or \
+                    not r.overlaps(start, end):
+                out.append(r)
+                continue
+            lo = max(r.start, start)
+            hi = min(r.end, end)
+            if r.start < lo:
+                out.append(replace(r, end=lo))
+            mid = replace(r, start=lo, end=hi)
+            mid.score = score
+            mid.origin = origin or "learned"
+            out.append(mid)
+            if hi < r.end:
+                out.append(replace(r, start=hi))
+            hit = True
+        if hit:
+            self._score.ranges[key] = out
+            self._sorted[key] = _cand_order(out)
+        return hit
 
     def print_info(self, team_name: str = "team") -> str:
         """Score-map dump like UCC's team-create log: every row names the

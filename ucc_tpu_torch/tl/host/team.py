@@ -9,11 +9,14 @@ ids and for the datatype check).
 
 The one-sided rows (allreduce ``sliding_window``, alltoall and
 alltoallv ``onesided``; ``onesided.py``) sit at score 1, TUNE-only, as in
-the JAX package. On a team that spans nodes the ring algorithms run
-over the host-ordered rank subset (``topo_ordered_subset``), and the
-large-message allgather default is ring. Left for later slices, with
-the candidate lists unchanged where they are off by default: the ``q*``
-quantized rows (UCC_QUANT), the generated candidates (UCC_GEN) and the
+the JAX package. Under ``UCC_QUANT`` the quantized rows of
+``quantized.py`` register with the JAX package's ids, names, selects and
+precision tags (allreduce ``q<mode>_sra`` id 5 and ``q<mode>_ring`` id 6,
+allgather ``q<mode>_linear`` id 7). On a team that spans nodes the ring
+algorithms run over the host-ordered rank subset
+(``topo_ordered_subset``), and the large-message allgather default is
+ring. Left for later slices, with the candidate lists unchanged where
+they are off by default: the generated candidates (UCC_GEN) and the
 native-plan ``+plan`` marks (UCC_GEN_NATIVE) come with the compiler's
 host half.
 """
@@ -25,6 +28,7 @@ import numpy as np
 
 from ...api.types import BufferInfo, CollArgs
 from ...constants import CollType, MemoryType, ReductionOp, dt_from_numpy
+from ...quant import coll_mode
 from ...schedule.task import CollTask
 from ...score.score import CollScore
 from ...utils.ep_map import EpMap, EpMapType, Subset
@@ -42,6 +46,7 @@ from .knomial2 import (BcastSagKnomial, GatherKnomial, ReduceScatterKnomial,
                        ScatterKnomial)
 from .onesided import (AllreduceSlidingWindow, AlltoallOnesided,
                        AlltoallvOnesided)
+from .quantized import AllgatherQuant, AllreduceQuantRing, AllreduceQuantSra
 from .ring import (AllgatherRing, AllgathervRing, ReduceScatterRing,
                    ReduceScatterRingBidirectional, ReduceScattervRing,
                    allreduce_ring_init)
@@ -174,16 +179,16 @@ class HostTlTeam(TlTeamBase):
             if self._ag_large_alg() == "ring" else (S + 3, S + 5)
         a2a_switch = 129 * tsize
 
-        def spec(i, name, cls, sel=None, **kw):
+        def spec(i, name, cls, sel=None, precision="", **kw):
             def init(ia, team, _cls=cls, _kw=kw):
                 if ia.args.active_set is not None:
                     # active-set subset execution (bcast only, enforced
                     # by core dispatch)
                     return self.coll_init_active_set(ia)
                 return _cls(ia, self, **_kw)
-            return AlgSpec(i, name, init, sel)
+            return AlgSpec(i, name, init, sel, precision=precision)
 
-        return {
+        table = {
             CollType.ALLREDUCE: [
                 spec(0, "knomial", AllreduceKnomial,
                      sel=f"0-4k:{S + 5},4k-inf:{S - 5}"),
@@ -285,6 +290,26 @@ class HostTlTeam(TlTeamBase):
                 spec(0, "linear", ScatterLinear),
             ],
         }
+        # quantized variants (quant/, block-scaled wire formats):
+        # ordinary candidates with a precision tag, present only when
+        # UCC_QUANT selects a precision, so the off path keeps its
+        # candidate lists. When on, the quantized default takes the
+        # >= 64K range; the exact algorithms stay the fallback chain (and
+        # serve when the error budget refuses quantization at init)
+        q_ar = coll_mode(self, CollType.ALLREDUCE)
+        if q_ar:
+            table[CollType.ALLREDUCE] += [
+                spec(5, f"q{q_ar}_sra", AllreduceQuantSra,
+                     sel=f"0-64k:1,64k-inf:{S + 6}", precision=q_ar),
+                spec(6, f"q{q_ar}_ring", AllreduceQuantRing,
+                     sel=f"0-64k:1,64k-inf:{S + 4}", precision=q_ar),
+            ]
+        q_ag = coll_mode(self, CollType.ALLGATHER)
+        if q_ag:
+            table[CollType.ALLGATHER].append(
+                spec(7, f"q{q_ag}_linear", AllgatherQuant,
+                     sel=f"0-64k:1,64k-inf:{S + 6}", precision=q_ag))
+        return table
 
     def get_scores(self) -> CollScore:
         return build_scores(self, self.TL_CLS.DEFAULT_SCORE, self.alg_table(),

@@ -53,6 +53,15 @@ over with only the TL name mapped:
   the other ops and AVG of other types take ``xla``'s program.
   ``UCC_TL_TORCH_OPS_SHORT_MSG_MAX`` sets the threshold: ``auto`` is
   131072 bytes on a ``cpu`` team and 4096 on a ``cuda`` one, 0 disables.
+- ``qint8`` / ``qfp8`` (ALLREDUCE id 3, ALLGATHER id 1, score 38, behind
+  ``UCC_QUANT``; tl/xla's ids and score): the block-scaled quantized
+  programs of ``quant/torch_ops.py`` (SUM and AVG of float32 and
+  bfloat16; the vector zero-padded to a multiple of ``UCC_QUANT_BLOCK``).
+  Init refuses, NOT_SUPPORTED and in tl/xla's order, a lib whose
+  precision is another, a payload of another type, another op, and a
+  team size whose predicted error the budget does not admit. The launch
+  reads the block size from the task: there is no compiled program to
+  key on it, where tl/xla keys its program cache on ``qblock``.
 - ``gen_dev_*`` (ids 200+, score 2, behind ``UCC_GEN_DEVICE=y``): verified
   DSL programs lowered by ``dsl/lower_device`` and run by the kernels of
   ``kernels/gen_device.py`` (exact plans and wire plans with a fold plan
@@ -73,7 +82,8 @@ tl/device_sync) runs the reference's replicated program: each process
 computes its own ranks' dsts with the same library ops over all n srcs (its
 own and its peers', mapped through CUDA IPC; an src that lies in one of the
 process's dsts is read from a copy, since peers read it while the process
-writes), and the candidate lists are the reference's for a team that is
+writes; the quantized programs run so as well, each process computing the
+same bits), and the candidate lists are the reference's for a team that is
 not all local: no ``short``, no SCATTERV, ALLTOALLV served (the counts
 travel in the round's descriptors), ``ring`` one point below ``xla``;
 ``gen_dev_*`` refuse it at init (not ported to such teams yet).
@@ -92,6 +102,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from .. import quant
 from ..api.types import BufferInfoV
 from ..constants import CollType, MemoryType, ReductionOp, coll_type_str
 from ..core.components import BaseLib, TransportLayer, register_tl
@@ -99,6 +110,7 @@ from ..dsl import lower_device as ld
 from ..dsl.ir import Program
 from ..kernels import ring_common as kc
 from ..kernels.ring_common import RingLaunch
+from ..quant.torch_ops import quant_allgather, quant_allreduce
 from ..score.score import CollScore
 from ..status import Status, UccError
 from ..utils.config import (ConfigField, ConfigTable, parse_memunits,
@@ -147,6 +159,8 @@ _SHORT_FOLD = {ReductionOp.SUM: torch.add, ReductionOp.PROD: torch.mul,
                ReductionOp.MAX: torch.maximum,
                ReductionOp.MIN: torch.minimum, **_BITWISE}
 _HALF = (torch.float16, torch.bfloat16)
+#: the quantized variants' names
+_QUANT_ALGS = ("qint8", "qfp8")
 _NUMPY_FLOATS = (torch.float16, torch.float32, torch.float64)
 
 
@@ -421,6 +435,18 @@ def _short_bcast(t, srcs, dsts, tasks):
     return ()
 
 
+def _quant_allreduce(t, srcs, dsts, tasks):
+    return _to_all(dsts, quant_allreduce(srcs, t.op, t.alg[1:], t.qblock))
+
+
+def _quant_allgather(t, srcs, dsts, tasks):
+    return _to_all(dsts, quant_allgather(srcs, t.alg[1:], t.qblock,
+                                         srcs[0].numel()))
+
+
+_QUANT = {CollType.ALLREDUCE: _quant_allreduce,
+          CollType.ALLGATHER: _quant_allgather}
+
 _PROGRAMS = {
     "xla": _XLA,
     "ring": {CollType.ALLREDUCE: _ring_allreduce},
@@ -428,6 +454,8 @@ _PROGRAMS = {
     # when the stream passes them, as xla's
     "short": {CollType.ALLREDUCE: _short_reduce,
               CollType.REDUCE: _short_reduce, CollType.BCAST: _short_bcast},
+    "qint8": _QUANT,
+    "qfp8": _QUANT,
 }
 
 
@@ -461,6 +489,8 @@ class TorchOpsCollTask(DeviceCollTask):
     def __init__(self, init_args, team, alg: str = "xla"):
         self.alg = alg
         self.block = self.layout = None
+        #: scale-block size of a quantized variant (0: exact)
+        self.qblock = 0
         super().__init__(init_args, team)
 
     def peers_read_src(self, tr: int, local) -> bool:
@@ -490,6 +520,8 @@ class TorchOpsCollTask(DeviceCollTask):
                                "takes no BufferInfoV there")
 
     def validate(self) -> None:
+        if self.alg in _QUANT_ALGS:
+            self.validate_quant()
         if self.coll not in _COLLS:
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/torch_ops does not implement {self.coll}")
@@ -514,6 +546,32 @@ class TorchOpsCollTask(DeviceCollTask):
             raise UccError(Status.ERR_NOT_SUPPORTED,
                            f"tl/torch_ops takes {self.op.name} of integer "
                            "types only")
+
+    def validate_quant(self) -> None:
+        """The quantized variants' eligibility, in tl/xla's order: the
+        lib's precision must be this variant's, the payload a float type
+        of the codecs, the allreduce op SUM or AVG, and the error budget
+        must admit the precision; each refusal is NOT_SUPPORTED, so the
+        fallback walk lands on the exact program."""
+        qp = quant.params_for(self.tl_team, self.coll)
+        if qp is None or f"q{qp.mode}" != self.alg:
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "quantized torch_ops variant disabled "
+                           "(UCC_QUANT)")
+        bi = self.args.src if self.args.src is not None else self.args.dst
+        if bi.datatype not in quant.QUANT_DTS:
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "quantized torch_ops variant needs a float "
+                           "payload")
+        if self.coll == CollType.ALLREDUCE and \
+                self.op not in (ReductionOp.SUM, ReductionOp.AVG):
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "quantized torch_ops allreduce supports SUM/AVG")
+        if not quant.admits(qp, self.coll, self.tl_team.size, "direct"):
+            raise UccError(Status.ERR_NOT_SUPPORTED,
+                           "error budget rejects quantized torch_ops "
+                           "variant")
+        self.qblock = qp.block
 
     # -- buffers -----------------------------------------------------------
     def _v(self, bi, side: str) -> tuple:
@@ -735,10 +793,11 @@ class TlTorchOpsTeam(TlDeviceTeam):
     TL_CLS: Any = None
 
     def alg_table(self) -> Dict[CollType, List[AlgSpec]]:
-        def spec(i, name, select=None):
+        def spec(i, name, select=None, precision=""):
             def init(ia, team):
                 return TorchOpsCollTask(ia, self, name)
-            return AlgSpec(i, name, init, default_select=select)
+            return AlgSpec(i, name, init, default_select=select,
+                           precision=precision)
 
         score = TlTorchOps.DEFAULT_SCORE
         # a team that spans processes has the reference's lists for a team
@@ -752,6 +811,19 @@ class TlTorchOpsTeam(TlDeviceTeam):
         # it the default
         table[CollType.ALLREDUCE].append(
             spec(1, "ring", select=f"0-inf:{score - 1}"))
+        # quantized variants (quant/torch_ops), one point below the ring
+        # and two below xla, as in tl/xla: a TUNE string or the tuner
+        # promotes them; absent with UCC_QUANT off
+        q_ar = quant.coll_mode(self, CollType.ALLREDUCE)
+        if q_ar:
+            table[CollType.ALLREDUCE].append(
+                spec(3, f"q{q_ar}", select=f"0-inf:{score - 2}",
+                     precision=q_ar))
+        q_ag = quant.coll_mode(self, CollType.ALLGATHER)
+        if q_ag:
+            table[CollType.ALLGATHER].append(
+                spec(1, f"q{q_ag}", select=f"0-inf:{score - 2}",
+                     precision=q_ag))
         # generated-device candidates, behind UCC_GEN_DEVICE: off keeps
         # the lists unchanged
         backend = ld.device_backend(self)

@@ -38,7 +38,11 @@ Two benchmark paths:
   one-sided algorithms (allreduce ``sliding_window``, alltoall and
   alltoallv ``onesided``; pinned through the tl/shm and tl/sockets TUNE)
   on buffers mem-mapped once per size, the handles exchanged over the
-  team;
+  team. ``--sweep`` force-selects every score-map candidate per size and
+  prints one measurement record per (size, algorithm), the input of
+  ``ucc_tune --from``; ``--quant [int8|fp8]`` sets UCC_QUANT and adds to
+  each record a ``detail.quant`` (wire vs logical bytes and busbw, and the
+  error of one random-data round against float64); both in-process only;
 - executor ops (``-c memcpy|reducedt|reducedt_strided``, UCC's
   ucc_pt_op_{memcpy,reduce,reduce_strided}): the execution component's
   copy/reduce tasks timed directly, no team; ``--nbufs`` sources (caps 7
@@ -54,6 +58,9 @@ Examples::
     python -m ucc_tpu_torch.tools.perftest -m host -c alltoall -O -p 4
     python -m ucc_tpu_torch.tools.perftest -m host -c alltoallv --matrix moe
     python -m ucc_tpu_torch.tools.perftest -m host -c allreduce -T -p 4
+    python -m ucc_tpu_torch.tools.perftest -c allreduce -p 8 --sweep
+    python -m ucc_tpu_torch.tools.perftest -m host -c allreduce -b 256K \
+        -e 256K --json -F --quant int8
 """
 from __future__ import annotations
 
@@ -406,16 +413,18 @@ def transport_tier(team) -> str:
 
 
 class InProcJob:
-    """n ranks in this process: a lib and a context each over a thread
-    OOB (contexts are created in threads: the address exchange blocks),
-    and one team."""
+    """n ranks in this process: a lib (with *lib_overrides*, config fields
+    without ``UCC_``) and a context each over a thread OOB (contexts are
+    created in threads: the address exchange blocks), and one team."""
 
-    def __init__(self, n: int, create_timeout: float = 120.0):
+    def __init__(self, n: int, create_timeout: float = 120.0,
+                 lib_overrides: Optional[dict] = None):
         self.n = n
         self.ranks = list(range(n))
         self.lead = True
         world = ThreadOobWorld(n)
-        self.libs = [ucc_tpu_torch.init() for _ in range(n)]
+        self.libs = [ucc_tpu_torch.init(**(lib_overrides or {}))
+                     for _ in range(n)]
         self.contexts: List[Optional[Context]] = [None] * n
         self.teams = []
         errs: List[Exception] = []
@@ -702,6 +711,128 @@ def wait_reqs(job, reqs) -> None:
             raise SystemExit(f"collective failed: {rq.test()}")
 
 
+def run_sweep_mode(args, job: InProcJob, coll: CollType, dt: DataType,
+                   op: ReductionOp, mem: MemoryType,
+                   device: torch.device) -> int:
+    """--sweep: the msg-size x algorithm sweep. Every score-map candidate
+    of (coll, mem) is force-selected per size and timed; one JSON line per
+    (size, algorithm) in the tuning cache's measurement format, so offline
+    tuning data can come from perftest runs too::
+
+        ucc_perftest -c allreduce --sweep -p 4 > sweep.jsonl
+        ucc_tune --from sweep.jsonl -p 4
+    """
+    from ..api.types import coll_args_msgsize
+    from ..score import cost
+    from ..score.tuner import (cand_label, measure_candidate,
+                               measurement_record, sweep_candidates)
+    global _TRAFFIC_MATRIX
+    # a fitted cost model adds a predicted_us column to generated
+    # candidates' rows
+    cost_model = cost.load_model()
+    n = job.n
+    esz = dt_size(dt)
+    size = max(parse_memunits(args.begin), esz)
+    bmax = parse_memunits(args.end)
+    while size <= bmax:
+        count = max(1, size // esz)
+        if coll == CollType.ALLTOALLV:
+            _TRAFFIC_MATRIX = gen_traffic_matrix(args.matrix or "uniform",
+                                                 n, count, args.seed)
+        argses = [make_args(coll, n, count, dt, op, mem, False, args.root,
+                            True, device, rank=r) for r in range(n)]
+        msgsize = coll_args_msgsize(argses[0], n, 0)
+        cands = sweep_candidates(job.teams[0], coll, mem, msgsize)
+        for idx in range(len(cands)):
+            comp, alg = cand_label(cands[idx])
+            lats = measure_candidate(job.teams, job.contexts, argses, coll,
+                                     mem, msgsize, idx, args.iters,
+                                     args.warmup)
+            if lats is None:
+                continue    # candidate refused these args / failed / hung
+            rec = measurement_record(
+                args.coll, mem, n, (comp, alg), size, count, args.iters,
+                lat_stats(lats), precision=cands[idx].precision,
+                gen=cands[idx].gen,
+                predicted_us=cost.predict_for_record(
+                    cost_model, cands[idx].gen, n, size))
+            rec["detail"] = {"transport": transport_tier(job.teams[0])
+                             if mem == MemoryType.HOST else TRANSPORT}
+            print(json.dumps(rec), flush=True)
+        size *= 2
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# --quant: wire vs logical busbw and the measured error of a random round
+# ---------------------------------------------------------------------------
+
+def _quant_verify(job, coll, n, count, dt, mem, device, budget, seed=5):
+    """One verification round on RANDOM data (the timed rounds run ones,
+    which int8 encodes exactly): (selected alg, error stats, measured wire
+    bytes). The round runs under ``quant.verify.MeasuredBytes``, so the
+    wire bytes are the host transport's actual ``bytes_sent`` (0 on device
+    memory: the device TLs put nothing on a host wire)."""
+    from ..quant.verify import MeasuredBytes, error_stats
+    td = dt_torch(dt)
+    rng = np.random.default_rng(seed)
+    hosts = [torch.from_numpy((rng.random(count).astype(np.float32) - 0.5)
+                              * 4).to(td) for _ in range(n)]
+
+    def buf(t):
+        return BufferInfo(t.clone().to(device), t.numel(), dt, mem_type=mem)
+
+    def out(cnt):
+        return BufferInfo(torch.zeros(cnt, dtype=td, device=device), cnt,
+                          dt, mem_type=mem)
+
+    if coll == CollType.ALLREDUCE:
+        argses = [CollArgs(coll_type=coll, op=ReductionOp.SUM,
+                           src=buf(hosts[r]), dst=out(count))
+                  for r in range(n)]
+        exact = torch.stack([h.double() for h in hosts]).sum(0).numpy()
+    else:                                   # ALLGATHER
+        argses = [CollArgs(coll_type=coll, src=buf(hosts[r]),
+                           dst=out(count * n)) for r in range(n)]
+        exact = torch.cat([h.double() for h in hosts]).numpy()
+    with MeasuredBytes() as mb:
+        reqs = job.init_reqs(argses)
+        alg = str(getattr(reqs[0].task, "alg_name", "") or "")
+        job.post_and_wait(reqs)
+    stats = error_stats(exact, [a.dst.buffer.double().cpu().numpy()
+                                for a in argses], budget)
+    for rq in reqs:
+        try:
+            rq.finalize()
+        except Exception:  # noqa: BLE001 - verification teardown
+            pass
+    return alg, stats, mb.total
+
+
+def _quant_detail(job, coll, n, count, dt, mem, device, bw):
+    """The ``detail.quant`` record: effective (wire) vs logical busbw plus
+    the measured error and wire bytes of one random-data round (record
+    shape of quant.verify)."""
+    from .. import quant as _q
+    from ..quant.verify import base_detail
+    params = _q.params_for(job.teams[0], coll)
+    if params is None or coll not in _q.QUANT_COLLS:
+        d = {"mode": params.mode if params else "off"}
+        d["note"] = "collective not served by quantized variants"
+        return d
+    d = base_detail(params, coll, count, dt_size(dt), bw, n)
+    try:
+        alg, stats, wire_total = _quant_verify(job, coll, n, count, dt,
+                                               mem, device, params.budget)
+        d["alg"] = alg
+        d.update(stats)
+        if wire_total > 0:      # 0 = path not transport-instrumented
+            d["measured_wire_bytes_total"] = int(wire_total)
+    except Exception as e:  # noqa: BLE001 - verification must not kill
+        d["verify_error"] = str(e)
+    return d
+
+
 def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
                    device: torch.device) -> int:
     dt = DTS[args.dtype]
@@ -795,6 +926,8 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
         if not job.lead:
             size *= 2
             continue
+        qd = _quant_detail(job, coll, n, count, dt, mem, device, bw) \
+            if args.quant else None
         if args.json:
             rec = {"bench": "coll", "coll": args.coll,
                    "dtype": args.dtype, "op": args.op, "mem": args.mem,
@@ -804,6 +937,8 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
             if args.full:
                 rec["busbw_GBps"] = round(bw, 3)
             rec["detail"] = {"transport": transport}
+            if qd is not None:
+                rec["detail"]["quant"] = qd
             print(json.dumps(rec), flush=True)
         else:
             line = f"{count:>12} {memunits_str(size):>10} " \
@@ -813,6 +948,12 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
             if args.full:
                 line += f" {bw:>14.3f}"
             print(line, flush=True)
+            if qd is not None and "wire_ratio" in qd:
+                print(f"#   quant[{qd['mode']}] alg={qd.get('alg', '?')}"
+                      f" wire_ratio={qd['wire_ratio']}"
+                      f" busbw_wire={qd.get('busbw_wire_GBps', 0)}GB/s"
+                      f" max_rel_err={qd.get('max_rel_err', '?')}"
+                      f" (budget {qd['error_budget']})", flush=True)
         size *= 2
     return 0
 
@@ -872,12 +1013,30 @@ def main(argv=None) -> int:
                    help="launch N worker processes of this tool (one "
                         "rank each) joined by a TCP store; rank 0's "
                         "output is printed")
+    p.add_argument("--sweep", action="store_true",
+                   help="msg-size x algorithm sweep: force every "
+                        "score-map candidate per size and print one JSON "
+                        "measurement line per (size, algorithm), the "
+                        "ucc_tune input format (compile with `ucc_tune "
+                        "--from FILE`); in-process only")
+    p.add_argument("--quant", nargs="?", const="env", default="",
+                   choices=["env", "int8", "fp8"],
+                   help="quantized mode (in-process only): report the "
+                        "effective (wire) vs logical busbw and the "
+                        "measured max-abs/rel error of a random-data "
+                        "round per size (detail.quant with --json). An "
+                        "explicit int8/fp8 sets UCC_QUANT for this run; "
+                        "bare --quant uses the ambient UCC_QUANT "
+                        "(defaulting to int8)")
     args = p.parse_args(argv)
 
     if args.procs:
         if args.store:
             raise SystemExit("perftest: --procs and --store are exclusive "
                              "(--procs launches --store workers itself)")
+        if args.sweep or args.quant:
+            raise SystemExit("perftest: --procs is incompatible with the "
+                             "in-process-only modes (--sweep/--quant)")
         if args.coll in OP_BENCHES:
             raise SystemExit("perftest: --procs runs collectives only")
         return run_procs_mode(args, argv)
@@ -895,6 +1054,25 @@ def main(argv=None) -> int:
     try:
         if args.coll in OP_BENCHES:
             return run_op_bench(args)
+        if args.quant:
+            # the precision must be set BEFORE the libs are made: the
+            # quantized candidates register at team create from the lib
+            # config
+            if args.store:
+                raise SystemExit("perftest: --quant requires in-process "
+                                 "mode")
+            if args.quant in ("int8", "fp8"):
+                os.environ["UCC_QUANT"] = args.quant
+            elif not os.environ.get("UCC_QUANT"):
+                os.environ["UCC_QUANT"] = "int8"
+        if args.sweep:
+            if args.store:
+                raise SystemExit("perftest: --sweep requires in-process "
+                                 "mode (each candidate is force-selected "
+                                 "by score-map index on every rank)")
+            if args.onesided or args.streaming or args.triggered:
+                raise SystemExit("perftest: --sweep is incompatible with "
+                                 "-O/-S/-T")
         mem = resolve_mem(args.mem)
         coll = COLLS[args.coll]
         if args.triggered and (args.store or args.streaming or
@@ -922,6 +1100,9 @@ def main(argv=None) -> int:
         else:
             job = InProcJob(args.nprocs or 4)
         try:
+            if args.sweep:
+                return run_sweep_mode(args, job, coll, DTS[args.dtype],
+                                      OPS[args.op], mem, device)
             return run_coll_bench(args, job, coll, mem, device)
         finally:
             job.destroy()
