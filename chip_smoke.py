@@ -373,6 +373,38 @@ Phases, each printing its own lines (any failure exits non-zero):
      timed rounds, the slowest process's p50; no ``ucc-torch-dev-*`` or
      ``ucc-torch-ipc-*`` segment is left, no worker alive, and the
      phase's time.
+11. quant, quantized collectives and measured selection: (a) the
+   quantized device rows of tl/torch_ops, (b) the quantized host rows of
+   tl/shm, (c) ucc_tune's offline sweep into a tuning cache and a fresh
+   team under UCC_TUNER=offline, (d) UCC_TUNER=online;
+12. compiler, the collective compiler (dsl/), every check raising:
+   - (a) 8 in-process ranks on host memory over tl/shm with UCC_GEN=y:
+     every generated allreduce, allgather, reduce_scatter and bcast row
+     at 64 Ki and 1 Mi f32 (the full vector), pinned by UCC_TL_SHM_TUNE,
+     bitwise numpy's result on integer-valued data; every allreduce row
+     and the default (sra_knomial) timed, p50 of 10 persistent rounds
+     after 2; dsl/smoke.run_smoke's record (every check must hold: its
+     probes exit 0 whatever they find);
+   - (b) UCC_GEN_NATIVE=y: the ring and sra bridges and gen_ring_c2 as
+     native plans at 1 Mi, each bitwise its UCC_GEN_NATIVE=n run, one
+     ffi crossing a rank per collective (plan_ffi_calls); the same in
+     bf16 through the assist rounds; dsl/smoke.run_plan_smoke's record;
+   - (c) 4 ranks over tl/ipc in this process (UCC_TL_IPC_ENABLE=y): both
+     pooled rows pinned by UCC_TL_IPC_TUNE, n_pooled ticking, bitwise;
+   - (d) 8 ranks in 2 fake nodes of 4 (UCC_TOPO_FAKE_PPN=4): the hier
+     rows forced by score-map index, bitwise; dsl/search.run_search on
+     that layout persists winners that a fresh team registers with origin
+     searched;
+   - (e) dsl/search.run_device_search (``ucc_tune --gen-search --device
+     -p 8 -c allreduce,bcast -b 64K -e 16M --quant int8``): its space,
+     shortlist, winners and every finalist's measured and predicted cost;
+     the generated-collective kernels must launch; a fresh 8-rank CUDA
+     team with UCC_TUNER=offline, the search's tuning cache and its
+     families dispatches every generated winner with origin searched,
+     bitwise the plain version and the host GeneratedCollTask of the same
+     program; dsl/smoke.run_device_smoke's record (a pinned gen_dev row on
+     CUDA memory bitwise the host interpreter); p50s of the winners
+     beside xla and ring_cuda at 64 Ki and 16 Mi f32; the phase's time.
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
@@ -381,8 +413,9 @@ them, with launches 0: the main path runs none of them; the f32 route's
 launches are the GQA train step's, and every record carries its launches
 over phase 5 as training_launches, over phase 6 as core_launches, over
 phase 7 as host_launches, over phase 8 as procs_launches, over phase
-9's spanning rounds, summed over its processes, as span_launches, and
-over phase 10's in-process runs as hier_launches) and
+9's spanning rounds, summed over its processes, as span_launches, over
+phase 10's in-process runs as hier_launches, over phase 11 as
+quant_launches and over phase 12 as compiler_launches) and
 {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -7409,6 +7442,673 @@ def main_path_quant(smi, counters) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the collective compiler
+# ---------------------------------------------------------------------------
+
+#: the device of phase 12's CUDA-memory runs (a CPU rehearsal of the phase
+#: sets "cpu", with UCC_TL_RING_CUDA_DEVICE=cpu)
+COMPILER_DEVICE = "cuda"
+#: (a): f32 elements of each collective's full vector
+COMPILER_COUNTS = (64 << 10, 1 << 20)
+COMPILER_COLLS = ("ALLREDUCE", "ALLGATHER", "REDUCE_SCATTER", "BCAST")
+#: (a), (c) and (d): persistent rounds, warm-up then timed
+COMPILER_WARMUP, COMPILER_ITERS = 2, 10
+#: (b): f32 and bf16 elements of the plans' allreduce
+PLAN_COUNT = 1 << 20
+PLAN_RUNS = (("ring", "ring"), ("sra_knomial", "sra"),
+             ("gen_ring_c2", "ring"))
+#: (d): two fake nodes of four, and the host search's sizes in bytes
+COMPILER_PPN = "4"
+HOST_SEARCH_SIZES = (64 << 10, 1 << 20)
+#: (e): the arguments of `ucc_tune --gen-search --device -p 8 -c
+#: allreduce,bcast -b 64K -e 16M --quant int8`, as run_device_search takes
+#: them (the CLI's first halving rung is max(3, its -n 20 // 4) = 5)
+DEVICE_SEARCH_COLLS = ("allreduce", "bcast")
+DEVICE_SEARCH_BEGIN, DEVICE_SEARCH_END = 64 << 10, 16 << 20
+DEVICE_SEARCH_ITERS = 5
+#: (e)'s p50s: f32 elements a rank, the repo's two main-path sizes
+DEVICE_P50_COUNTS = (SMALL_COUNT, MAIN_COUNT)
+
+
+def compiler_rounds(ctxs, reqs, what, warmup=COMPILER_WARMUP,
+                    iters=COMPILER_ITERS):
+    """warmup + iters rounds of persistent requests; the timed rounds'
+    host seconds (CUDA work synchronized at every round's end)."""
+    import torch
+    samples = []
+    for i in range(warmup + iters):
+        t0 = time.perf_counter()
+        for rq in reqs:
+            rq.post()
+        until(ctxs, lambda: settled(reqs), what)
+        all_ok(reqs, what)
+        if COMPILER_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        if i >= warmup:
+            samples.append(time.perf_counter() - t0)
+    return samples
+
+
+def pinned_team(ctxs, var, tune):
+    """A team over *ctxs* with the TUNE variable *var* set to *tune*."""
+    with env_set(**{var: tune}):
+        return make_team(ctxs)
+
+
+def one_alg(reqs, what) -> str:
+    algs = {rq.task.alg_name for rq in reqs}
+    if len(algs) != 1:
+        raise AssertionError(f"{what}: ranks selected {algs}")
+    return algs.pop()
+
+
+def check_bits(what, got, want) -> None:
+    for r, (g, w) in enumerate(zip(got, want)):
+        if w is not None and not bits_equal(g, w):
+            raise AssertionError(f"{what}: rank {r} is not bitwise its "
+                                 f"expected result")
+
+
+def smoke_record(rec, checks) -> None:
+    """A record of dsl/smoke.py (which always exits 0): raise on its
+    error key or on any check that does not hold."""
+    log(f"compiler: dsl.smoke {rec.get('metric')}: " + json.dumps(
+        {k: rec.get(k) for k in checks}, default=str))
+    if "error" in rec or not all(rec.get(k) for k in checks):
+        raise AssertionError(f"compiler: dsl.smoke {rec.get('metric')} "
+                             f"failed: {rec}")
+
+
+def host_gen_names(team, coll, count, comp="shm"):
+    """The generated rows of tl/<comp> for *coll* at *count* f32, by
+    origin."""
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.score.tuner import cand_label
+    cands = team.score_map.lookup(ucc.CollType[coll], ucc.MemoryType.HOST,
+                                  count * 4)
+    out = {}
+    for c in cands:
+        if c.origin in ("generated", "pooled", "searched") and \
+                cand_label(c)[0] == comp:
+            out.setdefault(c.alg_name, c.origin)
+    return out
+
+
+def compiler_host(smi) -> dict:
+    """(a) every generated allreduce, allgather, reduce_scatter and bcast
+    row of tl/shm at 64 Ki and 1 Mi f32, pinned by TUNE on 8 in-process
+    ranks over host memory, bitwise numpy's result on integer-valued
+    data; the allreduce rows and the default (sra_knomial) timed."""
+    n = N_RANKS
+    ctxs, teams = make_job(n, TLS="shm,self", GEN="y")
+    ran, p50 = [], {}
+    pooled = set()
+    try:
+        for coll in COMPILER_COLLS:
+            for count in COMPILER_COUNTS:
+                names = host_gen_names(teams[0], coll, count)
+                pooled |= {k for k, v in names.items() if v == "pooled"}
+                gen = sorted(k for k, v in names.items() if v == "generated")
+                if not gen:
+                    raise AssertionError(f"compiler: no generated {coll} "
+                                         f"row at {count} f32")
+                todo = gen + (["default"] if coll == "ALLREDUCE" else [])
+                for name in todo:
+                    tune = "" if name == "default" else \
+                        f"{coll.lower()}:@{name}:inf"
+                    pt = pinned_team(ctxs, "UCC_TL_SHM_TUNE", tune)
+                    argses, dsts, want = host_case(coll, 0, "tensor", n,
+                                                   count, 1200 + count % 97)
+                    reqs = [t.collective_init(a) for t, a in zip(pt, argses)]
+                    what = f"compiler: (a) {coll.lower()} {count} f32 " \
+                        f"{name}"
+                    alg = one_alg(reqs, what)
+                    if name != "default" and alg != name:
+                        raise AssertionError(f"{what}: selected {alg}")
+                    if coll == "ALLREDUCE":
+                        s = compiler_rounds(ctxs, reqs, what)
+                        p50[(name if name != "default" else
+                             f"default {alg}", count)] = sorted_p50(s)
+                    else:
+                        compiler_rounds(ctxs, reqs, what, 0, 1)
+                    check_bits(what, dsts, want)
+                    for rq in reqs:
+                        rq.finalize()
+                    for t in pt:
+                        t.destroy()
+                    ran.append((coll, count, name))
+    finally:
+        destroy_job(ctxs, teams)
+    for count in COMPILER_COUNTS:
+        rows = {k: v for (k, c), v in p50.items() if c == count}
+        default = next(k for k in rows if k.startswith("default"))
+        best = min((k for k in rows if not k.startswith("default")),
+                   key=rows.get)
+        log(f"compiler: (a) allreduce {count} f32 on {n} ranks (host "
+            f"memory, tl/shm): default {default[8:]} p50 "
+            f"{rows[default]:.3f} ms, fastest generated {best} p50 "
+            f"{rows[best]:.3f} ms (ratio {rows[best] / rows[default]:.3f}) "
+            f"over {COMPILER_ITERS} persistent rounds after "
+            f"{COMPILER_WARMUP}; every generated row: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(rows.items()))
+            + f" ms | host CPU {host_cpu()} | card {smi}")
+    from ucc_tpu_torch.dsl import smoke
+    rec = smoke.run_smoke(n=4)
+    smoke_record(rec, ("programs_verified", "pinned_engaged",
+                       "tuned_dispatch_ok", "learned_generated_selection"))
+    if len(rec["matrix"]) != 6:
+        raise AssertionError(f"compiler: dsl.smoke matrix {rec['matrix']}")
+    log(f"compiler: (a) {len(ran)} runs of the generated host rows, each "
+        f"bitwise numpy's result on integer-valued f32: "
+        + ", ".join(sorted({f'{c.lower()}/{nm}' for c, _, nm in ran}))
+        + f"; the pooled rows {sorted(pooled)} need an arena: (c)")
+    return {"runs": len(ran),
+            "p50": {f"{k} {c}": v for (k, c), v in p50.items()}}
+
+
+def plan_args(n, count, td, seed):
+    """Random (not integer-valued) allreduce args: the plan's and the
+    interpreter's sums must agree bit for bit, not only numerically."""
+    import torch
+    import ucc_tpu_torch as ucc
+    g = torch.Generator().manual_seed(seed)
+    dt = ucc.DataType.BFLOAT16 if td == torch.bfloat16 else \
+        ucc.DataType.FLOAT32
+    srcs = [torch.randn(count, generator=g).to(td) for _ in range(n)]
+    dsts = [torch.zeros(count, dtype=td) for _ in range(n)]
+    return [ucc.CollArgs(coll_type=ucc.CollType.ALLREDUCE,
+                         op=ucc.ReductionOp.SUM,
+                         src=ucc.BufferInfo(srcs[r], count, dt),
+                         dst=ucc.BufferInfo(dsts[r], count, dt),
+                         flags=ucc.CollArgsFlags.PERSISTENT)
+            for r in range(n)], dsts
+
+
+def compiler_plans(smi) -> dict:
+    """(b) UCC_GEN_NATIVE=y: the ring and sra bridges and a generated ring
+    as native plans, each bitwise its run under UCC_GEN_NATIVE=n (the
+    classic generator, or the interpreter of the same program), one ffi
+    crossing a rank per collective; then bfloat16 through the assist
+    rounds."""
+    import torch
+    from ucc_tpu_torch import native
+    n = N_RANKS
+    out = {}
+    jobs = {m: make_job(n, TLS="shm,self", GEN="y", GEN_NATIVE=m)
+            for m in ("y", "n")}
+    try:
+        for td in (torch.float32, torch.bfloat16):
+            for alg, family in PLAN_RUNS:
+                tune = f"allreduce:@{alg}:inf"
+                res = {}
+                for mode, (ctxs, _) in jobs.items():
+                    pt = pinned_team(ctxs, "UCC_TL_SHM_TUNE", tune)
+                    argses, dsts = plan_args(n, PLAN_COUNT, td, 77)
+                    reqs = [t.collective_init(a) for t, a in zip(pt, argses)]
+                    what = f"compiler: (b) {alg} {td} GEN_NATIVE={mode}"
+                    if one_alg(reqs, what) != alg:
+                        raise AssertionError(f"{what}: not {alg}")
+                    plans = [rq.task.__dict__.get("_plan") for rq in reqs]
+                    if mode == "y" and (any(p is None for p in plans) or
+                                        reqs[0].task.prog.family != family):
+                        raise AssertionError(f"{what}: no plan of "
+                                             f"{family}")
+                    if mode == "n" and any(p is not None for p in plans):
+                        raise AssertionError(f"{what}: a plan ran")
+                    compiler_rounds(ctxs, reqs, what, COMPILER_WARMUP, 0)
+                    f0 = native.plan_ffi_calls()
+                    s = compiler_rounds(ctxs, reqs, what, 0, 1)
+                    ffi = native.plan_ffi_calls() - f0
+                    s += compiler_rounds(ctxs, reqs, what, 0,
+                                         COMPILER_ITERS - 1)
+                    res[mode] = ([d.clone() for d in dsts], ffi,
+                                 sorted_p50(s))
+                    for rq in reqs:
+                        rq.finalize()
+                    for t in pt:
+                        t.destroy()
+                (dy, ffi_y, p_y), (dn, ffi_n, p_n) = res["y"], res["n"]
+                check_bits(f"compiler: (b) {alg} {td} plan", dy, dn)
+                if ffi_n != 0 or (td == torch.float32 and ffi_y != n):
+                    raise AssertionError(f"compiler: (b) {alg} {td}: ffi "
+                                         f"crossings {ffi_y} (plan), "
+                                         f"{ffi_n} (interpreted)")
+                if td == torch.bfloat16 and ffi_y <= n:
+                    raise AssertionError(f"compiler: (b) {alg} bf16 took "
+                                         f"no assist round")
+                key = f"{alg} {str(td).split('.')[-1]}"
+                out[key] = {"plan_ms": p_y, "interpreted_ms": p_n,
+                            "ffi": ffi_y}
+                log(f"compiler: (b) allreduce {PLAN_COUNT} "
+                    f"{str(td).split('.')[-1]} via {alg} on {n} ranks: "
+                    f"plan bitwise the UCC_GEN_NATIVE=n run, {ffi_y} ffi "
+                    f"crossings for the {n} ranks' collective "
+                    f"({ffi_y / n:g} a rank; bf16 adds its assist rounds); "
+                    f"p50 plan {p_y:.3f} ms against {p_n:.3f} ms "
+                    f"interpreted | card {smi}")
+    finally:
+        for ctxs, teams in jobs.values():
+            destroy_job(ctxs, teams)
+    from ucc_tpu_torch.dsl import smoke
+    rec = smoke.run_plan_smoke()
+    smoke_record(rec, ("plan_engaged", "bitwise_identical"))
+    if rec["ffi_per_collective"] != 1:
+        raise AssertionError(f"compiler: dsl.smoke plans: {rec}")
+    return out
+
+
+def compiler_pooled(smi) -> dict:
+    """(c) 4 ranks in this process over tl/ipc (one arena): both pooled
+    rows pinned by TUNE, n_pooled ticking, bitwise numpy's result."""
+    n = 4
+    out = {}
+    with env_set(UCC_TL_IPC_ENABLE="y"):
+        ctxs, teams = make_job(n, TLS="ipc,self", GEN="y")
+    try:
+        names = sorted(k for k, v in host_gen_names(
+            teams[0], "ALLREDUCE", 1 << 20, "ipc").items() if v == "pooled")
+        if names != ["gen_pooled_c1", "gen_pooled_c2"]:
+            raise AssertionError(f"compiler: (c) pooled rows {names}")
+        tr = ctxs[0].tl_contexts["ipc"].obj.transport
+        for name in names:
+            for count in COMPILER_COUNTS:
+                pt = pinned_team(ctxs, "UCC_TL_IPC_TUNE",
+                                 f"allreduce:@{name}:inf")
+                argses, dsts, want = host_case("ALLREDUCE", 0, "tensor", n,
+                                               count, 1300)
+                reqs = [t.collective_init(a) for t, a in zip(pt, argses)]
+                what = f"compiler: (c) {name} {count} f32"
+                if one_alg(reqs, what) != name:
+                    raise AssertionError(f"{what}: not pinned")
+                before = tr.n_pooled
+                s = compiler_rounds(ctxs, reqs, what)
+                check_bits(what, dsts, want)
+                ticks = tr.n_pooled - before
+                if ticks <= 0:
+                    raise AssertionError(f"{what}: n_pooled did not tick")
+                out[f"{name} {count}"] = sorted_p50(s)
+                log(f"{what} over tl/ipc on {n} ranks: bitwise numpy's "
+                    f"sum, {ticks} window publishes on rank 0 over "
+                    f"{COMPILER_WARMUP + COMPILER_ITERS} rounds, p50 "
+                    f"{out[f'{name} {count}']:.3f} ms | arena windows "
+                    f"{tr.arena.counters()['windows']} | card {smi}")
+                for rq in reqs:
+                    rq.finalize()
+                for t in pt:
+                    t.destroy()
+    finally:
+        destroy_job(ctxs, teams)
+    return out
+
+
+def forced_host(ctxs, teams, coll, name, count, seed, what):
+    """Candidate *name* of tl/shm forced on every rank by score-map index
+    (a TUNE pin would also name CL/HIER's node teams, where the hier rows
+    do not exist); one round, bitwise numpy's result."""
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.score.tuner import (cand_label, forced_request,
+                                           sweep_candidates)
+    ct = ucc.CollType[coll]
+    cands = sweep_candidates(teams[0], ct, ucc.MemoryType.HOST, count * 4)
+    idx = next(i for i, c in enumerate(cands)
+               if c.alg_name == name and cand_label(c)[0] == "shm")
+    argses, dsts, want = host_case(coll, 0, "tensor", len(teams), count,
+                                   seed)
+    reqs = [forced_request(t, a, ct, ucc.MemoryType.HOST, count * 4, idx)
+            for t, a in zip(teams, argses)]
+    s = compiler_rounds(ctxs, reqs, what)
+    check_bits(what, dsts, want)
+    for rq in reqs:
+        rq.finalize()
+    return sorted_p50(s)
+
+
+def compiler_hier(smi, tmp) -> dict:
+    """(d) 8 ranks in 2 fake nodes of 4: the hier rows register and run
+    bitwise numpy's sum; the host run_search on that layout persists
+    winners with origin "searched", which a fresh team registers."""
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.dsl import search
+    n = N_RANKS
+    out = {}
+    search_cache = os.path.join(tmp, "host-search.json")
+    with env_set(UCC_TOPO_FAKE_PPN=COMPILER_PPN,
+                 UCC_GEN_SEARCH_CACHE=search_cache):
+        ctxs, teams = make_job(n, TLS="shm,self", GEN="y")
+        try:
+            names = sorted(k for k in host_gen_names(
+                teams[0], "ALLREDUCE", 1 << 20) if k.startswith("gen_hier"))
+            if not names:
+                raise AssertionError("compiler: (d) no hier row registered")
+            for name in names:
+                for count in COMPILER_COUNTS:
+                    out[f"{name} {count}"] = forced_host(
+                        ctxs, teams, "ALLREDUCE", name, count, 1400,
+                        f"compiler: (d) {name} {count} f32")
+            log(f"compiler: (d) hier rows on 2 fake nodes of "
+                f"{COMPILER_PPN}: " + ", ".join(
+                    f"{k} p50 {v:.3f} ms" for k, v in sorted(out.items()))
+                + f", each bitwise numpy's sum | card {smi}")
+        finally:
+            destroy_job(ctxs, teams)
+        t0 = time.perf_counter()
+        rep = search.run_search(
+            n, ["allreduce"], list(HOST_SEARCH_SIZES), iters=3,
+            search_cache=search_cache,
+            tuner_cache=os.path.join(tmp, "host-tune.json"),
+            verbose=False, measure_grid=False)
+        search_s = time.perf_counter() - t0
+        for res in rep["results"]:
+            log(f"compiler: (d) host search allreduce {res['size_bytes']} "
+                f"B: winner {res.get('winner')} measured "
+                f"{res.get('winner_measured_us')} us, predicted "
+                f"{res.get('winner_predicted_us')} us; finalists "
+                + ", ".join(f"{f['alg']} {f['measured_us']}/"
+                            f"{f['predicted_us']}"
+                            for f in res["finalists"]))
+        winners = rep.get("winners") or []
+        if not winners:
+            raise AssertionError(f"compiler: (d) the host search persisted "
+                                 f"no winner: {rep}")
+        entries = search.load_search_cache(search_cache)["entries"]
+        if not {e["name"] for e in entries} >= set(winners):
+            raise AssertionError("compiler: (d) winners not in the cache")
+        ctxs, teams = make_job(n, TLS="shm,self", GEN="y", GEN_SEARCH="y")
+        try:
+            searched = {c.alg_name for c in teams[0].score_map.lookup(
+                ucc.CollType.ALLREDUCE, ucc.MemoryType.HOST, 1 << 20)
+                if c.origin == "searched"}
+            if not set(winners) <= searched:
+                raise AssertionError(f"compiler: (d) searched rows "
+                                     f"{searched}, winners {winners}")
+        finally:
+            destroy_job(ctxs, teams)
+    log(f"compiler: (d) host run_search on the fake layout in "
+        f"{search_s:.1f} s (cost model {rep.get('cost_model')}, space "
+        f"{rep.get('space')}): winners {winners}, registered with origin "
+        f"searched by a fresh team | card {smi}")
+    return {"hier": out, "winners": winners, "search_s": search_s}
+
+
+def since(counters, snap) -> dict:
+    """Each kernel's launches since the snapshot *snap* (nonzero ones)."""
+    out = {k: w.launches - snap[k] for k, w in counters.items()}
+    return {k: v for k, v in out.items() if v}
+
+
+def snapshot(counters) -> dict:
+    return {k: w.launches for k, w in counters.items()}
+
+
+def device_srcs(n, count, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(count, generator=g) for _ in range(n)]
+
+
+def device_run(ctxs, teams, coll, srcs, what, rounds=(0, 1)):
+    """*coll* (allreduce SUM or bcast from rank 0) of the CPU *srcs*
+    copied to the device, persistent; returns (alg, p50 ms, results on
+    the CPU)."""
+    import torch
+    import ucc_tpu_torch as ucc
+    n = len(srcs)
+    count = srcs[0].numel()
+    f32 = ucc.DataType.FLOAT32
+    dev = [s.to(COMPILER_DEVICE) for s in srcs]
+    P = ucc.CollArgsFlags.PERSISTENT
+    if coll == "ALLREDUCE":
+        dsts = [torch.zeros(count, device=COMPILER_DEVICE) for _ in range(n)]
+        argses = [ucc.CollArgs(coll_type=ucc.CollType.ALLREDUCE,
+                               op=ucc.ReductionOp.SUM,
+                               src=ucc.BufferInfo(dev[r], count, f32,
+                                                  mem_type=ucc.MemoryType.CUDA),
+                               dst=ucc.BufferInfo(dsts[r], count, f32,
+                                                  mem_type=ucc.MemoryType.CUDA),
+                               flags=P) for r in range(n)]
+    else:
+        dsts = [dev[0]] + [torch.zeros(count, device=COMPILER_DEVICE)
+                           for _ in range(n - 1)]
+        argses = [ucc.CollArgs(coll_type=ucc.CollType.BCAST, root=0,
+                               src=ucc.BufferInfo(dsts[r], count, f32,
+                                                  mem_type=ucc.MemoryType.CUDA),
+                               flags=P) for r in range(n)]
+    reqs = [t.collective_init(a) for t, a in zip(teams, argses)]
+    alg = one_alg(reqs, what)
+    s = compiler_rounds(ctxs, reqs, what, *rounds)
+    for rq in reqs:
+        rq.finalize()
+    return alg, sorted_p50(s), [d.cpu() for d in dsts]
+
+
+def host_program_result(ctxs, coll, host_name, srcs, what):
+    """The host GeneratedCollTask of *host_name* on the same srcs (a team
+    over the host job *ctxs*, tl/shm, pinned by TUNE): every rank's
+    result."""
+    import ucc_tpu_torch as ucc
+    n = len(srcs)
+    count = srcs[0].numel()
+    f32 = ucc.DataType.FLOAT32
+    pt = pinned_team(ctxs, "UCC_TL_SHM_TUNE",
+                     f"{coll.lower()}:@{host_name}:inf")
+    try:
+        if coll == "ALLREDUCE":
+            import torch
+            dsts = [torch.zeros(count) for _ in range(n)]
+            argses = [ucc.CollArgs(coll_type=ucc.CollType.ALLREDUCE,
+                                   op=ucc.ReductionOp.SUM,
+                                   src=ucc.BufferInfo(srcs[r].clone(), count,
+                                                      f32),
+                                   dst=ucc.BufferInfo(dsts[r], count, f32))
+                      for r in range(n)]
+        else:
+            import torch
+            dsts = [srcs[0].clone()] + [torch.zeros(count)
+                                        for _ in range(n - 1)]
+            argses = [ucc.CollArgs(coll_type=ucc.CollType.BCAST, root=0,
+                                   src=ucc.BufferInfo(dsts[r], count, f32))
+                      for r in range(n)]
+        reqs = [t.collective_init(a) for t, a in zip(pt, argses)]
+        if one_alg(reqs, what) != host_name:
+            raise AssertionError(f"{what}: the host job ran "
+                                 f"{reqs[0].task.alg_name}")
+        from ucc_tpu_torch.dsl.compile import GeneratedCollTask
+        if not isinstance(reqs[0].task, GeneratedCollTask):
+            raise AssertionError(f"{what}: not a GeneratedCollTask")
+        compiler_rounds(ctxs, reqs, what, 0, 1)
+        for rq in reqs:
+            rq.finalize()
+        return dsts
+    finally:
+        for t in pt:
+            t.destroy()
+
+
+def compiler_device(smi, tmp, counters) -> dict:
+    """(e) the device program search on 8 CUDA ranks, then a fresh team
+    reading its tuning cache: every generated winner dispatched with
+    origin "searched", bitwise the plain version's and the host
+    GeneratedCollTask's result; p50s beside xla and ring_cuda."""
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.dsl import search
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    from ucc_tpu_torch.score import tuner
+    n = N_RANKS
+    tune_cache = os.path.join(tmp, "device-tune.json")
+    sizes = []
+    size = DEVICE_SEARCH_BEGIN
+    while size <= DEVICE_SEARCH_END:
+        sizes.append(size)
+        size *= 2
+    gen_keys = ("gen_device_ring", "gen_device_gen")
+    snap = snapshot(counters)
+    t0 = time.perf_counter()
+    rep = search.run_device_search(
+        n, list(DEVICE_SEARCH_COLLS), sizes, iters=DEVICE_SEARCH_ITERS,
+        quant_mode="int8", tuner_cache=tune_cache, verbose=False)
+    search_s = time.perf_counter() - t0
+    launches = since(counters, snap)
+    if rep.get("error"):
+        raise AssertionError(f"compiler: (e) device search: {rep['error']}")
+    log(f"compiler: (e) device search, {n} ranks, "
+        f"{'/'.join(DEVICE_SEARCH_COLLS)}, {len(sizes)} sizes "
+        f"{DEVICE_SEARCH_BEGIN}..{DEVICE_SEARCH_END} B, int8: space "
+        f"{rep['space']}, cost model {rep['cost_model']}, shortlist "
+        f"(UCC_GEN_DEVICE_FAMILIES) {rep['device_families']}; "
+        f"{search_s:.1f} s; kernel launches {launches} | card {smi}")
+    for res in rep["results"]:
+        log(f"compiler: (e) {res['coll']} {res['size_bytes']} B: winner "
+            f"{res.get('winner')} ({res.get('winner_origin')}) "
+            f"{res.get('winner_measured_us')} us; finalists (measured/"
+            f"predicted us) " + ", ".join(
+                f"{f['alg']} {f['measured_us']}/{f['predicted_us']}"
+                for f in res["finalists"]))
+    if any(launches.get(k, 0) <= 0 for k in gen_keys):
+        raise AssertionError(f"compiler: (e) the search launched "
+                             f"{launches}, not both gen_device entries")
+    data = tuner.load_cache(tune_cache)
+    sigs = list(data.get("signatures") or {})
+    entries = tuner.cache_entries(data, sigs[0]) if sigs else []
+    winners = rep.get("winners") or []
+    if not entries or len(entries) != len(winners):
+        raise AssertionError(f"compiler: (e) the device search persisted "
+                             f"no generated winner (winners {winners}, "
+                             f"entries {entries})")
+    # the fresh team registers the search's families (its shortlist, which
+    # may reach past the default device grid) and reads its tuning cache
+    families = rep["device_families"]
+    progs = {ld.dev_alg_name(p): p
+             for p in ld.device_programs(n, "int8", families)}
+    by_size = {(r["coll"], r["size_bytes"]): r for r in rep["results"]}
+    ctxs, teams = make_job(n, TUNER="offline", TUNER_CACHE=tune_cache,
+                           GEN_DEVICE="y", GEN_DEVICE_FAMILIES=families,
+                           QUANT="int8")
+    # the host interpreter's job, with the same families (the grammar is
+    # shared; rhd(0) is the radix-n direct exchange in both)
+    host_ctxs, host_teams = make_job(n, TLS="shm,self", GEN="y",
+                                     GEN_NATIVE="n", GEN_FAMILIES=families)
+    checked = {}
+    try:
+        if tuner.topo_signature(teams[0]) != sigs[0]:
+            raise AssertionError("compiler: (e) the fresh team's signature "
+                                 "is not the search's")
+        for e in entries:
+            coll = e["coll"].upper()
+            size = next(s for (c, s) in by_size if c == e["coll"] and
+                        e["start"] <= s < e["end"])
+            count = max(4, size // 4)
+            top = teams[0].score_map.lookup(ucc.CollType[coll],
+                                            ucc.MemoryType.CUDA, count * 4)[0]
+            if (top.alg_name, top.origin) != (e["alg"], "searched"):
+                raise AssertionError(f"compiler: (e) top at {size} B is "
+                                     f"{top.alg_name} ({top.origin})")
+            srcs = device_srcs(n, count, 1500 + size % 101)
+            what = f"compiler: (e) {e['coll']} {size} B"
+            snap = snapshot(counters)
+            alg, p50, got = device_run(ctxs, teams, coll, srcs, what)
+            ran = since(counters, snap)
+            if alg != e["alg"] or not any(ran.get(k) for k in gen_keys):
+                raise AssertionError(f"{what}: dispatched {alg}, launches "
+                                     f"{ran}")
+            prog = progs[alg]
+            plan = ld.device_plan(prog, n, count, 0)
+            plain = kgd.gen_device_ref(srcs, plan, ReductionOp.SUM)
+            check_bits(f"{what} against the plain version", got, plain)
+            # the host interpreter of the same program (the quantized
+            # direct exchange lowers exact: its exact twin, rhd radix n)
+            host_name = prog.name if not prog.wire else \
+                f"gen_rhd_r{n}"
+            host = host_program_result(host_ctxs, coll, host_name, srcs,
+                                       f"{what} host {host_name}")
+            check_bits(f"{what} against the host GeneratedCollTask", got,
+                       host)
+            checked[f"{e['coll']} {size}"] = alg
+            log(f"{what}: a fresh team under UCC_TUNER=offline dispatched "
+                f"{alg} (origin searched), bitwise the plain version and "
+                f"the host GeneratedCollTask {host_name}; launches "
+                f"{ran} | card {smi}")
+    finally:
+        destroy_job(ctxs, teams)
+        destroy_job(host_ctxs, host_teams)
+    from ucc_tpu_torch.dsl import smoke
+    smoke_record(smoke.run_device_smoke(),
+                 ("programs_lowered", "pinned_engaged", "bitwise_identical"))
+    # p50s: every distinct generated winner beside xla and ring_cuda
+    p50 = {}
+    algs = sorted({(e["coll"].upper(), e["alg"]) for e in entries})
+    for coll in sorted({c for c, _ in algs}):
+        pins = [("UCC_TL_TORCH_OPS_TUNE", a) for c, a in algs if c == coll]
+        pins += [("UCC_TL_TORCH_OPS_TUNE", "xla"),
+                 ("UCC_TL_RING_CUDA_TUNE", "ring_cuda")]
+        ctxs, teams = make_job(n, GEN_DEVICE="y",
+                               GEN_DEVICE_FAMILIES=families, QUANT="int8")
+        for t in teams:
+            t.destroy()
+        try:
+            for count in DEVICE_P50_COUNTS:
+                srcs = device_srcs(n, count, 1600)
+                for var, alg in pins:
+                    pt = pinned_team(ctxs, var,
+                                     f"{coll.lower()}:@{alg}:inf")
+                    got_alg, ms, _ = device_run(
+                        ctxs, pt, coll, srcs,
+                        f"compiler: (e) {coll} {alg} {count} f32",
+                        (WARMUP, ITERS))
+                    for t in pt:
+                        t.destroy()
+                    if got_alg != alg:
+                        raise AssertionError(f"compiler: (e) {alg} pin "
+                                             f"ran {got_alg}")
+                    p50[f"{coll.lower()} {alg} {count}"] = ms
+                log(f"compiler: (e) {coll.lower()} {count} f32/rank, p50 "
+                    f"over {ITERS} persistent rounds after {WARMUP}: "
+                    + ", ".join(f"{a} {p50[f'{coll.lower()} {a} {count}']:.3f}"
+                                f" ms" for _, a in pins) + f" | card {smi}")
+                del srcs
+        finally:
+            destroy_job(ctxs, [])
+    return {"search_s": search_s, "space": rep["space"],
+            "families": rep["device_families"], "winners": winners,
+            "dispatched": checked, "p50": p50}
+
+
+def main_path_compiler(smi, counters) -> dict:
+    """Phase 12: the collective compiler. Returns every kernel's launches
+    over the phase."""
+    import tempfile
+    t0 = time.perf_counter()
+    base = snapshot(counters)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="ucc_compiler_") as tmp:
+        # every cache of the compiler in the phase's own directory
+        with env_set(UCC_GEN_PROG_CACHE=os.path.join(tmp, "programs.pkl"),
+                     UCC_GEN_SEARCH_CACHE=os.path.join(tmp, "search.json"),
+                     UCC_GEN_COST_CACHE=os.path.join(tmp, "cost.json"),
+                     UCC_TUNER_CACHE=os.path.join(tmp, "tune.json"),
+                     UCC_GEN=None, UCC_GEN_NATIVE=None, UCC_QUANT=None,
+                     UCC_TL_SHM_TUNE=None, UCC_TL_TORCH_OPS_TUNE=None,
+                     UCC_TL_RING_CUDA_TUNE=None, UCC_TL_IPC_TUNE=None):
+            for step, key, fn in (
+                    ("a", "host", lambda: compiler_host(smi)),
+                    ("b", "plans", lambda: compiler_plans(smi)),
+                    ("c", "pooled", lambda: compiler_pooled(smi)),
+                    ("d", "hier", lambda: compiler_hier(smi, tmp)),
+                    ("e", "device",
+                     lambda: compiler_device(smi, tmp, counters))):
+                t1 = time.perf_counter()
+                res[key] = fn()
+                log(f"compiler: ({step}) {key} in "
+                    f"{time.perf_counter() - t1:.1f} s")
+    res["launches"] = since(counters, base)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"compiler: launches over the phase {res['launches']} | compiler "
+        f"phase: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -7603,6 +8303,10 @@ def main() -> int:
     # -- 11. quant: quantized collectives and measured selection -----------
     quant = main_path_quant(smi, counters)
 
+    # -- 12. compiler: generated host programs, plans, the pooled tier,
+    # hierarchical programs and the program search -------------------------
+    compiler = main_path_compiler(smi, counters)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -7617,6 +8321,7 @@ def main() -> int:
         rec["span_launches"] = span["launches"].get(rec["name"], 0)
         rec["hier_launches"] = hier["launches"].get(rec["name"], 0)
         rec["quant_launches"] = quant["launches"].get(rec["name"], 0)
+        rec["compiler_launches"] = compiler["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

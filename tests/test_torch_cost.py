@@ -1,7 +1,8 @@
 """The port's alpha-beta cost model (ucc_tpu_torch/score/cost.py) held
 against the JAX package's: from the same sweep records, ``fit_records``
 gives the same coefficients (rtol 1e-12), ``predict_for_record`` the same
-prices, ``parse_param_str`` the same parse; a fitted model survives a
+prices (the hier programs rebuilt from topology paths too),
+``parse_param_str`` the same parse; a fitted model survives a
 ``save_model``/``load_model`` round trip, under the port's own default
 path."""
 import json
@@ -98,6 +99,35 @@ def test_predict_for_record_matches(n):
     assert pcost.predict_for_record(None, "ring(chunks=2)", n, 64) is None
     assert pcost.predict_for_record(pm, "", n, 64) is None
     assert pcost.predict_for_record(pm, "nosuch(x=1)", n, 64) is None
+
+
+#: two-pod topology paths: nodes of 2, 1, 3 and 2 ranks (the reference's
+#: tests/test_search.py layout, by its hashes)
+HIER_PATHS = [(1, 10), (1, 10), (1, 11), (2, 12), (2, 12), (2, 12),
+              (2, 13), (2, 13)]
+
+
+@pytest.mark.parametrize("gen", ("hier(top=0)", "hier(top=2)",
+                                 "hier(top=1,chunks=2)",
+                                 "hier(top=0,wire=int8)",
+                                 "hier(top=4,wire=fp8)"))
+def test_predict_for_record_rebuilds_hier_programs(gen):
+    """A hier row rebuilds from the topology paths and prices as the
+    reference's (rtol 1e-12), on the seed model and on a fitted one;
+    without paths it does not rebuild, in both."""
+    n = len(HIER_PATHS)
+    pm, jm = pcost.fit_records(sweep_records(8, seed=9)), \
+        jcost.fit_records(sweep_records(8, seed=9))
+    for p, j in ((pcost.CostModel(), jcost.CostModel()), (pm, jm)):
+        for size in SIZES:
+            want = jcost.predict_for_record(j, gen, n, size,
+                                            paths=HIER_PATHS)
+            got = pcost.predict_for_record(p, gen, n, size,
+                                           paths=HIER_PATHS)
+            assert want is not None
+            assert got == pytest.approx(want, rel=1e-12)
+    assert pcost.predict_for_record(pm, gen, n, 64) is None is \
+        jcost.predict_for_record(jm, gen, n, 64)
 
 
 @pytest.mark.parametrize("s", ("ring(chunks=4)", "rhd(radix=2)", "qdirect(int8)",

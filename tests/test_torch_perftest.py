@@ -118,7 +118,6 @@ def test_bad_arguments_exit_as_ucc_tpu(bad):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--gen"], ["--gen-device"],
     ["--teams", "2", "--storm"], ["--store", "h:1", "--procs", "2"],
     ["--procs", "2", "-c", "memcpy"], ["-m", "cuda_managed"]])
 def test_unported_modes_are_refused(flag):
@@ -130,19 +129,23 @@ def test_unported_modes_are_refused(flag):
 @pytest.mark.parametrize("flag", [
     ["-O", "-m", "host"], ["-O", "-m", "host", "-c", "alltoallv"],
     ["-T", "-m", "host"], ["--matrix", "moe", "-c", "alltoallv"],
-    ["-c", "alltoallv"], ["-c", "reduce"], ["--sweep"], ["--quant"]])
+    ["-c", "alltoallv"], ["-c", "reduce"], ["--sweep"], ["--quant"],
+    ["--gen", "-m", "host"], ["--gen-device"]])
 def test_ported_modes_match_ucc_tpus_records(capsys, monkeypatch, flag):
     """-O (allreduce and the alltoallv row), -T, --matrix moe, --sweep,
-    --quant, and the collective types beyond the five: they run, and each
+    --quant, --gen, --gen-device, and the collective types beyond the
+    five: they run, and each
     record has ucc_tpu's perftest's fields for the same arguments (-m
     host; the others on the port's -m cuda, the CPU device here). Both
     perftests' -O set the host TLs' TUNE in the environment and --quant
-    sets UCC_QUANT, which are put back after; ucc_tpu's -T leaves its
+    sets UCC_QUANT (--gen and --gen-device UCC_GEN and UCC_GEN_DEVICE),
+    which are put back after; ucc_tpu's -T leaves its
     execution engines' progress threads running, so that one runs in a
     process of its own. --sweep prints a record per (size, algorithm),
     each package over its own score map's candidates, so its records are
     compared as sets of field lists."""
-    for var in ("UCC_TL_SHM_TUNE", "UCC_TL_SOCKET_TUNE", "UCC_QUANT"):
+    for var in ("UCC_TL_SHM_TUNE", "UCC_TL_SOCKET_TUNE", "UCC_QUANT",
+                "UCC_GEN", "UCC_GEN_DEVICE"):
         # recorded as unset, so that the undo removes what -O sets
         monkeypatch.setenv(var, "")
         monkeypatch.delenv(var)

@@ -673,11 +673,14 @@ class TestOfflineCli:
         assert rec["learned_selection"] is True
         assert rec["default_us"] > 0 and rec["tuned_us"] > 0
 
-    def test_gen_search_is_refused_clearly(self):
+    def test_gen_search_is_refused_clearly(self, capsys):
+        """--gen-search runs now (tests/test_torch_search.py); what it
+        still refuses, it refuses by name: an unknown collective."""
         from ucc_tpu_torch.tools.tune import main as tune_main
         with pytest.raises(SystemExit) as ei:
-            tune_main(["--gen-search"])
-        assert "ERR_NOT_SUPPORTED" in str(ei.value.code)
+            tune_main(["--gen-search", "-c", "nosuch"])
+        assert ei.value.code not in (0, None)
+        assert "unknown collective 'nosuch'" in capsys.readouterr().err
 
     def test_perftest_sweep_feeds_ucc_tune(self, tmp_path, capsys):
         from ucc_tpu_torch.tools import perftest

@@ -104,6 +104,58 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
     ConfigField("QUANT_STOCHASTIC", "n", "stochastic rounding in the int8 "
                 "host encoder (the generated device programs refuse it)",
                 parse_bool),
+    ConfigField("GEN", "n", "collective compiler (dsl/): y = generate, "
+                "statically verify and register the DSL's program families "
+                "(ring chunking, recursive halving/doubling radix, SRA "
+                "pipeline depth, fused allreduce+quantize, the pooled and "
+                "hierarchical programs) as low-score tuner-explorable "
+                "candidates of the host TLs with origin 'generated'; n "
+                "(default) = candidate lists unchanged", parse_bool),
+    ConfigField("GEN_FAMILIES", "", "generated families and parameter "
+                "grids, e.g. 'ring(1,2,4),rhd(2,8),sra_pipe(2),qdirect' — "
+                "empty = every built-in family at its default grid; "
+                "programs failing the static verifier or inapplicable at "
+                "the team size are skipped", parse_string),
+    ConfigField("GEN_SEARCH", "y", "register persisted search winners "
+                "(dsl/search.py, written by `ucc_tune --gen-search`) from "
+                "the search cache as candidates with origin 'searched'; "
+                "needs UCC_GEN=y; costs nothing when the cache has no "
+                "entries for this (team size, topology)", parse_bool),
+    ConfigField("GEN_SEARCH_CACHE", "", "search-cache file (JSON: searched "
+                "program specs with predicted and measured cost); empty = "
+                "~/.cache/ucc_tpu_torch/search.json (read from the "
+                "environment)", parse_string),
+    ConfigField("GEN_SEARCH_BUDGET", "10", "cost-model shortlist size per "
+                "(collective, message size) point: the search measures at "
+                "most this many predicted-cheapest candidates by "
+                "successive halving", parse_uint),
+    ConfigField("GEN_PROG_CACHE", "", "verified-program disk cache "
+                "(pickle of the port's own program objects, keyed by "
+                "family, parameters, team size, topology and DSL_VERSION); "
+                "empty = ~/.cache/ucc_tpu_torch/programs.pkl, 0/n = off "
+                "(read from the environment)", parse_string),
+    ConfigField("GEN_COST_CACHE", "", "fitted alpha-beta cost-model file "
+                "(JSON, written by `ucc_tune --gen-search`); empty = "
+                "~/.cache/ucc_tpu_torch/cost.json (read from the "
+                "environment)", parse_string),
+    ConfigField("GEN_NATIVE", "auto", "native execution plans: lower a "
+                "verified allreduce program (the generated families and "
+                "the hand-written ring/sra bridges) to a packed op table "
+                "that the native core retires — one ffi crossing per "
+                "collective, C-side f32/f64 reductions. auto = on when "
+                "the native matcher serves every endpoint of the team and "
+                "the dtype/op runs fully native, else interpret; y also "
+                "routes assist rounds (bf16, quantized wire) through "
+                "plans and raises ERR_NO_RESOURCE when a plan cannot be "
+                "built; n = always interpret. Plan rows show '+plan' in "
+                "the score dump", parse_string),
+    ConfigField("POOL_ENABLE", "auto", "pooled (one-sided put+flag window) "
+                "variants of the generated families: auto = whatever "
+                "UCC_GEN_FAMILIES produced; n drops them; y adds them at "
+                "their grid when the spec left them out. Needs UCC_GEN=y "
+                "and an arena-backed (tl/ipc) team", parse_string),
+    ConfigField("POOL_CHUNKS", "", "chunk-count grid of the pooled "
+                "variants, e.g. '1,2,4' (default grid 1,2)", parse_string),
     ConfigField("GEN_DEVICE", "n", "generated device collectives "
                 "(dsl/lower_device): y = lower verified DSL programs "
                 "(ring/rhd/bcast families plus the quantized direct "

@@ -566,11 +566,126 @@ def gen_bc_chain(n: int, chunks: int = 2) -> Program:
 
 def gen_hier(paths: List[tuple], top: int = 2, wire: str = "",
              chunks: int = 1) -> Program:
-    """The composed hierarchical allreduce along a topology tree. It needs
-    the team's topology (``ucc_tpu/topo``), which the port does not have
-    yet, so it is inapplicable at every size."""
-    raise Inapplicable("hier programs need the topology tree, which is not "
-                       "ported yet")
+    """HiCCL-style composed hierarchical allreduce over a topology tree:
+    reduce up the tree level by level, run a
+    per-level allreduce program among the top leaders, broadcast the
+    result back down — one flat verified Program over the whole team.
+
+    ``paths`` is the per-rank attribute path list the
+    :class:`~..topo.topo.HierTree` is built from (e.g.
+    ``(pod_hash, host_hash)``); ``top`` picks the leaders' algorithm:
+    ``0`` = direct exchange, ``1`` = ring (with ``chunks`` wire chunks
+    per block), ``r >= 2`` = the SRA structure at radix ``r`` (any
+    leader count). ``wire`` quantizes the DCN-class edges — every edge
+    whose endpoints sit in different pods (different ``paths[..][0]``;
+    on podless 2-level trees, the inter-node leader edges) — while all
+    intra-node/intra-pod edges stay exact; senders re-decode their own
+    copy at every quantized edge, so all ranks still end bitwise
+    identical.
+    """
+    n = len(paths)
+    if n < 2:
+        raise Inapplicable(f"hier needs >= 2 ranks (got {n})")
+    from ..topo.topo import HierTree
+    tree = HierTree(list(paths), 0)
+    L = tree.n_levels
+    if len(tree.levels[0].groups) < 2:
+        raise Inapplicable("hier needs >= 2 level-0 groups (single-node "
+                           "teams are served by the flat families)")
+    T = tree.levels[L - 1].groups[0]
+    depth = len(paths[0])
+
+    def edge_wire(a: int, bb: int) -> str:
+        if not wire:
+            return ""
+        if depth >= 2:
+            return wire if paths[a][0] != paths[bb][0] else ""
+        # podless tree: the inter-NODE leader edges are the slow class;
+        # same-node edges (reduce-up/bcast-down inside a group) stay
+        # exact like every other ICI-class edge
+        return wire if paths[a] != paths[bb] else ""
+
+    top_code = int(top)
+    sub: Optional[Program] = None
+    if len(T) >= 2:
+        if top_code == 0:
+            sub = gen_rhd(len(T), radix=len(T))
+        elif top_code == 1:
+            sub = gen_ring(len(T), chunks=max(1, int(chunks)))
+        else:
+            sub = gen_sra(len(T), radix=top_code)
+    nch = sub.nchunks if sub is not None else 1
+    # canonicalize by the EFFECTIVE top structure: on a 2-leader top
+    # group, sra radix 4, sra radix 2 and the direct exchange all
+    # collapse to the same 2-rank program — one candidate, not three
+    # rotation slots whose measured differences are pure noise
+    if sub is not None:
+        if sub.family == "ring":
+            eff = {"top": 1, "chunks": int(sub.params["chunks"])}
+            eff_name = f"ring_c{sub.params['chunks']}"
+        elif sub.params.get("radix") == len(T):
+            eff = {"top": 0}
+            eff_name = "direct"
+        else:
+            eff = {"top": int(sub.params["radix"])}
+            eff_name = f"sra_r{sub.params['radix']}"
+    else:
+        eff = {"top": 0}
+        eff_name = "direct"
+    params: Dict[str, int] = dict(eff)
+    if wire:
+        params["wire"] = wire       # type: ignore[assignment]
+    b = ProgramBuilder("hier", CollType.ALLREDUCE, n, nch, params=params)
+
+    # phase 1: reduce up the tree (levels 0 .. L-2)
+    for lvl in range(L - 1):
+        groups = [g for g in tree.levels[lvl].groups if len(g) > 1]
+        if not groups:
+            continue
+        b.next_round()
+        for g in groups:
+            leader = g[0]
+            for mbr in g[1:]:
+                w = edge_wire(mbr, leader)
+                for c in range(nch):
+                    b.send(mbr, c, to=leader, wire=w)
+                    b.reduce(leader, c, frm=mbr, wire=w)
+    # phase 2: the top leaders' own allreduce, ranks translated
+    if sub is not None:
+        from .ir import OpKind
+        for k in range(sub.n_rounds):
+            b.next_round()
+            for i in range(sub.nranks):
+                me = T[i]
+                for op in sub.ranks[i].rounds[k]:
+                    if op.kind == OpKind.COPY:
+                        b.copy(me, op.chunk, op.src_chunk)
+                        continue
+                    peer = T[op.peer]
+                    w = edge_wire(me, peer)
+                    if op.kind == OpKind.SEND:
+                        b.send(me, op.chunk, to=peer, wire=w)
+                    elif op.kind == OpKind.RECV:
+                        b.recv(me, op.chunk, frm=peer, wire=w)
+                    else:
+                        b.reduce(me, op.chunk, frm=peer, wire=w)
+    # phase 3: broadcast back down (levels L-2 .. 0)
+    for lvl in range(L - 2, -1, -1):
+        groups = [g for g in tree.levels[lvl].groups if len(g) > 1]
+        if not groups:
+            continue
+        b.next_round()
+        for g in groups:
+            leader = g[0]
+            for mbr in g[1:]:
+                w = edge_wire(leader, mbr)
+                for c in range(nch):
+                    b.send(leader, c, to=mbr, wire=w)
+                    b.recv(mbr, c, frm=leader, wire=w)
+    name = f"gen_hier_{eff_name}"
+    if wire:
+        name += f"_q{wire}"
+    return b.build(name)
 
 
 # ---------------------------------------------------------------------------

@@ -38,8 +38,10 @@ pid board, so ranks in different processes of one host match and deliver
 through it (tl/ipc). Segments whose processes are all dead are unlinked
 by ``reap_stale_arenas``, which only ever touches the port's own prefix.
 
-Not bound here (later slices): the execution plans (``ucc_plan_*``), the
-MPMC queue, the arena's window heap (the pooled tier), its occupancy and
+The native execution plans (``ucc_plan_*``, driven by ``dsl/plan.py``),
+the MPMC queue (``NativeMpmcQueue``) and the arena's window heap (the
+pooled tier of ``dsl/compile.py``: ``IpcArena.window/view/store_release/
+load_acquire``) are bound too. Not bound: the arena's occupancy and
 per-rank purge, and the CPython fastcall extension, which is not built.
 """
 from __future__ import annotations
@@ -225,6 +227,34 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ucc_req_free.argtypes = [vp, u64]
     lib.ucc_req_free_many.restype = None
     lib.ucc_req_free_many.argtypes = [vp, u64, ctypes.POINTER(u64)]
+    # native execution plans (dsl/plan.py)
+    lib.ucc_plan_build.restype = vp
+    lib.ucc_plan_build.argtypes = [vp, u64, ctypes.POINTER(vp), u64,
+                                   ctypes.POINTER(u64), vp, u64,
+                                   ctypes.POINTER(u64)]
+    lib.ucc_plan_post.restype = ctypes.c_int
+    lib.ucc_plan_post.argtypes = [vp, vp, u64]
+    lib.ucc_plan_test.restype = u64
+    lib.ucc_plan_test.argtypes = [vp]
+    lib.ucc_plan_assist_done.restype = None
+    lib.ucc_plan_assist_done.argtypes = [vp]
+    lib.ucc_plan_cancel.restype = u64
+    lib.ucc_plan_cancel.argtypes = [vp]
+    lib.ucc_plan_counters.restype = None
+    lib.ucc_plan_counters.argtypes = [vp, ctypes.POINTER(u64)]
+    lib.ucc_plan_destroy.restype = None
+    lib.ucc_plan_destroy.argtypes = [vp]
+    lib.ucc_plan_ffi_calls.restype = u64
+    lib.ucc_plan_ffi_calls.argtypes = []
+    # the bounded MPMC queue
+    lib.ucc_mpmc_create.restype = vp
+    lib.ucc_mpmc_create.argtypes = [u64]
+    lib.ucc_mpmc_destroy.restype = None
+    lib.ucc_mpmc_destroy.argtypes = [vp]
+    lib.ucc_mpmc_push.restype = ctypes.c_int
+    lib.ucc_mpmc_push.argtypes = [vp, u64]
+    lib.ucc_mpmc_pop.restype = ctypes.c_int
+    lib.ucc_mpmc_pop.argtypes = [vp, ctypes.POINTER(u64)]
     # the cross-process arena (ucc_tpu_torch_ipc.cc)
     lib.ucc_mailbox_attach.restype = vp
     lib.ucc_mailbox_attach.argtypes = [ctypes.c_char_p, u64, u64]
@@ -270,6 +300,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ucc_store_release_u64.argtypes = [vp, u64]
     lib.ucc_load_acquire_u64.restype = u64
     lib.ucc_load_acquire_u64.argtypes = [vp]
+    # the arena's window heap (the pooled tier)
+    lib.ucc_arena_window.restype = u64
+    lib.ucc_arena_window.argtypes = [vp, u64, u64]
+    lib.ucc_arena_store_release.restype = None
+    lib.ucc_arena_store_release.argtypes = [vp, u64, u64]
+    lib.ucc_arena_load_acquire.restype = u64
+    lib.ucc_arena_load_acquire.argtypes = [vp, u64]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -305,6 +342,19 @@ def get_lib() -> Optional[ctypes.CDLL]:
                            f"UCC_NATIVE=y but the native core is "
                            f"unavailable: {_ERROR}")
         return _LIB
+
+
+def available() -> bool:
+    """True when the native core is loaded (or loads now)."""
+    return get_lib() is not None
+
+
+def plan_ffi_calls() -> int:
+    """Process-wide count of the plans' data-path ffi crossings
+    (``ucc_plan_post/test/assist_done``): one per collective when a plan
+    runs without assist rounds. 0 when the core is not loaded."""
+    lib = get_lib()
+    return int(lib.ucc_plan_ffi_calls()) if lib is not None else 0
 
 
 def build_error() -> Optional[str]:
@@ -504,6 +554,8 @@ class NativeMailbox:
         #: rndv payload keepalives: the C side parks a raw pointer, so the
         #: mailbox pins the array until delivery
         self._send_keep = {}
+        #: buffers pinned for the mailbox's life (``pin``)
+        self._pin_keep = []
         self._free_pending = []
         self._free_mu = threading.Lock()
         self._push_fn = lib.ucc_mailbox_push
@@ -597,6 +649,13 @@ class NativeMailbox:
             raise RuntimeError("native mailbox request slots exhausted")
         return NativeRecvReq(self, rid, dst)
 
+    def pin(self, obj) -> None:
+        """Keep *obj* alive until this mailbox's purge or destroy: the
+        keepalive of last resort for zero-copy entries the C side holds
+        raw pointers into when their owner cannot track delivery (a
+        cancelled or failed execution plan, ``dsl/plan.NativePlan``)."""
+        self._pin_keep.append(obj)
+
     def fence(self, team_key, min_epoch: int) -> int:
         """Epoch-fence *team_key*: purge parked entries below *min_epoch*
         and discard later stale arrivals. Returns the purged count."""
@@ -667,6 +726,7 @@ class NativeMailbox:
         # only after the C purge has dropped every parked pointer may the
         # rndv payloads go
         self._send_keep.clear()
+        self._pin_keep.clear()
         return n
 
     def destroy(self) -> None:
@@ -679,6 +739,7 @@ class NativeMailbox:
             self._pub_buf = None
             self.lib.ucc_mailbox_destroy(ptr)
             self._send_keep.clear()
+            self._pin_keep.clear()
 
 
 def poll_pending(reqs):
@@ -1047,6 +1108,25 @@ class IpcArena:
         v = int(self.lib.ucc_arena_beat_age_ms(self.ptr, ctx_rank))
         return None if v == (1 << 64) - 1 else float(v)
 
+    # -- the window heap (pooled tier, dsl/compile.py) ------------------
+    def window(self, key_obj, nbytes: int) -> int:
+        """Get or create the persistent named window *key_obj* of at least
+        *nbytes*; its arena offset, 0 when the window heap is full."""
+        return int(self.lib.ucc_arena_window(
+            self.ptr, self._intern(("W", key_obj)), nbytes)) \
+            if self.ptr else 0
+
+    def store_release(self, off: int, val: int) -> None:
+        self.lib.ucc_arena_store_release(self.ptr, off, val)
+
+    def load_acquire(self, off: int) -> int:
+        return int(self.lib.ucc_arena_load_acquire(self.ptr, off))
+
+    def view(self, off: int, nbytes: int) -> np.ndarray:
+        """uint8 view of arena bytes [off, off + nbytes)."""
+        buf = (ctypes.c_uint8 * nbytes).from_address(self.base + off)
+        return np.frombuffer(buf, dtype=np.uint8)
+
     def counters(self) -> dict:
         out = (ctypes.c_uint64 * 24)()
         if self.ptr:
@@ -1114,3 +1194,30 @@ def reap_stale_arenas(prefix: str = ARENA_PREFIX) -> list:
         except OSError:
             pass
     return reaped
+
+
+class NativeMpmcQueue:
+    """Bounded lock-free MPMC queue of uint64 handles (UCC's
+    ucc_lock_free_queue)."""
+
+    def __init__(self, capacity: int = 4096):
+        self.lib = get_lib()
+        if self.lib is None:
+            raise RuntimeError(f"native core unavailable: {_ERROR}")
+        self.ptr = self.lib.ucc_mpmc_create(capacity)
+
+    def push(self, v: int) -> bool:
+        """False when the queue is full."""
+        return bool(self.lib.ucc_mpmc_push(self.ptr, v))
+
+    def pop(self) -> Optional[int]:
+        """The oldest handle, or None when the queue is empty."""
+        out = ctypes.c_uint64()
+        if self.lib.ucc_mpmc_pop(self.ptr, ctypes.byref(out)):
+            return int(out.value)
+        return None
+
+    def destroy(self) -> None:
+        if self.ptr:
+            self.lib.ucc_mpmc_destroy(self.ptr)
+            self.ptr = None

@@ -3,8 +3,8 @@
 
 It prices a program before it is measured: ``ucc_tune`` and ``ucc_perftest
 --sweep`` stamp a ``predicted_us`` column on generated candidates' rows
-from a fitted model, and the program search (``dsl/search``, not ported
-yet) prunes its space with it. The model is the classic alpha-beta
+from a fitted model, and the program search (``dsl/search``) prunes its
+space with it. The model is the classic alpha-beta
 decomposition, priced per *link class*:
 
     cost(program, S) = sum over rounds [ alpha(slowest link in round)
@@ -34,9 +34,9 @@ from beta.
 The fitted model persists as JSON (``UCC_GEN_COST_CACHE``, default
 ``~/.cache/ucc_tpu_torch/cost.json``: the port never reads the JAX
 package's file). Programs are rebuilt through the port's
-``dsl/registry.build_named``, which builds flat families only: a ``hier``
-program, which needs the team's topology paths, does not rebuild, and its
-rows are skipped.
+``dsl/registry.build_named``; a ``hier`` program rebuilds from the team's
+topology paths when the caller passes them, and does not rebuild (its
+rows are skipped) without them.
 """
 from __future__ import annotations
 
@@ -246,13 +246,12 @@ def link_of_paths(paths) -> Callable[[int, int], str]:
 
 def _rebuild_program(gen: str, n: int, paths=None):
     """Rebuild the Program a sweep record's ``gen`` provenance string
-    names (``ring(chunks=4)``), or None. *paths* only classifies edges:
-    the port's registry builds no topology-shaped (hier) program."""
+    names (``ring(chunks=4)`` / ``hier(top=2,wire=int8)``), or None."""
     from ..dsl.registry import build_named
     famname, params, wire = parse_param_str(gen)
-    if not famname or (famname == "hier" and paths):
+    if not famname:
         return None
-    return build_named(famname, params, n, wire=wire)
+    return build_named(famname, params, n, wire=wire, paths=paths)
 
 
 def parse_param_str(s: str) -> Tuple[str, Dict[str, int], str]:

@@ -55,6 +55,9 @@ class MsgRange:
     #: generated-program family/parameter string of DSL candidates
     #: ("ring(chunks=4)"; empty = hand-written), kept across splits
     gen: str = ""
+    #: True when the candidate executes as a native plan on this team
+    #: (dsl/plan.py): "+plan" in the score dump's provenance column
+    plan: bool = False
 
     def contains(self, msgsize: int) -> bool:
         return self.start <= msgsize < self.end or \
@@ -84,13 +87,14 @@ class CollScore:
     def add_range(self, coll: CollType, mem: MemoryType, start: int, end: int,
                   score: int, init: Optional[Callable] = None, team: Any = None,
                   alg_name: str = "", origin: str = "default",
-                  precision: str = "", gen: str = "") -> Status:
+                  precision: str = "", gen: str = "",
+                  plan: bool = False) -> Status:
         """ucc_coll_score_add_range."""
         if start >= end or score < 0:
             return Status.ERR_INVALID_PARAM
         self.ranges.setdefault((coll, mem), []).append(
             MsgRange(start, end, score, init, team, alg_name, origin=origin,
-                     precision=precision, gen=gen))
+                     precision=precision, gen=gen, plan=plan))
         return Status.OK
 
     def merge(self, other: "CollScore") -> "CollScore":
@@ -157,6 +161,12 @@ class CollScore:
                 mid.init = new_init
                 mid.alg_name = alg or ""
                 mid.origin = "tune-str"
+                # the resolver hands back an init fn alone: the swapped-in
+                # algorithm's precision and generated parameters are
+                # unknown here, so the old range's tags go rather than
+                # mislabel it (the JAX package's rule)
+                mid.precision = ""
+                mid.gen = ""
             out.append(mid)
             if hi < r.end:
                 out.append(replace(r, start=hi))

@@ -33,14 +33,16 @@ def comp_name(r: MsgRange) -> str:
 
 
 def _cand_order(lst: List[MsgRange]) -> List[MsgRange]:
-    """Deterministic candidate order: (score desc, alg name, component,
-    registration order). Score alone would leave equal-score candidates
-    to list/merge ordering — any cross-rank divergence there makes ranks
-    pick different algorithms for the same collective and deadlocks the
-    team, so ties break on content, not construction history."""
+    """Deterministic candidate order: (score desc, alg name, generated
+    parameter string, component, registration order). Score alone would
+    leave equal-score candidates to list/merge ordering — any cross-rank
+    divergence there makes ranks pick different algorithms for the same
+    collective and deadlocks the team, so ties break on content, not
+    construction history. The generated parameter string takes part
+    because the DSL registers many same-score candidates at once."""
     return [r for _, r in sorted(
         enumerate(lst),
-        key=lambda p: (-p[1].score, p[1].alg_name or "",
+        key=lambda p: (-p[1].score, p[1].alg_name or "", p[1].gen or "",
                        comp_name(p[1]), p[0]))]
 
 
@@ -152,6 +154,11 @@ class ScoreMap:
                 comp = comp_name(r)
                 name = r.alg_name or comp
                 origin = r.origin or "default"
+                # plan-executed candidates (native execution plans,
+                # dsl/plan.py) are marked "+plan": "(default+plan)" = a
+                # hand-written algorithm retired inside the native core
+                if r.plan:
+                    origin = f"{origin}+plan"
                 # quantized variants carry their wire precision, generated
                 # candidates their family/parameters:
                 # "(generated-device gen:ring(chunks=2))"

@@ -810,11 +810,19 @@ def measure_candidate(teams, contexts, argses, coll: CollType,
             except Exception:  # noqa: BLE001 - sweep cleanup
                 pass
 
-    try:
-        for r, team in enumerate(teams):
+    # EVERY rank attempts its init even when one refuses: a host task
+    # takes a team coll tag before its NOT_SUPPORTED checks (a generated
+    # pooled program refuses a team without an arena only then), so
+    # stopping at the first refusal would leave the ranks' tag counters
+    # apart and wedge every later candidate of the sweep
+    refused = False
+    for r, team in enumerate(teams):
+        try:
             reqs.append(forced_request(team, argses[r], coll, mem,
                                        msgsize, index))
-    except UccError:
+        except UccError:
+            refused = True
+    if refused:
         finalize_all()
         return None
     lats: List[float] = []

@@ -115,6 +115,10 @@ class AlgSpec:
     #: generated-program family/parameter string ("ring(chunks=4)");
     #: empty for hand-written algorithms
     gen: str = ""
+    #: True when this candidate executes as a native plan on this team
+    #: (UCC_GEN_NATIVE resolved on at table-build time, dsl/plan.py):
+    #: "+plan" in the score dump
+    plan: bool = False
 
 
 def load_coll_plugins(tl_name: str):
@@ -178,12 +182,13 @@ def build_scores(team: BaseTeam, default_score: int,
                                         spec.init, team, spec.name,
                                         origin=spec.origin,
                                         precision=spec.precision,
-                                        gen=spec.gen)
+                                        gen=spec.gen, plan=spec.plan)
                 else:
                     score.add_range(coll, mt, 0, SIZE_INF, default_score,
                                     spec.init, team, spec.name,
                                     origin=spec.origin,
-                                    precision=spec.precision, gen=spec.gen)
+                                    precision=spec.precision, gen=spec.gen,
+                                    plan=spec.plan)
     if tune_env:
         tune = os.environ.get(tune_env, "")
         if tune:

@@ -182,10 +182,27 @@ class ReduceScattervRing(HostCollTask):
 
 
 def allreduce_ring_init(init_args, team):
-    """Ring allreduce: the classic generator. The JAX package can run it
-    as a native execution plan under UCC_GEN_NATIVE; that bridge comes
-    with the port's execution plans."""
-    return AllreduceRing(init_args, team)
+    """Ring allreduce — as a native execution plan when UCC_GEN_NATIVE
+    resolves on: the inner loop below is exactly the verified
+    ``gen_ring(chunks=1)`` program, so it lowers to a packed op table
+    retired inside the native core (one ffi crossing per collective,
+    C-side reductions). Falls back to the classic generator whenever the
+    plan path does not resolve (knob off, native core absent, Python-
+    matched peers, unsupported dtype/op, tiny counts); under
+    UCC_GEN_NATIVE=y a plan that cannot be built raises ERR_NO_RESOURCE
+    instead (dsl/plan.py)."""
+    subset = team.topo_ordered_subset() \
+        if hasattr(team, "topo_ordered_subset") else None
+    from ...dsl.plan import handwritten_plan_task, native_mode
+    try:
+        task = handwritten_plan_task(init_args, team, "ring",
+                                     subset=subset)
+    except Exception:  # noqa: BLE001 - under auto the plan bridge must
+        # never cost the classic path its correctness
+        if native_mode(team) == "y":
+            raise
+        task = None
+    return task if task is not None else AllreduceRing(init_args, team)
 
 
 class AllreduceRing(_TopoOrderedRingTask):

@@ -379,10 +379,27 @@ def sra_pipelined_init(init_args, team, radix=None):
                                  | CollArgsFlags.IN_PLACE))
 
     def make_task(ia):
-        # the JAX package bridges to a native execution plan here under
-        # UCC_GEN_NATIVE; the port runs the classic task until it has
-        # execution plans
-        return AllreduceSraKnomial(ia, team, radix=radix)
+        # native-plan bridge: the scatter-reduce/allgather loops below
+        # are exactly the verified gen_sra(radix) program (radix-r core
+        # plus the extra/proxy fold), so when UCC_GEN_NATIVE resolves on
+        # the collective retires inside the native core as a packed plan.
+        # The radix is resolved as the classic task resolves it, so the
+        # selection (ALLREDUCE_SRA_RADIX) is unchanged
+        from ...dsl.plan import handwritten_plan_task, native_mode
+        try:
+            r = clamp_radix(
+                radix or team.cfg_radix("allreduce_sra_radix",
+                                        ia.msgsize, default=2),
+                max(2, int(getattr(team, "size", 2))))
+            t = handwritten_plan_task(ia, team, "sra", radix=r)
+        except Exception:  # noqa: BLE001 - under auto the bridge must
+            # never cost the classic path its correctness; under y a
+            # plan that cannot be built is the collective's failure
+            if native_mode(team) == "y":
+                raise
+            t = None
+        return t if t is not None \
+            else AllreduceSraKnomial(ia, team, radix=radix)
 
     return _pipelined_init(
         init_args, team, "allreduce_sra_pipeline", make_task,

@@ -15,10 +15,12 @@ precision tags (allreduce ``q<mode>_sra`` id 5 and ``q<mode>_ring`` id 6,
 allgather ``q<mode>_linear`` id 7). On a team that spans nodes the ring
 algorithms run over the host-ordered rank subset
 (``topo_ordered_subset``), and the large-message allgather default is
-ring. Left for later slices, with the candidate lists unchanged where
-they are off by default: the generated candidates (UCC_GEN) and the
-native-plan ``+plan`` marks (UCC_GEN_NATIVE) come with the compiler's
-host half.
+ring. Under ``UCC_GEN`` the generated candidates of ``dsl/registry``
+join the table (origin ``generated``, ``searched`` or ``pooled``, score
+2); the ring and sra allreduce rows (and the generated ones that can)
+carry ``+plan`` in the score dump when ``UCC_GEN_NATIVE`` resolves on for
+the team, as they run as native execution plans (``dsl/plan``). Both are
+off or invisible with the defaults, and the candidate lists unchanged.
 """
 from __future__ import annotations
 
@@ -179,23 +181,34 @@ class HostTlTeam(TlTeamBase):
             if self._ag_large_alg() == "ring" else (S + 3, S + 5)
         a2a_switch = 129 * tsize
 
-        def spec(i, name, cls, sel=None, precision="", **kw):
+        # native-plan capability, resolved once per table build: ring and
+        # sra allreduce (and the generated candidates) execute as packed
+        # native plans when UCC_GEN_NATIVE resolves on, marked "+plan" in
+        # the score dump
+        try:
+            from ...dsl.plan import team_plan_capable
+            plan_cap = team_plan_capable(self)
+        except Exception:  # noqa: BLE001 - stub teams
+            plan_cap = False
+
+        def spec(i, name, cls, sel=None, precision="", plan=False, **kw):
             def init(ia, team, _cls=cls, _kw=kw):
                 if ia.args.active_set is not None:
                     # active-set subset execution (bcast only, enforced
                     # by core dispatch)
                     return self.coll_init_active_set(ia)
                 return _cls(ia, self, **_kw)
-            return AlgSpec(i, name, init, sel, precision=precision)
+            return AlgSpec(i, name, init, sel, precision=precision,
+                           plan=plan)
 
         table = {
             CollType.ALLREDUCE: [
                 spec(0, "knomial", AllreduceKnomial,
                      sel=f"0-4k:{S + 5},4k-inf:{S - 5}"),
                 spec(1, "sra_knomial", sra_pipelined_init,
-                     sel=f"0-4k:{S - 5},4k-inf:{S + 5}"),
+                     sel=f"0-4k:{S - 5},4k-inf:{S + 5}", plan=plan_cap),
                 spec(2, "ring", allreduce_ring_init,
-                     sel=f"0-4k:{S - 6},4k-inf:{S + 4}"),
+                     sel=f"0-4k:{S - 6},4k-inf:{S + 4}", plan=plan_cap),
                 spec(3, "dbt", AllreduceDbt,
                      sel=f"0-4k:{S - 7},4k-inf:{S + 3}"),
                 spec(4, "sliding_window", AllreduceSlidingWindow,
@@ -309,6 +322,12 @@ class HostTlTeam(TlTeamBase):
             table[CollType.ALLGATHER].append(
                 spec(7, f"q{q_ag}_linear", AllgatherQuant,
                      sel=f"0-64k:1,64k-inf:{S + 6}", precision=q_ag))
+        # generated candidates (dsl/): verified programs registered with
+        # origin "generated" at a low tuner-explorable score, only under
+        # UCC_GEN, so the off path keeps its candidate lists
+        from ...dsl.registry import generated_alg_specs
+        for coll, gen_specs in generated_alg_specs(self).items():
+            table.setdefault(coll, []).extend(gen_specs)
         return table
 
     def get_scores(self) -> CollScore:
@@ -363,6 +382,21 @@ class HostTlTeam(TlTeamBase):
         task = _ServiceBcast(self, data, root, max_size)
         task.progress_queue = self.core_team.context.progress_queue
         return task
+
+    def destroy(self) -> None:
+        # retire the cached native execution plans (dsl/plan.py): each
+        # holds a plan-lifetime pool lease whose offsets are baked into
+        # the C op table, released here, at the end of the team's tag
+        # space, never mid-life
+        cache = self.__dict__.pop("_plan_cache", None)
+        if cache:
+            for lst in cache.values():
+                for p in lst:
+                    try:
+                        p.destroy(clean=True)
+                    except Exception:  # noqa: BLE001 - teardown
+                        pass
+        super().destroy()
 
 
 class _ServiceAllgather(HostCollTask):

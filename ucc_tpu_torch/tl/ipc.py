@@ -23,8 +23,16 @@ every process registered in it is dead.
 
 By default the arena is attached only when the same-host ranks span more
 than one process (a job of threads keeps tl/shm and creates no segment);
-``UCC_TL_IPC_ENABLE=y`` attaches it within one process too, and ``n``
-turns the TL off.
+``UCC_TL_IPC_ENABLE=y`` attaches it within one process too (which is how
+in-process tests reach the pooled tier), and ``n`` turns the TL off.
+
+The pooled tier: generated programs with one-sided PUT/PUT_RED edges
+(``dsl/families.gen_pooled``, origin ``pooled`` under ``UCC_GEN``) retire
+those edges through persistent named windows of the arena's window heap
+(``UCC_TL_IPC_WINDOW``): the writer copies its chunk into its window and
+releases a flag, each reader reduces straight out of the mapped window
+and acks (``dsl/compile.GeneratedCollTask._pool_*``). Every window
+publish counts in the endpoint's ``n_pooled``.
 
 One-sided puts and gets reach only segments registered in this process,
 as in the JAX package: a target in another process ends the collective
@@ -63,8 +71,12 @@ TL_IPC_CONFIG = register_table(ConfigTable(
                     "in 4K/64K/1M/8M classes; the largest class is the "
                     "largest single message). The lowest same-host "
                     "rank's value sizes the arena", parse_memunits),
-        ConfigField("WINDOW", "64M", "arena window heap per host "
-                    "(persistent named segments)", parse_memunits),
+        ConfigField("WINDOW", "64M", "arena window heap per host: "
+                    "persistent named segments the pooled tier reduces "
+                    "through (one-sided put+flag). Windows are bump-"
+                    "allocated per (team epoch, slot, writer, size) and "
+                    "live until the arena dies, so sweeps across many "
+                    "message sizes want headroom here", parse_memunits),
         ConfigField("EAGER_THRESH", "auto", "eager copy threshold for "
                     "unexpected sends; larger sends are staged into an "
                     "arena block but complete only when received (rndv). "
@@ -92,6 +104,9 @@ class IpcTransport:
         self.n_eager = 0
         self.n_rndv = 0
         self.n_fenced = 0
+        #: window publishes of the pooled (one-sided put+flag) tier,
+        #: counted by the DSL executor
+        self.n_pooled = 0
         self._last_beat = 0.0
 
     def send_to(self, peer_ctx_rank: int, key, data: np.ndarray):

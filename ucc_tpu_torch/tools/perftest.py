@@ -42,7 +42,10 @@ Two benchmark paths:
   prints one measurement record per (size, algorithm), the input of
   ``ucc_tune --from``; ``--quant [int8|fp8]`` sets UCC_QUANT and adds to
   each record a ``detail.quant`` (wire vs logical bytes and busbw, and the
-  error of one random-data round against float64); both in-process only;
+  error of one random-data round against float64); ``--gen [FAMILIES]``
+  and ``--gen-device [FAMILIES]`` set UCC_GEN / UCC_GEN_DEVICE (and the
+  family grids) for the run, so a sweep also measures the generated
+  candidates, whose rows carry their ``gen`` string; all in-process only;
 - executor ops (``-c memcpy|reducedt|reducedt_strided``, UCC's
   ucc_pt_op_{memcpy,reduce,reduce_strided}): the execution component's
   copy/reduce tasks timed directly, no team; ``--nbufs`` sources (caps 7
@@ -61,6 +64,8 @@ Examples::
     python -m ucc_tpu_torch.tools.perftest -c allreduce -p 8 --sweep
     python -m ucc_tpu_torch.tools.perftest -m host -c allreduce -b 256K \
         -e 256K --json -F --quant int8
+    python -m ucc_tpu_torch.tools.perftest -m host -c allreduce -p 4 \
+        --sweep --gen 'ring(1,2),rhd(2)'
 """
 from __future__ import annotations
 
@@ -389,9 +394,10 @@ TRANSPORT = "unknown"
 
 def transport_tier(team) -> str:
     """The host transport tier serving a team's host tag spaces, as the
-    JAX perftest names it: ``ipc`` (a cross-process arena) > ``socket`` >
-    ``shm-thread`` (in-process mailboxes); "unknown" when the team has no
-    host tag space."""
+    JAX perftest names it: ``pooled`` (an arena whose one-sided windows
+    have moved traffic, the pooled tier of dsl/compile.py) > ``ipc`` (a
+    cross-process arena) > ``socket`` > ``shm-thread`` (in-process
+    mailboxes); "unknown" when the team has no host tag space."""
     try:
         spaces = team._tl_tag_spaces()
     except Exception:  # noqa: BLE001 - classification must not kill a run
@@ -401,12 +407,13 @@ def transport_tier(team) -> str:
     tiers = set()
     for _key, tr in spaces:
         if getattr(tr, "arena", None) is not None:
-            tiers.add("ipc")
+            tiers.add("pooled" if getattr(tr, "n_pooled", 0) > 0
+                      else "ipc")
         elif "Socket" in type(tr).__name__:
             tiers.add("socket")
         else:
             tiers.add("shm-thread")
-    for t in ("ipc", "socket", "shm-thread"):
+    for t in ("pooled", "ipc", "socket", "shm-thread"):
         if t in tiers:
             return t
     return "unknown"
@@ -1028,15 +1035,34 @@ def main(argv=None) -> int:
                         "explicit int8/fp8 sets UCC_QUANT for this run; "
                         "bare --quant uses the ambient UCC_QUANT "
                         "(defaulting to int8)")
+    p.add_argument("--gen", nargs="?", const="all", default="",
+                   metavar="FAMILIES",
+                   help="register GENERATED candidates (dsl/) for this run "
+                        "(in-process only): sets UCC_GEN=y before the libs "
+                        "are made; an optional value restricts the family "
+                        "grids (UCC_GEN_FAMILIES syntax). With --sweep -m "
+                        "host, generated candidates are swept and their "
+                        "rows carry their gen family/parameter string")
+    p.add_argument("--gen-device", nargs="?", const="all", default="",
+                   metavar="FAMILIES",
+                   help="register GENERATED-DEVICE candidates "
+                        "(dsl/lower_device) for this run (in-process only): "
+                        "sets UCC_GEN_DEVICE=y before the libs are made; an "
+                        "optional value restricts the device family grids "
+                        "(UCC_GEN_DEVICE_FAMILIES syntax). With --sweep -m "
+                        "cuda, gen_dev_* candidates are swept beside the "
+                        "library candidates and their rows carry the gen "
+                        "string")
     args = p.parse_args(argv)
 
     if args.procs:
         if args.store:
             raise SystemExit("perftest: --procs and --store are exclusive "
                              "(--procs launches --store workers itself)")
-        if args.sweep or args.quant:
+        if args.sweep or args.quant or args.gen or args.gen_device:
             raise SystemExit("perftest: --procs is incompatible with the "
-                             "in-process-only modes (--sweep/--quant)")
+                             "in-process-only modes (--sweep/--quant/"
+                             "--gen/--gen-device)")
         if args.coll in OP_BENCHES:
             raise SystemExit("perftest: --procs runs collectives only")
         return run_procs_mode(args, argv)
@@ -1065,6 +1091,23 @@ def main(argv=None) -> int:
                 os.environ["UCC_QUANT"] = args.quant
             elif not os.environ.get("UCC_QUANT"):
                 os.environ["UCC_QUANT"] = "int8"
+        if args.gen:
+            # as --quant: generated candidates register at team create
+            # from the lib config, so the env is set first — in-process
+            # only, where every rank shares it (ranks whose candidate
+            # tables differ would desync and deadlock)
+            if args.store:
+                raise SystemExit("perftest: --gen requires in-process mode")
+            os.environ["UCC_GEN"] = "y"
+            if args.gen != "all":
+                os.environ["UCC_GEN_FAMILIES"] = args.gen
+        if args.gen_device:
+            if args.store:
+                raise SystemExit("perftest: --gen-device requires "
+                                 "in-process mode")
+            os.environ["UCC_GEN_DEVICE"] = "y"
+            if args.gen_device != "all":
+                os.environ["UCC_GEN_DEVICE_FAMILIES"] = args.gen_device
         if args.sweep:
             if args.store:
                 raise SystemExit("perftest: --sweep requires in-process "

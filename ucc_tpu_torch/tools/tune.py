@@ -29,8 +29,20 @@ Examples::
     # against default (host memory, 4 ranks, 64 KiB allreduce)
     python -m ucc_tpu_torch.tools.tune --gate-smoke
 
-``--gen-search`` (the cost-model-guided program search) needs the port of
-``dsl/search``, which is not there yet: it exits with ERR_NOT_SUPPORTED.
+Generated programs (``dsl/``)::
+
+    # sweep the generated host candidates too (UCC_GEN=y for the probes)
+    python -m ucc_tpu_torch.tools.tune -m host -p 4 --gen 'ring(1,2),rhd(2)'
+
+    # cost-model-guided program search over host programs: winners land in
+    # the search cache and the tuning cache with origin "searched"
+    python -m ucc_tpu_torch.tools.tune --gen-search -p 8 -c allreduce \
+        -b 64K -e 1M
+
+    # the same over device programs (tl/torch_ops' gen_dev_* rows on
+    # CUDA memory), refined against the library candidates
+    python -m ucc_tpu_torch.tools.tune --gen-search --device -p 8 \
+        -c allreduce,bcast -b 64K -e 16M --quant int8
 """
 from __future__ import annotations
 
@@ -237,6 +249,45 @@ def _grid(begin: str, end: str) -> List[int]:
     return sizes
 
 
+def _gen_search(args, colls: List[str], cache_path: str) -> int:
+    """``--gen-search [--device]``: run the program search and print each
+    grid point's finalists (measured and predicted) and the winners."""
+    from ucc_tpu_torch.dsl.search import run_device_search, run_search
+    model = None
+    if args.from_file:
+        with open(args.from_file) as fh:
+            records = [json.loads(ln) for ln in fh
+                       if ln.strip().startswith("{")]
+        model = _cost.fit_records([r for r in records if r.get("gen")],
+                                  link="ici" if args.device else "shm")
+        if model is not None:
+            _cost.save_model(model)
+            print(f"# cost model fitted from {args.from_file}: "
+                  f"{model.source}")
+    search_fn = run_device_search if args.device else run_search
+    rep = search_fn(
+        # iters is the FIRST successive-halving rung; rungs double, so
+        # the finalists' confirmation lands near the user's -n
+        args.nprocs, colls, _grid(args.begin, args.end),
+        iters=max(3, args.iters // 4), budget=args.search_budget or None,
+        quant_mode=os.environ.get("UCC_QUANT", "") if args.quant else "",
+        tuner_cache=cache_path, model=model, verbose=True)
+    for res in rep.get("results") or []:
+        for f in res.get("finalists") or []:
+            print(f"#   {res['coll']:>10} "
+                  f"{memunits_str(res['size_bytes']):>8} "
+                  f"{f['alg']:<24} measured {f['measured_us']}us"
+                  + (f" predicted {f['predicted_us']}us"
+                     if f.get("predicted_us") is not None else ""))
+    label = "device-search" if args.device else "search"
+    print(f"# {label} winners: {rep.get('winners')} "
+          f"({rep.get('tuner_entries', 0)} tuning-cache entries -> "
+          f"{cache_path})")
+    if rep.get("error"):
+        print(f"# ucc_tune: {label}: {rep['error']}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="ucc_tune",
@@ -276,21 +327,50 @@ def main(argv=None) -> int:
                    help="include quantized candidates in the sweep: sets "
                         "UCC_QUANT for the probe jobs (bare --quant keeps "
                         "the ambient value, defaulting to int8)")
+    p.add_argument("--gen", nargs="?", const="all", default="",
+                   metavar="FAMILIES",
+                   help="include GENERATED candidates (dsl/) in the sweep: "
+                        "sets UCC_GEN=y for the probe jobs; an optional "
+                        "value restricts the family grids (UCC_GEN_FAMILIES "
+                        "syntax, e.g. 'ring(1,2,4),rhd(2,8)'). Winners "
+                        "compile into the tuning cache with their "
+                        "family/parameter string")
     p.add_argument("--gen-search", action="store_true",
-                   help="cost-model-guided program search (needs "
-                        "dsl/search, not ported yet: exits with "
-                        "ERR_NOT_SUPPORTED)")
+                   help="cost-model-guided program SEARCH instead of grid "
+                        "enumeration: fit the alpha-beta model (from "
+                        "--from records when given, else a live probe), "
+                        "propose the joint family x radix x chunking x "
+                        "depth x quantization (x hierarchy, on multi-node "
+                        "topologies) space, prune to the "
+                        "UCC_GEN_SEARCH_BUDGET predicted-cheapest per "
+                        "grid point, refine by successive halving with "
+                        "interleaved measurement, and persist winners into "
+                        "the search cache AND the tuning cache with origin "
+                        "'searched' and predicted-vs-measured provenance")
+    p.add_argument("--search-budget", type=int, default=0,
+                   help="override UCC_GEN_SEARCH_BUDGET for --gen-search")
+    p.add_argument("--device", action="store_true",
+                   help="with --gen-search: search DEVICE programs "
+                        "(dsl/lower_device) instead of host ones — the "
+                        "device-lowerable space priced over the device "
+                        "link class, the predicted-cheapest shortlist "
+                        "registered as tl/torch_ops gen_dev_* rows on a "
+                        "CUDA-memory team (UCC_GEN_DEVICE_FAMILIES), "
+                        "refined by successive halving against the library "
+                        "candidates; winning generated-device selections "
+                        "land in the tuning cache with mem 'cuda' and "
+                        "origin 'searched'")
     args = p.parse_args(argv)
 
-    if args.gen_search:
-        raise SystemExit("ucc_tune: --gen-search: ERR_NOT_SUPPORTED: the "
-                         "program search (dsl/search) is not ported to "
-                         "ucc_tpu_torch yet")
     if args.quant:
         if args.quant in ("int8", "fp8"):
             os.environ["UCC_QUANT"] = args.quant
         elif not os.environ.get("UCC_QUANT"):
             os.environ["UCC_QUANT"] = "int8"
+    if args.gen:
+        os.environ["UCC_GEN"] = "y"
+        if args.gen != "all":
+            os.environ["UCC_GEN_FAMILIES"] = args.gen
 
     if args.gate_smoke:
         return run_gate_smoke(args.iters if args.iters != 20 else 10)
@@ -302,6 +382,9 @@ def main(argv=None) -> int:
     for c in colls:
         if c not in COLLS:
             p.error(f"unknown collective '{c}'")
+
+    if args.gen_search:
+        return _gen_search(args, colls, cache_path)
 
     if args.from_file:
         with open(args.from_file) as fh:
