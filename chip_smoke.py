@@ -2537,28 +2537,7 @@ def check_attention_f32_sass(info) -> None:
 def make_job(n, params=None, **overrides):
     """n contexts (their libs made with *params* and the config
     *overrides*) and one team over them."""
-    import ucc_tpu_torch as ucc
-    world = ucc.ThreadOobWorld(n)
-    libs = [ucc.init(params, **overrides) for _ in range(n)]
-    ctxs = [None] * n
-    errs = []
-
-    def make(r):
-        try:
-            ctxs[r] = ucc.Context(libs[r],
-                                  ucc.ContextParams(oob=world.endpoint(r)))
-        except Exception as e:  # noqa: BLE001 - re-raised below
-            errs.append(e)
-
-    threads = [threading.Thread(target=make, args=(r,)) for r in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-    if errs:
-        raise errs[0]
-    if any(t.is_alive() for t in threads):
-        raise RuntimeError("context creation did not finish")
+    ctxs = make_contexts(n, params, **overrides)
     return ctxs, make_team(ctxs)
 
 
@@ -8109,6 +8088,534 @@ def main_path_compiler(smi, counters) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 13. ft: detect, diagnose, recover
+# ---------------------------------------------------------------------------
+
+FT_N = 8
+#: ctx rank the kill drill kills; ctx rank the diagnosis drill leaves out
+FT_KILL = 5
+FT_MISSING = 3
+#: the resumed allreduces: B1 at 64 Ki and B2 at 16 Mi f32 per rank, both
+#: served by tl/ring_cuda at n 7 and n 8
+FT_COUNTS = (("ring_allreduce_pass", SMALL_COUNT),
+             ("ring_allreduce_chunked", MAIN_COUNT))
+FT_RING_TUNE = "allreduce:@ring_cuda:inf"
+#: bounds of the drills: a hang fails the phase, not the whole run
+FT_DEADLINE_S = 60.0
+#: heartbeat of the kill drill (seconds): the detection time is about
+#: the timeout
+FT_HB_INTERVAL, FT_HB_TIMEOUT = 0.02, 0.5
+#: the diagnosis drill's watchdog: soft and hard deadlines (seconds)
+FT_WD_SOFT, FT_WD_HARD = 0.5, 1.0
+FT_DIAG_ROUNDS = 3
+#: the recorder's cost: rounds per condition and repeat (after WARMUP)
+FT_COST_REPS = 2
+
+
+def make_contexts(n, params=None, **overrides):
+    """n contexts (their libs made with *params* and the config
+    *overrides*) over one thread OOB world."""
+    import ucc_tpu_torch as ucc
+    world = ucc.ThreadOobWorld(n)
+    libs = [ucc.init(params, **overrides) for _ in range(n)]
+    ctxs = [None] * n
+    errs = []
+
+    def make(r):
+        try:
+            ctxs[r] = ucc.Context(libs[r],
+                                  ucc.ContextParams(oob=world.endpoint(r)))
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=make, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("context creation did not finish")
+    return ctxs
+
+
+def ft_drive(ctxs, reqs, what, timeout=FT_DEADLINE_S, on_pass=None):
+    """Progress every context, polling every request each pass (a list:
+    membership requests drive their rebuild rounds from test()) and then
+    calling *on_pass*, until none is in progress; their statuses."""
+    import ucc_tpu_torch as ucc
+    deadline = time.monotonic() + timeout
+    while True:
+        sts = [rq.test() for rq in reqs]
+        if on_pass is not None:
+            on_pass()
+        if all(s != ucc.Status.IN_PROGRESS for s in sts):
+            return sts
+        for c in ctxs:
+            c.progress()
+        if time.monotonic() > deadline:
+            raise AssertionError(f"ft: {what} did not end within "
+                                 f"{timeout} s: {[s.name for s in sts]}")
+
+
+def ft_args(src, dst, persistent=False):
+    import ucc_tpu_torch as ucc
+    f32 = ucc.DataType.FLOAT32
+    return ucc.CollArgs(
+        coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+        src=ucc.BufferInfo(src, src.numel(), f32),
+        dst=ucc.BufferInfo(dst, dst.numel(), f32),
+        flags=ucc.CollArgsFlags.PERSISTENT if persistent else 0)
+
+
+def ft_inputs(ctx_ranks, count):
+    """Rank inputs seeded by context rank: a resumed team's ranks keep
+    their data whatever their new team rank."""
+    import torch
+    out = []
+    for c in ctx_ranks:
+        g = torch.Generator(device="cuda").manual_seed(7000 + int(c))
+        out.append(torch.randn(count, generator=g, device="cuda"))
+    return out
+
+
+def ft_resume(ctxs, team, what, kernels, ring):
+    """The resumed allreduces on *team* (one team per member context):
+    through tl/ring_cuda (*ring*: B1 and B2, each bitwise its plain
+    version and close to torch.stack(srcs).sum(0)) or tl/torch_ops's xla
+    (bitwise torch.stack(srcs).sum(0)). Returns {count: p50 s}."""
+    import torch
+    import ucc_tpu_torch as ucc
+    members = [int(t.ctx_map.eval(t.rank)) for t in team]
+    out = {}
+    runs = FT_COUNTS if ring else (("xla", MAIN_COUNT),)
+    for kname, count in runs:
+        srcs = ft_inputs(members, count)
+        dsts = [torch.empty_like(s) for s in srcs]
+        reqs = [t.collective_init(ft_args(s, d, persistent=True))
+                for t, s, d in zip(team, srcs, dsts)]
+        alg = reqs[0].task.alg_name
+        want_alg = "ring_cuda" if ring else "xla"
+        if alg != want_alg:
+            raise AssertionError(f"ft: {what} allreduce of {count} "
+                                 f"selected {alg}, not {want_alg}")
+        before = kernels[kname][0].launches if ring else 0
+        # every context progresses (beats), members or not: a context
+        # left out of the loop would look dead to the others
+        samples = sorted(time_rounds(ctxs, reqs, f"{what} {count}"))
+        total = torch.stack(srcs).sum(0)
+        if ring:
+            wrapper, ref = kernels[kname]
+            if wrapper.launches - before <= 0:
+                raise AssertionError(f"ft: {what} at {count} never "
+                                     f"launched {kname}")
+            compare(f"ft {what} {count} vs {kname}'s plain version",
+                    dsts, ref(srcs, ucc.ReductionOp.SUM, 0))
+            for d in dsts:
+                if not torch.allclose(d, total, rtol=MAIN_RTOL,
+                                      atol=MAIN_ATOL):
+                    raise AssertionError(f"ft: {what} {count}: differs "
+                                         f"from stack().sum(0)")
+        else:
+            compare(f"ft {what} {count} vs torch.stack(srcs).sum(0)",
+                    dsts, [total] * len(dsts))
+        p50 = samples[len(samples) // 2]
+        out[count] = p50
+        log(f"ft: {what}, {len(team)} ranks, epoch {team[0].epoch}, "
+            f"allreduce {count} f32/rank via {alg}"
+            f"{' (' + kname + ')' if ring else ''}: bitwise "
+            f"{'the plain version' if ring else 'torch.stack(srcs).sum(0)'}"
+            f", p50 {p50 * 1e3:.3f} ms over {ITERS} rounds")
+        del srcs, dsts, total
+        torch.cuda.empty_cache()
+    return out
+
+
+def ft_membership(ctxs, requests, what):
+    """Drive membership requests to their end; each must be OK; returns
+    (seconds until every request left agreement, seconds to the end)."""
+    import ucc_tpu_torch as ucc
+    t0 = time.perf_counter()
+    agreed = []
+
+    def note():
+        if not agreed and all(getattr(rq, "_state", "done") != "agree"
+                              for rq in requests):
+            agreed.append(time.perf_counter() - t0)
+    sts = ft_drive(ctxs, requests, what, on_pass=note)
+    bad = [s for s in sts if s != ucc.Status.OK]
+    if bad:
+        raise AssertionError(f"ft: {what} failed: {bad[0].name}")
+    done = time.perf_counter() - t0
+    return (agreed[0] if agreed else done), done
+
+
+def ft_kill_drill(smi, kernels, ring_p50):
+    """(a) 8 ranks of one process on the card, UCC_FT=shrink: ctx rank
+    FT_KILL is killed (UCC_FAULT), a 16 Mi allreduce ends ERR_RANK_FAILED
+    on the 7 survivors naming it, two teams (ring_cuda pinned, and the
+    default selection) shrink to epoch 1 and resume, a stale post on the
+    old team is refused, and a spare context joins both (epoch 2), which
+    resume again."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.core.team import Team
+    from ucc_tpu_torch.fault import health, inject
+    # the set-up runs under a lenient heartbeat timeout: the first CUDA
+    # work of a process can hold one progress pass for longer than the
+    # drill's timeout, and the joiner is not progressed by make_team
+    health.configure("shrink", interval=FT_HB_INTERVAL,
+                     timeout=FT_DEADLINE_S)
+    ctxs = make_contexts(FT_N + 1)          # ctx FT_N: the joiner
+    teams = []
+    try:
+        with env_set(UCC_TL_RING_CUDA_TUNE=FT_RING_TUNE):
+            ring = make_team(ctxs[:FT_N])
+        flat = make_team(ctxs[:FT_N])
+        teams += ring + flat
+        for c in ctxs:                      # every context beats afresh
+            c.progress()
+        health.configure("shrink", timeout=FT_HB_TIMEOUT)
+        survivors = [r for r in range(FT_N) if r != FT_KILL]
+        srcs = ft_inputs(survivors, MAIN_COUNT)
+        dsts = [torch.empty_like(s) for s in srcs]
+        inject.configure(f"kill={ctxs[FT_KILL].rank}", seed=0)
+        reqs = [ring[r].collective_init(ft_args(s, d))
+                for r, s, d in zip(survivors, srcs, dsts)]
+        t0 = time.perf_counter()
+        for rq in reqs:
+            rq.post()
+        sts = ft_drive(ctxs, reqs, "the allreduce across the kill")
+        detect_s = time.perf_counter() - t0
+        for r, rq, st in zip(survivors, reqs, sts):
+            if st != ucc.Status.ERR_RANK_FAILED or \
+                    FT_KILL not in (rq.failed_ranks or ()):
+                raise AssertionError(
+                    f"ft: survivor {r} ended {st.name} naming "
+                    f"{rq.failed_ranks}, not ERR_RANK_FAILED naming "
+                    f"{FT_KILL}")
+            rq.finalize()
+        log(f"ft: (a) ctx rank {FT_KILL} killed: the 7 survivors' "
+            f"{MAIN_COUNT} f32 allreduce ended ERR_RANK_FAILED naming it "
+            f"in {detect_s * 1e3:.1f} ms (heartbeat timeout "
+            f"{FT_HB_TIMEOUT} s)")
+        del srcs, dsts
+        # one team at a time: a rebuilt team reads the TUNE variables at
+        # its create, and only the ring team's successors pin ring_cuda
+        with env_set(UCC_TL_RING_CUDA_TUNE=FT_RING_TUNE):
+            shrinks = [ring[r].shrink_post() for r in survivors]
+            agree_s, shrink_s = ft_membership(ctxs, shrinks, "shrink")
+        flat_shrinks = [flat[r].shrink_post() for r in survivors]
+        ft_membership(ctxs, flat_shrinks, "shrink of the default team")
+        shrinks += flat_shrinks
+        if {(tuple(s.failed_ranks), s.epoch) for s in shrinks} != \
+                {((FT_KILL,), 1)}:
+            raise AssertionError("ft: survivors disagree on the shrink")
+        ring1 = [s.new_team for s in shrinks[:len(survivors)]]
+        flat1 = [s.new_team for s in shrinks[len(survivors):]]
+        teams += ring1 + flat1
+        try:
+            ring[0].collective_init(ft_args(torch.zeros(4, device="cuda"),
+                                            torch.zeros(4, device="cuda")))
+        except ucc.RankFailedError:
+            pass
+        else:
+            raise AssertionError("ft: a post on the shrunk-away team was "
+                                 "accepted")
+        log(f"ft: (a) shrink of the ring team to 7 ranks, epoch 1: agreement "
+            f"{agree_s * 1e3:.1f} ms, shrink {shrink_s * 1e3:.1f} ms; a "
+            f"post on the old team is refused (RankFailedError)")
+        p50 = {"shrunk": ft_resume(ctxs, ring1, "shrunk ring team",
+                                   kernels, True)}
+        p50["shrunk_xla"] = ft_resume(ctxs, flat1, "shrunk xla team",
+                                      kernels, False)
+        grow_s = 0.0
+        grown = []
+        for team, tune in ((ring1, FT_RING_TUNE), (flat1, None)):
+            with env_set(UCC_TL_RING_CUDA_TUNE=tune):
+                reqs = [t.grow_post([ctxs[FT_N].rank]) for t in team]
+                jn = Team.join_post(ctxs[FT_N])
+                _, s = ft_membership(ctxs, reqs + [jn], "grow")
+            grow_s = grow_s or s
+            new = [g.new_team for g in reqs] + [jn.new_team]
+            if {t.epoch for t in new} != {2} or \
+                    {t.size for t in new} != {FT_N}:
+                raise AssertionError("ft: the grown team is not 8 ranks "
+                                     "at epoch 2")
+            teams += new
+            grown.append(new)
+        log(f"ft: (a) grow of both teams with ctx rank {FT_N} in the "
+            f"killed rank's place, 8 ranks, epoch 2: the ring team's "
+            f"{grow_s * 1e3:.1f} ms")
+        p50["grown"] = ft_resume(ctxs, grown[0], "grown ring team",
+                                 kernels, True)
+        p50["grown_xla"] = ft_resume(ctxs, grown[1], "grown xla team",
+                                     kernels, False)
+        phase3 = ring_p50.get(("ALLREDUCE", ""))
+        if phase3:
+            log(f"ft: (a) resumed {MAIN_COUNT} f32 allreduce via ring_cuda: "
+                f"p50 {p50['shrunk'][MAIN_COUNT] * 1e3:.3f} ms at 7 ranks, "
+                f"{p50['grown'][MAIN_COUNT] * 1e3:.3f} ms at 8 ranks; phase "
+                f"3's 8 ranks: {phase3 * 1e3:.3f} ms | card {smi}")
+        return {"detect_ms": detect_s * 1e3, "agree_ms": agree_s * 1e3,
+                "shrink_ms": shrink_s * 1e3, "grow_ms": grow_s * 1e3,
+                "p50": p50}
+    finally:
+        inject.reset()
+        for t in teams:
+            t.destroy()
+        for c in ctxs:
+            c.destroy()
+        health.reset()
+
+
+def ft_diagnosis_drill(smi, tmp):
+    """(b) 8 ranks, no FT, the watchdog at FT_WD_SOFT/FT_WD_HARD with
+    action cancel: FT_DIAG_ROUNDS healthy device allreduces, then rank
+    FT_MISSING skips one. The survivors are cancelled at the hard
+    deadline, the merged rings name it missing at that sequence, and the
+    Perfetto export parses back with every rank's dev_launch/dev_ready
+    of each earlier round."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.obs import diagnose, flight, watchdog
+    watchdog.reset()
+    watchdog.configure(FT_WD_SOFT, file=os.path.join(tmp, "wd.json"),
+                       action="cancel", hard_timeout=FT_WD_HARD)
+    ctxs, team = make_job(FT_N)
+    try:
+        srcs = ft_inputs(range(FT_N), SMALL_COUNT)
+        dsts = [torch.empty_like(s) for s in srcs]
+        for _ in range(FT_DIAG_ROUNDS):
+            reqs = [t.collective_init(ft_args(s, d))
+                    for t, s, d in zip(team, srcs, dsts)]
+            for rq in reqs:
+                rq.post()
+            sts = ft_drive(ctxs, reqs, "a healthy round")
+            if any(s != ucc.Status.OK for s in sts):
+                raise AssertionError(f"ft: healthy round: {sts}")
+            for rq in reqs:
+                rq.finalize()
+        posting = [r for r in range(FT_N) if r != FT_MISSING]
+        reqs = [team[r].collective_init(ft_args(srcs[r], dsts[r]))
+                for r in posting]
+        t0 = time.perf_counter()
+        for rq in reqs:
+            rq.post()
+        sts = ft_drive(ctxs, reqs, "the stalled round")
+        cancel_s = time.perf_counter() - t0
+        if any(s != ucc.Status.ERR_TIMED_OUT for s in sts):
+            raise AssertionError(f"ft: the stalled round ended "
+                                 f"{[s.name for s in sts]}, not "
+                                 f"ERR_TIMED_OUT by the watchdog")
+        for rq in reqs:
+            rq.finalize()
+        merged = flight.collect_process(ctxs[0], "ft")
+        diag = diagnose.diagnose(merged)
+        fseq = FT_DIAG_ROUNDS + 1
+        named = [f for f in diag["missing"] if f["kind"] == "missing"
+                 and f["culprits"] == [FT_MISSING] and f["fseq"] == fseq
+                 and f["last_fseq"] == {str(FT_MISSING): FT_DIAG_ROUNDS}]
+        if not named:
+            raise AssertionError(f"ft: the diagnosis did not name rank "
+                                 f"{FT_MISSING} missing at sequence "
+                                 f"{fseq}: {diag['summary']}")
+        path = os.path.join(tmp, "ft_trace.json")
+        with open(path, "w") as fh:
+            json.dump(diagnose.to_chrome_trace(merged), fh)
+        with open(path) as fh:
+            back = json.load(fh)["traceEvents"]
+        per = {}
+        for e in back:
+            if e.get("ph") == "i" and e["name"] in ("snd:dev_launch",
+                                                    "snd:dev_ready"):
+                per.setdefault((e["pid"], e["name"]), 0)
+                per[(e["pid"], e["name"])] += 1
+        want = {(r, k): FT_DIAG_ROUNDS for r in range(FT_N)
+                for k in ("snd:dev_launch", "snd:dev_ready")}
+        if per != want:
+            raise AssertionError(f"ft: device events in the trace {per}, "
+                                 f"not {FT_DIAG_ROUNDS} of each per rank")
+        log(f"ft: (b) rank {FT_MISSING} skipped allreduce {fseq}: the 7 "
+            f"others cancelled by the watchdog (ERR_TIMED_OUT) after "
+            f"{cancel_s * 1e3:.0f} ms (hard deadline {FT_WD_HARD} s); the "
+            f"diagnosis: rank(s) {named[0]['culprits']} missing at "
+            f"sequence {fseq}; Perfetto export of "
+            f"{len(back)} events parses back, {FT_DIAG_ROUNDS} dev_launch "
+            f"and dev_ready per rank | card {smi}")
+        return {"cancel_ms": cancel_s * 1e3, "trace_events": len(back)}
+    finally:
+        watchdog.configure(0, action="dump")
+        watchdog.reset()
+        for t in team:
+            t.destroy()
+        for c in ctxs:
+            c.destroy()
+
+
+def ft_procs_drill(smi):
+    """(c) A whole process SIGKILLed: 2 x 2 ranks on host memory over
+    tl/ipc (tests/test_ipc.py's drill), then 4 x 2 ranks of CUDA memory on
+    a device team that spans the processes: the survivors end
+    ERR_RANK_FAILED, shrink to 6 ranks and run the allreduce bitwise the
+    kernel's plain version, one launch of B2's part per surviving process
+    and round; nothing is left in /dev/shm."""
+    from ucc_tpu_torch.fault.soak import run_procs_kill_shrink
+    shm = "/dev/shm"
+    before = sorted(f for f in os.listdir(shm) if f.startswith(SPAN_GLOBS))
+    out = {}
+    for what, kw in (
+            ("host memory over tl/ipc, 2 processes x 2 ranks",
+             dict(n_procs=2, ranks_per=2, pre_iters=1, post_iters=6)),
+            ("CUDA memory on a spanning device team, 4 processes x 2 "
+             "ranks", dict(n_procs=4, ranks_per=2, pre_iters=1,
+                           post_iters=3, count=MAIN_COUNT,
+                           device="cuda"))):
+        t0 = time.perf_counter()
+        rep = run_procs_kill_shrink(**kw)
+        secs = time.perf_counter() - t0
+        if rep["violations"]:
+            raise AssertionError(f"ft: (c) {what}: {rep['violations']}")
+        dead = set(rep["killed"]["ctx_ranks"])
+        per = rep["per_rank"]
+        for r, p in per.items():
+            if p["detected"]["status"] != "ERR_RANK_FAILED" or \
+                    not dead & set(p["detected"]["ranks"]):
+                raise AssertionError(f"ft: (c) rank {r}: {p['detected']}")
+        device = kw.get("device")
+        launches = rep.get("launches", {})
+        # a spanning round is one launch of its part per process
+        want = {"ring_allreduce_pass": 0, "ring_allreduce_chunked":
+                (kw["n_procs"] - 1) * kw["post_iters"]}
+        if device and (launches != want or
+                       any(p.get("bitwise", 0) < kw["post_iters"] + 1
+                           for p in per.values())):
+            raise AssertionError(f"ft: (c) {what}: launches {launches}, "
+                                 f"not {want}; bitwise rounds "
+                                 f"{[p.get('bitwise') for p in per.values()]}")
+        detect = max(p["detected"]["ms"] for p in per.values())
+        shrink = max(p["agreed"]["ms"] for p in per.values())
+        log(f"ft: (c) {what}: process {rep['killed']['proc']} (ctx ranks "
+            f"{sorted(dead)}) SIGKILLed; {len(per)} survivors ended "
+            f"ERR_RANK_FAILED within {detect:.1f} ms of posting, shrank "
+            f"to epoch 1 in {shrink:.1f} ms and ran "
+            f"{kw['post_iters']} checked rounds"
+            f"{' bitwise the plain version, launches ' + str(launches) if device else ''}"
+            f"; {secs:.1f} s")
+        out["device" if device else "host"] = {
+            "detect_ms": detect, "shrink_ms": shrink, "launches": launches}
+    left = sorted(f for f in os.listdir(shm)
+                  if f.startswith(SPAN_GLOBS) and f not in before)
+    if left:
+        raise AssertionError(f"ft: (c) left segments behind: {left}")
+    log(f"ft: (c) no {'*, '.join(SPAN_GLOBS)}* segment left in /dev/shm "
+        f"| card {smi}")
+    return out
+
+
+def ft_recorder_cost(smi):
+    """(d) The flight recorder's cost: phase 3's 8-rank allreduce at
+    64 Ki and 16 Mi f32, the default selection (xla) and ring_cuda
+    pinned, with UCC_FLIGHT=y and =n in turns (y, n, n, y), WARMUP +
+    ITERS persistent rounds each."""
+    import torch
+    from ucc_tpu_torch.obs import flight
+    jobs = {}
+    samples = {}
+    try:
+        for on in (True, False):
+            flight.configure(enabled=on)
+            ctxs = make_contexts(FT_N)
+            with env_set(UCC_TL_RING_CUDA_TUNE=FT_RING_TUNE):
+                ring = make_team(ctxs)
+            jobs[on] = (ctxs, {"ring_cuda": ring, "xla": make_team(ctxs)})
+        for rep in range(FT_COST_REPS):
+            order = (True, False) if rep % 2 == 0 else (False, True)
+            for count in (SMALL_COUNT, MAIN_COUNT):
+                srcs = ft_inputs(range(FT_N), count)
+                dsts = [torch.empty_like(s) for s in srcs]
+                for alg in ("xla", "ring_cuda"):
+                    for on in order:
+                        flight.configure(enabled=on)
+                        ctxs, teams = jobs[on]
+                        reqs = [t.collective_init(ft_args(s, d, True))
+                                for t, s, d in zip(teams[alg], srcs, dsts)]
+                        if reqs[0].task.alg_name != alg:
+                            raise AssertionError(
+                                f"ft: (d) selected {reqs[0].task.alg_name}"
+                                f", not {alg}")
+                        samples.setdefault((count, alg, on), []).extend(
+                            time_rounds(ctxs, reqs, f"ft cost {alg}"))
+                del srcs, dsts
+                torch.cuda.empty_cache()
+    finally:
+        flight.configure(enabled=True)
+        for ctxs, teams in jobs.values():
+            for ts in teams.values():
+                for t in ts:
+                    t.destroy()
+            for c in ctxs:
+                c.destroy()
+    out = {}
+    for count in (SMALL_COUNT, MAIN_COUNT):
+        for alg in ("xla", "ring_cuda"):
+            p = {on: sorted(samples[(count, alg, on)]) for on in (True,
+                                                                  False)}
+            p50 = {on: v[len(v) // 2] for on, v in p.items()}
+            ratio = p50[True] / p50[False]
+            out[(count, alg)] = (p50[True], p50[False], ratio)
+            log(f"ft: (d) recorder cost, 8-rank allreduce {count} f32/rank "
+                f"via {alg}: p50 {p50[True] * 1e3:.4f} ms with UCC_FLIGHT=y, "
+                f"{p50[False] * 1e3:.4f} ms with =n ({len(p[True])} rounds "
+                f"each, in turns), ratio {ratio:.4f} | card {smi}")
+    return {f"{c}/{a}": v for (c, a), v in out.items()}
+
+
+def main_path_ft(smi, counters, ring_p50) -> dict:
+    """Phase 13: detect, diagnose, recover. Returns every kernel's
+    launches over the phase (this process's, and the spanning drill's
+    workers')."""
+    import tempfile
+    from ucc_tpu_torch.obs import flight
+    t0 = time.perf_counter()
+    base = snapshot(counters)
+    kernels = wrappers()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="ucc_ft_") as tmp:
+        old_file = flight._file
+        # the rank-failure and watchdog dumps of the drills go here, not
+        # into the checkout (run_procs_kill_shrink hands the path to its
+        # worker processes)
+        flight.configure(file=os.path.join(tmp, "flight.json"))
+        try:
+            with env_set(UCC_TL_RING_CUDA_TUNE=None,
+                         UCC_TL_TORCH_OPS_TUNE=None, UCC_FAULT=None,
+                         UCC_FT=None):
+                for step, key, fn in (
+                        ("a", "kill", lambda: ft_kill_drill(
+                            smi, kernels, ring_p50)),
+                        ("b", "diagnosis", lambda: ft_diagnosis_drill(
+                            smi, tmp)),
+                        ("c", "procs", lambda: ft_procs_drill(smi)),
+                        ("d", "cost", lambda: ft_recorder_cost(smi))):
+                    t1 = time.perf_counter()
+                    res[key] = fn()
+                    log(f"ft: ({step}) {key} in "
+                        f"{time.perf_counter() - t1:.1f} s")
+        finally:
+            flight.configure(file=old_file)
+    launches = since(counters, base)
+    for k, v in res["procs"].get("device", {}).get("launches", {}).items():
+        launches[k] = launches.get(k, 0) + v
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"ft: launches over the phase {launches} | ft phase: "
+        f"{res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -8307,6 +8814,10 @@ def main() -> int:
     # hierarchical programs and the program search -------------------------
     compiler = main_path_compiler(smi, counters)
 
+    # -- 13. ft: fault injection, detection, agreement, shrink and grow,
+    # the watchdog, the flight recorder and its diagnosis ------------------
+    ft = main_path_ft(smi, counters, ring_p50)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -8322,6 +8833,7 @@ def main() -> int:
         rec["hier_launches"] = hier["launches"].get(rec["name"], 0)
         rec["quant_launches"] = quant["launches"].get(rec["name"], 0)
         rec["compiler_launches"] = compiler["launches"].get(rec["name"], 0)
+        rec["ft_launches"] = ft["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

@@ -708,12 +708,25 @@ def test_create_from_parent_nonmember_skips():
 
 
 def test_create_from_parent_ft_args_not_ported():
+    """The fault-tolerant rebuilds (``dead``, ``admit_ctx``) are ported;
+    the test's name is historical, from when they were refused with
+    ERR_NOT_SUPPORTED. A survivor gets a successor team at the next
+    epoch, bootstrapped over the service team's transport, and a dead
+    rank gets None."""
     tjob = make_torch_job(n=2)
     try:
-        for kw in (dict(dead=[1]), dict(admit_ctx=[3])):
-            with pytest.raises(ut.UccError) as err:
-                ut.Team.create_from_parent(tjob.teams[0], [0], **kw)
-            assert err.value.status == ut.Status.ERR_NOT_SUPPORTED
+        assert ut.Team.create_from_parent(tjob.teams[1], [0],
+                                          dead=[1]) is None
+        new = ut.Team.create_from_parent(tjob.teams[0], [0], dead=[1])
+        assert new.epoch == 1 and new.size == 1
+        tjob.progress_until(
+            lambda: new.create_test() != ut.Status.IN_PROGRESS)
+        assert new.create_test() == ut.Status.OK
+        new.destroy()
+        grown = ut.Team.create_from_parent(tjob.teams[0], [0],
+                                           admit_ctx=[3])
+        assert grown.epoch == 1 and grown.size == 2
+        grown.destroy()
     finally:
         tjob.cleanup()
 

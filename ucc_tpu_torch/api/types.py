@@ -130,6 +130,7 @@ class TeamParams:
     team_size: Optional[int] = None
     ordered: bool = True                     # EP_RANGE contig / ordering flag
     id: Optional[int] = None                 # user-provided team id
+    epoch: int = 0                           # recovery epoch (Team.shrink)
     #: QoS priority class: 0 = bulk (lowest) .. 3 = latency (highest);
     #: None resolves from the UCC_TEAM_PRIORITY env at team create
     #: (default 1). Selects the progress-queue lane for every collective

@@ -24,7 +24,7 @@ from ..mc.base import detect_mem_type
 from ..obs import metrics
 from ..schedule.schedule import Schedule
 from ..schedule.task import CollTask
-from ..status import Status, UccError
+from ..status import RankFailedError, Status, UccError
 from ..utils import profiling
 from ..utils.log import get_logger
 from .team import Team
@@ -105,11 +105,18 @@ class CollRequest:
     #: with ``_tuner_post`` as an INSTANCE attribute, so UCC_TUNER=off adds
     #: no per-post branch
     _tuner = None
+    #: flight recorder (obs/flight.py): the context's recorder, bound once
+    #: at init; None when UCC_FLIGHT=n, so a post pays one branch
+    _flight = None
+    _flight_msgsize = 0
 
     def __init__(self, task: CollTask, team: Team, args: CollArgs):
         self.task = task
         self.team = team
         self.args = args
+        fr = team.context.flight
+        if fr is not None:
+            self._flight = fr
         self._posted = False
         self._finalized = False
         #: runtime fallback chain: (init_args, [remaining MsgRange]), set
@@ -127,6 +134,23 @@ class CollRequest:
     @property
     def status(self) -> Status:
         return self.task.super_status
+
+    @property
+    def failed_ranks(self):
+        """For an ERR_RANK_FAILED outcome, the failed context ranks its
+        cancellation named, else the context health registry's view; None
+        when no failure has been attributed."""
+        fr = getattr(self.task, "failed_ranks", None)
+        if fr:
+            return sorted(int(r) for r in fr)
+        # the registry only for a rank-failure outcome: a healthy request
+        # on an unaffected team reports None even when some other team's
+        # rank is known dead
+        if self.task.super_status == Status.ERR_RANK_FAILED:
+            reg = getattr(self.team.context, "health", None)
+            if reg is not None and reg.dead:
+                return sorted(reg.dead_set())
+        return None
 
     def post(self) -> Status:
         """ucc_collective_post."""
@@ -155,6 +179,8 @@ class CollRequest:
                         metrics.inc("coll_fast_repost", component="core",
                                     coll=task.coll_name or "",
                                     alg=task.alg_name or "")
+                    if self._flight is not None:
+                        self._flight_post(task)
                     return task.fast_repost()
             self.task.reset()
         self._posted = True
@@ -163,11 +189,24 @@ class CollRequest:
             metrics.inc("coll_posted", component="core",
                         coll=self.task.coll_name or "",
                         alg=self.task.alg_name or "")
+        if self._flight is not None:
+            self._flight_post(self.task)
         if self._trace:
             logger.info("coll post: %s team %s seq %d",
                         coll_type_str(self.args.coll_type), self.team.id,
                         self.task.seq_num)
         return self.task.post()
+
+    def _flight_post(self, task: CollTask) -> None:
+        """Flight-ring post event. The per-team ``flight_seq`` advances in
+        program order, the same on every member by UCC's ordered-issue
+        rule: the key the diagnosis joins ranks on (obs/diagnose.py)."""
+        team = self.team
+        fs = team.flight_seq + 1
+        team.flight_seq = fs
+        self._flight.post(team.id, team.epoch, fs, task.seq_num,
+                          task.coll_name or "", task.alg_name or "",
+                          self._flight_msgsize)
 
     def _probe_fast(self) -> bool:
         try:
@@ -306,6 +345,8 @@ class CollRequest:
             metrics.inc("coll_posted", component="core",
                         coll=new_task.coll_name or "",
                         alg=new_task.alg_name or "")
+        if self._flight is not None:
+            self._flight_post(new_task)
         if self._trace:
             logger.info("coll post (tuner explore): %s alg %s team %s "
                         "seq %d", new_task.coll_name, new_task.alg_name,
@@ -442,6 +483,13 @@ def _is_zero_size(args: CollArgs) -> bool:
 
 def collective_init(args: CollArgs, team: Team) -> CollRequest:
     """ucc_collective_init."""
+    if team._shrunk:
+        # the old epoch's tag space is fenced: collectives move to the
+        # successor team the shrink or grow request returned
+        how = team._retired_by or "shrunk"
+        raise RankFailedError(
+            f"team {team.id} was retired by a membership {how}; post on "
+            "the successor team")
     if team.score_map is None:
         raise UccError(Status.ERR_INVALID_PARAM, "team is not active")
     ct = args.coll_type
@@ -493,6 +541,7 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
     if profiling.ENABLED:
         _attach_profiling(task, ct)
     req = CollRequest(task, team, args)
+    req._flight_msgsize = msgsize
     tuner = team.tuner
     if tuner is not None and task is inner and args.active_set is None \
             and tuner.wants(ct, mem_type, msgsize, candidates):

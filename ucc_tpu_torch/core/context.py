@@ -28,6 +28,7 @@ import itertools
 import os
 import pickle
 import socket
+import time
 import uuid
 from typing import Any, Dict, List, Optional
 
@@ -37,6 +38,8 @@ from ..schedule.progress import ProgressQueue, ProgressQueueMT
 from ..status import Status, UccError
 from ..topo.proc_info import context_proc_info
 from ..topo.topo import ContextTopo
+from ..fault import health as ft_health
+from ..obs import flight as _flight
 from ..utils.log import get_logger
 from .lib import Lib
 
@@ -83,13 +86,25 @@ class Context:
         #: so hierarchies are exercisable on one host
         self.proc_info = context_proc_info(self.rank)
         #: process-unique context identity: mem-map segments are
-        #: addressed by (uid, segment id)
+        #: addressed by (uid, segment id), and under UCC_FT=shrink peers
+        #: watch the heartbeat board under it
         self._ctx_uid = uuid.uuid4().hex
 
         if lib.params.thread_mode == ThreadMode.MULTIPLE:
             self.progress_queue = ProgressQueueMT()
         else:
             self.progress_queue = ProgressQueue()
+        #: flight recorder (obs/flight.py, UCC_FLIGHT, on by default):
+        #: this rank's rings, registered process-wide so the watchdog and
+        #: rank-failure triggers can collect every ring of the process;
+        #: None when disabled, and every producer tests that once
+        self.flight = _flight.register_context(self)
+        #: peer health (fault/health.py): only under UCC_FT=shrink
+        self.health = None
+        if ft_health.ENABLED:
+            self.health = ft_health.HealthRegistry(self)
+            # the progress queue drives beats and polls (health.check)
+            self.progress_queue._ft_health = self.health
 
         # TL contexts first, then CLs
         self.tl_contexts: Dict[str, TlContextHandle] = {}
@@ -107,14 +122,22 @@ class Context:
         # blocking OOB address exchange
         self.addr_storage: List[Dict[str, Any]] = []
         payload = {"proc": self.proc, "proc_info": self.proc_info,
+                   "uid": self._ctx_uid,
                    "tl": {name: h.obj.pack_address()
                           for name, h in self.tl_contexts.items()}}
         self._packed_addr = pickle.dumps(payload)
         if oob is not None:
+            t0 = time.monotonic()
             req = oob.allgather(self._packed_addr)
             peers = req.wait()
             req.free()
             self.addr_storage = [pickle.loads(p) for p in peers]
+            # bootstrap span: the blocking address exchange, attributed
+            # on the flight ring beside the team-create states
+            if self.flight is not None:
+                self.flight.complete(None, 0, -1, "bootstrap", "context",
+                                     "boot:ctx_addr_exchange",
+                                     time.monotonic() - t0, "OK")
         else:
             self.addr_storage = [payload]
         self.topo = ContextTopo([a["proc_info"] for a in self.addr_storage])
@@ -122,6 +145,11 @@ class Context:
             h.obj.unpack_addresses(
                 {r: a["tl"].get(name, b"")
                  for r, a in enumerate(self.addr_storage)})
+        if self.health is not None:
+            self.health.set_peers(
+                {r: a.get("uid", "")
+                 for r, a in enumerate(self.addr_storage)})
+            self.health.beat()
         for h in self.tl_contexts.values():
             h.obj.create_epilog()
 

@@ -46,7 +46,7 @@ Layers:
   ucc_tpu_torch.dsl.smoke``).
 
 The coalescer's fused batches (the JAX package's ``dsl/fused.py``) come
-with ``core/coalesce.py``, ROADMAP item 8.
+with ``core/coalesce.py``, ROADMAP item 8b.
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ a verified :class:`~.ir.Program` on the existing host-TL machinery:
   the hand-written algorithms;
 - accumulation runs through ``reduce_arrays(out=)``;
 - wire ops post through the task's ``send_nb``/``recv_nb`` (the cached
-  ctx-rank fast path and cancellation apply unchanged);
+  ctx-rank fast path, fault injection, cancellation and the flight
+  recorder apply unchanged);
 - programs tagged with a wire precision insert the block codec
   (``quant/codec.py``) at every send edge: the chunk is block-scale encoded into a leased wire
   buffer, sent, and the sender's own copy is re-decoded from that wire
@@ -446,7 +447,7 @@ class GeneratedCollTask(HostCollTask):
         if st == _plan_mod.ST_CANCELED:
             raise UccError(Status.ERR_CANCELED, "native plan canceled")
         # ST_CORRUPT (a crc mismatch on a plan recv) needs the wire
-        # checksums of integrity/, which come with ROADMAP item 8; the
+        # checksums of integrity/, which come with ROADMAP item 8b; the
         # port's core never arms them, so the state falls to the generic
         # failure below
         if st == _plan_mod.ST_FENCED:
@@ -464,8 +465,10 @@ class GeneratedCollTask(HostCollTask):
 
     def _plan_harvest(self, plan) -> None:
         """Fold the plan's C-side accounting back into the transport
-        counters (once per post, including the cancel path): wire-kind
-        counts stay accurate with Python off the data path."""
+        counters and the flight recorder (once per post, including the
+        cancel path): wire-kind counts stay accurate with Python off the
+        data path, and the flight ring still gets one event per completed
+        round for straggler attribution."""
         if self._plan_harvested:
             return
         self._plan_harvested = True
@@ -475,8 +478,18 @@ class GeneratedCollTask(HostCollTask):
         tr.n_eager += c["eager"]
         tr.n_rndv += c["rndv"]
         tr.n_fenced += c["fenced"]
-        # the flight recorder's one event per completed round
-        # (plan.low.round_bytes) comes with obs/flight, ROADMAP item 8
+        fr = getattr(tr, "_flight", None)
+        if fr is not None:
+            # one event per completed round, from the C-side round
+            # counter, not per-message callbacks
+            kind = "rndv" if c["rndv"] else "direct"
+            tkey = (self.tl_team.team_key, self.tl_team.team_epoch,
+                    self.tag, 0, getattr(self.tl_team, "_my_ctx_rank", 0))
+            rb = plan.low.round_bytes
+            for rnd in range(min(c["rounds"], plan.n_rounds)):
+                fr.append(kind,
+                          (tkey[0], tkey[1], tkey[2], rnd, tkey[4]),
+                          rb[rnd] if rnd < len(rb) else 0)
 
     def cancel_fn(self) -> None:
         plan = self._plan
@@ -504,8 +517,18 @@ class GeneratedCollTask(HostCollTask):
                 pass
         return super().finalize_fn()
 
-    # the watchdog's obs_describe of a running plan (state, rounds done)
-    # comes with obs/watchdog, ROADMAP item 8
+    def obs_describe(self, now=None) -> dict:
+        d = super().obs_describe(now)
+        plan = self._plan
+        if plan is not None and self._plan_active:
+            try:
+                st, payload = plan.poll()
+                d["plan"] = {"state": int(st), "payload": int(payload),
+                             "rounds_done": plan.counters()["rounds"],
+                             "n_rounds": plan.n_rounds}
+            except Exception:  # noqa: BLE001 - diagnostics only
+                pass
+        return d
 
     # ------------------------------------------------------------------
     def _peer(self, p: int) -> int:

@@ -34,7 +34,7 @@ port's native core (``native_src/ucc_tpu_torch_core.cc``,
   fence semantics hold: a stale-epoch plan's late sends are discarded at
   the match boundary (``n_fenced``) and ``ucc_plan_cancel`` withdraws
   posted recvs under the delivering shard lock (native cancel-skip). The
-  port has no shrink yet (ROADMAP item 8), so every team's epoch is 0.
+  team's epoch is bumped by every shrink and grow.
 
 ``UCC_GEN_NATIVE`` (y|n|auto, default auto) selects the mode; ``auto``
 engages when the native matcher serves every endpoint of the team and
@@ -193,10 +193,35 @@ def _peer_mailboxes(team, subset, nranks: int):
 
 
 def _fault_blocks_plans(team=None, invariant=False) -> bool:
-    """Wire-fault injection targets the per-message Python posts a plan
-    bypasses, so an armed drop/delay/error/corrupt spec turns plans off.
-    Fault injection (``fault/inject``) comes with ROADMAP item 8; until
-    then nothing is ever armed and plans are never blocked."""
+    """Probabilistic wire-fault injection (drop/delay/error/post_error)
+    targets the per-message Python posts a plan bypasses: running plans
+    under it would silently skip the injection. kill-only specs keep
+    plans on (the kill and shrink drill: detection cancels the task,
+    which withdraws the plan's recvs natively).
+
+    Corruption rides the Python send path too. When the spec pins a
+    corrupting rank only that rank has to interpret (its interpreted
+    sends are wire-compatible with the other ranks' plan recvs), which
+    makes the answer differ between ranks: it may gate :func:`resolve`
+    only. Candidate selection passes ``invariant=True`` and keeps the
+    generated task on every rank, or the corrupting rank would pick a
+    classic algorithm with another slot scheme and deadlock the
+    collective. An unpinned corrupt spec can strike any sender: plans
+    are off everywhere."""
+    from ..fault import inject as fault
+    if not fault.ENABLED:
+        return False
+    s = fault.SPEC
+    if s.drop or s.delay or s.error or s.post_error:
+        return True
+    if s.corrupt:
+        if s.corrupt_rank is None:
+            return True
+        if invariant:
+            return False
+        my = getattr(team, "_my_ctx_rank", None) if team is not None \
+            else None
+        return my is None or my == s.corrupt_rank
     return False
 
 
@@ -801,9 +826,9 @@ def stale_fence_probe(transport, team_key) -> Optional[bool]:
     pre-shrink plan's late sends can never land in a post-shrink
     buffer. Returns True/False (fenced or not), or None when the
     native core is not serving this endpoint. Counted into the
-    endpoint's ``n_fenced`` like any other fenced send. The port has no
-    shrink yet (ROADMAP item 8): on an unfenced team the probe's send is
-    delivered, and it returns False."""
+    endpoint's ``n_fenced`` like any other fenced send. On a team that
+    was never fenced the probe's send is delivered, and it returns
+    False."""
     from .. import native
     lib = native.get_lib()
     nb = getattr(transport, "native", None)

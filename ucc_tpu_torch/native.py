@@ -294,6 +294,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ucc_ipc_req_free.argtypes = [vp, u64]
     lib.ucc_ipc_fence.restype = u64
     lib.ucc_ipc_fence.argtypes = [vp, u64, u64]
+    lib.ucc_ipc_purge_rank.restype = u64
+    lib.ucc_ipc_purge_rank.argtypes = [vp, u64]
     lib.ucc_arena_counters.restype = None
     lib.ucc_arena_counters.argtypes = [vp, ctypes.POINTER(u64)]
     lib.ucc_store_release_u64.restype = None
@@ -1085,6 +1087,15 @@ class IpcArena:
             return 0
         return int(self.lib.ucc_ipc_fence(ptr, self.team_id(team_key),
                                           min_epoch))
+
+    def purge_rank(self, ctx_rank: int) -> int:
+        """Reclaim every arena entry addressed to *ctx_rank* (a rank
+        confirmed dead): its posted recvs are cancelled and the payloads
+        parked for it freed. Returns the number of entries purged."""
+        ptr = self.ptr
+        if ptr is None:
+            return 0
+        return int(self.lib.ucc_ipc_purge_rank(ptr, int(ctx_rank)))
 
     def register(self, ctx_rank: int, pid: Optional[int] = None) -> None:
         if self.ptr:

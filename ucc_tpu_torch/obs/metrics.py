@@ -121,6 +121,34 @@ def _flatten(table: Dict[Key, Any]) -> Dict[str, Dict[str, Any]]:
     return out
 
 
+#: gauge samplers (a backlog has no event to record it at): run from the
+#: progress loop while the registry is on, at most every SAMPLE_PERIOD s
+_samplers = []
+SAMPLE_PERIOD = 0.1
+_last_sample = 0.0
+
+
+def register_sampler(fn) -> None:
+    """Have *fn* (which records gauges) run by :func:`sample`."""
+    if fn not in _samplers:
+        _samplers.append(fn)
+
+
+def sample(now: Optional[float] = None) -> None:
+    """Run the registered samplers, at most once per SAMPLE_PERIOD
+    (callers test ``ENABLED`` first)."""
+    global _last_sample
+    now = time.monotonic() if now is None else now
+    if now - _last_sample < SAMPLE_PERIOD:
+        return
+    _last_sample = now
+    for fn in list(_samplers):
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 - a broken sampler must not
+            pass           # break the progress loop that runs it
+
+
 def snapshot() -> Dict[str, Any]:
     """Deep-copied point-in-time view of every series."""
     with _lock:
@@ -149,11 +177,13 @@ def dump(path: Optional[str] = None, reason: str = "explicit") -> str:
 
 
 def reset() -> None:
-    """Clear every series."""
+    """Clear every series (the next progress pass samples again)."""
+    global _last_sample
     with _lock:
         _counters.clear()
         _gauges.clear()
         _hists.clear()
+    _last_sample = 0.0
 
 
 # ---------------------------------------------------------------------------

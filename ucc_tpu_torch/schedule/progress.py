@@ -24,6 +24,9 @@ import time
 from collections import deque
 from typing import Callable, Deque, List
 
+from ..fault import health
+from ..fault import inject as fault
+from ..obs import flight, metrics, watchdog
 from ..status import Status
 from ..utils.log import get_logger
 from .task import CollTask
@@ -90,6 +93,12 @@ class ProgressQueue:
         self._weights, self._age_s = _resolve_knobs()
 
     # ------------------------------------------------------------------
+    @property
+    def _q(self):
+        """Flat snapshot of every lane, highest priority first: what the
+        watchdog and the fault-tolerance cancel sweeps walk."""
+        return tuple(t for lane in reversed(self._lanes) for t in lane)
+
     def register_progress_fn(self, fn: Callable[[], None]) -> None:
         self._progress_fns.append(fn)
 
@@ -104,14 +113,33 @@ class ProgressQueue:
             if not task.is_completed():
                 task.complete()
             return
-        task._pq_last = time.monotonic()
+        task._pq_enq = task._pq_last = time.monotonic()
         self._lanes[_task_lane(task)].append(task)
+
+    def _first_service(self, task: CollTask, lane: int, now: float) -> None:
+        """The task leaves the queued state for the first time: a wait
+        past the aging bound becomes a ``qos:qwait:pN`` stage completion
+        on the flight ring, so the diagnosis can name the team and lane
+        whose traffic sat queued."""
+        wait = now - task._pq_enq
+        del task._pq_enq
+        if flight.ENABLED and wait > self._age_s and \
+                task.coll_name is not None:
+            core = getattr(task.team, "core_team", task.team)
+            rec = getattr(getattr(core, "context", None), "flight", None)
+            if rec is not None:
+                rec.complete(getattr(core, "id", None),
+                             getattr(core, "epoch", 0), task.seq_num,
+                             task.coll_name, task.alg_name,
+                             f"qos:qwait:p{lane}", wait, "OK")
 
     # ------------------------------------------------------------------
     def _serve(self, task: CollTask, lane: int, now: float) -> bool:
         """Progress one queued task; True when it left the queue."""
         if task.is_completed():
             return True
+        if "_pq_enq" in task.__dict__:
+            self._first_service(task, lane, now)
         task._pq_last = now
         if task.check_timeout(now):
             task.cancel(Status.ERR_TIMED_OUT)
@@ -145,6 +173,24 @@ class ProgressQueue:
             for fn in self._progress_fns:
                 fn()
         self._throttle = (self._throttle + 1) % self._throttle_period
+        if metrics.ENABLED:
+            # a deep queue is the first visible symptom of a stall; the
+            # mailbox backlogs are sampled beside it
+            metrics.gauge("progress_queue_depth", depth,
+                          component="schedule")
+            metrics.sample()
+        if watchdog.ENABLED:
+            # at most one scan a second: one-shot dumps for tasks past
+            # the soft deadline; with UCC_WATCHDOG_ACTION=cancel|abort,
+            # cancels tasks past the hard deadline
+            watchdog.check(self)
+        if fault.ENABLED:
+            # release injected delayed deliveries that have come due
+            fault.progress()
+        if health.ENABLED:
+            # UCC_FT=shrink: heartbeat and peer-liveness scan; cancels
+            # tasks that depend on failed ranks with ERR_RANK_FAILED
+            health.check(self)
         if not depth:
             return 0
         completed = 0

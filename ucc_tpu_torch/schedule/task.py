@@ -19,7 +19,8 @@ import time
 from typing import Any, Callable, List, Optional, Tuple
 
 from ..constants import EventType
-from ..obs import metrics
+from ..fault import inject as fault
+from ..obs import flight, metrics
 from ..status import Status
 from ..utils import profiling
 from ..utils.log import get_logger
@@ -34,6 +35,16 @@ _seq_counter = itertools.count(1)
 
 def _next_seq() -> int:
     return next(_seq_counter)
+
+
+def _flight_rec(task: "CollTask"):
+    """The owning context's flight recorder (None when UCC_FLIGHT=n or
+    the task has no team). Called once per labeled lifecycle step, never
+    per message."""
+    core = getattr(task.team, "core_team", task.team)
+    if core is None:
+        return None
+    return getattr(getattr(core, "context", None), "flight", None)
 
 
 class EventManager:
@@ -67,9 +78,11 @@ class CollTask:
     Lifecycle: init -> OPERATION_INITIALIZED -> post -> IN_PROGRESS -> OK
     """
 
-    #: labels stamped by core dispatch
+    #: labels stamped by core dispatch (coll/alg on the top-level task);
+    #: cl/hier sets stage on its sub-collectives
     coll_name: Optional[str] = None
     alg_name: Optional[str] = None
+    obs_stage: Optional[str] = None
     _span_open = False
     #: exception that crashed the task (set by the progress queue when a
     #: progress_fn escapes — the real traceback behind an ERR_NO_MESSAGE)
@@ -138,10 +151,30 @@ class CollTask:
                 fields["coll"] = self.coll_name
             if self.alg_name:
                 fields["alg"] = self.alg_name
+            if self.obs_stage:
+                fields["stage"] = self.obs_stage
             profiling.span_begin(
                 f"task_{type(self).__name__}", self.seq_num,
                 parent=self.schedule.seq_num if self.schedule is not None
                 else None, **fields)
+        if flight.ENABLED and self.obs_stage:
+            # start event for staged tasks only (cl/hier phase tasks:
+            # obs_stage names the tree level); a top-level task's post
+            # event and completion already carry its identity
+            rec = _flight_rec(self)
+            if rec is not None:
+                core = getattr(self.team, "core_team", self.team)
+                tag = self.__dict__.get("tag")
+                rec.start(getattr(core, "id", None),
+                          getattr(core, "epoch", 0), self.seq_num,
+                          self.coll_name, self.alg_name, self.obs_stage,
+                          tag if isinstance(tag, int) else None)
+        if fault.ENABLED:
+            bad = fault.post_inject(self)
+            if bad is not None:
+                self.status = bad
+                self.complete(bad)
+                return bad
         st = self.post_fn()
         if isinstance(st, Status) and st.is_error:
             self.status = st
@@ -180,6 +213,13 @@ class CollTask:
         if metrics.ENABLED:
             metrics.inc("coll_cancelled", component="core",
                         coll=self.coll_name or "", alg=self.alg_name or "")
+        if flight.ENABLED and (self.coll_name or self.obs_stage):
+            rec = _flight_rec(self)
+            if rec is not None:
+                core = getattr(self.team, "core_team", self.team)
+                rec.cancel(getattr(core, "id", None),
+                           getattr(core, "epoch", 0), self.seq_num,
+                           self.coll_name, self.alg_name, status.name)
         if not self.is_completed():  # cancel_fn may have completed us
             self.complete(status)
 
@@ -237,6 +277,16 @@ class CollTask:
                             coll=self.coll_name, alg=alg)
             metrics.inc("coll_failed" if st.is_error else "coll_completed",
                         component="core", coll=self.coll_name, alg=alg)
+        if flight.ENABLED and (self.coll_name or self.obs_stage):
+            rec = _flight_rec(self)
+            if rec is not None:
+                core = getattr(self.team, "core_team", self.team)
+                dur = (time.monotonic() - self.start_time) \
+                    if self.start_time else 0.0
+                rec.complete(getattr(core, "id", None),
+                             getattr(core, "epoch", 0), self.seq_num,
+                             self.coll_name, self.alg_name,
+                             self.obs_stage, dur, st.name)
         if st.is_error:
             if self.timeout and st == Status.ERR_TIMED_OUT:
                 logger.warning(
@@ -256,6 +306,30 @@ class CollTask:
     def is_completed(self) -> bool:
         return self.super_status != Status.IN_PROGRESS and \
             self.super_status != Status.OPERATION_INITIALIZED
+
+    # --------------------------------------------------------------- obs
+    def obs_describe(self, now: Optional[float] = None) -> dict:
+        """Self-description for watchdog state dumps (cold: built only
+        for a dump)."""
+        if now is None:
+            now = time.monotonic()
+        d: dict = {"task": type(self).__name__, "seq": self.seq_num,
+                   "status": self.status.name}
+        if self.coll_name:
+            d["coll"] = self.coll_name
+        if self.alg_name:
+            d["alg"] = self.alg_name
+        if self.obs_stage:
+            d["stage"] = self.obs_stage
+        if self.start_time:
+            d["age_s"] = round(now - self.start_time, 3)
+        if self.timeout:
+            d["timeout_s"] = self.timeout
+        core = getattr(self.team, "core_team", self.team)
+        if core is not None:
+            d["team"] = getattr(core, "id", None)
+            d["rank"] = getattr(core, "rank", None)
+        return d
 
     def check_timeout(self, now: float) -> bool:
         return bool(self.timeout) and (now - self.start_time) > self.timeout

@@ -67,6 +67,20 @@ class UccError(Exception):
         super().__init__(f"{self.status.name}: {msg}" if msg else self.status.name)
 
 
+class RankFailedError(UccError):
+    """ERR_RANK_FAILED carrying the failed-rank set (context ranks unless
+    the raiser documents otherwise), as ULFM's UCC_ERR_PROC_FAILED. The
+    caller recovers by agreeing on the failed set and shrinking the team
+    (``Team.shrink``)."""
+
+    def __init__(self, msg: str = "", ranks=()):
+        self.ranks = frozenset(int(r) for r in ranks)
+        detail = msg or "rank failure"
+        if self.ranks:
+            detail = f"{detail} (ranks {sorted(self.ranks)})"
+        super().__init__(Status.ERR_RANK_FAILED, detail)
+
+
 def check(status, msg: str = ""):
     """Raise UccError if *status* is an error; return it otherwise.
     Accepts raw ints too (negative = error)."""

@@ -55,6 +55,7 @@ from ..constants import (ROOTED_COLLS, CollType, MemoryType, ReductionOp,
                          coll_type_str, dt_torch)
 from ..core.components import BaseContext
 from ..kernels.ring_common import RingWorkspace, make_ptr_table
+from ..obs import flight
 from ..schedule.task import CollTask
 from ..status import Status, UccError
 from ..utils.config import (ConfigField, ConfigTable, parse_string,
@@ -366,9 +367,32 @@ class DeviceCollTask(CollTask):
         self.validate()
         self.src_count, self.dst_count = self._buffer_counts()
         self.local_buffers()       # reject bad buffers here, not mid-rendezvous
+        # flight recorder, bound once: device rounds put dev_launch and
+        # dev_ready on the wire ring, so the diagnosis can name a device
+        # straggler as it names a host one
+        self._flight = None
+        self._flight_nbytes = int(getattr(init_args, "msgsize", 0) or 0)
+        if flight.ENABLED:
+            self._flight = getattr(team.core_team.context, "flight", None)
         # tag allocation LAST: a validation error above must not consume a
         # team tag, or this rank's tag sequence desyncs from its peers
         self.tag = team.next_coll_tag()
+
+    def _flight_dev(self, kind: str, slot: int) -> None:
+        """One device-lifecycle wire event: ``dev_launch`` (slot 0: the
+        rendezvous launched the round, or started it on a spanning team)
+        or ``dev_ready`` (slot 1: this rank observed its completion).
+        The (team key, tag, slot) key is the same on every rank, so the
+        diagnosis's wire-lag signal joins launches rank to rank. Under
+        ThreadMode MULTIPLE the last depositing rank's thread appends the
+        launches of every local rank: a rare torn slot, the recorder's
+        documented trade."""
+        fr = self._flight
+        if fr is None:
+            return
+        fr.wire.append(kind, (self.tl_team.team_key, self.tl_team.epoch,
+                              self.tag, slot, self.tl_team.rank),
+                       self._flight_nbytes)
 
     def retarget(self) -> None:
         """Re-read the buffer counts after the caller pointed its
@@ -522,6 +546,23 @@ class DeviceCollTask(CollTask):
     def set_result(self, launch) -> None:
         """Called on the launching thread for every rank's task."""
         self._launch = launch
+        if self._flight is not None:
+            self._flight_dev("dev_launch", 0)
+
+    def cancel_fn(self) -> None:
+        """Withdraw this rank's deposit from a rendezvous that has not
+        launched (a peer rank that died never deposits): the buffers are
+        the caller's again, and no later deposit of that tag can launch
+        the round with them. A launched round runs to its end on the
+        stream; the request just stops waiting for it."""
+        shared = self.tl_team.shared
+        with shared.lock:
+            slot = shared.pending.get(self.tag)
+            if slot is not None and slot.get(self.tl_team.rank,
+                                             (None,) * 4)[3] is self:
+                del slot[self.tl_team.rank]
+                if not slot:
+                    del shared.pending[self.tag]
 
     def fail(self, status: Status) -> None:
         self.status = status
@@ -536,6 +577,8 @@ class DeviceCollTask(CollTask):
         try:
             if self._launch.done():
                 self.status = Status.OK
+                if self._flight is not None:
+                    self._flight_dev("dev_ready", 1)
         except UccError as e:
             logger.error("device collective failed: %s", e)
             self.status = e.status
@@ -588,6 +631,8 @@ class TlDeviceTeam(TlTeamBase):
                  scope="cl"):
         super().__init__(comp_context, core_team, scope)
         ctx = comp_context
+        #: the core team's recovery epoch (0 until a shrink or grow)
+        self.epoch = int(getattr(core_team, "epoch", 0))
         ctx_map = core_team.ctx_map or EpMap.full(core_team.size)
         core = core_team.context
         mine = ctx.address()
@@ -601,9 +646,13 @@ class TlDeviceTeam(TlTeamBase):
             self.check_spanning(ctx)
             first = ctx.peer_devices.get(ctx_map.eval(0)) or mine
             from .device_sync import sync_name
-            name = sync_name(core_team.team_key, scope, self.NAME, first[2])
+            name = sync_name((core_team.team_key, self.epoch), scope,
+                             self.NAME, first[2])
         self._coll_tag = 0
-        key = (core_team.team_key, scope, self.NAME)
+        # keyed by the epoch too: a team rebuilt by a shrink or grow never
+        # meets in the retired team's rendezvous (whose slot may hold
+        # half a round of deposits)
+        key = (core_team.team_key, self.epoch, scope, self.NAME)
         self.shared = DeviceTeamShared.get_or_create(
             key, lambda: DeviceTeamShared(key, ctx.device, self.size,
                                           layout, name))

@@ -21,17 +21,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...obs import metrics
+from ...fault import health as ft
+from ...fault import inject as fault
+from ...obs import metrics, watchdog
 from ...schedule.task import CollTask
-from ...status import Status, UccError
+from ...status import RankFailedError, Status, UccError
 from ...utils import profiling
 from ...utils.ep_map import Subset
+from .transport import SendReq
 
 
 class HostCollTask(CollTask):
     """Base of every host-transport collective algorithm."""
 
-    #: instrumented path unless post_fn finds metrics and profiling off
+    #: instrumented path unless post_fn finds every per-message subsystem
+    #: (metrics, profiling, watchdog, fault injection, health) off
     _instr = True
 
     def __init__(self, init_args, team, subset: Optional[Subset] = None,
@@ -58,8 +62,10 @@ class HostCollTask(CollTask):
     def post_fn(self) -> Status:
         # a failure before the first send is retryable (runtime fallback)
         self.data_committed = False
-        # bind the per-message instrumentation once per post
-        self._instr = metrics.ENABLED or profiling.ENABLED
+        # bind the per-message instrumentation once per post (a subsystem
+        # enabled mid-collective takes effect at the next post)
+        self._instr = (metrics.ENABLED or profiling.ENABLED or
+                       watchdog.ENABLED or fault.ENABLED or ft.ENABLED)
         self._gen = self.run()
         self._advance()
         return Status.OK
@@ -198,6 +204,21 @@ class HostCollTask(CollTask):
             reqs[:] = [e for e in reqs if not e[3].test()]
         reqs.append((kind, peer, slot, req))
 
+    def obs_describe(self, now=None) -> dict:
+        d = super().obs_describe(now)
+        d["grank"] = self.grank
+        d["gsize"] = self.gsize
+        d["tag"] = str(self.tag)
+        reqs = self.__dict__.get("_obs_reqs")
+        if reqs:
+            reqs[:] = [e for e in reqs if not e[3].test()]
+            d["outstanding"] = [{"kind": k, "peer": p, "slot": s}
+                                for k, p, s, _ in reqs[:64]]
+            # algorithms put their round in the slot (slot_base + round),
+            # so the live slot set is the stuck round
+            d["round_slots"] = sorted({s for _, _, s, _ in reqs})
+        return d
+
     def _obs_error(self, reason: str) -> None:
         if metrics.ENABLED:
             coll, alg = self._obs_names()
@@ -217,12 +238,98 @@ class HostCollTask(CollTask):
         return ctx
 
     def send_nb(self, peer_grank: int, data: np.ndarray, slot: int = 0):
+        if not self._instr:
+            self.data_committed = True
+            return self.tl_team.send_nb_ctx(self._ctx_of(peer_grank),
+                                            self.tag, slot, data)
+        return self._send_nb_instr(peer_grank, data, slot)
+
+    def _health_registry(self):
+        core = getattr(self.tl_team, "core_team", None)
+        ctx = getattr(core, "context", None)
+        return getattr(ctx, "health", None)
+
+    def _check_peer_alive(self, peer_grank: int) -> None:
+        """Fail fast on a post that targets a known-dead rank (a send to
+        it would go into a mailbox nobody drains, and the peer side
+        would wait out the watchdog): raise ERR_RANK_FAILED naming it;
+        the detection counts once per rank in
+        ``rank_failures_detected``."""
+        ctx = self._ctx_of(peer_grank)
+        reg = self._health_registry()
+        if fault.ENABLED and fault.killed(ctx):
+            source = "inject"
+        elif reg is not None and reg.is_dead(ctx):
+            source = reg.dead.get(ctx, {}).get("source", "health")
+        else:
+            return
+        ft.note_dead_target(ctx, reg, "send",
+                            "post targeted a known-dead rank")
+        self.failed_ranks = sorted(
+            (reg.dead_set() if reg is not None else set()) | {ctx})
+        raise RankFailedError(
+            f"post targets failed ctx rank {ctx} ({source})", ranks={ctx})
+
+    def _send_nb_instr(self, peer_grank: int, data: np.ndarray, slot: int):
+        if ft.ENABLED or (fault.ENABLED and fault.SPEC.kill):
+            self._check_peer_alive(peer_grank)
+        if fault.ENABLED:
+            req = self._fault_send(peer_grank, data, slot)
+            if req is not None:
+                return req
         self.data_committed = True
         req = self.tl_team.send_nb_ctx(self._ctx_of(peer_grank), self.tag,
                                        slot, data)
-        if self._instr:
-            self._send_instr(peer_grank, data, slot)
+        self._send_instr(peer_grank, data, slot)
+        if watchdog.ENABLED or fault.ENABLED:
+            self._obs_track("send", peer_grank, slot, req)
         return req
+
+    def _fault_send(self, peer_grank: int, data: np.ndarray, slot: int):
+        """Transport-boundary injection (only under fault.ENABLED).
+        Returns a substitute request, or None to send normally. The error
+        action fires before data_committed flips, so a first-send error
+        is retryable by the runtime fallback, as a real local transport
+        failure at the post would be.
+
+        Corruption (``corrupt=P``) is decided independently of the
+        drop/error/delay lottery: one bit of a copy of the payload is
+        flipped. This package has no wire checksum yet, so the corrupted
+        bytes are delivered."""
+        my_ctx = getattr(self.tl_team, "_my_ctx_rank", None)
+        corrupted = False
+        if fault.SPEC.corrupt and fault.corrupt_action(my_ctx):
+            data, _clean_crc = fault.corrupt_send(data)
+            corrupted = True
+        act = fault.send_action(my_ctx)
+        if act is None:
+            if not corrupted:
+                return None
+            # send here: returning None would send the clean payload
+            self.data_committed = True
+            req = self.tl_team.send_nb_ctx(self._ctx_of(peer_grank),
+                                           self.tag, slot, data)
+            self._obs_track("send", peer_grank, slot, req)
+            return req
+        if act == "error":
+            self._obs_error("fault injected: send post failed")
+        if act == "drop":
+            # the sender proceeds and the message is lost: the receiver
+            # side hang the cancellation ladder must bound
+            self.data_committed = True
+            return SendReq(done=True)
+        _, delay_s = act
+        self.data_committed = True
+        proxy = fault.DelayedSendReq()
+        payload = data.copy()   # the sender may reuse its buffer
+        peer_ctx = self._ctx_of(peer_grank)
+
+        def _fire(task=self, peer=peer_ctx, d=payload, s=slot, p=proxy):
+            if not p.cancelled:
+                p.real = task.tl_team.send_nb_ctx(peer, task.tag, s, d)
+        fault.defer(delay_s, _fire)
+        self._obs_track("send", peer_grank, slot, proxy)
+        return proxy
 
     def _send_instr(self, peer_grank: int, data: np.ndarray,
                     slot: int) -> None:
@@ -238,6 +345,14 @@ class HostCollTask(CollTask):
                         alg=alg)
 
     def recv_nb(self, peer_grank: int, dst: np.ndarray, slot: int = 0):
+        if self._instr:
+            if ft.ENABLED or (fault.ENABLED and fault.SPEC.kill):
+                # a recv FROM a dead rank can never complete: the same
+                # fail-fast and attribution as the send side
+                self._check_peer_alive(peer_grank)
+            if fault.ENABLED and fault.recv_action(
+                    getattr(self.tl_team, "_my_ctx_rank", None)) == "error":
+                self._obs_error("fault injected: recv post failed")
         req = self.tl_team.recv_nb_ctx(self._ctx_of(peer_grank), self.tag,
                                        slot, dst)
         self.data_committed = True

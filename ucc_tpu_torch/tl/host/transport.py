@@ -19,7 +19,7 @@ from __future__ import annotations
 import threading
 import uuid
 from collections import deque
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -290,6 +290,9 @@ class InProcTransport:
         self.n_eager = 0         # unexpected sends staged by eager copy
         self.n_rndv = 0          # unexpected zero-copy rendezvous views
         self.n_fenced = 0        # stale-epoch sends discarded at the fence
+        #: the flight recorder's wire ring, bound once by the owning TL
+        #: context: one branch per send when off, one append when on
+        self._flight = None
         self.native = None
         want, required = resolve_native(use_native)
         if want:
@@ -352,6 +355,10 @@ class InProcTransport:
             req, kind = peer.mailbox.send(
                 key, data.reshape(-1).view(np.uint8), self.EAGER_THRESHOLD)
         self._count_send(kind)
+        fr = self._flight
+        if fr is not None:
+            # how this message traveled, with its round identity
+            fr.append(kind, key, data.nbytes)
         return req
 
     def recv_nb(self, key: TagKey, dst: np.ndarray):
@@ -377,3 +384,53 @@ class InProcTransport:
         if self.native is not None:
             self.native.destroy()
             self.native = None
+
+
+# ---------------------------------------------------------------------------
+# backlog observability (cold: watchdog dumps)
+# ---------------------------------------------------------------------------
+
+def occupancy_snapshot(limit: int = 64) -> List[Dict[str, int]]:
+    """Per-endpoint mailbox backlog for diagnostic dumps: unexpected queue
+    length, posted recvs, native slots in use (a backlog is otherwise
+    invisible until it becomes a stall)."""
+    with _SHM_LOCK:
+        eps = list(_SHM_WORLD.values())[:limit]
+    out = []
+    for ep in eps:
+        try:
+            d = ep.occupancy()
+        except Exception:  # noqa: BLE001 - diagnostics only
+            continue
+        if any(d.values()):
+            d["uid"] = ep.uid[:8]
+            out.append(d)
+    return out
+
+
+def _occupancy_sampler() -> None:
+    """Backlog gauges of every endpoint of the process, for metrics
+    snapshots."""
+    from ...obs import metrics
+    unexp = posted = nslots = 0
+    with _SHM_LOCK:
+        eps = list(_SHM_WORLD.values())
+    for ep in eps[:256]:
+        try:
+            d = ep.occupancy()
+        except Exception:  # noqa: BLE001
+            continue
+        unexp += d.get("unexpected", 0)
+        posted += d.get("posted", 0)
+        nslots += d.get("native_slots_in_use", 0)
+    metrics.gauge("mailbox_unexpected", unexp, component="tl/host")
+    metrics.gauge("mailbox_posted_recvs", posted, component="tl/host")
+    metrics.gauge("native_slots_in_use", nslots, component="tl/host")
+
+
+def _register_sampler() -> None:
+    from ...obs import metrics
+    metrics.register_sampler(_occupancy_sampler)
+
+
+_register_sampler()

@@ -43,8 +43,10 @@ from __future__ import annotations
 import hashlib
 import os
 import pickle
+import threading
 import time
-from typing import Dict, Optional
+import weakref
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -132,6 +134,15 @@ class IpcTransport:
         stale traffic for every attached process."""
         return self.arena.fence(team_key, min_epoch)
 
+    def occupancy(self) -> Dict[str, int]:
+        """Parked traffic and live payload blocks of the arena (shared by
+        every attached process)."""
+        c = self.arena.counters()
+        return {"unexpected": c.get("unexp_parked", 0),
+                "posted": c.get("posted_parked", 0),
+                "native_slots_in_use": c.get("slots_live", 0),
+                "arena_blocks_live": c.get("blocks_live", 0)}
+
     def progress(self) -> None:
         """Refresh this rank's beat on the pid board, at most once per
         ``_BEAT_PERIOD``."""
@@ -146,6 +157,8 @@ class TlIpcContext(BaseContext):
         super().__init__(comp_lib, core_context, config)
         self.transport: Optional[IpcTransport] = None
         self.arena = None
+        #: dead ctx ranks whose arena entries were purged
+        self._purged = set()
         self.peer_addrs: Dict[int, tuple] = {}
         self._uid = core_context._ctx_uid
         self._host = core_context.proc[0]
@@ -223,10 +236,45 @@ class TlIpcContext(BaseContext):
         self.arena.register(my_rank)
         self.arena.beat(my_rank)
         self.transport = IpcTransport(self.arena, my_rank, self._eager)
+        _remember_endpoint(self.transport)
         logger.info("tl/ipc arena %s attached (%s, %d ranks on host, "
                     "%d MiB heap)", name,
                     "created" if self.arena.created else "joined",
                     len(local), int(heap) >> 20)
+        # cross-process liveness: the arena's pid board feeds the FT
+        # health registry, so a SIGKILLed peer process is named by a pid
+        # probe although it never beat on this process's board
+        reg = getattr(self.core_context, "health", None)
+        if reg is not None:
+            reg.add_liveness_source(self._liveness)
+
+    def _liveness(self, ctx_rank: int) -> Optional[bool]:
+        """The pid board's verdict on *ctx_rank*: False = its process is
+        gone (conclusive; the entries addressed to it are purged once),
+        True = it beat recently, None = not in this arena, never
+        registered, or merely stale (a wedged live process is the
+        watchdog's case)."""
+        ar = self.arena
+        if ar is None or not self.same_arena(ctx_rank):
+            return None
+        pid = ar.peer_pid(int(ctx_rank))
+        if pid == 0:
+            return None
+        from ..native import _pid_alive
+        if not _pid_alive(pid):
+            if ctx_rank not in self._purged:
+                self._purged.add(ctx_rank)
+                n = ar.purge_rank(int(ctx_rank))
+                if n:
+                    logger.warning("tl/ipc: purged %d arena entries "
+                                   "addressed to dead ctx rank %d", n,
+                                   ctx_rank)
+            return False
+        age = ar.beat_age_ms(int(ctx_rank))
+        from ..fault import health as ft
+        if age is not None and age <= ft.HEARTBEAT_TIMEOUT * 1000.0:
+            return True
+        return None
 
     # -- send path -----------------------------------------------------
     def send_to(self, peer_ctx_rank: int, key, data: np.ndarray):
@@ -262,6 +310,8 @@ class TlIpcContext(BaseContext):
         return SendReq(done=True)
 
     def destroy(self) -> None:
+        if self.transport is not None:
+            _forget_endpoint(self.transport)
         self.transport = None
         if self.arena is not None:
             # the creator unlinks the name (attached peers keep their
@@ -303,3 +353,39 @@ class TlIpc(TransportLayer):
 
 
 TlIpcTeam.TL_CLS = TlIpc
+
+
+# ---------------------------------------------------------------------------
+# backlog observability (cold: watchdog dumps)
+# ---------------------------------------------------------------------------
+
+_EP_LOCK = threading.Lock()
+_ENDPOINTS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _remember_endpoint(ep: IpcTransport) -> None:
+    with _EP_LOCK:
+        _ENDPOINTS.add(ep)
+
+
+def _forget_endpoint(ep: IpcTransport) -> None:
+    with _EP_LOCK:
+        _ENDPOINTS.discard(ep)
+
+
+def occupancy_snapshot(limit: int = 16) -> List[Dict[str, int]]:
+    """Per-endpoint arena rows for watchdog dumps: parked traffic and
+    payload-block pressure (an exhausted block class stalls like a
+    mailbox backlog, but in memory shared with other processes)."""
+    with _EP_LOCK:
+        eps = list(_ENDPOINTS)[:limit]
+    out = []
+    for ep in eps:
+        try:
+            d = ep.occupancy()
+        except Exception:  # noqa: BLE001 - diagnostics only
+            continue
+        d["arena"] = str(getattr(ep.arena, "name", "")).lstrip("/")
+        d["ctx_rank"] = ep.my_ctx_rank
+        out.append(d)
+    return out

@@ -59,6 +59,9 @@ class TlShmContext(BaseContext):
         self.transport = InProcTransport(use_native=use_native)
         if config is not None and config.eager_thresh != SIZE_AUTO:
             self.transport.EAGER_THRESHOLD = config.eager_thresh
+        rec = getattr(core_context, "flight", None)
+        if rec is not None:
+            self.transport._flight = rec.wire
         self.peer_info: Dict[int, tuple] = {}
         self._mailboxes: Dict[int, InProcTransport] = {}
 
