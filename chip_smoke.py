@@ -405,6 +405,31 @@ Phases, each printing its own lines (any failure exits non-zero):
      program; dsl/smoke.run_device_smoke's record (a pinned gen_dev row on
      CUDA memory bitwise the host interpreter); p50s of the winners
      beside xla and ring_cuda at 64 Ki and 16 Mi f32; the phase's time.
+13. ft, detect, diagnose, recover (see its section).
+14. service, the multi-tenant service and end-to-end integrity:
+   - (a) 8 ranks: a latency tenant (priority 3) posting one 64 Ki f32
+     CUDA allreduce (ring_cuda pinned, B1, and xla) after three bulk
+     tenants (priority 0, UCC_COALESCE=y) post bursts of 24 allreduces
+     of 64 f32 on HOST memory; fifo (one lane, no coalescing) against
+     qos, interleaved, 20 rounds after 5: every bulk result bitwise its
+     unfused post, every probe bitwise torch.stack(srcs).sum(0), fused
+     batches > 0; the probe's p50/p99 per mode and TL, the bulk p50, the
+     inversions; ``perftest --teams 4 --storm`` and ``ucc_stats --qos``
+     on its UCC_STATS dump;
+   - (b) phase 10 (b)'s layout and rounds (16 Mi, rab_tpu with B7,
+     split_rail_tpu with B5 and B4) and tl/shm's 64 Ki / 1 Mi host
+     allreduce with UCC_INTEGRITY off and wire: bitwise phase 10's
+     result, the p50s (the crc's cost); then UCC_FAULT=corrupt=1.0 on
+     node 1's leader, on the Python matcher and on the native one (the
+     leaders' allreduce a native ring plan): ERR_DATA_CORRUPTED naming
+     the leader on the other leader, the starved ranks cancelled;
+   - (c) UCC_FT=shrink, UCC_INTEGRITY=verify (sample 1, strikes 1): a
+     HOST allreduce's result scribbled on ctx rank 5 is attested on
+     every rank (DataCorruptedError naming 5) and 5 quarantined in every
+     survivor's registry; both teams shrink to 7; CUDA-memory requests
+     bind no attestation; B1, B2 and xla resume bitwise; ``soak
+     --corrupt`` and ``--multi`` report no violation; nothing new in
+     /dev/shm, and B1, B2, B4, B5 and B7 launched in the phase.
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
@@ -415,7 +440,8 @@ over phase 5 as training_launches, over phase 6 as core_launches, over
 phase 7 as host_launches, over phase 8 as procs_launches, over phase
 9's spanning rounds, summed over its processes, as span_launches, over
 phase 10's in-process runs as hier_launches, over phase 11 as
-quant_launches and over phase 12 as compiler_launches) and
+quant_launches, over phase 12 as compiler_launches, over phase 13 as
+ft_launches and over phase 14 as service_launches) and
 {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -8616,6 +8642,702 @@ def main_path_ft(smi, counters, ring_p50) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 14. service: the multi-tenant service and end-to-end integrity
+# ---------------------------------------------------------------------------
+
+#: (a) tenants: latency teams on CUDA memory, bulk teams on HOST memory
+SVC_BULK_TEAMS = 3
+SVC_BURST = 24
+SVC_BULK_COUNT = 64          # 256 B of f32: a coalescer-eligible member
+SVC_WARMUP, SVC_ROUNDS = 5, 20
+SVC_STORM = ["--teams", "4", "--storm", "--json"]
+#: (b) the hier rounds of phase 10 (b) and tl/shm's host allreduces
+SVC_HOST_COUNTS = (64 << 10, 1 << 20)
+SVC_HIER_ALGS = (("rab_tpu", ("ring_bcast_chunked",)),
+                 ("split_rail_tpu", ("ring_reduce_scatter_chunked",
+                                     "ring_allgather_chunked")))
+#: rounds (warm-up, timed) under UCC_INTEGRITY=wire, whose C crc is a
+#: byte-at-a-time table: a 16 Mi hier round takes about a second
+SVC_WIRE_WARMUP, SVC_WIRE_ITERS = 1, 5
+#: a corrupted round: the detector's deadline before the rest is cancelled
+SVC_CORRUPT_DEADLINE_S = 30.0
+#: (c) the scribbled rank
+SVC_SCRIBBLED = 5
+
+
+def svc_teams(ctxs, priority=None, tune=None):
+    """A team over every context with an explicit priority class (and a
+    ring_cuda TUNE string, read at its create)."""
+    import ucc_tpu_torch as ucc
+    world = ucc.ThreadOobWorld(len(ctxs))
+    with env_set(UCC_TL_RING_CUDA_TUNE=tune):
+        teams = [c.create_team_post(ucc.TeamParams(
+            oob=world.endpoint(r), priority=priority))
+            for r, c in enumerate(ctxs)]
+        until(ctxs, lambda: all([t.create_test() == ucc.Status.OK
+                                 for t in teams]), "service team create")
+    return teams
+
+
+def svc_round(ctxs, bulk, bulk_srcs, bulk_dsts, probe, probe_srcs,
+              probe_dsts):
+    """One round of (a): every bulk team posts its burst on HOST memory,
+    then the latency team posts its probe on CUDA memory. Returns (the
+    probe's per-rank seconds, post to completion callback; the round's
+    seconds per logical bulk collective)."""
+    import torch
+    import ucc_tpu_torch as ucc
+    f32 = ucc.DataType.FLOAT32
+    n = len(ctxs)
+    t0 = time.perf_counter()
+    reqs = []
+    for t, teams in enumerate(bulk):
+        for k in range(SVC_BURST):
+            for r in range(n):
+                rq = teams[r].collective_init(ucc.CollArgs(
+                    coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+                    src=ucc.BufferInfo(bulk_srcs[t][k][r], SVC_BULK_COUNT,
+                                       f32, ucc.MemoryType.HOST),
+                    dst=ucc.BufferInfo(bulk_dsts[t][k][r], SVC_BULK_COUNT,
+                                       f32, ucc.MemoryType.HOST)))
+                rq.post()
+                reqs.append(rq)
+    done = [0.0] * n
+    start = [0.0] * n
+
+    def stamp(i):
+        def cb(_task, _st):
+            done[i] = time.perf_counter()
+        return cb
+
+    hi = []
+    for r in range(n):
+        start[r] = time.perf_counter()
+        rq = probe[r].collective_init(ucc.CollArgs(
+            coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+            src=ucc.BufferInfo(probe_srcs[r], SMALL_COUNT, f32,
+                               ucc.MemoryType.CUDA),
+            dst=ucc.BufferInfo(probe_dsts[r], SMALL_COUNT, f32,
+                               ucc.MemoryType.CUDA),
+            cb=stamp(r)))
+        rq.post()
+        hi.append(rq)
+    until(ctxs, lambda: settled(hi), "service probe")
+    until(ctxs, lambda: settled(reqs), "service bulk burst")
+    t3 = time.perf_counter()
+    all_ok(hi + reqs, "service round")
+    for rq in hi + reqs:
+        rq.finalize()
+    torch.cuda.synchronize()
+    return [done[r] - start[r] for r in range(n)], \
+        (t3 - t0) / (SVC_BURST * len(bulk))
+
+
+def svc_pcts(samples):
+    s = sorted(samples)
+    return (s[len(s) // 2] * 1e3,
+            s[min(len(s) - 1, int(round(0.99 * (len(s) - 1))))] * 1e3)
+
+
+def service_lanes(smi, kernels, tmp) -> dict:
+    """(a) 8 ranks in this process: a latency-class tenant on CUDA memory
+    and three bulk tenants on HOST memory, fifo (one lane, coalescing
+    off) against qos (priority lanes, coalescing on), interleaved; then
+    perftest --storm and ucc_stats --qos on its snapshot."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.core import coalesce
+    n = N_RANKS
+    ctxs = make_contexts(n)
+    teams = {}
+    try:
+        for mode in ("fifo", "qos"):
+            coalesce.configure(enabled=(mode == "qos"))
+            hi_pr, bulk_pr = (3, 0) if mode == "qos" else (None, None)
+            teams[mode] = {
+                "ring_cuda": svc_teams(ctxs, hi_pr,
+                                       "allreduce:@ring_cuda:inf"),
+                "xla": svc_teams(ctxs, hi_pr),
+                "bulk": [svc_teams(ctxs, bulk_pr)
+                         for _ in range(SVC_BULK_TEAMS)]}
+        coalesce.configure(enabled=False)
+        if any(t.coalescer is None for b in teams["qos"]["bulk"] for t in b) \
+                or any(t.coalescer is not None
+                       for b in teams["fifo"]["bulk"] for t in b):
+            raise AssertionError("service: coalescers not attached to the "
+                                 "qos bulk tenants alone")
+        g = torch.Generator().manual_seed(1400)
+        bulk_srcs = [[[torch.randint(-8, 8, (SVC_BULK_COUNT,), generator=g
+                                     ).float() for _ in range(n)]
+                      for _ in range(SVC_BURST)]
+                     for _ in range(SVC_BULK_TEAMS)]
+        bulk_want = [[torch.stack(b).sum(0) for b in per]
+                     for per in bulk_srcs]
+        probe_srcs = span_inputs(n, SMALL_COUNT, 1401)
+        probe_want = torch.stack(probe_srcs).sum(0)
+        lat = {(m, tl): [] for m in ("fifo", "qos")
+               for tl in ("ring_cuda", "xla")}
+        bulk_lat = {"fifo": [], "qos": []}
+        unfused = None
+        for rnd in range(SVC_WARMUP + SVC_ROUNDS):
+            for mode in ("fifo", "qos"):
+                for tl in ("ring_cuda", "xla"):
+                    dsts = [[[torch.full((SVC_BULK_COUNT,), -1.0)
+                              for _ in range(n)] for _ in range(SVC_BURST)]
+                            for _ in range(SVC_BULK_TEAMS)]
+                    pd = [torch.zeros(SMALL_COUNT, device="cuda")
+                          for _ in range(n)]
+                    probe = teams[mode][tl]
+                    hi, per_bulk = svc_round(
+                        ctxs, teams[mode]["bulk"], bulk_srcs, dsts, probe,
+                        probe_srcs, pd)
+                    if probe[0].coalescer is not None:
+                        raise AssertionError("service: a latency team "
+                                             "has a coalescer")
+                    for r, d in enumerate(pd):
+                        if not bits_equal(d, probe_want):
+                            raise AssertionError(
+                                f"service {mode} {tl}: probe rank {r} is "
+                                "not bitwise torch.stack(srcs).sum(0)")
+                    got = [[[bytes(x.numpy().tobytes()) for x in per]
+                            for per in t] for t in dsts]
+                    if unfused is None:
+                        # the first fifo round's results: the unfused posts
+                        unfused = got
+                        for t in range(SVC_BULK_TEAMS):
+                            for k in range(SVC_BURST):
+                                w = bulk_want[t][k].numpy().tobytes()
+                                if any(x != w for x in got[t][k]):
+                                    raise AssertionError(
+                                        "service: an unfused bulk result "
+                                        "is not the exact sum")
+                    elif got != unfused:
+                        raise AssertionError(
+                            f"service {mode}: a bulk result is not bitwise "
+                            "its unfused post")
+                    if rnd >= SVC_WARMUP:
+                        lat[(mode, tl)].extend(hi)
+                        bulk_lat[mode].append(per_bulk)
+        fused = sum(t.coalescer._fused_seq for b in teams["qos"]["bulk"]
+                    for t in b)
+        if fused <= 0:
+            raise AssertionError("service: no fused batch in qos mode")
+        inversions = sum(c.progress_queue.qos_snapshot()["inversions"]
+                         for c in ctxs)
+        out = {"fused_batches": fused, "inversions": inversions}
+        for (mode, tl), s in lat.items():
+            p50, p99 = svc_pcts(s)
+            out[f"{mode}_{tl}"] = (p50, p99)
+        for mode, s in bulk_lat.items():
+            out[f"{mode}_bulk_p50"] = svc_pcts(s)[0]
+        log(f"service: (a) {n} ranks, latency tenant (priority 3 in qos) "
+            f"posting one {SMALL_COUNT} f32 CUDA allreduce after {SVC_BULK_TEAMS}"
+            f" bulk tenants' bursts of {SVC_BURST} x {SVC_BULK_COUNT} f32 "
+            f"HOST allreduces (priority 0, coalesced, in qos), "
+            f"{SVC_ROUNDS} rounds after {SVC_WARMUP} per mode and TL, "
+            f"interleaved: probe p50/p99 ms fifo ring_cuda "
+            f"{out['fifo_ring_cuda'][0]:.3f}/{out['fifo_ring_cuda'][1]:.3f}"
+            f", qos ring_cuda {out['qos_ring_cuda'][0]:.3f}/"
+            f"{out['qos_ring_cuda'][1]:.3f}, fifo xla "
+            f"{out['fifo_xla'][0]:.3f}/{out['fifo_xla'][1]:.3f}, qos xla "
+            f"{out['qos_xla'][0]:.3f}/{out['qos_xla'][1]:.3f}; bulk p50 "
+            f"per logical allreduce fifo {out['fifo_bulk_p50']:.4f} ms, qos "
+            f"{out['qos_bulk_p50']:.4f} ms; {fused} fused batches; qos "
+            f"inversions {inversions}; every bulk result bitwise its "
+            f"unfused post, every probe bitwise torch.stack(srcs).sum(0) "
+            f"| card {smi}")
+    finally:
+        coalesce.configure(enabled=False)
+        for per in teams.values():
+            for ts in [per["ring_cuda"], per["xla"], *per["bulk"]]:
+                for t in ts:
+                    t.destroy()
+        for c in ctxs:
+            c.destroy()
+
+    # perftest --storm as the JAX package's perftest runs it, then
+    # ucc_stats --qos on the snapshot file its UCC_STATS dump wrote
+    here = os.path.dirname(os.path.abspath(__file__))
+    stats_file = os.path.join(tmp, "storm_stats.json")
+    env = dict(os.environ, UCC_STATS="y", UCC_STATS_FILE=stats_file,
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ucc_tpu_torch.tools.perftest",
+                        *SVC_STORM], capture_output=True, text=True,
+                       cwd=here, env=env, timeout=300)
+    recs = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+    if r.returncode not in (0, 1) or [x.get("bench") for x in recs] != \
+            ["storm", "storm", "storm_summary"]:
+        raise AssertionError(f"service: perftest {' '.join(SVC_STORM)} "
+                             f"exited {r.returncode}: {r.stderr[-2000:]}")
+    fifo, qos, summ = recs
+    if qos.get("coalesce_fused_batches", 0) <= 0:
+        raise AssertionError("service: perftest --storm fused no batch")
+    log(f"service: (a) perftest {' '.join(SVC_STORM)} (4 ranks, HOST "
+        f"memory, {summ['burst']} x {summ['size_bytes']} B): hi p50/p99 us "
+        f"fifo {fifo['classes']['hi']['p50_us']}/"
+        f"{fifo['classes']['hi']['p99_us']}, qos "
+        f"{qos['classes']['hi']['p50_us']}/{qos['classes']['hi']['p99_us']};"
+        f" bulk p50 us fifo {fifo['classes']['bulk']['p50_us']}, qos "
+        f"{qos['classes']['bulk']['p50_us']}; fused batches "
+        f"{qos['coalesce_fused_batches']}; hi p99 improvement "
+        f"{summ['hi_p99_improvement']}x (the tool's verdict: "
+        f"{'OK' if summ['ok'] else 'below 2x'}, exit {r.returncode}) | "
+        f"{time.perf_counter() - t1:.1f} s | card {smi}")
+    s = subprocess.run([sys.executable, "-m", "ucc_tpu_torch.tools.stats",
+                        stats_file, "--qos"], capture_output=True, text=True,
+                       cwd=here, env=env, timeout=120)
+    if s.returncode != 0 or "[queue wait, us]" not in s.stdout:
+        raise AssertionError(f"service: ucc_stats --qos exited "
+                             f"{s.returncode}: {s.stdout[-1000:]} "
+                             f"{s.stderr[-1000:]}")
+    lines = s.stdout.splitlines()
+    for ln in lines[:40]:
+        log(f"service: (a) ucc_stats --qos | {ln}")
+    if len(lines) > 40:
+        log(f"service: (a) ucc_stats --qos | ... {len(lines) - 40} more")
+    out["storm"] = {"fifo": fifo, "qos": qos, "summary": summ,
+                    "rc": r.returncode}
+    return out
+
+
+def task_tree(task):
+    """*task* and every task of its schedules (a pipelined schedule's
+    fragments included)."""
+    yield task
+    subs = list(getattr(task, "tasks", ()) or ())
+    for f in getattr(task, "frags", ()) or ():
+        subs += list(getattr(f, "tasks", ()) or ())
+    for t in subs:
+        yield from task_tree(t)
+
+
+def corrupt_ranks_of(task):
+    """The corruption attribution anywhere in a (schedule's) task tree."""
+    for t in task_tree(task):
+        if getattr(t, "corrupt_ranks", None):
+            return list(t.corrupt_ranks)
+    return []
+
+
+def planned(task) -> bool:
+    """Does a (schedule's) task tree hold a task with a native plan?"""
+    return any(getattr(t, "_plan", None) is not None
+               for t in task_tree(task))
+
+
+def svc_corrupt_round(ctxs, teams, srcs, leader, what):
+    """One hier allreduce while ctx rank *leader* corrupts every host send
+    (the clean payload's crc rides beside the bytes): the round must end
+    ERR_DATA_CORRUPTED on a detecting leader, naming *leader*; the starved
+    ranks are cancelled once it has. Returns the detectors."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.fault import inject
+    from ucc_tpu_torch.status import DataCorruptedError
+    f32 = ucc.DataType.FLOAT32
+    dsts = [torch.zeros_like(s) for s in srcs]
+    # armed before the init: a generated task decides there whether it
+    # runs a native plan (the corrupting rank interprets)
+    inject.configure(f"corrupt=1.0,corrupt_rank={leader}", seed=0)
+    try:
+        reqs = [t.collective_init(ucc.CollArgs(
+            coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+            src=ucc.BufferInfo(s, s.numel(), f32),
+            dst=ucc.BufferInfo(d, d.numel(), f32)))
+            for t, s, d in zip(teams, srcs, dsts)]
+        for rq in reqs:
+            rq.post()
+        done = [None] * len(reqs)
+
+        def poll():
+            for i, rq in enumerate(reqs):
+                if done[i] is not None:
+                    continue
+                try:
+                    st = rq.test()
+                except DataCorruptedError as e:
+                    done[i] = (ucc.Status.ERR_DATA_CORRUPTED, sorted(e.ranks))
+                    continue
+                if st != ucc.Status.IN_PROGRESS:
+                    done[i] = (st, corrupt_ranks_of(rq.task))
+            return all(d is not None for d in done) or any(
+                d is not None and d[0] == ucc.Status.ERR_DATA_CORRUPTED
+                for d in done)
+        until(ctxs, poll, f"{what}: the detection",
+              timeout=SVC_CORRUPT_DEADLINE_S)
+        for i, rq in enumerate(reqs):
+            if done[i] is None:
+                rq.task.cancel()
+        until(ctxs, lambda: (poll() or True) and all(d is not None
+                                                     for d in done),
+              f"{what}: the cancel")
+    finally:
+        inject.reset()
+    torch.cuda.synchronize()
+    detectors = [i for i, d in enumerate(done)
+                 if d[0] == ucc.Status.ERR_DATA_CORRUPTED]
+    for i in detectors:
+        if done[i][1] != [leader]:
+            raise AssertionError(f"{what}: rank {i} named {done[i][1]}, not "
+                                 f"the corrupting leader {leader}")
+    if not detectors:
+        raise AssertionError(f"{what}: no rank ended ERR_DATA_CORRUPTED")
+    plans = [i for i, rq in enumerate(reqs) if planned(rq.task)]
+    for rq in reqs:
+        rq.finalize()
+    return detectors, {i: d[0].name for i, d in enumerate(done)}, plans
+
+
+def service_integrity(smi, kernels) -> dict:
+    """(b) phase 10 (b)'s layout and rounds under UCC_INTEGRITY: the crc's
+    cost (off against wire) on both hier algorithms at 16 Mi and tl/shm's
+    host allreduce, then a corrupting leader on each matcher."""
+    import numpy as np
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch import integrity
+    n = N_RANKS
+    SUM = ucc.ReductionOp.SUM
+    srcs = span_inputs(n, MAIN_COUNT, 400)       # phase 10's inputs
+    want = torch.stack(srcs).sum(0)
+    dsts = [torch.zeros(MAIN_COUNT, device="cuda") for _ in range(n)]
+    out = {}
+    launches = {}
+    results = {}
+    try:
+        for mode in ("off", "wire"):
+            # before the contexts: the native mailboxes arm at creation
+            integrity.configure(mode=mode)
+            warmup, iters = (WARMUP, ITERS) if mode == "off" else \
+                (SVC_WIRE_WARMUP, SVC_WIRE_ITERS)
+            t1 = time.perf_counter()
+            with env_set(UCC_TOPO_FAKE_PPN=HIER_PPN):
+                ctxs = make_contexts(n, CL_HIER_NODE_TLS=HIER_NODE_TLS)
+            try:
+                for alg, kinds in SVC_HIER_ALGS:
+                    with env_set(UCC_TL_RING_CUDA_TUNE=HIER_RING_TUNE,
+                                 UCC_CL_HIER_TUNE=f"allreduce:@{alg}:inf"):
+                        teams = make_team(ctxs)
+                    before = {k: kernels[k][0].launches for k in kinds}
+                    s, _, _ = hier_allreduce(ctxs, teams, srcs, dsts, SUM,
+                                             False, alg,
+                                             f"service {alg} {mode}",
+                                             warmup, iters)
+                    for k in kinds:
+                        d = kernels[k][0].launches - before[k]
+                        if d <= 0:
+                            raise AssertionError(f"service {alg} {mode}: "
+                                                 f"{k} never launched")
+                        launches[k] = launches.get(k, 0) + d
+                    check_all(f"service {alg} {mode}", dsts, want)
+                    results[(alg, mode)] = [d.clone() for d in dsts]
+                    out[f"{alg}_{mode}"] = p50_of(s)
+                    for t in teams:
+                        t.destroy()
+            finally:
+                for c in ctxs:
+                    c.destroy()
+            # tl/shm's host allreduce on a flat team
+            ctxs, teams = make_job(n)
+            try:
+                for count in SVC_HOST_COUNTS:
+                    hs = [np_ints(count, 1402 + r) for r in range(n)]
+                    hd = [np.zeros(count, np.float32) for _ in range(n)]
+                    reqs = [t.collective_init(ucc.CollArgs(
+                        coll_type=ucc.CollType.ALLREDUCE, op=SUM,
+                        src=ucc.BufferInfo(a, count, ucc.DataType.FLOAT32),
+                        dst=ucc.BufferInfo(b, count, ucc.DataType.FLOAT32),
+                        flags=ucc.CollArgsFlags.PERSISTENT))
+                        for t, a, b in zip(teams, hs, hd)]
+                    alg = reqs[0].task.alg_name
+                    s = hier_rounds(ctxs, reqs, f"service host {count} "
+                                    f"{mode}", warmup, iters)
+                    for rq in reqs:
+                        rq.finalize()
+                    hw = np.sum(hs, axis=0)
+                    if any(not np.array_equal(d, hw) for d in hd):
+                        raise AssertionError(f"service host {count} {mode}"
+                                             ": not the exact sum")
+                    out[f"host_{count}_{mode}"] = s[len(s) // 2] * 1e3
+                    out[f"host_{count}_alg"] = alg
+            finally:
+                for t in teams:
+                    t.destroy()
+                for c in ctxs:
+                    c.destroy()
+            log(f"service: (b) UCC_INTEGRITY={mode}: rab_tpu "
+                f"{out[f'rab_tpu_{mode}']:.3f} ms, split_rail_tpu "
+                f"{out[f'split_rail_tpu_{mode}']:.3f} ms (16 Mi f32, phase "
+                f"10 (b)'s layout, node stages on ring_cuda, bitwise the "
+                f"sum); tl/shm host allreduce via "
+                f"{out[f'host_{SVC_HOST_COUNTS[0]}_alg']} "
+                + ", ".join(f"{c} f32 {out[f'host_{c}_{mode}']:.3f} ms"
+                            for c in SVC_HOST_COUNTS)
+                + f" (p50 of {iters} rounds after {warmup}) | "
+                f"{time.perf_counter() - t1:.1f} s | card {smi}")
+        for alg, _ in SVC_HIER_ALGS:
+            if any(not bits_equal(a, b) for a, b in zip(
+                    results[(alg, "off")], results[(alg, "wire")])):
+                raise AssertionError(f"service {alg}: wire is not bitwise "
+                                     "the run with integrity off")
+        del results
+        log("service: (b) crc cost, wire / off p50: " + ", ".join(
+            f"{k} {out[f'{k}_wire'] / out[f'{k}_off']:.3f}x" for k in
+            ["rab_tpu", "split_rail_tpu"] +
+            [f"host_{c}" for c in SVC_HOST_COUNTS]) + f" | card {smi}")
+
+        # a corrupting leader, on the Python matcher and on the native one
+        # (the leaders' allreduce a native ring plan, as the JAX package's
+        # TestPlanWireDetection runs it)
+        integrity.configure(mode="wire")
+        out["corrupt"] = {}
+        for matcher, menv, tenv in (
+                ("python", dict(UCC_TL_SHM_NATIVE="0"), {}),
+                ("native", dict(UCC_GEN_NATIVE="y"),
+                 dict(UCC_TL_SHM_TUNE="allreduce:@ring:inf"))):
+            t1 = time.perf_counter()
+            with env_set(UCC_TOPO_FAKE_PPN=HIER_PPN, **menv):
+                ctxs = make_contexts(n, CL_HIER_NODE_TLS=HIER_NODE_TLS)
+            try:
+                leader = ctxs[int(HIER_PPN)].rank     # node 1's leader
+                for alg, _ in SVC_HIER_ALGS:
+                    with env_set(UCC_TL_RING_CUDA_TUNE=HIER_RING_TUNE,
+                                 UCC_CL_HIER_TUNE=f"allreduce:@{alg}:inf",
+                                 **menv, **tenv):
+                        teams = make_team(ctxs)
+                    det, sts, plans = svc_corrupt_round(
+                        ctxs, teams, srcs, leader,
+                        f"service corrupt {alg} {matcher}")
+                    if tenv and (leader in plans or
+                                 any(d not in plans for d in det)):
+                        raise AssertionError(
+                            f"service corrupt {alg} native: native plans on "
+                            f"ranks {plans}; the corrupting leader must "
+                            f"interpret and the detectors run plans")
+                    out["corrupt"][(alg, matcher)] = det
+                    log(f"service: (b) UCC_FAULT=corrupt=1.0,corrupt_rank="
+                        f"{leader} (node 1's leader), {matcher} matcher"
+                        f"{', leaders on a native ring plan' if tenv else ''}"
+                        f": {alg} ended ERR_DATA_CORRUPTED on ranks {det} "
+                        f"naming ctx rank {leader}; statuses {sts}; ranks "
+                        f"on native plans {plans} | "
+                        f"{time.perf_counter() - t1:.1f} s")
+                    for t in teams:
+                        t.destroy()
+            finally:
+                for c in ctxs:
+                    c.destroy()
+    finally:
+        integrity.reset()
+    del srcs, dsts, want
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def np_ints(count, seed):
+    """Integer-valued f32 numpy inputs (any reduction order is exact)."""
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        -64, 64, count).astype(np.float32)
+
+
+def service_attest(smi, kernels) -> dict:
+    """(c) verify mode with FT: a scribbled HOST result is attested on
+    every rank, its rank quarantined and shrunk away; the 7-rank team
+    resumes on the card; then the soak drills."""
+    import numpy as np
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch import integrity
+    from ucc_tpu_torch.fault import health
+    from ucc_tpu_torch.status import DataCorruptedError
+    n = FT_N
+    health.configure("shrink", interval=FT_HB_INTERVAL,
+                     timeout=FT_DEADLINE_S)
+    integrity.configure(mode="verify", sample=1, strikes=1)
+    ctxs = make_contexts(n)
+    teams = []
+    out = {}
+    try:
+        with env_set(UCC_TL_RING_CUDA_TUNE=FT_RING_TUNE):
+            ring = make_team(ctxs)
+        flat = make_team(ctxs)
+        teams += ring + flat
+        # a HOST allreduce completes (test() not called yet, so the
+        # attestation has not started), then rank 5's result is scribbled
+        count = 256
+        ins = [np_ints(count, 1403 + r) for r in range(n)]
+        outs = [np.zeros(count, np.float32) for _ in range(n)]
+        f32 = ucc.DataType.FLOAT32
+        reqs = [t.collective_init(ucc.CollArgs(
+            coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+            src=ucc.BufferInfo(i, count, f32, ucc.MemoryType.HOST),
+            dst=ucc.BufferInfo(o, count, f32, ucc.MemoryType.HOST)))
+            for t, i, o in zip(ring, ins, outs)]
+        if any(rq._attest is None for rq in reqs):
+            raise AssertionError("service: a HOST allreduce under verify "
+                                 "bound no attestation")
+        for rq in reqs:
+            rq.post()
+        until(ctxs, lambda: all(rq.task.super_status !=
+                                ucc.Status.IN_PROGRESS for rq in reqs),
+              "service attested allreduce")
+        outs[SVC_SCRIBBLED][count // 2] = 999.0
+        named = [None] * n
+
+        def poll():
+            for i, rq in enumerate(reqs):
+                if named[i] is not None:
+                    continue
+                try:
+                    st = rq.test()
+                except DataCorruptedError as e:
+                    named[i] = sorted(e.ranks)
+                    continue
+                if st != ucc.Status.IN_PROGRESS:
+                    named[i] = st.name
+            return all(x is not None for x in named)
+        t0 = time.perf_counter()
+        until(ctxs, poll, "service attestation", timeout=FT_DEADLINE_S)
+        attest_ms = (time.perf_counter() - t0) * 1e3
+        if named != [[SVC_SCRIBBLED]] * n:
+            raise AssertionError(f"service: attestation named {named}, not "
+                                 f"ctx rank {SVC_SCRIBBLED} on every rank")
+        for r, c in enumerate(ctxs):
+            if r != SVC_SCRIBBLED and \
+                    SVC_SCRIBBLED not in c.health.dead_set():
+                raise AssertionError(f"service: rank {r} did not "
+                                     f"quarantine ctx rank {SVC_SCRIBBLED}")
+        for rq in reqs:
+            rq.finalize()
+        log(f"service: (c) UCC_INTEGRITY=verify sample 1 strikes 1, "
+            f"UCC_FT=shrink: ctx rank {SVC_SCRIBBLED}'s HOST allreduce "
+            f"result scribbled after completion; every rank raised "
+            f"DataCorruptedError naming it in {attest_ms:.1f} ms, and it is "
+            f"quarantined in every survivor's health registry")
+        survivors = [r for r in range(n) if r != SVC_SCRIBBLED]
+        with env_set(UCC_TL_RING_CUDA_TUNE=FT_RING_TUNE):
+            shrinks = [ring[r].shrink_post() for r in survivors]
+            agree_s, shrink_s = ft_membership(ctxs, shrinks, "shrink")
+        flat_shrinks = [flat[r].shrink_post() for r in survivors]
+        ft_membership(ctxs, flat_shrinks, "shrink of the default team")
+        shrinks += flat_shrinks
+        if {(tuple(s.failed_ranks), s.epoch) for s in shrinks} != \
+                {((SVC_SCRIBBLED,), 1)}:
+            raise AssertionError("service: survivors disagree on the "
+                                 "shrink")
+        ring1 = [s.new_team for s in shrinks[:len(survivors)]]
+        flat1 = [s.new_team for s in shrinks[len(survivors):]]
+        teams += ring1 + flat1
+        log(f"service: (c) shrink of both teams to 7 ranks, epoch 1, the "
+            f"quarantined rank excluded: agreement {agree_s * 1e3:.1f} ms, "
+            f"shrink {shrink_s * 1e3:.1f} ms")
+        # CUDA-memory requests under verify carry no attestation state
+        dsrcs = span_inputs(len(survivors), SMALL_COUNT, 1404)
+        ddsts = [torch.zeros_like(s) for s in dsrcs]
+        for team, what in ((ring1, "ring_cuda"), (flat1, "xla")):
+            reqs = allreduce_reqs(team, dsrcs, ddsts, persistent=False)
+            if any(rq._attest is not None for rq in reqs):
+                raise AssertionError(f"service: a CUDA-memory {what} "
+                                     "request under verify bound "
+                                     "attestation state")
+            one_round(ctxs, reqs, f"service {what} under verify")
+            check_all(f"service {what} under verify", ddsts,
+                      torch.stack(dsrcs).sum(0))
+            for rq in reqs:
+                rq.finalize()
+        out["p50"] = {"ring": ft_resume(ctxs, ring1, "quarantine-shrunk "
+                                        "ring team", kernels, True),
+                      "xla": ft_resume(ctxs, flat1, "quarantine-shrunk "
+                                       "xla team", kernels, False)}
+        out.update(attest_ms=attest_ms, agree_ms=agree_s * 1e3,
+                   shrink_ms=shrink_s * 1e3)
+    finally:
+        for t in teams:
+            t.destroy()
+        for c in ctxs:
+            c.destroy()
+        integrity.reset()
+        health.reset()
+    # the soak drills of the service and of integrity
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    for k in ("UCC_FT", "UCC_FAULT", "UCC_WATCHDOG", "UCC_INTEGRITY",
+              "UCC_TL_RING_CUDA_TUNE", "UCC_COALESCE"):
+        env.pop(k, None)
+    for mode in ("--corrupt", "--multi"):
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "ucc_tpu_torch.fault.soak",
+                            mode], capture_output=True, text=True,
+                           cwd=here, env=env, timeout=300)
+        try:
+            rep = json.loads(r.stdout)
+        except ValueError:
+            rep = None
+        if r.returncode != 0 or rep is None or rep["violations"]:
+            raise AssertionError(f"service: soak {mode} exited "
+                                 f"{r.returncode}: {r.stdout[-2000:]} "
+                                 f"{r.stderr[-2000:]}")
+        keys = ("detections", "storm_rounds", "rounds_to_quarantine",
+                "quarantined", "plan_mode", "post_iters", "matcher") \
+            if mode == "--corrupt" else \
+            ("killed", "shrunk_epochs", "grown_epochs", "post_rounds_ok",
+             "fused_batches", "priority_inversions", "starvation_max_ms",
+             "hi_probe_ms")
+        log(f"service: (c) soak {mode}: violations [] | "
+            + ", ".join(f"{k} {rep.get(k)}" for k in keys)
+            + f" | {time.perf_counter() - t1:.1f} s")
+        out[mode] = rep
+    return out
+
+
+def main_path_service(smi, counters) -> dict:
+    """Phase 14: the multi-tenant service and end-to-end integrity.
+    Returns every kernel's launches over the phase."""
+    import glob
+    import tempfile
+    t0 = time.perf_counter()
+    base = snapshot(counters)
+    kernels = wrappers()
+    shm_before = set(glob.glob("/dev/shm/ucc-torch-*"))
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="ucc_service_") as tmp:
+        with env_set(UCC_TL_RING_CUDA_TUNE=None, UCC_TL_TORCH_OPS_TUNE=None,
+                     UCC_FAULT=None, UCC_FT=None, UCC_INTEGRITY=None,
+                     UCC_COALESCE=None, UCC_TL_SHM_TUNE=None,
+                     UCC_CL_HIER_TUNE=None):
+            for step, key, fn in (
+                    ("a", "lanes", lambda: service_lanes(smi, kernels, tmp)),
+                    ("b", "integrity", lambda: service_integrity(
+                        smi, kernels)),
+                    ("c", "attest", lambda: service_attest(smi, kernels))):
+                t1 = time.perf_counter()
+                res[key] = fn()
+                log(f"service: ({step}) {key} in "
+                    f"{time.perf_counter() - t1:.1f} s")
+    left = set(glob.glob("/dev/shm/ucc-torch-*")) - shm_before
+    if left:
+        raise AssertionError(f"service: left in /dev/shm: {sorted(left)}")
+    launches = since(counters, base)
+    for k in ("ring_allreduce_pass", "ring_allreduce_chunked",
+              "ring_allgather_chunked", "ring_reduce_scatter_chunked",
+              "ring_bcast_chunked"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"service: {k} never launched in the "
+                                 "phase")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"service: launches over the phase {launches}; nothing new in "
+        f"/dev/shm | service phase: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -8818,6 +9540,10 @@ def main() -> int:
     # the watchdog, the flight recorder and its diagnosis ------------------
     ft = main_path_ft(smi, counters, ring_p50)
 
+    # -- 14. service: priority lanes and the coalescer, wire integrity on
+    # hier rounds, attestation, quarantine and the shrunk team -------------
+    service = main_path_service(smi, counters)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -8834,6 +9560,7 @@ def main() -> int:
         rec["quant_launches"] = quant["launches"].get(rec["name"], 0)
         rec["compiler_launches"] = compiler["launches"].get(rec["name"], 0)
         rec["ft_launches"] = ft["launches"].get(rec["name"], 0)
+        rec["service_launches"] = service["launches"].get(rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

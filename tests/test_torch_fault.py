@@ -418,9 +418,13 @@ class TestSoak:
 
 
 def test_soak_main_refuses_later_drills(capsys):
-    """The drills that need the integrity checks, the collector or the
-    coalescer are refused by name, not run half-armed."""
+    """The drill that needs the telemetry collector (churn) is refused by
+    name, not run half-armed; the corruption-storm and multi-tenant
+    drills run now (tests/test_torch_integrity.py, test_torch_qos.py)."""
     from ucc_tpu_torch.fault import soak
-    for mode in ("--corrupt", "--churn", "--multi"):
-        assert soak.main([mode]) == 2
-        assert "8b" in capsys.readouterr().err
+    assert soak.main(["--churn"]) == 2
+    err = capsys.readouterr().err
+    assert "8b.3" in err and "collector" in err
+    assert set(soak._LATER_MODES) == {"churn"}
+    assert callable(soak.run_corrupt_soak)
+    assert callable(soak.run_multi_tenant_soak)

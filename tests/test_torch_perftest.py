@@ -118,7 +118,7 @@ def test_bad_arguments_exit_as_ucc_tpu(bad):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--teams", "2", "--storm"], ["--store", "h:1", "--procs", "2"],
+    ["--teams", "1", "--storm"], ["--store", "h:1", "--procs", "2"],
     ["--procs", "2", "-c", "memcpy"], ["-m", "cuda_managed"]])
 def test_unported_modes_are_refused(flag):
     with pytest.raises(SystemExit) as ei:

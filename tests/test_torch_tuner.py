@@ -33,15 +33,29 @@ COUNT = 8192                       # 32 KiB f32: the bandwidth-alg regime
 NBYTES = COUNT * 4
 
 
+#: the settings no test may inherit or leave behind
+_AMBIENT = ("UCC_TUNER", "UCC_TUNER_SAMPLES", "UCC_QUANT", "UCC_TL_SHM_TUNE",
+            "UCC_TL_TORCH_OPS_TUNE", "UCC_TL_RING_CUDA_TUNE")
+
+
+def _unset(monkeypatch):
+    """Each ambient variable recorded as unset (set, then deleted), so
+    that the undo removes what a test's CLI sets (ucc_tune --quant sets
+    UCC_QUANT). A bare delenv of an absent variable records nothing, and
+    a later delenv of the CLI's value makes the undo put that value back,
+    leaking it into every later test of the process and into the
+    processes they spawn."""
+    for var in _AMBIENT:
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
+
+
 @pytest.fixture(autouse=True)
 def _isolated(monkeypatch, tmp_path):
     # device TLs on the CPU; no ambient tuner, quant or TUNE settings; a
     # fresh in-process session cache around each test
     monkeypatch.setenv("UCC_TL_RING_CUDA_DEVICE", "cpu")
-    for var in ("UCC_TUNER", "UCC_TUNER_SAMPLES", "UCC_QUANT",
-                "UCC_TL_SHM_TUNE", "UCC_TL_TORCH_OPS_TUNE",
-                "UCC_TL_RING_CUDA_TUNE"):
-        monkeypatch.delenv(var, raising=False)
+    _unset(monkeypatch)
     monkeypatch.setenv("UCC_TUNER_CACHE", str(tmp_path / "ambient.json"))
     pt.session_reset()
     jt.session_reset()
@@ -702,3 +716,26 @@ class TestOfflineCli:
         (sig,) = data["signatures"]
         assert {e["coll"] for e in cache_entries(data, sig)} == \
             {"allgather"}
+
+
+
+def test_no_cli_setting_outlives_the_tests_that_made_it(tmp_path):
+    """The isolation of this file, around ucc_tune --quant as
+    TestOfflineCli runs it: once its monkeypatch is undone, no UCC_QUANT
+    is left in the process environment (where a later test's spawned
+    workers would inherit it: the JAX package's socket sweep then ran
+    quantized allreduces)."""
+    import os
+    from ucc_tpu_torch.tools.tune import main as tune_main
+    mp = pytest.MonkeyPatch()
+    _unset(mp)
+    try:
+        assert tune_main(["-p", "2", "-m", "host", "-c", "allreduce",
+                          "-b", "128K", "-e", "128K", "-n", "1", "-w", "0",
+                          "--quant", "int8", "--dry-run", "--measurements",
+                          str(tmp_path / "m.jsonl")]) == 0
+        assert os.environ.get("UCC_QUANT") == "int8"
+        mp.delenv("UCC_QUANT")
+    finally:
+        mp.undo()
+    assert [v for v in _AMBIENT if v in os.environ] == []

@@ -101,7 +101,8 @@ exchange, so each context is created on its own thread)::
 from .constants import (CollArgsFlags, CollSyncType, CollType,  # noqa: F401
                         DataType, EeType, EventType, MemoryType, ReductionOp,
                         ThreadMode, coll_type_str, dt_size, dt_torch)
-from .status import RankFailedError, Status, UccError, check  # noqa: F401
+from .status import (DataCorruptedError, RankFailedError, Status,  # noqa: F401
+                     UccError, check)
 from .api.types import (ActiveSet, BufferInfo, BufferInfoV, CollArgs,  # noqa: F401
                         ContextAttr, ContextParams, ContextType, LibAttr, LibParams,
                         OobColl, OobRequest, TeamAttr, TeamParams)

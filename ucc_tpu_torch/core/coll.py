@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import integrity
 from ..api.types import BufferInfo, BufferInfoV, CollArgs, coll_args_msgsize
 from ..constants import (CollArgsFlags, CollType, DataType, EventType,
                          GenericDataType, MemoryType, ReductionOp,
@@ -109,6 +110,20 @@ class CollRequest:
     #: at init; None when UCC_FLIGHT=n, so a post pays one branch
     _flight = None
     _flight_msgsize = 0
+    #: small-collective coalescer (core/coalesce.py): bound at init for
+    #: eligible members of a UCC_COALESCE team; post() hands the task to
+    #: the batcher instead of the wire. The class-attr None keeps the off
+    #: path at one branch
+    _coalesce = None
+    #: latency valve bound on priority >= 2 teams' requests while any
+    #: coalescer is attached in the context: posting flushes the open
+    #: batches, so this collective never waits out a bulk gather window
+    _coal_flush = None
+    #: sampled result attestation (integrity/): bound by collective_init
+    #: at the deterministic UCC_INTEGRITY_SAMPLE cadence under
+    #: UCC_INTEGRITY=verify; test() holds the request IN_PROGRESS until
+    #: the cross-rank digest exchange settles. None when off
+    _attest = None
 
     def __init__(self, task: CollTask, team: Team, args: CollArgs):
         self.task = task
@@ -195,6 +210,12 @@ class CollRequest:
             logger.info("coll post: %s team %s seq %d",
                         coll_type_str(self.args.coll_type), self.team.id,
                         self.task.seq_num)
+        if self._coalesce is not None:
+            # hand the fully accounted post (metrics, flight and trace
+            # above keep per-request attribution) to the team's batcher
+            return self._coalesce.add(self)
+        if self._coal_flush is not None:
+            self._coal_flush()
         return self.task.post()
 
     def _flight_post(self, task: CollTask) -> None:
@@ -371,6 +392,12 @@ class CollRequest:
             st = self.task.fast_test()
         if st.is_error and self._try_runtime_fallback():
             return Status.IN_PROGRESS
+        if st == Status.OK and self._attest is not None:
+            # sampled result attestation: the collective is done, but the
+            # request stays IN_PROGRESS until every live rank's result
+            # digest has been exchanged and compared (raises
+            # DataCorruptedError on a digest minority)
+            return integrity.attest_test(self)
         return st
 
     def _try_runtime_fallback(self) -> bool:
@@ -502,8 +529,8 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
                      or args.dst_memh is not None
                      or bool(args.flags & CollArgsFlags.MEM_MAPPED_BUFFERS))
     if onesided_args and mem_type == MemoryType.CUDA:
-        # one-sided args on host memory go on to the score map (the host
-        # TLs that serve them are not ported yet); on device memory they
+        # one-sided args on host memory go on to the score map, where the
+        # host TLs serve them (tl/host/onesided.py); on device memory they
         # are refused, as the JAX package refuses them on TPU memory
         raise UccError(Status.ERR_NOT_SUPPORTED,
                        "one-sided (global_work_buffer / mem-mapped) "
@@ -543,6 +570,14 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
     req = CollRequest(task, team, args)
     req._flight_msgsize = msgsize
     tuner = team.tuner
+    coal = team.coalescer
+    if coal is None and team.priority >= 2 and \
+            getattr(team.context, "_open_coalescers", None):
+        # latency-class tenant while bulk teams batch: posting this
+        # request seals their open windows (core/coalesce.py valve)
+        from .coalesce import flush_open
+        req._coal_flush = (lambda ctx=team.context:
+                           flush_open(ctx, "priority-post"))
     if tuner is not None and task is inner and args.active_set is None \
             and tuner.wants(ct, mem_type, msgsize, candidates):
         # tuner probe lane (UCC_TUNER=online): the first UCC_TUNER_SAMPLES
@@ -552,6 +587,15 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
         # with the runtime fallback: the lane owns the task's identity
         req._bind_tuner(tuner, tuner.key_for(ct, mem_type, msgsize),
                         init_args, candidates, chosen)
+    elif coal is not None and task is inner and \
+            coal.eligible(args, mem_type, msgsize):
+        # small-collective coalescing (UCC_COALESCE, core/coalesce.py):
+        # post() hands this member to the team's batcher. Bound AFTER the
+        # candidate walk, so candidate lists and the chosen algorithm are
+        # the same with the knob off, and exclusive of the tuner and
+        # runtime-fallback lanes (both re-post task identity at rank-local
+        # times, which would skew wire-tag parity for a held member)
+        req._coalesce = coal
     elif task is inner and not args.is_persistent:
         # keep the chain's tail for the runtime fallback; a persistent
         # request's re-post lanes cache the task's identity, and a
@@ -562,6 +606,22 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
             rest = []
         if rest:
             req._fallback = (init_args, rest)
+    if coal is not None and req._coalesce is None and coal.pending:
+        # a same-team post that cannot join the open batch is a
+        # program-order closure point: seal it (every rank inits this
+        # collective at the same point by the ordered-issue rule)
+        coal.flush("ineligible")
+    if integrity.VERIFY and task is inner and team.size > 1 and \
+            args.active_set is None and mem_type == MemoryType.HOST and \
+            (ct & integrity.ATTEST_COLLS) and req._coalesce is None and \
+            req._tuner is None:
+        # sampled cross-rank result attestation (UCC_INTEGRITY=verify):
+        # binds _attest at the deterministic UCC_INTEGRITY_SAMPLE cadence.
+        # Every predicate is rank-invariant (coll type, active set, team
+        # size, memory type, wrap status; tuner and coalescer binding by
+        # the ordered-issue and tag-parity rules), so all ranks tick the
+        # per-team attestation counter in lockstep
+        integrity.bind(req, team)
     return req
 
 

@@ -71,6 +71,11 @@ class ClContextHandle:
 class Context:
     """ucc_context_h."""
 
+    #: small-collective coalescers attached in this context
+    #: (core/coalesce.py maybe_attach; None until the first attach, so the
+    #: UCC_COALESCE=n progress loop pays one attribute check)
+    _open_coalescers = None
+
     def __init__(self, lib: Lib, params: Optional[ContextParams] = None):
         self.lib = lib
         self.params = params or ContextParams()
@@ -181,6 +186,13 @@ class Context:
 
     def progress(self) -> int:
         """ucc_context_progress."""
+        oc = self._open_coalescers
+        if oc:
+            # window-expiry valve: a quiescent rank's open batches seal
+            # after UCC_COALESCE_WINDOW (core/coalesce.py)
+            now = time.monotonic()
+            for coal in oc:
+                coal.step(now)
         return self.progress_queue.progress()
 
     def create_team_post(self, params) -> "Any":

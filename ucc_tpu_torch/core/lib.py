@@ -47,8 +47,9 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
                 "scatter(v), bcast, reduce) with a service allreduce before "
                 "the collective; needs a multi-rank service team (tl/shm). "
                 "Off by default, as in UCC", parse_bool),
-    # read from the environment by schedule/progress.py and core/team.py;
-    # listed here so config dumps document them
+    # read from the environment at import by schedule/progress.py,
+    # core/team.py and core/coalesce.py (off costs nothing); listed here so
+    # config dumps document them
     ConfigField("TEAM_PRIORITY", "1", "default QoS priority class for teams "
                 "created without an explicit TeamParams.priority: 0 = bulk "
                 "(lowest) .. 3 = latency (highest); selects the "
@@ -60,7 +61,29 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
                 "capped", parse_string),
     ConfigField("QOS_AGE_MS", "10", "anti-starvation bound in milliseconds: "
                 "a queued task older than this is serviced regardless of "
-                "its lane's WRR cap", parse_string),
+                "its lane's WRR cap, and deferrable bulk work (coalesced "
+                "dispatch) stops yielding to latency traffic",
+                parse_string),
+    ConfigField("COALESCE", "n", "small-collective coalescing: same-team "
+                "eligible HOST allreduces (contiguous, same op/dtype, <= "
+                "COALESCE_LIMIT bytes each) posted within a window are "
+                "packed into ONE fused generated collective (a native plan "
+                "when the core is built) and unpacked to per-request "
+                "statuses on completion; n (default) = zero cost, posts "
+                "unchanged", parse_bool),
+    ConfigField("COALESCE_LIMIT", "4096", "per-member payload ceiling in "
+                "bytes for coalescing; above it a collective is "
+                "bandwidth-bound and batching only adds a copy",
+                parse_string),
+    ConfigField("COALESCE_WINDOW", "200", "gather window in microseconds "
+                "before a non-full batch flushes (any closure trigger: "
+                "batch full, ineligible post, test() on a held member, "
+                "flushes earlier; this is only the quiescent-rank valve)",
+                parse_string),
+    ConfigField("COALESCE_MAX_BATCH", "16", "deterministic batch-size cap, "
+                "the primary closure trigger: every rank flushes on the "
+                "Nth eligible post, keeping fused membership identical "
+                "across ranks in program order", parse_string),
     ConfigField("TUNER", "off", "measurement-driven algorithm selection "
                 "(score/tuner.py): off = static score map only (no "
                 "dispatch branches); offline = load the topology-keyed "

@@ -94,6 +94,11 @@ class Team:
     #: UCC_TUNER=online; None (class attr, no cost) otherwise — dispatch
     #: reads it once per collective INIT
     tuner = None
+    #: small-collective coalescer (core/coalesce.TeamCoalescer), attached
+    #: at activation when UCC_COALESCE=y and the team has a full-membership
+    #: host TL; None (class attr, no cost) otherwise, so the off path
+    #: dispatches as it would without the coalescer
+    coalescer = None
 
     def __init__(self, context: Context, params: Optional[TeamParams] = None):
         self.context = context
@@ -293,6 +298,15 @@ class Team:
                         logger.info("team %s %s topology:\n%s",
                                     self.id, cl.name, describe())
             self.state = TeamState.ACTIVE
+            # small-collective coalescer (UCC_COALESCE=y): attached only
+            # once the score map exists (eligibility and the fused
+            # dispatch both ride it). Must never fail activation
+            from .coalesce import maybe_attach as _coalesce_attach
+            try:
+                _coalesce_attach(self)
+            except Exception:  # noqa: BLE001
+                logger.exception("coalescer attach failed; team %s "
+                                 "continues uncoalesced", self.id)
 
         if self.state == TeamState.ACTIVE:
             return Status.OK
@@ -545,6 +559,11 @@ class Team:
         if self._destroyed:
             return Status.OK
         self._destroyed = True
+        if self.coalescer is not None:
+            # held members must reach a terminal state before their
+            # transport goes away (per-request contract)
+            self.coalescer.abort(Status.ERR_CANCELED)
+            self.coalescer.detach()
         task, self._pending_task = self._pending_task, None
         if task is not None and not task.is_completed():
             task.cancel()
@@ -575,6 +594,10 @@ class Team:
         finalize, not recycled) and, for device tasks, withdraws the
         rank's rendezvous deposit."""
         from ..fault.health import cancel_queued_tasks
+        if self.coalescer is not None:
+            # members held in an open batch never reached the progress
+            # queue: cancel them here or the sweep below misses them
+            self.coalescer.abort(status, failed_ctx_ranks)
         failed = set(failed_ctx_ranks)
 
         def failed_for(task):
@@ -1069,6 +1092,9 @@ class GrowRequest:
         """Bound collectives still riding the retired epoch with
         ``ERR_CANCELED`` (no rank failed — membership changed under
         them; recovery traffic is exempt as everywhere else)."""
+        if self.team.coalescer is not None:
+            # batch-held members never reached the progress queue
+            self.team.coalescer.abort(Status.ERR_CANCELED)
         queue = self.team.context.progress_queue
         n = 0
         for task in list(getattr(queue, "_q", ())):

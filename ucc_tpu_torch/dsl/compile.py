@@ -446,10 +446,16 @@ class GeneratedCollTask(HostCollTask):
         # dirty-destroy pin (NativePlan.destroy) needs the reference
         if st == _plan_mod.ST_CANCELED:
             raise UccError(Status.ERR_CANCELED, "native plan canceled")
-        # ST_CORRUPT (a crc mismatch on a plan recv) needs the wire
-        # checksums of integrity/, which come with ROADMAP item 8b; the
-        # port's core never arms them, so the state falls to the generic
-        # failure below
+        if st == _plan_mod.ST_CORRUPT:
+            # the C matcher caught a crc mismatch on one of this plan's
+            # recvs; the first offending sender's ctx rank was harvested
+            # into the plan counters at wait time
+            src = plan.counters()["corrupt_src"]
+            self._integrity_error(
+                src if src >= 0 else None,
+                f"data corrupted: crc32 mismatch in native plan round "
+                f"{payload}" + (f" (from ctx rank {src})"
+                                if src >= 0 else ""))
         if st == _plan_mod.ST_FENCED:
             self._obs_error("fenced: stale team epoch (native plan)")
         self._obs_error(f"native plan failed at round {payload} "

@@ -90,11 +90,12 @@ class _NextEpochView:
     def __getattr__(self, name):
         return getattr(self._team, name)
 
-    def send_nb_ctx(self, peer_ctx: int, coll_tag, slot: int, data):
+    def send_nb_ctx(self, peer_ctx: int, coll_tag, slot: int, data,
+                    crc=None):
         t = self._team
         return t.comp_context.send_to(
             peer_ctx, (t.team_key, self.team_epoch, coll_tag, slot,
-                       t._my_ctx_rank), data)
+                       t._my_ctx_rank), data, crc=crc)
 
     def recv_nb_ctx(self, peer_ctx: int, coll_tag, slot: int, dst):
         t = self._team

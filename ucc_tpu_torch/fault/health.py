@@ -317,6 +317,11 @@ class HealthRegistry:
         with self._lock:
             was = self.dead.pop(ctx_rank, None)
             self.suspected.pop(ctx_rank, None)
+        # re-admission wipes the integrity strike ledger too: a rank
+        # quarantined for corruption rejoins with a clean slate (its first
+        # mismatch after the rejoin starts a fresh budget)
+        from .. import integrity
+        integrity.clear_strikes(self.context, ctx_rank)
         _STANDALONE_NOTED.discard(ctx_rank)
         uid = self._peer_uids.get(ctx_rank)
         if uid:

@@ -19,17 +19,25 @@ one rank (or one whole OS process) dies, every survivor must end
 ERR_RANK_FAILED naming it, agree, shrink, and run a checked matrix on
 the shrunk team.
 
+``run_corrupt_soak`` drills integrity: one rank corrupts every payload it
+sends; wire checksums must detect and attribute every round, the strike
+ledger must quarantine the corruptor, and the shrunk team must run a
+checked matrix. ``run_multi_tenant_soak`` drills the multi-tenant service:
+teams of mixed priority (bulk tenants coalescing) share one progress
+engine while a rank is killed mid-traffic; every tenant shrinks, grows
+the rank back and runs checked mixed traffic.
+
 Runnable standalone::
 
     python -m ucc_tpu_torch.fault.soak --ranks 4 --iterations 200 \
         --spec 'drop=0.01,delay=0.05:0.003,error=0.02,post_error=0.01'
     python -m ucc_tpu_torch.fault.soak --kill-shrink [--plans]
     python -m ucc_tpu_torch.fault.soak --procs 2 --ranks 4
+    python -m ucc_tpu_torch.fault.soak --corrupt [--corrupt-rank R]
+    python -m ucc_tpu_torch.fault.soak --multi
 
-The corruption-storm, churn and multi-tenant drills of the JAX package
-need the wire integrity checks, the telemetry collector and the small-
-collective coalescer, which this package does not have yet (ROADMAP item
-8b); their modes are refused.
+The churn drill of the JAX package needs the telemetry collector, which
+this package does not have yet; its mode is refused.
 """
 from __future__ import annotations
 
@@ -995,13 +1003,629 @@ def _drive_iter(ctxs, teams, coll, n, count, bufs, deadline_s, report,
             pass
 
 
+# ---------------------------------------------------------------------------
+# corruption storm (UCC_INTEGRITY=verify acceptance drill)
+# ---------------------------------------------------------------------------
+
+def run_corrupt_soak(n_ranks: int = 4, corrupt_rank: int = 1,
+                     strikes: int = 3, pre_iters: int = 4,
+                     post_iters: int = 60, storm_rounds_max: int = 10,
+                     count: int = 256, coll_timeout_s: float = 2.0,
+                     iter_deadline_s: float = 15.0,
+                     matrix=DEFAULT_MATRIX) -> Dict:
+    """Integrity acceptance drill: one rank corrupts EVERY payload it
+    sends (``UCC_FAULT=corrupt=1.0,corrupt_rank=R``, in-flight model:
+    the frame still carries the clean payload's crc32), integrity runs
+    in ``verify`` mode, and the pipeline under test is
+
+        wire crc mismatch at delivery -> ERR_DATA_CORRUPTED naming the
+        sender -> strike ledger -> quarantine (HealthRegistry) ->
+        shrink excludes the corruptor -> checked matrix on the survivors
+
+    The storm runs allreduce only: on the forced ring the corruptor's
+    downstream neighbour is the sole direct receiver, so it accumulates
+    exactly one strike per round and quarantine must trip in exactly
+    ``strikes`` detected rounds (more is a violation: detection that
+    does not escalate).  Allreduces are forced onto NATIVE EXECUTION
+    PLANS; the pinned corruptor interprets (rank-variant plan engage)
+    while its peers keep the C matcher's crc verify on the data path,
+    which is precisely the deployment shape the drill certifies.
+
+    Non-detecting ranks are starved of contributions each round; they
+    carry a per-collective TIMEOUT so they cancel instead of parking
+    (timeouts are acceptable collateral, hangs are violations; an
+    all-OK round with a wrong result is the cardinal sin: silent
+    corruption).  ``report["violations"]`` MUST be empty.
+    """
+    import os
+    from ucc_tpu_torch import Status
+    from .. import integrity
+    from ..status import DataCorruptedError
+    from . import health
+
+    inject.reset()
+    prev_hb = (health.MODE, health.HEARTBEAT_INTERVAL,
+               health.HEARTBEAT_TIMEOUT)
+    # all three BEFORE context create: health registries and the native
+    # mailboxes' integrity arming are wired up in Context.__init__
+    health.configure("shrink", interval=0.05, timeout=2.0)
+    integrity.configure(mode="verify", sample=1, strikes=strikes)
+    plan_env = {k: os.environ.get(k)
+                for k in ("UCC_GEN_NATIVE", "UCC_TL_SHM_TUNE")}
+    os.environ["UCC_GEN_NATIVE"] = "y"
+    os.environ["UCC_TL_SHM_TUNE"] = "allreduce:@ring:inf"
+    ctxs = _make_job(n_ranks)
+    teams = _make_team(ctxs)
+    corrupt_ctx = ctxs[corrupt_rank].rank
+    report: Dict = {"pre_iters": 0, "storm_rounds": 0, "post_iters": 0,
+                    "violations": [], "outcomes": {}, "detections": 0,
+                    "quarantined": False, "rounds_to_quarantine": None,
+                    "corruptor": {"team_rank": corrupt_rank,
+                                  "ctx_rank": corrupt_ctx},
+                    "mode": "verify", "strikes": strikes,
+                    "teams_recreated": 0,
+                    "plan_mode": False, "agreed": {},
+                    "matcher": None, "stale_send_fenced": None}
+    bufs: Dict = {}
+    new_teams = None
+    try:
+        # -- healthy warm-up (no injection, results checked) -----------
+        for it in range(pre_iters):
+            coll = matrix[it % len(matrix)]
+            _drive_iter(ctxs, teams, coll, n_ranks, count, bufs,
+                        iter_deadline_s, report, "pre", range(n_ranks))
+            report["pre_iters"] += 1
+
+        # -- the storm -------------------------------------------------
+        # armed only now: team create's service collectives stay clean
+        inject.configure(f"corrupt=1.0,corrupt_rank={corrupt_ctx}", seed=0)
+        expected = sum(g + 1.0 for g in range(n_ranks))
+        for rnd in range(storm_rounds_max):
+            injected_before = inject.COUNTS.get("corrupt", 0)
+            reqs = [t.collective_init(
+                _coll_args("allreduce", r, n_ranks, count, bufs,
+                           coll_timeout_s))
+                    for r, t in enumerate(teams)]
+            for rq in reqs:
+                rq.post()
+            done: List = [None] * n_ranks
+            deadline = time.monotonic() + iter_deadline_s
+            while time.monotonic() < deadline and any(d is None
+                                                      for d in done):
+                for c in ctxs:
+                    c.progress()
+                for i, rq in enumerate(reqs):
+                    if done[i] is not None:
+                        continue
+                    try:
+                        st = rq.test()
+                    except DataCorruptedError as e:
+                        # the attestation hook raises; wire-path
+                        # corruption instead RETURNS the error status
+                        done[i] = (Status.ERR_DATA_CORRUPTED,
+                                   sorted(e.ranks))
+                        continue
+                    if st != Status.IN_PROGRESS:
+                        done[i] = (st, sorted(getattr(
+                            rq.task, "corrupt_ranks", ()) or ()))
+            report["storm_rounds"] += 1
+            # native plans must carry the peers' data path (the pinned
+            # corruptor itself interprets, by design): probe BEFORE
+            # finalize releases the plan
+            if any(getattr(rq.task, "_plan", None) is not None
+                   for r, rq in enumerate(reqs) if r != corrupt_rank):
+                report["plan_mode"] = True
+            hung = [r for r, d in enumerate(done) if d is None]
+            for r in hung:
+                report["violations"].append(
+                    f"storm round {rnd}: rank {r} IN_PROGRESS past "
+                    f"deadline")
+                reqs[r].task.cancel(Status.ERR_TIMED_OUT)
+                done[r] = (Status.ERR_TIMED_OUT, [])
+            detectors = [r for r, (st, _) in enumerate(done)
+                         if st == Status.ERR_DATA_CORRUPTED]
+            for r, (st, _) in enumerate(done):
+                key = f"storm:{st.name}"
+                report["outcomes"][key] = report["outcomes"].get(key, 0) + 1
+            injected = inject.COUNTS.get("corrupt", 0) - injected_before
+            if detectors:
+                report["detections"] += 1
+                for r in detectors:
+                    named = done[r][1]
+                    if corrupt_ctx not in named:
+                        report["violations"].append(
+                            f"storm round {rnd}: rank {r} attribution "
+                            f"{named} misses ctx rank {corrupt_ctx}")
+            elif all(st == Status.OK for st, _ in done):
+                for g in range(n_ranks):
+                    if not np.allclose(bufs[g]["ar"], expected):
+                        report["violations"].append(
+                            f"storm round {rnd}: SILENT CORRUPTION: "
+                            f"rank {g} result {bufs[g]['ar'][0]} != "
+                            f"{expected} with no rank reporting "
+                            f"ERR_DATA_CORRUPTED")
+                        break
+            elif injected:
+                report["violations"].append(
+                    f"storm round {rnd}: {injected} corrupted sends "
+                    f"went undetected (outcomes "
+                    f"{[st.name for st, _ in done]})")
+            for rq in reqs:
+                try:
+                    rq.finalize()
+                except Exception:  # noqa: BLE001
+                    pass
+            quarantined = any(
+                corrupt_ctx in (ctxs[r].health.dead_set()
+                                if ctxs[r].health else ())
+                for r in range(n_ranks) if r != corrupt_rank)
+            if quarantined:
+                report["quarantined"] = True
+                report["rounds_to_quarantine"] = rnd + 1
+                break
+            # the faulted team's tag space is poisoned (run_soak
+            # contract); strike ledgers and health live on the CONTEXT,
+            # so they survive the re-create
+            prev = inject.pause()
+            teams = _recreate(teams, ctxs, report)
+            inject.restore(prev)
+
+        if not report["quarantined"]:
+            report["violations"].append(
+                f"corruptor not quarantined after {report['storm_rounds']}"
+                f" storm rounds ({report['detections']} detected)")
+        elif report["detections"] > strikes:
+            report["violations"].append(
+                f"quarantine took {report['detections']} detected rounds;"
+                f" strike threshold is {strikes}")
+        if not report["plan_mode"]:
+            report["violations"].append(
+                "storm ran without native execution plans on the "
+                "peers (native core unavailable?)")
+
+        # -- shrink the corruptor out ---------------------------------
+        # injection stays armed: the quarantined rank no longer sends,
+        # so nothing fires: exactly the production posture
+        if report["quarantined"]:
+            survivors = [r for r in range(n_ranks) if r != corrupt_rank]
+            sctxs = [ctxs[r] for r in survivors]
+            shrinks = {r: teams[r].shrink_post() for r in survivors}
+            deadline = time.monotonic() + iter_deadline_s
+            while time.monotonic() < deadline:
+                for c in sctxs:
+                    c.progress()
+                # poll every request each pass: test() drives the OOB
+                # rebuild rounds (a short-circuiting all() deadlocks)
+                sts = [s.test() for s in shrinks.values()]
+                if all(st != Status.IN_PROGRESS for st in sts):
+                    break
+            for r, s in shrinks.items():
+                st = s.test()
+                report["agreed"][r] = {"status": st.name,
+                                       "dead": s.failed_ranks,
+                                       "epoch": s.epoch}
+                if st != Status.OK:
+                    report["violations"].append(
+                        f"survivor {r} shrink failed: {st.name}")
+                elif corrupt_ctx not in (s.failed_ranks or ()):
+                    report["violations"].append(
+                        f"survivor {r} shrank without the corruptor: "
+                        f"{s.failed_ranks}")
+            views = {(tuple(v["dead"] or ()), v["epoch"])
+                     for v in report["agreed"].values()}
+            if len(views) > 1:
+                report["violations"].append(
+                    f"survivors diverged on (dead set, epoch): {views}")
+            if not report["violations"]:
+                new_teams = [shrinks[r].new_team for r in survivors]
+                _probe_stale_send_fence(teams[survivors[0]], report)
+
+            # -- checked matrix on the shrunk team --------------------
+            if new_teams:
+                nbufs: Dict = {}
+                nn = len(survivors)
+                for it in range(post_iters):
+                    coll = matrix[it % len(matrix)]
+                    _drive_iter(sctxs, new_teams, coll, nn, count, nbufs,
+                                iter_deadline_s, report, "post",
+                                survivors, check=True)
+                    report["post_iters"] += 1
+    finally:
+        report["injected"] = dict(inject.COUNTS)
+        inject.reset()
+        integrity.reset()
+        health.configure(prev_hb[0], interval=prev_hb[1],
+                         timeout=prev_hb[2])
+        for k, v in plan_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for t in list(teams) + list(new_teams or ()):
+            try:
+                t.destroy()
+            except Exception:  # noqa: BLE001
+                pass
+        for c in ctxs:
+            try:
+                c.destroy()
+            except Exception:  # noqa: BLE001
+                pass
+    return report
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant service drill (priority lanes + coalescing under failure)
+# ---------------------------------------------------------------------------
+
+def _drive_requests(ctxs, reqs, deadline_s: float) -> bool:
+    """Poll *reqs* (membership requests: shrink/grow/join) to terminal.
+    Every request is polled each pass: their ``test()`` is what drives
+    the OOB rebuild rounds, so a short-circuiting ``all()`` deadlocks."""
+    from ucc_tpu_torch import Status
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        for c in ctxs:
+            c.progress()
+        sts = [rq.test() for rq in reqs]
+        if all(st != Status.IN_PROGRESS for st in sts):
+            return True
+    return False
+
+
+#: the heartbeat timeout (seconds) the multi-tenant drill sets up under
+_SETUP_HB_TIMEOUT = 60.0
+
+
+def _make_teams_mt(ctxs, priority=None, deadline_s: float = 60.0):
+    """One team across *ctxs* with an explicit priority class."""
+    from ucc_tpu_torch import Status, TeamParams, ThreadOobWorld, UccError
+    world = ThreadOobWorld(len(ctxs))
+    teams = [c.create_team_post(TeamParams(oob=world.endpoint(i),
+                                           priority=priority))
+             for i, c in enumerate(ctxs)]
+    deadline = time.monotonic() + deadline_s
+    while True:
+        # list comp, not a generator: every rank's create state machine
+        # must step each pass or the OOB exchange deadlocks
+        sts = [t.create_test() for t in teams]
+        for c in ctxs:
+            c.progress()
+        if all(s == Status.OK for s in sts):
+            return teams
+        bad = [s for s in sts if s.is_error]
+        if bad:
+            raise UccError(bad[0], "mt soak team create failed")
+        if time.monotonic() > deadline:
+            raise TimeoutError("mt soak team create timed out")
+
+
+def run_multi_tenant_soak(n_ranks: int = 4, n_teams: int = 3,
+                          rounds: int = 5, burst: int = 6,
+                          post_rounds: int = 5, kill_rank: int = 2,
+                          hb_interval: float = 0.02,
+                          hb_timeout: float = 0.3,
+                          iter_deadline_s: float = 15.0,
+                          membership_deadline_s: float = 30.0,
+                          count: int = 32) -> Dict:
+    """The multi-tenant service drill: *n_teams* teams share one
+    progress engine per rank: team 0 is the latency class (priority 3),
+    the rest are bulk (priority 0) with small-collective coalescing ON.
+    Phases:
+
+    1. mixed traffic: every round the bulk teams post a *burst* of
+       coalesce-eligible allreduces, then the latency team posts a
+       probe per rank (completion-callback timed);
+    2. kill one rank mid-traffic: every surviving tenant's in-flight
+       work: including members HELD by a coalescer and batches already
+       sealed into fused carriers: must reach a terminal status within
+       the deadline (the no-hang invariant extended to the batching
+       layer), with the failure attributed;
+    3. recovery: every team shrinks among the survivors, then grows the
+       revived rank back in (sequential join per team);
+    4. post-recovery mixed traffic with checked statuses, and the
+       priority-inversion probe: per-context ``qos_snapshot`` counters
+       (inversions, starvation gauge) recorded in the report :
+       starvation past 1s is a violation.
+
+    Returns a report dict; ``report["violations"]`` MUST be empty.
+    """
+    from ucc_tpu_torch import BufferInfo, CollArgs, CollType, DataType, Status
+    from ucc_tpu_torch.constants import ReductionOp
+    from ucc_tpu_torch.core import coalesce as _coal
+    from ucc_tpu_torch.core.team import Team
+
+    from . import health
+
+    inject.reset()
+    prev_mode, prev_int, prev_to = (health.MODE, health.HEARTBEAT_INTERVAL,
+                                    health.HEARTBEAT_TIMEOUT)
+    # set up under a lenient heartbeat timeout: on a GPU host the first
+    # device work of the process (the device TLs' contexts and teams) can
+    # hold one progress pass past the drill's timeout, and every context
+    # would be declared dead; the drill's timeout is armed once every
+    # context has beaten after the set-up
+    health.configure("shrink", interval=hb_interval,
+                     timeout=max(hb_timeout, _SETUP_HB_TIMEOUT))
+    prev_coal = (_coal.ENABLED, _coal.LIMIT_BYTES,
+                 round(_coal.WINDOW_S * 1e6), _coal.MAX_BATCH)
+    _coal.configure(enabled=True)
+    report: Dict = {"teams": n_teams, "ranks": n_ranks, "rounds": 0,
+                    "post_rounds_ok": 0, "violations": [], "outcomes": {},
+                    "detected": {}, "shrunk_epochs": {}, "grown_epochs": {},
+                    "hi_probe_ms": {}, "qos": {}, "fused_batches": 0}
+    ctxs = _make_job(n_ranks)
+    # team 0 = latency class; teams 1.. = bulk tenants (coalesced)
+    cur: List[Dict] = []
+    for t in range(n_teams):
+        per = _make_teams_mt(ctxs, priority=(3 if t == 0 else 0))
+        cur.append({i: per[i] for i in range(n_ranks)})
+    all_teams: List = [tm for per in cur for tm in per.values()]
+    for c in ctxs:                      # every context beats afresh
+        c.progress()
+    health.configure("shrink", timeout=hb_timeout)
+
+    def _ar_args(cb=None):
+        a = CollArgs(coll_type=CollType.ALLREDUCE, op=ReductionOp.SUM,
+                     src=BufferInfo(np.ones(count, np.float32), count,
+                                    DataType.FLOAT32),
+                     dst=BufferInfo(np.zeros(count, np.float32), count,
+                                    DataType.FLOAT32))
+        a.cb = cb
+        return a
+
+    def _mixed_round(members, phase, check=False):
+        """One bulk-burst + latency-probe round over *members* (ctx
+        index -> per-team Team maps). Returns hi-probe latencies (ms)."""
+        order = sorted(members[0])
+        reqs, lats = [], []
+        for per in members[1:]:
+            for _ in range(burst):
+                for i in order:
+                    rq = per[i].collective_init(_ar_args())
+                    rq.post()
+                    reqs.append(rq)
+        done = {}
+
+        def _stamp(i):
+            def _cb(_t, _st):
+                done[i] = time.perf_counter()
+            return _cb
+
+        t0 = {}
+        hi = []
+        for i in order:
+            t0[i] = time.perf_counter()
+            rq = members[0][i].collective_init(_ar_args(cb=_stamp(i)))
+            rq.post()
+            hi.append(rq)
+            reqs.append(rq)
+        deadline = time.monotonic() + iter_deadline_s
+        while time.monotonic() < deadline:
+            for i in order:
+                ctxs[i].progress()
+            if all(rq.test() != Status.IN_PROGRESS for rq in reqs):
+                break
+        sts = [rq.test() for rq in reqs]
+        for s in sts:
+            key = f"{phase}:{s.name}"
+            report["outcomes"][key] = report["outcomes"].get(key, 0) + 1
+        stuck = sum(1 for s in sts if s == Status.IN_PROGRESS)
+        if stuck:
+            report["violations"].append(
+                f"{phase}: {stuck} request(s) IN_PROGRESS past deadline")
+            for rq in reqs:
+                if rq.test() == Status.IN_PROGRESS:
+                    rq.task.cancel(Status.ERR_TIMED_OUT)
+        elif check and any(s != Status.OK for s in sts):
+            bad = sorted({s.name for s in sts if s != Status.OK})
+            report["violations"].append(f"{phase}: failures {bad}")
+        for i in order:
+            if i in done:
+                lats.append((done[i] - t0[i]) * 1e3)
+        for rq in reqs:
+            try:
+                rq.finalize()
+            except Exception:  # noqa: BLE001
+                pass
+        return lats
+
+    try:
+        # -- phase 1: healthy mixed traffic ---------------------------
+        hi_lats: List[float] = []
+        for _ in range(rounds):
+            hi_lats.extend(_mixed_round(cur, "mixed", check=True))
+            report["rounds"] += 1
+
+        # -- phase 2: kill one rank mid-traffic -----------------------
+        killed_ctx = ctxs[kill_rank].rank
+        survivors = [i for i in range(n_ranks) if i != kill_rank]
+        report["killed"] = {"team_rank": kill_rank, "ctx_rank": killed_ctx}
+        inject.configure(f"kill={killed_ctx}", seed=0)
+        reqs = {}
+        for t, per in enumerate(cur):
+            for i in survivors:
+                try:
+                    rq = per[i].collective_init(_ar_args())
+                    rq.post()
+                    reqs[(t, i)] = rq
+                except Exception as e:  # noqa: BLE001
+                    report["violations"].append(
+                        f"kill: team {t} rank {i} post raised "
+                        f"{type(e).__name__}: {e}")
+        deadline = time.monotonic() + iter_deadline_s
+        while time.monotonic() < deadline:
+            for i in survivors:
+                ctxs[i].progress()
+            if all(rq.test() != Status.IN_PROGRESS
+                   for rq in reqs.values()):
+                break
+        attributed = 0
+        for (t, i), rq in reqs.items():
+            st = rq.test()
+            report["detected"][f"t{t}r{i}"] = st.name
+            if st == Status.IN_PROGRESS:
+                report["violations"].append(
+                    f"kill: team {t} rank {i} IN_PROGRESS after kill "
+                    "(held/fused member not aborted?)")
+                rq.task.cancel(Status.ERR_TIMED_OUT)
+            elif not st.is_error:
+                report["violations"].append(
+                    f"kill: team {t} rank {i} saw {st.name}, expected "
+                    "an error")
+            if killed_ctx in (rq.failed_ranks or []):
+                attributed += 1
+            try:
+                rq.finalize()
+            except Exception:  # noqa: BLE001
+                pass
+        if reqs and not attributed:
+            report["violations"].append(
+                f"kill: no survivor attributed the failure to ctx "
+                f"{killed_ctx}")
+
+        # -- phase 3: shrink every tenant among the survivors ---------
+        shrunk: List[Dict] = []
+        for t, per in enumerate(cur):
+            shrinks = {}
+            for i in survivors:
+                try:
+                    shrinks[i] = per[i].shrink_post()
+                except Exception as e:  # noqa: BLE001
+                    report["violations"].append(
+                        f"shrink: team {t} rank {i} raised "
+                        f"{type(e).__name__}: {e}")
+                    return report
+            if not _drive_requests([ctxs[i] for i in survivors],
+                                   list(shrinks.values()),
+                                   membership_deadline_s):
+                report["violations"].append(f"shrink: team {t} hung")
+                return report
+            views = set()
+            for i, s in shrinks.items():
+                if s.test() != Status.OK:
+                    report["violations"].append(
+                        f"shrink: team {t} rank {i} failed "
+                        f"{s.test().name}")
+                    return report
+                views.add((tuple(s.failed_ranks or ()), s.epoch))
+            if len(views) > 1:
+                report["violations"].append(
+                    f"shrink: team {t} views diverged {views}")
+                return report
+            report["shrunk_epochs"][f"t{t}"] = next(iter(views))[1]
+            shrunk.append({i: shrinks[i].new_team for i in survivors})
+            all_teams.extend(shrunk[-1].values())
+        # traffic must flow for every tenant on the shrunk epoch
+        _mixed_round(shrunk, "shrunk", check=True)
+
+        # -- phase 4: grow the revived rank back into every team ------
+        inject.reset()
+        for per in cur:
+            try:
+                per[kill_rank].destroy()
+            except Exception:  # noqa: BLE001
+                pass
+        grown: List[Dict] = []
+        for t, per in enumerate(shrunk):
+            grows = {}
+            for i in survivors:
+                try:
+                    grows[i] = per[i].grow_post([killed_ctx])
+                except Exception as e:  # noqa: BLE001
+                    report["violations"].append(
+                        f"grow: team {t} rank {i} raised "
+                        f"{type(e).__name__}: {e}")
+                    return report
+            try:
+                join = Team.join_post(ctxs[kill_rank])
+            except Exception as e:  # noqa: BLE001
+                report["violations"].append(
+                    f"grow: team {t} join raised {type(e).__name__}: {e}")
+                return report
+            if not _drive_requests(ctxs, list(grows.values()) + [join],
+                                   membership_deadline_s):
+                report["violations"].append(f"grow: team {t} hung")
+                return report
+            epochs = set()
+            for i, g in grows.items():
+                if g.test() != Status.OK:
+                    report["violations"].append(
+                        f"grow: team {t} rank {i} failed {g.test().name}")
+                    return report
+                epochs.add(g.epoch)
+            if join.test() != Status.OK:
+                report["violations"].append(
+                    f"grow: team {t} join failed {join.test().name}")
+                return report
+            epochs.add(join.epoch)
+            if len(epochs) > 1:
+                report["violations"].append(
+                    f"grow: team {t} epochs diverged {epochs}")
+                return report
+            report["grown_epochs"][f"t{t}"] = next(iter(epochs))
+            nxt = {i: grows[i].new_team for i in survivors}
+            nxt[kill_rank] = join.new_team
+            grown.append(nxt)
+            all_teams.extend(nxt.values())
+
+        # -- phase 5: post-recovery traffic + inversion probe ---------
+        for _ in range(post_rounds):
+            before = len(report["violations"])
+            hi_lats.extend(_mixed_round(grown, "post", check=True))
+            if len(report["violations"]) == before:
+                report["post_rounds_ok"] += 1
+        if hi_lats:
+            arr = sorted(hi_lats)
+            report["hi_probe_ms"] = {
+                "n": len(arr),
+                "p50": round(arr[len(arr) // 2], 3),
+                "max": round(arr[-1], 3)}
+        report["fused_batches"] = sum(
+            getattr(tm.coalescer, "_fused_seq", 0)
+            for per in grown for tm in per.values()
+            if getattr(tm, "coalescer", None) is not None)
+        # priority-inversion probe: the lanes' own counters. Inversions
+        # are recorded (timing-dependent, not a hard failure); actual
+        # starvation: a queued task aged past 1s: is a violation.
+        inv, starve = 0, 0.0
+        for i, c in enumerate(ctxs):
+            try:
+                snap = c.progress_queue.qos_snapshot()
+            except Exception:  # noqa: BLE001 - probe is observational
+                continue
+            report["qos"][f"ctx{i}"] = snap
+            inv += snap.get("inversions", 0)
+            starve = max(starve, snap.get("starvation_max_ms", 0.0))
+        report["priority_inversions"] = inv
+        report["starvation_max_ms"] = round(starve, 3)
+        if starve > 1000.0:
+            report["violations"].append(
+                f"priority lanes starved a task for {starve:.0f}ms")
+    finally:
+        report["injected"] = dict(inject.COUNTS)
+        inject.reset()
+        health.configure(prev_mode, interval=prev_int, timeout=prev_to)
+        _coal.configure(enabled=prev_coal[0], limit=prev_coal[1],
+                        window_us=prev_coal[2], max_batch=prev_coal[3])
+        for tm in all_teams:
+            try:
+                tm.destroy()
+            except Exception:  # noqa: BLE001
+                pass
+        for c in ctxs:
+            try:
+                c.destroy()
+            except Exception:  # noqa: BLE001
+                pass
+    return report
+
+
 #: drills of the JAX package's soak that need modules this package does
 #: not have yet, with what each needs
 _LATER_MODES = {
-    "corrupt": "the wire integrity checks (integrity/)",
     "churn": "the telemetry collector's hand-off across epochs "
-             "(obs/collector)",
-    "multi": "the small-collective coalescer (core/coalesce)",
+             "(obs/collector, ROADMAP item 8b.3)",
 }
 
 
@@ -1033,6 +1657,34 @@ def main(argv=None) -> int:
                     "native execution plans (UCC_GEN_NATIVE=y, ring) and "
                     "check that cancellation withdrew their posted recvs "
                     "and that a pre-shrink plan send is fenced")
+    ap.add_argument("--multi", action="store_true",
+                    help="run the multi-tenant drill: N teams of mixed "
+                    "priority share one progress engine (bulk tenants "
+                    "coalescing), a rank is killed mid-traffic, every "
+                    "team shrinks and grows the rank back, and the "
+                    "priority-inversion/starvation counters are probed")
+    ap.add_argument("--mt-teams", type=int, default=3,
+                    help="with --multi: tenant teams (first is the "
+                    "latency class)")
+    ap.add_argument("--mt-rounds", type=int, default=5,
+                    help="with --multi: mixed-traffic rounds per phase")
+    ap.add_argument("--mt-burst", type=int, default=6,
+                    help="with --multi: bulk posts per team-rank per "
+                    "round")
+    ap.add_argument("--corrupt", action="store_true",
+                    help="run the corruption-storm integrity drill: one "
+                    "rank corrupts every send (clean crc on the frame), "
+                    "wire checksums must detect+attribute 100%% of "
+                    "rounds, the strike ledger must quarantine the "
+                    "corruptor within --strikes detections, and the "
+                    "shrunk team must run a checked matrix "
+                    "(UCC_INTEGRITY=verify + UCC_FT=shrink + native "
+                    "plans)")
+    ap.add_argument("--corrupt-rank", type=int, default=1,
+                    help="with --corrupt: team rank that corrupts")
+    ap.add_argument("--strikes", type=int, default=3,
+                    help="with --corrupt: quarantine threshold "
+                    "(UCC_INTEGRITY_STRIKES)")
     for mode, needs in _LATER_MODES.items():
         ap.add_argument(f"--{mode}", action="store_true",
                         help=f"refused: needs {needs}")
@@ -1040,7 +1692,7 @@ def main(argv=None) -> int:
     for mode, needs in _LATER_MODES.items():
         if getattr(args, mode):
             print(f"--{mode}: this drill needs {needs}, which "
-                  "ucc_tpu_torch does not have yet (ROADMAP item 8b)",
+                  "ucc_tpu_torch does not have yet",
                   file=sys.stderr)
             return 2
     if args.procs:
@@ -1048,6 +1700,21 @@ def main(argv=None) -> int:
             n_procs=args.procs,
             ranks_per=max(1, args.ranks // args.procs),
             post_iters=args.post_iters)
+        print(json.dumps(report, indent=1))
+        return 1 if report["violations"] else 0
+    if args.corrupt:
+        report = run_corrupt_soak(args.ranks,
+                                  corrupt_rank=args.corrupt_rank,
+                                  strikes=args.strikes,
+                                  post_iters=args.post_iters)
+        print(json.dumps(report, indent=1))
+        return 1 if report["violations"] else 0
+    if args.multi:
+        report = run_multi_tenant_soak(args.ranks, n_teams=args.mt_teams,
+                                       rounds=args.mt_rounds,
+                                       burst=args.mt_burst,
+                                       post_rounds=args.mt_rounds,
+                                       kill_rank=args.kill_rank)
         print(json.dumps(report, indent=1))
         return 1 if report["violations"] else 0
     if args.kill_shrink:

@@ -204,6 +204,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ucc_mailbox_pub_base.argtypes = [vp]
     lib.ucc_mailbox_push.restype = u64
     lib.ucc_mailbox_push.argtypes = [vp, u64, u64, u64, vp, u64, u64]
+    lib.ucc_mailbox_push2.restype = u64
+    lib.ucc_mailbox_push2.argtypes = [vp, u64, u64, u64, vp, u64, u64, u64]
+    lib.ucc_mailbox_set_integrity.restype = None
+    lib.ucc_mailbox_set_integrity.argtypes = [vp, u64]
     lib.ucc_mailbox_post_recv.restype = u64
     lib.ucc_mailbox_post_recv.argtypes = [vp, u64, u64, u64, vp, u64]
     lib.ucc_mailbox_fence.restype = u64
@@ -286,6 +290,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ucc_arena_free.argtypes = [vp, u64]
     lib.ucc_ipc_push.restype = u64
     lib.ucc_ipc_push.argtypes = [vp, u64, u64, u64, u64, vp, u64, u64, u64]
+    lib.ucc_ipc_set_integrity.restype = None
+    lib.ucc_ipc_set_integrity.argtypes = [vp, u64]
     lib.ucc_ipc_post_recv.restype = u64
     lib.ucc_ipc_post_recv.argtypes = [vp, u64, u64, u64, u64, u64, u64]
     lib.ucc_ipc_req_cancel.restype = ctypes.c_int
@@ -444,7 +450,7 @@ class NativeSendReq:
 
 class NativeRecvReq:
     __slots__ = ("mb", "rid", "_idx", "_gen", "dst_keepalive", "_done",
-                 "nbytes", "error", "cancelled")
+                 "nbytes", "error", "cancelled", "corrupt_src")
 
     def __init__(self, mb: "NativeMailbox", rid: int, dst: np.ndarray):
         self.mb = mb
@@ -456,6 +462,7 @@ class NativeRecvReq:
         self.nbytes = 0
         self.error = None
         self.cancelled = False
+        self.corrupt_src = None      # sender ctx rank on a wire crc mismatch
 
     @property
     def done(self) -> bool:
@@ -496,7 +503,15 @@ class NativeRecvReq:
         if nb == _NB_MAX and ptr is not None:  # saturated: exact size
             nb = int(mb.lib.ucc_req_nbytes(ptr, self.rid))
         self.nbytes = nb
-        if st == _ST_TRUNCATED:
+        if st == _ST_CORRUPT:
+            # the nbytes field carries the SENDER's ctx rank (the C side
+            # parks it there for attribution; the payload failed its
+            # checksum and must not be consumed)
+            self.corrupt_src = nb
+            self.nbytes = 0
+            self.error = (f"data corrupted: crc32 mismatch (from ctx "
+                          f"rank {nb})")
+        elif st == _ST_TRUNCATED:
             sent = int(mb.lib.ucc_req_sent_nbytes(ptr, self.rid)) \
                 if ptr is not None else 0
             self.error = (f"message truncated: sent {sent} bytes into "
@@ -561,7 +576,15 @@ class NativeMailbox:
         self._free_pending = []
         self._free_mu = threading.Lock()
         self._push_fn = lib.ucc_mailbox_push
+        self._push2_fn = lib.ucc_mailbox_push2
         self._post_fn = lib.ucc_mailbox_post_recv
+        # UCC_INTEGRITY=wire|verify arms the C-side checksum and verify
+        # for this endpoint's whole life, plan-executor rounds included
+        # (they never re-enter python). Off leaves the flag 0 (a recycled
+        # C mailbox is disarmed at create): the entry path is unchanged
+        from . import integrity as _integ
+        if _integ.WIRE:
+            lib.ucc_mailbox_set_integrity(self.ptr, 1)
 
     # -- key packing ---------------------------------------------------
     def _intern(self, table: dict, obj, base: int) -> int:
@@ -615,10 +638,15 @@ class NativeMailbox:
 
     # -- data path -----------------------------------------------------
     def push_native(self, key, data: np.ndarray,
-                    eager_limit: Optional[int] = None):
+                    eager_limit: Optional[int] = None,
+                    crc: Optional[int] = None):
         """Send: ``(req, kind)`` with kind in direct / eager / rndv /
         fenced. A direct send lands copy-free in the posted dst inside
-        this call. *eager_limit* defaults to UCC_HOST_EAGER_LIMIT."""
+        this call. *eager_limit* defaults to UCC_HOST_EAGER_LIMIT. *crc*
+        (a zlib.crc32 of the payload as the SENDER computed it) goes
+        through ``ucc_mailbox_push2``, so delivery verifies against that
+        word instead of recomputing it: the fault injector's clean
+        checksum beside a corrupted payload."""
         if eager_limit is None:
             from .tl.host.transport import eager_limit_from_env
             eager_limit = eager_limit_from_env()
@@ -629,8 +657,13 @@ class NativeMailbox:
         a, b, c = self._pack(key)
         if not data.flags["C_CONTIGUOUS"]:
             data = np.ascontiguousarray(data)
-        ret = self._push_fn(ptr, a, b, c, data.ctypes.data, data.nbytes,
-                            eager_limit)
+        if crc is None:
+            ret = self._push_fn(ptr, a, b, c, data.ctypes.data,
+                                data.nbytes, eager_limit)
+        else:
+            ret = self._push2_fn(ptr, a, b, c, data.ctypes.data,
+                                 data.nbytes, eager_limit,
+                                 (1 << 32) | (crc & 0xFFFFFFFF))
         kind = ret & 7
         if kind == 2:                 # rndv: parked zero-copy
             rid = ret >> 3
@@ -948,11 +981,12 @@ class IpcArena:
     """Python handle on one attached cross-process arena: key packing
     (via the arena's shared intern table, so every process derives the
     SAME ids), the push/post_recv data path, fences, the pid board and
-    the shared counters. Payload checksums (the arena's integrity word)
-    stay off until ``integrity/`` is ported."""
+    the shared counters. With *integrity* (UCC_INTEGRITY=wire|verify)
+    the arena checksums every push lacking a caller word and verifies
+    every delivery."""
 
     def __init__(self, shm_name: str, heap_bytes: int = 256 << 20,
-                 win_bytes: int = 16 << 20):
+                 win_bytes: int = 16 << 20, integrity: bool = False):
         lib = get_lib()
         if lib is None:
             raise RuntimeError("native core unavailable (the IPC arena "
@@ -974,6 +1008,8 @@ class IpcArena:
         self._pub = memoryview(self._pub_buf).cast("B").cast("Q")
         self._intern_cache: dict = {}
         self._intern_mu = threading.Lock()
+        if integrity:
+            lib.ucc_ipc_set_integrity(self.ptr, 1)
 
     # -- key packing (cross-process-stable) ----------------------------
     def _intern(self, obj) -> int:
@@ -1022,7 +1058,8 @@ class IpcArena:
 
     # -- data path -----------------------------------------------------
     def push(self, key, dst_rank: int, data: np.ndarray,
-             eager_limit: Optional[int] = None):
+             eager_limit: Optional[int] = None,
+             crc: Optional[int] = None):
         """Send *data* to context rank *dst_rank*: ``(req, kind)`` with
         the Mailbox.send kind vocabulary. Direct sends memcpy straight
         into the receiver's bounce inside this call — across the process
@@ -1041,10 +1078,13 @@ class IpcArena:
         if not data.flags["C_CONTIGUOUS"]:
             data = np.ascontiguousarray(data)
         a, b, c = self.pack(key)
-        # the last word is the payload checksum, 0 (none) until integrity/
+        # the last word is the caller's payload checksum, (1 << 32) | crc32,
+        # or 0: none (an armed arena then computes it itself)
+        crc_word = (1 << 32) | (crc & 0xFFFFFFFF) if crc is not None \
+            else 0
         ret = int(self.lib.ucc_ipc_push(
             ptr, a, b, c, dst_rank, data.ctypes.data, data.nbytes,
-            eager_limit, 0))
+            eager_limit, crc_word))
         kind = ret & 7
         if kind == 2:
             return IpcSendReq(self, ret >> 3), "rndv"

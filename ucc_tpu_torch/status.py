@@ -81,6 +81,23 @@ class RankFailedError(UccError):
         super().__init__(Status.ERR_RANK_FAILED, detail)
 
 
+class DataCorruptedError(UccError):
+    """ERR_DATA_CORRUPTED carrying attribution: *ranks* are the ctx ranks
+    whose data failed a checksum (a wire crc mismatch names the sender; a
+    digest-attestation minority names the corruptor), and *quarantine*
+    the subset whose strike budget is exhausted. The caller recovers by
+    excluding those like dead ranks (``Team.shrink``; they may rejoin
+    later through ``Team.join``)."""
+
+    def __init__(self, msg: str = "", ranks=(), quarantine=()):
+        self.ranks = frozenset(int(r) for r in ranks)
+        self.quarantine = frozenset(int(r) for r in quarantine)
+        detail = msg or "data corruption detected"
+        if self.ranks:
+            detail = f"{detail} (ctx ranks {sorted(self.ranks)})"
+        super().__init__(Status.ERR_DATA_CORRUPTED, detail)
+
+
 def check(status, msg: str = ""):
     """Raise UccError if *status* is an error; return it otherwise.
     Accepts raw ints too (negative = error)."""

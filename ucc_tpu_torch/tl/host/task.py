@@ -226,6 +226,30 @@ class HostCollTask(CollTask):
                         alg=alg)
         raise UccError(Status.ERR_NO_MESSAGE, reason)
 
+    def _integrity_error(self, src, detail: str = "") -> None:
+        """A delivery failed its wire checksum: record the evidence
+        (metrics, watchdog, flight, health suspicion, all inside
+        ``integrity.note_wire_mismatch``) and fail the collective with
+        ERR_DATA_CORRUPTED naming the sender; ``_advance`` maps the raise
+        onto the task status like every other UccError. *src* is the
+        sender's ctx rank (None/-1 = unattributed). Also the native plan
+        path's terminal (``GeneratedCollTask._run_plan``)."""
+        from ... import integrity
+        from ...status import DataCorruptedError
+        core = getattr(self.tl_team, "core_team", None)
+        ctx = getattr(core, "context", None)
+        if ctx is not None and src is not None and src >= 0:
+            integrity.note_wire_mismatch(ctx, src, detail)
+        if metrics.ENABLED:
+            coll, alg = self._obs_names()
+            metrics.inc("coll_errors", component="tl/host", coll=coll,
+                        alg=alg)
+        ranks = (src,) if src is not None and src >= 0 else ()
+        # attribution rides its own attribute: failed_ranks means "dead",
+        # and one corrupt message does not make its sender dead
+        self.corrupt_ranks = sorted(ranks)
+        raise DataCorruptedError(detail or "data corrupted", ranks=ranks)
+
     # ------------------------------------------------------------------
     # p2p helpers (group-rank addressed)
     def _ctx_of(self, peer_grank: int) -> int:
@@ -294,13 +318,18 @@ class HostCollTask(CollTask):
 
         Corruption (``corrupt=P``) is decided independently of the
         drop/error/delay lottery: one bit of a copy of the payload is
-        flipped. This package has no wire checksum yet, so the corrupted
-        bytes are delivered."""
+        flipped and, when wire integrity is armed, the matcher receives
+        the crc32 of the ORIGINAL bytes, modelling corruption in flight.
+        With integrity off the poisoned bytes are delivered silently."""
         my_ctx = getattr(self.tl_team, "_my_ctx_rank", None)
         corrupted = False
+        crc = None
         if fault.SPEC.corrupt and fault.corrupt_action(my_ctx):
-            data, _clean_crc = fault.corrupt_send(data)
+            data, clean_crc = fault.corrupt_send(data)
             corrupted = True
+            from ... import integrity
+            if integrity.WIRE:
+                crc = clean_crc
         act = fault.send_action(my_ctx)
         if act is None:
             if not corrupted:
@@ -308,7 +337,7 @@ class HostCollTask(CollTask):
             # send here: returning None would send the clean payload
             self.data_committed = True
             req = self.tl_team.send_nb_ctx(self._ctx_of(peer_grank),
-                                           self.tag, slot, data)
+                                           self.tag, slot, data, crc=crc)
             self._obs_track("send", peer_grank, slot, req)
             return req
         if act == "error":
@@ -324,9 +353,11 @@ class HostCollTask(CollTask):
         payload = data.copy()   # the sender may reuse its buffer
         peer_ctx = self._ctx_of(peer_grank)
 
-        def _fire(task=self, peer=peer_ctx, d=payload, s=slot, p=proxy):
+        def _fire(task=self, peer=peer_ctx, d=payload, s=slot, p=proxy,
+                  cw=crc):
             if not p.cancelled:
-                p.real = task.tl_team.send_nb_ctx(peer, task.tag, s, d)
+                p.real = task.tl_team.send_nb_ctx(peer, task.tag, s, d,
+                                                  crc=cw)
         fault.defer(delay_s, _fire)
         self._obs_track("send", peer_grank, slot, proxy)
         return proxy
@@ -385,6 +416,8 @@ class HostCollTask(CollTask):
             if not r.test():
                 live.append(r)
             elif getattr(r, "error", None):
+                if getattr(r, "corrupt_src", None) is not None:
+                    self._integrity_error(r.corrupt_src, r.error or "")
                 self._obs_error(f"window request failed: {r.error}")
         return live
 
@@ -406,6 +439,8 @@ class HostCollTask(CollTask):
         for r in reqs:
             err = getattr(r, "error", None)
             if err:
+                if getattr(r, "corrupt_src", None) is not None:
+                    self._integrity_error(r.corrupt_src, err)
                 self._obs_error(err)
 
     def sendrecv(self, send_to: int, data: np.ndarray, recv_from: int,

@@ -150,10 +150,12 @@ class HostTlTeam(TlTeamBase):
     # ctx-rank addressed: HostCollTask resolves group rank -> ctx rank
     # once per peer
     def send_nb_ctx(self, peer_ctx: int, coll_tag, slot: int,
-                    data: np.ndarray):
+                    data: np.ndarray, crc=None):
+        # *crc* (the clean payload's zlib.crc32) only flows from the fault
+        # injector's corrupt path; None lets the matcher decide
         return self.comp_context.send_to(
             peer_ctx, (self.team_key, self.team_epoch, coll_tag, slot,
-                       self._my_ctx_rank), data)
+                       self._my_ctx_rank), data, crc=crc)
 
     def recv_nb_ctx(self, peer_ctx: int, coll_tag, slot: int,
                     dst: np.ndarray):

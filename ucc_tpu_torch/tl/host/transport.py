@@ -17,12 +17,14 @@ falling back.
 from __future__ import annotations
 
 import threading
+import zlib
 import uuid
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ... import integrity as _integrity
 from ... import native as _native
 from ...status import Status, UccError
 from ...utils.config import (Config, ConfigField, ConfigTable, SIZE_AUTO,
@@ -52,7 +54,8 @@ class SendReq:
 
 
 class RecvReq:
-    __slots__ = ("done", "dst", "nbytes", "error", "cancelled", "_mb")
+    __slots__ = ("done", "dst", "nbytes", "error", "cancelled", "_mb",
+                 "corrupt_src")
 
     def __init__(self, dst: np.ndarray):
         self.done = False
@@ -61,6 +64,7 @@ class RecvReq:
         self.error = None   # str reason when the matched send misbehaved
         self.cancelled = False
         self._mb = None     # owning Mailbox (set at post; cancel sync)
+        self.corrupt_src = None  # sender ctx rank on a wire crc mismatch
 
     def test(self) -> bool:
         return self.done
@@ -85,12 +89,16 @@ class RecvReq:
 
 
 class _PendingSend:
-    __slots__ = ("data", "req", "copied")
+    __slots__ = ("data", "req", "copied", "crc")
 
-    def __init__(self, data: np.ndarray, req: SendReq, copied: bool):
+    def __init__(self, data: np.ndarray, req: SendReq, copied: bool,
+                 crc: Optional[int] = None):
         self.data = data
         self.req = req
         self.copied = copied
+        #: send-side crc32 (UCC_INTEGRITY wire mode) carried in the match
+        #: metadata; None = unchecked delivery (integrity off)
+        self.crc = crc
 
 
 class Mailbox:
@@ -157,28 +165,35 @@ class Mailbox:
             if req is None:
                 self.unexpected.setdefault(key, deque()).append(ps)
                 return
-            _deliver(req, ps)
+            _deliver(req, ps, key)
 
-    def send(self, key: TagKey, data_u8: np.ndarray,
-             eager_limit: int) -> Tuple[SendReq, str]:
+    def send(self, key: TagKey, data_u8: np.ndarray, eager_limit: int,
+             crc: Optional[int] = None) -> Tuple[SendReq, str]:
         """Sender side: deliver straight from the sender's buffer into a
         posted recv ("direct"), else park the message: an eager copy at
         or under *eager_limit* ("eager"), a zero-copy view above it
-        ("rndv"). Returns the send request and the kind."""
+        ("rndv"). Returns the send request and the kind.
+
+        *crc* is the UCC_INTEGRITY wire checksum: computed here when the
+        mode is armed and the caller gave none (the fault injector gives
+        the CLEAN payload's crc beside a corrupted payload, modelling
+        corruption in flight); verified at delivery."""
+        if crc is None and _integrity.WIRE:
+            crc = zlib.crc32(data_u8) & 0xFFFFFFFF
         with self.lock:
             if self.fences and self._is_fenced(key):
                 return SendReq(done=True), "fenced"
             req = self._match_posted_locked(key)
             if req is not None:
-                ps = _PendingSend(data_u8, SendReq(), copied=False)
-                _deliver(req, ps)
+                ps = _PendingSend(data_u8, SendReq(), copied=False, crc=crc)
+                _deliver(req, ps, key)
                 return ps.req, "direct"
             if data_u8.nbytes <= eager_limit:
                 ps = _PendingSend(data_u8.copy(), SendReq(done=True),
-                                  copied=True)
+                                  copied=True, crc=crc)
                 kind = "eager"
             else:
-                ps = _PendingSend(data_u8, SendReq(), copied=False)
+                ps = _PendingSend(data_u8, SendReq(), copied=False, crc=crc)
                 kind = "rndv"
             self.unexpected.setdefault(key, deque()).append(ps)
             return ps.req, kind
@@ -206,10 +221,11 @@ class Mailbox:
             else:
                 self.posted.setdefault(key, deque()).append(req)
                 return
-            _deliver(req, ps)
+            _deliver(req, ps, key)
 
 
-def _deliver(req: RecvReq, ps: _PendingSend) -> None:
+def _deliver(req: RecvReq, ps: _PendingSend,
+             key: Optional[TagKey] = None) -> None:
     n = min(req.dst.size, ps.data.size)
     if ps.data.size > req.dst.size:
         # inconsistent per-rank counts: fail the task rather than complete
@@ -217,6 +233,15 @@ def _deliver(req: RecvReq, ps: _PendingSend) -> None:
         req.error = (f"message truncated: sent {ps.data.size} elements "
                      f"into a {req.dst.size}-element recv buffer")
     req.dst[:n] = ps.data[:n]
+    if ps.crc is not None and req.error is None and \
+            (zlib.crc32(req.dst[:n]) & 0xFFFFFFFF) != ps.crc:
+        # verified over the LANDED bytes: catches corruption anywhere
+        # between the sender's checksum and this buffer. The sender ctx
+        # rank rides the matching key (key[4]): the attribution the task
+        # layer feeds to integrity.note_wire_mismatch
+        src = key[4] if key is not None and len(key) == 5 else -1
+        req.corrupt_src = src
+        req.error = f"data corrupted: crc32 mismatch (from ctx rank {src})"
     req.nbytes = n
     req.done = True
     ps.req.done = True
@@ -345,15 +370,18 @@ class InProcTransport:
         return d
 
     def send_nb(self, peer: "InProcTransport", key: TagKey,
-                data: np.ndarray) -> SendReq:
+                data: np.ndarray, crc: Optional[int] = None) -> SendReq:
         if peer.native is not None:
             # matching lives in the RECEIVER's mailbox: route by the
-            # peer's matcher only
+            # peer's matcher only. The native push computes and verifies
+            # the UCC_INTEGRITY wire checksum C-side; *crc* only
+            # overrides it for the fault injector's in-flight corruption
             req, kind = peer.native.push_native(key, data,
-                                                self.EAGER_THRESHOLD)
+                                                self.EAGER_THRESHOLD, crc=crc)
         else:
             req, kind = peer.mailbox.send(
-                key, data.reshape(-1).view(np.uint8), self.EAGER_THRESHOLD)
+                key, data.reshape(-1).view(np.uint8), self.EAGER_THRESHOLD,
+                crc=crc)
         self._count_send(kind)
         fr = self._flight
         if fr is not None:

@@ -50,6 +50,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import integrity as _integrity
 from ..constants import COLL_TYPE_ALL, MemoryType
 from ..core.components import BaseContext, BaseLib, TransportLayer, register_tl
 from ..status import Status, UccError
@@ -111,10 +112,11 @@ class IpcTransport:
         self.n_pooled = 0
         self._last_beat = 0.0
 
-    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray):
+    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray,
+                crc: Optional[int] = None):
         req, kind = self.arena.push(key, int(peer_ctx_rank),
                                     data.reshape(-1).view(np.uint8),
-                                    self.EAGER_THRESHOLD)
+                                    self.EAGER_THRESHOLD, crc=crc)
         if kind == "direct":
             self.n_direct += 1
         elif kind == "eager":
@@ -228,7 +230,8 @@ class TlIpcContext(BaseContext):
         my_rank = self.core_context.rank
         try:
             self.arena = native.IpcArena(name, heap_bytes=int(heap),
-                                         win_bytes=int(win))
+                                         win_bytes=int(win),
+                                         integrity=_integrity.WIRE)
         except (RuntimeError, OSError) as e:
             logger.warning("tl/ipc arena attach failed (%s): %s; teams "
                            "fall back to the socket TL", name, e)
@@ -277,7 +280,8 @@ class TlIpcContext(BaseContext):
         return None
 
     # -- send path -----------------------------------------------------
-    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray):
+    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray,
+                crc: Optional[int] = None):
         tr = self.transport
         if tr is None:
             raise UccError(Status.ERR_NOT_SUPPORTED,
@@ -286,7 +290,7 @@ class TlIpcContext(BaseContext):
                 and peer_ctx_rank != self.core_context.rank:
             raise UccError(Status.ERR_NOT_FOUND,
                            f"ctx rank {peer_ctx_rank} not in this arena")
-        return tr.send_to(peer_ctx_rank, key, data)
+        return tr.send_to(peer_ctx_rank, key, data, crc=crc)
 
     # -- one-sided: only segments registered in this process ----------
     def _check_local(self, desc: dict, what: str) -> None:

@@ -91,8 +91,9 @@ class TlShmContext(BaseContext):
             self._mailboxes[ctx_rank] = peer
         return peer
 
-    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray):
-        return self.transport.send_nb(self._peer(peer_ctx_rank), key, data)
+    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray, crc=None):
+        return self.transport.send_nb(self._peer(peer_ctx_rank), key, data,
+                                      crc=crc)
 
     # -- one-sided: in-order, synchronous application ------------------
     def os_put(self, peer_ctx_rank: int, desc: dict, offset: int,

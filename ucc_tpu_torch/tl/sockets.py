@@ -15,7 +15,9 @@ Frame: [key_len u32][payload_len u64][key_crc u32][payload_crc_word u64]
 key is unpickled, and implausible lengths are refused before anything is
 allocated: a torn or desynced stream drops its connection with one error
 line instead of unpickling garbage or killing the reader. The payload crc
-word is always 0 here (payload checksums come with ``integrity/``).
+word is ``(1 << 32) | crc32`` of the payload under ``UCC_INTEGRITY=wire``
+or ``verify`` and 0 (unchecked) when integrity is off; the receiving
+mailbox verifies it at delivery.
 
 One-sided frames (``tl/host/onesided.py``): a put is applied by the
 target's reader thread; a get and a flush are answered through a reply
@@ -41,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import integrity as _integrity
 from ..constants import COLL_TYPE_ALL, MemoryType
 from ..core.components import BaseContext, BaseLib, TransportLayer, register_tl
 from ..core.oob import _connect, _shut
@@ -214,7 +217,7 @@ class SocketTransport:
         try:
             while True:
                 hdr = _recv_exact(conn, _HDR.size)
-                klen, plen, kcrc, _pcrcw = _HDR.unpack(hdr)
+                klen, plen, kcrc, pcrcw = _HDR.unpack(hdr)
                 # a desynced stream decodes payload bytes as a header:
                 # validate before allocating or reading
                 if klen > _MAX_KEY_BYTES or plen > _MAX_FRAME_BYTES:
@@ -226,10 +229,14 @@ class SocketTransport:
                     return
                 kb = _recv_exact(conn, klen)
                 if zlib.crc32(kb) & 0xFFFFFFFF != kcrc:
+                    from ..obs import metrics
                     logger.error(
                         "%s: socket frame key crc mismatch from %s "
                         "(%d-byte key, head %r): dropping connection",
                         Status.ERR_DATA_CORRUPTED.name, peer, klen, kb[:16])
+                    if metrics.ENABLED:
+                        metrics.inc("integrity_wire_mismatch",
+                                    component="tl/socket")
                     _shut(conn)
                     return
                 try:
@@ -246,7 +253,8 @@ class SocketTransport:
                         self._handle_onesided(key, data, errbox)
                         continue
                     self.mailbox.push(key, _PendingSend(
-                        data, SendReq(done=True), copied=True))
+                        data, SendReq(done=True), copied=True,
+                        crc=(pcrcw & 0xFFFFFFFF) if pcrcw >> 32 else None))
                 except (ConnectionError, OSError):
                     raise
                 except Exception as e:  # noqa: BLE001 - stream desync
@@ -330,10 +338,12 @@ class SocketTransport:
                 self._conns[addr] = c
         return c
 
-    def send_to_addr(self, addr: Tuple[str, int], key,
-                     data: np.ndarray) -> SendReq:
+    def send_to_addr(self, addr: Tuple[str, int], key, data: np.ndarray,
+                     crc: Optional[int] = None) -> SendReq:
         payload = data.reshape(-1).view(np.uint8).tobytes()
         kb = pickle.dumps(key)
+        if crc is None and _integrity.WIRE:
+            crc = zlib.crc32(payload) & 0xFFFFFFFF
         # the reader's desync bounds, checked here so an oversized frame
         # fails at the sender instead of being dropped at the target
         if len(kb) > _MAX_KEY_BYTES or len(payload) > _MAX_FRAME_BYTES:
@@ -344,7 +354,9 @@ class SocketTransport:
                 f"{_MAX_FRAME_BYTES}); fragment the collective (pipelined "
                 f"schedule / sliding window) instead")
         frame = _HDR.pack(len(kb), len(payload),
-                          zlib.crc32(kb) & 0xFFFFFFFF, 0) + kb + payload
+                          zlib.crc32(kb) & 0xFFFFFFFF,
+                          ((1 << 32) | crc) if crc is not None else 0
+                          ) + kb + payload
         with self._addr_lock(addr):
             conn = self._conn_to(addr)
             try:
@@ -444,15 +456,19 @@ class TlSocketContext(BaseContext):
                            f"no socket address for ctx rank {peer_ctx_rank}")
         return addr
 
-    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray) -> SendReq:
+    def send_to(self, peer_ctx_rank: int, key, data: np.ndarray,
+                crc: Optional[int] = None) -> SendReq:
         addr = self._addr(peer_ctx_rank)
         if peer_ctx_rank == self.core_context.rank:
             # loopback without the network
             data = data.reshape(-1).view(np.uint8)
+            if crc is None and _integrity.WIRE:
+                crc = zlib.crc32(data) & 0xFFFFFFFF
             self.transport.mailbox.push(
-                key, _PendingSend(data.copy(), SendReq(done=True), True))
+                key, _PendingSend(data.copy(), SendReq(done=True), True,
+                                  crc=crc))
             return SendReq(done=True)
-        return self.transport.send_to_addr(addr, key, data)
+        return self.transport.send_to_addr(addr, key, data, crc=crc)
 
     # -- one-sided (tl/host/onesided.py) -------------------------------
     def os_put(self, peer_ctx_rank: int, desc: dict, offset: int,

@@ -70,6 +70,7 @@ Examples::
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import socket
@@ -941,6 +942,11 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
                    "ranks": n, "count": count, "size_bytes": size,
                    "iters": args.iters,
                    **{k: round(v, 3) for k, v in st.items()}}
+            from .. import integrity as _integ
+            if _integ.ENABLED:
+                # overhead numbers mean nothing without the mode that
+                # produced them on the record
+                rec["integrity"] = _integ.MODE
             if args.full:
                 rec["busbw_GBps"] = round(bw, 3)
             rec["detail"] = {"transport": transport}
@@ -963,6 +969,182 @@ def run_coll_bench(args, job: InProcJob, coll: CollType, mem: MemoryType,
                       f" (budget {qd['error_budget']})", flush=True)
         size *= 2
     return 0
+
+
+def run_storm_mode(args, n: int, dt: DataType, op: ReductionOp) -> int:
+    """``--teams N --storm``: multi-tenant small-collective storm
+    (in-process only, HOST memory: CPU tensors). N teams share one
+    progress engine: team 0 is the latency class (priority 3), the rest
+    are bulk (priority 0). Every round each bulk team posts a burst of
+    small allreduces, then the latency team posts one: the probe
+    measuring how long a high-priority tenant waits behind bulk traffic.
+    Two configurations run back to back:
+
+      fifo: every team at the default priority, coalescing off (one
+            lane, every queued burst task serviced on every pass)
+      qos:  priority lanes + small-collective coalescing on
+
+    Reports p50/p99 per class for each mode plus the high-priority p99
+    improvement; one JSON line per mode (and a summary line) with
+    ``--json``. Exit 0 iff the improvement is at least 2x, as in the
+    JAX perftest."""
+    from ..core import coalesce as _coal
+
+    T = args.teams
+    esz = dt_size(dt)
+    size = max(parse_memunits(args.begin), esz)
+    count = max(1, size // esz)
+    K = args.storm_burst
+    tdt = dt_torch(dt)
+    out = {}
+
+    def ar_args():
+        return CollArgs(coll_type=CollType.ALLREDUCE, op=op,
+                        src=BufferInfo(torch.ones(count, dtype=tdt),
+                                       count, dt),
+                        dst=BufferInfo(torch.zeros(count, dtype=tdt),
+                                       count, dt))
+
+    prev = (_coal.ENABLED, _coal.LIMIT_BYTES,
+            round(_coal.WINDOW_S * 1e6), _coal.MAX_BATCH)
+    try:
+        for mode in ("fifo", "qos"):
+            _coal.configure(enabled=(mode == "qos"))
+            job = InProcJob(n)
+            teams = []
+            try:
+                for t in range(T):
+                    tw = ThreadOobWorld(n)
+                    pr = (3 if t == 0 else 0) if mode == "qos" else None
+                    per = [job.contexts[r].create_team_post(
+                        TeamParams(oob=tw.endpoint(r), priority=pr))
+                        for r in range(n)]
+                    deadline = time.monotonic() + 120
+                    # a list (not a generator): every rank's create state
+                    # machine must step each pass, or the OOB exchange
+                    # deadlocks
+                    while not all([tm.create_test() == Status.OK
+                                   for tm in per]):
+                        for c in job.contexts:
+                            c.progress()
+                        if time.monotonic() > deadline:
+                            raise SystemExit("storm: team create timed "
+                                             "out")
+                    teams.append(per)
+                lat_hi, lat_bulk = [], []
+                for it in range(args.warmup + args.iters):
+                    # a gen-2 GC pause mid-probe is multi-ms: collect
+                    # between rounds, hold collection during them (same
+                    # treatment in both modes)
+                    gc.collect()
+                    gc.disable()
+                    t0 = time.perf_counter()
+                    bulk = []
+                    for t in range(1, T):
+                        for _ in range(K):
+                            for r in range(n):
+                                rq = teams[t][r].collective_init(
+                                    ar_args())
+                                rq.post()
+                                bulk.append(rq)
+                    # per-probe latency: the clock stops in the completion
+                    # callback, not at drain-loop exit (the in-process
+                    # progress loop keeps serving other ranks' bulk queues
+                    # in the same pass; a real tenant's rank returns as soon
+                    # as ITS collective completes)
+                    hi_done = [0.0] * n
+                    hi_t0 = [0.0] * n
+
+                    def _stamp(i):
+                        def _cb(_task, _st):
+                            hi_done[i] = time.perf_counter()
+                        return _cb
+
+                    hi = []
+                    for r in range(n):
+                        a = ar_args()
+                        a.cb = _stamp(r)
+                        hi_t0[r] = time.perf_counter()
+                        rq = teams[0][r].collective_init(a)
+                        rq.post()
+                        hi.append(rq)
+                    while any([rq.test() == Status.IN_PROGRESS
+                               for rq in hi]):
+                        for c in job.contexts:
+                            c.progress()
+                    while any([rq.test() == Status.IN_PROGRESS
+                               for rq in bulk]):
+                        for c in job.contexts:
+                            c.progress()
+                    t3 = time.perf_counter()
+                    gc.enable()
+                    for rq in hi + bulk:
+                        if rq.test().is_error:
+                            raise SystemExit(
+                                f"storm collective failed: {rq.test()}")
+                    if it >= args.warmup:
+                        lat_hi.extend(hi_done[r] - hi_t0[r]
+                                      for r in range(n))
+                        # bulk latency amortized per logical collective
+                        lat_bulk.append((t3 - t0) /
+                                        max(1, K * (T - 1)))
+                rec = {"bench": "storm", "mode": mode, "teams": T,
+                       "ranks": n, "burst": K, "size_bytes": size,
+                       "iters": args.iters,
+                       "detail": {"transport": transport_tier(teams[0][0])},
+                       "classes": {
+                           "hi": {"priority": 3 if mode == "qos"
+                                  else None,
+                                  **{k: round(v, 3) for k, v in
+                                     lat_stats(lat_hi).items()}},
+                           "bulk": {"priority": 0 if mode == "qos"
+                                    else None,
+                                    **{k: round(v, 3) for k, v in
+                                       lat_stats(lat_bulk).items()}}}}
+                if mode == "qos":
+                    rec["coalesce_fused_batches"] = sum(
+                        tm.coalescer._fused_seq
+                        for per in teams for tm in per
+                        if tm.coalescer is not None)
+                    rec["qos"] = \
+                        job.contexts[0].progress_queue.qos_snapshot()
+                out[mode] = rec
+            finally:
+                for per in teams:
+                    for tm in per:
+                        try:
+                            tm.destroy()
+                        except Exception:  # noqa: BLE001 - teardown
+                            pass
+                job.destroy()
+    finally:
+        _coal.configure(enabled=prev[0], limit=prev[1],
+                        window_us=prev[2], max_batch=prev[3])
+
+    imp = out["fifo"]["classes"]["hi"]["p99_us"] / \
+        max(1e-9, out["qos"]["classes"]["hi"]["p99_us"])
+    summary = {"bench": "storm_summary", "teams": T, "ranks": n,
+               "burst": K, "size_bytes": size,
+               "hi_p99_fifo_us": out["fifo"]["classes"]["hi"]["p99_us"],
+               "hi_p99_qos_us": out["qos"]["classes"]["hi"]["p99_us"],
+               "hi_p99_improvement": round(imp, 2),
+               "ok": imp >= 2.0}
+    if args.json:
+        for mode in ("fifo", "qos"):
+            print(json.dumps(out[mode]), flush=True)
+        print(json.dumps(summary), flush=True)
+    else:
+        print(f"# ucc_perftest storm: {T} teams x {n} ranks, "
+              f"burst {K} x {memunits_str(size)}")
+        for mode in ("fifo", "qos"):
+            for cls in ("hi", "bulk"):
+                st = out[mode]["classes"][cls]
+                print(f"  {mode:<5} {cls:<5} p50={st['p50_us']:.1f}us "
+                      f"p99={st['p99_us']:.1f}us avg={st['avg_us']:.1f}us")
+        print(f"  hi-priority p99 improvement: "
+              f"{summary['hi_p99_improvement']}x "
+              f"({'OK' if summary['ok'] else 'BELOW 2x'})")
+    return 0 if summary["ok"] else 1
 
 
 def main(argv=None) -> int:
@@ -1011,6 +1193,23 @@ def main(argv=None) -> int:
                         "skewed expert-routing distribution)")
     p.add_argument("--seed", type=int, default=7,
                    help="seed of the --matrix moe generator")
+    p.add_argument("--teams", type=int, default=0,
+                   help="multi-tenant mode: number of concurrent teams "
+                        "sharing the progress engine (with --storm)")
+    p.add_argument("--storm", action="store_true",
+                   help="multi-tenant small-collective storm (needs "
+                        "--teams >= 2; in-process only, HOST memory): "
+                        "bulk teams flood bursts of small allreduces "
+                        "while a latency-class team posts probes; reports "
+                        "p50/p99 per priority class for a FIFO/no-"
+                        "coalesce baseline vs priority lanes + "
+                        "coalescing, and the hi-priority p99 "
+                        "improvement (exit 0 iff >= 2x)")
+    p.add_argument("--storm-burst", type=int, default=24,
+                   help="small allreduces each bulk team posts per "
+                        "round in --storm (default 24: deep enough that "
+                        "FIFO head-of-line blocking dominates the probe "
+                        "latency)")
     p.add_argument("--store", default="",
                    help="host:port of a multi-process job's TCP store "
                         "(the team's store is port + 1)")
@@ -1059,10 +1258,11 @@ def main(argv=None) -> int:
         if args.store:
             raise SystemExit("perftest: --procs and --store are exclusive "
                              "(--procs launches --store workers itself)")
-        if args.sweep or args.quant or args.gen or args.gen_device:
+        if args.sweep or args.storm or args.quant or args.gen \
+                or args.gen_device:
             raise SystemExit("perftest: --procs is incompatible with the "
-                             "in-process-only modes (--sweep/--quant/"
-                             "--gen/--gen-device)")
+                             "in-process-only modes (--sweep/--storm/"
+                             "--quant/--gen/--gen-device)")
         if args.coll in OP_BENCHES:
             raise SystemExit("perftest: --procs runs collectives only")
         return run_procs_mode(args, argv)
@@ -1116,6 +1316,14 @@ def main(argv=None) -> int:
             if args.onesided or args.streaming or args.triggered:
                 raise SystemExit("perftest: --sweep is incompatible with "
                                  "-O/-S/-T")
+        if args.storm:
+            if args.store:
+                raise SystemExit("perftest: --storm requires in-process "
+                                 "mode")
+            if args.teams < 2:
+                raise SystemExit("perftest: --storm needs --teams >= 2")
+            return run_storm_mode(args, args.nprocs or 4, DTS[args.dtype],
+                                  OPS[args.op])
         mem = resolve_mem(args.mem)
         coll = COLLS[args.coll]
         if args.triggered and (args.store or args.streaming or
