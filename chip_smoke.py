@@ -11,8 +11,8 @@ Phases, each printing its own lines (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build the nine kernel sources from
    ucc_tpu_torch/csrc/ and its CUDA IPC source (cuda_ipc.cu, host code
-   only), one nvcc each, started together, beside one nvcc -Xptxas -v
-   for each kernel source; the f32 and bf16 instances of the flag-free
+   only), one nvcc each, started together, each printing ptxas's -v
+   report (cuobjdump reads the built libraries); the f32 and bf16 instances of the flag-free
    kernels (allreduce, reduce_scatter, the generated programs' fold,
    alltoall; the bcast's and the allgather's 4- and 2-byte ones) must
    hold 128-bit global loads and stores in their SASS (cuobjdump), and
@@ -430,6 +430,28 @@ Phases, each printing its own lines (any failure exits non-zero):
      bind no attestation; B1, B2 and xla resume bitwise; ``soak
      --corrupt`` and ``--multi`` report no violation; nothing new in
      /dev/shm, and B1, B2, B4, B5 and B7 launched in the phase.
+15. operations, the telemetry collector and the last tools:
+   - (a) 8 ranks on the card, UCC_COLLECT=y at 0.25 s windows, ring_cuda
+     pinned at a finite score (2e9: the rank bias may demote it), ctx
+     rank 3's host thread 20 ms late every round (its context progressed
+     and its request tested after its peers completed: the device path
+     has no injector hook); allreduces of 64 Ki (B1) and 16 Mi (B2) f32,
+     a team each, until the collector flags rank 3 (within 2 windows)
+     and selection leaves the ring family (to xla), then 10 rounds more:
+     B1/B2 launch on every ring_cuda round and never after, every round
+     within rtol 1e-5 of the float64 sum; the p50/p99 before and after;
+   - (b) the collector's cost: the 64 Ki ring_cuda allreduce's p50 with
+     UCC_COLLECT=y at 1 s windows and =n, in turns;
+   - (c) straggler state planted on a 3-rank device team's watch carried
+     through a grow to 4 (TestObsContinuity's check), the grown team's
+     16 Mi `xla` allreduce bitwise torch.stack(srcs).sum(0); soak's
+     churn (run_churn_soak, one cycle) on 4 ranks whose allreduces are
+     f32 CUDA tensors, with the collector on: clean, 20 checked rounds
+     after;
+   - (d) ``ucc_info -s 8`` (ring_cuda's and torch_ops' rows on
+     allreduce/cuda) and ``-c`` (cuda memory on the card), in this
+     process; ``ucc_scale -n 512 --ppn 8 --npp 8 --json`` in its own
+     process (host work), its seconds; B1 and B2 launched in the phase.
 
 The last two lines are the kernels record (one record per kernel entry
 point or route of the kernel table in PERF.md, the f32 attention route and
@@ -441,7 +463,8 @@ phase 7 as host_launches, over phase 8 as procs_launches, over phase
 9's spanning rounds, summed over its processes, as span_launches, over
 phase 10's in-process runs as hier_launches, over phase 11 as
 quant_launches, over phase 12 as compiler_launches, over phase 13 as
-ft_launches and over phase 14 as service_launches) and
+ft_launches, over phase 14 as service_launches and over phase 15 as
+operations_launches) and
 {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when there is no GPU or no package beside it.
@@ -2346,39 +2369,39 @@ def main_path_attention_f32(qs, ks, vs, scale, launches) -> dict:
             "library_ms": library_ms, "turns": turns}
 
 
-def ptxas_start(source):
-    """nvcc -Xptxas -v of one csrc source into a throwaway object, started
-    in the background; ptxas_read parses its report."""
-    from ucc_tpu_torch.kernels import build
-    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
-    stem = os.path.splitext(source)[0]
-    obj = os.path.join(build.BUILD_DIR, f"ptxas_{stem}_{os.getpid()}.o")
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    return obj, subprocess.Popen(
-        [build.nvcc_path(), *flags, "-c", "-Xptxas", "-v", "-o", obj,
-         os.path.join(build.CSRC, source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def ptxas_read(started) -> dict:
+def ptxas_read(source, log_text=None) -> dict:
     """{kernel instance: {registers, stack_frame, spill_stores,
-    spill_loads, hgmma, ldg128, stg128, ffma, lds, lds128}} (bytes for the
-    stack frame and the spills; hgmma counts the warpgroup
-    tensor-core instructions in the object's SASS, by cuobjdump, ldg128
-    and stg128 its 128-bit global loads and stores, ffma its f32 FMAs, lds
-    its shared loads and lds128 the 128-bit ones among them) from
-    ptxas_start's report; names demangled by cu++filt where the toolkit
-    has it."""
+    spill_loads, hgmma, ldg128, stg128, ffma, lds, lds128}} of one csrc
+    source (bytes for the stack frame and the spills; hgmma counts the
+    warpgroup tensor-core instructions in its SASS, by cuobjdump, ldg128
+    and stg128 its 128-bit global loads and stores, ffma its f32 FMAs,
+    lds its shared loads and lds128 the 128-bit ones among them). The
+    report is *log_text*, the output of the build's own nvcc (build_all's
+    reports, ``-Xptxas -v``), with the SASS of the built library; a
+    source the build did not compile gets an nvcc -Xptxas -v of its own
+    into a throwaway object. Names demangled by cu++filt where the
+    toolkit has it."""
     import re
     from ucc_tpu_torch.kernels import build
-    obj, proc = started
-    log_text, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
+    binary = build._lib_path(source)
+    if log_text is None:
+        flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+        stem = os.path.splitext(source)[0]
+        binary = os.path.join(build.BUILD_DIR,
+                              f"ptxas_{stem}_{os.getpid()}.o")
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        proc = subprocess.run(
+            [build.nvcc_path(), *flags, "-c", "-Xptxas", "-v", "-o", binary,
+             os.path.join(build.CSRC, source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log_text = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
     sass = subprocess.run(
         [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
-         "-sass", obj], capture_output=True, text=True, check=True).stdout
-    os.remove(obj)
+         "-sass", binary], capture_output=True, text=True, check=True).stdout
+    if binary != build._lib_path(source):
+        os.remove(binary)
     counts, name = {}, None
     patterns = {"hgmma": r"\bHGMMA\.", "ldg128": r"\bLDG\.E\S*\.128\b",
                 "stg128": r"\bSTG\.E\S*\.128\b", "ffma": r"\bFFMA\b",
@@ -3420,7 +3443,7 @@ def p50_line(samples) -> str:
     samples = sorted(samples)
     return (f"p50 {samples[len(samples) // 2] * 1e3:.3f} ms (p10 "
             f"{samples[len(samples) // 10] * 1e3:.3f}, max "
-            f"{samples[-1] * 1e3:.3f}) over {ITERS} rounds")
+            f"{samples[-1] * 1e3:.3f}) over {len(samples)} rounds")
 
 
 def main_path_defaults(smi, counters, ring_p50) -> None:
@@ -4874,6 +4897,9 @@ HOST_RUNS = (
 )
 #: rounds of a host run: one to warm the pool's leases, then the timed
 HOST_WARMUP = 1
+#: timed rounds of a host run at MAIN_COUNT (ITERS below it): such a round
+#: takes 0.06–0.45 s on tl/shm
+HOST_MAIN_ITERS = 5
 
 
 def host_cpu() -> str:
@@ -5006,8 +5032,8 @@ def host_case(coll, root, variant, n, count, seed):
                          flags=P) for r in range(n)], dsts, want
 
 
-def host_rounds(ctxs, reqs, what):
-    """HOST_WARMUP + ITERS rounds of persistent host requests; the ITERS
+def host_rounds(ctxs, reqs, what, iters=ITERS):
+    """HOST_WARMUP + *iters* rounds of persistent host requests; the timed
     rounds' seconds. Finalizes the requests."""
     def one_round():
         for rq in reqs:
@@ -5018,7 +5044,7 @@ def host_rounds(ctxs, reqs, what):
     for _ in range(HOST_WARMUP):
         one_round()
     samples = []
-    for _ in range(ITERS):
+    for _ in range(iters):
         t0 = time.perf_counter()
         one_round()
         samples.append(time.perf_counter() - t0)
@@ -5037,7 +5063,8 @@ def host_run(ctxs, teams, coll, root, variant, count, seed, what):
     algs = {rq.task.alg_name for rq in reqs}
     if len(algs) != 1:
         raise AssertionError(f"{what}: ranks selected {algs}")
-    samples = host_rounds(ctxs, reqs, what)
+    samples = host_rounds(ctxs, reqs, what,
+                          HOST_MAIN_ITERS if count >= MAIN_COUNT else ITERS)
     got = [None if d is None else
            (torch.from_numpy(d) if not isinstance(d, torch.Tensor) else d)
            for d in dsts]
@@ -8650,7 +8677,7 @@ def main_path_ft(smi, counters, ring_p50) -> dict:
 SVC_BULK_TEAMS = 3
 SVC_BURST = 24
 SVC_BULK_COUNT = 64          # 256 B of f32: a coalescer-eligible member
-SVC_WARMUP, SVC_ROUNDS = 5, 20
+SVC_WARMUP, SVC_ROUNDS = 3, 10
 SVC_STORM = ["--teams", "4", "--storm", "--json"]
 #: (b) the hier rounds of phase 10 (b) and tl/shm's host allreduces
 SVC_HOST_COUNTS = (64 << 10, 1 << 20)
@@ -9338,6 +9365,395 @@ def main_path_service(smi, counters) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 15. operations: the telemetry collector's closed loop, its cost, churn
+# on device memory, and the tools
+# ---------------------------------------------------------------------------
+
+#: (a) the rank made late, how late (seconds) and the collector's window
+OPS_STRAGGLER = 3
+OPS_DELAY_S = 0.02
+OPS_INTERVAL_S = 0.25
+#: (a) ring_cuda pinned at a high but finite score: the bias can demote
+#: it (an `inf` score is exempt from feedback)
+OPS_RING_TUNE = "allreduce:@ring_cuda:2000000000"
+#: (a) rounds allowed before the flag, and rounds after the switch
+OPS_MAX_PRE, OPS_POST = 200, 10
+#: (b) the collector's window while its cost is measured; rounds per
+#: condition and repeat are WARMUP + ITERS
+OPS_COST_INTERVAL_S = 1.0
+OPS_COST_REPS = 2
+#: (c) the churn on device memory
+OPS_CHURN_RANKS, OPS_CHURN_POST = 4, 20
+#: (d) ucc_scale's command line
+OPS_SCALE = ["-n", "512", "--ppn", "8", "--npp", "8", "--json"]
+
+
+def ops_round(ctxs, teams, srcs, dsts, straggler, delay_s):
+    """One allreduce on every rank (non-persistent: each round's init
+    consults the rank bias). Rank *straggler*'s host thread runs late: its
+    context is progressed, and its request tested, only *delay_s* after
+    the others' requests completed, so its completion (flight cmpl and
+    dev_ready) lags its peers'. Returns (seconds, algorithm)."""
+    import ucc_tpu_torch as ucc
+    t0 = time.perf_counter()
+    reqs = [t.collective_init(ft_args(s, d))
+            for t, s, d in zip(teams, srcs, dsts)]
+    alg = reqs[0].task.alg_name
+    for rq in reqs:
+        rq.post()
+    others = [r for r in range(len(reqs)) if r != straggler]
+    deadline = time.monotonic() + FT_DEADLINE_S
+    while any([reqs[r].test() == ucc.Status.IN_PROGRESS for r in others]):
+        for r in others:
+            ctxs[r].progress()
+        if time.monotonic() > deadline:
+            raise AssertionError("operations: a round did not end")
+    late = time.perf_counter() + delay_s
+    while time.perf_counter() < late:
+        for r in others:
+            ctxs[r].progress()
+    while reqs[straggler].test() == ucc.Status.IN_PROGRESS:
+        ctxs[straggler].progress()
+        if time.monotonic() > deadline:
+            raise AssertionError("operations: the late rank's round did "
+                                 "not end")
+    bad = [rq.test() for rq in reqs if rq.test() != ucc.Status.OK]
+    if bad:
+        raise AssertionError(f"operations: a round failed: {bad[0].name}")
+    for rq in reqs:
+        rq.finalize()
+    return time.perf_counter() - t0, alg
+
+
+def p99_of(samples) -> float:
+    xs = sorted(samples)
+    return xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+
+def ops_feedback(smi, kernels) -> dict:
+    """(a) The closed loop on a device team: 8 ranks on the card, ring_cuda
+    pinned at a finite score, UCC_COLLECT=y at OPS_INTERVAL_S, rank
+    OPS_STRAGGLER late by OPS_DELAY_S every round; allreduces of 64 Ki
+    (B1) and 16 Mi (B2) f32, each count on a team of its own, until the
+    collector flags the late rank and selection moves off the ring, then
+    OPS_POST rounds more. Every round is checked against the float64 sum
+    of the inputs."""
+    import torch
+    from ucc_tpu_torch.obs import collector
+    from ucc_tpu_torch.obs.collector import is_ring_family
+    collector.configure(enabled=True, interval=OPS_INTERVAL_S, slack=2,
+                        dir="", windows=2)
+    ctxs = make_contexts(FT_N)
+    out = {}
+    try:
+        for kname, count in FT_COUNTS:
+            with env_set(UCC_TL_RING_CUDA_TUNE=OPS_RING_TUNE):
+                teams = make_team(ctxs)
+            srcs = ft_inputs(range(FT_N), count)
+            dsts = [torch.empty_like(s) for s in srcs]
+            exact = torch.stack(srcs).double().sum(0)
+            wrapper = kernels[kname][0]
+            pre, post, pre_algs, post_algs = [], [], set(), set()
+            launches = {"pre": 0, "post": 0}
+            bias = teams[0].rank_bias
+            while True:
+                before = wrapper.launches
+                secs, alg = ops_round(ctxs, teams, srcs, dsts,
+                                      OPS_STRAGGLER, OPS_DELAY_S)
+                for d in dsts:
+                    if not torch.allclose(d.double(), exact,
+                                          rtol=MAIN_RTOL, atol=MAIN_ATOL):
+                        raise AssertionError(
+                            f"operations: (a) {count} via {alg} differs "
+                            "from the float64 sum")
+                phase = "post" if not is_ring_family(alg) else "pre"
+                launches[phase] += wrapper.launches - before
+                if phase == "pre":
+                    if post:
+                        raise AssertionError("operations: (a) selection "
+                                             "went back to the ring")
+                    pre.append(secs)
+                    pre_algs.add(alg)
+                    if len(pre) > OPS_MAX_PRE:
+                        raise AssertionError(
+                            f"operations: (a) no switch within "
+                            f"{OPS_MAX_PRE} rounds (flagged "
+                            f"{sorted(bias.flagged)})")
+                else:
+                    post.append(secs)
+                    post_algs.add(alg)
+                    if len(post) >= OPS_POST:
+                        break
+            sc = ctxs[0].collector.watch_for(teams[0]).scorer
+            if sc.first_flag_index is None or sc.first_sev_index is None:
+                raise AssertionError("operations: (a) the scorer never "
+                                     "flagged")
+            windows = sc.first_flag_index - sc.first_sev_index + 1
+            rec = {"flagged": sorted(bias.flagged),
+                   "windows_to_flag": windows,
+                   "pre_alg": sorted(pre_algs), "post_alg": sorted(post_algs),
+                   "pre_rounds": len(pre), "post_rounds": len(post),
+                   "pre_p50_ms": sorted(pre)[len(pre) // 2] * 1e3,
+                   "post_p50_ms": sorted(post)[len(post) // 2] * 1e3,
+                   "pre_p99_ms": p99_of(pre) * 1e3,
+                   "post_p99_ms": p99_of(post) * 1e3,
+                   "launches": launches}
+            if rec["flagged"] != [OPS_STRAGGLER] or windows > 2 or \
+                    rec["pre_alg"] != ["ring_cuda"] or \
+                    launches["pre"] <= 0 or launches["post"] != 0:
+                raise AssertionError(f"operations: (a) {count}: {rec}")
+            out[count] = rec
+            log(f"operations: (a) 8-rank allreduce {count} f32/rank, ctx "
+                f"rank {OPS_STRAGGLER} late {OPS_DELAY_S * 1e3:.0f} ms a "
+                f"round (its progress and test), windows of "
+                f"{OPS_INTERVAL_S} s: flagged {rec['flagged']} in "
+                f"{windows} window(s); {len(pre)} rounds via ring_cuda "
+                f"({kname} launches {launches['pre']}), p50 "
+                f"{rec['pre_p50_ms']:.3f} p99 {rec['pre_p99_ms']:.3f} ms; "
+                f"then {len(post)} via {'/'.join(rec['post_alg'])} "
+                f"({kname} launches {launches['post']}), p50 "
+                f"{rec['post_p50_ms']:.3f} p99 {rec['post_p99_ms']:.3f} ms; "
+                f"every round within rtol {MAIN_RTOL} of the float64 sum | "
+                f"card {smi}")
+            for t in teams:
+                t.destroy()
+            del srcs, dsts, exact
+            torch.cuda.empty_cache()
+    finally:
+        for c in ctxs:
+            c.destroy()
+        collector.configure(enabled=False)
+    return out
+
+
+def ops_collector_cost(smi, kernels) -> dict:
+    """(b) The collector's cost: the 8-rank 64 Ki f32 allreduce on
+    ring_cuda (B1), UCC_COLLECT=y at a OPS_COST_INTERVAL_S window and =n,
+    in turns (y, n, n, y), WARMUP + ITERS persistent rounds each."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.obs import collector
+    jobs, samples = {}, {True: [], False: []}
+    try:
+        for on in (True, False):
+            collector.configure(enabled=on, interval=OPS_COST_INTERVAL_S,
+                                dir="")
+            ctxs = make_contexts(FT_N)
+            with env_set(UCC_TL_RING_CUDA_TUNE=FT_RING_TUNE):
+                jobs[on] = (ctxs, make_team(ctxs))
+        collector.configure(enabled=False)
+        srcs = ft_inputs(range(FT_N), SMALL_COUNT)
+        dsts = [torch.empty_like(s) for s in srcs]
+        for rep in range(OPS_COST_REPS):
+            for on in ((True, False) if rep % 2 == 0 else (False, True)):
+                ctxs, teams = jobs[on]
+                reqs = [t.collective_init(ft_args(s, d, True))
+                        for t, s, d in zip(teams, srcs, dsts)]
+                if reqs[0].task.alg_name != "ring_cuda":
+                    raise AssertionError(f"operations: (b) selected "
+                                         f"{reqs[0].task.alg_name}")
+                samples[on].extend(time_rounds(ctxs, reqs,
+                                               "operations cost"))
+        plain = kernels["ring_allreduce_pass"][1](srcs, ucc.ReductionOp.SUM,
+                                                   0)
+        compare("operations: (b) the last round vs B1's plain version",
+                dsts, plain)
+    finally:
+        for ctxs, teams in jobs.values():
+            for t in teams:
+                t.destroy()
+            for c in ctxs:
+                c.destroy()
+    p50 = {on: sorted(v)[len(v) // 2] for on, v in samples.items()}
+    ratio = p50[True] / p50[False]
+    log(f"operations: (b) collector cost, 8-rank allreduce {SMALL_COUNT} "
+        f"f32/rank via ring_cuda: p50 {p50[True] * 1e3:.4f} ms with "
+        f"UCC_COLLECT=y ({OPS_COST_INTERVAL_S} s windows), "
+        f"{p50[False] * 1e3:.4f} ms with =n ({len(samples[True])} rounds "
+        f"each, in turns), ratio {ratio:.4f} | card {smi}")
+    return {"p50_on_ms": p50[True] * 1e3, "p50_off_ms": p50[False] * 1e3,
+            "ratio": ratio}
+
+
+def ops_continuity(smi) -> dict:
+    """(c) The collector's state across a grow on a device team, as
+    tests/test_ft_grow.py::TestObsContinuity checks it: a team of ctx
+    ranks 0..2 on the card, scores, streaks, flags and windows seen
+    planted on its watch, ctx 3 grown in; the grown team's watch carries
+    them remapped through context ranks, and its 16 Mi allreduces are
+    bitwise torch.stack(srcs).sum(0) on the default TL."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.core.team import Team
+    from ucc_tpu_torch.obs import collector
+    collector.configure(enabled=True, interval=OPS_INTERVAL_S, dir="")
+    ctxs = make_contexts(4)
+    teams = []
+    try:
+        world = ucc.ThreadOobWorld(3)
+        old = [ctxs[r].create_team_post(ucc.TeamParams(
+            oob=world.endpoint(r))) for r in range(3)]
+        until(ctxs, lambda: all([t.create_test() == ucc.Status.OK
+                                 for t in old]), "operations: (c) team")
+        teams.extend(old)
+        col = ctxs[0].collector
+        old_w = col.watch_for(old[0])
+        old_w.scorer.scores = {1: 2.5}
+        old_w.scorer.streaks = {1: 3}
+        old_w.scorer.flagged = {1}
+        old_w.scorer.windows_seen = 7
+        grows = [t.grow_post([3]) for t in old]
+        join = Team.join_post(ctxs[3])
+        ft_membership(ctxs, grows + [join], "operations: (c) grow")
+        new = [g.new_team for g in grows] + [join.new_team]
+        teams.extend(new)
+        new_w = col.watch_for(new[0])
+        got = (new_w.scorer.scores, new_w.scorer.streaks,
+               new_w.scorer.flagged, new_w.scorer.windows_seen,
+               new_w.window, col.watch_for(old[0]))
+        if got != ({1: 2.5}, {1: 3}, {1}, 7, 0, None):
+            raise AssertionError(f"operations: (c) hand-off carried {got}")
+        srcs = ft_inputs(range(4), MAIN_COUNT)
+        dsts = [torch.empty_like(s) for s in srcs]
+        reqs = [t.collective_init(ft_args(s, d, True))
+                for t, s, d in zip(new, srcs, dsts)]
+        alg = reqs[0].task.alg_name
+        if alg != "xla":
+            raise AssertionError(f"operations: (c) selected {alg}")
+        time_rounds(ctxs, reqs, "operations (c)")
+        compare("operations: (c) grown team vs torch.stack(srcs).sum(0)",
+                dsts, [torch.stack(srcs).sum(0)] * 4)
+    finally:
+        for t in teams:
+            t.destroy()
+        for c in ctxs:
+            c.destroy()
+        collector.configure(enabled=False)
+    log(f"operations: (c) grow 3 -> 4 on the card: the watch carried "
+        f"scores {{1: 2.5}}, streaks, flags {{1}} and 7 windows through the "
+        f"hand-off; the grown team's allreduce {MAIN_COUNT} f32/rank via "
+        f"{alg} is bitwise torch.stack(srcs).sum(0) | card {smi}")
+    return {"alg": alg}
+
+
+def ops_churn(smi) -> dict:
+    """(c) soak's churn on device memory: run_churn_soak(cycles=1) on 4
+    ranks whose every collective is an allreduce of f32 CUDA tensors,
+    with the collector on: kill -> shrink -> grow(rejoin), the false
+    suspicion, OPS_CHURN_POST checked allreduces after."""
+    from ucc_tpu_torch.fault.soak import run_churn_soak
+    t0 = time.perf_counter()
+    rep = run_churn_soak(n_ranks=OPS_CHURN_RANKS, cycles=1,
+                         iters_per_epoch=2, post_iters=OPS_CHURN_POST,
+                         count=SMALL_COUNT, device="cuda", collect=True,
+                         hb_timeout=FT_HB_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if rep["violations"] or rep["cycles"] != 1 or \
+            not rep["fenced"]["shrink"] or not rep["fenced"]["grow"] or \
+            not rep["readmitted"] or rep["post_churn_ok"] != OPS_CHURN_POST:
+        raise AssertionError(f"operations: (c) churn report {rep}")
+    log(f"operations: (c) churn on CUDA memory, {OPS_CHURN_RANKS} ranks, "
+        f"{SMALL_COUNT} f32 allreduces: epochs {rep['epochs']}, fenced "
+        f"{rep['fenced']}, readmitted, {rep['post_churn_ok']} checked "
+        f"allreduces after, matcher {rep['matcher']}, collector "
+        f"{rep['collector']} in {secs:.1f} s | card {smi}")
+    return {"epochs": rep["epochs"], "seconds": secs}
+
+
+def ops_tools(smi) -> dict:
+    """(d) ucc_info -s 8 and -c, in this process, and ucc_scale -n 512
+    --ppn 8 --npp 8 --json in a process of its own (host work: no device
+    TL), timed on the card's machine."""
+    import contextlib
+    import io
+    from ucc_tpu_torch.tools import info
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        info.main(["-s", str(N_RANKS)])
+        info.main(["-c"])
+    text = buf.getvalue()
+    row = next((ln for ln in text.splitlines()
+                if ln.strip().startswith("allreduce/cuda")), "")
+    if "ring_cuda:" not in row or "torch_ops/" not in row:
+        raise AssertionError(f"operations: (d) ucc_info -s row: {row!r}")
+    mem = next((ln for ln in text.splitlines()
+                if ln.startswith("# memory types:")), "")
+    dev = next((ln for ln in text.splitlines()
+                if ln.startswith("# cuda memory device:")), "")
+    if "cuda" not in mem or "unavailable" in dev:
+        raise AssertionError(f"operations: (d) ucc_info -c: {mem!r} "
+                             f"{dev!r}")
+    log(f"operations: (d) ucc_info -s {N_RANKS}: {row.strip()}")
+    log(f"operations: (d) ucc_info -c: {mem} | {dev}")
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run(
+        [sys.executable, "-m", "ucc_tpu_torch.tools.scale", *OPS_SCALE],
+        capture_output=True, text=True, timeout=300, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"operations: (d) ucc_scale rc "
+                             f"{r.returncode}: {r.stdout[-2000:]} "
+                             f"{r.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    if rec.get("ranks") != int(OPS_SCALE[1]) or "error" in rec or \
+            len(rec.get("matrix", ())) != 6:
+        raise AssertionError(f"operations: (d) ucc_scale record {rec}")
+    log(f"operations: (d) ucc_scale {' '.join(OPS_SCALE)}: {secs:.1f} s "
+        f"of process (the record's wall_s {rec['wall_s']}), contexts "
+        f"{rec['ctx_create_s']} s, team {rec['team_create_s']} s, hier "
+        f"levels {rec['hier_levels']}, cells {rec.get('cells')} | card "
+        f"{smi}")
+    return {"scale_s": secs, "record": rec}
+
+
+def main_path_operations(smi, counters) -> dict:
+    """Phase 15: operations. Returns every kernel's launches over the
+    phase."""
+    import tempfile
+    from ucc_tpu_torch.obs import collector, flight
+    t0 = time.perf_counter()
+    base = snapshot(counters)
+    kernels = wrappers()
+    res = {}
+    knobs = dict(vars(collector.KNOBS))
+    old_file = flight._file
+    with env_set(UCC_TL_RING_CUDA_TUNE=None, UCC_TL_TORCH_OPS_TUNE=None,
+                 UCC_FAULT=None, UCC_FT=None, UCC_COLLECT=None,
+                 UCC_TL_SHM_TUNE=None), \
+            tempfile.TemporaryDirectory(prefix="ucc_ops_") as tmp:
+        # the churn's rank-failure dumps go here, not into the checkout
+        flight.configure(file=os.path.join(tmp, "flight.json"))
+        try:
+            steps = (
+                ("a", "feedback", lambda: ops_feedback(smi, kernels)),
+                ("b", "cost", lambda: ops_collector_cost(smi, kernels)),
+                ("c", "continuity", lambda: ops_continuity(smi)),
+                ("c", "churn", lambda: ops_churn(smi)),
+                ("d", "tools", lambda: ops_tools(smi)))
+            for step, key, fn in steps:
+                t1 = time.perf_counter()
+                res[key] = fn()
+                log(f"operations: ({step}) {key} in "
+                    f"{time.perf_counter() - t1:.1f} s")
+        finally:
+            collector.configure(**knobs)
+            flight.configure(file=old_file)
+    launches = since(counters, base)
+    for k in ("ring_allreduce_pass", "ring_allreduce_chunked"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"operations: {k} never launched in the "
+                                 "phase")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"operations: launches over the phase {launches} | operations "
+        f"phase: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -9387,12 +9803,13 @@ def main() -> int:
     sources = [kr.SOURCE, krs.RS_SOURCE, krs.SOURCE, kba.SOURCE,
                kba.A2A_SOURCE, ker.SOURCE, ka.SOURCE, kgd.SOURCE,
                kgd.FOLD_SOURCE]
-    started = {src: ptxas_start(src) for src in sources}
     from ucc_tpu_torch.kernels import cuda_ipc
-    build_s = build.build_all(sources + [cuda_ipc.SOURCE])
+    reports = {}
+    build_s = build.build_all(sources + [cuda_ipc.SOURCE], reports=reports)
     log(f"build: {', '.join(sources + [cuda_ipc.SOURCE])} -> "
-        f"{build.BUILD_DIR} in {build_s:.1f} s")
-    infos = {src: ptxas_read(p) for src, p in started.items()}
+        f"{build.BUILD_DIR} in {build_s:.1f} s (ptxas reports of "
+        f"{len(reports)} compiled sources)")
+    infos = {src: ptxas_read(src, reports.get(src)) for src in sources}
     log(f"ptxas and SASS of every source: "
         f"{time.perf_counter() - t_build:.1f} s from the start of the build")
     for src in DIRECT_KERNELS:
@@ -9544,6 +9961,10 @@ def main() -> int:
     # hier rounds, attestation, quarantine and the shrunk team -------------
     service = main_path_service(smi, counters)
 
+    # -- 15. operations: the collector's closed loop and its cost, churn on
+    # device memory, ucc_info and ucc_scale --------------------------------
+    operations = main_path_operations(smi, counters)
+
     # every row of the kernel table: the f32 attention route (12b) and the
     # wire layers (11b wire) have records of their own; each carries its
     # launches over phase 6 as core_launches
@@ -9561,6 +9982,8 @@ def main() -> int:
         rec["compiler_launches"] = compiler["launches"].get(rec["name"], 0)
         rec["ft_launches"] = ft["launches"].get(rec["name"], 0)
         rec["service_launches"] = service["launches"].get(rec["name"], 0)
+        rec["operations_launches"] = operations["launches"].get(
+            rec["name"], 0)
         if rec["name"] in core["n4"]:
             rec["core_n4"] = core["n4"][rec["name"]]
     log(smi)

@@ -418,13 +418,16 @@ class TestSoak:
 
 
 def test_soak_main_refuses_later_drills(capsys):
-    """The drill that needs the telemetry collector (churn) is refused by
-    name, not run half-armed; the corruption-storm and multi-tenant
-    drills run now (tests/test_torch_integrity.py, test_torch_qos.py)."""
+    """The name is historical: soak refused the churn drill until the
+    telemetry collector was ported. ``--churn`` now runs it (one cycle)
+    and prints a clean report; no drill is refused by name any more
+    (``--collect`` beside it: tests/test_torch_collector.py)."""
     from ucc_tpu_torch.fault import soak
-    assert soak.main(["--churn"]) == 2
-    err = capsys.readouterr().err
-    assert "8b.3" in err and "collector" in err
-    assert set(soak._LATER_MODES) == {"churn"}
+    assert soak.main(["--churn", "--cycles", "1", "--post-iters", "6"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["violations"] == [] and rep["cycles"] == 1
+    assert rep["post_churn_ok"] == 6 and rep["readmitted"] is True
+    assert "collector" not in rep
+    assert not hasattr(soak, "_LATER_MODES")
     assert callable(soak.run_corrupt_soak)
     assert callable(soak.run_multi_tenant_soak)

@@ -517,6 +517,8 @@ class TestCorruptionStormDrill:
     def test_drill_agrees_with_the_jax_package(self):
         from ucc_tpu.fault.soak import run_corrupt_soak as jrun
         from ucc_tpu_torch.fault.soak import run_corrupt_soak as trun
+        from torch_host_jobs import reference_core
+        reference_core()            # C10: the reference as a process runs it
         kw = dict(n_ranks=4, corrupt_rank=2, strikes=1, pre_iters=1,
                   post_iters=6, storm_rounds_max=4, count=64)
         port, ref = trun(**kw), jrun(**kw)

@@ -612,3 +612,63 @@ def test_concurrent_senders_and_receivers(use_native):
     for i in range(threads):
         for k in range(per):
             assert (got[i][k] == i * 1000 + k).all()
+
+
+# ---------------------------------------------------------------------------
+# C10: the JAX package's core lost to a torn first load in a worker
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def torn_reference_core():
+    """The state ``ucc_tpu.native.get_lib`` leaves behind when dlopen saw
+    its library half-linked by another process ("file too short"): the
+    attempt is cached, the library is None. Restored after."""
+    from ucc_tpu import native as jn
+    assert jn.get_lib() is not None, "the reference's core must build here"
+    saved = (jn._TRIED, jn._LIB, jn._EXT)
+    jn._LIB = None
+    yield jn
+    if jn._LIB is None:
+        jn._TRIED, jn._LIB, jn._EXT = saved
+
+
+def test_reference_jobs_recover_from_a_torn_first_load(torn_reference_core):
+    """C10: a worker whose first load of the JAX package's core failed ran
+    every later reference job on the Python matcher, and the port's
+    comparisons that read the reference's native features failed (no
+    +plan rows). A reference job made through torch_host_jobs.Job loads
+    the core again, and its rows are a fresh process's."""
+    import ucc_tpu
+
+    from torch_gen_jobs import GenJob
+    jobs = [GenJob(ucc_tpu, 4), GenJob(ut, 4)]
+    try:
+        assert torn_reference_core._LIB is not None
+        ref, port = (j.info(4) for j in jobs)
+        assert any("+plan" in ln for ln in ref)
+        assert ref == port
+    finally:
+        for j in jobs:
+            j.destroy()
+
+
+def test_port_build_never_exposes_a_half_linked_library(tmp_path,
+                                                         monkeypatch):
+    """The port's own build links into a temporary name and renames it,
+    so a process that finds the library finds it whole (what the JAX
+    package's in-place ``make`` does not give, C10)."""
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
+    seen = []
+    real_run = subprocess.run
+
+    def run(cmd, *a, **kw):
+        out = cmd[cmd.index("-o") + 1]
+        r = real_run(cmd, *a, **kw)
+        seen.append((out, os.path.exists(native.library_path())))
+        return r
+    monkeypatch.setattr(native.subprocess, "run", run)
+    path = native.build()
+    assert len(seen) == 1
+    out, final_existed = seen[0]
+    assert out != path and out.endswith(".tmp") and not final_existed
+    assert os.path.isfile(path) and not os.path.exists(out)

@@ -7,6 +7,7 @@ cross-checks: ``diagnose`` and ``to_chrome_trace`` give the JAX package's
 output on the same merged record, ``ucc_fr`` refuses the JAX package's
 dumps, and device rounds leave dev_launch/dev_ready on the wire ring."""
 import json
+import os
 import time
 
 import numpy as np
@@ -561,11 +562,42 @@ class TestFlightTools:
         rec = json.loads(capsys.readouterr().out.splitlines()[-1])
         assert rec["culprit_ranks"] == [1] and rec["stuck_seqs"]
 
-    def test_collector_modes_refused(self, tmp_path, capsys):
+    def test_collector_modes_refused(self, tmp_path, capsys, monkeypatch):
+        """The name is historical: the collector's modes ran refused until
+        the collector was ported. ``--feedback-smoke`` now runs its
+        closed loop (the pinned rank flagged within two windows,
+        selection off the ring, the p99 down) and leaves no TUNE behind,
+        and a trace-store directory merges (only this package's records:
+        a store of the JAX package's alone has no flight records)."""
+        from ucc_tpu.obs import collector as jcol
+        from ucc_tpu_torch.obs import collector
         from ucc_tpu_torch.tools.fr import main
-        assert main(["--feedback-smoke"]) == 2
-        assert main([str(tmp_path)]) == 2
-        assert "8b" in capsys.readouterr().err
+        monkeypatch.setenv("UCC_TL_SHM_TUNE", "")
+        monkeypatch.delenv("UCC_TL_SHM_TUNE")
+        knobs = dict(vars(collector.KNOBS))
+        try:
+            assert main(["--feedback-smoke"]) == 0
+        finally:
+            collector.configure(**knobs)
+        rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert rec["flagged"] == [1] and rec["windows_to_flag"] <= 2
+        assert rec["pre_alg"] == "ring" and rec["post_alg"] != "ring"
+        assert rec["post_p99_ms"] < rec["pre_p99_ms"] and rec["ok"]
+        assert "UCC_TL_SHM_TUNE" not in os.environ
+        store = tmp_path / "store"
+        st = collector.TraceStore(str(store), 1 << 20, 2)
+        st.append({"version": diagnose.DUMP_VERSION, "kind": "flight_merged",
+                   "reason": "collect", "ranks": {
+                       str(r): {"rank": r, "events": [], "wire": []}
+                       for r in range(2)}})
+        st.append({"version": diagnose.DUMP_VERSION,
+                   "kind": "collect_summary", "flagged": []})
+        assert main([str(store), "--tail", "1"]) == 0
+        assert "2 rank(s)" in capsys.readouterr().out
+        jstore = tmp_path / "jax"
+        jcol.TraceStore(str(jstore), 1 << 20, 2).append(
+            {"version": 1, "kind": "flight_merged", "ranks": {}})
+        assert main([str(jstore)]) == 1
 
 
 class TestWatchdogFlightFoldIn:

@@ -34,6 +34,25 @@ def env(**values):
                 os.environ[k] = v
 
 
+def reference_core():
+    """The JAX package's native core, loaded as a fresh process loads it.
+
+    Its build (``ucc_tpu/native.py``: ``make -C native`` when the library
+    is missing or stale) takes no lock across processes and links the
+    library in place, so a worker of a parallel run that loads it while
+    another worker is still linking it gets "file too short" from dlopen
+    and, its ``get_lib`` caching the attempt, runs the Python matcher for
+    the rest of its life: no ``+plan`` rows, no pooled rows, the drills'
+    matcher "python" (ROADMAP C10). The port's comparisons need the
+    reference as it runs: retry such a failed load (once the file is
+    whole it loads; a build that really fails fails again)."""
+    from ucc_tpu import native as jn
+    with jn._LOCK:
+        if jn._TRIED and jn._LIB is None and jn._native_enabled():
+            jn._TRIED = False
+    return jn.get_lib()
+
+
 def ref_buf(arr, dt):
     if arr is None:
         return None
@@ -50,6 +69,8 @@ class Job:
                  **ctx_env):
         self.mod = mod
         self.n = n
+        if mod.__name__ == "ucc_tpu":
+            reference_core()
         self.tune_var = tune_var
         world = mod.ThreadOobWorld(n)
         libs = [mod.init(TLS=tls) for _ in range(n)]

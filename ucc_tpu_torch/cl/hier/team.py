@@ -163,9 +163,9 @@ class ClHierTeam(BaseTeam):
         # leader demotion: CONTEXT ranks the team agreed to flag at its
         # bootstrap (``boot_flagged_ctx``, the same set on every member)
         # are pushed out of leader positions at every tree level; a
-        # flagged rank still takes part in its level-0 unit. Nothing sets
-        # the set in this package yet (it comes with the telemetry
-        # collector), so no rank is demoted.
+        # flagged rank still takes part in its level-0 unit. The set is
+        # the union of the members' collector views (obs/collector.py),
+        # empty when UCC_COLLECT is off.
         demote = set()
         flagged_ctx = getattr(core_team, "boot_flagged_ctx", None)
         if flagged_ctx:

@@ -550,7 +550,14 @@ def collective_init(args: CollArgs, team: Team) -> CollRequest:
     msgsize = coll_args_msgsize(args, team.size, team.rank)
     init_args = InitArgs(args=args, team=team, mem_type=mem_type,
                          msgsize=msgsize)
-    candidates = team.score_map.lookup(ct, mem_type, msgsize)
+    bias = team.rank_bias
+    if bias is not None:
+        # promote a staged straggler table at its deterministic switch
+        # index: every rank ticks here in program order over the same
+        # flight_seq sequence, so the flagged set (and the candidate
+        # order below) changes on the same post everywhere
+        bias.tick(team.flight_seq)
+    candidates = team.score_map.lookup(ct, mem_type, msgsize, bias=bias)
     task, chosen = team.score_map.init_coll(ct, mem_type, msgsize, init_args,
                                             candidates)
     task.coll_name = coll_type_str(ct)

@@ -75,6 +75,8 @@ class Context:
     #: (core/coalesce.py maybe_attach; None until the first attach, so the
     #: UCC_COALESCE=n progress loop pays one attribute check)
     _open_coalescers = None
+    #: the telemetry collector (set at the end of __init__)
+    collector = None
 
     def __init__(self, lib: Lib, params: Optional[ContextParams] = None):
         self.lib = lib
@@ -158,6 +160,13 @@ class Context:
         for h in self.tl_contexts.values():
             h.obj.create_epilog()
 
+        #: continuous telemetry collector (obs/collector.py, UCC_COLLECT,
+        #: off by default): owns the window timer thread; its transport
+        #: work runs from progress(). None when off, and progress() and
+        #: destroy() test the attribute once
+        from ..obs import collector as _collector
+        self.collector = _collector.maybe_create(self)
+
         self._team_id_counter = 1
         self._destroyed = False
         self._mem_maps: Dict[int, Any] = {}
@@ -193,7 +202,13 @@ class Context:
             now = time.monotonic()
             for coal in oc:
                 coal.step(now)
-        return self.progress_queue.progress()
+        n = self.progress_queue.progress()
+        col = self.collector
+        if col is not None:
+            # the collection exchanges run HERE, single-threaded with the
+            # transport: the collector thread only marks windows due
+            col.step()
+        return n
 
     def create_team_post(self, params) -> "Any":
         from .team import Team
@@ -254,6 +269,8 @@ class Context:
     def destroy(self) -> Status:
         if self._destroyed:
             return Status.OK
+        if self.collector is not None:
+            self.collector.stop()
         for h in self.tl_contexts.values():
             h.obj.destroy()
         if self._mem_maps:

@@ -29,6 +29,94 @@ GLOBAL_CONFIG = register_table(ConfigTable(prefix="", name="global", fields=[
     ConfigField("LOG_LEVEL", "warn", "ucc log level", parse_string),
     ConfigField("COLL_TRACE", "n", "log every collective init/post with the "
                 "selected CL/TL", parse_bool),
+    # the knobs below are read from the environment at import by the
+    # modules that use them (utils/profiling, obs/, fault/, core/team,
+    # core/oob), so that the off path costs nothing; listed here so that
+    # `ucc_info -cf` documents them
+    ConfigField("PROFILE_MODE", "", "profiling mode: log,accum", parse_string),
+    ConfigField("STATS", "n", "enable the metrics registry "
+                "(counters/gauges/log2 histograms keyed by component/"
+                "collective/algorithm); dumped at exit, on SIGUSR2, and "
+                "every STATS_INTERVAL; read by the ucc_stats tool",
+                parse_bool),
+    ConfigField("STATS_FILE", "ucc_stats.json", "metrics dump file "
+                "(JSON lines, one snapshot per dump)", parse_string),
+    ConfigField("STATS_INTERVAL", "0", "seconds between periodic metric "
+                "dumps (0 = exit/SIGUSR2 only)", parse_string),
+    ConfigField("WATCHDOG_TIMEOUT", "0", "stall watchdog soft deadline in "
+                "seconds: any task IN_PROGRESS longer triggers a one-shot "
+                "diagnostic state dump (collective, algorithm, round, "
+                "outstanding peers/tags, team state positions); 0 = off",
+                parse_string),
+    ConfigField("WATCHDOG_FILE", "ucc_watchdog.json", "watchdog state-dump "
+                "file (JSON lines)", parse_string),
+    ConfigField("WATCHDOG_ACTION", "dump", "escalation ladder: dump = "
+                "diagnose only; cancel = also cancel tasks stuck past the "
+                "hard deadline with ERR_TIMED_OUT (unwinds posted transport "
+                "ops); abort = cancel EVERY in-flight task once one "
+                "crosses the hard deadline and fail stalled team creates",
+                parse_string),
+    ConfigField("WATCHDOG_HARD_TIMEOUT", "0", "hard deadline in seconds "
+                "for the cancel/abort watchdog actions (0 = 2x "
+                "WATCHDOG_TIMEOUT)", parse_string),
+    ConfigField("FAULT", "", "fault-injection spec (deterministic failure "
+                "drills): drop=P,delay=P:S,delay_rank=R,error=P,"
+                "post_error=P,kill=R[+R..],corrupt=P,corrupt_rank=R; "
+                "empty = off (zero cost)", parse_string),
+    ConfigField("FAULT_SEED", "0", "RNG seed for UCC_FAULT decisions: the "
+                "same seed + spec replays the same drill", parse_string),
+    ConfigField("FT", "none", "rank-failure recovery mode: none = failures "
+                "are bounded but terminal (zero cost); shrink = peer "
+                "liveness + failure agreement + Team.shrink: survivors "
+                "observe ERR_RANK_FAILED naming the dead ranks, agree on "
+                "the failed set and recovery epoch, and rebuild the team "
+                "without them (old-epoch traffic is fenced at the "
+                "transport)", parse_string),
+    ConfigField("HEARTBEAT_INTERVAL", "0.05", "seconds between liveness "
+                "heartbeats published from each context's progress loop "
+                "(UCC_FT=shrink only)", parse_string),
+    ConfigField("HEARTBEAT_TIMEOUT", "2.0", "seconds without a peer "
+                "heartbeat before the peer is declared failed and "
+                "in-flight collectives depending on it are cancelled "
+                "with ERR_RANK_FAILED (UCC_FT=shrink only)",
+                parse_string),
+    ConfigField("FT_GROW_TIMEOUT", "30.0", "seconds a Team.grow waits for "
+                "every invited joiner to bootstrap before rolling back "
+                "(ERR_TIMED_OUT naming the absent joiner; the pre-grow "
+                "team stays usable)", parse_string),
+    ConfigField("FT_AGREE_GRACE", "3", "bounded deadline extensions a "
+                "fault-agreement round grants a pending peer whose "
+                "heartbeat is still fresh: slow but live ranks are not "
+                "condemned by the round timer alone (0 = the timer "
+                "alone)", parse_string),
+    ConfigField("OOB_CONNECT_BACKOFF_BASE", "0.05", "initial TCP-store OOB "
+                "connect retry backoff in seconds (exponential, full "
+                "jitter)", parse_string),
+    ConfigField("OOB_CONNECT_BACKOFF_MAX", "2.0", "TCP-store OOB connect "
+                "retry backoff cap in seconds", parse_string),
+    ConfigField("OOB_BOOTSTRAP_TIMEOUT", "120", "TCP-store OOB server-side "
+                "bootstrap deadline in seconds: after it, registered "
+                "ranks are failed with ERR_TIMED_OUT naming the absent "
+                "ranks instead of hanging the job (<=0 = wait forever)",
+                parse_string),
+    ConfigField("OOB_TREE", "auto", "bootstrap store topology: n = one "
+                "flat store every rank connects to (O(n) server fan-in); "
+                "y = tree-structured exchange (per-node leader stores + "
+                "radix-bounded parent stores, O(log n) rounds and "
+                "max(ppn, radix) fan-in per server; every store binds "
+                "the coordinator host, so y asserts a single-host job); "
+                "auto = tree from OOB_TREE_THRESH ranks up, loopback "
+                "coordinators only", parse_string),
+    ConfigField("OOB_TREE_PPN", "", "ranks-per-node shape of the "
+                "bootstrap tree: an int (nodes of N) or a cyclic comma "
+                "list of node sizes; empty = ranks_per_proc under "
+                "bootstrap.World, else radix-sized blocks", parse_string),
+    ConfigField("OOB_TREE_RADIX", "8", "max members per upper-level "
+                "bootstrap store (leader-of-leaders group size)",
+                parse_string),
+    ConfigField("OOB_TREE_THRESH", "32", "team size from which "
+                "UCC_OOB_TREE=auto switches the TCP bootstrap onto the "
+                "tree exchange", parse_string),
     # read from the environment by topo/proc_info.py at context create;
     # listed here so config dumps document them
     ConfigField("TOPO_FAKE_PPN", "", "simulated topology: group context "

@@ -99,6 +99,15 @@ class Team:
     #: host TL; None (class attr, no cost) otherwise, so the off path
     #: dispatches as it would without the coalescer
     coalescer = None
+    #: straggler feedback table (obs/collector.RankBias), attached when
+    #: the continuous collector watches this team; None (class attr, no
+    #: cost) otherwise — dispatch ticks and consults it per INIT
+    rank_bias = None
+    #: CONTEXT ranks flagged slow at team create (the union of every
+    #: member's collector view, agreed over the address exchange):
+    #: cl/hier demotes them from hier-tree leader positions. Empty for
+    #: ep_map teams, which skip the exchange
+    boot_flagged_ctx = frozenset()
 
     def __init__(self, context: Context, params: Optional[TeamParams] = None):
         self.context = context
@@ -188,8 +197,14 @@ class Team:
             if self.rank == 0:
                 leader_counter = self.context._team_id_counter
                 self.context._team_id_counter += 1
+            # this member's collector view of flagged CONTEXT ranks rides
+            # the round the team already pays for: every member sees the
+            # same entries, so the union agrees by construction and
+            # cl/hier can demote flagged ranks from leader positions
+            col = self.context.collector
+            flagged = tuple(sorted(col.flagged_ctx())) if col else ()
             payload = pickle.dumps((self.context.rank, leader_counter,
-                                    self.context.proc[1]))
+                                    self.context.proc[1], flagged))
             self._pending_req = self.oob.allgather(payload)
         else:
             # no per-team OOB: the ep_map alone defines membership. The
@@ -230,8 +245,15 @@ class Team:
                 self._pending_req = None
                 self.ctx_map = EpMap.from_array([e[0] for e in entries])
                 leader = entries[0]
+                # the key stays (members, counter, pid): the flagged
+                # piggyback must NOT enter the tag space's identity, or
+                # two creates either side of a flag change would key
+                # differently across ranks
                 self.team_key = (tuple(int(e[0]) for e in entries),
                                  leader[1], leader[2])
+                flagged = frozenset(int(r) for e in entries for r in e[3])
+                if flagged:
+                    self.boot_flagged_ctx = flagged
             self.state = TeamState.SERVICE_TEAM
 
         if self.state == TeamState.SERVICE_TEAM:
@@ -307,6 +329,17 @@ class Team:
             except Exception:  # noqa: BLE001
                 logger.exception("coalescer attach failed; team %s "
                                  "continues uncoalesced", self.id)
+            # continuous telemetry: register with the context's collector
+            # (None unless UCC_COLLECT=y); windows start only once the
+            # team can carry the exchange
+            col = self.context.collector
+            if col is not None:
+                try:
+                    col.watch(self)
+                except Exception:  # noqa: BLE001 - telemetry must never
+                    # fail an otherwise activated team
+                    logger.exception("collector watch failed; team %s "
+                                     "continues unwatched", self.id)
 
         if self.state == TeamState.ACTIVE:
             return Status.OK
@@ -812,9 +845,27 @@ class ShrinkRequest:
             if st.is_error:
                 self.status = st
                 return st
+            # telemetry across the change: the collector's straggler
+            # state (scores, flags) moves to the successor instead of
+            # being learned again each epoch
+            _collector_handoff(team, self.new_team)
             self._state = "done"
             self.status = Status.OK
         return self.status
+
+
+def _collector_handoff(old_team: Team, new_team: Team) -> None:
+    """Carry the collector's straggler state from a retired team to its
+    successor after a membership change (best effort: telemetry never
+    fails a rebuild)."""
+    col = old_team.context.collector
+    if col is None:
+        return
+    try:
+        col.handoff(old_team, new_team)
+    except Exception:  # noqa: BLE001 - telemetry continuity is advisory
+        logger.exception("collector handoff failed; successor team %s "
+                         "restarts telemetry cold", new_team.id)
 
 
 def _grow_timeout() -> float:
@@ -1062,6 +1113,7 @@ class GrowRequest:
                               f"admit={self._admit}")
             if metrics.ENABLED:
                 metrics.inc("team_grows", component="core")
+            _collector_handoff(team, self.new_team)
             self._state = "done"
             self.status = Status.OK
         return self.status

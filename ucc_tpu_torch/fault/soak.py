@@ -19,6 +19,11 @@ one rank (or one whole OS process) dies, every survivor must end
 ERR_RANK_FAILED naming it, agree, shrink, and run a checked matrix on
 the shrunk team.
 
+``run_churn_soak`` drills elastic membership: kill -> shrink ->
+grow(rejoin) cycles with collectives in flight on every epoch, a
+false-suspicion round, and checked collectives on the final team; with
+``device`` its collectives are allreduces on device memory.
+
 ``run_corrupt_soak`` drills integrity: one rank corrupts every payload it
 sends; wire checksums must detect and attribute every round, the strike
 ledger must quarantine the corruptor, and the shrunk team must run a
@@ -26,6 +31,10 @@ checked matrix. ``run_multi_tenant_soak`` drills the multi-tenant service:
 teams of mixed priority (bulk tenants coalescing) share one progress
 engine while a rank is killed mid-traffic; every tenant shrinks, grows
 the rank back and runs checked mixed traffic.
+
+``collect`` runs the telemetry collector (obs/collector.py) beside the
+probabilistic soak and the churn; their reports gain a ``collector``
+section.
 
 Runnable standalone::
 
@@ -35,9 +44,8 @@ Runnable standalone::
     python -m ucc_tpu_torch.fault.soak --procs 2 --ranks 4
     python -m ucc_tpu_torch.fault.soak --corrupt [--corrupt-rank R]
     python -m ucc_tpu_torch.fault.soak --multi
-
-The churn drill of the JAX package needs the telemetry collector, which
-this package does not have yet; its mode is refused.
+    python -m ucc_tpu_torch.fault.soak --churn --cycles 2 [--plans] \
+        [--collect]
 """
 from __future__ import annotations
 
@@ -98,14 +106,36 @@ def _make_team(ctxs, deadline_s: float = 30.0):
             raise TimeoutError("soak team create timed out")
 
 
+def _device_allreduce_args(rank: int, count: int, bufs: Dict, device):
+    """The device form of the matrix: a SUM allreduce of *count* f32 of
+    value rank + 1 in tensors on *device*, passed as CUDA memory (a CPU
+    tensor runs the device TLs' plain versions)."""
+    import torch
+
+    from ucc_tpu_torch import (BufferInfo, CollArgs, CollType, DataType,
+                               MemoryType, ReductionOp)
+    src = torch.full((count,), rank + 1.0, dtype=torch.float32,
+                     device=device)
+    dst = bufs.setdefault(rank, {}).setdefault(
+        "ar", torch.zeros(count, dtype=torch.float32, device=device))
+    return CollArgs(coll_type=CollType.ALLREDUCE,
+                    src=BufferInfo(src, count, DataType.FLOAT32,
+                                   mem_type=MemoryType.CUDA),
+                    dst=BufferInfo(dst, count, DataType.FLOAT32,
+                                   mem_type=MemoryType.CUDA),
+                    op=ReductionOp.SUM)
+
+
 def _coll_args(coll: str, rank: int, n: int, count: int, bufs: Dict,
-               timeout_s: float):
+               timeout_s: float, device=None):
     from ucc_tpu_torch import (BufferInfo, CollArgs, CollArgsFlags, CollType,
                         DataType, ReductionOp)
     flags = CollArgsFlags.TIMEOUT
     if coll == "barrier":
         return CollArgs(coll_type=CollType.BARRIER, flags=flags,
                         timeout=timeout_s)
+    if device is not None:
+        return _device_allreduce_args(rank, count, bufs, device)
     src = np.full(count, rank + 1.0, np.float64)
     if coll == "allreduce":
         dst = bufs.setdefault(rank, {}).setdefault(
@@ -156,17 +186,22 @@ def run_soak(n_ranks: int = 4, iterations: int = 200,
              spec: str = _DEFAULT_SPEC, seed: int = 0,
              coll_timeout_s: float = 0.5, iter_deadline_s: float = 10.0,
              count: int = 64,
-             matrix=DEFAULT_MATRIX) -> Dict:
+             matrix=DEFAULT_MATRIX, collect: bool = False) -> Dict:
     """Run the drill; returns a report dict:
 
     ``iterations`` run, per-outcome ``outcomes`` counts (terminal
     statuses by name), ``hangs`` (iterations where some rank was still
     IN_PROGRESS at the deadline — MUST be empty), ``injected`` decision
-    counts, ``teams_recreated``.
+    counts, ``teams_recreated``. With ``collect`` the telemetry
+    collector runs beside the drill (its window exchanges soak under the
+    same injected drops, delays and errors) and the report gains a
+    ``collector`` section: the windows that closed and the union of the
+    context ranks the straggler scorer flagged.
     """
     from ucc_tpu_torch import Status
 
     inject.reset()
+    prev_knobs = _collect_on() if collect else None
     ctxs = _make_job(n_ranks)
     teams = _make_team(ctxs)
     report: Dict = {"iterations": 0, "outcomes": {}, "hangs": [],
@@ -230,6 +265,8 @@ def run_soak(n_ranks: int = 4, iterations: int = 200,
     finally:
         report["injected"] = dict(inject.COUNTS)   # before reset zeroes it
         inject.reset()
+        if collect:
+            report["collector"] = _collector_section(ctxs)
         for t in teams:
             try:
                 t.destroy()
@@ -240,7 +277,47 @@ def run_soak(n_ranks: int = 4, iterations: int = 200,
                 c.destroy()
             except Exception:  # noqa: BLE001
                 pass
+        if prev_knobs is not None:
+            _collect_off(prev_knobs)
     return report
+
+
+def _collect_on():
+    """Arm the telemetry collector and the flight recorder BEFORE the
+    contexts (the service is made in Context.__init__), with no store on
+    disk: the drills want the scorer and the bias under fire. Returns
+    the knobs to restore."""
+    from ..obs import collector as _collector
+    from ..obs import flight as _flight
+    prev = (_collector.KNOBS.enabled, _collector.KNOBS.interval,
+            _collector.KNOBS.dir, _flight.ENABLED)
+    _flight.configure(enabled=True)
+    _collector.configure(enabled=True, interval=0.25, dir="")
+    return prev
+
+
+def _collect_off(prev) -> None:
+    from ..obs import collector as _collector
+    from ..obs import flight as _flight
+    _collector.configure(enabled=prev[0], interval=prev[1], dir=prev[2])
+    _flight.configure(enabled=prev[3])
+
+
+def _collector_section(ctxs) -> Dict:
+    """The report's ``collector`` section: windows closed (the most of
+    any context) and the flagged context ranks of every context."""
+    flagged: set = set()
+    windows = 0
+    for c in ctxs:
+        col = c.collector
+        if col is None:
+            continue
+        try:
+            flagged |= set(col.flagged_ctx())
+            windows = max(windows, col.windows_run())
+        except Exception:  # noqa: BLE001 - reporting only
+            pass
+    return {"windows": windows, "flagged_ctx": sorted(flagged)}
 
 
 def _recreate(teams, ctxs, report):
@@ -950,13 +1027,15 @@ def _probe_stale_send_fence(old_team, report) -> None:
 
 
 def _drive_iter(ctxs, teams, coll, n, count, bufs, deadline_s, report,
-                phase, rank_labels, check=False):
+                phase, rank_labels, check=False, device=None):
     """Post one matrix collective on every team member, drive to
     terminal, record outcomes; flags hangs and (optionally) failures as
-    violations."""
+    violations. With *device* the collective is the device allreduce
+    (``_device_allreduce_args``), its result checked the same way."""
     import numpy as np
     from ucc_tpu_torch import Status
-    reqs = [t.collective_init(_coll_args(coll, r, n, count, bufs, 0.0))
+    reqs = [t.collective_init(_coll_args(coll, r, n, count, bufs, 0.0,
+                                         device=device))
             for r, t in enumerate(teams)]
     for rq in reqs:
         rq.post()
@@ -992,6 +1071,8 @@ def _drive_iter(ctxs, teams, coll, n, count, bufs, deadline_s, report,
             expected = sum(g + 1.0 for g in range(n))
             for g in range(n):
                 got = bufs[g]["ar"]
+                if device is not None:
+                    got = got.double().cpu().numpy()
                 if not np.allclose(got, expected):
                     report["violations"].append(
                         f"{phase} iter {coll}: rank {g} wrong result "
@@ -1271,6 +1352,323 @@ def _drive_requests(ctxs, reqs, deadline_s: float) -> bool:
         if all(st != Status.IN_PROGRESS for st in sts):
             return True
     return False
+
+
+# ---------------------------------------------------------------------------
+# churn: kill -> shrink -> grow(rejoin) cycles (elastic membership drill)
+# ---------------------------------------------------------------------------
+
+def run_churn_soak(n_ranks: int = 4, cycles: int = 2,
+                   iters_per_epoch: int = 4, post_iters: int = 60,
+                   hb_interval: float = 0.02, hb_timeout: float = 0.3,
+                   iter_deadline_s: float = 15.0,
+                   membership_deadline_s: float = 30.0,
+                   count: int = 64, matrix=DEFAULT_MATRIX,
+                   plans: bool = False, collect: bool = False,
+                   device: Optional[str] = None) -> Dict:
+    """The elastic-membership drill: *cycles* interleaved
+    kill -> detect -> shrink -> grow(rejoin) rounds with matrix
+    collectives in flight on EVERY epoch, then a false-suspicion round (a
+    live rank is excluded by hint and re-admitted through the join path)
+    and *post_iters* checked collectives on the final team.
+
+    Checked invariants (anything else lands in ``violations``):
+
+    - no rank is ever left IN_PROGRESS past a deadline (no hang);
+    - every survivor observes ERR_RANK_FAILED naming the killed rank;
+    - shrink and grow converge to one (membership, epoch) view;
+    - the epoch fence discards stale traffic in BOTH directions
+      (``fenced`` counts a pre-shrink send killed by the shrink fence and
+      a pre-grow send killed by the grow fence, per cycle);
+    - the falsely suspected rank is re-admitted: revived out of the
+      survivors' dead sets and serving checked collectives on the new
+      epoch (``readmitted``);
+    - the final membership is the initial one and *post_iters*
+      collectives complete correctly on it (``post_churn_ok``).
+
+    *device* (``"cuda"``, or ``"cpu"`` for the device TLs' plain
+    versions) makes every collective an allreduce of f32 tensors on that
+    device in CUDA memory (the matrix is then allreduce alone), checked
+    against the exact sum; its teams are set up under
+    ``_SETUP_HB_TIMEOUT`` and *hb_timeout* is armed once every context
+    has beaten (a card's first work can hold one progress pass longer
+    than the drill's timeout, as in the multi-tenant drill).
+    """
+    from ucc_tpu_torch import Status
+    from ucc_tpu_torch.core.team import Team
+
+    from . import health
+
+    if device is not None:
+        matrix = ("allreduce",)
+    inject.reset()
+    prev_mode, prev_int, prev_to = (health.MODE, health.HEARTBEAT_INTERVAL,
+                                    health.HEARTBEAT_TIMEOUT)
+    health.configure("shrink", interval=hb_interval,
+                     timeout=_SETUP_HB_TIMEOUT if device else hb_timeout)
+    plan_env = None
+    if plans:
+        # native-matcher mode: the allreduces ride the generated native
+        # plans, so both fence directions are drilled against the C
+        # matcher rather than the Python mailbox
+        plan_env = {k: os.environ.get(k)
+                    for k in ("UCC_GEN_NATIVE", "UCC_TL_SHM_TUNE")}
+        os.environ["UCC_GEN_NATIVE"] = "y"
+        os.environ["UCC_TL_SHM_TUNE"] = "allreduce:@ring:inf"
+    prev_knobs = _collect_on() if collect else None
+    ctxs = _make_job(n_ranks)
+    teams = _make_team(ctxs)
+    if device is not None:
+        for c in ctxs:
+            c.progress()
+        health.configure("shrink", interval=hb_interval, timeout=hb_timeout)
+    report: Dict = {"cycles": 0, "violations": [], "outcomes": {},
+                    "fenced": {"shrink": 0, "grow": 0},
+                    "epochs": [], "post_churn_ok": 0,
+                    "readmitted": False, "matcher": None,
+                    "injected": {}}
+    bufs: Dict = {}
+    all_teams: List = list(teams)    # every team ever built, for teardown
+
+    def _note_injected():
+        for k, v in dict(inject.COUNTS).items():
+            report["injected"][k] = report["injected"].get(k, 0) + v
+
+    def _probe(old_team, direction: str):
+        # the shrink probe posts into epoch 0, the tag space before any
+        # change, so it tests the fence whichever change retired the team
+        sub: Dict = {"violations": [], "stale_send_fenced": None,
+                     "matcher": None}
+        _probe_stale_send_fence(old_team, sub)
+        if sub["matcher"] is not None:
+            report["matcher"] = sub["matcher"]
+        if sub["stale_send_fenced"]:
+            report["fenced"][direction] += 1
+        for v in sub["violations"]:
+            report["violations"].append(f"{direction} fence: {v}")
+
+    def _iters(cs, ts, n, bufs_, phase, labels, k, check=False):
+        for it in range(k):
+            before = len(report["violations"])
+            _drive_iter(cs, ts, matrix[it % len(matrix)], n, count, bufs_,
+                        iter_deadline_s, report, phase, labels,
+                        check=check, device=device)
+            if check and len(report["violations"]) == before:
+                report["post_churn_ok"] += 1
+
+    def _membership_change(cur, dead_team_rank, dead_ctx, hint=False):
+        """One shrink(+probe) -> iters -> grow(rejoin)(+probe) -> iters
+        round. *cur* maps ctx index -> its current Team; returns the
+        next such map (full membership again) or None on failure."""
+        survivors = sorted(i for i in cur if i != dead_team_rank)
+        shrinks = {}
+        for i in survivors:
+            try:
+                # dead_hint is in TEAM ranks; after the first grow the
+                # joiner sits at the tail, so team rank != ctx rank
+                t = cur[i]
+                hint_ranks = [r for r in range(t.size)
+                              if int(t.ctx_map.eval(r)) == dead_ctx] \
+                    if hint else None
+                shrinks[i] = t.shrink_post(dead_hint=hint_ranks)
+            except Exception as e:  # noqa: BLE001
+                report["violations"].append(
+                    f"ctx {i} shrink_post raised {type(e).__name__}: {e}")
+                return None
+        sctxs = [ctxs[i] for i in survivors]
+        if not _drive_requests(sctxs, list(shrinks.values()),
+                               membership_deadline_s):
+            report["violations"].append(
+                f"shrink (dead ctx {dead_ctx}) hung past "
+                f"{membership_deadline_s}s")
+            return None
+        views = set()
+        for i, sr in shrinks.items():
+            st = sr.test()
+            if st != Status.OK:
+                report["violations"].append(
+                    f"ctx {i} shrink failed: {st.name}")
+                return None
+            views.add((tuple(sr.failed_ranks or ()), sr.epoch))
+        if len(views) > 1:
+            report["violations"].append(f"shrink views diverged: {views}")
+            return None
+        report["epochs"].append(next(iter(views))[1])
+        _probe(cur[survivors[0]], "shrink")
+        shrunk = {i: shrinks[i].new_team for i in survivors}
+        _iters(sctxs, [shrunk[i] for i in survivors], len(survivors), {},
+               f"shrunk-e{report['epochs'][-1]}", survivors,
+               iters_per_epoch)
+        all_teams.extend(shrunk.values())
+        # the excluded rank comes back: clear the drill fault, retire its
+        # stale pre-shrink team, and re-admit it through the join path
+        _note_injected()
+        inject.reset()
+        try:
+            cur[dead_team_rank].destroy()
+        except Exception:  # noqa: BLE001
+            pass
+        grows = {}
+        for i in survivors:
+            try:
+                grows[i] = shrunk[i].grow_post([dead_ctx])
+            except Exception as e:  # noqa: BLE001
+                report["violations"].append(
+                    f"ctx {i} grow_post raised {type(e).__name__}: {e}")
+                return None
+        try:
+            join = Team.join_post(ctxs[dead_team_rank])
+        except Exception as e:  # noqa: BLE001
+            report["violations"].append(
+                f"ctx {dead_team_rank} join_post raised "
+                f"{type(e).__name__}: {e}")
+            return None
+        if not _drive_requests(ctxs, list(grows.values()) + [join],
+                               membership_deadline_s):
+            report["violations"].append(
+                f"grow (rejoin ctx {dead_ctx}) hung past "
+                f"{membership_deadline_s}s")
+            return None
+        gviews = set()
+        for i, g in grows.items():
+            st = g.test()
+            if st != Status.OK:
+                report["violations"].append(
+                    f"ctx {i} grow failed: {st.name}")
+                return None
+            gviews.add(g.epoch)
+        if join.test() != Status.OK:
+            report["violations"].append(
+                f"ctx {dead_team_rank} join failed: {join.test().name}")
+            return None
+        gviews.add(join.epoch)
+        if len(gviews) > 1:
+            report["violations"].append(f"grow epochs diverged: {gviews}")
+            return None
+        report["epochs"].append(next(iter(gviews)))
+        _probe(shrunk[survivors[0]], "grow")
+        nxt = {i: grows[i].new_team for i in survivors}
+        nxt[dead_team_rank] = join.new_team
+        all_teams.extend(nxt.values())
+        order = sorted(nxt)
+        _iters([ctxs[i] for i in order], [nxt[i] for i in order],
+               len(order), {}, f"grown-e{report['epochs'][-1]}", order,
+               iters_per_epoch)
+        return nxt
+
+    cur = {i: teams[i] for i in range(n_ranks)}
+    try:
+        # -- kill -> shrink -> grow cycles ----------------------------
+        for cyc in range(cycles):
+            kill_team_rank = 1 + (cyc % (n_ranks - 1))
+            killed_ctx = ctxs[kill_team_rank].rank
+            inject.configure(f"kill={killed_ctx}", seed=cyc)
+            survivors = sorted(i for i in cur if i != kill_team_rank)
+            # a collective across the kill: every survivor must reach
+            # ERR_RANK_FAILED naming the dead rank, nobody parks
+            reqs = {}
+            for i in survivors:
+                try:
+                    reqs[i] = cur[i].collective_init(
+                        _coll_args("allreduce", i, n_ranks, count, bufs,
+                                   0.0, device=device))
+                    reqs[i].post()
+                except Exception as e:  # noqa: BLE001
+                    report["violations"].append(
+                        f"cycle {cyc}: survivor {i} post raised "
+                        f"{type(e).__name__}: {e}")
+            deadline = time.monotonic() + iter_deadline_s
+            while time.monotonic() < deadline:
+                for i in survivors:
+                    ctxs[i].progress()
+                if all([rq.test() != Status.IN_PROGRESS
+                        for rq in reqs.values()]):
+                    break
+            for i, rq in reqs.items():
+                st = rq.test()
+                if st == Status.IN_PROGRESS:
+                    report["violations"].append(
+                        f"cycle {cyc}: survivor {i} IN_PROGRESS after "
+                        "kill")
+                    rq.task.cancel(Status.ERR_TIMED_OUT)
+                elif st != Status.ERR_RANK_FAILED:
+                    report["violations"].append(
+                        f"cycle {cyc}: survivor {i} saw {st.name}, not "
+                        "ERR_RANK_FAILED")
+                elif killed_ctx not in (rq.failed_ranks or []):
+                    report["violations"].append(
+                        f"cycle {cyc}: survivor {i} attribution "
+                        f"{rq.failed_ranks} misses ctx {killed_ctx}")
+                try:
+                    rq.finalize()
+                except Exception:  # noqa: BLE001
+                    pass
+            nxt = _membership_change(cur, kill_team_rank, killed_ctx)
+            if nxt is None:
+                return report
+            cur = nxt
+            report["cycles"] += 1
+
+        # -- false suspicion: exclude a LIVE rank, re-admit it --------
+        victim = n_ranks - 1
+        victim_ctx = ctxs[victim].rank
+        nxt = _membership_change(cur, victim, victim_ctx, hint=True)
+        if nxt is None:
+            return report
+        cur = nxt
+        readmitted = True
+        for i in cur:
+            if i == victim:
+                continue
+            reg = getattr(ctxs[i], "health", None)
+            if reg is not None and victim_ctx in reg.dead_set():
+                readmitted = False
+        if not readmitted:
+            report["violations"].append(
+                f"falsely-suspected ctx {victim_ctx} still in a "
+                "survivor dead set after rejoin")
+        report["readmitted"] = readmitted
+
+        # -- post-churn: checked collectives on the final epoch -------
+        if sorted(cur) != list(range(n_ranks)):
+            report["violations"].append(
+                f"post-churn membership {sorted(cur)} != full "
+                f"{list(range(n_ranks))}")
+            return report
+        order = sorted(cur)
+        _iters([ctxs[i] for i in order], [cur[i] for i in order], n_ranks,
+               {}, "post-churn", order, post_iters, check=True)
+    finally:
+        _note_injected()
+        inject.reset()
+        health.configure(prev_mode, interval=prev_int, timeout=prev_to)
+        if plan_env is not None:
+            for k, v in plan_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if collect:
+            report["collector"] = _collector_section(ctxs)
+        if report["fenced"]["shrink"] == 0 and report["cycles"]:
+            report["violations"].append(
+                "no pre-shrink send was fenced across the whole churn")
+        if report["fenced"]["grow"] == 0 and report["cycles"]:
+            report["violations"].append(
+                "no pre-grow send was fenced across the whole churn")
+        for t in all_teams:
+            try:
+                t.destroy()
+            except Exception:  # noqa: BLE001
+                pass
+        for c in ctxs:
+            try:
+                c.destroy()
+            except Exception:  # noqa: BLE001
+                pass
+        if prev_knobs is not None:
+            _collect_off(prev_knobs)
+    return report
 
 
 #: the heartbeat timeout (seconds) the multi-tenant drill sets up under
@@ -1621,14 +2019,6 @@ def run_multi_tenant_soak(n_ranks: int = 4, n_teams: int = 3,
     return report
 
 
-#: drills of the JAX package's soak that need modules this package does
-#: not have yet, with what each needs
-_LATER_MODES = {
-    "churn": "the telemetry collector's hand-off across epochs "
-             "(obs/collector, ROADMAP item 8b.3)",
-}
-
-
 def main(argv=None) -> int:
     import argparse
     import json
@@ -1640,11 +2030,23 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--coll-timeout", type=float, default=0.5)
     ap.add_argument("--iter-deadline", type=float, default=10.0)
+    ap.add_argument("--collect", action="store_true",
+                    help="run the continuous telemetry collector during "
+                    "the soak; the report gains a 'collector' section "
+                    "(windows closed, flagged context ranks)")
     ap.add_argument("--kill-shrink", action="store_true",
                     help="run the kill+shrink recovery drill instead of "
                     "the probabilistic soak (UCC_FT=shrink pipeline)")
     ap.add_argument("--kill-rank", type=int, default=2)
     ap.add_argument("--post-iters", type=int, default=60)
+    ap.add_argument("--churn", action="store_true",
+                    help="run the elastic-membership churn drill: "
+                    "interleaved kill->shrink->grow(rejoin) cycles with "
+                    "collectives in flight on every epoch, a false-"
+                    "suspicion re-admission round, and checked post-"
+                    "churn collectives (UCC_FT=shrink + Team.grow)")
+    ap.add_argument("--cycles", type=int, default=2,
+                    help="with --churn: kill->shrink->grow cycles to run")
     ap.add_argument("--procs", type=int, default=0,
                     help="run the cross-process kill+shrink drill: N OS "
                     "processes host --ranks ranks over one shared-memory "
@@ -1685,16 +2087,7 @@ def main(argv=None) -> int:
     ap.add_argument("--strikes", type=int, default=3,
                     help="with --corrupt: quarantine threshold "
                     "(UCC_INTEGRITY_STRIKES)")
-    for mode, needs in _LATER_MODES.items():
-        ap.add_argument(f"--{mode}", action="store_true",
-                        help=f"refused: needs {needs}")
     args = ap.parse_args(argv)
-    for mode, needs in _LATER_MODES.items():
-        if getattr(args, mode):
-            print(f"--{mode}: this drill needs {needs}, which "
-                  "ucc_tpu_torch does not have yet",
-                  file=sys.stderr)
-            return 2
     if args.procs:
         report = run_procs_kill_shrink(
             n_procs=args.procs,
@@ -1717,6 +2110,12 @@ def main(argv=None) -> int:
                                        kill_rank=args.kill_rank)
         print(json.dumps(report, indent=1))
         return 1 if report["violations"] else 0
+    if args.churn:
+        report = run_churn_soak(args.ranks, cycles=args.cycles,
+                                post_iters=args.post_iters,
+                                plans=args.plans, collect=args.collect)
+        print(json.dumps(report, indent=1))
+        return 1 if report["violations"] else 0
     if args.kill_shrink:
         report = run_kill_shrink_soak(args.ranks, args.kill_rank,
                                       post_iters=args.post_iters,
@@ -1724,7 +2123,8 @@ def main(argv=None) -> int:
         print(json.dumps(report, indent=1))
         return 1 if report["violations"] else 0
     report = run_soak(args.ranks, args.iterations, args.spec, args.seed,
-                      args.coll_timeout, args.iter_deadline)
+                      args.coll_timeout, args.iter_deadline,
+                      collect=args.collect)
     print(json.dumps(report, indent=1))
     return 1 if report["hangs"] else 0
 

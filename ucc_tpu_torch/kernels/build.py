@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -73,9 +73,14 @@ def _lib_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def build_all(sources: Sequence[str]) -> float:
+def build_all(sources: Sequence[str],
+              reports: Optional[Dict[str, str]] = None) -> float:
     """Compile every source that has no up-to-date library, all nvcc
-    processes started together. Returns the wall seconds spent."""
+    processes started together. Returns the wall seconds spent. With a
+    *reports* dict, nvcc also prints ptxas's resource report (``-Xptxas
+    -v``: registers, stack frame and spills per kernel instance) and each
+    compiled source's output lands under its name; a source whose library
+    was already built is not compiled and has none."""
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     todo = [(s, _lib_path(s)) for s in sources
@@ -85,7 +90,9 @@ def build_all(sources: Sequence[str]) -> float:
         procs: List = []
         for src, out in todo:
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+            verbose = ["-Xptxas", "-v"] if reports is not None else []
+            cmd = [nvcc, *NVCC_FLAGS, *verbose, "-o", tmp,
+                   os.path.join(CSRC, src)]
             procs.append((src, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failed = []
@@ -95,6 +102,8 @@ def build_all(sources: Sequence[str]) -> float:
                 failed.append(f"{src}:\n{log.decode(errors='replace')}")
                 continue
             os.replace(tmp, out)   # atomic: readers never see a partial .so
+            if reports is not None:
+                reports[src] = log.decode(errors="replace")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0

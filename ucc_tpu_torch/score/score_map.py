@@ -55,12 +55,22 @@ class ScoreMap:
         }
 
     def lookup(self, coll: CollType, mem: MemoryType,
-               msgsize: int) -> List[MsgRange]:
-        """All candidates whose range contains msgsize, best score first."""
+               msgsize: int, bias=None) -> List[MsgRange]:
+        """All candidates whose range contains msgsize, best score first.
+
+        ``bias`` is the team's RankBias (obs/collector.py) once the
+        collector has flagged stragglers: candidates whose critical path
+        serializes through a flagged rank (the ring family) go behind
+        every unpenalized one. The reorder is a function of the sorted
+        list and the flagged set alone, both the same on every rank at
+        the bias's switch index, so ranks keep one candidate order."""
         lst = self._sorted.get((coll, mem), [])
         # score 0 disables a candidate (`alltoall:0` in a tune string
         # disables the coll for that component)
-        return [r for r in lst if r.contains(msgsize) and r.score > 0]
+        out = [r for r in lst if r.contains(msgsize) and r.score > 0]
+        if bias is not None and getattr(bias, "flagged", None):
+            out = bias.reorder(out)
+        return out
 
     def init_coll(self, coll: CollType, mem: MemoryType, msgsize: int,
                   init_args,

@@ -490,14 +490,21 @@ class OnlineTuner:
     # -- decision -------------------------------------------------------
     def _local_winner(self, st: _KeyState
                       ) -> Tuple[Optional[Label], Optional[float]]:
-        """The lowest median sample (the port has no straggler collector,
-        so medians are not reweighted by flagged ranks)."""
+        """The lowest median sample, each median weighted by the
+        straggler feedback (obs/collector.RankBias.time_multiplier): a
+        ring-family winner measured before a straggler showed must beat
+        the others by the slowness factor to be frozen. Only rank 0's
+        winner is broadcast, so reading local state here cannot make
+        ranks diverge."""
+        bias = getattr(self.team, "rank_bias", None)
         best, best_t = None, None
         for label in sorted(st.samples):       # sorted: deterministic ties
             ts = sorted(st.samples[label])
             if not ts:
                 continue
             med = ts[len(ts) // 2]
+            if bias is not None and med != float("inf"):
+                med *= bias.time_multiplier(label[1])
             if med != float("inf") and (best_t is None or med < best_t):
                 best, best_t = label, med
         return best, best_t

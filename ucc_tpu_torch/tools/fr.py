@@ -17,12 +17,22 @@ detection or ``flight.collect_team``). Only records with this package's
 schema tag are read. The freshest merged record wins; otherwise local
 lines are merged latest-per-rank (obs/diagnose.merge_records).
 
+A directory argument is a collector trace store (``UCC_COLLECT_DIR``,
+obs/collector.py): its segments are merged, oldest first, and ``--tail
+N`` keeps the N freshest segments::
+
+    python -m ucc_tpu_torch.tools.fr ucc_traces/ --tail 50
+
 ``--smoke`` is the acceptance probe of the diagnosis: a 4-rank
 in-process host job runs allreduces under ``UCC_FAULT=delay`` pinned to
 one rank, collects the rings across ranks, and reports whether the
 diagnosis named that rank and the collectives it was slow in.
-``--feedback-smoke`` and trace-store directories need the telemetry
-collector (ROADMAP item 8b) and are refused.
+
+``--feedback-smoke`` is the closed-loop probe of the collector: an
+8-rank host job pins the ring allreduce at a high but finite score,
+delays every send of one rank, and runs allreduces while the collector
+windows the rings; it passes when the collector flags that rank within
+two windows, selection moves off the ring, and the p99 falls.
 """
 from __future__ import annotations
 
@@ -191,9 +201,137 @@ def _smoke(args) -> int:
     return 0 if rec.get("ok") else 1
 
 
-#: what the closed-loop feedback drill and trace-store directories need
-_COLLECTOR_NEEDED = ("needs the telemetry collector (obs/collector), which "
-                     "ucc_tpu_torch does not have yet (ROADMAP item 8b)")
+def _feedback_smoke(args) -> int:
+    """Closed-loop telemetry drill (see the module doc). An 8-rank flat
+    host job pins the ring allreduce by a TUNE string at a high but
+    finite score (2e9 < SCORE_MAX, so the bias can demote it; ``inf``
+    would be exempt), delays every send of ONE rank, and runs allreduces
+    while the collector (obs/collector.py) windows the rings, scores the
+    ranks and publishes the RankBias. Prints one JSON record:
+    ``{"metric": "feedback_smoke", "pinned_rank": R, "flagged": [...],
+    "windows_to_flag": W, "pre_alg": "...", "post_alg": "...",
+    "pre_p99_ms": ..., "post_p99_ms": ..., "ok": bool}``."""
+    rec: Dict[str, Any] = {"metric": "feedback_smoke",
+                           "pinned_rank": args.smoke_rank}
+    try:
+        import time
+
+        import numpy as np
+
+        from ucc_tpu_torch import (BufferInfo, CollArgs, CollType, DataType,
+                                   MemoryType, ReductionOp, Status)
+        from ucc_tpu_torch.fault import inject as fault
+        from ucc_tpu_torch.obs import collector, flight
+
+        flight.configure(enabled=True)
+        # the interval is well above one delayed ring iteration
+        # (~2 (n - 1) delay), so every window holds at least one
+        # collective start, where the wire-lag signal isolates the
+        # delayed sender
+        collector.configure(enabled=True, interval=2.5, slack=2,
+                            dir="", windows=2)
+        n, count = 8, 4096
+        # TUNE is read at team create: set it around the job's creation
+        # only, so nothing outlives the drill
+        prev_tune = os.environ.get("UCC_TL_SHM_TUNE")
+        os.environ["UCC_TL_SHM_TUNE"] = "allreduce:@ring:2000000000"
+        try:
+            ctxs, teams = _smoke_job(n)
+        finally:
+            if prev_tune is None:
+                os.environ.pop("UCC_TL_SHM_TUNE", None)
+            else:
+                os.environ["UCC_TL_SHM_TUNE"] = prev_tune
+        try:
+            fault.configure(
+                f"delay=1.0:{args.smoke_delay},"
+                f"delay_rank={args.smoke_rank}", seed=0)
+            try:
+                srcs = [np.full(count, r + 1.0) for r in range(n)]
+                dsts = [np.zeros(count) for _ in range(n)]
+
+                def one_iter():
+                    t0 = time.monotonic()
+                    reqs = [t.collective_init(CollArgs(
+                        coll_type=CollType.ALLREDUCE,
+                        src=BufferInfo(srcs[r], count, DataType.FLOAT64),
+                        dst=BufferInfo(dsts[r], count, DataType.FLOAT64),
+                        op=ReductionOp.SUM)) for r, t in enumerate(teams)]
+                    for rq in reqs:
+                        rq.post()
+                    deadline = t0 + 120
+                    while any([rq.test() == Status.IN_PROGRESS
+                               for rq in reqs]):
+                        for c in ctxs:
+                            c.progress()
+                        if time.monotonic() > deadline:
+                            raise TimeoutError(
+                                "feedback smoke: progress timed out")
+                    for rq in reqs:
+                        if rq.test() != Status.OK:
+                            raise RuntimeError(
+                                f"feedback smoke allreduce: "
+                                f"{rq.test().name}")
+                        rq.finalize()
+                    return time.monotonic() - t0
+
+                mem, nbytes = MemoryType.HOST, count * 8
+                pre_alg = teams[0].score_map.lookup(
+                    CollType.ALLREDUCE, mem, nbytes)[0].alg_name
+                rec["pre_alg"] = pre_alg
+                pre, post = [], []
+                for _ in range(args.smoke_iters * 10):
+                    pre.append(one_iter())
+                    if teams[0].rank_bias is not None and \
+                            teams[0].rank_bias.flagged:
+                        break
+                bias = teams[0].rank_bias
+                rec["flagged"] = sorted(bias.flagged) if bias else []
+                # the budget counts from the first window that SAW the
+                # straggler's traffic: windows that passed during team
+                # create or before the fault was armed are not charged
+                rec["windows_to_flag"] = None
+                col = getattr(ctxs[0], "collector", None)
+                watch = col.watch_for(teams[0]) if col else None
+                sc = watch.scorer if watch is not None else None
+                if sc is not None and sc.first_flag_index is not None \
+                        and sc.first_sev_index is not None:
+                    rec["windows_to_flag"] = \
+                        sc.first_flag_index - sc.first_sev_index + 1
+                elif bias is not None and \
+                        bias.first_flag_window is not None:
+                    rec["windows_to_flag"] = bias.first_flag_window + 1
+                post_alg = teams[0].score_map.lookup(
+                    CollType.ALLREDUCE, mem, nbytes,
+                    bias=bias)[0].alg_name
+                rec["post_alg"] = post_alg
+                for _ in range(max(4, args.smoke_iters)):
+                    post.append(one_iter())
+            finally:
+                fault.reset()
+        finally:
+            for t in teams:
+                t.destroy()
+            for c in ctxs:
+                c.destroy()
+
+        def p99(xs):
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+        rec["pre_iters"], rec["post_iters"] = len(pre), len(post)
+        rec["pre_p99_ms"] = round(p99(pre) * 1e3, 1)
+        rec["post_p99_ms"] = round(p99(post) * 1e3, 1)
+        rec["ok"] = args.smoke_rank in set(rec["flagged"]) and \
+            rec["windows_to_flag"] is not None and \
+            rec["windows_to_flag"] <= 2 and \
+            pre_alg == "ring" and post_alg != "ring" and \
+            rec["post_p99_ms"] < rec["pre_p99_ms"]
+    except Exception as e:  # noqa: BLE001 - the probe reports, not raises
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["ok"] = False
+    print(json.dumps(rec))
+    return 0 if rec.get("ok") else 1
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -237,9 +375,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.smoke:
         return _smoke(args)
     if args.feedback_smoke:
-        print(f"ucc_fr: --feedback-smoke {_COLLECTOR_NEEDED}",
-              file=sys.stderr)
-        return 2
+        return _feedback_smoke(args)
     if args.pid is not None:
         try:
             os.kill(args.pid, signal.SIGUSR2)
@@ -258,10 +394,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     for path in args.files:
         try:
             if os.path.isdir(path):
-                print(f"ucc_fr: {path}: a trace-store directory "
-                      f"{_COLLECTOR_NEEDED}", file=sys.stderr)
-                return 2
-            records.extend(load_records(path))
+                from ucc_tpu_torch.obs import collector
+                records.extend(
+                    r for r in collector.load_dir_records(
+                        path, tail=args.tail)
+                    if str(r.get("kind", "")).startswith("flight"))
+            else:
+                records.extend(load_records(path))
         except OSError as e:
             print(f"ucc_fr: {e}", file=sys.stderr)
             return 1
