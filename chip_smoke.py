@@ -72,6 +72,14 @@ Phases, each printing its own lines (any failure exits non-zero):
      multiple of a vector and several chunks long): each part's launch
      bitwise its plain version's part with every other element untouched,
      every union bitwise the single launch;
+   - the generated kernels by part (part p of P, P in {2, 3, 4}): on the
+     fold route (rings, halving-doubling, the int8 direct exchange, an
+     in-place bcast; f32 and bf16; units no multiple of a vector) a range
+     of elements, on the wire fold (int8 and fp8, partial qblock groups)
+     a range of whole groups, on the layer kernel (qblock 512) the whole
+     walk in part 0 and no launch in the others: each part bitwise its
+     plain version's part with the rest untouched, every union, launched
+     one after the other on the same buffers, bitwise the single launch;
    - every ring kernel again on int8, uint8, int16 and float64;
    - both entry points of the generated collectives (gen_device_ring,
      gen_device_gen), each launch asserted on its route: every device
@@ -342,6 +350,18 @@ Phases, each printing its own lines (any failure exits non-zero):
      result bitwise the library ops an in-process team runs on the same
      srcs, no kernel launched, nothing opened or sent after the first
      round; the slowest process's p50;
+   - (c) the generated device collectives, on libs with UCC_GEN_DEVICE=y,
+     UCC_QUANT=int8 and qblock 512, a team per UCC_TL_TORCH_OPS_TUNE pin:
+     allreduce of 16 Mi and 64 Ki via gen_dev_ring_c2 and gen_dev_rhd_r2,
+     bcast of 16 Mi from root 3 via gen_dev_bc_kn_r2, 16 Mi via
+     gen_dev_qint8_direct, and 1 Mi via the int8 edge-wired direct
+     exchange (gen_dev_wdirect, registered for the phase: a plan on the
+     layer kernel); the algorithm asserted, every rank bitwise the single
+     in-process launch over the same eight srcs; one fold launch a
+     process a round, on the layer kernel one launch a round in process 0
+     alone; no IPC open or descriptor send after the first round; the
+     slowest process's p50 beside phase 3's in-process one, each part's
+     kernel ms alone with their sum beside the single launch;
    - no ``ucc-torch-dev-*`` or ``ucc-torch-ipc-*`` segment is left in
      /dev/shm, no worker alive.
 10. hier, topology and the hierarchical CL (cl/hier), integer-valued f32
@@ -2451,14 +2471,20 @@ BY_TYPE = (("<float>", "IfE"), ("<__nv_bfloat16>", "I13__nv_bfloat16E"))
 #: the rest)
 BY_TYPE_WHOLE = (("<float, (bool)0>", "IfLb0E"),
                  ("<__nv_bfloat16, (bool)0>", "I13__nv_bfloat16Lb0E"))
+#: the part instances (PART true) of gen_fold_part.cu, a library of their
+#: own
+BY_TYPE_PART = (("<float, (bool)1>", "IfLb1E"),
+                ("<__nv_bfloat16, (bool)1>", "I13__nv_bfloat16Lb1E"))
 #: the flag-free kernels that move 16-byte vectors: source -> (kernel, its
 #: f32 and bf16 instances); bcast.cu's and allgather.cu's are named by
-#: element width; the five direct sources' whole-walk instances
+#: element width; the whole-walk instances of the five direct sources
+#: and of gen_fold.cu, and gen_fold_part.cu's part instances
 DIRECT_KERNELS = {"ring_allreduce.cu": ("ring_allreduce_kernel",
                                         BY_TYPE_WHOLE),
                   "reduce_scatter.cu": ("reduce_scatter_kernel",
                                         BY_TYPE_WHOLE),
-                  "gen_fold.cu": ("gen_fold_kernel", BY_TYPE),
+                  "gen_fold.cu": ("gen_fold_kernel", BY_TYPE_WHOLE),
+                  "gen_fold_part.cu": ("gen_fold_kernel", BY_TYPE_PART),
                   "alltoall.cu": ("alltoall_kernel", BY_TYPE_WHOLE),
                   "bcast.cu": ("bcast_kernel", (
                       ("<4, (bool)0>", "ILi4ELb0E"),
@@ -2905,6 +2931,9 @@ GEN_QUANT_RUNS = (
 GEN_RECORDS = {("gen_dev_ring_c2", MAIN_COUNT): "gen_device_ring",
                ("gen_dev_rhd_r2", MAIN_COUNT): "gen_device_gen",
                ("gen_dev_bc_kn_r2", MAIN_COUNT): "gen_device_gen bcast"}
+#: (algorithm, f32 elements per rank) -> the in-process p50 (seconds) of
+#: main_path_gen's run, which phase 9 prints beside its spanning runs'
+GEN_P50 = {}
 GEN_REPLACES = {"gen_device_ring": "ucc_tpu/dsl/lower_device.py:525",
                 "gen_device_gen": "ucc_tpu/dsl/lower_device.py:595",
                 "gen_device_gen bcast": "ucc_tpu/dsl/lower_device.py:595"}
@@ -3008,7 +3037,7 @@ def main_path_gen(smi) -> dict:
                                      f" fold route {folds}, want {want} "
                                      f"for both")
             samples.sort()
-            p50 = samples[len(samples) // 2]
+            p50 = GEN_P50[(alg, count)] = samples[len(samples) // 2]
             rooted = f" from root {root}" if coll == "BCAST" else ""
             head = (f"main path {coll}{rooted} {count} f32/rank via "
                     f"torch_ops/{alg}: p50 {p50 * 1e3:.3f} ms (p10 "
@@ -5899,6 +5928,97 @@ def phase_kernels_parts() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+#: the generated kernels by part: (family, parameter or the edge-wired
+#: direct exchange's wire, n, count, root, qblock, route, in place,
+#: dtype); counts whose units and vectors do not line up (units of 8197
+#: and 262147 elements; wire units of 40000 with a partial qblock group)
+GEN_PART_CASES = (
+    ("ring", 2, 8, 16 * 8197, 0, 256, "fold", False, "float32"),
+    ("ring", 1, 8, 8 * 8197, 0, 256, "fold", True, "bfloat16"),
+    ("rhd", 2, 8, 8 * 262147, 0, 256, "fold", False, "float32"),
+    ("bc_kn", 2, 8, (1 << 21) + 37, 3, 256, "fold", True, "float32"),
+    ("qdirect", 0, 8, 8 * 8197, 0, 256, "fold", False, "float32"),
+    ("wire", "int8", 8, 8 * 40000, 0, 256, "wire fold", False, "float32"),
+    ("wire", "fp8", 8, 8 * 40, 0, 32, "wire fold", True, "float32"),
+    ("wire", "int8", 4, 4 * 4000, 0, 512, "layer", False, "float32"),
+)
+
+
+def gen_part_program(family, param, n):
+    """(program, qmode) of a GEN_PART_CASES row."""
+    from ucc_tpu_torch.dsl import registry as reg
+    if family == "wire":
+        return wire_direct(n, param, param), param
+    wire = "int8" if family == "qdirect" else ""
+    return reg.build_program(family, param, n, wire=wire), wire
+
+
+def phase_kernels_gen_parts() -> None:
+    """The generated kernels launched part by part (``part=(p, P)``, as
+    process p of a team across P processes launches them): on the fold
+    route a range of elements, on the wire fold a range of whole qblock
+    groups, on the layer kernel the whole walk in part 0 and nothing in
+    the others. Each part's launch writes exactly its plain version's part
+    (every other element keeps its sentinel, or its src in place), an
+    empty part launches nothing, and the parts' union, launched one after
+    the other on the same buffers, is bitwise the single launch."""
+    import torch
+    from ucc_tpu_torch import ReductionOp
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    t0 = time.perf_counter()
+    checked = 0
+    for family, param, n, count, root, qblock, route, inplace, dt in \
+            GEN_PART_CASES:
+        prog, qmode = gen_part_program(family, param, n)
+        plan, wrapper, got = gen_route(prog, n, count, root, qblock, qmode)
+        what = f"{wrapper.__name__} {prog.name} n={n} count={count} {dt}"
+        if got != route:
+            raise AssertionError(f"{what}: route {got}, want {route}")
+        op = ReductionOp.SUM if plan.reducing else None
+        srcs = make_inputs(n, count, getattr(torch, dt), op, count)
+        plain = kgd.gen_device_ref(srcs, plan, op)
+
+        def buffers():
+            if inplace:
+                ins = [s.clone() for s in srcs]
+                return ins, ins
+            return srcs, [torch.full_like(s, float("nan")) for s in srcs]
+
+        ins, whole = buffers()
+        launch_gen(wrapper, route, ins, whole, op, plan=plan).wait()
+        compare(f"{what} single launch", whole, plain)
+        for nparts in PARTS:
+            uins, union = buffers()
+            for p in range(nparts):
+                lo, hi, elo, ehi = kgd.part_walk(plan, (p, nparts),
+                                                 srcs[0].element_size())
+                pins, one = buffers()
+                want = [o.clone() for o in one]
+                for w, x in zip(want, plain):
+                    w[elo:ehi] = x[elo:ehi]
+                if lo < hi:
+                    launch_gen(wrapper, route, pins, one, op, plan=plan,
+                               part=(p, nparts)).wait()
+                else:
+                    before = (wrapper.launches, wrapper.fold_launches)
+                    wrapper(pins, one, op, plan=plan, part=(p, nparts))
+                    if (wrapper.launches, wrapper.fold_launches) != before:
+                        raise AssertionError(f"{what}: the empty part {p} "
+                                             f"of {nparts} launched")
+                compare(f"{what} part {p} of {nparts}", one, want)
+                wrapper(uins, union, op, plan=plan,
+                        part=(p, nparts)).wait()
+                checked += 1
+            compare(f"{what} union of {nparts} parts", union, whole)
+        del srcs, plain, ins, whole
+        torch.cuda.empty_cache()
+    log(f"generated kernels by part: {len(GEN_PART_CASES)} plans (fold, "
+        f"wire fold and layer routes) x P in {PARTS}: {checked} parts, "
+        f"each bitwise its plain version's part (the rest untouched, an "
+        f"empty part unlaunched), every union bitwise the single launch, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------------
 # phase 9: device teams across processes
 # ---------------------------------------------------------------------------
@@ -5912,6 +6032,35 @@ SPAN_FLAT = (("ALLREDUCE", 0, MAIN_COUNT), ("GATHER", 1, AG_MAIN_COUNT),
              ("BCAST", 3, MAIN_COUNT), ("ALLTOALLV", 0, AG_MAIN_COUNT))
 #: where the workers' sync areas and arenas would be left
 SPAN_GLOBS = ("ucc-torch-dev-", "ucc-torch-ipc-")
+#: phase 9 (c): the edge-wired direct exchange's f32 elements per rank (a
+#: plan on the layer kernel, 9 ms a launch at the main path's 16 Mi)
+SPAN_LAYER_COUNT = 1 << 20
+#: phase 9 (c): the generated device collectives on the spanning teams,
+#: one team per UCC_TL_TORCH_OPS_TUNE pin: (pin, runs of (collective,
+#: algorithm, f32 elements per rank, root, seed))
+SPAN_GEN = (
+    ("allreduce:@gen_dev_ring_c2:inf#bcast:@gen_dev_bc_kn_r2:inf",
+     (("ALLREDUCE", "gen_dev_ring_c2", MAIN_COUNT, 0, 51),
+      ("ALLREDUCE", "gen_dev_ring_c2", SMALL_COUNT, 0, 52),
+      ("BCAST", "gen_dev_bc_kn_r2", MAIN_COUNT, 3, 53))),
+    ("allreduce:@gen_dev_rhd_r2:inf",
+     (("ALLREDUCE", "gen_dev_rhd_r2", MAIN_COUNT, 0, 54),
+      ("ALLREDUCE", "gen_dev_rhd_r2", SMALL_COUNT, 0, 55))),
+    ("allreduce:@gen_dev_qint8_direct:inf",
+     (("ALLREDUCE", "gen_dev_qint8_direct", MAIN_COUNT, 0, 56),)),
+    ("allreduce:@gen_dev_wdirect:inf",
+     (("ALLREDUCE", "gen_dev_wdirect", SPAN_LAYER_COUNT, 0, 57),)),
+)
+#: the libs of phase 9 (c) (lib settings, read at init): the int8 direct
+#: exchange needs UCC_QUANT; at qblock 512 the edge-wired one's plan keeps
+#: the layer kernel
+SPAN_GEN_LIB = {"GEN_DEVICE": "y", "QUANT": "int8", "QUANT_BLOCK": "512"}
+#: the kernels record each phase 9 (c) algorithm's launches go to
+SPAN_GEN_RECORD = {"gen_dev_ring_c2": "gen_device_ring",
+                   "gen_dev_rhd_r2": "gen_device_gen",
+                   "gen_dev_qint8_direct": "gen_device_gen",
+                   "gen_dev_bc_kn_r2": "gen_device_gen bcast",
+                   "gen_dev_wdirect": "gen_device_gen wire int8 layer"}
 
 
 def span_inputs(n, count, seed):
@@ -6006,13 +6155,13 @@ def flat_expected(coll, root, c, r, n, srcs, seed):
     return torch.cat(parts)
 
 
-def make_store_ranks(ranks, n, ports):
+def make_store_ranks(ranks, n, ports, **overrides):
     """Contexts of *ranks* (threads of this process) over a TcpStoreOob at
-    ports[0]; their OOBs."""
+    ports[0], their libs made with the config *overrides*; their OOBs."""
     import ucc_tpu_torch as ucc
     oobs, ctxs, errs = {}, {}, []
     # the libs first, one after another: init loads the components
-    libs = {r: ucc.init() for r in ranks}
+    libs = {r: ucc.init(**overrides) for r in ranks}
 
     def make(r):
         try:
@@ -6066,7 +6215,9 @@ def span_child(spec_json: str) -> int:
     persistent rounds after a first one, every local result bitwise what
     an in-process team leaves on the same inputs), and, in process 0,
     every kernel's parts timed in turns on its own copies of the eight
-    ranks' buffers. Its last line is one JSON object."""
+    ranks' buffers; then (c), on contexts of libs with UCC_GEN_DEVICE, a
+    team per SPAN_GEN pin and its generated-collective runs
+    (``span_gen_run``). Its last line is one JSON object."""
     import faulthandler
     import torch
     spec = json.loads(spec_json)
@@ -6183,6 +6334,7 @@ def span_child(spec_json: str) -> int:
         torch.cuda.empty_cache()
     for t in ring + flat:
         t.destroy()
+    out["gen"] = span_gen_phase(ranks, n, ports, me, nprocs, step)
     for c in ctxs:
         c.destroy()
     for o in oobs + ring_oobs + flat_oobs:
@@ -6194,12 +6346,138 @@ def span_child(spec_json: str) -> int:
     return 0
 
 
+def register_wire_program() -> None:
+    """Register the int8 edge-wired direct exchange (``gen_dev_wdirect``)
+    beside the ``gen_dev_*`` programs every device team of this process
+    registers under UCC_GEN_DEVICE from now on: no registered family
+    reaches the wire layers, and at qblock 512 its plan keeps the layer
+    kernel."""
+    from ucc_tpu_torch.dsl import lower_device as ld
+    base = ld.registered_device_programs
+
+    def registered(team):
+        out = base(team)
+        return out + [wire_direct(team.size, "int8", "int8")] if out \
+            else out
+    ld.registered_device_programs = registered
+
+
+def span_gen_phase(ranks, n, ports, me, nprocs, step) -> list:
+    """Phase 9 (c) in this process: contexts of libs with SPAN_GEN_LIB over
+    a TcpStoreOob at ports[3], the edge-wired program registered, a team
+    per SPAN_GEN pin (at ports[4:]) and its runs; every run's record.
+    Destroys what it made."""
+    import torch
+    ctxs, oobs = make_store_ranks(ranks, n, ports[3:], **SPAN_GEN_LIB)
+    step("gen contexts")
+    register_wire_program()
+    out = []
+    for k, (tune, runs) in enumerate(SPAN_GEN):
+        os.environ["UCC_TL_TORCH_OPS_TUNE"] = tune
+        teams, team_oobs = span_teams(ctxs, ranks, n, ports[4 + k],
+                                      f"gen team {k}")
+        os.environ.pop("UCC_TL_TORCH_OPS_TUNE")
+        oobs += team_oobs
+        for run in runs:
+            out.append(span_gen_run(ctxs, teams, ranks, n, me, nprocs,
+                                    *run, step=step))
+            torch.cuda.empty_cache()
+        for t in teams:
+            t.destroy()
+    for c in ctxs:
+        c.destroy()
+    for o in oobs:
+        o.close()
+    return out
+
+
+def span_gen_run(ctxs, teams, ranks, n, me, nprocs, coll, alg, count, root,
+                 seed, step):
+    """One phase 9 (c) run in this process: the persistent collective on
+    the spanning team pinned to *alg* (a first round, then WARMUP + ITERS),
+    its launches and fold launches over those rounds, every local rank's
+    result against the single in-process launch over the same eight srcs,
+    and, in process 0, each part's kernel alone and the single launch, in
+    turns, on this process's copies of the eight ranks' buffers."""
+    import torch
+    import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.dsl import lower_device as ld
+    from ucc_tpu_torch.kernels import gen_device as kgd
+    from ucc_tpu_torch.kernels import ring_common as kc
+    f32 = ucc.DataType.FLOAT32
+    srcs = span_inputs(n, count, seed)
+    bufs, argses = [], []
+    for r in ranks:
+        if coll == "BCAST":
+            buf = srcs[r].clone() if r == root else \
+                torch.zeros(count, device="cuda")
+            argses.append(ucc.CollArgs(
+                coll_type=ucc.CollType.BCAST, root=root,
+                src=ucc.BufferInfo(buf, count, f32),
+                flags=ucc.CollArgsFlags.PERSISTENT))
+        else:
+            buf = torch.empty(count, device="cuda")
+            argses.append(ucc.CollArgs(
+                coll_type=ucc.CollType.ALLREDUCE, op=ucc.ReductionOp.SUM,
+                src=ucc.BufferInfo(srcs[r], count, f32),
+                dst=ucc.BufferInfo(buf, count, f32),
+                flags=ucc.CollArgsFlags.PERSISTENT))
+        bufs.append(buf)
+    reqs = [t.collective_init(a) for t, a in zip(teams, argses)]
+    task = reqs[0].task
+    step(f"gen {coll} {count} via {task.alg_name}")
+    if task.alg_name != alg:
+        raise AssertionError(f"span gen {coll} {count}: selected "
+                             f"{task.alg_name}, not {alg}")
+    # the plan the task launches (GenDeviceCollTask.build_program's)
+    plan = ld.device_plan(task.prog, n, count, root,
+                          task.qp.block if task.qp else 256, task._qmode)
+    wrapper = kgd.gen_device_ring if plan.ring else kgd.gen_device_gen
+    route = "layer" if kgd.fold_plan(plan) is None else "fold"
+    before = (wrapper.launches, wrapper.fold_launches)
+    samples, _, after = span_rounds(ctxs, reqs, {}, f"span gen {alg}")
+    launches = (wrapper.launches - before[0],
+                wrapper.fold_launches - before[1])
+    op = ucc.ReductionOp.SUM if plan.reducing else None
+    counts = (wrapper.launches, wrapper.fold_launches)
+    if coll == "BCAST":
+        whole = [srcs[root].clone() if r == root else
+                 torch.zeros(count, device="cuda") for r in range(n)]
+        wrapper(whole, whole, op, plan=plan).wait()
+    else:
+        whole = [torch.empty(count, device="cuda") for _ in range(n)]
+        wrapper(srcs, whole, op, plan=plan).wait()
+    ok = all(bits_equal(b, whole[r]) for b, r in zip(bufs, ranks))
+    rec = {"coll": coll, "alg": alg, "got_alg": task.alg_name,
+           "count": count,
+           "root": root, "route": route, "ok": ok, "launches": launches,
+           "after_first": after, "rounds": 1 + WARMUP + ITERS,
+           "p50": sorted(samples)[len(samples) // 2]}
+    if me == 0:
+        ins = whole if coll == "BCAST" else srcs
+        dsts = whole if coll == "BCAST" else \
+            [torch.empty(count, device="cuda") for _ in range(n)]
+        table = kc.make_ptr_table(ins, dsts)
+        ws = kc.RingWorkspace(ins[0].device)
+        rec["part_ms"] = [cuda_ms(lambda p=p: wrapper(
+            ins, dsts, op, plan=plan, ptr_table=table, workspace=ws,
+            part=(p, nprocs)), 10) for p in range(nprocs)]
+        rec["single_ms"] = cuda_ms(lambda: wrapper(
+            ins, dsts, op, plan=plan, ptr_table=table, workspace=ws), 10)
+        rec["bounds"] = [kgd.part_walk(plan, (p, nprocs), 4)[2:]
+                         for p in range(nprocs)]
+        del ins, dsts, table, ws
+    wrapper.launches, wrapper.fold_launches = counts
+    del srcs, bufs, argses, reqs, whole
+    return rec
+
+
 def span_job(nprocs, per, timeout=240):
     """nprocs processes of span_child (this script with --span-child),
     *per* ranks each, joined by TCP stores on held ports; every process's
     result."""
     from ucc_tpu_torch.tools.perftest import HeldPorts
-    held = HeldPorts(3)
+    held = HeldPorts(4 + len(SPAN_GEN))
     try:
         specs = [{"ranks": list(range(p * per, (p + 1) * per)),
                   "n": nprocs * per, "ports": held.ports, "proc": p,
@@ -6292,6 +6570,57 @@ def sharing_mode() -> str:
     return f"compute mode {mode}, MPS {'active' if mps else 'not active'}"
 
 
+def span_gen_check(lay, nprocs, runs, total, records, smi) -> None:
+    """Phase 9 (c)'s checks of one run over its processes' records: the
+    pinned algorithm and every rank bitwise the single in-process launch;
+    one fold launch a process a round, or on the layer kernel one launch
+    a round in process 0 and none in the others; no IPC open and no
+    descriptor send after the first round. Adds the launches to *total*
+    under the run's kernels record and logs the slowest process's p50
+    beside the in-process one of main_path_gen, and each part's kernel
+    alone beside the single launch."""
+    rec = runs[0]
+    alg, count, name = rec["alg"], rec["count"], SPAN_GEN_RECORD[rec["alg"]]
+    what = f"span {lay} {rec['coll']} {count} via {alg}"
+    for p, run in enumerate(runs):
+        if run["got_alg"] != alg or not run["ok"]:
+            raise AssertionError(f"{what}: process {p} selected "
+                                 f"{run['got_alg']}, bitwise {run['ok']}")
+        k = run["rounds"]
+        want = ((k, 0) if p == 0 else (0, 0)) if rec["route"] == "layer" \
+            else (k, k)
+        if tuple(run["launches"]) != want:
+            raise AssertionError(f"{what}: process {p} made (launches, fold "
+                                 f"launches) {run['launches']} over {k} "
+                                 f"rounds, want {want} ({rec['route']})")
+        if run["after_first"]["dev_ipc_opens"] or \
+                run["after_first"]["dev_desc_sends"]:
+            raise AssertionError(f"{what}: process {p} after the first "
+                                 f"round {run['after_first']}")
+        total[name] = total.get(name, 0) + run["launches"][0]
+    p50 = max(run["p50"] for run in runs)
+    inproc = GEN_P50.get((alg, count))
+    parts = rec["part_ms"]
+    rooted = f" from root {rec['root']}" if rec["coll"] == "BCAST" else ""
+    log(f"span: {lay}, {rec['coll']}{rooted} {count} f32/rank via "
+        f"torch_ops/{alg} ({rec['route']} route): p50 {p50 * 1e3:.3f} ms "
+        f"(the slowest process's) over {ITERS} persistent rounds, in "
+        f"process (phase 3) "
+        f"{'not run' if inproc is None else f'{inproc * 1e3:.3f} ms'}, "
+        f"bitwise the in-process launch on every rank | parts "
+        f"{' + '.join(f'{m:.4f}' for m in parts)} = {sum(parts):.4f} ms "
+        f"(alone, in turns; element bounds {rec['bounds']}), single launch "
+        f"{rec['single_ms']:.4f} ms | (launches, fold launches) a process "
+        f"over {rec['rounds']} rounds "
+        f"{[tuple(r['launches']) for r in runs]} | after the first round: "
+        f"IPC opens 0, descriptor sends 0 | card {smi}")
+    if name in records:
+        records[name].setdefault("span", {})[f"{lay} {alg} {count}"] = {
+            "p50_ms": p50 * 1e3, "in_process_p50_ms":
+            None if inproc is None else inproc * 1e3, "part_ms": parts,
+            "single_ms": rec["single_ms"]}
+
+
 def main_path_span(smi, records) -> dict:
     """Phase 9: device teams across processes. Returns every kernel's
     launches over the phase's spanning rounds."""
@@ -6364,6 +6693,9 @@ def main_path_span(smi, records) -> dict:
                 f"{max(r['p50'] for r in runs) * 1e3:.3f} ms (the slowest "
                 f"process's), bitwise the in-process team's ops on every "
                 f"rank, no kernel | card {smi}")
+        for i, rec in enumerate(outs[0]["gen"]):
+            span_gen_check(lay, nprocs, [o["gen"][i] for o in outs], total,
+                           records, smi)
         log(f"span: {lay}: setup {max(o['setup_s'] for o in outs):.1f} s, "
             f"the job {time.perf_counter() - t1:.1f} s")
     left = sorted(f for f in os.listdir(shm)
@@ -7957,6 +8289,23 @@ def host_program_result(ctxs, coll, host_name, srcs, what):
             t.destroy()
 
 
+def device_search_entry(rep) -> dict:
+    """The tuning-cache entry run_device_search writes for a generated
+    winner, made for the generated finalist with the least measured time
+    over every cell of *rep*."""
+    from ucc_tpu_torch.score import tuner
+    best = min(((f["measured_us"], res, f) for res in rep["results"]
+                for f in res["finalists"]
+                if f["origin"] == "generated-device"),
+               key=lambda x: x[0])
+    _, res, f = best
+    start, end = tuner.bucket_range(tuner.size_bucket(
+        max(4, res["size_bytes"] // 4) * 4))
+    return {"coll": res["coll"], "mem": "cuda", "start": start, "end": end,
+            "alg": f["alg"], "comp": "torch_ops", "origin": "searched",
+            "gen": f["gen"], "measured_us": f["measured_us"]}
+
+
 def compiler_device(smi, tmp, counters) -> dict:
     """(e) the device program search on 8 CUDA ranks, then a fresh team
     reading its tuning cache: every generated winner dispatched with
@@ -8005,10 +8354,21 @@ def compiler_device(smi, tmp, counters) -> dict:
     sigs = list(data.get("signatures") or {})
     entries = tuner.cache_entries(data, sigs[0]) if sigs else []
     winners = rep.get("winners") or []
-    if not entries or len(entries) != len(winners):
+    if sorted(e["alg"] for e in entries) != sorted(winners):
         raise AssertionError(f"compiler: (e) the device search persisted "
-                             f"no generated winner (winners {winners}, "
-                             f"entries {entries})")
+                             f"entries {entries} for its winners {winners}")
+    if not winners:
+        # the measured winner of every cell was a library candidate (the
+        # margins are about the noise): the cache holds no generated row,
+        # as it must. The dispatch below is then driven from an entry in
+        # the search's format for the fastest generated finalist
+        entries = [device_search_entry(rep)]
+        tuner.store_entries(tune_cache, rep["signature"], entries,
+                            source="searched")
+        sigs = [rep["signature"]]
+        log(f"compiler: (e) no generated program won a cell; the cache "
+            f"holds none; the fastest generated finalist's entry "
+            f"{entries[0]} is stored for the dispatch | card {smi}")
     # the fresh team registers the search's families (its shortlist, which
     # may reach past the default device grid) and reads its tuning cache
     families = rep["device_families"]
@@ -8241,10 +8601,18 @@ def ft_resume(ctxs, team, what, kernels, ring):
     (bitwise torch.stack(srcs).sum(0)). Returns {count: p50 s}."""
     import torch
     import ucc_tpu_torch as ucc
+    from ucc_tpu_torch.fault import health
     members = [int(t.ctx_map.eval(t.rank)) for t in team]
     out = {}
     runs = FT_COUNTS if ring else (("xla", MAIN_COUNT),)
+    timeout = health.HEARTBEAT_TIMEOUT
     for kname, count in runs:
+        # the host work between the rounds (the inputs, the inits, the
+        # checks below) runs under a lenient heartbeat timeout, and every
+        # context beats afresh before the rounds, which run under the
+        # caller's: no context progresses during that work, so a pass
+        # that holds the process past the timeout there is no dead rank
+        health.configure("shrink", timeout=FT_DEADLINE_S)
         srcs = ft_inputs(members, count)
         dsts = [torch.empty_like(s) for s in srcs]
         reqs = [t.collective_init(ft_args(s, d, persistent=True))
@@ -8255,9 +8623,13 @@ def ft_resume(ctxs, team, what, kernels, ring):
             raise AssertionError(f"ft: {what} allreduce of {count} "
                                  f"selected {alg}, not {want_alg}")
         before = kernels[kname][0].launches if ring else 0
+        for c in ctxs:
+            c.progress()
+        health.configure("shrink", timeout=timeout)
         # every context progresses (beats), members or not: a context
         # left out of the loop would look dead to the others
         samples = sorted(time_rounds(ctxs, reqs, f"{what} {count}"))
+        health.configure("shrink", timeout=FT_DEADLINE_S)
         total = torch.stack(srcs).sum(0)
         if ring:
             wrapper, ref = kernels[kname]
@@ -8283,6 +8655,9 @@ def ft_resume(ctxs, team, what, kernels, ring):
             f", p50 {p50 * 1e3:.3f} ms over {ITERS} rounds")
         del srcs, dsts, total
         torch.cuda.empty_cache()
+    for c in ctxs:
+        c.progress()
+    health.configure("shrink", timeout=timeout)
     return out
 
 
@@ -9802,7 +10177,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
     sources = [kr.SOURCE, krs.RS_SOURCE, krs.SOURCE, kba.SOURCE,
                kba.A2A_SOURCE, ker.SOURCE, ka.SOURCE, kgd.SOURCE,
-               kgd.FOLD_SOURCE]
+               kgd.FOLD_SOURCE, kgd.FOLD_PART_SOURCE]
     from ucc_tpu_torch.kernels import cuda_ipc
     reports = {}
     build_s = build.build_all(sources + [cuda_ipc.SOURCE], reports=reports)
@@ -9824,6 +10199,7 @@ def main() -> int:
     phase_kernels_rs_ag()
     phase_kernels_bcast_a2a()
     phase_kernels_parts()
+    phase_kernels_gen_parts()
     phase_kernels_wide_types()
     phase_kernels_gen_device()
     phase_kernels_ec()

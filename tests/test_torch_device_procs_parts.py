@@ -16,7 +16,8 @@
 - A spanning team's candidate lists (tl/torch_ops) against the JAX
   package's tl/xla for a team that is not all local: no ``short``, no
   SCATTERV, ALLTOALLV served, ``ring`` one point below ``xla``; and
-  ``gen_dev_*`` refused at init.
+  ``gen_dev_*`` initialized there, writing its peers' dsts on the kernel
+  backend and its own on ``xla``.
 """
 import numpy as np
 import pytest
@@ -283,7 +284,7 @@ def test_spanning_candidate_lists_are_tl_xlas():
         tjob.cleanup()
 
 
-def test_gen_device_refuses_a_spanning_team(monkeypatch):
+def test_gen_device_initializes_on_a_spanning_team(monkeypatch):
     from ucc_tpu_torch.core.coll import InitArgs
     from ucc_tpu_torch.dsl import lower_device as ld
     from ucc_tpu_torch.tl.torch_ops import GenDeviceCollTask
@@ -300,16 +301,23 @@ def test_gen_device_refuses_a_spanning_team(monkeypatch):
                               mem_type=ut.MemoryType.CUDA))
         ia = InitArgs(args=args, team=tjob.teams[0],
                       mem_type=ut.MemoryType.CUDA, msgsize=256)
-        # in one process the program initializes
-        GenDeviceCollTask(ia, to, prog, ld.device_backend(to))
+        local = GenDeviceCollTask(ia, to, prog, ld.device_backend(to))
         to.shared.span = object()
         try:
-            with pytest.raises(UccError) as ei:
-                GenDeviceCollTask(ia, to, prog, ld.device_backend(to))
+            assert to.spanning
+            # the kernels' parts write every process's dsts and read no
+            # src from a copy; the xla backend writes its own ranks' dsts
+            # from every src, as tl/torch_ops's library ops do
+            kernel = GenDeviceCollTask(ia, to, prog, ld.device_backend(to))
+            xla = GenDeviceCollTask(ia, to, prog, "xla")
         finally:
             to.shared.span = None
-        assert ei.value.status == Status.ERR_NOT_SUPPORTED
-        assert "span processes" in str(ei.value)
+        assert kernel.alg == local.alg == ld.dev_alg_name(prog)
+        assert kernel.PEERS_WRITE and not xla.PEERS_WRITE
+        assert [kernel.peers_read_src(tr, [0, 1]) for tr in range(4)] == \
+            [False] * 4
+        assert [xla.peers_read_src(tr, [0, 1]) for tr in range(4)] == \
+            [True] * 4
     finally:
         tjob.cleanup()
 

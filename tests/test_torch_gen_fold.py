@@ -327,21 +327,29 @@ def test_fold_ref_matches_pallas_kernel(family, param, n, dt, op, root,
 # the kernel's walk
 # ---------------------------------------------------------------------------
 
-def walk(count, elem, offsets, unit, ctas, threads):
+def walk(count, elem, offsets, unit, ctas, threads, part=None):
     """The kernel's folds in the order one launch takes them: a list of
     (first element, elements, unit index), one entry per element of a
     vector that straddles two units. *offsets* are the 2n pointers' byte
-    offsets mod 16."""
+    offsets mod 16. *part* (lo, hi): the instance of a launch of one part
+    of the elements (direct_fold.cuh's vector_part), else the whole
+    walk's."""
     mis = offsets[0] % 16
     aligned = all(o % 16 == mis for o in offsets) and mis % elem == 0
     w = 16 // elem
     head = min(count, ((16 - mis) % 16) // elem)
-    if aligned:
+    lo, hi = part or (0, count)
+    if not aligned:
+        sweeps = [(1, lo, hi - lo)]
+    elif part is None:
         vecs = (count - head) // w
         tail = head + vecs * w
         sweeps = [(w, head, vecs), (1, 0, head), (1, tail, count - tail)]
     else:
-        sweeps = [(1, 0, count)]
+        v0 = min(hi, head if lo <= head else head + -(-(lo - head) // w) * w)
+        vecs = (hi - v0) // w
+        tail = v0 + vecs * w
+        sweeps = [(w, v0, vecs), (1, lo, v0 - lo), (1, tail, hi - tail)]
     stride = ctas * threads
     out = []
     for width, lo, n_units in sweeps:
@@ -405,20 +413,21 @@ def evaluate(fp, q, xs_of, acc):
     return top
 
 
-def model(srcs, dsts, plan, op, offsets=None, ctas=2, threads=4):
+def model(srcs, dsts, plan, op, offsets=None, ctas=2, threads=4,
+          part=None):
     """The kernel on CPU tensors: each fold of ``walk`` loads its elements
     from its program's leaves, evaluates it, multiplies for AVG and writes
     every dst but an in-place lone leaf's before the next fold (so dsts
-    may be the srcs). Asserts that every element of every dst is written
-    exactly once (the skipped store aside) and that each fold stays in its
-    unit."""
+    may be the srcs). Returns how often each element of each dst was
+    written (once, the skipped store aside, in a whole launch) and asserts
+    that each fold stays in its unit. *part*: the launch's (lo, hi)."""
     n, count = len(srcs), srcs[0].numel()
     fp = kgd.fold_plan(plan)
     offsets = offsets or [0] * (2 * n)
     acc = kgd.accumulate(op if op in OPS else ReductionOp.SUM)
     written = torch.zeros(n, count, dtype=torch.int64)
     for e, width, q in walk(count, srcs[0].element_size(), offsets,
-                            fp.unit, ctas, threads):
+                            fp.unit, ctas, threads, part):
         idx = slice(e, e + width)
         units = torch.arange(e, e + width) // fp.unit
         assert torch.equal(units, torch.full_like(units, q)), (e, q)

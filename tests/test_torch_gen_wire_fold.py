@@ -327,11 +327,13 @@ def qdq(top, live, qmode):
     return q.float() * scale
 
 
-def wire_model(srcs, dsts, plan, op, offsets=None, ctas=2, threads=64):
+def wire_model(srcs, dsts, plan, op, offsets=None, ctas=2, threads=64,
+               part=None):
     """The kernel on CPU tensors, group by group in the order each warp
     takes them: loads of up to WIRE_LEAVES leaves, the steps that take
     them, then the trailing steps with the stores. Returns (written per
-    element of every dst, groups on the vector path, groups)."""
+    element of every dst, groups on the vector path, groups). *part*: the
+    launch's groups (glo, ghi), else all of them."""
     fp = kgd.fold_plan(plan)
     n, count = plan.n, plan.count
     vals = next(v for v in (1, 2, 4, 8) if WARP * v >= fp.qblock)
@@ -348,8 +350,9 @@ def wire_model(srcs, dsts, plan, op, offsets=None, ctas=2, threads=64):
     written = torch.zeros(n, count, dtype=torch.int64)
     read = torch.zeros(n, count, dtype=torch.int64)
     on_vectors = 0
+    glo, ghi = part or (0, total)
     for w in range(warps):
-        for g in range(w, total, warps):
+        for g in range(glo + w, ghi, warps):
             q, k = divmod(g, groups)
             e0 = q * fp.unit + k * fp.qblock
             length = min(fp.qblock, fp.unit - k * fp.qblock)

@@ -527,6 +527,41 @@ class TestSearchEndToEnd:
         assert d_dev is not None and d_dev == d_host
 
 
+def _check_search_record(rec):
+    """What dsl/smoke.run_search_smoke's record holds whichever
+    candidate won: the round trip dispatched the measured winner (the
+    tuner cache learned a searched one; a hand-written one is the
+    static default), and a program registers with origin "searched"
+    exactly when the search wrote a winner to its cache."""
+    assert "error" not in rec, rec
+    assert rec["dispatch_ok"], rec
+    assert rec["dispatch_alg"] == rec["winner"], rec
+    assert rec["searched_registered"] == rec["searched_won"], rec
+    if rec["searched_won"]:
+        assert rec["winner_dispatched"], rec
+
+
+def _stub_measure(tuner_mod, branch):
+    """An ``interleaved_measure`` whose times make a hand-written
+    candidate (``branch`` "handwritten") or the first searched program
+    by name ("searched"; a generated one where none was registered)
+    win, every other candidate slower in index order."""
+    def measure(teams, contexts, argses, coll, mem, msgsize, idxs, iters,
+                warmup=1, timeout=60.0):
+        cands = tuner_mod.sweep_candidates(teams[0], coll, mem, msgsize)
+        origins = {cands[i].origin for i in idxs}
+        want = {"handwritten": None,
+                "searched": "searched" if "searched" in origins
+                else "generated"}[branch]
+        best = [i for i in idxs if (cands[i].origin == want if want else
+                                    cands[i].origin not in
+                                    ("generated", "searched"))]
+        best.sort(key=lambda i: cands[i].alg_name)
+        return {i: (1.0 + best.index(i) if i in best else 100.0 + i)
+                for i in idxs}
+    return measure
+
+
 class TestProbes:
     """dsl/smoke.py's records on CPU teams (the device one runs the plain
     versions of the generated-collective kernels)."""
@@ -557,12 +592,45 @@ class TestProbes:
                                  "barrier"]
 
     def test_run_search_smoke(self, caches):
+        # which candidate wins is measured, so either branch may come
+        # up: hold what the record guarantees on both
         from ucc_tpu_torch.dsl import smoke
         rec = smoke.run_search_smoke(n=4, size=16384, budget=4)
-        assert "error" not in rec, rec
-        assert rec["searched_registered"] and rec["dispatch_ok"]
-        if rec["searched_won"]:
-            assert rec["winner_dispatched"]
+        _check_search_record(rec)
+
+    @pytest.mark.parametrize("branch", ["handwritten", "searched"])
+    def test_run_search_smoke_branches(self, caches, monkeypatch, branch):
+        """Each branch of the probe's record, decided by stubbed search
+        times, and the reference's record under the same stub and the
+        same (seed) cost model."""
+        from ucc_tpu.dsl import smoke as jsmoke
+        from ucc_tpu.score import tuner as jtuner
+        from ucc_tpu_torch.dsl import smoke
+        from ucc_tpu_torch.score import tuner
+
+        monkeypatch.setattr(search, "interleaved_measure",
+                            _stub_measure(tuner, branch))
+        monkeypatch.setattr(jsearch, "interleaved_measure",
+                            _stub_measure(jtuner, branch))
+        monkeypatch.setattr(cost, "load_model",
+                            lambda *_a, **_k: cost.CostModel())
+        monkeypatch.setattr(jcost, "load_model",
+                            lambda *_a, **_k: jcost.CostModel())
+        recs = {}
+        for name, mod, tls in (("port", smoke, None),
+                               ("ref", jsmoke, "shm,self")):
+            sc = str(caches / f"{name}-search.json")
+            with env(UCC_GEN_SEARCH_CACHE=sc, UCC_TLS=tls):
+                recs[name] = mod._run_search_smoke_body(
+                    {}, 4, 16384, 4, sc, str(caches / f"{name}-tune.json"))
+        rec = recs["port"]
+        _check_search_record(rec)
+        assert rec["searched_won"] is (branch == "searched")
+        if branch == "handwritten":
+            assert not rec["winner"].startswith("gen_")
+        keys = ("searched_won", "searched_registered", "winner")
+        assert {k: rec[k] for k in keys} == \
+            {k: recs["ref"][k] for k in keys}
 
     def test_digest_matrix_plans_against_the_interpreter(self, caches):
         from ucc_tpu_torch.dsl import smoke

@@ -452,15 +452,65 @@ def _rank_phase(ut, ctx, r, n, phase, oob_for, out, errs):
         errs.append((r, traceback.format_exc()))
 
 
+def wire_direct(n, rs_wire, ag_wire, builder=None, coll=None):
+    """The direct exchange with int8/fp8 tags on the edges of its reduce
+    round and/or its gather round, built with *builder* (the port's
+    ProgramBuilder by default, *coll* its CollType)."""
+    if builder is None:
+        import ucc_tpu_torch as ut
+        from ucc_tpu_torch.dsl.ir import ProgramBuilder
+        builder, coll = ProgramBuilder, ut.CollType
+    b = builder("wdirect", coll.ALLREDUCE, n, n)
+    b.next_round()
+    for p in range(n):
+        for q in range(n):
+            if p != q:
+                b.send(p, q, to=q, wire=rs_wire)
+    for q in range(n):
+        for p in range(n):
+            if p != q:
+                b.reduce(q, q, frm=p, wire=rs_wire)
+    b.next_round()
+    for q in range(n):
+        for p in range(n):
+            if p != q:
+                b.send(q, q, to=p, wire=ag_wire)
+    for p in range(n):
+        for q in range(n):
+            if p != q:
+                b.recv(p, q, frm=q, wire=ag_wire)
+    return b.build("gen_wdirect")
+
+
+def register_wire_programs(wires):
+    """Add the edge-wired direct exchanges of *wires* ((reduce-round wire,
+    gather-round wire) pairs, ``wire_direct``) to the ``gen_dev_*``
+    programs every device team registers under UCC_GEN_DEVICE: no
+    registered family reaches the wire layers or the layer kernel.
+    Returns the function it replaced."""
+    from ucc_tpu_torch.dsl import lower_device as ld
+    base = ld.registered_device_programs
+
+    def registered(team):
+        out = base(team)
+        return out + [wire_direct(team.size, rs, ag)
+                      for rs, ag in wires] if out else out
+    ld.registered_device_programs = registered
+    return base
+
+
 def job_worker(idx, spec, q):
     """One process of a job: ranks ``spec["ranks"]`` of ``spec["n"]``,
     contexts over a TcpStoreOob (``spec["ports"]``: context store, then
     one store per team), or over a TcpTreeOob when ``spec["tree"]`` gives
     (base_port, ppn, radix). ``spec["phases"]`` run in order: each sets
     its environment, creates ``n_teams`` teams on every local rank (in a
-    thread per rank) and runs its cases on the first."""
+    thread per rank) and runs its cases on the first.
+    ``spec["wire_programs"]``: ``register_wire_programs``'s pairs."""
     try:
         _set_env(spec.get("env", {}))
+        if spec.get("wire_programs"):
+            register_wire_programs(spec["wire_programs"])
         import ucc_tpu_torch as ut
         n = spec["n"]
         ranks = spec["ranks"]

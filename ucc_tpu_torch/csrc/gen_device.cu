@@ -55,7 +55,11 @@
 //    touches them. Instances: float32 only (wire layers take float32), by
 //    wire type (int8, fp8) and values a lane (1, 2, 4, 8); the op of COMB
 //    steps is a launch argument (AVG folds as SUM, with one multiply by
-//    float32(1/n) at each STORE).
+//    float32(1/n) at each STORE). Across processes of one host
+//    (tl/device_sync.py) each process walks one part [glo, ghi) of the
+//    groups of all units: whole groups, since a group's scale is taken
+//    over the whole group, so the union of the parts is bitwise the single
+//    launch; the whole walk is [0, count / unit x groups).
 //
 // 2. The layer kernel (gen_device_gen_kernel), for the wire plans that
 //    have no fold plan: qblock above 256, a wire run longer than a unit
@@ -77,7 +81,11 @@
 //      wire receive: the receiver adds q * scale in float32;
 //      copy: one chunk to another within a rank.
 //    A spin that runs out sets the workspace's error word. AVG is SUM, then
-//    one multiply by dtype(1/n) (alpha), as in the Pallas kernel.
+//    one multiply by dtype(1/n) (alpha), as in the Pallas kernel. Its grid
+//    barrier and its arena in the launching process's workspace cannot be
+//    cut across the launches of several processes: on a team across
+//    processes, process 0 launches the whole walk over the peers' buffers
+//    and the others launch nothing (kernels/gen_device.py: part_walk).
 //
 // The wire arithmetic, shared by both kernels (group_scale, wire_code):
 // unfused and in round-to-nearest, the scale is amax times float32(1/QMAX)
@@ -379,6 +387,7 @@ struct WireArgs {
   long long count;    // elements per rank
   long long unit;     // elements per unit
   long long groups;   // qblock groups per unit
+  long long glo, ghi; // the part of all units' groups this launch walks
   int qblock;
   int n;
   int op;             // of COMB steps
@@ -588,10 +597,9 @@ __global__ void __launch_bounds__(WIRE_THREADS, WIRE_MIN_BLOCKS)
   const int lane = threadIdx.x % WARP;
   const Below<V> below{stack[threadIdx.x / WARP]};
   const long long warps = (long long)gridDim.x * blockDim.x / WARP;
-  const long long total = a.count / a.unit * a.groups;
-  for (long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) /
-                     WARP;
-       g < total; g += warps) {
+  for (long long g = a.glo + ((long long)blockIdx.x * blockDim.x +
+                              threadIdx.x) / WARP;
+       g < a.ghi; g += warps) {
     const long long q = g / a.groups;
     const long long k = g - q * a.groups;
     const long long e0 = q * a.unit + k * a.qblock;
@@ -685,18 +693,23 @@ int ucc_gen_device(int kernel, int dtype, void* const* ptrs, void* comm,
 // `kernel` (its values a lane cover `qblock`), `units` and `code` the fold
 // plan's tables on the device, `op` the fold of COMB steps, `avg` whether
 // each STORE multiplies by `alpha`, on a grid of `ctas` CTAs of `threads`
-// threads. Returns cudaGetLastError() after the launch (0 on success).
+// threads, walking groups [glo, ghi) of all units' groups (a team across
+// processes launches one part in each process). Returns cudaGetLastError()
+// after the launch (0 on success).
 int ucc_gen_wire_fold(int kernel, void* const* ptrs, const int* units,
                       const int* code, long long count, long long unit,
                       int qblock, int n, int op, int avg, double alpha,
-                      int ctas, int threads, cudaStream_t stream) {
+                      int ctas, int threads, long long glo, long long ghi,
+                      cudaStream_t stream) {
   const void* kern = select_wire(kernel);
   const int vals = 1 << ((kernel - WIRE_KERNELS) & 3);
+  const long long groups = (unit + qblock - 1) / qblock;
   if (kern == nullptr || n < 1 || unit < 1 || count % unit != 0 ||
       qblock < 1 || qblock > WIRE_MAX_QBLOCK || vals * WARP < qblock ||
-      (vals > 1 && vals * WARP / 2 >= qblock) || threads != WIRE_THREADS)
+      (vals > 1 && vals * WARP / 2 >= qblock) || threads != WIRE_THREADS ||
+      glo < 0 || glo > ghi || ghi > count / unit * groups)
     return (int)cudaErrorInvalidValue;
-  WireArgs a{ptrs, units, code, count, unit, (unit + qblock - 1) / qblock,
+  WireArgs a{ptrs, units, code, count, unit, groups, glo, ghi,
              qblock, n, op, avg, (float)alpha};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchKernel(kern, dim3(ctas), dim3(threads), params,

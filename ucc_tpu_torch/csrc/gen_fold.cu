@@ -67,11 +67,28 @@
 //   it stores. A program whose only leaf is rank q's src (a bcast) skips
 //   the store into dst q when that is the same buffer.
 //
-// Across GPUs (ROADMAP A5) the same pointer table of peer buffers serves,
-// but across processes the launch needs an all-rank barrier on entry
-// (every src is ready) and another before any src is reused.
+// Across processes of one host (tl/device_sync.py) the table mixes this
+// process's pointers with CUDA IPC mappings of its peers' buffers, and
+// each process folds one part [lo, hi) of the elements into all n dsts
+// (kernels/ring_common.py: part_bounds, cut at multiples of the 16-byte
+// vector): element g's value depends on element g of the srcs alone, so
+// the union of the parts is bitwise the single launch and each element
+// is read and written by one thread of one process, in place too. The
+// rounds are ordered on the streams by interprocess CUDA events, not
+// inside the kernel. The whole walk, [0, count), keeps an instance of its
+// own (PART false), the code of a launch without parts; the part
+// instances (PART true) are a library of their own, gen_fold_part.cu,
+// which defines GEN_FOLD_PART and includes this file, so that nvcc builds
+// the two halves of the unrolled interpreters in parallel. Across GPUs
+// (ROADMAP A5) the same pointer table of peer buffers serves.
 
 #include "direct_fold.cuh"
+
+// the instances this library holds: the whole walk's (false) or the parts'
+// (true, gen_fold_part.cu)
+#ifndef GEN_FOLD_PART
+#define GEN_FOLD_PART false
+#endif
 
 namespace {
 
@@ -88,6 +105,7 @@ struct Args {
   const int* code;         // programs: header, leaf ranks, step kinds
   long long count;         // elements per rank
   long long unit;          // elements per unit
+  long long lo, hi;        // the part of the elements this launch folds
   double alpha;            // AVG's factor dtype(1/n), exact in T
   int n;
   int op;
@@ -281,24 +299,35 @@ __device__ void sweep(const Table& t, const Args& a, T inv, long long lo,
   }
 }
 
-// Every element of every rank: 16-byte vectors where the pointers allow,
-// single elements at the head, at the tail and everywhere when they do not.
-template <typename T, int OP>
+// Elements [lo, hi) of every rank: 16-byte vectors where the pointers
+// allow, single elements at the head, at the tail and everywhere when they
+// do not. PART: a launch of one part of the elements (a team across
+// processes); the whole walk, [0, count) (PART false), keeps the code of a
+// launch without parts.
+template <typename T, int OP, bool PART>
 __device__ void fold_all(const Table& t, const Args& a, T inv, bool aligned,
                          long long head) {
   constexpr int W = 16 / sizeof(T);
   if (!aligned) {
-    sweep_elements<T, OP>(t, a, inv, 0, a.count);
+    sweep_elements<T, OP>(t, a, inv, a.lo, a.hi - a.lo);
     return;
   }
-  const long long vecs = (a.count - head) / W;
-  const long long tail = head + vecs * W;
-  sweep<T, OP, W>(t, a, inv, head, vecs);
-  sweep_elements<T, OP>(t, a, inv, 0, head);
-  sweep_elements<T, OP>(t, a, inv, tail, a.count - tail);
+  if (!PART) {
+    const long long vecs = (a.count - head) / W;
+    const long long tail = head + vecs * W;
+    sweep<T, OP, W>(t, a, inv, head, vecs);
+    sweep_elements<T, OP>(t, a, inv, 0, head);
+    sweep_elements<T, OP>(t, a, inv, tail, a.count - tail);
+    return;
+  }
+  const Part p = vector_part(a.lo, a.hi, head, W);
+  const long long tail = p.v0 + p.vecs * W;
+  sweep<T, OP, W>(t, a, inv, p.v0, p.vecs);
+  sweep_elements<T, OP>(t, a, inv, a.lo, p.v0 - a.lo);
+  sweep_elements<T, OP>(t, a, inv, tail, a.hi - tail);
 }
 
-template <typename T>
+template <typename T, bool PART>
 __global__ void __launch_bounds__(THREADS) gen_fold_kernel(Args a) {
   __shared__ void* staged[2 * SMEM_RANKS];
   bool aligned;
@@ -306,27 +335,32 @@ __global__ void __launch_bounds__(THREADS) gen_fold_kernel(Args a) {
   const Table t = stage_table<T>(a.ptrs, a.n, staged, a.count, aligned, head);
   const T inv = from_double<T>(a.alpha);
   switch (a.op) {
-    case OP_SUM: fold_all<T, OP_SUM>(t, a, inv, aligned, head); break;
-    case OP_PROD: fold_all<T, OP_PROD>(t, a, inv, aligned, head); break;
-    case OP_MAX: fold_all<T, OP_MAX>(t, a, inv, aligned, head); break;
-    case OP_MIN: fold_all<T, OP_MIN>(t, a, inv, aligned, head); break;
-    case OP_AVG: fold_all<T, OP_AVG>(t, a, inv, aligned, head); break;
+    case OP_SUM: fold_all<T, OP_SUM, PART>(t, a, inv, aligned, head); break;
+    case OP_PROD: fold_all<T, OP_PROD, PART>(t, a, inv, aligned, head); break;
+    case OP_MAX: fold_all<T, OP_MAX, PART>(t, a, inv, aligned, head); break;
+    case OP_MIN: fold_all<T, OP_MIN, PART>(t, a, inv, aligned, head); break;
+    case OP_AVG: fold_all<T, OP_AVG, PART>(t, a, inv, aligned, head); break;
+  }
+}
+
+template <bool PART>
+const void* select_instance(int dtype) {
+  switch (dtype) {
+    case DT_F32: return (const void*)gen_fold_kernel<float, PART>;
+    case DT_F16: return (const void*)gen_fold_kernel<__half, PART>;
+    case DT_BF16: return (const void*)gen_fold_kernel<__nv_bfloat16, PART>;
+    case DT_I32: return (const void*)gen_fold_kernel<int, PART>;
+    case DT_I64: return (const void*)gen_fold_kernel<long long, PART>;
+    case DT_I8: return (const void*)gen_fold_kernel<signed char, PART>;
+    case DT_U8: return (const void*)gen_fold_kernel<unsigned char, PART>;
+    case DT_I16: return (const void*)gen_fold_kernel<short, PART>;
+    case DT_F64: return (const void*)gen_fold_kernel<double, PART>;
+    default: return nullptr;
   }
 }
 
 const void* select_kernel(int dtype) {
-  switch (dtype) {
-    case DT_F32: return (const void*)gen_fold_kernel<float>;
-    case DT_F16: return (const void*)gen_fold_kernel<__half>;
-    case DT_BF16: return (const void*)gen_fold_kernel<__nv_bfloat16>;
-    case DT_I32: return (const void*)gen_fold_kernel<int>;
-    case DT_I64: return (const void*)gen_fold_kernel<long long>;
-    case DT_I8: return (const void*)gen_fold_kernel<signed char>;
-    case DT_U8: return (const void*)gen_fold_kernel<unsigned char>;
-    case DT_I16: return (const void*)gen_fold_kernel<short>;
-    case DT_F64: return (const void*)gen_fold_kernel<double>;
-    default: return nullptr;
-  }
+  return select_instance<GEN_FOLD_PART>(dtype);
 }
 
 bool known_op(int op) {
@@ -357,19 +391,23 @@ int ucc_gen_fold_max_ctas(int kernel, int dtype, int threads, int* out) {
 }
 
 // Launch one exact generated collective of `count` elements per rank on
-// `stream`, on a grid of `ctas` CTAs of `threads` threads: `units` and
-// `code` are the fold plan's tables on the device, `op` the fold (SUM for a
-// bcast), `alpha` AVG's factor. Returns cudaGetLastError() after the
-// launch (0 on success).
+// `stream`, on a grid of `ctas` CTAs of `threads` threads, folding elements
+// [lo, hi) of every rank (a team across processes launches one part in
+// each process): `units` and `code` are the fold plan's tables on the
+// device, `op` the fold (SUM for a bcast), `alpha` AVG's factor. This
+// library takes the whole walk or, built as gen_fold_part.cu, a part of
+// it, and refuses the other. Returns cudaGetLastError() after the launch
+// (0 on success).
 int ucc_gen_fold(int dtype, void* const* ptrs, const int* units,
                  const int* code, long long count, long long unit, int n,
-                 int op, double alpha, int ctas, int threads,
-                 cudaStream_t stream) {
+                 int op, double alpha, int ctas, int threads, long long lo,
+                 long long hi, cudaStream_t stream) {
   const void* kern = select_kernel(dtype);
   if (kern == nullptr || !known_op(op) || n < 1 || unit < 1 ||
-      count % unit != 0)
+      count % unit != 0 || lo < 0 || lo > hi || hi > count ||
+      (lo > 0 || hi < count) != GEN_FOLD_PART)
     return (int)cudaErrorInvalidValue;
-  Args a{ptrs, units, code, count, unit, alpha, n, op};
+  Args a{ptrs, units, code, count, unit, lo, hi, alpha, n, op};
   void* params[] = {&a};
   cudaError_t e = cudaLaunchKernel(kern, dim3(ctas), dim3(threads), params,
                                    0, stream);

@@ -528,7 +528,10 @@ def device_eligibility(program: Program, team, coll: CollType,
     """Whether *program* takes this collective, deterministic on every rank
     and before the tag is taken: raises ERR_NOT_SUPPORTED (selection then
     walks on to the ``xla`` program), else returns the wire precision's
-    QuantParams (None for an exact program)."""
+    QuantParams (None for an exact program). Its inputs are the program,
+    the team's size, the lib's config and the collective's arguments, so
+    every process of a team that spans processes decides alike, as
+    ``device_plan`` then builds the same tables and route in each."""
     if coll != program.coll:
         raise UccError(Status.ERR_NOT_SUPPORTED,
                        f"program {program.name} serves {program.coll!r}")

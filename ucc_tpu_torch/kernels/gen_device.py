@@ -53,6 +53,15 @@ in the kernels' rounding), so the kernels agree with it bitwise;
 order, bitwise ``gen_device_ref`` (the tests hold it so; nothing on the
 CUDA path calls it). ``gen_device_torch_ops`` is ``gen_device_ref``'s code
 on any device, the ``xla`` backend of ``UCC_GEN_DEVICE_BACKEND``.
+
+On a team whose ranks span the processes of one host (tl/device_sync),
+process p of P calls a wrapper with ``part=(p, P)`` over every rank's
+buffers (:func:`part_walk`): the fold route folds a range of elements, the
+wire fold a range of whole qblock groups, and both write every rank's dst
+there, so the union of the parts is bitwise the single launch; the layer
+kernel, a cooperative launch with a grid barrier, runs whole in process 0
+and not at all in the others. On the CPU a part writes only its elements
+of the plain version's result.
 """
 from __future__ import annotations
 
@@ -68,10 +77,13 @@ from ..constants import ReductionOp
 from ..status import Status, UccError
 from .ring_common import (DIRECT_THREADS, DTYPE_CODES, OPS, THREADS,
                           RingLaunch, RingSource, RingWorkspace, accumulate,
-                          check_buffers, launch_ctas, make_ptr_table)
+                          check_buffers, launch_ctas, make_ptr_table,
+                          part_bounds, write_part)
 
 SOURCE = "gen_device.cu"
 FOLD_SOURCE = "gen_fold.cu"
+#: gen_fold.cu's part instances, a library of their own
+FOLD_PART_SOURCE = "gen_fold_part.cu"
 
 #: kernel numbers of gen_device.cu: the layer kernel, then the wire
 #: fold's instances from WIRE_KERNELS on (:func:`wire_kernel`)
@@ -99,7 +111,7 @@ class _GenSource(RingSource):
     with a launch function of its own signature for the layer kernel and
     one for the wire fold (``ucc_gen_wire_fold``: kernel, pointer table,
     units, code, count, unit, qblock, n, op, avg, alpha, CTAs, threads,
-    stream)."""
+    first and end group, stream)."""
 
     ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -111,7 +123,7 @@ class _GenSource(RingSource):
                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_double, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p]
+                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 
     def lib(self):
         if self._lib is None:
@@ -122,19 +134,22 @@ class _GenSource(RingSource):
 
 
 class _FoldSource(RingSource):
-    """gen_fold.cu: the occupancy query and error names of the ring
-    sources, with a launch function of its own signature (dtype, pointer
-    table, units, code, count, unit, n, op, alpha, CTAs, threads,
-    stream)."""
+    """gen_fold.cu (the whole walk) or gen_fold_part.cu (its part
+    instances): the occupancy query and error names of the ring sources,
+    with a launch function of its own signature (dtype, pointer table,
+    units, code, count, unit, n, op, alpha, CTAs, threads, first and end
+    element, stream)."""
 
     ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_void_p]
 
 
 _SOURCE = _GenSource(SOURCE, "ucc_gen_device")
 _FOLD = _FoldSource(FOLD_SOURCE, "ucc_gen_fold")
+_FOLD_PART = _FoldSource(FOLD_PART_SOURCE, "ucc_gen_fold")
 
 
 @dataclass
@@ -707,25 +722,67 @@ def _avg(plan: GenPlan, op, dtype):
     return avg, float(avg_factor(dtype, plan.n)) if avg else 0.0
 
 
+def part_walk(plan: GenPlan, part, elem_size: int):
+    """Part p of P (``part = (p, P)``) of one launch of *plan*, as process
+    p of a team across P processes launches it: ``(lo, hi, elo, ehi)``,
+    the part [lo, hi) of the walk of the route that ``fold_plan`` chooses
+    and the elements [elo, ehi) of every rank's dst it writes.
+
+    - Fold route (gen_fold.cu): the walk is the count's elements, cut at
+      multiples of the 16-byte vector (``ring_common.part_bounds``).
+    - Wire fold (gen_device.cu): the walk is the qblock groups of every
+      unit, in element order; a part is a range of whole groups, since a
+      group's scale is taken over the whole group.
+    - Layer kernel: a cooperative launch whose grid barrier and wire arena
+      live in the launching process's workspace, so it cannot be cut
+      across processes: part 0 is the whole walk over every rank's
+      buffers, the other parts are empty.
+
+    The same in every process, since ``fold_plan`` is; a part may be
+    empty (lo == hi) when the walk is shorter than P."""
+    count = plan.count
+    lo, hi = part_bounds(count, part, elem_size)   # checks (p, P)
+    fp = fold_plan(plan)
+    if fp is None:
+        whole = (0, count) if part[0] == 0 else (0, 0)
+        return whole + whole
+    if not fp.qmode:
+        return lo, hi, lo, hi
+    p, nparts = part
+    groups = -(-fp.unit // fp.qblock)
+    total = count // fp.unit * groups
+
+    def cut(i):
+        return -(-total * i // nparts)
+
+    def start(g):
+        return g // groups * fp.unit + g % groups * fp.qblock
+    glo, ghi = cut(p), cut(p + 1)
+    return glo, ghi, start(glo), start(ghi)
+
+
 def _launch_fold(what, srcs, dsts, op, plan: GenPlan, fp: FoldPlan, stream,
-                 ptr_table) -> RingLaunch:
-    """An ordinary launch of csrc/gen_fold.cu: no workspace, flags or error
-    word, a 1-D grid from the occupancy query."""
+                 ptr_table, lo: int, hi: int) -> RingLaunch:
+    """An ordinary launch of csrc/gen_fold.cu over elements [lo, hi) (the
+    whole walk's library, or gen_fold_part.cu's for a part): no
+    workspace, flags or error word, a 1-D grid from the occupancy
+    query."""
     device = srcs[0].device
     dtype = srcs[0].dtype
     code = DTYPE_CODES[dtype]
     _, alpha = _avg(plan, op, dtype)
+    src = _FOLD if (lo, hi) == (0, plan.count) else _FOLD_PART
     with torch.cuda.device(device), torch.cuda.stream(stream):
         units, prog = fp.device_tables(device)
         if ptr_table is None:
             ptr_table = make_ptr_table(srcs, dsts)
-        ctas = launch_ctas(plan.count, srcs[0].element_size(),
-                           _FOLD.max_ctas(0, code, device, DIRECT_THREADS))
-        _FOLD.check(_FOLD.lib().ucc_gen_fold(
+        ctas = launch_ctas(hi - lo, srcs[0].element_size(),
+                           src.max_ctas(0, code, device, DIRECT_THREADS))
+        src.check(src.lib().ucc_gen_fold(
             code, ptr_table.data_ptr(), units.data_ptr(), prog.data_ptr(),
             plan.count, fp.unit, plan.n,
             int(op) if plan.reducing else int(ReductionOp.SUM), alpha, ctas,
-            DIRECT_THREADS, stream.cuda_stream),
+            DIRECT_THREADS, lo, hi, stream.cuda_stream),
             f"{what} launch")
     return RingLaunch(stream, keep=(ptr_table, units, prog), what=what)
 
@@ -739,26 +796,27 @@ def wire_kernel(qmode: str, qblock: int) -> int:
 
 
 def _launch_wire_fold(what, srcs, dsts, op, plan: GenPlan, fp: FoldPlan,
-                      stream, ptr_table) -> RingLaunch:
-    """An ordinary launch of gen_device.cu's wire fold: no workspace,
-    arena, flags or error word, one warp per qblock group, a 1-D grid from
-    the occupancy query."""
+                      stream, ptr_table, glo: int, ghi: int) -> RingLaunch:
+    """An ordinary launch of gen_device.cu's wire fold over groups [glo,
+    ghi) of every unit's qblock groups: no workspace, arena, flags or
+    error word, one warp per group, a 1-D grid from the occupancy
+    query."""
     device = srcs[0].device
     kernel = wire_kernel(fp.qmode, fp.qblock)
     avg, alpha = _avg(plan, op, torch.float32)
-    groups = plan.count // fp.unit * -(-fp.unit // fp.qblock)
     warps = WIRE_THREADS // 32
     with torch.cuda.device(device), torch.cuda.stream(stream):
         units, prog = fp.device_tables(device)
         if ptr_table is None:
             ptr_table = make_ptr_table(srcs, dsts)
-        ctas = max(1, min(-(-groups // warps), _SOURCE.max_ctas(
+        ctas = max(1, min(-(-(ghi - glo) // warps), _SOURCE.max_ctas(
             kernel, DTYPE_CODES[torch.float32], device, WIRE_THREADS)))
         _SOURCE.check(_SOURCE.lib().ucc_gen_wire_fold(
             kernel, ptr_table.data_ptr(), units.data_ptr(), prog.data_ptr(),
             plan.count, fp.unit, fp.qblock, plan.n,
             int(op) if plan.reducing else int(ReductionOp.SUM), avg, alpha,
-            ctas, WIRE_THREADS, stream.cuda_stream), f"{what} launch")
+            ctas, WIRE_THREADS, glo, ghi, stream.cuda_stream),
+            f"{what} launch")
     return RingLaunch(stream, keep=(ptr_table, units, prog), what=what)
 
 
@@ -792,30 +850,42 @@ def _launch_layers(what, srcs, dsts, op, plan: GenPlan, stream, workspace,
 
 
 def _dispatch(wrapper, what: str, srcs, dsts, op, plan: GenPlan, stream,
-              workspace, ptr_table) -> RingLaunch:
+              workspace, ptr_table, part=None) -> RingLaunch:
     """One wrapper call. CPU buffers: the plain version writes them.
     CUDA buffers: when the plan has a fold plan, the fold kernel
     (gen_fold.cu) for an exact plan or the wire fold (gen_device.cu) for a
     wire plan, else the layer kernel; every launch counted in
     ``wrapper.launches``, the two fold routes also in
     ``wrapper.fold_launches``. A failed launch raises; nothing retries on
-    another route."""
+    another route. *part* ``(p, P)`` launches part p of P of the walk
+    (:func:`part_walk`), and on the CPU writes only the part's elements of
+    the plain version's result; an empty part launches nothing."""
     _check(what, srcs, dsts, op, plan)
     device = srcs[0].device
+    walk = None
+    if part is not None and part[1] > 1:
+        walk = part_walk(plan, part, srcs[0].element_size())
     if device.type == "cpu":
-        for d, out in zip(dsts, gen_device_ref(srcs, plan, op)):
-            d.copy_(out)
+        if walk is None:
+            for d, out in zip(dsts, gen_device_ref(srcs, plan, op)):
+                d.copy_(out)
+        elif walk[2] < walk[3]:
+            write_part(dsts, gen_device_ref(srcs, plan, op),
+                       [(r, walk[2], walk[3]) for r in range(plan.n)])
         return RingLaunch()
     if device.type != "cuda":
         raise UccError(Status.ERR_NOT_SUPPORTED,
                        f"{what} runs on cuda or cpu tensors, not "
                        f"{device.type}")
+    lo, hi, _, _ = walk or part_walk(plan, (0, 1), srcs[0].element_size())
+    if lo >= hi:
+        return RingLaunch()
     if stream is None:
         stream = torch.cuda.current_stream(device)
     fp = fold_plan(plan)
     if fp is not None:
         launch = _launch_wire_fold if fp.qmode else _launch_fold
-        h = launch(what, srcs, dsts, op, plan, fp, stream, ptr_table)
+        h = launch(what, srcs, dsts, op, plan, fp, stream, ptr_table, lo, hi)
         wrapper.fold_launches += 1
     elif plan.ring:
         # device_plan lowers such a ring as layers; only a hand-made plan
@@ -834,52 +904,71 @@ def gen_device_ring(srcs: Sequence[torch.Tensor],
                     dsts: Sequence[torch.Tensor], op: Optional[ReductionOp],
                     *, plan: GenPlan, root: int = 0, stream=None,
                     workspace: Optional[RingWorkspace] = None,
-                    ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
+                    ptr_table: Optional[torch.Tensor] = None,
+                    part=None) -> RingLaunch:
     """The ring entry point: a shift-by-one ring *plan* over ``srcs``
     into ``dsts`` (the fold kernel); ``root`` is in the plan's tables
-    already and ``workspace`` is accepted and left untouched."""
+    already and ``workspace`` is accepted and left untouched. *part*
+    ``(p, P)``: part p of P of the walk (:func:`part_walk`)."""
     if not plan.ring:
         raise UccError(Status.ERR_INVALID_PARAM,
                        "gen_device_ring takes a ring plan")
     return _dispatch(gen_device_ring, "generated ring", srcs, dsts, op, plan,
-                     stream, workspace, ptr_table)
+                     stream, workspace, ptr_table, part)
 
 
 def gen_device_gen(srcs: Sequence[torch.Tensor],
                    dsts: Sequence[torch.Tensor], op: Optional[ReductionOp],
                    *, plan: GenPlan, root: int = 0, stream=None,
                    workspace: Optional[RingWorkspace] = None,
-                   ptr_table: Optional[torch.Tensor] = None) -> RingLaunch:
+                   ptr_table: Optional[torch.Tensor] = None,
+                   part=None) -> RingLaunch:
     """The general entry point: the layers and copies of *plan* over
     ``srcs`` into ``dsts`` (the fold kernel on an exact plan, the wire fold
     or else the layer kernel on one with wire layers); ``root`` is in the
-    plan's tables already."""
+    plan's tables already. *part* ``(p, P)``: part p of P of the walk
+    (:func:`part_walk`; on the layer kernel, the whole walk in part 0)."""
     if plan.ring:
         raise UccError(Status.ERR_INVALID_PARAM,
                        "gen_device_gen takes a layer plan")
     return _dispatch(gen_device_gen, "generated collective", srcs, dsts, op,
-                     plan, stream, workspace, ptr_table)
+                     plan, stream, workspace, ptr_table, part)
 
 
 def gen_device_torch_ops(srcs: Sequence[torch.Tensor],
-                         dsts: Sequence[torch.Tensor],
+                         dsts: Sequence[Optional[torch.Tensor]],
                          op: Optional[ReductionOp], *, plan: GenPlan,
                          root: int = 0, stream=None, workspace=None,
-                         ptr_table=None) -> RingLaunch:
+                         ptr_table=None, part=None) -> RingLaunch:
     """The plan as PyTorch ops on the ranks' own device, on *stream*: the
-    ``xla`` backend, which UCC_GEN_DEVICE_BACKEND=xla asks for."""
-    _check("generated collective (torch ops)", srcs, dsts, op, plan)
+    ``xla`` backend, which UCC_GEN_DEVICE_BACKEND=xla asks for. On a team
+    across processes (*part* given) a dst is None where another process
+    holds the rank: the plan runs over copies of every rank's src and
+    writes the dsts given, the whole of each (the reference's replicated
+    program)."""
+    given = [d for d in dsts if d is not None]
+    _check("generated collective (torch ops)", srcs,
+           [s if d is None else d for s, d in zip(srcs, dsts)], op, plan)
     device = srcs[0].device
     if device.type != "cuda":
         for d, out in zip(dsts, gen_device_ref(srcs, plan, op)):
-            d.copy_(out)
+            if d is not None:
+                d.copy_(out)
         return RingLaunch()
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        for s, d in zip(srcs, dsts):
-            if d.data_ptr() != s.data_ptr():
-                d.copy_(s)
-        _run_plan([d.reshape(-1) for d in dsts], plan, op)
-    return RingLaunch(stream, keep=(srcs, dsts), what="torch ops")
+        if len(given) < len(dsts):
+            work = [s.reshape(-1).clone() for s in srcs]
+            _run_plan(work, plan, op)
+            for d, w in zip(dsts, work):
+                if d is not None:
+                    d.copy_(w)
+        else:
+            work = dsts
+            for s, d in zip(srcs, dsts):
+                if d.data_ptr() != s.data_ptr():
+                    d.copy_(s)
+            _run_plan([d.reshape(-1) for d in dsts], plan, op)
+    return RingLaunch(stream, keep=(srcs, dsts, work), what="torch ops")
 
 
 gen_device_ring.launches = 0

@@ -16,7 +16,10 @@ part p of P of the kernel's walk over the pointers of all n ranks, its
 peers' mapped through CUDA IPC, and the parts' union is bitwise the single
 launch. ``UCC_TL_RING_CUDA_TUNE=allreduce:@ring_cuda:inf`` then runs the
 reference's TUNE-pinned ring allreduce across processes
-(``UCC_TL_RING_DMA_TUNE`` in the JAX package).
+(``UCC_TL_RING_DMA_TUNE`` in the JAX package). The generated programs of
+tl/torch_ops (``gen_dev_*``, kernels/gen_device.py) split the same way
+beside these five kernels: a range of elements on the fold route, of whole
+qblock groups on the wire fold, and the layer kernel whole in process 0.
 
 Collectives and routing, as ``RingDmaCollTask`` has them: ALLREDUCE,
 REDUCE_SCATTER and ALLTOALL take SUM/AVG/MAX/MIN/PROD (an alltoall folds

@@ -85,8 +85,11 @@ process's dsts is read from a copy, since peers read it while the process
 writes; the quantized programs run so as well, each process computing the
 same bits), and the candidate lists are the reference's for a team that is
 not all local: no ``short``, no SCATTERV, ALLTOALLV served (the counts
-travel in the round's descriptors), ``ring`` one point below ``xla``;
-``gen_dev_*`` refuse it at init (not ported to such teams yet).
+travel in the round's descriptors), ``ring`` one point below ``xla``.
+``gen_dev_*`` run there too: each process launches its part of the
+generated kernel's walk over every rank's buffers, as tl/ring_cuda's
+direct kernels do (the layer kernel, whole, in process 0 alone), and the
+``xla`` backend runs the plan in every process as the library ops above.
 
 Score 40, as tl/xla's, above tl/ring_cuda's 20: collectives on CUDA
 memory select this TL unless a TUNE string says otherwise, e.g.
@@ -754,23 +757,44 @@ class TorchOpsCollTask(DeviceCollTask):
 
 class GenDeviceCollTask(TorchOpsCollTask):
     """One rank's view of a lowered device collective: the launched
-    program is generated from the verified IR (dsl/lower_device)."""
+    program is generated from the verified IR (dsl/lower_device).
 
-    launch = DeviceCollTask.launch
+    On a team whose ranks span processes the kernel backend launches this
+    process's part of the walk over every rank's buffers
+    (``kernels/gen_device.part_walk``), so it writes its peers' dsts
+    (``PEERS_WRITE``); the ``xla`` backend runs the whole plan in every
+    process over every rank's srcs and writes its own ranks' dsts, as
+    ``TorchOpsCollTask`` does."""
 
     def __init__(self, init_args, team, program: Program, backend: str):
         self.prog = program
         self._backend = backend
+        self.PEERS_WRITE = backend != "xla"
         self.qp = None
         self._qmode = program.wire or program.edge_wire_mode
         super().__init__(init_args, team, alg=ld.dev_alg_name(program))
 
+    def peers_read_src(self, tr: int, local) -> bool:
+        """The kernels' parts read of each src only the elements they write
+        in every dst (a fold plan's unit j is an expression over unit j of
+        the srcs, the layer kernel runs in one process), so no src is
+        read from a copy; the ``xla`` backend's processes read every src
+        that feeds their own dsts, as ``TorchOpsCollTask``'s do."""
+        if self.PEERS_WRITE:
+            return False
+        return super().peers_read_src(tr, local)
+
+    def launch(self, shared, srcs, dsts, tasks, part=None):
+        if self.PEERS_WRITE:
+            return DeviceCollTask.launch(self, shared, srcs, dsts, tasks,
+                                         part)
+        # the plan as torch ops takes no pointer table
+        return self.build_program(shared)(
+            srcs, dsts, self.op, root=self.root, stream=shared.stream,
+            part=part)
+
     def validate(self) -> None:
-        if self.tl_team.spanning:
-            # not ported to teams across processes yet (ROADMAP 5f)
-            raise UccError(Status.ERR_NOT_SUPPORTED,
-                           f"tl/torch_ops {self.alg} does not run on a team "
-                           "whose ranks span processes")
+        # the same in every process of a spanning team, before the tag
         bi = self.args.src if self.args.src is not None else self.args.dst
         self.qp = ld.device_eligibility(self.prog, self.tl_team, self.coll,
                                         self.op, self.dtype, int(bi.count))
